@@ -1,0 +1,113 @@
+"""B2 and B3: DCD over a dense row shard — the CUDA kernel
+``csrc/dcd_block.cu`` and its plain PyTorch versions.
+
+* B2, ``dcd_indexed_epoch``, replaces the Pallas TPU kernel
+  ``repro/kernels/dcd_block.py:_dcd_indexed_kernel``: the updates of an
+  arbitrary id sequence ``idx`` (repeats and any order allowed) with an
+  optional ``active`` 0/1 mask (frozen rows take δ = 0 exactly) and
+  optional ±1 ``y`` folded on read (wx = y_i·w·x_i, w += δ·y_i·x_i).
+* B3, ``dcd_tile_epoch``, replaces ``_dcd_tile_kernel``: one in-order
+  epoch over rows 0..n-1, no mask and no labels.  It shares B2's CUDA
+  source (idx = act = y = null) but has its own C entry, wrapper and
+  launch count.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors; it never falls back from one to the other.
+α and w are float32; X is float32, (n, d), any d.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.duals import kernel_params
+from repro_torch.dist.mesh import cta_threads
+from repro_torch.kernels import build
+from repro_torch.kernels.build import F, I, P
+
+
+def dcd_indexed_epoch_plain(X, alpha, w, sq_norms, *, loss, idx,
+                            active=None, y=None):
+    """The plain version of B2: one update at a time in torch ops, the
+    reference's order.  Returns new (α, w); the inputs are not changed."""
+    alpha, w = alpha.clone(), w.clone()
+    for i in idx.tolist():
+        x = X[i]
+        wx = torch.dot(w, x)
+        if y is not None:
+            wx = y[i] * wx
+        delta = loss.delta(alpha[i], wx, sq_norms[i])
+        if active is not None:
+            delta = torch.where(active[i] > 0.0, delta, 0.0)
+        alpha[i] = alpha[i] + delta
+        w = w + (delta if y is None else delta * y[i]) * x
+    return alpha, w
+
+
+def dcd_tile_epoch_plain(X, alpha, w, sq_norms, *, loss):
+    """The plain version of B3: B2's plain version over rows in order."""
+    idx = torch.arange(X.shape[0], dtype=torch.int32)
+    return dcd_indexed_epoch_plain(X, alpha, w, sq_norms, loss=loss, idx=idx)
+
+
+def _check(X, alpha, w, sq_norms, idx=None, active=None, y=None):
+    n, d = X.shape
+    if idx is not None and idx.dim() != 1:
+        raise ValueError("idx must be 1-D")
+    build.check_operands(alpha.device, {
+        "X": (X, None), "alpha": (alpha, (n,)), "w": (w, (d,)),
+        "sq_norms": (sq_norms, (n,)), "active": (active, (n,)),
+        "y": (y, (n,)), "idx": (idx, None)}, int32=("idx",))
+
+
+def dcd_indexed_epoch(X, alpha, w, sq_norms, *, loss, idx, active=None,
+                      y=None):
+    """B2: run the updates of ``idx`` (int32) and return new (α, w).
+    CUDA tensors launch the kernel (one CTA, counted in
+    ``dcd_indexed_epoch.launches``); CPU tensors run the plain version.
+    The ids must lie in [0, n); as for B1, the callers check them where
+    they come from outside."""
+    if alpha.device.type != "cuda":
+        return dcd_indexed_epoch_plain(X, alpha, w, sq_norms, loss=loss,
+                                       idx=idx, active=active, y=y)
+    _check(X, alpha, w, sq_norms, idx, active, y)
+    a_out, w_out = alpha.clone(), w.clone()
+    if idx.shape[0] == 0:
+        return a_out, w_out
+    launch = build.entry("dcd_block", "dcd_block_indexed_launch",
+                         [P, I, P, I, P, P, P, P, P, I, F, F, F, I, I, P])
+    with torch.cuda.device(alpha.device):
+        err = launch(build.ptr(idx), idx.shape[0], build.ptr(X), X.shape[1],
+                     build.ptr(a_out), build.ptr(sq_norms),
+                     build.ptr(active), build.ptr(y), build.ptr(w_out),
+                     *kernel_params(loss), cta_threads(X.shape[1]),
+                     build.stream())
+    build.check(err, "dcd_block_indexed_launch")
+    dcd_indexed_epoch.launches += 1
+    return a_out, w_out
+
+
+def dcd_tile_epoch(X, alpha, w, sq_norms, *, loss):
+    """B3: one in-order epoch over the rows of X; returns new (α, w).
+    CUDA tensors launch the kernel (one CTA, counted in
+    ``dcd_tile_epoch.launches``); CPU tensors run the plain version."""
+    if alpha.device.type != "cuda":
+        return dcd_tile_epoch_plain(X, alpha, w, sq_norms, loss=loss)
+    _check(X, alpha, w, sq_norms)
+    a_out, w_out = alpha.clone(), w.clone()
+    if X.shape[0] == 0:
+        return a_out, w_out
+    launch = build.entry("dcd_block", "dcd_block_tile_launch",
+                         [I, P, I, P, P, P, I, F, F, F, I, I, P])
+    with torch.cuda.device(alpha.device):
+        err = launch(X.shape[0], build.ptr(X), X.shape[1], build.ptr(a_out),
+                     build.ptr(sq_norms), build.ptr(w_out),
+                     *kernel_params(loss), cta_threads(X.shape[1]),
+                     build.stream())
+    build.check(err, "dcd_block_tile_launch")
+    dcd_tile_epoch.launches += 1
+    return a_out, w_out
+
+
+dcd_indexed_epoch.launches = 0
+dcd_tile_epoch.launches = 0

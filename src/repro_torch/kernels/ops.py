@@ -1,0 +1,91 @@
+"""Entry points of the DCD kernels with the reference's shape contract —
+the counterpart of ``repro/kernels/ops.py``.
+
+``dcd_epoch`` is the standalone epoch (B3 in row order, B2 in ``idx``
+order); ``dcd_block_update`` and ``dcd_ell_block_update`` are the block
+engines the 1-D solver runs once per round, returning (α, Δw) like the
+reference's ``dcd_block_update_pallas`` / ``dcd_ell_block_update_pallas``.
+Each runs its kernel on CUDA tensors and the kernel's plain version on
+CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.duals import Hinge, SquaredHinge
+from repro_torch.kernels.dcd_block import dcd_indexed_epoch, dcd_tile_epoch
+from repro_torch.kernels.dcd_ell import dcd_ell_epoch
+
+
+def dcd_epoch(X, alpha, w, sq_norms=None, *, c: float = 1.0,
+              sq_hinge: bool = False, loss=None, idx=None,
+              block_rows: int = 256):
+    """One DCD epoch — in row order (B3), or in ``idx`` order (B2) when a
+    row-index vector is given; out-of-order and repeated ids are allowed.
+
+    In row order B3 runs on X as given: the CUDA kernel needs no block
+    multiple, and the reference's padding rows (all zero, after the
+    last real row) change neither w nor any real α.
+
+    In ``idx`` order the padding contract of
+    ``repro.kernels.ops.dcd_epoch_pallas`` is kept, because there the
+    padded slots are updates of their own: ``idx`` is padded to a
+    multiple of ``block_rows`` with slots that point at one extra zero
+    row n carrying α = 0 and q = 1.  A zero row cannot change w (its wᵀx
+    is 0 and its rank-1 update is identically 0); q = 1 keeps its δ
+    finite; its α entry takes junk and is sliced off, so the returned
+    (α[:n], w) are exactly the unpadded sequence's result.  The
+    reference's 128-lane padding of d is TPU tiling and is not kept.
+
+    ``loss`` overrides the legacy ``c``/``sq_hinge`` flags.
+    """
+    if loss is None:
+        loss = (SquaredHinge if sq_hinge else Hinge)(C=c)
+    n, d = X.shape
+    dev = X.device
+    f32 = torch.float32
+    if sq_norms is None:
+        sq_norms = torch.sum(X * X, dim=1)
+    wp = w.to(f32).contiguous()
+    if idx is None:
+        return dcd_tile_epoch(X.to(f32).contiguous(),
+                              alpha.to(f32).contiguous(), wp,
+                              sq_norms.to(f32).contiguous(), loss=loss)
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+    if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) < n):
+        raise ValueError(f"idx must hold row ids in [0, {n})")
+    m = idx.shape[0]
+    br = min(block_rows, max(1, m))
+    m_pad = -(-m // br) * br
+    n_pad = n + 1 if m_pad > m else n
+    idx = torch.cat([idx, torch.full((m_pad - m,), n, dtype=torch.int32,
+                                     device=dev)])
+    Xp = torch.zeros((n_pad, d), dtype=f32, device=dev)
+    Xp[:n] = X
+    ap = torch.zeros((n_pad,), dtype=f32, device=dev)
+    ap[:n] = alpha
+    qp = torch.ones((n_pad,), dtype=f32, device=dev)
+    qp[:n] = sq_norms
+    a_out, w_out = dcd_indexed_epoch(Xp, ap, wp, qp, loss=loss, idx=idx)
+    return a_out[:n], w_out
+
+
+def dcd_block_update(X, sq_norms, alpha, w, idx, *, loss, active=None,
+                     y=None):
+    """One indexed block of sequential DCD updates on a dense shard (B2).
+    Returns (updated α shard, local Δw = w_new − w), the reference's
+    round trip."""
+    a_new, w_new = dcd_indexed_epoch(X, alpha, w, sq_norms, loss=loss,
+                                     idx=idx, active=active, y=y)
+    return a_new, w_new - w
+
+
+def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
+                         active=None, y=None):
+    """One indexed block of sequential DCD updates on an ELL shard (B1)
+    against the (d+1,) padded primal.  Returns (updated α shard, local
+    Δw_pad); the dummy slot of Δw_pad is identically zero."""
+    a_new, w_new = dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms,
+                                 loss=loss, idx=idx, active=active, y=y)
+    return a_new, w_new - w_pad

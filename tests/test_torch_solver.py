@@ -1,0 +1,257 @@
+"""The slice as a whole: ``repro_torch`` ``sharded_passcode_solve`` and
+``dcd_solve`` against ``repro.core`` on the same data and the same
+update schedule.
+
+``jax.random`` cannot be replayed with a ``torch.Generator``, so each
+test replays the reference's key chain — ``key = PRNGKey(seed)``, then
+per epoch ``key, sub = split(key)`` — through
+``repro.core.sharded._masked_block_perms`` (or ``permutation`` for the
+serial solver) and passes the draws to the port as ``blocks=`` /
+``perms=``.
+
+Tolerances: atol 1e-5 on α, ŵ and ‖w(α) − ŵ‖.  The duality gap is a
+float32 sum over n rows that the two frameworks add in other orders, and
+it cancels: P and D are each about M/2, where M = ‖w(α)‖² + Σ|ℓ| + Σ|ℓ*|
+is often 100× the gap (the reference's own ELL and dense paths differ by
+1.4e-5 on one solve).  So the gap is held at atol 1e-5 + 1e-6·M, about
+17 float32 ulps of M, with M taken in float64 from the final α.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import dcd_solve as jax_dcd_solve
+from repro.core import duals as rd
+from repro.core import sharded as rs
+from repro.data import make_dataset
+from repro_torch.convert import (
+    dense_from_numpy,
+    ell_from_numpy,
+    state_from_numpy,
+)
+from repro_torch.core import duals as td
+from repro_torch.core.dcd import dcd_solve
+from repro_torch.core.objective import _matvec, w_of_alpha
+from repro_torch.data.sparse import EllMatrix
+from repro_torch.core.sharded import sharded_passcode_solve
+
+ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    ds = make_dataset("tiny")
+    X = ds.X_train
+    return (X, np.asarray(X.indices), np.asarray(X.values), X.n_features,
+            np.asarray(X.to_dense()))
+
+
+def _ref_blocks(seed, epochs, n, B):
+    nb = rs._n_blocks(n, B)
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(epochs):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(
+            rs._masked_block_perms(sub, 1, n, n, nb, B)).reshape(nb, B))
+    return np.stack(out)
+
+
+def _ref_perms(seed, epochs, n):
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(epochs):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.permutation(sub, n)))
+    return np.stack(out)
+
+
+def _port_X(tiny, ell):
+    _, idx, val, d, dense = tiny
+    if ell:
+        return ell_from_numpy(idx, val, d, device="cpu")
+    return dense_from_numpy(dense, device="cpu")
+
+
+def _gap_atol(Xp, alpha, loss):
+    """atol 1e-5 + 1e-6·M for a gap at α, M the magnitude it cancels."""
+    X64 = (EllMatrix(Xp.indices, Xp.values.double(), Xp.n_features)
+           if isinstance(Xp, EllMatrix) else Xp.double())
+    a = alpha.double()
+    wa = w_of_alpha(X64, a)
+    M = (torch.dot(wa, wa) + loss.primal_loss(_matvec(X64, wa)).abs().sum()
+         + loss.conj(a).abs().sum())
+    return ATOL + 1e-6 * float(M)
+
+
+def _assert_result(p, r, Xp, loss, *, metrics=True):
+    for port, ref in [(p.alpha, r.alpha), (p.w_hat, r.w_hat)]:
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0,
+                                   atol=ATOL)
+    np.testing.assert_allclose(p.gaps.numpy(), np.asarray(r.gaps), rtol=0,
+                               atol=_gap_atol(Xp, p.alpha, loss))
+    if metrics:
+        np.testing.assert_allclose(p.eps.numpy(), np.asarray(r.eps), rtol=0,
+                                   atol=ATOL)
+        np.testing.assert_array_equal(p.active.numpy(), np.asarray(r.active))
+        np.testing.assert_array_equal(p.delay.numpy(), np.asarray(r.delay))
+
+
+# (ell, loss, delay_rounds, gap_every, reference use_kernel, port use_kernel)
+CASES = [
+    (ell, loss, dr, ge, False, "auto")
+    for ell in (True, False)
+    for loss in ("hinge", "squared_hinge", "logistic")
+    for dr, ge in ((0, 1), (1, 3))
+] + [
+    (True, "hinge", 0, 3, True, True),
+    (True, "logistic", 1, 1, True, True),
+    (False, "squared_hinge", 1, 1, True, True),
+    (False, "logistic", 0, 3, True, True),
+]
+
+
+@pytest.mark.parametrize(
+    "ell,loss,delay_rounds,gap_every,ref_kernel,port_kernel", CASES,
+    ids=[f"{'ell' if c[0] else 'dense'}-{c[1]}-d{c[2]}-g{c[3]}-k{int(c[4])}"
+         for c in CASES])
+def test_solve_matches_reference(tiny, ell, loss, delay_rounds, gap_every,
+                                 ref_kernel, port_kernel):
+    X, *_, dense = tiny
+    kw = dict(epochs=3, block_size=32, delay_rounds=delay_rounds,
+              gap_every=gap_every, seed=5)
+    r = rs.sharded_passcode_solve(X if ell else dense, rd.make_loss(loss),
+                                  use_kernel=ref_kernel, **kw)
+    Xp, lossp = _port_X(tiny, ell), td.make_loss(loss)
+    p = sharded_passcode_solve(Xp, lossp, use_kernel=port_kernel,
+                               device="cpu",
+                               blocks=_ref_blocks(5, 3, 256, 32), **kw)
+    assert p.rounds == 3 and p.gaps.shape == r.gaps.shape
+    _assert_result(p, r, Xp, lossp)
+
+
+def test_tail_block_and_label_fold_match_reference(tiny):
+    """n = 101 with B = 16: the last block cycles through the draw's
+    front.  The labels arrive unfolded and fold at the mouth."""
+    _, _, _, _, dense = tiny
+    X = dense[:101]
+    y = np.where(np.arange(101) % 3 == 0, -1.0, 1.0).astype(np.float32)
+    raw = X * y[:, None]  # unfolded rows: y·raw is the folded X again
+    kw = dict(epochs=2, block_size=16, seed=1)
+    r = rs.sharded_passcode_solve(raw, rd.Hinge(), y=y, **kw)
+    p = sharded_passcode_solve(dense_from_numpy(raw, device="cpu"),
+                               td.Hinge(), y=torch.from_numpy(y),
+                               device="cpu", blocks=_ref_blocks(1, 2, 101, 16),
+                               **kw)
+    _assert_result(p, r, dense_from_numpy(X, device="cpu"), td.Hinge())
+    folded = sharded_passcode_solve(dense_from_numpy(X, device="cpu"),
+                                    td.Hinge(), device="cpu",
+                                    blocks=_ref_blocks(1, 2, 101, 16), **kw)
+    np.testing.assert_array_equal(folded.alpha.numpy(), p.alpha.numpy())
+
+
+def test_warm_start_matches_reference(tiny):
+    X, *_ = tiny
+    rng = np.random.default_rng(0)
+    a0 = rng.uniform(0, 0.5, 200).astype(np.float32)  # shorter than n
+    w0 = (rng.standard_normal(128) * 0.05).astype(np.float32)
+    kw = dict(epochs=2, block_size=64, seed=2)
+    r = rs.sharded_passcode_solve(X, rd.Hinge(), alpha0=a0, w0=w0, **kw)
+    pa0, pw0 = state_from_numpy(a0, w0, device="cpu")
+    Xp = _port_X(tiny, True)
+    p = sharded_passcode_solve(Xp, td.Hinge(), alpha0=pa0, w0=pw0,
+                               device="cpu",
+                               blocks=_ref_blocks(2, 2, 256, 64), **kw)
+    _assert_result(p, r, Xp, td.Hinge())
+
+
+def test_record_off_and_own_draw(tiny):
+    """record=False records nothing; the port's own seeded draw is a
+    full pass per epoch and reproducible."""
+    Xp = _port_X(tiny, True)
+    p = sharded_passcode_solve(Xp, td.Hinge(), epochs=2, block_size=64,
+                               record=False, device="cpu")
+    assert p.gaps.shape == (0,) and p.eps.shape == (0,)
+    a = sharded_passcode_solve(Xp, td.Hinge(), epochs=2, block_size=64,
+                               seed=9, device="cpu")
+    b = sharded_passcode_solve(Xp, td.Hinge(), epochs=2, block_size=64,
+                               seed=9, device="cpu")
+    np.testing.assert_array_equal(a.alpha.numpy(), b.alpha.numpy())
+    assert float(a.gaps[-1]) < float(a.gaps[0])
+
+
+@pytest.mark.parametrize("ell", [True, False], ids=["ell", "dense"])
+@pytest.mark.parametrize("loss", ["hinge", "logistic"])
+def test_dcd_solve_matches_reference(tiny, ell, loss):
+    X, *_, dense = tiny
+    r = jax_dcd_solve(X if ell else dense, rd.make_loss(loss), epochs=3,
+                      seed=4)
+    Xp, lossp = _port_X(tiny, ell), td.make_loss(loss)
+    p = dcd_solve(Xp, lossp, epochs=3, perms=_ref_perms(4, 3, 256),
+                  device="cpu")
+    np.testing.assert_allclose(p.alpha.numpy(), np.asarray(r.alpha), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(p.w.numpy(), np.asarray(r.w), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(p.gaps.numpy(), np.asarray(r.gaps), rtol=0,
+                               atol=_gap_atol(Xp, p.alpha, lossp))
+    assert p.epochs == r.epochs == 3
+
+
+# ----------------------------------------------------------- the mouth
+
+
+def _bad(kind):
+    X = torch.ones((8, 3))
+    if kind == "C":
+        return dict(X_host=X, loss=td.Hinge(C=0.0))
+    if kind == "nan":
+        X[2, 1] = float("nan")
+        return dict(X_host=X, loss=td.Hinge())
+    if kind == "labels":
+        return dict(X_host=X, loss=td.Hinge(), y=torch.full((8,), 2.0))
+    if kind == "n_labels":
+        return dict(X_host=X, loss=td.Hinge(), y=torch.ones(7))
+    if kind == "blocks_shape":
+        return dict(X_host=X, loss=td.Hinge(), blocks=np.zeros((1, 2, 2)))
+    if kind == "blocks_range":
+        return dict(X_host=X, loss=td.Hinge(), block_size=4,
+                    blocks=np.full((1, 2, 4), 8))
+    if kind == "use_kernel":
+        return dict(X_host=X, loss=td.Hinge(), use_kernel="sometimes")
+    if kind == "plain_on_cuda":
+        return dict(X_host=X, loss=td.Hinge(), use_kernel=False,
+                    device="cuda")
+    return dict(X_host=X, loss=td.Hinge(), block_size=0)
+
+
+@pytest.mark.parametrize("kind", ["C", "nan", "labels", "n_labels",
+                                  "blocks_shape", "blocks_range",
+                                  "block_size", "use_kernel"])
+def test_validation_errors(kind):
+    kw = _bad(kind)
+    kw.setdefault("device", "cpu")
+    with pytest.raises(ValueError):
+        sharded_passcode_solve(kw.pop("X_host"), kw.pop("loss"), epochs=1,
+                               **kw)
+
+
+def test_dcd_solve_rejects_bad_perms():
+    X = torch.ones((4, 2))
+    for perms in (np.zeros((2, 4)), np.full((1, 4), 4)):
+        with pytest.raises(ValueError, match="perms"):
+            dcd_solve(X, td.Hinge(), epochs=1, perms=perms, device="cpu")
+
+
+@pytest.mark.parametrize("knob,item", [
+    (dict(shrink_every=1), "A.7"), (dict(repack=True), "A.7"),
+    (dict(adaptive=True), "A.7"), (dict(pod_delay_rounds=1), "A.10"),
+    (dict(mesh_axes=("pod", "data")), "A.10"),
+    (dict(mesh_axes=("data", "model")), "A.8"), (dict(overlap=True), "A.8"),
+    (dict(mesh_axes=("task", "data")), "A.9"),
+    (dict(y=np.ones((2, 8), np.float32)), "A.9"),
+])
+def test_unported_knobs_raise(knob, item):
+    with pytest.raises(NotImplementedError, match=item):
+        sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
+                               device="cpu", **knob)
