@@ -1,5 +1,11 @@
-"""PASSCoDe core on PyTorch: losses, objectives, serial DCD and the 1-D
-data-parallel solver (counterpart of ``repro.core``)."""
+"""PASSCoDe core on PyTorch: losses, objectives, serial DCD and the
+data-parallel solver (counterpart of ``repro.core``).
+
+The solvers load on first use: they import the kernel layer, whose
+modules import ``repro_torch.core.duals``, so an eager import here would
+run in a circle when a kernel module is imported first."""
+
+import importlib
 
 from repro_torch.core.duals import Hinge, Logistic, SquaredHinge
 from repro_torch.core.objective import (
@@ -9,8 +15,10 @@ from repro_torch.core.objective import (
     primal_objective,
     w_of_alpha,
 )
-from repro_torch.core.dcd import dcd_epoch, dcd_solve
-from repro_torch.core.sharded import sharded_passcode_solve
+
+_LAZY = {"dcd_epoch": "repro_torch.core.dcd",
+         "dcd_solve": "repro_torch.core.dcd",
+         "sharded_passcode_solve": "repro_torch.core.sharded"}
 
 __all__ = [
     "Hinge",
@@ -25,3 +33,9 @@ __all__ = [
     "dcd_solve",
     "sharded_passcode_solve",
 ]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

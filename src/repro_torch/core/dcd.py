@@ -3,9 +3,11 @@ the counterpart of ``repro/core/dcd.py``.
 
 The inner loop maintains w(α) = Σ α_i x_i so one update costs O(nnz/n)
 (sparse) / O(d) (dense).  Index order is a random permutation per epoch
-(paper §3.3, sampling without replacement), drawn from a seeded
-``torch.Generator`` — a different stream from the reference's
-``jax.random`` — or taken from ``perms=`` as an explicit schedule.
+(paper §3.3, sampling without replacement), drawn through the
+reference's ``jax.random`` key chain, bit-exact (``repro_torch.prng``:
+``key = PRNGKey(seed)``, per epoch ``key, sub = split(key)`` and
+``permutation(sub, n)``), or taken from ``perms=`` as an explicit
+schedule.
 
 An epoch is one launch of the indexed kernel in permutation order
 (B1 for ``EllMatrix``, B2 for dense) on the card, or the kernel's plain
@@ -18,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core.objective import duality_gap, w_of_alpha
 from repro_torch.data.sparse import EllMatrix, pad_primal, unpad_primal
 from repro_torch.dist.mesh import resolve_device
@@ -52,8 +55,8 @@ def dcd_solve(X, loss, *, epochs: int = 20, seed: int = 0, tol: float = 0.0,
               alpha0=None, record_gap: bool = True, perms=None,
               device=None) -> DcdResult:
     """Run serial DCD for ``epochs`` epochs (early stop on duality gap ≤
-    tol).  ``perms`` (epochs, n) replaces the seeded draw with an
-    explicit schedule."""
+    tol), in the reference's seeded order.  ``perms`` (epochs, n)
+    replaces the seeded draw with an explicit schedule."""
     dev = resolve_device(device)
     if isinstance(X, EllMatrix):
         X = X.to(dev)
@@ -77,13 +80,13 @@ def dcd_solve(X, loss, *, epochs: int = 20, seed: int = 0, tol: float = 0.0,
                                               device=dev))
         w = w_of_alpha(X, alpha)
     state = DcdState(alpha, w)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    key = prng.PRNGKey(seed, device=dev)
     gaps = []
     done = 0
     for e in range(epochs):
+        key, sub = prng.split(key)
         perm = (perms[e] if perms is not None else
-                torch.randperm(n, generator=gen, device=dev).int())
+                prng.permutation(sub, n).int())
         state = dcd_epoch(X, sq_norms, state, perm, loss)
         done = e + 1
         if record_gap:

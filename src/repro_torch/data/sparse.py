@@ -122,3 +122,137 @@ def pad_primal(w: torch.Tensor) -> torch.Tensor:
 
 def unpad_primal(w_pad: torch.Tensor) -> torch.Tensor:
     return w_pad[:-1]
+
+
+# ------------------------------------------- column-partitioned ELL ----
+
+
+class FeatureShardedEll(NamedTuple):
+    """ELL matrix column-partitioned into ``n_shards`` feature shards —
+    the input layout of the 2-D (feature-sharded) solver, as
+    ``repro.data.sparse.FeatureShardedEll``.
+
+    Shard ``j`` owns the contiguous global column range [j·d_loc,
+    (j+1)·d_loc); every row stores its nonzeros in that range as a
+    *local* ELL slice, so shard j gathers and scatters with local ids
+    into its own (d_loc+1,) primal slice.
+
+    Attributes:
+        indices: (n_rows, n_shards, k_loc) int32 shard-local column ids
+            (global id − j·d_loc); padding == d_loc, the shard's dummy
+            slot.
+        values:  (n_rows, n_shards, k_loc) float32; padding == 0.
+        n_features: true global feature dimension d.
+        d_loc: features per shard = ceil(d / n_shards).
+    """
+
+    indices: torch.Tensor
+    values: torch.Tensor
+    n_features: int
+    d_loc: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def n_shards(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def k_loc(self) -> int:
+        return self.indices.shape[2]
+
+    def row_sq_norms(self, chunk_elems: int = 1 << 26) -> torch.Tensor:
+        """‖x_i‖² over all shards, in row chunks of about
+        ``chunk_elems`` entries (no full-size temporary)."""
+        rows = _chunk_rows(self.n_shards * self.k_loc, chunk_elems)
+        return torch.cat([torch.sum(v * v, dim=(1, 2))
+                          for v in self.values.split(rows)])
+
+    def to_ell(self) -> EllMatrix:
+        """Merge back to one ELL matrix with global column ids (k_max =
+        n_shards·k_loc; the padding id restored to ``n_features``)."""
+        n, m, k = self.indices.shape
+        off = (torch.arange(m, dtype=torch.int32, device=self.indices.device)
+               * self.d_loc)[None, :, None]
+        glob = torch.where(self.indices >= self.d_loc,
+                           torch.full_like(self.indices, self.n_features),
+                           self.indices + off)
+        return EllMatrix(glob.reshape(n, m * k),
+                         self.values.reshape(n, m * k), self.n_features)
+
+
+def flat_shard_ids(cols, d1: int) -> torch.Tensor:
+    """Shard-local column ids (…, m, k) as int64 ids into the m primal
+    slices of d1 words each, flattened to (m·d1,): shard j's ids offset
+    by j·d1."""
+    m = cols.shape[-2]
+    off = torch.arange(m, dtype=torch.int64, device=cols.device) * d1
+    return cols.long() + off[:, None]
+
+
+def _chunk_rows(row_elems: int, chunk_elems: int) -> int:
+    return max(1, int(chunk_elems) // max(int(row_elems), 1))
+
+
+def _shard_counts(idx, d: int, m: int, d_loc: int):
+    """Each entry's shard (padding → m) and the per-(row, shard) entry
+    counts (r, m+1) of one row chunk."""
+    shard = torch.where(idx < d, torch.div(idx, d_loc, rounding_mode="floor"),
+                        m).long()
+    cnt = torch.zeros((idx.shape[0], m + 1), dtype=torch.int64,
+                      device=idx.device)
+    cnt.scatter_add_(1, shard, torch.ones_like(shard))
+    return shard, cnt
+
+
+def ell_column_split(mat: EllMatrix, n_shards: int,
+                     k_loc: int | None = None, *,
+                     chunk_elems: int = 1 << 26) -> FeatureShardedEll:
+    """Partition an ``EllMatrix`` by contiguous feature ranges into
+    ``n_shards`` per-row local ELL slices, bit-equal to the reference's
+    ``repro.data.sparse.ell_column_split``: a row's entries keep their
+    order within a shard (a stable sort by shard).  Runs on the matrix's
+    device in row chunks of about ``chunk_elems`` entries, so it never
+    holds more than the input, one chunk's temporaries and the output.
+
+    ``k_loc`` defaults to the max per-(row, shard) nonzero count (≥ 1);
+    forcing it larger is allowed (extra slots pad), smaller raises.
+    """
+    idx_all, val_all = mat.indices, mat.values
+    n, k = idx_all.shape
+    d, m = mat.n_features, int(n_shards)
+    if m < 1:
+        raise ValueError(f"n_shards must be ≥ 1, got {n_shards}")
+    d_loc = -(-d // m)  # ceil; shard j owns [j*d_loc, (j+1)*d_loc)
+    rows = _chunk_rows(k, chunk_elems)
+    need = 1
+    for r0 in range(0, n, rows):
+        _, cnt = _shard_counts(idx_all[r0:r0 + rows], d, m, d_loc)
+        need = max(need, int(cnt[:, :m].max()))
+    if k_loc is None:
+        k_loc = need
+    elif k_loc < need:
+        raise ValueError(f"k_loc={k_loc} < max per-shard nnz {need}")
+    k_loc = max(int(k_loc), 1)
+    dev = idx_all.device
+    out_idx = torch.full((n, m, k_loc), d_loc, dtype=torch.int32, device=dev)
+    out_val = torch.zeros((n, m, k_loc), dtype=torch.float32, device=dev)
+    flat_idx, flat_val = out_idx.view(-1), out_val.view(-1)
+    for r0 in range(0, n, rows):
+        idx, val = idx_all[r0:r0 + rows], val_all[r0:r0 + rows]
+        shard, cnt = _shard_counts(idx, d, m, d_loc)
+        # stable: a row's entries keep their order within a shard
+        order = torch.argsort(shard, dim=1, stable=True)
+        shard_s = torch.gather(shard, 1, order)
+        start = torch.cumsum(cnt, dim=1) - cnt  # a run's first sorted slot
+        rank = (torch.arange(k, device=dev)[None, :]
+                - torch.gather(start, 1, shard_s))
+        keep = shard_s < m
+        row = (torch.arange(idx.shape[0], device=dev)[:, None] + r0)
+        pos = ((row * m + shard_s) * k_loc + rank)[keep]
+        idx_s = torch.gather(idx, 1, order)[keep]
+        flat_idx[pos] = (idx_s.long() - shard_s[keep] * d_loc).int()
+        flat_val[pos] = torch.gather(val, 1, order)[keep].float()
+    return FeatureShardedEll(out_idx, out_val, d, d_loc)

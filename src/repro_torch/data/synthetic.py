@@ -8,15 +8,21 @@ PyTorch counterpart of ``repro/data/synthetic.py``.  Two generators:
   same name and seed, then placed on ``device``.
 * ``make_paper_split`` — the Table-3 shapes themselves (LIBSVM's
   ``rcv1.binary``: n = 677,399, d = 47,236, 73 nnz per row, C = 1;
-  ``covtype.binary``: n = 581,012, d = 54 dense, C = 0.0625), drawn on
-  the device from a seeded ``torch.Generator``.  The reference's
-  row-by-row ``rng.choice`` takes minutes at that n; this draw keeps
-  the same law — zipf(0.9) column popularity sampled without
-  replacement (as an exponential race: the k smallest of E_j / p_j,
-  E_j ~ Exp(1), are a weighted draw without replacement in draw
-  order), unit-norm rows, the same margin and label-noise rule, labels
-  folded into the rows — but it is a different random stream from the
-  reference: equal in distribution, not in values.
+  ``covtype.binary``: n = 581,012, d = 54 dense, C = 0.0625; the
+  trigram ``webspam`` training split of the paper's Table 3:
+  n = 280,000, d = 16,609,143, 3,728 nnz per row, C = 1), drawn on the
+  device from a seeded ``torch.Generator``.  The reference's row-by-row
+  ``rng.choice`` takes minutes at that n; this draw keeps the same
+  law — zipf(0.9) column popularity sampled without replacement, that
+  is the first k distinct columns of an i.i.d. zipf stream, unit-norm
+  rows, the same margin and label-noise rule, labels folded into the
+  rows — but it is a different random stream from the reference: equal
+  in distribution, not in values.  Up to ``RACE_MAX_D`` features the
+  columns come from an exponential race (the k smallest of E_j / p_j,
+  E_j ~ Exp(1), in draw order), which costs n·d draws; above it (webspam)
+  from the stream itself: k inverse-CDF draws per row (``searchsorted``
+  on the zipf CDF), then only the repeated slots are drawn again until
+  every row holds k distinct columns.
 
 Rows are L2-normalized to ≤ 1 (R_max = 1) and label-folded
 (x_i = y_i·ẋ_i).
@@ -71,7 +77,12 @@ PAPER_RECIPES = {
     "rcv1": DatasetRecipe("rcv1", 677_399, 0, 47_236, 73, 1.0),
     "covtype": DatasetRecipe("covtype", 581_012, 0, 54, 54, 0.0625,
                              label_noise=0.15, margin=0.1),
+    "webspam": DatasetRecipe("webspam", 280_000, 0, 16_609_143, 3_728, 1.0),
 }
+
+# the widest d drawn by the exponential race (n·d draws); wider recipes
+# draw the zipf stream by inverse CDF (n·k draws and a few redraws)
+RACE_MAX_D = 1 << 20
 
 
 @dataclasses.dataclass
@@ -154,6 +165,51 @@ def make_dataset(name: str, seed: int = 0,
     return SyntheticDataset(recipe, ell(idx, val), ell(tidx, tval), w_true)
 
 
+def _race_cols(g, n: int, d: int, k: int, dev, chunk_elems: int):
+    """k distinct zipf columns per row by the exponential race, in row
+    chunks of about ``chunk_elems`` race keys."""
+    inv_p = torch.from_numpy(1.0 / _zipf_probs(d)).float().to(dev)
+    rows = max(1, chunk_elems // d)
+    cols = torch.empty((n, k), dtype=torch.int32, device=dev)
+    keys = torch.empty((min(rows, n), d), device=dev)
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        race = keys[: r1 - r0].exponential_(generator=g).mul_(inv_p)
+        cols[r0:r1] = torch.topk(race, k, dim=1, largest=False,
+                                 sorted=True).indices.int()
+    return cols
+
+
+def _stream_cols(g, n: int, d: int, k: int, dev, chunk_elems: int):
+    """k distinct zipf columns per row as the first k distinct values of
+    an i.i.d. zipf stream: k inverse-CDF draws, then every slot that
+    repeats an earlier slot of its row draws again, until none does.  In
+    row chunks of about ``chunk_elems`` slots."""
+    cdf = torch.cumsum(torch.from_numpy(_zipf_probs(d)).to(dev), 0)
+
+    def draw(shape):
+        u = torch.rand(shape, dtype=torch.float64, generator=g, device=dev)
+        return torch.searchsorted(cdf, u, right=True).clamp_(max=d - 1)
+
+    rows = max(1, chunk_elems // k)
+    cols = torch.empty((n, k), dtype=torch.int32, device=dev)
+    for r0 in range(0, n, rows):
+        c = draw((min(rows, n - r0), k))
+        todo = torch.arange(c.shape[0], device=dev)
+        while todo.numel():
+            sub = c[todo]
+            srt, order = torch.sort(sub, dim=1, stable=True)
+            # a slot repeats when it sorts after an equal, earlier slot
+            rep = torch.zeros_like(sub, dtype=torch.bool).scatter_(
+                1, order[:, 1:], srt[:, 1:] == srt[:, :-1])
+            has = rep.any(dim=1)
+            todo, sub, rep = todo[has], sub[has], rep[has]
+            sub[rep] = draw((int(rep.sum()),))
+            c[todo] = sub
+        cols[r0:r0 + c.shape[0]] = c.int()
+    return cols
+
+
 def make_paper_split(name: str, seed: int = 0, *, device=None,
                      recipe: Optional[DatasetRecipe] = None,
                      chunk_elems: int = 1 << 26):
@@ -163,7 +219,7 @@ def make_paper_split(name: str, seed: int = 0, *, device=None,
 
     Returns ``(X, w_true)``: X is an ``EllMatrix`` for a sparse recipe
     and a dense (n, d) float32 tensor for a dense one.  The sparse draw
-    runs in row chunks of about ``chunk_elems`` race keys each."""
+    runs in row chunks of about ``chunk_elems`` race keys or slots."""
     dev = resolve_device(device)
     recipe = recipe or PAPER_RECIPES[name]
     n, d, k = recipe.n_train, recipe.d, recipe.nnz_per_row
@@ -176,23 +232,18 @@ def make_paper_split(name: str, seed: int = 0, *, device=None,
         val = val / torch.clamp(val.norm(dim=1, keepdim=True), min=1e-8)
         margins = val @ w_true
     else:
-        inv_p = torch.from_numpy(1.0 / _zipf_probs(d)).float().to(dev)
-        rows = max(1, chunk_elems // d)
-        cols = torch.empty((n, k), dtype=torch.int32, device=dev)
-        keys = torch.empty((min(rows, n), d), device=dev)
-        for r0 in range(0, n, rows):
-            r1 = min(r0 + rows, n)
-            race = keys[: r1 - r0].exponential_(generator=g).mul_(inv_p)
-            cols[r0:r1] = torch.topk(race, k, dim=1, largest=False,
-                                     sorted=True).indices.int()
-        del keys
+        draw_cols = _race_cols if d <= RACE_MAX_D else _stream_cols
+        cols = draw_cols(g, n, d, k, dev, chunk_elems)
         val = torch.randn((n, k), generator=g, device=dev)
-        val = val / torch.clamp(val.norm(dim=1, keepdim=True), min=1e-8)
-        margins = (val * w_true[cols.long()]).sum(dim=1)
+        val /= torch.clamp(val.norm(dim=1, keepdim=True), min=1e-8)
+        rows = max(1, chunk_elems // k)
+        margins = torch.cat([
+            (v * w_true[c.long()]).sum(dim=1)
+            for c, v in zip(cols.split(rows), val.split(rows))])
     noise = torch.randn(n, generator=g, device=dev)
     y = torch.where(margins + recipe.margin * noise > 0, 1.0, -1.0)
     flip = torch.rand(n, generator=g, device=dev) < recipe.label_noise
     y = torch.where(flip, -y, y)
-    val = val * y[:, None]
+    val *= y[:, None]
     X = val if k >= d else EllMatrix(cols, val, d)
     return X, w_true

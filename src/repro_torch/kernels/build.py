@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries
-land in ``build/repro_torch_kernels/`` at the root of the checkout,
-named by a digest of the sources and flags, so an edited source
-rebuilds and an unchanged one loads.  A build happens at first use, or
+land in ``build/repro_torch_kernels/`` at the root of the checkout
+(``build_dir``), named by a digest of the sources and flags, so an
+edited source rebuilds and an unchanged one loads.  A build happens at first use, or
 all at once through ``build`` (which ``chip_smoke.py`` calls with
 ``report=True`` to show the register and spill report of
 ``-Xptxas -v``).
@@ -28,8 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 ROOT = Path(__file__).resolve().parents[3]  # the checkout, from src/
-BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
-SOURCES = ("dcd_ell", "dcd_block")
+SOURCES = ("dcd_ell", "dcd_block", "dcd_feature")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,11 +45,25 @@ def nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
+def build_dir() -> Path:
+    """``build/repro_torch_kernels/`` in the checkout the package runs
+    from.  Raises unless ``ROOT`` (three levels above this module) is
+    that checkout, with its ``pyproject.toml``: the libraries are built
+    there and never beside an installed package."""
+    if not (ROOT / "pyproject.toml").is_file():
+        raise RuntimeError(
+            f"{ROOT} holds no pyproject.toml, so it is not the repo's "
+            "checkout: run repro_torch from its src/ directory "
+            "(PYTHONPATH=src), where the kernels build into "
+            "build/repro_torch_kernels/")
+    return ROOT / "build" / "repro_torch_kernels"
+
+
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES, *, report: bool = False) -> dict[str, str]:
@@ -58,14 +71,8 @@ def build(names=SOURCES, *, report: bool = False) -> dict[str, str]:
     ``report`` — one ``nvcc`` each, all started together.  Returns each
     compiler's output: with ``report``, the ``-Xptxas -v`` register and
     spill report of every kernel.  Raises if one fails, or if the
-    package does not run from a checkout's ``src/`` (the build directory
-    lives in the checkout, never beside an installed package)."""
-    if not (ROOT / "pyproject.toml").is_file():
-        raise RuntimeError(
-            f"{ROOT} is not the repo's checkout: run repro_torch from its "
-            "src/ directory (PYTHONPATH=src), where the kernels build into "
-            "build/repro_torch_kernels/")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    package does not run from a checkout's ``src/`` (``build_dir``)."""
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = lib_path(name)

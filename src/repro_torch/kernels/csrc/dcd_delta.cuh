@@ -1,5 +1,5 @@
-// Device side of one DCD coordinate update, shared by the three DCD
-// kernels (dcd_ell.cu, dcd_block.cu): the exact 1-D dual step δ for the
+// Device side of one DCD coordinate update, shared by the DCD kernels
+// (dcd_ell.cu, dcd_block.cu, and B5 in dcd_feature.cu): the exact 1-D dual step δ for the
 // hinge, squared-hinge and logistic losses, and the CTA-wide middle of an
 // update (reduce the dot, take δ, write α_i, broadcast δ·y_i).
 //

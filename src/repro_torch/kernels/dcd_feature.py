@@ -1,0 +1,181 @@
+"""B4 and B5: the feature-sharded (2-D) block round — the CUDA kernels
+``csrc/dcd_feature.cu`` and their plain PyTorch versions.
+
+The 2-D solver holds the features in m contiguous shards
+(``repro_torch.data.sparse.FeatureShardedEll``):
+
+  cols: (n, m, k) int32 shard-local column ids, padding == d_loc
+  vals: (n, m, k) float32 values, padding == 0.0
+  w:    (m, d1) float32 primal slices, d1 = d_loc + 1, the dummy slot at
+        local index d_loc
+
+A block of B sequential updates rests on wᵀx_t = base_t + Σ_{s<t} δ̃_s·
+G[s, t], base_t = w₀ᵀx_t and G the block's Gram matrix, both sums over
+the shards:
+
+* B4, ``dcd_feature_gram``, replaces the Pallas TPU kernel
+  ``repro/kernels/dcd_feature.py:_gram_kernel``: every shard's partial
+  base (m, B) and Gram (m, B, B) for the block ``idx``.  The caller sums
+  them over the shard dimension (the reference's psum over ``model``).
+* B5, ``dcd_feature_update``, replaces ``_update_kernel``: the B-step δ
+  recursion against the summed (base, G) — wx_t = y_t·(base_t +
+  Σ_s δ̃_s·G[s, t]), δ gated by ``active``, α_i += δ, δ̃_t = δ·y_t — and
+  the scatter of δ̃_t·vals_t into every shard's own slice.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors; it never falls back from one to the other.  B4
+needs a zeroed scratch of ``GRAM_SPLIT``·m·d1 words in device memory
+(``gram_scratch``), which it leaves zeroed; the solver allocates it once
+per solve.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.duals import kernel_params
+from repro_torch.data.sparse import flat_shard_ids
+from repro_torch.dist.mesh import cta_threads
+from repro_torch.kernels import build
+from repro_torch.kernels.build import F, I, P
+
+MAX_BLOCK = 1024  # B5 keeps three B-word arrays in shared memory
+GRAM_SPLIT = 32  # B4's CTAs per shard, each with its own scratch
+# threads per CTA: the rows are long (k_loc ≈ 3,100 at webspam), and
+# more warps keep more of B4's dependent gathers and B5's scatter in flight
+MAX_THREADS = 1024
+
+
+def dcd_feature_gram_plain(cols, vals, w, idx):
+    """The plain version of B4, step by step as the Pallas kernel: gather
+    the block's rows, base = Σ w[cols]·vals, then for each t scatter row
+    t into a zeroed scratch, gather every row of the block against it
+    for column G[:, t], and zero the slots row t touched.  All m shards
+    at once.  Returns (base_p (m, B), gram_p (m, B, B))."""
+    d1 = w.shape[1]
+    m, b = cols.shape[1], idx.shape[0]
+    ids = flat_shard_ids(cols[idx.long()], d1).transpose(0, 1)  # (m, B, k)
+    vb = vals[idx.long()].transpose(0, 1)
+    w_flat = w.reshape(-1)
+    base = torch.sum(w_flat[ids] * vb, dim=2)
+    scratch = torch.zeros((m * d1,), dtype=torch.float32, device=w.device)
+    gram = torch.empty((m, b, b), dtype=torch.float32, device=w.device)
+    for t in range(b):
+        ct = ids[:, t].reshape(-1)
+        scratch.index_add_(0, ct, vb[:, t].reshape(-1))
+        gram[:, :, t] = torch.sum(scratch[ids] * vb, dim=2)
+        scratch[ct] = 0.0
+    return base, gram
+
+
+def gram_scratch(m: int, d1: int, device) -> torch.Tensor:
+    """B4's scratch: ``GRAM_SPLIT`` zeroed (m, d1) slices."""
+    return torch.zeros((GRAM_SPLIT, m, d1), dtype=torch.float32,
+                       device=device)
+
+
+def _check_block(cols, vals, w, idx):
+    n, m, k = cols.shape
+    if w.dim() != 2 or w.shape[0] != m or idx.dim() != 1:
+        raise ValueError(f"expected w ({m}, d_loc+1) and idx (B,)")
+    if not 1 <= idx.shape[0] <= MAX_BLOCK:
+        raise ValueError(f"the block must hold 1..{MAX_BLOCK} ids, got "
+                         f"{idx.shape[0]}")
+
+
+def dcd_feature_gram(cols, vals, w, idx, *, scratch=None):
+    """Every shard's partial (base, Gram) of the block ``idx`` (int32 row
+    ids in [0, n), repeats allowed) against the primal slices ``w``.
+    CUDA tensors launch B4 (grid m × ``GRAM_SPLIT``, counted in
+    ``dcd_feature_gram.launches``) with ``scratch`` (``gram_scratch``;
+    allocated for this call when None); CPU tensors run the plain
+    version.  Returns (base_p (m, B), gram_p (m, B, B))."""
+    if w.device.type != "cuda":
+        return dcd_feature_gram_plain(cols, vals, w, idx)
+    _check_block(cols, vals, w, idx)
+    n, m, k = cols.shape
+    d1, b = w.shape[1], idx.shape[0]
+    if scratch is None:
+        scratch = gram_scratch(m, d1, w.device)
+    build.check_operands(w.device, {
+        "cols": (cols, None), "vals": (vals, (n, m, k)), "w": (w, None),
+        "idx": (idx, None), "scratch": (scratch, (GRAM_SPLIT, m, d1))},
+        int32=("cols", "idx"))
+    base_p = torch.empty((m, b), dtype=torch.float32, device=w.device)
+    gram_p = torch.empty((m, b, b), dtype=torch.float32, device=w.device)
+    launch = build.entry("dcd_feature", "dcd_feature_gram_launch",
+                         [P, I, P, P, I, I, I, P, I, P, I, P, P, I, P])
+    with torch.cuda.device(w.device):
+        err = launch(build.ptr(idx), b, build.ptr(cols), build.ptr(vals), m,
+                     k, d1 - 1, build.ptr(w), d1, build.ptr(scratch),
+                     GRAM_SPLIT, build.ptr(base_p), build.ptr(gram_p),
+                     cta_threads(k, MAX_THREADS), build.stream())
+    build.check(err, "dcd_feature_gram_launch")
+    dcd_feature_gram.launches += 1
+    return base_p, gram_p
+
+
+dcd_feature_gram.launches = 0
+
+
+def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
+                             gram, *, loss, active=None, y=None):
+    """The plain version of B5, step by step as the Pallas kernel: the
+    δ̃ history starts at 0, wx_t = y_t·(base_t + Σ δ̃·G[:, t]), α is read
+    from the running output, and δ̃_t·vals_t scatters into every shard's
+    slice.  Returns new (α, w); the inputs are not changed."""
+    alpha, w = alpha.clone(), w.clone()
+    d1, b = w.shape[1], idx.shape[0]
+    w_flat = w.reshape(-1)
+    deltas = torch.zeros((b,), dtype=torch.float32, device=w.device)
+    for t, i in enumerate(idx.tolist()):
+        yi = y[i] if y is not None else 1.0
+        wx = yi * (base[t] + torch.sum(deltas * gram[:, t]))
+        a = alpha[i]
+        delta = loss.delta(a, wx, sq_norms[i])
+        if active is not None:
+            delta = torch.where(active[i] > 0.0, delta, 0.0)
+        alpha[i] = a + delta
+        dtil = delta * yi
+        w_flat.index_add_(0, flat_shard_ids(cols[i], d1).reshape(-1),
+                          (dtil * vals[i]).reshape(-1))
+        deltas[t] = dtil
+    return alpha, w
+
+
+def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
+                       loss, active=None, y=None):
+    """The block's B sequential updates against the summed (base, gram);
+    ``sq_norms`` are the full row norms.  CUDA tensors launch B5 (one CTA
+    per shard, counted in ``dcd_feature_update.launches``); CPU tensors
+    run the plain version.  Returns new (α, w)."""
+    if w.device.type != "cuda":
+        return dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx,
+                                        base, gram, loss=loss,
+                                        active=active, y=y)
+    _check_block(cols, vals, w, idx)
+    n, m, k = cols.shape
+    d1, b = w.shape[1], idx.shape[0]
+    build.check_operands(w.device, {
+        "cols": (cols, None), "vals": (vals, (n, m, k)),
+        "alpha": (alpha, (n,)), "sq_norms": (sq_norms, (n,)),
+        "active": (active, (n,)), "y": (y, (n,)), "w": (w, None),
+        "idx": (idx, None), "base": (base, (b,)), "gram": (gram, (b, b))},
+        int32=("cols", "idx"))
+    a_out, w_out = alpha.clone(), w.clone()
+    launch = build.entry("dcd_feature", "dcd_feature_update_launch",
+                         [P, I, P, P, I, I, I, P, P, P, P, P, P, I, P, P,
+                          I, F, F, F, I, I, P])
+    with torch.cuda.device(w.device):
+        err = launch(build.ptr(idx), b, build.ptr(cols), build.ptr(vals), m,
+                     k, d1 - 1, build.ptr(alpha), build.ptr(a_out),
+                     build.ptr(sq_norms), build.ptr(active), build.ptr(y),
+                     build.ptr(w_out), d1, build.ptr(base), build.ptr(gram),
+                     *kernel_params(loss), cta_threads(k, MAX_THREADS),
+                     build.stream())
+    build.check(err, "dcd_feature_update_launch")
+    dcd_feature_update.launches += 1
+    return a_out, w_out
+
+
+dcd_feature_update.launches = 0

@@ -5,6 +5,13 @@ the counterpart of ``repro/kernels/ops.py``.
 order); ``dcd_block_update`` and ``dcd_ell_block_update`` are the block
 engines the 1-D solver runs once per round, returning (α, Δw) like the
 reference's ``dcd_block_update_pallas`` / ``dcd_ell_block_update_pallas``.
+
+The 2-D (feature-sharded) round is split in phases as in the
+reference: ``dcd_feature_gram`` (B4 over all m shards, then the sum over
+shards — the reference's psum over ``model``), ``dcd_feature_base_
+correction`` (torch ops) and ``dcd_feature_update`` (B5);
+``dcd_feature_block_update`` composes them eagerly and returns (α, Δw).
+
 Each runs its kernel on CUDA tensors and the kernel's plain version on
 CPU tensors.
 """
@@ -14,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.duals import Hinge, SquaredHinge
+from repro_torch.data.sparse import flat_shard_ids
+from repro_torch.kernels import dcd_feature as feat
 from repro_torch.kernels.dcd_block import dcd_indexed_epoch, dcd_tile_epoch
 from repro_torch.kernels.dcd_ell import dcd_ell_epoch
 
@@ -89,3 +98,51 @@ def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
     a_new, w_new = dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms,
                                  loss=loss, idx=idx, active=active, y=y)
     return a_new, w_new - w_pad
+
+
+# ------------------- split-phase 2-D (feature-sharded) block entry points
+# cols/vals: (n, m, k) shard-local ELL slices, w: (m, d_loc + 1) primal
+# slices; see repro_torch.kernels.dcd_feature.
+
+
+def dcd_feature_gram(cols, vals, w_ref, idx, *, scratch=None):
+    """Phase 1: the block's (base, Gram) — B4's per-shard partials summed
+    over the shard dimension, the reference's psum over ``model``.
+    ``base`` is w_refᵀx_t against whatever reference primal the caller
+    holds (one data-round stale in the overlapped round, repaired by
+    ``dcd_feature_base_correction``).  Returns (base (B,), gram (B, B))."""
+    base_p, gram_p = feat.dcd_feature_gram(cols, vals, w_ref, idx,
+                                           scratch=scratch)
+    return base_p.sum(0), gram_p.sum(0)
+
+
+def dcd_feature_base_correction(cols, vals, dvec, idx):
+    """Correct a stale base by the aggregate it was computed without:
+    Δbase_t = Δwᵀx_t for the block's rows, each shard's partial summed
+    over shards.  ``dvec`` is the (m, d_loc + 1) missing aggregate."""
+    ids = flat_shard_ids(cols[idx.long()], dvec.shape[1])  # (B, m, k)
+    part = torch.sum(dvec.reshape(-1)[ids] * vals[idx.long()], dim=2)
+    return part.sum(1)
+
+
+def dcd_feature_update(cols, vals, sq_norms, alpha, w, idx, base, gram, *,
+                       loss, active=None, y=None):
+    """Phase 2: the B-step δ recursion against a summed (base, Gram) —
+    B5.  ``sq_norms`` are the full row norms.  Returns (updated α,
+    updated primal slices)."""
+    return feat.dcd_feature_update(cols, vals, alpha, sq_norms, w, idx,
+                                   base, gram, loss=loss, active=active,
+                                   y=y)
+
+
+def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
+                             active=None, y=None, scratch=None):
+    """One indexed block of B sequential DCD updates on the feature
+    shards — the fused counterpart of the solver's unfused engine, the
+    eager composition of the phases above.  Returns (updated α, Δw =
+    w_new − w over the (m, d_loc + 1) slices)."""
+    base, gram = dcd_feature_gram(cols, vals, w, idx, scratch=scratch)
+    a_new, w_new = dcd_feature_update(cols, vals, sq_norms, alpha, w, idx,
+                                      base, gram, loss=loss, active=active,
+                                      y=y)
+    return a_new, w_new - w

@@ -21,6 +21,9 @@ from repro_torch.kernels.dcd_block import (
     dcd_tile_epoch,
     dcd_tile_epoch_plain,
 )
+from repro_torch.data.sparse import ell_column_split
+from repro_torch.dist.mesh import solver_mesh_2d
+from repro_torch.kernels import dcd_feature as feat
 from repro_torch.kernels.dcd_ell import dcd_ell_epoch, dcd_ell_epoch_plain
 
 LOSSES = ["hinge", "squared_hinge", "logistic"]
@@ -119,3 +122,86 @@ def test_solver_kernel_path_matches_cpu_path(ell):
                                on_cpu.gaps.numpy(), rtol=1e-5, atol=ATOL)
     with pytest.raises(ValueError, match="plain engines"):
         sharded_passcode_solve(X.to(dev), td.Hinge(), use_kernel=False, **kw)
+
+
+def _feature_case(dev, n=300, m=3, k=40, d_loc=500, b=48, seed=7):
+    """Shard-local ELL slices with ragged rows (trailing padding id
+    d_loc), a repeated column, primal slices with zero dummy slots, and a
+    block with repeated ids."""
+    rng = np.random.default_rng(seed)
+    cols = np.full((n, m, k), d_loc, np.int32)
+    vals = np.zeros((n, m, k), np.float32)
+    for i in range(n):
+        for j in range(m):
+            nnz = rng.integers(0, k + 1)
+            cols[i, j, :nnz] = rng.choice(d_loc, nnz, replace=False)
+            vals[i, j, :nnz] = rng.standard_normal(nnz) * 0.1
+    cols[5, 1, 1] = cols[5, 1, 0]  # a repeated column accumulates
+    w = (rng.standard_normal((m, d_loc + 1)) * 0.05).astype(np.float32)
+    w[:, d_loc] = 0.0
+    idx = rng.permutation(n)[:b].astype(np.int32)
+    idx[[7, 20, 21]] = [5, idx[3], 5]
+    return [torch.from_numpy(a).to(dev) for a in (cols, vals, w, idx)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b4_b5_kernels_match_plain(loss):
+    dev = _cuda()
+    cols, vals, w, idx = _feature_case(dev)
+    m, d1 = w.shape
+    scratch = feat.gram_scratch(m, d1, dev)
+    n0 = (feat.dcd_feature_gram.launches, feat.dcd_feature_update.launches)
+    kb, kg = feat.dcd_feature_gram(cols, vals, w, idx, scratch=scratch)
+    pb, pg = feat.dcd_feature_gram_plain(cols, vals, w, idx)
+    _close(kb, pb)
+    _close(kg, pg)
+    assert float(scratch.abs().max()) == 0.0  # left zeroed
+    rng = np.random.default_rng(8)
+    n = cols.shape[0]
+    alpha, _, active, y, _ = _state(rng, n, 1, dev)
+    q = (vals * vals).sum((1, 2))
+    kw = dict(loss=td.make_loss(loss, 0.8), active=active, y=y)
+    base, gram = pb.sum(0), pg.sum(0)
+    ka, kwv = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
+                                      gram, **kw)
+    pa, pw = feat.dcd_feature_update_plain(cols, vals, alpha, q, w, idx,
+                                           base, gram, **kw)
+    _close(ka, pa)
+    _close(kwv, pw)
+    assert float(kwv[:, -1].abs().max()) == 0.0  # dummy slots stay 0
+    assert (feat.dcd_feature_gram.launches,
+            feat.dcd_feature_update.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delay_rounds", [0, 1])
+def test_2d_solver_kernel_path_matches_cpu_path(delay_rounds):
+    """The fused engine on the card (with delay 1, the overlapped round)
+    against the fused engine's plain versions on the CPU."""
+    dev = _cuda()
+    X = make_dataset("tiny", device="cpu").X_train
+    kw = dict(mesh=solver_mesh_2d(model=2), epochs=3, block_size=32,
+              delay_rounds=delay_rounds, seed=4)
+    n0 = feat.dcd_feature_update.launches
+    on_card = sharded_passcode_solve(X.to(dev), td.Hinge(), **kw)
+    assert feat.dcd_feature_update.launches == n0 + 3 * 8
+    on_cpu = sharded_passcode_solve(X, td.Hinge(), use_kernel=True,
+                                    device="cpu", **kw)
+    _close(on_card.alpha, on_cpu.alpha)
+    _close(on_card.w_hat, on_cpu.w_hat)
+    np.testing.assert_allclose(on_card.gaps.cpu().numpy(),
+                               on_cpu.gaps.numpy(), rtol=1e-5, atol=ATOL)
+    with pytest.raises(ValueError, match="plain engines"):
+        sharded_passcode_solve(X.to(dev), td.Hinge(), use_kernel=False,
+                               **kw)
+
+
+@pytest.mark.cuda
+def test_column_split_on_the_card_matches_cpu():
+    dev = _cuda()
+    X = make_dataset("tiny", device="cpu").X_train
+    on_cpu = ell_column_split(X, 3)
+    on_card = ell_column_split(X.to(dev), 3, chunk_elems=500)
+    assert torch.equal(on_card.indices.cpu(), on_cpu.indices)
+    assert torch.equal(on_card.values.cpu(), on_cpu.values)

@@ -13,12 +13,18 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.convert import dense_from_numpy, ell_from_numpy
+from repro_torch.convert import (
+    dense_from_numpy,
+    ell_from_numpy,
+    feature_sharded_from_numpy,
+    w2d_from_numpy,
+)
 from repro_torch.core import duals as td
 from repro_torch.core.dcd import dcd_solve
 from repro_torch.core.sharded import sharded_passcode_solve
 from repro_torch.data.sparse import dense_to_ell
 from repro_torch.data.synthetic import make_dataset, make_paper_split
+from repro_torch.dist.mesh import solver_mesh_2d
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -50,6 +56,12 @@ ENTRY_POINTS = {
     "ell_from_numpy": lambda: ell_from_numpy(np.zeros((1, 1)),
                                              np.zeros((1, 1)), 1),
     "dense_from_numpy": lambda: dense_from_numpy(np.zeros((1, 1))),
+    "feature_sharded_from_numpy": lambda: feature_sharded_from_numpy(
+        np.zeros((1, 1, 1)), np.zeros((1, 1, 1)), 1, 1),
+    "w2d_from_numpy": lambda: w2d_from_numpy(np.zeros(4), 2, 1),
+    "sharded_passcode_solve_2d": lambda: sharded_passcode_solve(
+        torch.ones((4, 2)), td.Hinge(), epochs=1,
+        mesh=solver_mesh_2d(model=2)),
 }
 
 

@@ -2,12 +2,13 @@
 ``dcd_solve`` against ``repro.core`` on the same data and the same
 update schedule.
 
-``jax.random`` cannot be replayed with a ``torch.Generator``, so each
-test replays the reference's key chain — ``key = PRNGKey(seed)``, then
-per epoch ``key, sub = split(key)`` — through
+Each test replays the reference's key chain — ``key = PRNGKey(seed)``,
+then per epoch ``key, sub = split(key)`` — through
 ``repro.core.sharded._masked_block_perms`` (or ``permutation`` for the
 serial solver) and passes the draws to the port as ``blocks=`` /
-``perms=``.
+``perms=``, so these cases hold the engines to the reference whatever
+the draw; ``test_torch_prng.py`` holds the port's own seeded draw to the
+same chain.
 
 Tolerances: atol 1e-5 on α, ŵ and ‖w(α) − ŵ‖.  The duality gap is a
 float32 sum over n rows that the two frameworks add in other orders, and
@@ -36,6 +37,7 @@ from repro_torch.core.dcd import dcd_solve
 from repro_torch.core.objective import _matvec, w_of_alpha
 from repro_torch.data.sparse import EllMatrix
 from repro_torch.core.sharded import sharded_passcode_solve
+from repro_torch.dist.mesh import solver_mesh_2d
 
 ATOL = 1e-5
 
@@ -166,8 +168,9 @@ def test_warm_start_matches_reference(tiny):
 
 
 def test_record_off_and_own_draw(tiny):
-    """record=False records nothing; the port's own seeded draw is a
-    full pass per epoch and reproducible."""
+    """record=False records nothing; the port's own seeded draw is the
+    reference's key chain: a seed alone runs exactly the updates of the
+    reference's schedule for that seed."""
     Xp = _port_X(tiny, True)
     p = sharded_passcode_solve(Xp, td.Hinge(), epochs=2, block_size=64,
                                record=False, device="cpu")
@@ -175,8 +178,10 @@ def test_record_off_and_own_draw(tiny):
     a = sharded_passcode_solve(Xp, td.Hinge(), epochs=2, block_size=64,
                                seed=9, device="cpu")
     b = sharded_passcode_solve(Xp, td.Hinge(), epochs=2, block_size=64,
-                               seed=9, device="cpu")
+                               seed=9, device="cpu",
+                               blocks=_ref_blocks(9, 2, 256, 64))
     np.testing.assert_array_equal(a.alpha.numpy(), b.alpha.numpy())
+    np.testing.assert_array_equal(a.w_hat.numpy(), b.w_hat.numpy())
     assert float(a.gaps[-1]) < float(a.gaps[0])
 
 
@@ -243,15 +248,33 @@ def test_dcd_solve_rejects_bad_perms():
             dcd_solve(X, td.Hinge(), epochs=1, perms=perms, device="cpu")
 
 
-@pytest.mark.parametrize("knob,item", [
-    (dict(shrink_every=1), "A.7"), (dict(repack=True), "A.7"),
-    (dict(adaptive=True), "A.7"), (dict(pod_delay_rounds=1), "A.10"),
-    (dict(mesh_axes=("pod", "data")), "A.10"),
-    (dict(mesh_axes=("data", "model")), "A.8"), (dict(overlap=True), "A.8"),
-    (dict(mesh_axes=("task", "data")), "A.9"),
-    (dict(y=np.ones((2, 8), np.float32)), "A.9"),
-])
-def test_unported_knobs_raise(knob, item):
-    with pytest.raises(NotImplementedError, match=item):
+TWO_D = dict(mesh=solver_mesh_2d(model=2))
+
+
+KNOBS = [
+    (dict(shrink_every=1), "A.7", NotImplementedError),
+    (dict(repack=True), "A.7", NotImplementedError),
+    (dict(adaptive=True), "A.7", NotImplementedError),
+    (dict(pod_delay_rounds=1), "A.10", NotImplementedError),
+    (dict(mesh_axes=("pod", "data")), "A.10", NotImplementedError),
+    (dict(mesh=solver_mesh_2d(data=2, model=2)), "A′.1",
+     NotImplementedError),
+    (dict(overlap=True), "2-D", ValueError),
+    (dict(mesh_axes=("task", "data")), "A.9", NotImplementedError),
+    (dict(y=np.ones((2, 8), np.float32)), "A.9", NotImplementedError),
+    (dict(TWO_D, shrink_every=1), "A′.2", NotImplementedError),
+    (dict(TWO_D, adaptive=True), "A′.2", NotImplementedError),
+    (dict(pipeline=False), "A′.12", NotImplementedError),
+]
+
+
+@pytest.mark.parametrize("knob,item,error", KNOBS,
+                         ids=[f"knob{i}-{c[1]}".replace("′", "'")
+                              for i, c in enumerate(KNOBS)])
+def test_unported_knobs_raise(knob, item, error):
+    """Each knob outside the ported slices raises, naming its ROADMAP
+    item; overlap=True on the 1-D mesh is the reference's ValueError
+    (``pipeline_overlap``)."""
+    with pytest.raises(error, match=item):
         sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
                                device="cpu", **knob)
