@@ -13,15 +13,21 @@ result line):
 2. the build of every kernel source, with nvcc's ``-Xptxas -v``
    register and spill report;
 3. each kernel against its plain version at the shapes the main path
-   gives it: B1 (ELL) on the rcv1-shape shard and B2 (dense indexed)
-   on the covtype-shape shard, a few rounds of B = 64 ids each; B3
+   gives it: B1 (ELL) on the rcv1-shape shard (its staged variant) and
+   on webspam's rows (its wide variant), and B2 (dense indexed) on the
+   covtype-shape shard, a few rounds of B = 64 ids each; B3
    (dense in-order) over one whole epoch of the covtype shard, and on
    a few rows for the other losses; B4 (block Gram) and B5 (Gram
    δ-recursion) on the webspam shape split into m = 4 feature shards,
    a few rounds of B = 64 ids per loss.  Each prints its max abs error
-   against the tolerance and its time per launch from CUDA events;
-   then the solver's kernel paths against their CPU paths on a small
-   input (1-D, and 2-D with the overlapped round);
+   against the tolerance and its time per launch from CUDA events; B1
+   and B4 are also launched twice on the same block and must give the
+   same bits.  B1's wide variant is also checked and timed at the rcv1
+   shape (``ms_before``: the design the staged variant replaced), and
+   B1 and B4 are timed once more without the spin (host-gated).  ``torch.profiler`` views 20 rounds of the rcv1 and the
+   webspam solve (wall time, device-busy time, idle share); then the
+   solver's kernel paths against their CPU paths on a small input (1-D,
+   and 2-D with the overlapped round);
 4. the main paths, each with every launch count set to 0 just before
    it and read just after: ``sharded_passcode_solve`` on rcv1
    (n = 677,399, d = 47,236, 73 nnz per row, hinge C = 1, B = 64,
@@ -29,10 +35,12 @@ result line):
    dense, C = 0.0625), the in-order epoch entry point ``ops.dcd_epoch``
    on covtype, and the 2-D solve on webspam (n = 280,000,
    d = 16,609,143, 3,728 nnz per row, hinge C = 1, B = 64, m = 4
-   feature shards, 2 epochs); each must go through its kernels, launch
-   them the expected number of times, and give finite duality gaps that
-   fall;
-5. one JSON line of per-kernel numbers, then the result line
+   feature shards, 2 epochs), and webspam's rows on the 1-D mesh (2
+   epochs, B1's wide variant); each must go through its kernels, launch
+   them (and each variant of B1) the expected number of times, and give
+   finite duality gaps that fall;
+5. one JSON line of per-kernel numbers (with each kernel's variant, and
+   B1's ``ms_before``), then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one.  Data comes from
@@ -56,6 +64,7 @@ EPOCHS = 3
 EPOCHS_2D = 2
 SHARDS = 4  # webspam's feature shards (the reference's model axis)
 DEVICE = "cuda"
+SPIN_CYCLES = 40_000_000  # about 20 ms at the H100's 1,980 MHz
 
 
 def fail(msg):
@@ -72,12 +81,20 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps, torch):
+def cuda_ms(fn, reps, torch, spin=True):
     """Mean device time of ``fn()`` over ``reps`` calls (CUDA events,
-    after one warm-up call)."""
+    after one warm-up call).  The timed calls queue behind a spin kernel
+    of about 20 ms, so the host's own time per call (Python, operand
+    checks, ctypes) does not gate the device: the events time the device
+    work of the calls alone, back to back.  ``spin=False`` times the
+    calls as they are issued, so a launch shorter than its wrapper's
+    host time is timed at the host's pace."""
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -95,6 +112,45 @@ def wall_ms(fn, reps, torch):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def same_bits(label, fn, torch):
+    """Launch ``fn`` twice on the same inputs; fail unless every output
+    has the same bits."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"  {label}: second launch bit-identical: {same}")
+    if not same:
+        fail(f"{label}: two launches on the same inputs differ")
+
+
+def profile_rounds(label, run, rounds, torch):
+    """Device time by kernel of ``run()`` (``rounds`` solver rounds)
+    under torch.profiler, against the rounds' wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / rounds
+    dev_us = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        if t > 0 and not ev.key.startswith("aten::"):
+            dev_us[ev.key[:40]] = dev_us.get(ev.key[:40], 0) + t
+    busy = sum(dev_us.values()) / 1e3 / rounds
+    print(f"  {label} round profile ({rounds} rounds): {wall:.4f} ms wall, "
+          f"{busy:.4f} ms device busy, idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}")
+    for key, t in sorted(dev_us.items(), key=lambda kv: -kv[1]):
+        print(f"    {t / 1e3 / rounds:.4f} ms per round  {key}")
+    if busy <= 0.0:
+        fail(f"{label}: the profiler saw no device time")
+
+
 def bound(n_bytes, n_ops):
     """The least time for the work: bytes over HBM bandwidth or float32
     operations over the float32 peak, whichever is larger."""
@@ -105,7 +161,6 @@ def bound(n_bytes, n_ops):
 
 def main():
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -114,6 +169,7 @@ def main():
     from repro_torch.core import duals
     from repro_torch.core.objective import duality_gap, predict_accuracy
     from repro_torch.core.sharded import (
+        _block_update_1d,
         _block_update_2d,
         _n_blocks,
         _scan_rounds,
@@ -121,7 +177,7 @@ def main():
     )
     from repro_torch.data.sparse import ell_column_split
     from repro_torch.data.synthetic import make_dataset, make_paper_split
-    from repro_torch.dist.mesh import solver_mesh_2d
+    from repro_torch.dist.mesh import dcd_ell_plan, gram_plan, solver_mesh_2d
     from repro_torch.kernels import build, dcd_feature as feat, ops
     from repro_torch.kernels.dcd_block import (
         dcd_indexed_epoch,
@@ -223,6 +279,44 @@ def main():
             X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i,
             active=act_r, y=y_r),
         zeros_r, ids_r[:2], ["hinge"]))
+    print(f"  B1 at the rcv1 shape: {dcd_ell_plan(B, k_r)}")
+    # the wide variant at the same shape, as the staged one's "before"
+    err_b1_before = compare(
+        "B1 dcd_ell wide at the rcv1 shape", lambda a, w, i, L: dcd_ell_epoch(
+            X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i,
+            wide=True),
+        lambda a, w, i, L: dcd_ell_epoch_plain(
+            X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i),
+        zeros_r, ids_r[:2], ["hinge"])
+    a_r0, w_r0 = zeros_r()
+    same_bits("B1 dcd_ell staged (rcv1, hinge, mask, labels)",
+              lambda: dcd_ell_epoch(X_rcv1.indices, X_rcv1.values, a_r0,
+                                    w_r0, q_r, loss=duals.Hinge(1.0),
+                                    idx=ids_r[0], active=act_r, y=y_r),
+              torch)
+
+    # B1's wide variant on webspam's rows (k = 3,728: a block too large
+    # to stage), the 1-D webspam path's shape
+    n_w1, k_w1, d_w1 = X_web.n_rows, X_web.k_max, X_web.n_features
+    q_w1 = X_web.row_sq_norms()
+    ids_w1 = blocks(n_w1, 2)
+    print(f"  B1 at webspam's rows: {dcd_ell_plan(B, k_w1)}")
+
+    def zeros_w1():
+        return (torch.zeros(n_w1, device=dev),
+                torch.zeros(d_w1 + 1, device=dev))
+
+    err_b1w = compare(
+        "B1 dcd_ell wide", lambda a, w, i, L: dcd_ell_epoch(
+            X_web.indices, X_web.values, a, w, q_w1, loss=L, idx=i),
+        lambda a, w, i, L: dcd_ell_epoch_plain(
+            X_web.indices, X_web.values, a, w, q_w1, loss=L, idx=i),
+        zeros_w1, ids_w1, losses)
+    a_w1, w_w1 = zeros_w1()
+    same_bits("B1 dcd_ell wide (webspam rows, hinge)",
+              lambda: dcd_ell_epoch(X_web.indices, X_web.values, a_w1, w_w1,
+                                    q_w1, loss=duals.Hinge(1.0),
+                                    idx=ids_w1[0]), torch)
 
     ids_c = blocks(n_c, 4)
 
@@ -281,9 +375,21 @@ def main():
     ms_b1 = cuda_ms(lambda: dcd_ell_epoch(
         X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
         idx=t_ids[next(it) % 64]), 50, torch)
+    # the design B1 had before its staged variant (the wide kernel) at
+    # the same shape, timed the same way
+    ms_b1_before = cuda_ms(lambda: dcd_ell_epoch(
+        X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
+        idx=t_ids[next(it) % 64], wide=True), 50, torch)
     plain_b1 = wall_ms(lambda: dcd_ell_epoch_plain(
         X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
         idx=t_ids[0]), 2, torch)
+    w_ids = blocks(n_w1, 16)
+    ms_b1w = cuda_ms(lambda: dcd_ell_epoch(
+        X_web.indices, X_web.values, a_w1, w_w1, q_w1, loss=hinge,
+        idx=w_ids[next(it) % 16]), 20, torch)
+    plain_b1w = wall_ms(lambda: dcd_ell_epoch_plain(
+        X_web.indices, X_web.values, a_w1, w_w1, q_w1, loss=hinge,
+        idx=w_ids[0]), 2, torch)
     a_c, w_c = zeros_c()
     c_ids = blocks(n_c, 64)
     ms_b2 = cuda_ms(lambda: dcd_indexed_epoch(
@@ -298,30 +404,39 @@ def main():
     # the axpy where the update scatters (every update from a cold
     # state in B1 and B2; the rows that moved in B3's epoch)
     by_b1 = 4 * (2 * n_r + 2 * (d_r + 1)) + B * (k_r * 8 + 2 * 4)
+    by_b1w = 4 * (2 * n_w1 + 2 * (d_w1 + 1)) + B * (k_w1 * 8 + 2 * 4)
     by_b2 = 4 * (2 * n_c + 2 * d_c) + B * (d_c * 4 + 2 * 4)
     by_b3 = 4 * (2 * n_c + 2 * d_c) + n_c * (d_c * 4 + 4)
-    for name, route_ms, pl_ms, by, ops_n, per, err, src, rep in [
-        ("dcd_ell", ms_b1, plain_b1, by_b1, 4 * B * k_r,
+    for name, variant, route_ms, pl_ms, by, ops_n, per, err, src, rep in [
+        ("dcd_ell", "staged", ms_b1, plain_b1, by_b1, 4 * B * k_r,
          f"rcv1 shape, {B} ids", err_b1,
          "src/repro_torch/kernels/csrc/dcd_ell.cu",
          "src/repro/kernels/dcd_ell.py:51"),
-        ("dcd_indexed", ms_b2, plain_b2, by_b2, 4 * B * d_c,
+        ("dcd_ell_wide", "wide", ms_b1w, plain_b1w, by_b1w, 4 * B * k_w1,
+         f"webspam rows, {B} ids", err_b1w,
+         "src/repro_torch/kernels/csrc/dcd_ell.cu",
+         "src/repro/kernels/dcd_ell.py:51"),
+        ("dcd_indexed", "single", ms_b2, plain_b2, by_b2, 4 * B * d_c,
          f"covtype shape, {B} ids", err_b2,
          "src/repro_torch/kernels/csrc/dcd_block.cu",
          "src/repro/kernels/dcd_block.py:100"),
-        ("dcd_tile", ms_b3, plain_b3, by_b3, 2 * d_c * (n_c + moved_b3),
-         f"covtype shard, {n_c} rows", err_b3,
+        ("dcd_tile", "single", ms_b3, plain_b3, by_b3,
+         2 * d_c * (n_c + moved_b3), f"covtype shard, {n_c} rows", err_b3,
          "src/repro_torch/kernels/csrc/dcd_block.cu",
          "src/repro/kernels/dcd_block.py:70"),
     ]:
         b_ms, b_by = bound(by, ops_n)
         results[name] = dict(name=name, route="cuda", source=src,
-                             replaces=rep, launches=0, max_abs_err=err,
-                             ms=route_ms, plain_ms=pl_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None)
+                             replaces=rep, variant=variant, launches=0,
+                             max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
         print(f"  {name} ({per}): {route_ms:.4f} ms per "
               f"launch, plain {pl_ms:.2f} ms, bound {b_ms:.6f} ms "
               f"({b_by}), no library call computes it")
+    results["dcd_ell"]["ms_before"] = ms_b1_before
+    print(f"  dcd_ell before its staged variant (the wide kernel at the rcv1 "
+          f"shape, {B} ids; max abs err {err_b1_before:.3g}): "
+          f"{ms_b1_before:.4f} ms per launch")
 
     # B4 and B5 at the webspam shape: the (n, 4, k_loc) split the 2-D
     # solve makes of it, a few rounds of B = 64 ids per loss, (α, w)
@@ -337,7 +452,9 @@ def main():
           f"{split_gb:.2f} GB")
     cols_w, vals_w = fse.indices, fse.values
     q_w = fse.row_sq_norms()
-    scratch = feat.gram_scratch(SHARDS, d1_w, dev)
+    ws = feat.gram_workspace(SHARDS, B, k_loc, d1_w, dev)
+    print(f"  B4 at the webspam split: {gram_plan(SHARDS, B, k_loc, d1_w)}; "
+          f"workspace {sum(t.numel() for t in ws) * 4 / 1e6:.2f} MB")
     ids_w = blocks(n_w, 4)
     act_w = (torch.rand(n_w, generator=gen, device=dev) > 0.2).float()
     y_w = torch.where(torch.rand(n_w, generator=gen, device=dev) > 0.5,
@@ -358,7 +475,7 @@ def main():
         e4 = 0.0
         for r in range(rounds):
             kb, kg = feat.dcd_feature_gram(cols_w, vals_w, kw, ids_w[r],
-                                           scratch=scratch)
+                                           workspace=ws)
             pb, pg = feat.dcd_feature_gram_plain(cols_w, vals_w, pw,
                                                  ids_w[r])
             e4 = max(e4, float((kb - pb).abs().max()),
@@ -378,17 +495,19 @@ def main():
         if not (e4 <= ATOL and e5 <= ATOL):
             fail(f"B4/B5 disagree with their plain versions ({what})")
         err_b4, err_b5 = max(err_b4, e4), max(err_b5, e5)
-    if float(scratch.abs().max()) != 0.0:
-        fail("B4 left its scratch dirty")
+    w_same = state_w()[1]
+    same_bits("B4 dcd_feature_gram (webspam split)",
+              lambda: feat.dcd_feature_gram(cols_w, vals_w, w_same, ids_w[0],
+                                            workspace=ws), torch)
 
     # times per launch at the main path's shape (hinge, B = 64 ids, from
     # α = 0 and a small w, where every update scatters)
     a_w, w_w = state_w()
     t_ids_w = blocks(n_w, 64)
     base_w, gram_w = ops.dcd_feature_gram(cols_w, vals_w, w_w, ids_w[0],
-                                          scratch=scratch)
+                                          workspace=ws)
     ms_b4 = cuda_ms(lambda: feat.dcd_feature_gram(
-        cols_w, vals_w, w_w, t_ids_w[next(it) % 64], scratch=scratch), 50,
+        cols_w, vals_w, w_w, t_ids_w[next(it) % 64], workspace=ws), 50,
         torch)
     plain_b4 = wall_ms(lambda: feat.dcd_feature_gram_plain(
         cols_w, vals_w, w_w, t_ids_w[0]), 2, torch)
@@ -398,6 +517,20 @@ def main():
     plain_b5 = wall_ms(lambda: feat.dcd_feature_update_plain(
         cols_w, vals_w, a_w, q_w, w_w, ids_w[0], base_w, gram_w,
         loss=hinge), 2, torch)
+    # the same calls timed as they are issued, without the spin (how the
+    # earlier times were taken): B1 staged and wide at the rcv1 shape, B4
+    gated = {
+        "B1 staged": cuda_ms(lambda: dcd_ell_epoch(
+            X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
+            idx=t_ids[next(it) % 64]), 50, torch, spin=False),
+        "B1 wide": cuda_ms(lambda: dcd_ell_epoch(
+            X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
+            idx=t_ids[next(it) % 64], wide=True), 50, torch, spin=False),
+        "B4": cuda_ms(lambda: feat.dcd_feature_gram(
+            cols_w, vals_w, w_w, t_ids_w[next(it) % 64], workspace=ws), 50,
+            torch, spin=False)}
+    print("  host-gated ms per launch (no spin): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in gated.items()))
 
     # B4's library yardstick: each shard's block as a (B, d_loc + 1)
     # sparse matrix times its transpose, torch.sparse.mm, built outside
@@ -423,11 +556,11 @@ def main():
              + 4 * SHARDS * (B + B * B))
     by_b5 = (8 * n_w + 8 * SHARDS * d1_w + 4 * B * SHARDS * k_loc
              + 4 * nnz5 + 12 * B + 4 * B * B)
-    for name, route_ms, pl_ms, lib_ms, by, ops_n, per, err, rep in [
-        ("dcd_feature_gram", ms_b4, plain_b4, lib_b4, by_b4,
-         2 * B * nnz4 + 2 * nnz4, f"webspam shards, {B} ids", err_b4,
+    for name, variant, route_ms, pl_ms, lib_ms, by, ops_n, per, err, rep in [
+        ("dcd_feature_gram", "column-class", ms_b4, plain_b4, lib_b4,
+         by_b4, 2 * B * nnz4 + 2 * nnz4, f"webspam shards, {B} ids", err_b4,
          "src/repro/kernels/dcd_feature.py:60"),
-        ("dcd_feature_update", ms_b5, plain_b5, None, by_b5,
+        ("dcd_feature_update", "single", ms_b5, plain_b5, None, by_b5,
          2 * nnz5 + B * B, f"webspam shards, {B} ids", err_b5,
          "src/repro/kernels/dcd_feature.py:106"),
     ]:
@@ -435,41 +568,31 @@ def main():
         results[name] = dict(name=name, route="cuda",
                              source="src/repro_torch/kernels/csrc/"
                                     "dcd_feature.cu",
-                             replaces=rep, launches=0, max_abs_err=err,
-                             ms=route_ms, plain_ms=pl_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms)
+                             replaces=rep, variant=variant, launches=0,
+                             max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         lib = ("no library call computes it" if lib_ms is None
                else f"torch.sparse.mm {lib_ms:.4f} ms")
         print(f"  {name} ({per}): {route_ms:.4f} ms per launch, plain "
               f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
-    # where a webspam round's time goes: 20 rounds of the solver's fused
-    # 2-D engine (B4, the sum over shards, B5, the Δw round trip) under
-    # torch.profiler; device time by kernel against the rounds' wall time
+    # where a round's time goes: 20 rounds of the solver's fused 2-D
+    # engine on webspam (B4, the sum over shards, B5, the Δw round trip)
+    # and of its 1-D engine on rcv1 (B1 and the wrapper's copies, Δw and
+    # w + Δw), under torch.profiler
     engine = functools.partial(
-        _block_update_2d(hinge, True, scratch), cols_w, vals_w, q_w)
+        _block_update_2d(hinge, True, ws), cols_w, vals_w, q_w)
     w_p = torch.zeros_like(w_w)
     _scan_rounds(engine, a_w, w_p, w_p, t_ids_w[:2], 0)  # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _scan_rounds(engine, a_w, w_p, w_p, t_ids_w[:20], 0)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / 20
-    dev_us = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0))
-        if t > 0 and not ev.key.startswith("aten::"):
-            dev_us[ev.key[:40]] = dev_us.get(ev.key[:40], 0) + t
-    busy = sum(dev_us.values()) / 1e3 / 20
-    print(f"  webspam round profile (20 fused rounds): {wall:.4f} ms wall, "
-          f"{busy:.4f} ms device busy, idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}")
-    for key, t in sorted(dev_us.items(), key=lambda kv: -kv[1]):
-        print(f"    {t / 1e3 / 20:.4f} ms per round  {key}")
-    del fse, cols_w, vals_w, q_w, scratch, mats, a_w, w_w, ka, kw, pa, pw
-    del engine, w_p, prof
+    profile_rounds("webspam (2-D, fused)", lambda: _scan_rounds(
+        engine, a_w, w_p, w_p, t_ids_w[:20], 0), 20, torch)
+    engine_1d = functools.partial(
+        _block_update_1d(hinge, True), (X_rcv1.indices, X_rcv1.values), q_r)
+    a_p, w_p1 = zeros_r()
+    _scan_rounds(engine_1d, a_p, w_p1, w_p1, t_ids[:2], 0)  # warm
+    profile_rounds("rcv1 (1-D, B1 staged)", lambda: _scan_rounds(
+        engine_1d, a_p, w_p1, w_p1, t_ids[:20], 0), 20, torch)
+    del fse, cols_w, vals_w, q_w, ws, mats, a_w, w_w, ka, kw, pa, pw
+    del engine, w_p, w_same, a_w1, w_w1
     torch.cuda.empty_cache()
 
     # the solver's kernel path against its CPU path on a small input
@@ -504,27 +627,35 @@ def main():
         fail("the solver's 2-D kernel path disagrees with its CPU path")
 
     # ----------------------------------------------------- 4. main paths
-    counters = {"dcd_ell": dcd_ell_epoch, "dcd_indexed": dcd_indexed_epoch,
-                "dcd_tile": dcd_tile_epoch,
-                "dcd_feature_gram": feat.dcd_feature_gram,
-                "dcd_feature_update": feat.dcd_feature_update}
+    # each kernel's launch count; B1's two variants count apart
+    counters = {"dcd_ell": (dcd_ell_epoch, "staged"),
+                "dcd_ell_wide": (dcd_ell_epoch, "wide"),
+                "dcd_indexed": (dcd_indexed_epoch, None),
+                "dcd_tile": (dcd_tile_epoch, None),
+                "dcd_feature_gram": (feat.dcd_feature_gram, None),
+                "dcd_feature_update": (feat.dcd_feature_update, None)}
+
+    def launches(f, variant):
+        return f.variant_launches[variant] if variant else f.launches
 
     def run_path(label, want, fn):
         """Run one main path with every launch count set to 0 just before
         it; read the counts just after and hold them to ``want`` (every
         other kernel: 0 launches)."""
-        for f in counters.values():
+        for f, _ in counters.values():
             f.launches = 0
+            for v in getattr(f, "variant_launches", {}):
+                f.variant_launches[v] = 0
         fn()
-        for name, f in counters.items():
-            expect = want.get(name, 0)
+        for name, (f, variant) in counters.items():
+            got, expect = launches(f, variant), want.get(name, 0)
             if name in want:
-                results[name]["launches"] = f.launches
-                print(f"  launches {name} ({label}): {f.launches} (expected "
+                results[name]["launches"] = got
+                print(f"  launches {name} ({label}): {got} (expected "
                       f"{expect})")
-            if f.launches != expect:
-                fail(f"{label}: {name} launched {f.launches} times, "
-                     f"expected {expect}")
+            if got != expect:
+                fail(f"{label}: {name} launched {got} times, expected "
+                     f"{expect}")
 
     def solve(label, X, loss, n, epochs, accuracy=True, **kw):
         torch.cuda.synchronize()
@@ -578,6 +709,11 @@ def main():
              lambda: solve("webspam (2-D, B4 + B5)", X_web, duals.Hinge(1.0),
                            X_web.n_rows, EPOCHS_2D, accuracy=False,
                            mesh=solver_mesh_2d(model=SHARDS)))
+    nb_w1 = EPOCHS_2D * _n_blocks(n_w1, B)
+    run_path("webspam 1-D", {"dcd_ell_wide": nb_w1},
+             lambda: solve("webspam (1-D, ELL, B1 wide)", X_web,
+                           duals.Hinge(1.0), n_w1, EPOCHS_2D,
+                           accuracy=False))
 
     # ---------------------------------------------------------- 5. result
     print(json.dumps({"kernels": list(results.values())}))

@@ -82,7 +82,7 @@ from repro_torch.dist.mesh import (
     resolve_device,
     solver_mesh_2d,
 )
-from repro_torch.kernels.dcd_feature import gram_scratch
+from repro_torch.kernels.dcd_feature import gram_workspace
 from repro_torch.kernels.ops import (
     dcd_block_update,
     dcd_ell_block_update,
@@ -165,7 +165,7 @@ def _local_block_update_feature(cols, vals, sq_norms, alpha, w, idx_block,
     return alpha, w_cur - w
 
 
-def _block_update_2d(loss, fused: bool, scratch):
+def _block_update_2d(loss, fused: bool, workspace):
     """The 2-D block engine (eager composition; the overlapped round
     drives the split phases directly)."""
 
@@ -173,7 +173,7 @@ def _block_update_2d(loss, fused: bool, scratch):
         if fused:
             return dcd_feature_block_update(cols, vals, sq_norms, alpha,
                                             w_eff, idx_block, loss=loss,
-                                            scratch=scratch)
+                                            workspace=workspace)
         return _local_block_update_feature(cols, vals, sq_norms, alpha,
                                            w_eff, idx_block, loss)
 
@@ -227,12 +227,12 @@ def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
     return alpha_loc, w_loc, dw_prev
 
 
-def _overlap_round_fns(cols, vals, sq_norms, loss, scratch):
+def _overlap_round_fns(cols, vals, sq_norms, loss, workspace):
     """The three split phases of the fused 2-D block round, bound to the
     resident slices (``repro_torch.kernels.ops`` entry points)."""
 
     def gram_fn(w_ref, idx):
-        return dcd_feature_gram(cols, vals, w_ref, idx, scratch=scratch)
+        return dcd_feature_gram(cols, vals, w_ref, idx, workspace=workspace)
 
     def corr_fn(dvec, idx):
         return dcd_feature_base_correction(cols, vals, dvec, idx)
@@ -606,11 +606,13 @@ def _rounds_2d(setup: SolverSetup, draw, w0):
     fused engine) or overlapped, whose in-flight (base, Gram) is carried
     across epochs — its prologue is the first block's, against ``w0``."""
     cols, vals = setup.X
-    scratch = None
+    workspace = None
     if setup.fused and setup.device.type == "cuda":
-        scratch = gram_scratch(setup.m, setup.w_shape[1], setup.device)
+        workspace = gram_workspace(setup.m, setup.block_size,
+                                   cols.shape[2], setup.w_shape[1],
+                                   setup.device)
     if not setup.overlap:
-        bu = _block_update_2d(setup.loss, setup.fused, scratch)
+        bu = _block_update_2d(setup.loss, setup.fused, workspace)
         engine = functools.partial(bu, cols, vals, setup.sq_norms)
 
         def rounds(e, alpha, w, dw):
@@ -618,7 +620,8 @@ def _rounds_2d(setup: SolverSetup, draw, w0):
                                 setup.delay_rounds)
 
         return rounds
-    fns = _overlap_round_fns(cols, vals, setup.sq_norms, setup.loss, scratch)
+    fns = _overlap_round_fns(cols, vals, setup.sq_norms, setup.loss,
+                             workspace)
     carry = {"inflight": fns[0](w0, draw(0)[0])}
 
     def rounds(e, alpha, w, dw):

@@ -10,19 +10,27 @@ axis becomes m virtual feature shards, a leading tensor dimension.
 round.  ``lane_pad`` and ``cta_threads`` size a kernel's thread block.
 The reference's 128-lane padding of d and k is TPU tiling, not
 semantics: the CUDA kernels take any width, so the port pads nothing but
-the thread count, which rounds up to whole warps.  Nor does the
-reference's VMEM admission (``dcd_feature_kernel_fits``) carry over: a
-shape the kernels do not take makes their wrapper raise.
+the thread count, which rounds up to whole warps.
+
+The reference admits a shape to a kernel by its VMEM footprint
+(``*_kernel_fits``); the port's counterparts size the kernels' shared
+memory against the 227 KB one CTA can use on Hopper: ``dcd_ell_plan``
+picks B1's variant (the block staged in shared memory, or the wide
+kernel that reads its rows from device memory) and ``gram_plan`` lays
+out B4's column classes, CTAs and workspace.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 WARP = 32
 MAX_CTA_THREADS = 256
+SMEM_PER_CTA = 232_448  # bytes of shared memory one CTA can use (H100)
+STATIC_SMEM = 1024  # bound on a kernel's static shared memory beside it
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,6 +54,111 @@ def cta_threads(width: int, most: int = MAX_CTA_THREADS) -> int:
     entries: one thread per entry, in whole warps, at most ``most``
     (wider rows loop)."""
     return min(lane_pad(max(int(width), 1)), int(most))
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+# B1 staged: ids per block it takes (its repeat scan is O(B²) per block)
+# and the CTA that stages the block (its prologue and epilogue run on all
+# threads, the updates on one warp of them, which holds a row of at most
+# ELL_STAGED_MAX_SLOTS in registers).
+ELL_STAGED_MAX_IDS = 1024
+ELL_STAGED_THREADS = 512
+ELL_ENTRIES_PER_LANE = 4  # row entries per lane of the update warp
+ELL_STAGED_MAX_SLOTS = WARP * ELL_ENTRIES_PER_LANE
+
+
+class EllPlan(NamedTuple):
+    """B1's launch for a block of ``b`` ids over rows of ``k`` slots:
+    ``variant`` "staged" (the block's rows, a column table of
+    ``table_slots`` entries and the ids' α, q, y, act in shared memory)
+    or "wide" (rows and w in device memory, one update at a time across
+    ``threads``).  ``smem_bytes`` is the staged kernel's dynamic shared
+    memory (0 for wide)."""
+
+    variant: str
+    threads: int
+    table_slots: int
+    smem_bytes: int
+
+
+def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
+    """Shared memory of B1's staged kernel: the column table (key and w
+    per slot), the block's b·k (slot, value) pairs, and eight b-word id
+    arrays (id, α, q, y, act, running α, previous occurrence, repeated
+    column)."""
+    return 8 * table_slots + 8 * b * k + 32 * b
+
+
+@functools.lru_cache(maxsize=64)
+def dcd_ell_plan(b: int, k: int, wide: bool = False) -> EllPlan:
+    """Pick B1's variant for a block of ``b`` ids over rows of ``k``
+    slots, by shape.  The column table has a power-of-two size of at
+    least 1.5 slots per entry (a load ≤ 2/3 under linear probing: every
+    real entry may be a distinct column).  The block takes the staged
+    kernel when it holds at most ``ELL_STAGED_MAX_IDS`` ids, its rows at
+    most ``ELL_STAGED_MAX_SLOTS`` slots (the update warp keeps a row in
+    registers) and it fits the 227 KB of shared memory one CTA can use;
+    else, or when ``wide`` asks for it, the wide kernel."""
+    b, k = max(int(b), 1), max(int(k), 1)
+    slots = max(WARP, _pow2_at_least(-(-3 * b * k // 2)))
+    need = dcd_ell_staged_bytes(b, k, slots)
+    if (not wide and b <= ELL_STAGED_MAX_IDS and k <= ELL_STAGED_MAX_SLOTS
+            and need <= SMEM_PER_CTA - STATIC_SMEM):
+        return EllPlan("staged", ELL_STAGED_THREADS, slots, need)
+    return EllPlan("wide", cta_threads(k), 0, 0)
+
+
+# B4: a shard's columns fall into R classes (column c → class c mod R, so
+# the zipf-hot low ids spread over all classes), one CTA each; every class
+# of every shard writes a (B, B) partial Gram, so R is bounded by the
+# partial Grams' words, by one class per GRAM_CLASS_COLS columns (a narrow
+# shard needs few) and by the bucket pass's per-warp class counts.
+GRAM_PARTIAL_WORDS = 1 << 21
+GRAM_CLASS_COLS = 64
+GRAM_MAX_CLASSES = 512
+GRAM_CHUNK = 1024  # entries of a class staged in shared memory at once
+GRAM_TABLE_SLOTS = 2048  # the chunk's column table (≥ 2 slots an entry)
+GRAM_WALKERS = 2  # interleaved walkers of each column t of G
+GRAM_THREADS = 64 * GRAM_WALKERS  # 64 columns t of G per CTA
+GRAM_BUCKET_THREADS = 512
+GRAM_TILE_WORDS = 4096  # G accumulator words per walker (B × tile)
+
+
+class GramPlan(NamedTuple):
+    """B4's launch for m shards of d1 = d_loc + 1 words, a block of b
+    ids and rows of k slots: ``classes`` column classes (one CTA per
+    class and shard, and per tile of ``tile`` of G's columns, ``tiles``
+    tiles), and the shared memory of the bucket pass and the Gram kernel
+    in bytes."""
+
+    classes: int
+    tile: int
+    tiles: int
+    bucket_smem: int
+    gram_smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def gram_plan(m: int, b: int, k: int, d1: int) -> GramPlan:
+    """Lay out B4 for a block of ``b`` ids over ``m`` shards of ``d1``
+    words and rows of ``k`` slots.  Raises if a row is too long for the
+    bucket pass to stage in shared memory."""
+    m, b, k, d1 = int(m), int(b), int(k), int(d1)
+    classes = max(1, min(GRAM_PARTIAL_WORDS // (m * b * b),
+                         -(-d1 // GRAM_CLASS_COLS), GRAM_MAX_CLASSES))
+    tile = max(1, min(b, 64, GRAM_TILE_WORDS // b))
+    tiles = -(-b // tile)
+    bucket = 4 * (GRAM_BUCKET_THREADS // WARP) * classes + 8 * k
+    gram = (12 * GRAM_TABLE_SLOTS + 24 * GRAM_CHUNK + 4 * (2 * b + 1)
+            + 4 * GRAM_WALKERS * b * tile)
+    if bucket > SMEM_PER_CTA - STATIC_SMEM:
+        raise ValueError(f"rows of {k} slots are too long for B4: its "
+                         f"bucket pass stages a row in {bucket} bytes of "
+                         f"shared memory, more than {SMEM_PER_CTA}")
+    return GramPlan(classes, tile, tiles, bucket, gram)
 
 
 class SolverMesh(NamedTuple):

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -101,7 +102,11 @@ def build(names=SOURCES, *, report: bool = False) -> dict[str, str]:
 def entry(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry ``fn`` of library ``name``, built and loaded at first
     use, with its argument types set (pointers and the stream as
-    ``c_void_p``, so ctypes never cuts them to 32 bits)."""
+    ``c_void_p``, so ctypes never cuts them to 32 bits) at its first
+    lookup; later lookups return it as it is."""
+    f = _entries.get((name, fn))
+    if f is not None:
+        return f
     if name not in _loaded:
         path = lib_path(name)
         if not path.exists():
@@ -110,6 +115,7 @@ def entry(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
     f = getattr(_loaded[name], fn)
     f.argtypes = argtypes
     f.restype = ctypes.c_int
+    _entries[(name, fn)] = f
     return f
 
 

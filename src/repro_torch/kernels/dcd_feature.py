@@ -24,25 +24,35 @@ the shards:
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.  B4
-needs a zeroed scratch of ``GRAM_SPLIT``·m·d1 words in device memory
-(``gram_scratch``), which it leaves zeroed; the solver allocates it once
-per solve.
+buckets the block's entries by column class into a workspace
+(``gram_workspace``: the bucketed entries, each row's class offsets and
+the per-class partial Grams, about 15 MB at webspam), which the solver
+allocates once per solve; its layout is ``repro_torch.dist.mesh.
+gram_plan``'s.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.duals import kernel_params
 from repro_torch.data.sparse import flat_shard_ids
-from repro_torch.dist.mesh import cta_threads
+from repro_torch.dist.mesh import (
+    GRAM_BUCKET_THREADS,
+    GRAM_CHUNK,
+    GRAM_TABLE_SLOTS,
+    GRAM_THREADS,
+    cta_threads,
+    gram_plan,
+)
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, P
 
 MAX_BLOCK = 1024  # B5 keeps three B-word arrays in shared memory
-GRAM_SPLIT = 32  # B4's CTAs per shard, each with its own scratch
-# threads per CTA: the rows are long (k_loc ≈ 3,100 at webspam), and
-# more warps keep more of B4's dependent gathers and B5's scatter in flight
+# B5's threads per CTA: the rows are long (k_loc ≈ 3,100 at webspam), and
+# more warps keep more of its scatter in flight
 MAX_THREADS = 1024
 
 
@@ -68,10 +78,31 @@ def dcd_feature_gram_plain(cols, vals, w, idx):
     return base, gram
 
 
-def gram_scratch(m: int, d1: int, device) -> torch.Tensor:
-    """B4's scratch: ``GRAM_SPLIT`` zeroed (m, d1) slices."""
-    return torch.zeros((GRAM_SPLIT, m, d1), dtype=torch.float32,
-                       device=device)
+class GramWorkspace(NamedTuple):
+    """B4's device workspace for blocks of b ids over (n, m, k) slices
+    of d1-word shards: each block row's real entries bucketed by column
+    class (local column ``lc`` and value ``v``, (m, b, k)), each row's
+    class offsets ((m, b, R + 1)), and the per-class partial Grams
+    ((m, R, b, b); empty when there is one class)."""
+
+    lc: torch.Tensor
+    v: torch.Tensor
+    roff: torch.Tensor
+    part: torch.Tensor
+
+
+def gram_workspace(m: int, b: int, k: int, d1: int,
+                   device) -> GramWorkspace:
+    """Allocate B4's workspace for blocks of ``b`` ids (uninitialised:
+    every launch writes what it reads)."""
+    plan = gram_plan(m, b, k, d1)
+    parts = plan.classes if plan.classes > 1 else 0
+    return GramWorkspace(
+        torch.empty((m, b, k), dtype=torch.int32, device=device),
+        torch.empty((m, b, k), dtype=torch.float32, device=device),
+        torch.empty((m, b, plan.classes + 1), dtype=torch.int32,
+                    device=device),
+        torch.empty((m, parts, b, b), dtype=torch.float32, device=device))
 
 
 def _check_block(cols, vals, w, idx):
@@ -83,33 +114,44 @@ def _check_block(cols, vals, w, idx):
                          f"{idx.shape[0]}")
 
 
-def dcd_feature_gram(cols, vals, w, idx, *, scratch=None):
+def dcd_feature_gram(cols, vals, w, idx, *, workspace=None):
     """Every shard's partial (base, Gram) of the block ``idx`` (int32 row
     ids in [0, n), repeats allowed) against the primal slices ``w``.
-    CUDA tensors launch B4 (grid m × ``GRAM_SPLIT``, counted in
-    ``dcd_feature_gram.launches``) with ``scratch`` (``gram_scratch``;
-    allocated for this call when None); CPU tensors run the plain
-    version.  Returns (base_p (m, B), gram_p (m, B, B))."""
+    CUDA tensors launch B4 (its bucket, Gram and reduction kernels,
+    counted once in ``dcd_feature_gram.launches``) with ``workspace``
+    (``gram_workspace`` for this shape; allocated for this call when
+    None); CPU tensors run the plain version.  Returns (base_p (m, B),
+    gram_p (m, B, B))."""
     if w.device.type != "cuda":
         return dcd_feature_gram_plain(cols, vals, w, idx)
     _check_block(cols, vals, w, idx)
     n, m, k = cols.shape
     d1, b = w.shape[1], idx.shape[0]
-    if scratch is None:
-        scratch = gram_scratch(m, d1, w.device)
+    plan = gram_plan(m, b, k, d1)
+    if workspace is None:
+        workspace = gram_workspace(m, b, k, d1, w.device)
+    parts = plan.classes if plan.classes > 1 else 0
     build.check_operands(w.device, {
         "cols": (cols, None), "vals": (vals, (n, m, k)), "w": (w, None),
-        "idx": (idx, None), "scratch": (scratch, (GRAM_SPLIT, m, d1))},
-        int32=("cols", "idx"))
+        "idx": (idx, None), "lc": (workspace.lc, (m, b, k)),
+        "v": (workspace.v, (m, b, k)),
+        "roff": (workspace.roff, (m, b, plan.classes + 1)),
+        "part": (workspace.part, (m, parts, b, b))},
+        int32=("cols", "idx", "lc", "roff"))
     base_p = torch.empty((m, b), dtype=torch.float32, device=w.device)
     gram_p = torch.empty((m, b, b), dtype=torch.float32, device=w.device)
     launch = build.entry("dcd_feature", "dcd_feature_gram_launch",
-                         [P, I, P, P, I, I, I, P, I, P, I, P, P, I, P])
+                         [P, I, P, P, I, I, I, P, I, I, I, I, I, I, I, I,
+                          I, I, P, P, P, P, P, P, P])
     with torch.cuda.device(w.device):
         err = launch(build.ptr(idx), b, build.ptr(cols), build.ptr(vals), m,
-                     k, d1 - 1, build.ptr(w), d1, build.ptr(scratch),
-                     GRAM_SPLIT, build.ptr(base_p), build.ptr(gram_p),
-                     cta_threads(k, MAX_THREADS), build.stream())
+                     k, d1 - 1, build.ptr(w), d1, plan.classes, plan.tile,
+                     plan.tiles, GRAM_CHUNK, GRAM_TABLE_SLOTS,
+                     GRAM_BUCKET_THREADS, plan.bucket_smem, GRAM_THREADS,
+                     plan.gram_smem, build.ptr(workspace.lc),
+                     build.ptr(workspace.v), build.ptr(workspace.roff),
+                     build.ptr(workspace.part), build.ptr(base_p),
+                     build.ptr(gram_p), build.stream())
     build.check(err, "dcd_feature_gram_launch")
     dcd_feature_gram.launches += 1
     return base_p, gram_p

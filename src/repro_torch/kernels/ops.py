@@ -105,14 +105,14 @@ def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
 # slices; see repro_torch.kernels.dcd_feature.
 
 
-def dcd_feature_gram(cols, vals, w_ref, idx, *, scratch=None):
+def dcd_feature_gram(cols, vals, w_ref, idx, *, workspace=None):
     """Phase 1: the block's (base, Gram) — B4's per-shard partials summed
     over the shard dimension, the reference's psum over ``model``.
     ``base`` is w_refᵀx_t against whatever reference primal the caller
     holds (one data-round stale in the overlapped round, repaired by
     ``dcd_feature_base_correction``).  Returns (base (B,), gram (B, B))."""
     base_p, gram_p = feat.dcd_feature_gram(cols, vals, w_ref, idx,
-                                           scratch=scratch)
+                                           workspace=workspace)
     return base_p.sum(0), gram_p.sum(0)
 
 
@@ -136,12 +136,12 @@ def dcd_feature_update(cols, vals, sq_norms, alpha, w, idx, base, gram, *,
 
 
 def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
-                             active=None, y=None, scratch=None):
+                             active=None, y=None, workspace=None):
     """One indexed block of B sequential DCD updates on the feature
     shards — the fused counterpart of the solver's unfused engine, the
     eager composition of the phases above.  Returns (updated α, Δw =
     w_new − w over the (m, d_loc + 1) slices)."""
-    base, gram = dcd_feature_gram(cols, vals, w, idx, scratch=scratch)
+    base, gram = dcd_feature_gram(cols, vals, w, idx, workspace=workspace)
     a_new, w_new = dcd_feature_update(cols, vals, sq_norms, alpha, w, idx,
                                       base, gram, loss=loss, active=active,
                                       y=y)

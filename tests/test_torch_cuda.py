@@ -22,7 +22,12 @@ from repro_torch.kernels.dcd_block import (
     dcd_tile_epoch_plain,
 )
 from repro_torch.data.sparse import ell_column_split
-from repro_torch.dist.mesh import solver_mesh_2d
+from repro_torch.dist.mesh import (
+    GRAM_CHUNK,
+    dcd_ell_plan,
+    gram_plan,
+    solver_mesh_2d,
+)
 from repro_torch.kernels import dcd_feature as feat
 from repro_torch.kernels.dcd_ell import dcd_ell_epoch, dcd_ell_epoch_plain
 
@@ -52,31 +57,98 @@ def _state(rng, n, w_len, dev):
     return [torch.from_numpy(a).to(dev) for a in (alpha, w, active, y, idx)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("loss", LOSSES)
-def test_b1_kernel_matches_plain(loss):
-    dev = _cuda()
-    rng = np.random.default_rng(5)
-    n, d, k = 200, 300, 37
+def _ell_case(dev, n, d, k, b, seed=5, repeat_col=True, unit_rows=False):
+    """Ragged ELL rows (trailing padding id d) of 0.3·N(0, 1) values, or
+    with ``unit_rows`` 0.3·N(0, 1)/√nnz (rows of about 0.3 in norm
+    whatever their width), a row that repeats a column (row 5, if
+    ``repeat_col``), and a block of ``b`` ids with repeats."""
+    rng = np.random.default_rng(seed)
     cols = np.full((n, k), d, np.int32)
     vals = np.zeros((n, k), np.float32)
     for i in range(n):
         nnz = rng.integers(1, k + 1)
         cols[i, :nnz] = rng.choice(d, nnz, replace=False)
         vals[i, :nnz] = rng.standard_normal(nnz) * 0.3
-    cols[5, 1] = cols[5, 0]  # a repeated column accumulates
-    cols, vals = torch.from_numpy(cols).to(dev), torch.from_numpy(vals).to(dev)
-    alpha, w, active, y, idx = _state(rng, n, d + 1, dev)
+        if unit_rows:
+            vals[i, :nnz] /= np.sqrt(nnz)
+    if repeat_col:
+        cols[5, 1] = cols[5, 0]  # a repeated column accumulates
+    alpha, w, active, y, _ = _state(rng, n, d + 1, dev)
     w[d] = 0.0
-    kw = dict(loss=td.make_loss(loss, 0.8), idx=idx, active=active, y=y)
+    idx = rng.permutation(n)[:b].astype(np.int32)
+    idx[[1, b - 1]] = [5, idx[0]]  # row 5, and a repeated id
+    cols, vals = torch.from_numpy(cols).to(dev), torch.from_numpy(vals).to(dev)
+    return cols, vals, alpha, w, active, y, torch.from_numpy(idx).to(dev)
+
+
+# (n, d, k, b), the variant dcd_ell_plan must pick, and whether the rows
+# are scaled to unit width: rows wider than a warp; rows of 128 slots,
+# the most the staged kernel's update warp holds; rows wider than 1,024
+# slots (scaled, so that their wx and q stay on the narrow rows' scale);
+# and a block too large to stage
+ELL_CASES = {"staged": ((200, 300, 37, 198), "staged", False),
+             "staged_128_slot_rows": ((200, 3000, 128, 64), "staged", False),
+             "wide_1100_slot_rows": ((40, 5000, 1100, 4), "wide", True),
+             "wide": ((200, 3000, 400, 64), "wide", False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("case", sorted(ELL_CASES))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b1_kernel_matches_plain(loss, case, masked):
+    dev = _cuda()
+    shape, variant, unit_rows = ELL_CASES[case]
+    cols, vals, alpha, w, active, y, idx = _ell_case(dev, *shape,
+                                                     unit_rows=unit_rows)
+    d = shape[1]
+    assert dcd_ell_plan(idx.shape[0], cols.shape[1]).variant == variant
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=idx)
+    if masked:
+        kw.update(active=active, y=y)
     q = (vals * vals).sum(1)
-    n0 = dcd_ell_epoch.launches
+    n0 = (dcd_ell_epoch.launches, dcd_ell_epoch.variant_launches[variant])
     ka, kwv = dcd_ell_epoch(cols, vals, alpha, w, q, **kw)
-    assert dcd_ell_epoch.launches == n0 + 1
+    assert (dcd_ell_epoch.launches,
+            dcd_ell_epoch.variant_launches[variant]) == (n0[0] + 1, n0[1] + 1)
     pa, pw = dcd_ell_epoch_plain(cols, vals, alpha, w, q, **kw)
     _close(ka, pa)
     _close(kwv, pw)
     assert float(kwv[d]) == 0.0  # the dummy slot stays exactly 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ELL_CASES))
+def test_b1_kernel_is_deterministic(case):
+    """No row repeats a column: a second launch gives the same bits."""
+    dev = _cuda()
+    shape, _, unit_rows = ELL_CASES[case]
+    cols, vals, alpha, w, active, y, idx = _ell_case(
+        dev, *shape, repeat_col=False, unit_rows=unit_rows)
+    q = (vals * vals).sum(1)
+    kw = dict(loss=td.Hinge(0.8), idx=idx, active=active, y=y)
+    first = dcd_ell_epoch(cols, vals, alpha, w, q, **kw)
+    second = dcd_ell_epoch(cols, vals, alpha, w, q, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["staged", "staged_128_slot_rows"])
+def test_b1_variants_agree(case):
+    """The wide variant, asked for at a shape the staged one takes, gives
+    the same (α, w) within the tolerance."""
+    dev = _cuda()
+    shape = ELL_CASES[case][0]
+    cols, vals, alpha, w, active, y, idx = _ell_case(dev, *shape)
+    q = (vals * vals).sum(1)
+    kw = dict(loss=td.Hinge(0.8), idx=idx, active=active, y=y)
+    n0 = dict(dcd_ell_epoch.variant_launches)
+    sa, sw = dcd_ell_epoch(cols, vals, alpha, w, q, **kw)
+    wa, ww = dcd_ell_epoch(cols, vals, alpha, w, q, wide=True, **kw)
+    assert dcd_ell_epoch.variant_launches == {
+        "staged": n0["staged"] + 1, "wide": n0["wide"] + 1}
+    _close(sa, wa)
+    _close(sw, ww)
 
 
 @pytest.mark.cuda
@@ -124,44 +196,50 @@ def test_solver_kernel_path_matches_cpu_path(ell):
         sharded_passcode_solve(X.to(dev), td.Hinge(), use_kernel=False, **kw)
 
 
-def _feature_case(dev, n=300, m=3, k=40, d_loc=500, b=48, seed=7):
+def _feature_case(dev, n=300, m=3, k=40, d_loc=500, b=48, seed=7,
+                  repeat_col=True, col_step=1):
     """Shard-local ELL slices with ragged rows (trailing padding id
-    d_loc), a repeated column, primal slices with zero dummy slots, and a
-    block with repeated ids."""
+    d_loc), a repeated column (unless ``repeat_col`` is False), primal
+    slices with zero dummy slots, and a block with repeated ids (when it
+    has room).  Columns are drawn from the multiples of ``col_step``."""
     rng = np.random.default_rng(seed)
     cols = np.full((n, m, k), d_loc, np.int32)
     vals = np.zeros((n, m, k), np.float32)
+    pool = np.arange(0, d_loc, col_step)
     for i in range(n):
         for j in range(m):
-            nnz = rng.integers(0, k + 1)
-            cols[i, j, :nnz] = rng.choice(d_loc, nnz, replace=False)
+            nnz = rng.integers(0, min(k, pool.size) + 1)
+            cols[i, j, :nnz] = rng.choice(pool, nnz, replace=False)
             vals[i, j, :nnz] = rng.standard_normal(nnz) * 0.1
-    cols[5, 1, 1] = cols[5, 1, 0]  # a repeated column accumulates
+    if repeat_col:
+        cols[5, 1, 1] = cols[5, 1, 0]  # a repeated column accumulates
     w = (rng.standard_normal((m, d_loc + 1)) * 0.05).astype(np.float32)
     w[:, d_loc] = 0.0
     idx = rng.permutation(n)[:b].astype(np.int32)
-    idx[[7, 20, 21]] = [5, idx[3], 5]
+    if b > 21:
+        idx[[7, 20, 21]] = [5, idx[3], 5]
     return [torch.from_numpy(a).to(dev) for a in (cols, vals, w, idx)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "plain"])
 @pytest.mark.parametrize("loss", LOSSES)
-def test_b4_b5_kernels_match_plain(loss):
+def test_b4_b5_kernels_match_plain(loss, masked):
     dev = _cuda()
     cols, vals, w, idx = _feature_case(dev)
-    m, d1 = w.shape
-    scratch = feat.gram_scratch(m, d1, dev)
+    n, m, k = cols.shape
+    ws = feat.gram_workspace(m, idx.shape[0], k, w.shape[1], dev)
     n0 = (feat.dcd_feature_gram.launches, feat.dcd_feature_update.launches)
-    kb, kg = feat.dcd_feature_gram(cols, vals, w, idx, scratch=scratch)
+    kb, kg = feat.dcd_feature_gram(cols, vals, w, idx, workspace=ws)
     pb, pg = feat.dcd_feature_gram_plain(cols, vals, w, idx)
     _close(kb, pb)
     _close(kg, pg)
-    assert float(scratch.abs().max()) == 0.0  # left zeroed
     rng = np.random.default_rng(8)
-    n = cols.shape[0]
     alpha, _, active, y, _ = _state(rng, n, 1, dev)
     q = (vals * vals).sum((1, 2))
-    kw = dict(loss=td.make_loss(loss, 0.8), active=active, y=y)
+    kw = dict(loss=td.make_loss(loss, 0.8))
+    if masked:
+        kw.update(active=active, y=y)
     base, gram = pb.sum(0), pg.sum(0)
     ka, kwv = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
                                       gram, **kw)
@@ -172,6 +250,47 @@ def test_b4_b5_kernels_match_plain(loss):
     assert float(kwv[:, -1].abs().max()) == 0.0  # dummy slots stay 0
     assert (feat.dcd_feature_gram.launches,
             feat.dcd_feature_update.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+# B4 at the edges of its layout: one id; 1,024 ids (one column class,
+# G's columns in 256 tiles, the class staged in chunks); every entry in
+# one of 256 column classes (its columns are multiples of 256), staged in
+# chunks; rows wider than 1,024 slots
+GRAM_CASES = {
+    "b1": dict(b=1),
+    "b1024": dict(n=1100, m=2, k=20, b=1024),
+    "one_class": dict(n=200, m=2, k=40, d_loc=65_536, b=64, col_step=256),
+    "rows_1100_wide": dict(n=40, m=2, k=1100, d_loc=30_000, b=16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAM_CASES))
+def test_b4_kernel_layout_edges(case):
+    dev = _cuda()
+    cols, vals, w, idx = _feature_case(dev, **GRAM_CASES[case])
+    n, m, k = cols.shape
+    plan = gram_plan(m, idx.shape[0], k, w.shape[1])
+    if case == "one_class":
+        real = cols[idx.long()][cols[idx.long()] < 65_536]
+        assert plan.classes == 256 and int((real % 256).max()) == 0
+        assert real.numel() > GRAM_CHUNK  # the class is staged in chunks
+    kb, kg = feat.dcd_feature_gram(cols, vals, w, idx)
+    pb, pg = feat.dcd_feature_gram_plain(cols, vals, w, idx)
+    _close(kb, pb)
+    _close(kg, pg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "rows_1100_wide"])
+def test_b4_kernel_is_deterministic(case):
+    """No row repeats a column: a second launch gives the same bits."""
+    dev = _cuda()
+    cols, vals, w, idx = _feature_case(dev, repeat_col=False,
+                                       **GRAM_CASES.get(case, {}))
+    first = feat.dcd_feature_gram(cols, vals, w, idx)
+    second = feat.dcd_feature_gram(cols, vals, w, idx)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,174 @@
+"""The kernels' shape policy in ``repro_torch.dist.mesh``: which variant
+B1 takes, how B4 lays out its column classes and workspace, and that
+both stay within the shared memory one Hopper CTA can use.  Pure
+arithmetic on shapes, so it runs on the CPU; the layouts' counts are
+held to numpy counts of the same quantities."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.dist import mesh
+from repro_torch.dist.mesh import (
+    GRAM_CHUNK,
+    GRAM_TABLE_SLOTS,
+    SMEM_PER_CTA,
+    STATIC_SMEM,
+    dcd_ell_plan,
+    dcd_ell_staged_bytes,
+    gram_plan,
+)
+from repro_torch.kernels.dcd_feature import gram_workspace
+
+WEBSPAM_SPLIT = dict(m=4, b=64, k=3136, d1=4_152_287)  # d = 16,609,143
+LIMIT = SMEM_PER_CTA - STATIC_SMEM
+
+# (b ids, k slots) -> variant
+ELL_SHAPES = {
+    "rcv1": ((64, 73), "staged"),
+    "rows_128_slots": ((64, 128), "staged"),
+    "webspam_rows": ((64, 3728), "wide"),
+    "rows_1100_wide": ((4, 1100), "wide"),
+    "one_id": ((1, 1), "staged"),
+    "too_many_ids": ((mesh.ELL_STAGED_MAX_IDS + 1, 1), "wide"),
+    "rows_too_long_for_registers": ((1, 4 * 32 + 1), "wide"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ELL_SHAPES))
+def test_b1_variant_by_shape(name):
+    (b, k), variant = ELL_SHAPES[name]
+    plan = dcd_ell_plan(b, k)
+    assert plan.variant == variant
+    if variant == "wide":
+        assert plan.smem_bytes == 0 and plan.threads == mesh.cta_threads(k)
+    else:
+        assert plan.threads == mesh.ELL_STAGED_THREADS
+    wide = dcd_ell_plan(b, k, wide=True)  # asked for: wide at any shape
+    assert wide == mesh.EllPlan("wide", mesh.cta_threads(k), 0, 0)
+
+
+@pytest.mark.parametrize("b", [1, 7, 64, 200, 1024])
+@pytest.mark.parametrize("k", [1, 37, 73, 129, 600, 2048])
+def test_b1_staged_fits_one_cta(b, k):
+    """Every staged plan fits the 227 KB, keeps the column table at most
+    2/3 full with every entry a distinct column, and gives each lane of
+    its update warp at most four entries of a row; a block that would
+    not fit takes the wide kernel."""
+    plan = dcd_ell_plan(b, k)
+    table = max(32, 1 << int(np.ceil(np.log2(np.ceil(1.5 * b * k)))))
+    need = 4 * table * 2 + 4 * b * k * 2 + 4 * b * 8  # the arrays' bytes
+    if plan.variant == "staged":
+        assert plan.table_slots == table and plan.smem_bytes == need
+        assert plan.smem_bytes <= LIMIT
+        assert 3 * b * k <= 2 * plan.table_slots
+        assert k <= 4 * 32 and 32 <= plan.threads <= 1024
+    else:
+        assert need > LIMIT or b > mesh.ELL_STAGED_MAX_IDS or k > 4 * 32
+
+
+def test_b1_staged_bytes_count_the_arrays():
+    """The bytes are the arrays the kernel carves: the table's keys and
+    w, the block's slots and values, and eight per-id arrays."""
+    b, k, slots = 64, 73, 8192
+    arrays = [np.empty(slots, np.int32), np.empty(slots, np.float32),
+              np.empty(b * k, np.int32), np.empty(b * k, np.float32)]
+    arrays += [np.empty(b, np.int32)] * 8
+    assert dcd_ell_staged_bytes(b, k, slots) == sum(a.nbytes for a in arrays)
+
+
+def test_b4_plan_at_the_webspam_split():
+    plan = gram_plan(**WEBSPAM_SPLIT)
+    m, b = WEBSPAM_SPLIT["m"], WEBSPAM_SPLIT["b"]
+    assert plan.classes == 128 and (plan.tile, plan.tiles) == (64, 1)
+    assert plan.bucket_smem <= LIMIT and plan.gram_smem <= LIMIT
+    assert 2 * plan.gram_smem <= SMEM_PER_CTA  # two CTAs an SM
+    # the partial Grams stay within their budget
+    assert m * plan.classes * b * b <= mesh.GRAM_PARTIAL_WORDS
+
+
+def test_b4_bytes_count_the_arrays():
+    """The bytes are the arrays the kernels carve: the bucket pass's
+    per-warp class counts and one staged row (ids and values); the Gram
+    kernel's table (key, count, run end per slot), a chunk's entries
+    staged (column, row, value, slot) and sorted (row, value), the rows'
+    offsets (B + 1) and starts (B), and each walker's (B, tile) block of
+    G."""
+    m, b, k, d1 = 4, 64, 3136, 4_152_287
+    plan = gram_plan(m, b, k, d1)
+    i32, f32 = np.int32, np.float32
+    warps = mesh.GRAM_BUCKET_THREADS // 32
+    bucket = [np.empty((warps, plan.classes), i32), np.empty(k, i32),
+              np.empty(k, f32)]
+    gram = [np.empty(GRAM_TABLE_SLOTS, i32)] * 3
+    gram += [np.empty(GRAM_CHUNK, t) for t in (i32, i32, f32, i32, i32, f32)]
+    gram += [np.empty(b + 1, i32), np.empty(b, i32)]
+    walkers = mesh.GRAM_THREADS // 64  # the kernel's walkers per column
+    gram += [np.empty((walkers, b, plan.tile), f32)]
+    assert plan.bucket_smem == sum(a.nbytes for a in bucket)
+    assert plan.gram_smem == sum(a.nbytes for a in gram)
+
+
+@pytest.mark.parametrize("m,b,k,d1", [(4, 1, 3136, 4_152_287),
+                                      (2, 1024, 20, 501),
+                                      (3, 48, 40, 501),
+                                      (2, 16, 1100, 30_001),
+                                      (1, 64, 73, 47_237)])
+def test_b4_plan_fits_one_cta(m, b, k, d1):
+    plan = gram_plan(m, b, k, d1)
+    assert 1 <= plan.classes <= mesh.GRAM_MAX_CLASSES
+    assert plan.classes <= max(1, -(-d1 // mesh.GRAM_CLASS_COLS))
+    assert plan.tile * plan.tiles >= b > plan.tile * (plan.tiles - 1)
+    assert plan.tile <= 64 and b * plan.tile <= max(b, mesh.GRAM_TILE_WORDS)
+    assert plan.bucket_smem <= LIMIT and plan.gram_smem <= LIMIT
+    assert GRAM_TABLE_SLOTS >= 2 * GRAM_CHUNK  # the chunk's table ≤ 1/2 full
+
+
+def test_b4_plan_raises_on_rows_too_long_to_stage():
+    with pytest.raises(ValueError, match="too long for B4"):
+        gram_plan(1, 64, 40_000, 1000)
+
+
+@pytest.mark.parametrize("d1", [1, 63, 501, 30_001, 4_152_287])
+def test_b4_classes_partition_the_columns(d1):
+    """Column c goes to class c mod R as local column c div R: every
+    column of the shard lands in exactly one (class, local column), so a
+    class's local ids are distinct, as its column table assumes."""
+    R = gram_plan(4, 64, 16, d1).classes
+    c = np.arange(d1 - 1)  # the real columns; d1 - 1 is the dummy slot
+    pairs = (c % R) * (-(-d1 // R)) + c // R
+    assert np.unique(pairs).size == c.size
+    assert (c // R).max(initial=0) < -(-d1 // R)
+
+
+def test_b4_class_counts_of_a_webspam_block():
+    """A block drawn by the webspam law spreads its real entries evenly
+    over the classes, zipf-hot low columns included (contiguous column
+    ranges would put half of them in the first); numpy's count of each
+    class's entries stays within 20% of the mean, so shard 0's CTAs
+    carry equal work (about 1,250 entries each: two chunks)."""
+    rng = np.random.default_rng(0)
+    d_loc, R = WEBSPAM_SPLIT["d1"] - 1, gram_plan(**WEBSPAM_SPLIT).classes
+    # shard 0's entries of 64 rows: zipf-0.9 columns, about 3,031 a row
+    p = 1.0 / np.arange(1, d_loc + 1) ** 0.9
+    rows = [np.unique(rng.choice(d_loc, 3031, p=p / p.sum()))
+            for _ in range(64)]
+    counts = np.bincount(np.concatenate(rows) % R, minlength=R)
+    assert counts.sum() == sum(r.size for r in rows)
+    assert 0.8 * counts.mean() < counts.min() <= counts.max() < (
+        1.2 * counts.mean())
+    assert GRAM_CHUNK < counts.max() <= 2 * GRAM_CHUNK
+    ranges = np.bincount(np.concatenate(rows) // -(-d_loc // R), minlength=R)
+    assert ranges.max() > 0.4 * counts.sum()  # what contiguous ranges give
+
+
+def test_gram_workspace_follows_the_plan():
+    m, b, k, d1 = 3, 48, 40, 30_001
+    plan = gram_plan(m, b, k, d1)
+    ws = gram_workspace(m, b, k, d1, torch.device("cpu"))
+    assert tuple(ws.lc.shape) == tuple(ws.v.shape) == (m, b, k)
+    assert tuple(ws.roff.shape) == (m, b, plan.classes + 1)
+    assert tuple(ws.part.shape) == (m, plan.classes, b, b)
+    one = gram_workspace(2, 1024, 20, 501, torch.device("cpu"))
+    assert gram_plan(2, 1024, 20, 501).classes == 1
+    assert tuple(one.part.shape) == (2, 0, 1024, 1024)  # G written directly
