@@ -15,17 +15,23 @@ result line):
 3. each kernel against its plain version at the shapes the main path
    gives it: B1 (ELL) on the rcv1-shape shard (its staged variant) and
    on webspam's rows (its wide variant), and B2 (dense indexed) on the
-   covtype-shape shard, a few rounds of B = 64 ids each; B3
+   covtype-shape shard (its staged variant, and its wide one as
+   ``ms_before``), a few rounds of B = 64 ids each; B3
    (dense in-order) over one whole epoch of the covtype shard, and on
    a few rows for the other losses; B4 (block Gram) and B5 (Gram
    δ-recursion) on the webspam shape split into m = 4 feature shards,
-   a few rounds of B = 64 ids per loss.  Each prints its max abs error
-   against the tolerance and its time per launch from CUDA events; B1
-   and B4 are also launched twice on the same block and must give the
-   same bits.  B1's wide variant is also checked and timed at the rcv1
-   shape (``ms_before``: the design the staged variant replaced), and
-   B1 and B4 are timed once more without the spin (host-gated).  ``torch.profiler`` views 20 rounds of the rcv1 and the
-   webspam solve (wall time, device-busy time, idle share); then the
+   a few rounds of B = 64 ids per loss (B5 with B4's workspace, and
+   alone with its own bucket pass, to the same bits).  Each prints its
+   max abs error against the tolerance and its time per launch from
+   CUDA events; B1, B2, B4 and B5 are also launched twice on the same
+   block and must give the same bits.  B1's and B2's wide variants are
+   also checked and timed at the rcv1 and covtype shapes
+   (``ms_before``: the designs the staged variants replaced); B5 is
+   timed alone (its own bucket pass) and on logistic; B1 and B4 are
+   timed once more without the spin
+   (host-gated).  ``torch.profiler`` views 20 rounds of the rcv1, the
+   covtype and the webspam solve (wall time, device-busy time, idle
+   share); then the
    solver's kernel paths against their CPU paths on a small input (1-D,
    and 2-D with the overlapped round);
 4. the main paths, each with every launch count set to 0 just before
@@ -40,7 +46,7 @@ result line):
    them (and each variant of B1) the expected number of times, and give
    finite duality gaps that fall;
 5. one JSON line of per-kernel numbers (with each kernel's variant, and
-   B1's ``ms_before``), then the result line
+   B1's and B2's ``ms_before``), then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one.  Data comes from
@@ -177,7 +183,13 @@ def main():
     )
     from repro_torch.data.sparse import ell_column_split
     from repro_torch.data.synthetic import make_dataset, make_paper_split
-    from repro_torch.dist.mesh import dcd_ell_plan, gram_plan, solver_mesh_2d
+    from repro_torch.dist.mesh import (
+        dcd_dense_plan,
+        dcd_ell_plan,
+        feature_update_plan,
+        gram_plan,
+        solver_mesh_2d,
+    )
     from repro_torch.kernels import build, dcd_feature as feat, ops
     from repro_torch.kernels.dcd_block import (
         dcd_indexed_epoch,
@@ -323,12 +335,38 @@ def main():
     def zeros_c():
         return torch.zeros(n_c, device=dev), torch.zeros(d_c, device=dev)
 
+    act_c = (torch.rand(n_c, generator=gen, device=dev) > 0.2).float()
+    y_c = torch.where(torch.rand(n_c, generator=gen, device=dev) > 0.5,
+                      1.0, -1.0)
+    print(f"  B2 at the covtype shape: {dcd_dense_plan(B, d_c)}")
     err_b2 = compare(
         "B2 dcd_indexed", lambda a, w, i, L: dcd_indexed_epoch(
             X_cov, a, w, q_c, loss=L, idx=i),
         lambda a, w, i, L: dcd_indexed_epoch_plain(
             X_cov, a, w, q_c, loss=L, idx=i),
         zeros_c, ids_c, losses)
+    err_b2 = max(err_b2, compare(
+        "B2 dcd_indexed (mask, labels)", lambda a, w, i, L: dcd_indexed_epoch(
+            X_cov, a, w, q_c, loss=L, idx=i, active=act_c, y=y_c),
+        lambda a, w, i, L: dcd_indexed_epoch_plain(
+            X_cov, a, w, q_c, loss=L, idx=i, active=act_c, y=y_c),
+        zeros_c, ids_c[:2], ["hinge"]))
+    # the wide variant at the same shape, as the staged one's "before"
+    err_b2_before = compare(
+        "B2 dcd_indexed wide at the covtype shape",
+        lambda a, w, i, L: dcd_indexed_epoch(X_cov, a, w, q_c, loss=L, idx=i,
+                                             wide=True),
+        lambda a, w, i, L: dcd_indexed_epoch_plain(
+            X_cov, a, w, q_c, loss=L, idx=i),
+        zeros_c, ids_c[:2], ["hinge"])
+    a_c0, w_c0 = zeros_c()
+    for wide in (False, True):
+        same_bits(f"B2 dcd_indexed {'wide' if wide else 'staged'} (covtype, "
+                  "hinge, mask, labels)",
+                  lambda: dcd_indexed_epoch(X_cov, a_c0, w_c0, q_c,
+                                            loss=duals.Hinge(1.0),
+                                            idx=ids_c[0], active=act_c,
+                                            y=y_c, wide=wide), torch)
     # B3 runs its rows in order.  The main path gives it the whole
     # covtype shard in one launch (ops.dcd_epoch, hinge C = 0.0625):
     # hold it to its plain version there, one epoch from α = 0, w = 0,
@@ -395,6 +433,11 @@ def main():
     ms_b2 = cuda_ms(lambda: dcd_indexed_epoch(
         X_cov, a_c, w_c, q_c, loss=hinge_c, idx=c_ids[next(it) % 64]), 50,
         torch)
+    # the design B2 had before its staged variant (the wide kernel) at the
+    # same shape, timed the same way
+    ms_b2_before = cuda_ms(lambda: dcd_indexed_epoch(
+        X_cov, a_c, w_c, q_c, loss=hinge_c, idx=c_ids[next(it) % 64],
+        wide=True), 50, torch)
     plain_b2 = wall_ms(lambda: dcd_indexed_epoch_plain(
         X_cov, a_c, w_c, q_c, loss=hinge_c, idx=c_ids[0]), 2, torch)
 
@@ -416,7 +459,7 @@ def main():
          f"webspam rows, {B} ids", err_b1w,
          "src/repro_torch/kernels/csrc/dcd_ell.cu",
          "src/repro/kernels/dcd_ell.py:51"),
-        ("dcd_indexed", "single", ms_b2, plain_b2, by_b2, 4 * B * d_c,
+        ("dcd_indexed", "staged", ms_b2, plain_b2, by_b2, 4 * B * d_c,
          f"covtype shape, {B} ids", err_b2,
          "src/repro_torch/kernels/csrc/dcd_block.cu",
          "src/repro/kernels/dcd_block.py:100"),
@@ -434,9 +477,14 @@ def main():
               f"launch, plain {pl_ms:.2f} ms, bound {b_ms:.6f} ms "
               f"({b_by}), no library call computes it")
     results["dcd_ell"]["ms_before"] = ms_b1_before
-    print(f"  dcd_ell before its staged variant (the wide kernel at the rcv1 "
-          f"shape, {B} ids; max abs err {err_b1_before:.3g}): "
-          f"{ms_b1_before:.4f} ms per launch")
+    results["dcd_indexed"]["ms_before"] = ms_b2_before
+    for name, shape, ms, e in [("dcd_ell", "rcv1", ms_b1_before,
+                                err_b1_before),
+                               ("dcd_indexed", "covtype", ms_b2_before,
+                                err_b2_before)]:
+        print(f"  {name} before its staged variant (the wide kernel at the "
+              f"{shape} shape, {B} ids; max abs err {e:.3g}): {ms:.4f} ms "
+              "per launch")
 
     # B4 and B5 at the webspam shape: the (n, 4, k_loc) split the 2-D
     # solve makes of it, a few rounds of B = 64 ids per loss, (α, w)
@@ -455,6 +503,8 @@ def main():
     ws = feat.gram_workspace(SHARDS, B, k_loc, d1_w, dev)
     print(f"  B4 at the webspam split: {gram_plan(SHARDS, B, k_loc, d1_w)}; "
           f"workspace {sum(t.numel() for t in ws) * 4 / 1e6:.2f} MB")
+    print(f"  B5 at the webspam split: "
+          f"{feature_update_plan(SHARDS, B, k_loc, d1_w)}")
     ids_w = blocks(n_w, 4)
     act_w = (torch.rand(n_w, generator=gen, device=dev) > 0.2).float()
     y_w = torch.where(torch.rand(n_w, generator=gen, device=dev) > 0.5,
@@ -480,9 +530,17 @@ def main():
                                                  ids_w[r])
             e4 = max(e4, float((kb - pb).abs().max()),
                      float((kg - pg).abs().max()))
-            ka, kw = feat.dcd_feature_update(
+            # B5 with the buckets B4 just left for this block, and alone
+            # (its own bucket pass): the same bits
+            sa, sw = feat.dcd_feature_update(
                 cols_w, vals_w, ka, q_w, kw, ids_w[r], kb.sum(0), kg.sum(0),
                 loss=loss, **extra)
+            ka, kw = feat.dcd_feature_update(
+                cols_w, vals_w, ka, q_w, kw, ids_w[r], kb.sum(0), kg.sum(0),
+                loss=loss, workspace=ws, **extra)
+            torch.cuda.synchronize()
+            if not (torch.equal(sa, ka) and torch.equal(sw, kw)):
+                fail("B5 alone and B5 with B4's workspace differ")
             pa, pw = feat.dcd_feature_update_plain(
                 cols_w, vals_w, pa, q_w, pw, ids_w[r], pb.sum(0), pg.sum(0),
                 loss=loss, **extra)
@@ -499,21 +557,40 @@ def main():
     same_bits("B4 dcd_feature_gram (webspam split)",
               lambda: feat.dcd_feature_gram(cols_w, vals_w, w_same, ids_w[0],
                                             workspace=ws), torch)
+    a_same = torch.zeros(n_w, device=dev)
+    b_same, g_same = ops.dcd_feature_gram(cols_w, vals_w, w_same, ids_w[0],
+                                          workspace=ws)
+    same_bits("B5 dcd_feature_update (webspam split, hinge, mask, labels)",
+              lambda: feat.dcd_feature_update(
+                  cols_w, vals_w, a_same, q_w, w_same, ids_w[0], b_same,
+                  g_same, loss=duals.Hinge(1.0), active=act_w, y=y_w,
+                  workspace=ws), torch)
 
     # times per launch at the main path's shape (hinge, B = 64 ids, from
     # α = 0 and a small w, where every update scatters)
     a_w, w_w = state_w()
     t_ids_w = blocks(n_w, 64)
-    base_w, gram_w = ops.dcd_feature_gram(cols_w, vals_w, w_w, ids_w[0],
-                                          workspace=ws)
     ms_b4 = cuda_ms(lambda: feat.dcd_feature_gram(
         cols_w, vals_w, w_w, t_ids_w[next(it) % 64], workspace=ws), 50,
         torch)
     plain_b4 = wall_ms(lambda: feat.dcd_feature_gram_plain(
         cols_w, vals_w, w_w, t_ids_w[0]), 2, torch)
+    # B5 as the main path calls it: with the buckets B4 left for this block
+    base_w, gram_w = ops.dcd_feature_gram(cols_w, vals_w, w_w, ids_w[0],
+                                          workspace=ws)
+    a_l = torch.full((n_w,), 0.25, device=dev)  # inside logistic's domain
     ms_b5 = cuda_ms(lambda: feat.dcd_feature_update(
         cols_w, vals_w, a_w, q_w, w_w, ids_w[0], base_w, gram_w,
-        loss=hinge), 50, torch)
+        loss=hinge, workspace=ws), 50, torch)
+    b5_more = {
+        "alone (own bucket pass)": cuda_ms(lambda: feat.dcd_feature_update(
+            cols_w, vals_w, a_w, q_w, w_w, ids_w[0], base_w, gram_w,
+            loss=hinge), 50, torch),
+        "logistic": cuda_ms(lambda: feat.dcd_feature_update(
+            cols_w, vals_w, a_l, q_w, w_w, ids_w[0], base_w, gram_w,
+            loss=duals.Logistic(1.0), workspace=ws), 50, torch)}
+    print("  B5 dcd_feature_update ms per launch, also: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in b5_more.items()))
     plain_b5 = wall_ms(lambda: feat.dcd_feature_update_plain(
         cols_w, vals_w, a_w, q_w, w_w, ids_w[0], base_w, gram_w,
         loss=hinge), 2, torch)
@@ -560,7 +637,7 @@ def main():
         ("dcd_feature_gram", "column-class", ms_b4, plain_b4, lib_b4,
          by_b4, 2 * B * nnz4 + 2 * nnz4, f"webspam shards, {B} ids", err_b4,
          "src/repro/kernels/dcd_feature.py:60"),
-        ("dcd_feature_update", "single", ms_b5, plain_b5, None, by_b5,
+        ("dcd_feature_update", "column-class", ms_b5, plain_b5, None, by_b5,
          2 * nnz5 + B * B, f"webspam shards, {B} ids", err_b5,
          "src/repro/kernels/dcd_feature.py:106"),
     ]:
@@ -571,6 +648,10 @@ def main():
                              replaces=rep, variant=variant, launches=0,
                              max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        if name == "dcd_feature_update":
+            results[name].update(
+                ms_alone=b5_more["alone (own bucket pass)"],
+                ms_logistic=b5_more["logistic"])
         lib = ("no library call computes it" if lib_ms is None
                else f"torch.sparse.mm {lib_ms:.4f} ms")
         print(f"  {name} ({per}): {route_ms:.4f} ms per launch, plain "
@@ -591,8 +672,13 @@ def main():
     _scan_rounds(engine_1d, a_p, w_p1, w_p1, t_ids[:2], 0)  # warm
     profile_rounds("rcv1 (1-D, B1 staged)", lambda: _scan_rounds(
         engine_1d, a_p, w_p1, w_p1, t_ids[:20], 0), 20, torch)
+    engine_c = functools.partial(_block_update_1d(hinge_c, False), X_cov, q_c)
+    a_pc, w_pc = zeros_c()
+    _scan_rounds(engine_c, a_pc, w_pc, w_pc, c_ids[:2], 0)  # warm
+    profile_rounds("covtype (1-D, B2 staged)", lambda: _scan_rounds(
+        engine_c, a_pc, w_pc, w_pc, c_ids[:20], 0), 20, torch)
     del fse, cols_w, vals_w, q_w, ws, mats, a_w, w_w, ka, kw, pa, pw
-    del engine, w_p, w_same, a_w1, w_w1
+    del engine, w_p, w_same, a_w1, w_w1, a_same, b_same, g_same, a_l
     torch.cuda.empty_cache()
 
     # the solver's kernel path against its CPU path on a small input
@@ -627,10 +713,11 @@ def main():
         fail("the solver's 2-D kernel path disagrees with its CPU path")
 
     # ----------------------------------------------------- 4. main paths
-    # each kernel's launch count; B1's two variants count apart
+    # each kernel's launch count; B1's and B2's two variants count apart
     counters = {"dcd_ell": (dcd_ell_epoch, "staged"),
                 "dcd_ell_wide": (dcd_ell_epoch, "wide"),
-                "dcd_indexed": (dcd_indexed_epoch, None),
+                "dcd_indexed": (dcd_indexed_epoch, "staged"),
+                "dcd_indexed_wide": (dcd_indexed_epoch, "wide"),
                 "dcd_tile": (dcd_tile_epoch, None),
                 "dcd_feature_gram": (feat.dcd_feature_gram, None),
                 "dcd_feature_update": (feat.dcd_feature_update, None)}
@@ -684,7 +771,8 @@ def main():
     run_path("rcv1", {"dcd_ell": nb_r}, lambda: solve(
         "rcv1 (ELL, B1)", X_rcv1, duals.Hinge(1.0), n_r, EPOCHS))
     run_path("covtype", {"dcd_indexed": nb_c}, lambda: solve(
-        "covtype (dense, B2)", X_cov, duals.Hinge(0.0625), n_c, EPOCHS))
+        "covtype (dense, B2 staged)", X_cov, duals.Hinge(0.0625), n_c,
+        EPOCHS))
 
     def in_order():
         # the in-order epoch entry point (B3) on covtype, as the examples

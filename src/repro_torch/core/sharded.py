@@ -227,44 +227,49 @@ def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
     return alpha_loc, w_loc, dw_prev
 
 
-def _overlap_round_fns(cols, vals, sq_norms, loss, workspace):
+def _overlap_round_fns(cols, vals, sq_norms, loss):
     """The three split phases of the fused 2-D block round, bound to the
-    resident slices (``repro_torch.kernels.ops`` entry points)."""
+    resident slices (``repro_torch.kernels.ops`` entry points).  B4
+    (``gram_fn``) fills the workspace it is given with the block's
+    buckets, which B5 (``update_fn``) of the same block reads."""
 
-    def gram_fn(w_ref, idx):
+    def gram_fn(w_ref, idx, workspace):
         return dcd_feature_gram(cols, vals, w_ref, idx, workspace=workspace)
 
     def corr_fn(dvec, idx):
         return dcd_feature_base_correction(cols, vals, dvec, idx)
 
-    def update_fn(alpha, w_ref, idx, base, gram):
+    def update_fn(alpha, w_ref, idx, base, gram, workspace):
         return dcd_feature_update(cols, vals, sq_norms, alpha, w_ref, idx,
-                                  base, gram, loss=loss)
+                                  base, gram, loss=loss, workspace=workspace)
 
     return gram_fn, corr_fn, update_fn
 
 
 def _scan_rounds_overlap(gram_fn, corr_fn, update_fn, alpha, w, dw_prev,
-                         blocks, inflight, next0):
+                         blocks, inflight, next0, workspaces):
     """``_scan_rounds`` for the fused 2-D engine with the round
     double-buffered: entering round t the carry holds block t's summed
     (base⁰_t, gram_t), whose base was taken against W_t, the primal
-    without the round's in-flight aggregate D_t (round t−1's Δw).  The
-    Gram never depends on w and the base is repaired exactly,
-    base_t = base⁰_t + D_tᵀx, while block t+1's (base, Gram) is formed
-    against the already known W_{t+1} = W_t + D_t.  The bookkeeping is
-    the delayed branch of ``_scan_rounds`` (``delay_rounds ≥ 1``; the
-    caller flushes the last aggregate).  ``inflight`` is blocks[0]'s
-    (base⁰, Gram) against the entering w, ``next0`` the first block of
-    the following epoch; returns (α, w, Δw, the aggregate issued for
+    without the round's in-flight aggregate D_t (round t−1's Δw), and
+    the workspace B4 filled for block t.  The Gram never depends on w
+    and the base is repaired exactly, base_t = base⁰_t + D_tᵀx, while
+    block t+1's (base, Gram) is formed against the already known
+    W_{t+1} = W_t + D_t — into the other of the two ``workspaces``, so
+    B5 of block t still reads block t's buckets.  The bookkeeping is the
+    delayed branch of ``_scan_rounds`` (``delay_rounds ≥ 1``; the caller
+    flushes the last aggregate).  ``inflight`` is blocks[0]'s (base⁰,
+    Gram, workspace) against the entering w, ``next0`` the first block
+    of the following epoch; returns (α, w, Δw, the aggregate issued for
     ``next0``)."""
     nxt = list(blocks[1:]) + [next0]
     for idx, idx_next in zip(blocks, nxt):
+        base0, gram, ws = inflight
+        ws_next = workspaces[1] if ws is workspaces[0] else workspaces[0]
         w_next = w + dw_prev  # W_{t+1}: known before D_{t+1} lands
-        inflight_next = gram_fn(w_next, idx_next)
-        base0, gram = inflight
+        inflight_next = (*gram_fn(w_next, idx_next, ws_next), ws_next)
         base = base0 + corr_fn(dw_prev, idx)
-        alpha, w_upd = update_fn(alpha, w_next, idx, base, gram)
+        alpha, w_upd = update_fn(alpha, w_next, idx, base, gram, ws)
         w, dw_prev, inflight = w_next, w_upd - w_next, inflight_next
     return alpha, w, dw_prev, inflight
 
@@ -606,13 +611,17 @@ def _rounds_2d(setup: SolverSetup, draw, w0):
     fused engine) or overlapped, whose in-flight (base, Gram) is carried
     across epochs — its prologue is the first block's, against ``w0``."""
     cols, vals = setup.X
-    workspace = None
+    # B4's workspaces on the card: one for the eager round, two that
+    # alternate for the overlapped one (B4 of block t + 1 runs before B5
+    # of block t, which reads block t's buckets)
+    workspaces = (None, None)
     if setup.fused and setup.device.type == "cuda":
-        workspace = gram_workspace(setup.m, setup.block_size,
-                                   cols.shape[2], setup.w_shape[1],
-                                   setup.device)
+        workspaces = tuple(
+            gram_workspace(setup.m, setup.block_size, cols.shape[2],
+                           setup.w_shape[1], setup.device)
+            for _ in range(2 if setup.overlap else 1))
     if not setup.overlap:
-        bu = _block_update_2d(setup.loss, setup.fused, workspace)
+        bu = _block_update_2d(setup.loss, setup.fused, workspaces[0])
         engine = functools.partial(bu, cols, vals, setup.sq_norms)
 
         def rounds(e, alpha, w, dw):
@@ -620,13 +629,14 @@ def _rounds_2d(setup: SolverSetup, draw, w0):
                                 setup.delay_rounds)
 
         return rounds
-    fns = _overlap_round_fns(cols, vals, setup.sq_norms, setup.loss,
-                             workspace)
-    carry = {"inflight": fns[0](w0, draw(0)[0])}
+    fns = _overlap_round_fns(cols, vals, setup.sq_norms, setup.loss)
+    carry = {"inflight": (*fns[0](w0, draw(0)[0], workspaces[0]),
+                          workspaces[0])}
 
     def rounds(e, alpha, w, dw):
         alpha, w, dw, carry["inflight"] = _scan_rounds_overlap(
-            *fns, alpha, w, dw, draw(e), carry["inflight"], draw(e + 1)[0])
+            *fns, alpha, w, dw, draw(e), carry["inflight"], draw(e + 1)[0],
+            workspaces)
         return alpha, w, dw
 
     return rounds

@@ -16,8 +16,11 @@ The reference admits a shape to a kernel by its VMEM footprint
 (``*_kernel_fits``); the port's counterparts size the kernels' shared
 memory against the 227 KB one CTA can use on Hopper: ``dcd_ell_plan``
 picks B1's variant (the block staged in shared memory, or the wide
-kernel that reads its rows from device memory) and ``gram_plan`` lays
-out B4's column classes, CTAs and workspace.
+kernel that reads its rows from device memory), ``dcd_dense_plan``
+picks B2's (the block's dense rows staged, or the wide kernel),
+``gram_plan`` lays out B4's column classes, CTAs and workspace, and
+``feature_update_plan`` B5's (one CTA per class and shard, G staged in
+shared memory when it fits).
 """
 
 from __future__ import annotations
@@ -111,6 +114,54 @@ def dcd_ell_plan(b: int, k: int, wide: bool = False) -> EllPlan:
     return EllPlan("wide", cta_threads(k), 0, 0)
 
 
+# B2 staged: ids per block (its repeat scan is O(B²) per block), the CTA
+# that stages the block (the updates run on one warp of it, which holds w
+# in registers, DENSE_ENTRIES_PER_LANE words a lane at most)
+DENSE_STAGED_MAX_IDS = 1024
+DENSE_STAGED_THREADS = 256
+DENSE_ENTRIES_PER_LANE = 8
+DENSE_STAGED_MAX_D = WARP * DENSE_ENTRIES_PER_LANE
+
+
+class DensePlan(NamedTuple):
+    """B2's launch for a block of ``b`` ids over dense rows of ``d``
+    floats: ``variant`` "staged" (the block's rows and the ids' α, q, y,
+    act in shared memory, w in the registers of one warp, ``per_lane``
+    words a lane) or "wide" (rows and w in device memory, one update at
+    a time across ``threads``).  ``smem_bytes`` is the staged kernel's
+    dynamic shared memory (0 for wide)."""
+
+    variant: str
+    threads: int
+    per_lane: int
+    smem_bytes: int
+
+
+def dcd_dense_staged_bytes(b: int, d: int) -> int:
+    """Shared memory of B2's staged kernel: the block's b rows of d
+    floats and eight b-word id arrays (id, α, q, y, act, running α,
+    previous occurrence, last occurrence)."""
+    return 4 * b * d + 32 * b
+
+
+@functools.lru_cache(maxsize=64)
+def dcd_dense_plan(b: int, d: int, wide: bool = False) -> DensePlan:
+    """Pick B2's variant for a block of ``b`` ids over rows of ``d``
+    floats, by shape.  The block takes the staged kernel when it holds
+    at most ``DENSE_STAGED_MAX_IDS`` ids, d is at most
+    ``DENSE_STAGED_MAX_D`` (one warp keeps w in registers) and the rows
+    fit the shared memory one CTA can use; else, or when ``wide`` asks
+    for it, the wide kernel.  ``per_lane`` is the power of two of w's
+    words a lane holds (at least ⌈d / 32⌉)."""
+    b, d = max(int(b), 1), max(int(d), 1)
+    need = dcd_dense_staged_bytes(b, d)
+    if (not wide and b <= DENSE_STAGED_MAX_IDS and d <= DENSE_STAGED_MAX_D
+            and need <= SMEM_PER_CTA - STATIC_SMEM):
+        return DensePlan("staged", DENSE_STAGED_THREADS,
+                         _pow2_at_least(-(-d // WARP)), need)
+    return DensePlan("wide", cta_threads(d), 0, 0)
+
+
 # B4: a shard's columns fall into R classes (column c → class c mod R, so
 # the zipf-hot low ids spread over all classes), one CTA each; every class
 # of every shard writes a (B, B) partial Gram, so R is bounded by the
@@ -159,6 +210,50 @@ def gram_plan(m: int, b: int, k: int, d1: int) -> GramPlan:
                          f"bucket pass stages a row in {bucket} bytes of "
                          f"shared memory, more than {SMEM_PER_CTA}")
     return GramPlan(classes, tile, tiles, bucket, gram)
+
+
+# B5: one CTA per column class of B4's plan and per shard; it stages the
+# block's ids and, when it fits, G, and applies its class's entries from
+# a chunk of FEATURE_UPDATE_CHUNK staged at a time
+FEATURE_UPDATE_THREADS = 128
+FEATURE_UPDATE_CHUNK = 2048
+
+
+class FeatureUpdatePlan(NamedTuple):
+    """B5's launch for m shards of d1 words, a block of b ids and rows
+    of k slots: ``classes`` CTAs per shard (B4's column classes, whose
+    buckets it reads), ``threads`` per CTA, ``per_lane`` accumulators a
+    lane of the recursion warp holds (a power of two ≥ ⌈b / 32⌉),
+    whether G is staged in shared memory (``stage_gram``; else its row
+    t is read from device memory a step ahead), and the dynamic shared
+    memory in bytes."""
+
+    classes: int
+    threads: int
+    per_lane: int
+    stage_gram: bool
+    smem_bytes: int
+
+
+def feature_update_bytes(b: int, stage_gram: bool,
+                         chunk: int = FEATURE_UPDATE_CHUNK) -> int:
+    """Shared memory of B5: G when staged (b² floats), a chunk of
+    entries (local column, value), ten b-word id arrays (id, seed α, q,
+    y, act, base, running α, δ̃, previous and last occurrence), and the
+    rows' segment offsets (b + 1) and starts (b)."""
+    return (4 * b * b if stage_gram else 0) + 8 * chunk + 4 * (12 * b + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def feature_update_plan(m: int, b: int, k: int, d1: int) -> FeatureUpdatePlan:
+    """Lay out B5 for a block of ``b`` ids over ``m`` shards of ``d1``
+    words and rows of ``k`` slots: B4's classes, and G staged when the
+    whole layout fits the shared memory one CTA can use."""
+    classes = gram_plan(m, b, k, d1).classes
+    stage = feature_update_bytes(b, True) <= SMEM_PER_CTA - STATIC_SMEM
+    return FeatureUpdatePlan(classes, FEATURE_UPDATE_THREADS,
+                             _pow2_at_least(-(-int(b) // WARP)), stage,
+                             feature_update_bytes(b, stage))
 
 
 class SolverMesh(NamedTuple):

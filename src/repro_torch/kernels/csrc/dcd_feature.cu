@@ -53,24 +53,48 @@
 // B5, dcd_feature_update_kernel, replaces repro/kernels/dcd_feature.py
 // (_update_kernel, reached through dcd_feature_update_pallas_call): the
 // B-step δ recursion against the summed (base, G), the α update, and the
-// scatter of δ̃_t·vals_t into this shard's slice only.  One CTA per shard;
-// each runs the same recursion on the same inputs (the same δ, as α is
-// replicated along "model" in the reference) and scatters only its own
-// slice, so slices need no atomics across CTAs.  α is shared: the port
-// holds one (n,) α, so each CTA carries the RUNNING α of the block's ids
-// in shared memory — a repeated id reads its own earlier update — reads
-// the seed α from the input, never from the output, and only CTA 0 writes
-// the output, in block order.  The δ̃ history is B floats in shared
-// memory; warp 0 runs the recursion (its dot with G[:, t] is O(B)), then
-// the CTA scatters row after row (atomicAdd within a row, as B1, so a
-// repeated column accumulates; a barrier between rows keeps the reference's
-// row order).  What bounds it: the wrapper's copy of w (m·d1 words in and
-// out) in bytes, and the serial recursion in latency.
+// scatter of δ̃_t·vals_t into this shard's slice only.  It runs on a grid
+// of R × m CTAs, R being B4's column classes: CTA (r, j) owns the columns
+// of class r in shard j, so no two CTAs touch one word of w.
+//   1. Prologue, all threads: the block's ids and base, each row's class-r
+//      segment bounds from B4's roff, and G by cp.async when it fits
+//      (repro_torch/dist/mesh.py: feature_update_plan; 16 KB at B = 64)
+//      issue together; then each id's seed α, q, y and act are gathered in
+//      parallel (one latency, not B), and each id's previous and last
+//      occurrence in the block found from the ids in shared memory.
+//   2. The recursion, on warp 0, right-looking: lane l holds accumulators
+//      acc[u] = Σ_{s<t} δ̃_s·G[s, u] for its columns u = l + 32c.  At step
+//      t the lane that owns t gives acc[t] to every lane with one shuffle;
+//      every lane takes δ (dcd_delta, the running α of a repeated id from
+//      prev[]) and adds δ̃_t·G[t, u].  G's row t and the step's scalars
+//      load a step ahead (G from shared memory, or from device memory past
+//      the staging limit).  Row t of G is the reference's cell G[s = t, u]:
+//      no symmetry is assumed.  No reduction and no global load is on the
+//      chain.  Every CTA runs the same recursion on the same inputs (a
+//      single recursion kernel ahead of the scatter measured slower),
+//      while its other warps stage the class's entries from B4's buckets
+//      (bk_lc, bk_v: each row's real entries grouped by class, in slot
+//      order) in shared memory, with an L2 prefetch of each entry's word
+//      of w.
+//   3. The scatter, on warp 0: the staged entries in row order, column
+//      lc·R + r += δ̃_t·v (atomicAdd, so the adds issue without waiting; a
+//      __syncwarp between rows keeps the reference's per-row order, and
+//      no other CTA touches the column).  CTA (0, 0) alone writes α, each
+//      id's at its last update in the block.
+// Called without B4's workspace, the C entry runs B4's bucket pass first
+// (without its base) into a workspace of the wrapper's: the same buckets,
+// so the same bits.  Two launches give the same bits unless a row repeats
+// a column (two atomic adds into one word within a row, in no fixed
+// order), the case B4 also excludes.  What bounds it: the wrapper's copy
+// of w (m·d1 words in and out) in bytes; in the kernel, the recursion's
+// chain of B shuffles and δs, then the widest shard's CTAs issuing their
+// scattered adds (1,000–2,000 a CTA at webspam).
 //
 // Both build with --fmad=false, as B1–B3, so δ̃·v and the adds round as
 // the plain version's do.
 
 #include "dcd_delta.cuh"
+#include "dcd_stage.cuh"
 
 #define DCD_FEATURE_MAX_B 1024
 
@@ -127,7 +151,8 @@ __device__ __forceinline__ unsigned gram_hash(int c, int slots) {
 }
 
 // Row (j, t) of the workspace: bk_lc / bk_v hold k slots, roff R + 1
-// offsets (class r's entries are [roff[r], roff[r + 1])).  The row's k
+// offsets (class r's entries are [roff[r], roff[r + 1])).  base_p may be
+// null (B5's own bucket pass): then w is not read.  The row's k
 // slots are staged in shared memory, loaded GRAM_LANE_BATCH a lane at a
 // time so that the loads, and the gathers of w behind them, overlap.
 #define GRAM_LANE_BATCH 8
@@ -167,7 +192,7 @@ __global__ void dcd_feature_bucket_kernel(
     }
 #pragma unroll
     for (int u = 0; u < GRAM_LANE_BATCH; ++u)
-      wv[u] = (unsigned)c[u] < (unsigned)d_loc ? wj[c[u]] : 0.0f;
+      wv[u] = base_p && (unsigned)c[u] < (unsigned)d_loc ? wj[c[u]] : 0.0f;
 #pragma unroll
     for (int u = 0; u < GRAM_LANE_BATCH; ++u) {
       const int e = b0 + lane + 32 * u;
@@ -182,7 +207,7 @@ __global__ void dcd_feature_bucket_kernel(
     }
   }
   const float base = block_sum(part, red);
-  if (tid == 0) base_p[row] = base;
+  if (tid == 0 && base_p) base_p[row] = base;
   const int per_r = (R + blockDim.x - 1) / blockDim.x;
   const int r0 = min(R, tid * per_r), r1 = min(R, r0 + per_r);
   int tot = 0;
@@ -437,62 +462,309 @@ __global__ void dcd_feature_gram_reduce_kernel(int B, int R,
   }
 }
 
-__global__ void dcd_feature_update_kernel(
-    const int* __restrict__ idx, int B, const int* __restrict__ cols,
-    const float* __restrict__ vals, int m, int k, int d_loc,
-    const float* __restrict__ alpha_in, float* __restrict__ alpha_out,
-    const float* __restrict__ q, const float* __restrict__ act,
-    const float* __restrict__ y, float* w, int d1,
+// B5's shared memory (repro_torch/dist/mesh.py: feature_update_bytes): G
+// when staged (B² floats, first, so 16-byte copies land aligned), a chunk
+// of entries (column, value), ten B-word id arrays, the rows' segment
+// offsets (B + 1) and starts (B).
+struct B5Smem {
+  float* G;
+  int* c_lc;
+  float* c_v;
+  int* ids;
+  float *a0, *qs, *ys, *acts, *bs, *arun, *dtil;
+  int *prev, *last, *segoff, *rstart;
+};
+
+__device__ __forceinline__ B5Smem b5_carve(unsigned char* smem, int B,
+                                           int stage_gram, int chunk) {
+  B5Smem S;
+  S.G = reinterpret_cast<float*>(smem);
+  S.c_lc = reinterpret_cast<int*>(S.G + (stage_gram ? (long long)B * B : 0));
+  S.c_v = reinterpret_cast<float*>(S.c_lc + chunk);
+  S.ids = reinterpret_cast<int*>(S.c_v + chunk);
+  S.a0 = reinterpret_cast<float*>(S.ids + B);
+  S.qs = S.a0 + B;
+  S.ys = S.qs + B;
+  S.acts = S.ys + B;
+  S.bs = S.acts + B;
+  S.arun = S.bs + B;  // α of idx[t] after update t
+  S.dtil = S.arun + B;  // δ̃_t = δ_t·y_t
+  S.prev = reinterpret_cast<int*>(S.dtil + B);  // last s < t, same id
+  S.last = S.prev + B;  // no s > t has the same id
+  S.segoff = S.last + B;
+  S.rstart = S.segoff + B + 1;
+  return S;
+}
+
+// All threads: the ids, each id's seed α, q, y, act and base, prev[] and
+// last[], G when staged (cp.async, 16 bytes a copy where it can; the
+// caller waits), and where each row's class-r segment of shard j starts
+// in its workspace row (rstart) and in the class's entries (segoff, row
+// order).  The loads that do not depend on the ids issue first.  Returns
+// the class's entry count.
+__device__ __forceinline__ int b5_prologue(
+    const B5Smem& S, const int* __restrict__ idx, int B, int R,
+    int r, long long row0, const int* __restrict__ roff,
+    const float* __restrict__ alpha_in, const float* __restrict__ q,
+    const float* __restrict__ act, const float* __restrict__ y,
     const float* __restrict__ base, const float* __restrict__ gram,
-    DcdLoss L) {
-  __shared__ float dtil[DCD_FEATURE_MAX_B];   // δ̃_t = δ_t·y_t
-  __shared__ float a_run[DCD_FEATURE_MAX_B];  // α of idx[t] after update t
-  __shared__ int prev[DCD_FEATURE_MAX_B];     // last s < t, idx[s] == idx[t]
-  const int j = blockIdx.x;
-  for (int t = threadIdx.x; t < B; t += blockDim.x) {
-    int p = -1;
-    const int it = idx[t];
-    for (int s = 0; s < t; ++s)
-      if (idx[s] == it) p = s;
-    prev[t] = p;
+    int stage_gram, int* tmp) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int e0 = 0;
+  if (stage_gram &&
+      (reinterpret_cast<unsigned long long>(gram) & 15ULL) == 0) {
+    e0 = (B * B) & ~3;
+    for (int e = 4 * tid; e < e0; e += 4 * nt) cp_async16(S.G + e, gram + e);
   }
+  if (stage_gram)
+    for (int e = e0 + tid; e < B * B; e += nt) cp_async4(S.G + e, gram + e);
+  for (int t = tid; t < B; t += nt) {
+    S.ids[t] = idx[t];
+    S.bs[t] = base[t];
+  }
+  const int per = (B + nt - 1) / nt;
+  const int s0 = min(B, tid * per), s1 = min(B, s0 + per);
+  int len = 0;
+  for (int s = s0; s < s1; ++s) {
+    const int* ro = roff + (row0 + s) * (R + 1) + r;
+    const int a = ro[0], b = ro[1];
+    S.rstart[s] = a;
+    S.segoff[s] = b - a;
+    len += b - a;
+  }
+  int total;
+  int run = block_excl_scan(len, tmp, &total);  // publishes the ids too
+  for (int s = s0; s < s1; ++s) {
+    const int n = S.segoff[s];
+    S.segoff[s] = run;
+    run += n;
+  }
+  if (tid == 0) S.segoff[B] = total;
+  for (int t = tid; t < B; t += nt) {
+    const int i = S.ids[t];
+    S.a0[t] = alpha_in[i];
+    S.qs[t] = q[i];
+    S.ys[t] = y ? y[i] : 1.0f;
+    S.acts[t] = act ? act[i] : 1.0f;
+  }
+  dcd_repeats(S.ids, B, S.prev, S.last);
   __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    for (int t = 0; t < B; ++t) {
-      float part = 0.0f;
-      for (int s = lane; s < t; s += 32)
-        part += dtil[s] * gram[(long long)s * B + t];
-      part = warp_sum(part);
-      if (lane == 0) {
-        const long long i = idx[t];
-        const float yi = y ? y[i] : 1.0f;
-        const float wx = yi * (base[t] + part);
-        const float a = prev[t] >= 0 ? a_run[prev[t]] : alpha_in[i];
-        float dl = dcd_delta(L, a, wx, q[i]);
-        if (act && !(act[i] > 0.0f)) dl = 0.0f;
-        a_run[t] = a + dl;
-        dtil[t] = dl * yi;
+  return total;
+}
+
+// Warp 0: the B steps of the recursion (see the note at the top), G's
+// rows from Gsrc (shared or device memory), δ̃ and the running α into
+// shared memory; the next step's row of G and scalars load a step ahead.
+// NC accumulators a lane: NC·32 ≥ B.
+template <int NC>
+__device__ __forceinline__ void b5_recursion(const B5Smem& S, int B,
+                                             const float* Gsrc,
+                                             const DcdLoss& L) {
+  const int lane = threadIdx.x & 31;
+  // acc[c], g[c] and gn[c] are column u = lane + 32·(c + c0); at every
+  // 32nd step the finished group c0 shifts out, so the owner of step t
+  // always holds acc_t in acc[0] (static indices keep them in registers)
+  float acc[NC], g[NC], gn[NC];
+  int c0 = 0;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int u = lane + 32 * c;
+    acc[c] = 0.0f;
+    g[c] = u < B ? Gsrc[u] : 0.0f;
+    gn[c] = 0.0f;
+  }
+  int pt = S.prev[0];
+  float yi = S.ys[0], qi = S.qs[0], ai = S.acts[0], a0t = S.a0[0];
+  float bt = S.bs[0], a_last = 0.0f;
+  for (int t = 0; t < B; ++t) {
+    if (t > 0 && (t & 31) == 0) {
+#pragma unroll
+      for (int c = 0; c + 1 < NC; ++c) {
+        acc[c] = acc[c + 1];
+        g[c] = g[c + 1];
       }
+      acc[NC - 1] = 0.0f;
+      g[NC - 1] = 0.0f;
+      ++c0;
+    }
+    int pt_n = -1;
+    float y_n = 1.0f, q_n = 1.0f, act_n = 1.0f, a0_n = 0.0f, b_n = 0.0f;
+    if (t + 1 < B) {
+      const float* gr = Gsrc + (long long)(t + 1) * B;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int u = lane + 32 * (c + c0);
+        gn[c] = u < B ? gr[u] : 0.0f;
+      }
+      pt_n = S.prev[t + 1];
+      y_n = S.ys[t + 1];
+      q_n = S.qs[t + 1];
+      act_n = S.acts[t + 1];
+      a0_n = S.a0[t + 1];
+      b_n = S.bs[t + 1];
+    }
+    const float at = __shfl_sync(0xffffffffu, acc[0], t & 31);
+    // a repeated id reads its running α (the last step's from registers)
+    const float a = pt < 0 ? a0t : (pt == t - 1 ? a_last : S.arun[pt]);
+    float dl = dcd_delta(L, a, yi * (bt + at), qi);
+    if (!(ai > 0.0f)) dl = 0.0f;
+    const float dt = dl * yi;
+    a_last = a + dl;
+    if (lane == 0) {
+      S.arun[t] = a_last;
+      S.dtil[t] = dt;
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[c] = acc[c] + dt * g[c];
+      g[c] = gn[c];
+    }
+    pt = pt_n;
+    yi = y_n;
+    qi = q_n;
+    ai = act_n;
+    a0t = a0_n;
+    bt = b_n;
+    __syncwarp();
+  }
+}
+
+// Threads [first, first + count): stage the class's entries [c0, c0 + n)
+// in the chunk — the values by cp.async (the caller waits), the columns
+// through registers, B5_STAGE a thread at a time — each with an L2
+// prefetch of its word of w, so that the scatter's adds find it in L2.
+#define B5_STAGE 8
+__device__ __forceinline__ void b5_stage_chunk(
+    const B5Smem& S, int B, int k, int R, int r, long long row0,
+    const int* __restrict__ bk_lc, const float* __restrict__ bk_v,
+    const float* wj, int c0, int n, int first, int count) {
+  for (int e0 = (int)threadIdx.x - first; e0 < n; e0 += B5_STAGE * count) {
+    long long src[B5_STAGE];
+    int lc[B5_STAGE];
+#pragma unroll
+    for (int u = 0; u < B5_STAGE; ++u) {
+      const int e = e0 + u * count;
+      src[u] = -1;
+      if (e < n) {
+        const int q = c0 + e;
+        int lo = 0, hi = B - 1;  // the row whose segment holds entry q
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (S.segoff[mid] <= q)
+            lo = mid;
+          else
+            hi = mid - 1;
+        }
+        src[u] = (row0 + lo) * k + S.rstart[lo] + (q - S.segoff[lo]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B5_STAGE; ++u)
+      lc[u] = src[u] >= 0 ? bk_lc[src[u]] : 0;
+#pragma unroll
+    for (int u = 0; u < B5_STAGE; ++u) {
+      if (src[u] >= 0) {
+        const int e = e0 + u * count;
+        S.c_lc[e] = lc[u];
+        cp_async4(S.c_v + e, bk_v + src[u]);
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(
+            wj + (long long)lc[u] * R + r));
+      }
+    }
+  }
+}
+
+// Warp 0: the chunk's entries in row order, w[lc·R + r] += δ̃_t·v; each
+// row's bounds and δ̃ load a row ahead, and a __syncwarp follows each row
+// that adds.
+__device__ __forceinline__ void b5_apply_chunk(const B5Smem& S, int B, int R,
+                                               int r, float* wj, int c0,
+                                               int n) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(S.segoff[0], c0), hi = min(S.segoff[1], c0 + n);
+  float s = S.dtil[0];
+  for (int t = 0; t < B; ++t) {
+    int lo_n = 0, hi_n = 0;
+    float s_n = 0.0f;
+    if (t + 1 < B) {
+      lo_n = max(S.segoff[t + 1], c0);
+      hi_n = min(S.segoff[t + 2], c0 + n);
+      s_n = S.dtil[t + 1];
+    }
+    if (lo < hi && s != 0.0f) {
+      for (int e = lo + lane; e < hi; e += 32)
+        atomicAdd(wj + (long long)S.c_lc[e - c0] * R + r,
+                  s * S.c_v[e - c0]);
       __syncwarp();
     }
+    lo = lo_n;
+    hi = hi_n;
+    s = s_n;
   }
-  __syncthreads();
+}
+
+// α of each id at its last update in the block.
+__device__ __forceinline__ void b5_alpha_out(const B5Smem& S, int B,
+                                             float* alpha_out) {
+  for (int t = threadIdx.x; t < B; t += blockDim.x)
+    if (S.last[t]) alpha_out[S.ids[t]] = S.arun[t];
+}
+
+// CTA (r = blockIdx.x, j = blockIdx.y): warp 0 runs the recursion while
+// the other warps stage the first chunk of the class's entries; then warp
+// 0 scatters the chunk (and any later one, staged by all).
+template <int NC>
+__global__ void dcd_feature_update_kernel(
+    const int* __restrict__ idx, int B, int k, int R,
+    const int* __restrict__ bk_lc, const float* __restrict__ bk_v,
+    const int* __restrict__ roff, const float* __restrict__ alpha_in,
+    float* __restrict__ alpha_out, const float* __restrict__ q,
+    const float* __restrict__ act, const float* __restrict__ y, float* w,
+    int d1, const float* __restrict__ base, const float* __restrict__ gram,
+    int stage_gram, int chunk, DcdLoss L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int tmp[DCD_MAX_WARPS];
+  const B5Smem S = b5_carve(smem, B, stage_gram, chunk);
+  const int r = blockIdx.x, j = blockIdx.y;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long row0 = (long long)j * B;
   float* wj = w + (long long)j * d1;
-  for (int t = 0; t < B; ++t) {
-    const float s = dtil[t];
-    if (s != 0.0f) {
-      const long long rt = ((long long)idx[t] * m + j) * k;
-      for (int e = threadIdx.x; e < k; e += blockDim.x) {
-        const int c = cols[rt + e];
-        if ((unsigned)c < (unsigned)d_loc) atomicAdd(wj + c, s * vals[rt + e]);
-      }
+  const int total = b5_prologue(S, idx, B, R, r, row0, roff, alpha_in, q,
+                                act, y, base, gram, stage_gram, tmp);
+  cp_async_wait_all();  // G
+  __syncthreads();
+  int n = min(chunk, total);
+  if (tid < 32)
+    b5_recursion<NC>(S, B, stage_gram ? S.G : gram, L);
+  else
+    b5_stage_chunk(S, B, k, R, r, row0, bk_lc, bk_v, wj, 0, n, 32, nt - 32);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int c0 = 0; c0 < total; c0 += chunk) {
+    n = min(chunk, total - c0);
+    if (c0 > 0) {
+      b5_stage_chunk(S, B, k, R, r, row0, bk_lc, bk_v, wj, c0, n, 0, nt);
+      cp_async_wait_all();
+      __syncthreads();
     }
+    if (tid < 32) b5_apply_chunk(S, B, R, r, wj, c0, n);
     __syncthreads();
   }
-  if (j == 0 && threadIdx.x == 0)
-    for (int t = 0; t < B; ++t) alpha_out[idx[t]] = a_run[t];
+  if (r == 0 && j == 0) b5_alpha_out(S, B, alpha_out);
 }
+
+// The dynamic shared memory limit of `kernel`, raised to `bytes` when
+// `*set` (the limit raised so far in this process) is below it.
+template <typename K>
+static cudaError_t smem_limit(K kernel, int bytes, int* set) {
+  if (bytes <= *set) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *set = bytes;
+  return err;
+}
+
+static int bucket_smem_set = 0;
 
 // Plain C entries for ctypes.  Each returns cudaGetLastError() after its
 // launch (0 = launched), or cudaErrorInvalidValue for a layout the
@@ -522,21 +794,11 @@ extern "C" int dcd_feature_gram_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-  static int bucket_set = 0, gram_set = 0;  // limits raised so far
-  if (bucket_smem > bucket_set) {
-    err = cudaFuncSetAttribute(dcd_feature_bucket_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bucket_smem);
-    if (err != cudaSuccess) return (int)err;
-    bucket_set = bucket_smem;
-  }
-  if (gram_smem > gram_set) {
-    err = cudaFuncSetAttribute(dcd_feature_gram_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               gram_smem);
-    if (err != cudaSuccess) return (int)err;
-    gram_set = gram_smem;
-  }
+  static int gram_set = 0;
+  err = smem_limit(dcd_feature_bucket_kernel, bucket_smem, &bucket_smem_set);
+  if (err != cudaSuccess) return (int)err;
+  err = smem_limit(dcd_feature_gram_kernel, gram_smem, &gram_set);
+  if (err != cudaSuccess) return (int)err;
   dcd_feature_bucket_kernel<<<dim3(m, B), bucket_threads, bucket_smem, st>>>(
       idx, B, cols, vals, m, k, d_loc, w, d1, R, bk_lc, bk_v, roff, base_p);
   err = cudaGetLastError();
@@ -553,16 +815,70 @@ extern "C" int dcd_feature_gram_launch(
   return (int)cudaGetLastError();
 }
 
+template <int NC>
+static int update_launch(const int* idx, int B, int m, int k, int R,
+                         const int* bk_lc, const float* bk_v, const int* roff,
+                         const float* alpha_in, float* alpha_out,
+                         const float* q, const float* act, const float* y,
+                         float* w, int d1, const float* base,
+                         const float* gram, int stage_gram, int chunk,
+                         const DcdLoss& L, int threads, int smem,
+                         cudaStream_t st) {
+  static int set = 0;
+  const cudaError_t err =
+      smem_limit(dcd_feature_update_kernel<NC>, smem, &set);
+  if (err != cudaSuccess) return (int)err;
+  dcd_feature_update_kernel<NC><<<dim3(R, m), threads, smem, st>>>(
+      idx, B, k, R, bk_lc, bk_v, roff, alpha_in, alpha_out, q, act, y, w, d1,
+      base, gram, stage_gram, chunk, L);
+  return (int)cudaGetLastError();
+}
+
+// B5.  With `bucket`, B4's bucket pass (no base) first fills bk_lc, bk_v
+// and roff for this block.
 extern "C" int dcd_feature_update_launch(
     const int* idx, int B, const int* cols, const float* vals, int m, int k,
     int d_loc, const float* alpha_in, float* alpha_out, const float* q,
     const float* act, const float* y, float* w, int d1, const float* base,
     const float* gram, int kind, float C, float inv_two_c, float eps_c,
-    int newton_steps, int threads, void* stream) {
-  if (B > DCD_FEATURE_MAX_B) return (int)cudaErrorInvalidValue;
+    int newton_steps, int R, int per_lane, int stage_gram, int chunk,
+    int threads, int smem, int bucket, int bucket_threads, int bucket_smem,
+    int* bk_lc, float* bk_v, int* roff, void* stream) {
+  // the bytes each kernel carves (repro_torch/dist/mesh.py:
+  // feature_update_bytes, gram_plan)
+  const long long need = 4LL * (12LL * B + 1) +
+                         (stage_gram ? 4LL * B * B : 0) + 8LL * chunk;
+  const long long bucket_need = 4LL * (bucket_threads / 32) * R + 8LL * k;
+  if (B < 1 || B > DCD_FEATURE_MAX_B || R < 1 || chunk < 1 ||
+      per_lane < 1 || per_lane > 32 || (per_lane & (per_lane - 1)) != 0 ||
+      32LL * per_lane < B || threads < 64 || threads % 32 != 0 ||
+      threads > 1024 || smem < need ||
+      (bucket && (bucket_threads < 32 || bucket_threads % 32 != 0 ||
+                  bucket_threads > 1024 || bucket_smem < bucket_need)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bucket) {
+    cudaError_t err =
+        smem_limit(dcd_feature_bucket_kernel, bucket_smem, &bucket_smem_set);
+    if (err != cudaSuccess) return (int)err;
+    dcd_feature_bucket_kernel<<<dim3(m, B), bucket_threads, bucket_smem,
+                                 st>>>(idx, B, cols, vals, m, k, d_loc, w, d1,
+                                       R, bk_lc, bk_v, roff, nullptr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
-  dcd_feature_update_kernel<<<m, threads, 0, (cudaStream_t)stream>>>(
-      idx, B, cols, vals, m, k, d_loc, alpha_in, alpha_out, q, act, y, w, d1,
-      base, gram, L);
-  return (int)cudaGetLastError();
+#define B5_LAUNCH(NC)                                                         \
+  return update_launch<NC>(idx, B, m, k, R, bk_lc, bk_v, roff, alpha_in,     \
+                           alpha_out, q, act, y, w, d1, base, gram,          \
+                           stage_gram, chunk, L, threads, smem, st)
+  switch (per_lane) {
+    case 1: B5_LAUNCH(1);
+    case 2: B5_LAUNCH(2);
+    case 4: B5_LAUNCH(4);
+    case 8: B5_LAUNCH(8);
+    case 16: B5_LAUNCH(16);
+    default: B5_LAUNCH(32);
+  }
+#undef B5_LAUNCH
 }

@@ -11,6 +11,12 @@
   source (idx = act = y = null) but has its own C entry, wrapper and
   launch count.
 
+B2 has two variants, picked by shape (``repro_torch.dist.mesh.
+dcd_dense_plan``): "staged", the block's rows in shared memory and w in
+the registers of one warp (covtype's 64 ids of 54 floats), and "wide",
+rows and w in device memory (wider rows, or blocks too large to stage;
+B3 runs it too).
+
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.
 α and w are float32; X is float32, (n, d), any d.
@@ -21,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.duals import kernel_params
-from repro_torch.dist.mesh import cta_threads
+from repro_torch.dist.mesh import cta_threads, dcd_dense_plan
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, P
 
@@ -61,29 +67,42 @@ def _check(X, alpha, w, sq_norms, idx=None, active=None, y=None):
 
 
 def dcd_indexed_epoch(X, alpha, w, sq_norms, *, loss, idx, active=None,
-                      y=None):
+                      y=None, wide=False):
     """B2: run the updates of ``idx`` (int32) and return new (α, w).
-    CUDA tensors launch the kernel (one CTA, counted in
-    ``dcd_indexed_epoch.launches``); CPU tensors run the plain version.
-    The ids must lie in [0, n); as for B1, the callers check them where
-    they come from outside."""
+    CUDA tensors launch a kernel (one CTA; every launch counts in
+    ``dcd_indexed_epoch.launches``, and in
+    ``dcd_indexed_epoch.variant_launches`` under its variant); CPU
+    tensors run the plain version.  ``wide=True`` launches the wide
+    variant whatever the shape, to hold the two against each other.  The
+    ids must lie in [0, n); as for B1, the callers check them where they
+    come from outside."""
     if alpha.device.type != "cuda":
         return dcd_indexed_epoch_plain(X, alpha, w, sq_norms, loss=loss,
                                        idx=idx, active=active, y=y)
     _check(X, alpha, w, sq_norms, idx, active, y)
     a_out, w_out = alpha.clone(), w.clone()
-    if idx.shape[0] == 0:
+    m, d = idx.shape[0], X.shape[1]
+    if m == 0:
         return a_out, w_out
-    launch = build.entry("dcd_block", "dcd_block_indexed_launch",
-                         [P, I, P, I, P, P, P, P, P, I, F, F, F, I, I, P])
+    plan = dcd_dense_plan(m, d, wide)
+    args = [build.ptr(idx), m, build.ptr(X), d, build.ptr(a_out),
+            build.ptr(sq_norms), build.ptr(active), build.ptr(y),
+            build.ptr(w_out), *kernel_params(loss)]
+    types = [P, I, P, I, P, P, P, P, P, I, F, F, F, I]
+    if plan.variant == "staged":
+        fn = "dcd_block_staged_launch"
+        types += [I, I, I, P]
+        args += [plan.per_lane, plan.threads, plan.smem_bytes]
+    else:
+        fn = "dcd_block_indexed_launch"
+        types += [I, P]
+        args += [plan.threads]
+    launch = build.entry("dcd_block", fn, types)
     with torch.cuda.device(alpha.device):
-        err = launch(build.ptr(idx), idx.shape[0], build.ptr(X), X.shape[1],
-                     build.ptr(a_out), build.ptr(sq_norms),
-                     build.ptr(active), build.ptr(y), build.ptr(w_out),
-                     *kernel_params(loss), cta_threads(X.shape[1]),
-                     build.stream())
-    build.check(err, "dcd_block_indexed_launch")
+        err = launch(*args, build.stream())
+    build.check(err, fn)
     dcd_indexed_epoch.launches += 1
+    dcd_indexed_epoch.variant_launches[plan.variant] += 1
     return a_out, w_out
 
 
@@ -110,4 +129,5 @@ def dcd_tile_epoch(X, alpha, w, sq_norms, *, loss):
 
 
 dcd_indexed_epoch.launches = 0
+dcd_indexed_epoch.variant_launches = {"staged": 0, "wide": 0}
 dcd_tile_epoch.launches = 0

@@ -20,7 +20,10 @@ the shards:
 * B5, ``dcd_feature_update``, replaces ``_update_kernel``: the B-step δ
   recursion against the summed (base, G) — wx_t = y_t·(base_t +
   Σ_s δ̃_s·G[s, t]), δ gated by ``active``, α_i += δ, δ̃_t = δ·y_t — and
-  the scatter of δ̃_t·vals_t into every shard's own slice.
+  the scatter of δ̃_t·vals_t into every shard's own slice.  Its kernel
+  scatters by B4's column classes, from the buckets B4 left in the
+  workspace for the same block (or, without one, from its own bucket
+  pass); its layout is ``repro_torch.dist.mesh.feature_update_plan``'s.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.  B4
@@ -40,20 +43,18 @@ import torch
 from repro_torch.core.duals import kernel_params
 from repro_torch.data.sparse import flat_shard_ids
 from repro_torch.dist.mesh import (
+    FEATURE_UPDATE_CHUNK,
     GRAM_BUCKET_THREADS,
     GRAM_CHUNK,
     GRAM_TABLE_SLOTS,
     GRAM_THREADS,
-    cta_threads,
+    feature_update_plan,
     gram_plan,
 )
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, P
 
-MAX_BLOCK = 1024  # B5 keeps three B-word arrays in shared memory
-# B5's threads per CTA: the rows are long (k_loc ≈ 3,100 at webspam), and
-# more warps keep more of its scatter in flight
-MAX_THREADS = 1024
+MAX_BLOCK = 1024  # B5's recursion warp holds at most 32 columns a lane
 
 
 def dcd_feature_gram_plain(cols, vals, w, idx):
@@ -114,6 +115,14 @@ def _check_block(cols, vals, w, idx):
                          f"{idx.shape[0]}")
 
 
+def _check_workspace(workspace, m, b, k, plan, device):
+    """The buckets of a workspace for this shape (``gram_workspace``)."""
+    build.check_operands(device, {
+        "lc": (workspace.lc, (m, b, k)), "v": (workspace.v, (m, b, k)),
+        "roff": (workspace.roff, (m, b, plan.classes + 1))},
+        int32=("lc", "roff"))
+
+
 def dcd_feature_gram(cols, vals, w, idx, *, workspace=None):
     """Every shard's partial (base, Gram) of the block ``idx`` (int32 row
     ids in [0, n), repeats allowed) against the primal slices ``w``.
@@ -131,13 +140,11 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None):
     if workspace is None:
         workspace = gram_workspace(m, b, k, d1, w.device)
     parts = plan.classes if plan.classes > 1 else 0
+    _check_workspace(workspace, m, b, k, plan, w.device)
     build.check_operands(w.device, {
         "cols": (cols, None), "vals": (vals, (n, m, k)), "w": (w, None),
-        "idx": (idx, None), "lc": (workspace.lc, (m, b, k)),
-        "v": (workspace.v, (m, b, k)),
-        "roff": (workspace.roff, (m, b, plan.classes + 1)),
-        "part": (workspace.part, (m, parts, b, b))},
-        int32=("cols", "idx", "lc", "roff"))
+        "idx": (idx, None), "part": (workspace.part, (m, parts, b, b))},
+        int32=("cols", "idx"))
     base_p = torch.empty((m, b), dtype=torch.float32, device=w.device)
     gram_p = torch.empty((m, b, b), dtype=torch.float32, device=w.device)
     launch = build.entry("dcd_feature", "dcd_feature_gram_launch",
@@ -186,11 +193,15 @@ def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
 
 
 def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
-                       loss, active=None, y=None):
+                       loss, active=None, y=None, workspace=None):
     """The block's B sequential updates against the summed (base, gram);
-    ``sq_norms`` are the full row norms.  CUDA tensors launch B5 (one CTA
-    per shard, counted in ``dcd_feature_update.launches``); CPU tensors
-    run the plain version.  Returns new (α, w)."""
+    ``sq_norms`` are the full row norms.  CUDA tensors launch B5 (R × m
+    CTAs, R B4's column classes; counted in
+    ``dcd_feature_update.launches``); CPU tensors run the plain version
+    and ignore ``workspace``.  ``workspace`` must hold B4's buckets of
+    this same block ``idx`` (``dcd_feature_gram`` with it, since the
+    last call that filled it); with None, B5 buckets the block itself in
+    the same launch, to the same bits.  Returns new (α, w)."""
     if w.device.type != "cuda":
         return dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx,
                                         base, gram, loss=loss,
@@ -198,6 +209,12 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     _check_block(cols, vals, w, idx)
     n, m, k = cols.shape
     d1, b = w.shape[1], idx.shape[0]
+    plan = feature_update_plan(m, b, k, d1)
+    gplan = gram_plan(m, b, k, d1)
+    bucket = workspace is None
+    if bucket:
+        workspace = gram_workspace(m, b, k, d1, w.device)
+    _check_workspace(workspace, m, b, k, gplan, w.device)
     build.check_operands(w.device, {
         "cols": (cols, None), "vals": (vals, (n, m, k)),
         "alpha": (alpha, (n,)), "sq_norms": (sq_norms, (n,)),
@@ -207,14 +224,19 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     a_out, w_out = alpha.clone(), w.clone()
     launch = build.entry("dcd_feature", "dcd_feature_update_launch",
                          [P, I, P, P, I, I, I, P, P, P, P, P, P, I, P, P,
-                          I, F, F, F, I, I, P])
+                          I, F, F, F, I, I, I, I, I, I, I, I, I, I, P, P, P,
+                          P])
     with torch.cuda.device(w.device):
         err = launch(build.ptr(idx), b, build.ptr(cols), build.ptr(vals), m,
                      k, d1 - 1, build.ptr(alpha), build.ptr(a_out),
                      build.ptr(sq_norms), build.ptr(active), build.ptr(y),
                      build.ptr(w_out), d1, build.ptr(base), build.ptr(gram),
-                     *kernel_params(loss), cta_threads(k, MAX_THREADS),
-                     build.stream())
+                     *kernel_params(loss), plan.classes, plan.per_lane,
+                     int(plan.stage_gram), FEATURE_UPDATE_CHUNK,
+                     plan.threads, plan.smem_bytes, int(bucket),
+                     GRAM_BUCKET_THREADS, gplan.bucket_smem,
+                     build.ptr(workspace.lc), build.ptr(workspace.v),
+                     build.ptr(workspace.roff), build.stream())
     build.check(err, "dcd_feature_update_launch")
     dcd_feature_update.launches += 1
     return a_out, w_out

@@ -126,13 +126,14 @@ def dcd_feature_base_correction(cols, vals, dvec, idx):
 
 
 def dcd_feature_update(cols, vals, sq_norms, alpha, w, idx, base, gram, *,
-                       loss, active=None, y=None):
+                       loss, active=None, y=None, workspace=None):
     """Phase 2: the B-step δ recursion against a summed (base, Gram) —
-    B5.  ``sq_norms`` are the full row norms.  Returns (updated α,
-    updated primal slices)."""
+    B5.  ``sq_norms`` are the full row norms; ``workspace``, if given,
+    holds B4's buckets of this same block.  Returns (updated α, updated
+    primal slices)."""
     return feat.dcd_feature_update(cols, vals, alpha, sq_norms, w, idx,
                                    base, gram, loss=loss, active=active,
-                                   y=y)
+                                   y=y, workspace=workspace)
 
 
 def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
@@ -144,5 +145,5 @@ def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
     base, gram = dcd_feature_gram(cols, vals, w, idx, workspace=workspace)
     a_new, w_new = dcd_feature_update(cols, vals, sq_norms, alpha, w, idx,
                                       base, gram, loss=loss, active=active,
-                                      y=y)
+                                      y=y, workspace=workspace)
     return a_new, w_new - w

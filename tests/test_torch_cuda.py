@@ -23,8 +23,11 @@ from repro_torch.kernels.dcd_block import (
 )
 from repro_torch.data.sparse import ell_column_split
 from repro_torch.dist.mesh import (
+    DENSE_STAGED_MAX_D,
     GRAM_CHUNK,
+    dcd_dense_plan,
     dcd_ell_plan,
+    feature_update_plan,
     gram_plan,
     solver_mesh_2d,
 )
@@ -177,6 +180,63 @@ def test_b2_b3_kernels_match_plain(loss):
         n0[0] + 1, n0[1] + 1)
 
 
+def _dense_case(dev, n, d, seed=9):
+    """Rows of 0.2·N(0, 1)/√(d/54) (covtype's scale whatever d), the
+    state of ``_state`` and its block of ids with repeats."""
+    rng = np.random.default_rng(seed)
+    X = (rng.standard_normal((n, d)) * 0.2 / np.sqrt(d / 54)).astype(
+        np.float32)
+    alpha, w, active, y, idx = _state(rng, n, d, dev)
+    idx = torch.cat([idx[:59], idx[-5:]])  # ends 3, 3, 0, n - 1, 17
+    return torch.from_numpy(X).to(dev), alpha, w, active, y, idx
+
+
+# d of the rows: covtype's 54, the largest d the staged variant takes, one
+# past it (wide)
+DENSE_DS = [54, DENSE_STAGED_MAX_D, DENSE_STAGED_MAX_D + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["by_shape", "wide"])
+@pytest.mark.parametrize("d", DENSE_DS)
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b2_variants_match_plain(loss, d, wide):
+    """B2's variant for the shape (or the wide one, asked for) against
+    the plain version, with mask, labels and repeated ids in a block of
+    64."""
+    dev = _cuda()
+    X, alpha, w, active, y, idx = _dense_case(dev, 300, d)
+    assert idx.shape[0] == 64 and idx[-5] == idx[-4]  # a repeated id
+    variant = dcd_dense_plan(64, d, wide).variant
+    assert variant == ("wide" if wide or d > DENSE_STAGED_MAX_D
+                       else "staged")
+    q = (X * X).sum(1)
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=idx, active=active, y=y)
+    n0 = (dcd_indexed_epoch.launches,
+          dcd_indexed_epoch.variant_launches[variant])
+    ka, kw_ = dcd_indexed_epoch(X, alpha, w, q, wide=wide, **kw)
+    assert (dcd_indexed_epoch.launches,
+            dcd_indexed_epoch.variant_launches[variant]) == (n0[0] + 1,
+                                                             n0[1] + 1)
+    pa, pw = dcd_indexed_epoch_plain(X, alpha, w, q, **kw)
+    _close(ka, pa)
+    _close(kw_, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["by_shape", "wide"])
+@pytest.mark.parametrize("d", DENSE_DS)
+def test_b2_kernel_is_deterministic(d, wide):
+    """A second launch on the same inputs gives the same bits."""
+    dev = _cuda()
+    X, alpha, w, active, y, idx = _dense_case(dev, 300, d)
+    q = (X * X).sum(1)
+    kw = dict(loss=td.Hinge(0.8), idx=idx, active=active, y=y, wide=wide)
+    first = dcd_indexed_epoch(X, alpha, w, q, **kw)
+    second = dcd_indexed_epoch(X, alpha, w, q, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ell", [True, False], ids=["ell", "dense"])
 def test_solver_kernel_path_matches_cpu_path(ell):
@@ -324,3 +384,80 @@ def test_column_split_on_the_card_matches_cpu():
     on_card = ell_column_split(X.to(dev), 3, chunk_elems=500)
     assert torch.equal(on_card.indices.cpu(), on_cpu.indices)
     assert torch.equal(on_card.values.cpu(), on_cpu.values)
+
+
+# B5 at its block sizes: (feature case, column classes R > 1 or R = 1);
+# at B = 256 and 1,024 G is read from device memory, not staged
+FEATURE_UPDATE_CASES = {
+    "b1": (dict(b=1), True),
+    "b64": (dict(b=64), True),
+    "b64_one_class": (dict(b=64, d_loc=60), False),
+    "b256": (dict(b=256), True),
+    "b1024_one_class": (dict(n=1100, m=2, k=20, b=1024), False),
+}
+
+
+def _b5_inputs(dev, case, repeat_col=True):
+    spec, many_classes = FEATURE_UPDATE_CASES[case]
+    cols, vals, w, idx = _feature_case(dev, repeat_col=repeat_col, **spec)
+    n, m, k = cols.shape
+    b = idx.shape[0]
+    plan = feature_update_plan(m, b, k, w.shape[1])
+    assert (plan.classes > 1) == many_classes
+    assert plan.stage_gram == (b <= 64)
+    pb, pg = feat.dcd_feature_gram_plain(cols, vals, w, idx)
+    rng = np.random.default_rng(8)
+    alpha, _, active, y, _ = _state(rng, n, 1, dev)
+    q = (vals * vals).sum((1, 2))
+    return cols, vals, w, idx, alpha, q, active, y, pb.sum(0), pg.sum(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FEATURE_UPDATE_CASES))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b5_kernel_matches_plain(loss, case):
+    """B5 with mask, labels, repeated ids and a row that repeats a column
+    against the plain version: with B4's workspace filled for the same
+    block, and without one (its own bucket pass)."""
+    dev = _cuda()
+    cols, vals, w, idx, alpha, q, active, y, base, gram = _b5_inputs(dev,
+                                                                     case)
+    n, m, k = cols.shape
+    ws = feat.gram_workspace(m, idx.shape[0], k, w.shape[1], dev)
+    feat.dcd_feature_gram(cols, vals, w, idx, workspace=ws)
+    kw = dict(loss=td.make_loss(loss, 0.8), active=active, y=y)
+    n0 = feat.dcd_feature_update.launches
+    ka, kwv = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
+                                      gram, workspace=ws, **kw)
+    sa, sw = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
+                                     gram, **kw)
+    assert feat.dcd_feature_update.launches == n0 + 2
+    pa, pw = feat.dcd_feature_update_plain(cols, vals, alpha, q, w, idx,
+                                           base, gram, **kw)
+    for a in (ka, sa):
+        _close(a, pa)
+    for w_ in (kwv, sw):
+        _close(w_, pw)
+        assert float(w_[:, -1].abs().max()) == 0.0  # dummy slots stay 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FEATURE_UPDATE_CASES))
+def test_b5_kernel_is_deterministic(case):
+    """No row repeats a column: a second launch gives the same bits, and
+    so does the call without a workspace."""
+    dev = _cuda()
+    cols, vals, w, idx, alpha, q, active, y, base, gram = _b5_inputs(
+        dev, case, repeat_col=False)
+    n, m, k = cols.shape
+    ws = feat.gram_workspace(m, idx.shape[0], k, w.shape[1], dev)
+    feat.dcd_feature_gram(cols, vals, w, idx, workspace=ws)
+    kw = dict(loss=td.Hinge(0.8), active=active, y=y)
+    first = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base, gram,
+                                    workspace=ws, **kw)
+    second = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
+                                     gram, workspace=ws, **kw)
+    alone = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base, gram,
+                                    **kw)
+    for a, b, c in zip(first, second, alone):
+        assert torch.equal(a, b) and torch.equal(a, c)

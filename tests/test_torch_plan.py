@@ -1,6 +1,7 @@
 """The kernels' shape policy in ``repro_torch.dist.mesh``: which variant
-B1 takes, how B4 lays out its column classes and workspace, and that
-both stay within the shared memory one Hopper CTA can use.  Pure
+B1 and B2 take, how B4 lays out its column classes and workspace and B5
+its CTAs and staged G, and that all stay within the shared memory one
+Hopper CTA can use.  Pure
 arithmetic on shapes, so it runs on the CPU; the layouts' counts are
 held to numpy counts of the same quantities."""
 
@@ -14,8 +15,13 @@ from repro_torch.dist.mesh import (
     GRAM_TABLE_SLOTS,
     SMEM_PER_CTA,
     STATIC_SMEM,
+    FEATURE_UPDATE_CHUNK,
+    dcd_dense_plan,
+    dcd_dense_staged_bytes,
     dcd_ell_plan,
     dcd_ell_staged_bytes,
+    feature_update_bytes,
+    feature_update_plan,
     gram_plan,
 )
 from repro_torch.kernels.dcd_feature import gram_workspace
@@ -172,3 +178,80 @@ def test_gram_workspace_follows_the_plan():
     one = gram_workspace(2, 1024, 20, 501, torch.device("cpu"))
     assert gram_plan(2, 1024, 20, 501).classes == 1
     assert tuple(one.part.shape) == (2, 0, 1024, 1024)  # G written directly
+
+
+# (b ids, d floats) -> variant, w's words a lane of the staged kernel
+DENSE_SHAPES = {
+    "covtype": ((64, 54), "staged", 2),
+    "one_float_rows": ((64, 1), "staged", 1),
+    "largest_staged_d": ((64, mesh.DENSE_STAGED_MAX_D), "staged", 8),
+    "one_past_the_largest_d": ((64, mesh.DENSE_STAGED_MAX_D + 1), "wide", 0),
+    "block_too_large_for_smem": ((1024, 200), "wide", 0),
+    "too_many_ids": ((mesh.DENSE_STAGED_MAX_IDS + 1, 1), "wide", 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_SHAPES))
+def test_b2_variant_by_shape(name):
+    (b, d), variant, per_lane = DENSE_SHAPES[name]
+    plan = dcd_dense_plan(b, d)
+    assert (plan.variant, plan.per_lane) == (variant, per_lane)
+    if variant == "staged":
+        assert plan.threads == mesh.DENSE_STAGED_THREADS
+        assert plan.smem_bytes == dcd_dense_staged_bytes(b, d) <= LIMIT
+        assert 32 * plan.per_lane >= d
+        assert plan.per_lane == 1 or d > 16 * plan.per_lane
+    else:
+        assert plan.smem_bytes == 0 and plan.threads == mesh.cta_threads(d)
+    wide = dcd_dense_plan(b, d, wide=True)  # asked for: wide at any shape
+    assert wide == mesh.DensePlan("wide", mesh.cta_threads(d), 0, 0)
+
+
+def test_b2_staged_bytes_count_the_arrays():
+    """The bytes are the arrays the kernel carves: the block's rows and
+    eight per-id arrays; at 1,024 ids of 200 floats they exceed one
+    CTA's shared memory."""
+    b, d = 64, 54
+    arrays = [np.empty((b, d), np.float32)] + [np.empty(b, np.int32)] * 8
+    assert dcd_dense_staged_bytes(b, d) == sum(a.nbytes for a in arrays)
+    assert np.empty((1024, 200), np.float32).nbytes > LIMIT
+
+
+@pytest.mark.parametrize("b", [1, 64, 200, 256, 1024])
+def test_b5_plan_follows_b4_and_fits_one_cta(b):
+    """B5 runs one CTA per B4 column class and shard (it reads B4's
+    buckets), stages G when the whole layout fits, and gives each lane
+    of its recursion warp a power of two of G's columns."""
+    m, k, d1 = 4, 3136, 4_152_287
+    plan = feature_update_plan(m, b, k, d1)
+    assert plan.classes == gram_plan(m, b, k, d1).classes
+    assert plan.stage_gram == (feature_update_bytes(b, True) <= LIMIT)
+    assert plan.smem_bytes == feature_update_bytes(b, plan.stage_gram)
+    assert plan.smem_bytes <= LIMIT and plan.threads >= 64
+    assert 32 * plan.per_lane >= b
+    assert plan.per_lane == 1 or b > 16 * plan.per_lane
+    assert plan.per_lane & (plan.per_lane - 1) == 0
+
+
+def test_b5_plan_at_the_webspam_split():
+    plan = feature_update_plan(**WEBSPAM_SPLIT)
+    assert plan.classes == 128 and plan.stage_gram and plan.per_lane == 2
+    assert not feature_update_plan(4, 256, 3136, 4_152_287).stage_gram
+
+
+def test_b5_bytes_count_the_arrays():
+    """The bytes are the arrays the kernel carves: G when staged, a
+    chunk of entries (local column, value), ten per-id arrays (id, seed
+    α, q, y, act, base, running α, δ̃, previous and last occurrence),
+    and the rows' segment offsets (B + 1) and starts (B)."""
+    b = 64
+    ids = [np.empty(b, np.int32)] + [np.empty(b, np.float32)] * 7 + [
+        np.empty(b, np.int32), np.empty(b, np.int32),
+        np.empty(b + 1, np.int32), np.empty(b, np.int32)]
+    chunk = [np.empty(FEATURE_UPDATE_CHUNK, np.int32),
+             np.empty(FEATURE_UPDATE_CHUNK, np.float32)]
+    g = np.empty((b, b), np.float32)
+    assert feature_update_bytes(b, False) == sum(
+        a.nbytes for a in ids + chunk)
+    assert feature_update_bytes(b, True) == sum(
+        a.nbytes for a in ids + chunk + [g])

@@ -202,3 +202,45 @@ def test_2d_gap_in_row_chunks_matches_one_pass(tiny):
         alpha, w)
     for a, b in zip(whole, chunked):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("epochs", [1, 3])
+def test_overlapped_round_hands_b5_its_own_blocks_workspace(epochs):
+    """In the overlapped round B4 of block t + 1 runs before B5 of block
+    t; with two workspaces that alternate, the one B5 of each block is
+    handed still holds that block's buckets.  Recording stand-ins for
+    the phases track which block each workspace was last filled with;
+    with one workspace for both (the single-buffered round), B5 would
+    read the next block's."""
+    n_blocks = 4
+    sched = [torch.arange(e * n_blocks, (e + 1) * n_blocks,
+                          dtype=torch.int32).reshape(n_blocks, 1)
+             for e in range(epochs + 1)]
+
+    def run(workspaces):
+        filled, seen = {}, []
+
+        def gram_fn(w_ref, idx, workspace):
+            filled[id(workspace)] = int(idx[0])
+            return torch.zeros(1), torch.zeros(1, 1)
+
+        def corr_fn(dvec, idx):
+            return torch.zeros(1)
+
+        def update_fn(alpha, w_ref, idx, base, gram, workspace):
+            seen.append((int(idx[0]), filled[id(workspace)]))
+            return alpha, w_ref
+
+        alpha, w = torch.zeros(1), torch.zeros(1)
+        inflight = (*gram_fn(w, sched[0][0], workspaces[0]), workspaces[0])
+        for e in range(epochs):
+            alpha, w, dw, inflight = ts._scan_rounds_overlap(
+                gram_fn, corr_fn, update_fn, alpha, w, torch.zeros(1),
+                sched[e], inflight, sched[e + 1][0], workspaces)
+        return seen
+
+    seen = run((object(), object()))
+    assert [b for b, _ in seen] == list(range(epochs * n_blocks))
+    assert all(block == held for block, held in seen)
+    one = object()
+    assert not any(block == held for block, held in run((one, one)))
