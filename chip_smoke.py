@@ -17,18 +17,21 @@ result line):
    on webspam's rows (its wide variant), and B2 (dense indexed) on the
    covtype-shape shard (its staged variant, and its wide one as
    ``ms_before``), a few rounds of B = 64 ids each; B3
-   (dense in-order) over one whole epoch of the covtype shard, and on
-   a few rows for the other losses; B4 (block Gram) and B5 (Gram
+   (dense in-order, its stream variant) over one whole epoch of the
+   covtype shard, and on a few rows for the other losses, from an
+   aligned and an unaligned offset, with its wide variant re-timed on the
+   whole shard as its ``ms_before`` and a logistic epoch timed
+   (``ms_logistic``); B4 (block Gram) and B5 (Gram
    δ-recursion) on the webspam shape split into m = 4 feature shards,
    a few rounds of B = 64 ids per loss (B5 with B4's workspace, and
    alone with its own bucket pass, to the same bits).  Each prints its
    max abs error against the tolerance and its time per launch from
    CUDA events; B1, B2, B4 and B5 are also launched twice on the same
-   block and must give the same bits.  B1's and B2's wide variants are
-   also checked and timed at the rcv1 and covtype shapes
-   (``ms_before``: the designs the staged variants replaced); B5 is
-   timed alone (its own bucket pass) and on logistic; B1 and B4 are
-   timed once more without the spin
+   block, and B3 on the same epoch, and must give the same bits.  B1's
+   and B2's wide variants are also checked and timed at the rcv1 and
+   covtype shapes (``ms_before``: the designs the staged variants
+   replaced); B5 is timed alone (its own bucket pass) and on logistic;
+   B1 and B4 are timed once more without the spin
    (host-gated).  ``torch.profiler`` views 20 rounds of the rcv1, the
    covtype and the webspam solve (wall time, device-busy time, idle
    share); then the
@@ -43,10 +46,10 @@ result line):
    d = 16,609,143, 3,728 nnz per row, hinge C = 1, B = 64, m = 4
    feature shards, 2 epochs), and webspam's rows on the 1-D mesh (2
    epochs, B1's wide variant); each must go through its kernels, launch
-   them (and each variant of B1) the expected number of times, and give
-   finite duality gaps that fall;
+   them (and each variant of B1, B2 and B3) the expected number of
+   times, and give finite duality gaps that fall;
 5. one JSON line of per-kernel numbers (with each kernel's variant, and
-   B1's and B2's ``ms_before``), then the result line
+   B1's, B2's and B3's ``ms_before``), then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one.  Data comes from
@@ -186,6 +189,7 @@ def main():
     from repro_torch.dist.mesh import (
         dcd_dense_plan,
         dcd_ell_plan,
+        dcd_tile_plan,
         feature_update_plan,
         gram_plan,
         solver_mesh_2d,
@@ -368,42 +372,69 @@ def main():
                                             idx=ids_c[0], active=act_c,
                                             y=y_c, wide=wide), torch)
     # B3 runs its rows in order.  The main path gives it the whole
-    # covtype shard in one launch (ops.dcd_epoch, hinge C = 0.0625):
-    # hold it to its plain version there, one epoch from α = 0, w = 0,
-    # and time both on those inputs.  A few rows suffice for the other
-    # two losses.
+    # covtype shard in one launch (ops.dcd_epoch, hinge C = 0.0625), which
+    # takes its stream variant: hold it to its plain version there, one
+    # epoch from α = 0, w = 0, and time both on those inputs, with the
+    # wide variant (the design the stream one replaced) re-timed on the
+    # same inputs as its "before".  A few rows suffice for the other two
+    # losses, from an aligned and from an unaligned offset (a view whose
+    # base and q are not 16-byte aligned: the stages are copied in 4-byte
+    # units).
     hinge_c = duals.Hinge(0.0625)
+    print(f"  B3 at the covtype shape: {dcd_tile_plan(n_c, d_c)}")
     a0_c, w0_c = torch.zeros(n_c, device=dev), torch.zeros(d_c, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pa3, pw3 = dcd_tile_epoch_plain(X_cov, a0_c, w0_c, q_c, loss=hinge_c)
     torch.cuda.synchronize()
     plain_b3 = (time.perf_counter() - t0) * 1e3
-    ka3, kw3 = dcd_tile_epoch(X_cov, a0_c, w0_c, q_c, loss=hinge_c)
-    torch.cuda.synchronize()
-    err_b3 = max(float((ka3 - pa3).abs().max()),
-                 float((kw3 - pw3).abs().max()))
     moved_b3 = int((pa3 != a0_c).sum())  # rows whose update scattered
-    print(f"  B3 dcd_tile hinge: max abs err {err_b3:.3g} over one epoch of "
-          f"{n_c} rows ({moved_b3} scattered; |w| max "
-          f"{float(pw3.abs().max()):.4g}; tolerance {ATOL})")
-    if not err_b3 <= ATOL:
-        fail("B3 dcd_tile disagrees with its plain version (hinge, full "
-             "covtype epoch)")
+    err_b3 = err_b3_before = 0.0
+    for wide in (False, True):
+        ka3, kw3 = dcd_tile_epoch(X_cov, a0_c, w0_c, q_c, loss=hinge_c,
+                                  wide=wide)
+        torch.cuda.synchronize()
+        e = max(float((ka3 - pa3).abs().max()),
+                float((kw3 - pw3).abs().max()))
+        what = "wide" if wide else "stream"
+        print(f"  B3 dcd_tile {what} hinge: max abs err {e:.3g} over one "
+              f"epoch of {n_c} rows ({moved_b3} scattered; |w| max "
+              f"{float(pw3.abs().max()):.4g}; tolerance {ATOL})")
+        if not e <= ATOL:
+            fail(f"B3 dcd_tile {what} disagrees with its plain version "
+                 "(hinge, full covtype epoch)")
+        if wide:
+            err_b3_before = e
+        else:
+            err_b3 = e
+    same_bits("B3 dcd_tile stream (covtype epoch, hinge)",
+              lambda: dcd_tile_epoch(X_cov, a0_c, w0_c, q_c, loss=hinge_c),
+              torch)
     ms_b3 = cuda_ms(lambda: dcd_tile_epoch(X_cov, a0_c, w0_c, q_c,
                                            loss=hinge_c), 3, torch)
-    tile = slice(1000, 1000 + 4 * B)
+    ms_b3_before = cuda_ms(lambda: dcd_tile_epoch(
+        X_cov, a0_c, w0_c, q_c, loss=hinge_c, wide=True), 2, torch)
+    a_lc = torch.full((n_c,), 0.25, device=dev)  # inside logistic's domain
+    ms_b3_logistic = cuda_ms(lambda: dcd_tile_epoch(
+        X_cov, a_lc, w0_c, q_c, loss=duals.Logistic(1.0)), 2, torch)
+    print(f"  B3 dcd_tile ms per epoch: stream {ms_b3:.4f}, wide (before) "
+          f"{ms_b3_before:.4f} ({ms_b3 / ms_b3_before:.3f} of it), stream "
+          f"logistic {ms_b3_logistic:.4f}")
 
     def zeros_t():
         return (torch.zeros(4 * B, device=dev),
                 torch.zeros(d_c, device=dev))
 
-    err_b3 = max(err_b3, compare(
-        "B3 dcd_tile", lambda a, w, i, L: dcd_tile_epoch(
-            X_cov[tile], a, w, q_c[tile], loss=L),
-        lambda a, w, i, L: dcd_tile_epoch_plain(
-            X_cov[tile], a, w, q_c[tile], loss=L),
-        zeros_t, ids_c[:1], ["squared_hinge", "logistic"], updates=4 * B))
+    for first in (1000, 1001):  # 1001: X's and q's views unaligned
+        tile = slice(first, first + 4 * B)
+        err_b3 = max(err_b3, compare(
+            f"B3 dcd_tile (rows {first}..{first + 4 * B - 1})",
+            lambda a, w, i, L: dcd_tile_epoch(X_cov[tile], a, w, q_c[tile],
+                                              loss=L),
+            lambda a, w, i, L: dcd_tile_epoch_plain(
+                X_cov[tile], a, w, q_c[tile], loss=L),
+            zeros_t, ids_c[:1], ["squared_hinge", "logistic"],
+            updates=4 * B))
 
     # times per launch at the main path's shapes (hinge, B = 64 ids)
     hinge = duals.Hinge(1.0)
@@ -463,7 +494,7 @@ def main():
          f"covtype shape, {B} ids", err_b2,
          "src/repro_torch/kernels/csrc/dcd_block.cu",
          "src/repro/kernels/dcd_block.py:100"),
-        ("dcd_tile", "single", ms_b3, plain_b3, by_b3,
+        ("dcd_tile", "stream", ms_b3, plain_b3, by_b3,
          2 * d_c * (n_c + moved_b3), f"covtype shard, {n_c} rows", err_b3,
          "src/repro_torch/kernels/csrc/dcd_block.cu",
          "src/repro/kernels/dcd_block.py:70"),
@@ -478,12 +509,16 @@ def main():
               f"({b_by}), no library call computes it")
     results["dcd_ell"]["ms_before"] = ms_b1_before
     results["dcd_indexed"]["ms_before"] = ms_b2_before
-    for name, shape, ms, e in [("dcd_ell", "rcv1", ms_b1_before,
-                                err_b1_before),
-                               ("dcd_indexed", "covtype", ms_b2_before,
-                                err_b2_before)]:
-        print(f"  {name} before its staged variant (the wide kernel at the "
-              f"{shape} shape, {B} ids; max abs err {e:.3g}): {ms:.4f} ms "
+    results["dcd_tile"].update(ms_before=ms_b3_before,
+                               ms_logistic=ms_b3_logistic)
+    for name, what, ms, e in [
+            ("dcd_ell", f"its staged variant (the wide kernel at the rcv1 "
+             f"shape, {B} ids", ms_b1_before, err_b1_before),
+            ("dcd_indexed", f"its staged variant (the wide kernel at the "
+             f"covtype shape, {B} ids", ms_b2_before, err_b2_before),
+            ("dcd_tile", "its stream variant (the wide kernel, one covtype "
+             "epoch", ms_b3_before, err_b3_before)]:
+        print(f"  {name} before {what}; max abs err {e:.3g}): {ms:.4f} ms "
               "per launch")
 
     # B4 and B5 at the webspam shape: the (n, 4, k_loc) split the 2-D
@@ -713,12 +748,14 @@ def main():
         fail("the solver's 2-D kernel path disagrees with its CPU path")
 
     # ----------------------------------------------------- 4. main paths
-    # each kernel's launch count; B1's and B2's two variants count apart
+    # each kernel's launch count; B1's, B2's and B3's two variants count
+    # apart
     counters = {"dcd_ell": (dcd_ell_epoch, "staged"),
                 "dcd_ell_wide": (dcd_ell_epoch, "wide"),
                 "dcd_indexed": (dcd_indexed_epoch, "staged"),
                 "dcd_indexed_wide": (dcd_indexed_epoch, "wide"),
-                "dcd_tile": (dcd_tile_epoch, None),
+                "dcd_tile": (dcd_tile_epoch, "stream"),
+                "dcd_tile_wide": (dcd_tile_epoch, "wide"),
                 "dcd_feature_gram": (feat.dcd_feature_gram, None),
                 "dcd_feature_update": (feat.dcd_feature_update, None)}
 
@@ -783,9 +820,12 @@ def main():
         t0 = time.perf_counter()
         for _ in range(2):
             alpha, w = ops.dcd_epoch(X_cov, alpha, w, q_c, c=0.0625)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
         g2 = float(duality_gap(alpha, X_cov, hinge_c))
-        print(f"  covtype in-order epochs (B3): 2 epochs in "
-              f"{time.perf_counter() - t0:.3f} s, gap {g0:.6g} -> {g2:.6g}")
+        print(f"  covtype in-order epochs (B3 stream): 2 epochs in "
+              f"{sec:.4f} s ({sec / 2:.4f} s per epoch), gap {g0:.6g} -> "
+              f"{g2:.6g}")
         if not (math.isfinite(g2) and g2 < g0):
             fail(f"in-order epochs: the gap did not fall ({g0} -> {g2})")
 

@@ -18,6 +18,8 @@ memory against the 227 KB one CTA can use on Hopper: ``dcd_ell_plan``
 picks B1's variant (the block staged in shared memory, or the wide
 kernel that reads its rows from device memory), ``dcd_dense_plan``
 picks B2's (the block's dense rows staged, or the wide kernel),
+``dcd_tile_plan`` B3's (the rows streamed through a ring of stages, or
+the wide kernel),
 ``gram_plan`` lays out B4's column classes, CTAs and workspace, and
 ``feature_update_plan`` B5's (one CTA per class and shard, G staged in
 shared memory when it fits).
@@ -160,6 +162,61 @@ def dcd_dense_plan(b: int, d: int, wide: bool = False) -> DensePlan:
         return DensePlan("staged", DENSE_STAGED_THREADS,
                          _pow2_at_least(-(-d // WARP)), need)
     return DensePlan("wide", cta_threads(d), 0, 0)
+
+
+# B3 stream: one CTA of a consumer warp (w in registers, at most
+# DENSE_ENTRIES_PER_LANE words a lane) and a producer warp that streams the
+# rows through a ring of TILE_STREAM_STAGES stages of at most
+# TILE_STREAM_ROWS rows (a multiple of 4, so that a stage's copies are
+# whole 16-byte units)
+TILE_STREAM_ROWS = 256
+TILE_STREAM_STAGES = 2
+TILE_STREAM_THREADS = 2 * WARP
+
+
+class TilePlan(NamedTuple):
+    """B3's launch for an in-order epoch over n rows of ``d`` floats:
+    ``variant`` "stream" (rows streamed through a ring of ``stages``
+    stages of ``tile_rows`` rows in shared memory, w in the registers of
+    one warp, ``per_lane`` words a lane) or "wide" (rows and w in device
+    memory, one update at a time across ``threads``).  ``smem_bytes`` is
+    the stream kernel's dynamic shared memory (0 for wide)."""
+
+    variant: str
+    threads: int
+    per_lane: int
+    tile_rows: int
+    stages: int
+    smem_bytes: int
+
+
+def dcd_tile_stream_bytes(tile_rows: int, stages: int, d: int) -> int:
+    """Shared memory of B3's stream kernel: each of ``stages`` stages
+    holds two mbarriers ("full" and "empty", 8 bytes each) and
+    ``tile_rows`` rows of d floats with their α and q."""
+    return stages * (16 + 4 * tile_rows * (d + 2))
+
+
+@functools.lru_cache(maxsize=64)
+def dcd_tile_plan(n: int, d: int, wide: bool = False) -> TilePlan:
+    """Pick B3's variant for an in-order epoch over ``n`` rows of ``d``
+    floats, by shape.  Rows of at most ``DENSE_STAGED_MAX_D`` floats (one
+    warp keeps w in registers) take the stream kernel, else, or when
+    ``wide`` asks for it, the wide kernel.  A stage holds
+    ``TILE_STREAM_ROWS`` rows, or fewer where n is smaller or the ring of
+    ``TILE_STREAM_STAGES`` stages would not fit the shared memory one CTA
+    can use (the largest multiple of 4 that fits); ``per_lane`` is the
+    power of two of w's words a lane holds (at least ⌈d / 32⌉)."""
+    n, d = max(int(n), 1), max(int(d), 1)
+    if wide or d > DENSE_STAGED_MAX_D:
+        return TilePlan("wide", cta_threads(d), 0, 0, 0, 0)
+    stages = TILE_STREAM_STAGES
+    fit = (((SMEM_PER_CTA - STATIC_SMEM) // stages - 16)
+           // (4 * (d + 2))) // 4 * 4
+    rows = min(TILE_STREAM_ROWS, -(-n // 4) * 4, fit)
+    return TilePlan("stream", TILE_STREAM_THREADS,
+                    _pow2_at_least(-(-d // WARP)), rows, stages,
+                    dcd_tile_stream_bytes(rows, stages, d))
 
 
 # B4: a shard's columns fall into R classes (column c → class c mod R, so

@@ -6,14 +6,13 @@
 // δ = loss.delta(α_i, wx, q_i) (0 where act_i = 0), α_i += δ,
 // w += δ·y_i·x_i, with α and w carried across all m ids.
 // B3 replaces _dcd_tile_kernel (dcd_epoch_pallas_call(idx=None)): one
-// in-order epoch over rows 0..n-1, no mask, no labels.  It is this same
-// kernel with idx = act = y = null (i = t, all-ones); it has its own C
-// entry, wrapper and launch count.
+// in-order epoch over rows 0..n-1, no mask, no labels: for t = 0..n-1,
+// wx = w·x_t, δ = loss.delta(α_t, wx, q_t), α_t += δ, w += δ·x_t.
 //
-// B2 has two variants, chosen by shape (repro_torch/dist/mesh.py:
-// dcd_dense_plan); B3 runs the wide one.
+// Each has two variants, chosen by shape (repro_torch/dist/mesh.py:
+// dcd_dense_plan for B2, dcd_tile_plan for B3).
 //
-// dcd_dense_staged_kernel, for a block whose rows fit in shared memory
+// dcd_dense_staged_kernel, B2 for a block whose rows fit in shared memory
 // (the main path: 64 ids of covtype's 54 floats, 13.8 KB).  What bounds B2
 // is the chain of m dependent updates, not bytes (the block's rows, α and
 // w are a few KB); the design takes every global access and every CTA
@@ -34,21 +33,55 @@
 //      access; a __syncwarp orders the running α.
 //   3. Epilogue: α of each id at its last update in the block, w from the
 //      registers.
-// Two launches give the same bits.
 //
-// dcd_dense_kernel, the wide variant (rows of more than 256 floats, or
-// blocks too large to stage) and B3: ONE CTA loops over the whole
-// sequence.  Thread j owns w entries j, j + blockDim.x, … for the whole
-// launch: it gathers its slice of the dot from them and applies the axpy
-// to them, so the axpy needs no atomics and each thread reads back only
-// its own writes.  The dot reduces with warp shuffles and shared memory
-// and thread 0 takes δ (dcd_delta.cuh); the trailing __syncthreads orders
-// the shared scratch between updates.  It is latency-bound: each update
-// is a row load from device memory, a CTA reduction, a scalar δ and an
-// axpy, with three barriers.
+// dcd_tile_stream_kernel, B3 for rows of at most 256 floats (the main
+// path: the whole covtype shard, 581,012 rows of 54 floats, in one
+// launch).  An in-order epoch is one serial chain of n dependent updates
+// by definition, so one SM does the work and the card's other SMs stay
+// idle; the bound is the latency of one update times n, not bytes (216 B
+// an update is a few GB/s).  The design takes every device-memory load
+// and every CTA barrier off that chain:
+//   - A producer warp streams the rows, in order, through a ring of S
+//     stages in shared memory, each T consecutive rows with their α and
+//     q, and keeps the next stages in flight while the consumer works.
+//     Rows of an in-order epoch are contiguous, so a stage is three 1-D
+//     bulk copies (the TMA's cp.async.bulk, completing on the stage's
+//     "full" mbarrier); a stage whose source is not 16-byte aligned (a
+//     view such as X[1001:]) or whose size is not a multiple of 16 bytes
+//     (the ragged last tile) is copied by the warp's lanes with 4-byte
+//     cp.async instead, completing on the same barrier.
+//   - A consumer warp holds w in registers, as B2's staged kernel does:
+//     lane l holds w[l + 32u], u < W (W a power of two ≥ ⌈d / 32⌉).  Each
+//     update is W multiply-adds from the staged row (the next row and its
+//     α and q load a step ahead), a 5-step xor-shuffle butterfly that
+//     leaves the same bits of the dot in every lane, δ taken by every
+//     lane, and the axpy in registers.  One lane stores α_t to device
+//     memory (a store, off the chain).  At the end of a tile the consumer
+//     arrives on the stage's "empty" mbarrier; at the end of the epoch it
+//     writes w from its registers.
+//   - The loss is a template parameter, so δ's dispatch on the loss is
+//     resolved at compile time, and the row loop is unrolled by two, so
+//     the copies of x, α and q a step ahead become register renames: both
+//     cut the instructions one warp issues per update, which is what a
+//     lone warp pays for besides its chain.
+// What stays on the chain is the dot, the butterfly, δ (an IEEE division
+// for hinge; 20 Newton steps with two logf each for the logistic loss)
+// and the axpy.
+//
+// dcd_dense_kernel, the wide variant of both (rows of more than 256
+// floats; for B2 also blocks too large to stage): ONE CTA loops over the
+// whole sequence.  Thread j owns w entries j, j + blockDim.x, … for the
+// whole launch: it gathers its slice of the dot from them and applies the
+// axpy to them, so the axpy needs no atomics and each thread reads back
+// only its own writes.  The dot reduces with warp shuffles and shared
+// memory and thread 0 takes δ (dcd_delta.cuh); the trailing __syncthreads
+// orders the shared scratch between updates.  It is latency-bound: each
+// update is a row load from device memory, a CTA reduction, a scalar δ and
+// an axpy, with three barriers.
 //
 // The wrappers copy α and w into the output buffers; the kernels update
 // them in place and allocate nothing.  A δ of exactly 0 skips the axpy.
+// Two launches on the same inputs give the same bits (no atomics).
 
 #include "dcd_delta.cuh"
 #include "dcd_stage.cuh"
@@ -181,6 +214,212 @@ __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
     if (last[t]) alpha[ids[t]] = arun[t];
 }
 
+// mbarriers and 1-D bulk copies (sm_90), for B3's ring of stages
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// an arrival on bar once every cp.async this thread issued has landed
+__device__ __forceinline__ void mbar_arrive_cp_async(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// dst, src 16-byte aligned, bytes a multiple of 16
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((unsigned long long)p & 15ull) == 0;
+}
+
+// One update of B3's stream kernel, in every lane of the consumer warp:
+// the dot of the lane's W entries of x_t with its words of w (a tree), the
+// butterfly over the warp, δ, α_t stored by lane 0, and the axpy into w's
+// registers.
+template <int W>
+__device__ __forceinline__ void stream_update(const DcdLoss& L, int lane,
+                                              float* at, float a, float qt,
+                                              const float (&x)[W],
+                                              float (&wr)[W]) {
+  float p[W];
+#pragma unroll
+  for (int u = 0; u < W; ++u) p[u] = wr[u] * x[u];
+#pragma unroll
+  for (int h = W / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int u = 0; u < h; ++u) p[u] += p[u + h];
+  float part = p[0];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, o);
+  const float dl = dcd_delta(L, a, part, qt);
+  if (lane == 0) *at = a + dl;
+  if (dl != 0.0f) {
+#pragma unroll
+    for (int u = 0; u < W; ++u) wr[u] = wr[u] + dl * x[u];
+  }
+}
+
+// Shared memory: S "full" and S "empty" mbarriers, then S stages of
+// T rows (T·d floats), their α (T) and q (T).  T is a multiple of 4.
+// 64 threads: warp 0 consumes, warp 1 produces.
+template <int K, int W>
+__global__ void dcd_tile_stream_kernel(int n, const float* __restrict__ X,
+                                       int d, float* alpha,
+                                       const float* __restrict__ q, float* w,
+                                       DcdLoss L, int T, int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* empty = full + S;
+  float* ring = reinterpret_cast<float*>(empty + S);
+  const long long stage_words = (long long)T * (d + 2);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 32);   // the producer's lanes
+      mbar_init(empty + s, 32);  // the consumer's lanes
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles = (n + T - 1) / T;
+
+  if (warp == 1) {
+    // producer: tile k into stage k mod S, once the consumer has
+    // released that stage's previous tile
+    for (int k = 0, s = 0, ph = 0; k < tiles; ++k) {
+      mbar_wait(empty + s, ph ^ 1);
+      const long long t0 = (long long)k * T;
+      const int rows = min(T, n - (int)t0);
+      float* xs = ring + s * stage_words;
+      float* as = xs + (long long)T * d;
+      float* qs = as + T;
+      const float* xg = X + t0 * d;
+      const unsigned xb = 4u * rows * d, ab = 4u * rows;
+      if (aligned16(xg) && aligned16(alpha + t0) && aligned16(q + t0) &&
+          xb % 16 == 0 && ab % 16 == 0) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + s, xb + 2 * ab);
+          bulk_copy(xs, xg, xb, full + s);
+          bulk_copy(as, alpha + t0, ab, full + s);
+          bulk_copy(qs, q + t0, ab, full + s);
+        } else {
+          mbar_arrive(full + s);
+        }
+      } else {
+        const int e_end = rows * d;
+        for (int e = lane; e < e_end; e += 32) cp_async4(xs + e, xg + e);
+        for (int r = lane; r < rows; r += 32) {
+          cp_async4(as + r, alpha + t0 + r);
+          cp_async4(qs + r, q + t0 + r);
+        }
+        mbar_arrive_cp_async(full + s);
+      }
+      if (++s == S) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    cp_async_wait_all();  // no copy of this thread outlives it
+  } else {
+    // consumer: the n updates, tile by tile, w in registers
+    const DcdLoss Lk{K, L.C, L.inv_two_c, L.eps_c, L.newton_steps};
+    float wr[W], x[W], xn[W];
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      const int j = lane + 32 * u;
+      wr[u] = j < d ? w[j] : 0.0f;
+    }
+    float* at = alpha;  // α_t of the update under way
+    for (int k = 0, s = 0, ph = 0; k < tiles; ++k) {
+      // the tile's stage: wait for it, then its first row and scalars
+      mbar_wait(full + s, ph);
+      const float* xr = ring + s * stage_words + lane;  // this lane's row
+      const float* ar = ring + s * stage_words + (long long)T * d;  // α
+      const float* qr = ar + T;
+      const int rows = min(T, n - k * T);
+#pragma unroll
+      for (int u = 0; u < W; ++u) x[u] = lane + 32 * u < d ? xr[32 * u] : 0.0f;
+      float a = ar[0], qt = qr[0];
+      // rows 0..rows-2 load the next row a step ahead; the last loads none
+      // (unrolled by two, so that the copies of x, α and q become renames)
+#pragma unroll 2
+      for (int r = 1; r < rows; ++r) {
+        xr += d;
+#pragma unroll
+        for (int u = 0; u < W; ++u)
+          xn[u] = lane + 32 * u < d ? xr[32 * u] : 0.0f;
+        const float a_n = ar[r], q_n = qr[r];
+        stream_update<W>(Lk, lane, at++, a, qt, x, wr);
+#pragma unroll
+        for (int u = 0; u < W; ++u) x[u] = xn[u];
+        a = a_n;
+        qt = q_n;
+      }
+      stream_update<W>(Lk, lane, at++, a, qt, x, wr);
+      mbar_arrive(empty + s);  // the producer may refill the stage
+      if (++s == S) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      const int j = lane + 32 * u;
+      if (j < d) w[j] = wr[u];
+    }
+  }
+}
+
 // Plain C entries for ctypes.  act and y may be null.  Each returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a layout the kernel cannot take.
@@ -252,6 +491,75 @@ extern "C" int dcd_block_staged_launch(const int* idx, int m, const float* X,
                                           L, threads, smem_bytes, st);
     case 8: return dense_staged_launch<8>(idx, m, X, d, alpha, q, act, y, w,
                                           L, threads, smem_bytes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int K, int W>
+static int tile_stream_launch(int n, const float* X, int d, float* alpha,
+                              const float* q, float* w, const DcdLoss& L,
+                              int T, int S, int smem_bytes, cudaStream_t st) {
+  static int smem_set = 0;  // the limit raised so far (this process)
+  if (smem_bytes > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcd_tile_stream_kernel<K, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem_bytes;
+  }
+  dcd_tile_stream_kernel<K, W><<<1, 64, smem_bytes, st>>>(n, X, d, alpha, q,
+                                                          w, L, T, S);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+static int tile_stream_per_lane(int n, const float* X, int d, float* alpha,
+                                const float* q, float* w, const DcdLoss& L,
+                                int per_lane, int T, int S, int smem_bytes,
+                                cudaStream_t st) {
+  switch (per_lane) {
+    case 1: return tile_stream_launch<K, 1>(n, X, d, alpha, q, w, L, T, S,
+                                            smem_bytes, st);
+    case 2: return tile_stream_launch<K, 2>(n, X, d, alpha, q, w, L, T, S,
+                                            smem_bytes, st);
+    case 4: return tile_stream_launch<K, 4>(n, X, d, alpha, q, w, L, T, S,
+                                            smem_bytes, st);
+    case 8: return tile_stream_launch<K, 8>(n, X, d, alpha, q, w, L, T, S,
+                                            smem_bytes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int dcd_block_tile_stream_launch(int n, const float* X, int d,
+                                            float* alpha, const float* q,
+                                            float* w, int kind, float C,
+                                            float inv_two_c, float eps_c,
+                                            int newton_steps, int per_lane,
+                                            int tile_rows, int stages,
+                                            int smem_bytes, void* stream) {
+  // the bytes the kernel carves (repro_torch/dist/mesh.py:
+  // dcd_tile_stream_bytes): two mbarriers a stage, and each stage's rows,
+  // α and q
+  const long long need =
+      (long long)stages * (16LL + 4LL * tile_rows * (d + 2LL));
+  if (n < 1 || d < 1 || d > 32 * per_lane || tile_rows < 4 ||
+      tile_rows % 4 != 0 || stages < 2 || smem_bytes < need)
+    return (int)cudaErrorInvalidValue;
+  const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (kind) {  // the loss is a template: no dispatch on the chain
+    case DCD_HINGE:
+      return tile_stream_per_lane<DCD_HINGE>(n, X, d, alpha, q, w, L,
+                                             per_lane, tile_rows, stages,
+                                             smem_bytes, st);
+    case DCD_SQUARED_HINGE:
+      return tile_stream_per_lane<DCD_SQUARED_HINGE>(
+          n, X, d, alpha, q, w, L, per_lane, tile_rows, stages, smem_bytes,
+          st);
+    case DCD_LOGISTIC:
+      return tile_stream_per_lane<DCD_LOGISTIC>(n, X, d, alpha, q, w, L,
+                                                per_lane, tile_rows, stages,
+                                                smem_bytes, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,5 @@
-"""B2 and B3: DCD over a dense row shard — the CUDA kernel
-``csrc/dcd_block.cu`` and its plain PyTorch versions.
+"""B2 and B3: DCD over a dense row shard — the CUDA kernels
+``csrc/dcd_block.cu`` and their plain PyTorch versions.
 
 * B2, ``dcd_indexed_epoch``, replaces the Pallas TPU kernel
   ``repro/kernels/dcd_block.py:_dcd_indexed_kernel``: the updates of an
@@ -7,15 +7,16 @@
   optional ``active`` 0/1 mask (frozen rows take δ = 0 exactly) and
   optional ±1 ``y`` folded on read (wx = y_i·w·x_i, w += δ·y_i·x_i).
 * B3, ``dcd_tile_epoch``, replaces ``_dcd_tile_kernel``: one in-order
-  epoch over rows 0..n-1, no mask and no labels.  It shares B2's CUDA
-  source (idx = act = y = null) but has its own C entry, wrapper and
-  launch count.
+  epoch over rows 0..n-1, no mask and no labels.
 
-B2 has two variants, picked by shape (``repro_torch.dist.mesh.
+Each has two variants, picked by shape.  B2 (``repro_torch.dist.mesh.
 dcd_dense_plan``): "staged", the block's rows in shared memory and w in
 the registers of one warp (covtype's 64 ids of 54 floats), and "wide",
-rows and w in device memory (wider rows, or blocks too large to stage;
-B3 runs it too).
+rows and w in device memory (wider rows, or blocks too large to stage).
+B3 (``dcd_tile_plan``): "stream", the rows streamed in order through a
+ring of stages in shared memory by a producer warp while a consumer warp
+holds w in registers (rows of at most 256 floats, such as covtype's),
+and "wide", B2's wide kernel over rows 0..n-1.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.
@@ -27,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.duals import kernel_params
-from repro_torch.dist.mesh import cta_threads, dcd_dense_plan
+from repro_torch.dist.mesh import dcd_dense_plan, dcd_tile_plan
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, P
 
@@ -106,28 +107,53 @@ def dcd_indexed_epoch(X, alpha, w, sq_norms, *, loss, idx, active=None,
     return a_out, w_out
 
 
-def dcd_tile_epoch(X, alpha, w, sq_norms, *, loss):
+def dcd_tile_epoch(X, alpha, w, sq_norms, *, loss, wide=False):
     """B3: one in-order epoch over the rows of X; returns new (α, w).
-    CUDA tensors launch the kernel (one CTA, counted in
-    ``dcd_tile_epoch.launches``); CPU tensors run the plain version."""
+    CUDA tensors launch a kernel (one CTA; every launch counts in
+    ``dcd_tile_epoch.launches``, and in ``dcd_tile_epoch.variant_launches``
+    under its variant); CPU tensors run the plain version.  ``wide=True``
+    launches the wide variant whatever the shape, to hold the two against
+    each other.  X and ``sq_norms`` may be views at any offset (a stage
+    whose source is not 16-byte aligned is copied in 4-byte units)."""
     if alpha.device.type != "cuda":
         return dcd_tile_epoch_plain(X, alpha, w, sq_norms, loss=loss)
     _check(X, alpha, w, sq_norms)
     a_out, w_out = alpha.clone(), w.clone()
-    if X.shape[0] == 0:
+    n, d = X.shape
+    if n == 0:
         return a_out, w_out
-    launch = build.entry("dcd_block", "dcd_block_tile_launch",
-                         [I, P, I, P, P, P, I, F, F, F, I, I, P])
-    with torch.cuda.device(alpha.device):
-        err = launch(X.shape[0], build.ptr(X), X.shape[1], build.ptr(a_out),
-                     build.ptr(sq_norms), build.ptr(w_out),
-                     *kernel_params(loss), cta_threads(X.shape[1]),
-                     build.stream())
-    build.check(err, "dcd_block_tile_launch")
+    plan = dcd_tile_plan(n, d, wide)
+    tile_launch(plan, X, a_out, w_out, sq_norms, loss)
     dcd_tile_epoch.launches += 1
+    dcd_tile_epoch.variant_launches[plan.variant] += 1
     return a_out, w_out
+
+
+def tile_launch(plan, X, alpha, w, sq_norms, loss):
+    """Launch B3's kernel for ``plan`` (a ``repro_torch.dist.mesh.
+    TilePlan``) on CUDA tensors already checked, updating ``alpha`` and
+    ``w`` in place; counts nothing.  ``dcd_tile_epoch`` calls it with the
+    plan for the shape; a measurement may pass another layout."""
+    n, d = X.shape
+    args = [n, build.ptr(X), d, build.ptr(alpha), build.ptr(sq_norms),
+            build.ptr(w), *kernel_params(loss)]
+    types = [I, P, I, P, P, P, I, F, F, F, I]
+    if plan.variant == "stream":
+        fn = "dcd_block_tile_stream_launch"
+        types += [I, I, I, I, P]
+        args += [plan.per_lane, plan.tile_rows, plan.stages,
+                 plan.smem_bytes]
+    else:
+        fn = "dcd_block_tile_launch"
+        types += [I, P]
+        args += [plan.threads]
+    launch = build.entry("dcd_block", fn, types)
+    with torch.cuda.device(alpha.device):
+        err = launch(*args, build.stream())
+    build.check(err, fn)
 
 
 dcd_indexed_epoch.launches = 0
 dcd_indexed_epoch.variant_launches = {"staged": 0, "wide": 0}
 dcd_tile_epoch.launches = 0
+dcd_tile_epoch.variant_launches = {"stream": 0, "wide": 0}

@@ -25,8 +25,10 @@ from repro_torch.data.sparse import ell_column_split
 from repro_torch.dist.mesh import (
     DENSE_STAGED_MAX_D,
     GRAM_CHUNK,
+    TILE_STREAM_ROWS,
     dcd_dense_plan,
     dcd_ell_plan,
+    dcd_tile_plan,
     feature_update_plan,
     gram_plan,
     solver_mesh_2d,
@@ -234,6 +236,65 @@ def test_b2_kernel_is_deterministic(d, wide):
     kw = dict(loss=td.Hinge(0.8), idx=idx, active=active, y=y, wide=wide)
     first = dcd_indexed_epoch(X, alpha, w, q, **kw)
     second = dcd_indexed_epoch(X, alpha, w, q, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# B3's epochs: (rows, first row) of a draw of 3T + 6 rows; from row 1 the
+# view's base and its q's are not 16-byte aligned (the stages are copied
+# in 4-byte units)
+B3_ROWS = {"one": (1, 0), "tile_less_one": (TILE_STREAM_ROWS - 1, 0),
+           "tile": (TILE_STREAM_ROWS, 0),
+           "ragged": (3 * TILE_STREAM_ROWS + 5, 0),
+           "ragged_unaligned": (3 * TILE_STREAM_ROWS + 5, 1)}
+B3_DS = [1, 54, DENSE_STAGED_MAX_D, DENSE_STAGED_MAX_D + 1]
+
+
+def _tile_case(dev, d, rows, first, seed=11):
+    X, alpha, w, _, _, _ = _dense_case(dev, 3 * TILE_STREAM_ROWS + 6, d,
+                                       seed=seed)
+    q = (X * X).sum(1)
+    sl = slice(first, first + rows)
+    return X[sl], alpha[sl], w, q[sl]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["by_shape", "wide"])
+@pytest.mark.parametrize("rows", sorted(B3_ROWS))
+@pytest.mark.parametrize("d", B3_DS)
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b3_variants_match_plain(loss, d, rows, wide):
+    """B3's variant for the shape (or the wide one, asked for) against
+    the plain version: one row, a tile less one, one tile, three tiles
+    and a ragged one, and the same from an unaligned view."""
+    dev = _cuda()
+    X, alpha, w, q = _tile_case(dev, d, *B3_ROWS[rows])
+    variant = dcd_tile_plan(X.shape[0], d, wide).variant
+    assert variant == ("wide" if wide or d > DENSE_STAGED_MAX_D
+                       else "stream")
+    if rows == "ragged_unaligned":
+        assert q.data_ptr() % 16 != 0
+    lf = td.make_loss(loss, 0.8)
+    n0 = (dcd_tile_epoch.launches, dcd_tile_epoch.variant_launches[variant])
+    ka, kw = dcd_tile_epoch(X, alpha, w, q, loss=lf, wide=wide)
+    assert (dcd_tile_epoch.launches,
+            dcd_tile_epoch.variant_launches[variant]) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    pa, pw = dcd_tile_epoch_plain(X, alpha, w, q, loss=lf)
+    _close(ka, pa)
+    _close(kw, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["by_shape", "wide"])
+@pytest.mark.parametrize("rows", ["ragged", "ragged_unaligned"])
+@pytest.mark.parametrize("d", B3_DS)
+def test_b3_kernel_is_deterministic(d, rows, wide):
+    """A second launch on the same inputs gives the same bits."""
+    dev = _cuda()
+    X, alpha, w, q = _tile_case(dev, d, *B3_ROWS[rows])
+    kw = dict(loss=td.Hinge(0.8), wide=wide)
+    first = dcd_tile_epoch(X, alpha, w, q, **kw)
+    second = dcd_tile_epoch(X, alpha, w, q, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 

@@ -1,5 +1,5 @@
 """The kernels' shape policy in ``repro_torch.dist.mesh``: which variant
-B1 and B2 take, how B4 lays out its column classes and workspace and B5
+B1, B2 and B3 take, how B4 lays out its column classes and workspace and B5
 its CTAs and staged G, and that all stay within the shared memory one
 Hopper CTA can use.  Pure
 arithmetic on shapes, so it runs on the CPU; the layouts' counts are
@@ -20,6 +20,8 @@ from repro_torch.dist.mesh import (
     dcd_dense_staged_bytes,
     dcd_ell_plan,
     dcd_ell_staged_bytes,
+    dcd_tile_plan,
+    dcd_tile_stream_bytes,
     feature_update_bytes,
     feature_update_plan,
     gram_plan,
@@ -255,3 +257,59 @@ def test_b5_bytes_count_the_arrays():
         a.nbytes for a in ids + chunk)
     assert feature_update_bytes(b, True) == sum(
         a.nbytes for a in ids + chunk + [g])
+
+
+# B3: rows of d floats, n rows; T is the most rows a stage holds
+TILE_T = mesh.TILE_STREAM_ROWS
+
+
+@pytest.mark.parametrize("n", [1, TILE_T - 1, TILE_T, 3 * TILE_T + 5])
+@pytest.mark.parametrize("d", [1, 54, mesh.DENSE_STAGED_MAX_D,
+                               mesh.DENSE_STAGED_MAX_D + 1])
+def test_b3_variant_by_shape(d, n):
+    """Rows of at most 256 floats stream through a ring of stages that
+    fits one CTA, each stage a multiple of 4 rows and no more than n
+    needs; each lane of the consumer warp holds a power of two of w's
+    words, at most 8.  Wider rows, or ``wide=True``, take the wide
+    kernel."""
+    plan = dcd_tile_plan(n, d)
+    wide = mesh.TilePlan("wide", mesh.cta_threads(d), 0, 0, 0, 0)
+    if d > mesh.DENSE_STAGED_MAX_D:
+        assert plan == wide
+    else:
+        assert plan.variant == "stream"
+        assert plan.threads == mesh.TILE_STREAM_THREADS == 64
+        assert 32 * plan.per_lane >= d
+        assert plan.per_lane == 1 or d > 16 * plan.per_lane
+        assert plan.per_lane & (plan.per_lane - 1) == 0
+        assert plan.per_lane <= mesh.DENSE_ENTRIES_PER_LANE
+        assert plan.tile_rows % 4 == 0 and 4 <= plan.tile_rows <= TILE_T
+        assert plan.tile_rows <= max(4, -(-n // 4) * 4)
+        assert plan.stages >= 2
+        assert plan.smem_bytes == dcd_tile_stream_bytes(
+            plan.tile_rows, plan.stages, d) <= LIMIT
+    assert dcd_tile_plan(n, d, wide=True) == wide  # asked for: any shape
+
+
+def test_b3_stream_ring_fits_one_cta():
+    """At d = 256 a ring of full stages would not fit one CTA's 227 KB:
+    the stages shrink to the most rows (a multiple of 4) that fit."""
+    d, n, S = mesh.DENSE_STAGED_MAX_D, 10_000, mesh.TILE_STREAM_STAGES
+    assert dcd_tile_stream_bytes(TILE_T, S, d) > LIMIT
+    plan = dcd_tile_plan(n, d)
+    assert plan.variant == "stream" and plan.stages == S
+    assert plan.tile_rows < TILE_T and plan.smem_bytes <= LIMIT
+    assert dcd_tile_stream_bytes(plan.tile_rows + 4, S, d) > LIMIT
+    cov = dcd_tile_plan(581_012, 54)  # covtype: full stages, 2 words a lane
+    assert (cov.tile_rows, cov.stages, cov.per_lane) == (TILE_T, S, 2)
+    assert cov.smem_bytes == 114_720 <= LIMIT
+
+
+def test_b3_stream_bytes_count_the_ring():
+    """The bytes are what the kernel carves: each stage's "full" and
+    "empty" mbarriers, its rows, and their α and q."""
+    T, S, d = 256, 2, 54
+    stage = [np.empty(2, np.uint64), np.empty((T, d), np.float32),
+             np.empty(T, np.float32), np.empty(T, np.float32)]
+    assert dcd_tile_stream_bytes(T, S, d) == S * sum(a.nbytes for a in stage)
+
