@@ -36,7 +36,11 @@ result line):
    covtype and the webspam solve (wall time, device-busy time, idle
    share); then the
    solver's kernel paths against their CPU paths on a small input (1-D,
-   and 2-D with the overlapped round);
+   and 2-D with the overlapped round); B1's and B2's wide variants over
+   a whole epoch's order, the launch ``dcd_solve`` and PASSCoDe-Lock
+   make (all n ids; held to the plain version, which is timed on it,
+   over the whole order with hinge, and over its first ``PREFIX`` ids
+   with the other two losses; each launched twice to the same bits);
 4. the main paths, each with every launch count set to 0 just before
    it and read just after: ``sharded_passcode_solve`` on rcv1
    (n = 677,399, d = 47,236, 73 nnz per row, hinge C = 1, B = 64,
@@ -45,9 +49,22 @@ result line):
    on covtype, and the 2-D solve on webspam (n = 280,000,
    d = 16,609,143, 3,728 nnz per row, hinge C = 1, B = 64, m = 4
    feature shards, 2 epochs), and webspam's rows on the 1-D mesh (2
-   epochs, B1's wide variant); each must go through its kernels, launch
-   them (and each variant of B1, B2 and B3) the expected number of
-   times, and give finite duality gaps that fall;
+   epochs, B1's wide variant); serial DCD (``dcd_solve``) and
+   PASSCoDe-Lock (``passcode_solve``, 8 threads) on rcv1 and covtype, 3
+   epochs each, one wide B1 (B2) launch per epoch, Lock's first epoch
+   held to ``dcd_epoch`` over the same seeded order; PASSCoDe-Atomic and
+   -Wild (8 threads, conflict rate 0.5, no delay) one epoch each on
+   rcv1's first ``PASSCODE_ROWS`` rows with the backward-error report,
+   each held to its CPU path on the same rows, and 20 Atomic rounds of
+   the full rcv1 under ``torch.profiler``; all three memory models on the
+   card against their CPU path on ``tiny``; and both example twins
+   (``examples/quickstart_torch.py``, ``train_svm_passcode_torch.py``)
+   as subprocesses on the card.  Each must go through its kernels,
+   launch them (and each variant of B1, B2 and B3) the expected number
+   of times, and give finite duality gaps that fall (Wild, whose
+   nominal gap is that of w̄: a finite gap, and the primal at ŵ below
+   the primal at 0; its ε above Atomic's, and Atomic's at most
+   1e-4·‖w̄‖);
 5. one JSON line of per-kernel numbers (with each kernel's variant, and
    B1's, B2's and B3's ``ms_before``), then the result line
    ``{"ok": true, "device": {...}}``.
@@ -59,6 +76,8 @@ a fixed seed on the card; nothing is read from disk or the network.
 import functools
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +93,10 @@ EPOCHS_2D = 2
 SHARDS = 4  # webspam's feature shards (the reference's model axis)
 DEVICE = "cuda"
 SPIN_CYCLES = 40_000_000  # about 20 ms at the H100's 1,980 MHz
+PREFIX = 4096  # ids of an epoch's order for the other losses' check
+THREADS = 8  # PASSCoDe's simulated threads (the examples' Atomic/Wild(8))
+PASSCODE_ROWS = 100_000  # rcv1 rows of the Atomic and Wild epochs
+TWIN_EPOCHS = 3
 
 
 def fail(msg):
@@ -175,8 +198,17 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import prng
     from repro_torch.core import duals
+    from repro_torch.core.backward_error import backward_error_report
+    from repro_torch.core.dcd import DcdState, dcd_epoch, dcd_solve
     from repro_torch.core.objective import duality_gap, predict_accuracy
+    from repro_torch.core.passcode import (
+        _parallel_epoch,
+        _round_indices,
+        passcode_epoch,
+        passcode_solve,
+    )
     from repro_torch.core.sharded import (
         _block_update_1d,
         _block_update_2d,
@@ -184,7 +216,7 @@ def main():
         _scan_rounds,
         sharded_passcode_solve,
     )
-    from repro_torch.data.sparse import ell_column_split
+    from repro_torch.data.sparse import EllMatrix, ell_column_split
     from repro_torch.data.synthetic import make_dataset, make_paper_split
     from repro_torch.dist.mesh import (
         dcd_dense_plan,
@@ -521,6 +553,89 @@ def main():
         print(f"  {name} before {what}; max abs err {e:.3g}): {ms:.4f} ms "
               "per launch")
 
+    # B1's and B2's wide variants over a whole epoch's order: serial DCD
+    # and PASSCoDe-Lock hand the kernel all n ids of the epoch at once,
+    # past the staged plans' 1,024.  Each is held to its plain version
+    # over the whole order with the main path's loss (hinge; C = 0.0625
+    # on covtype), from α = 0 and w = 0, and the plain version (one
+    # update at a time, about 0.15 ms an update here) is timed on that
+    # run; the other two losses over the order's first PREFIX ids (still
+    # the wide plan)
+    perm_r = torch.randperm(n_r, generator=gen, device=dev).int()
+    perm_c = torch.randperm(n_c, generator=gen, device=dev).int()
+    print(f"  B1 over a whole rcv1 epoch: {dcd_ell_plan(n_r, k_r)}; B2 over "
+          f"a whole covtype epoch: {dcd_dense_plan(n_c, d_c)}")
+
+    def whole_epoch(label, kernel, plain, state0, order, loss):
+        ka, kw = kernel(*state0(), order, loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pa, pw = plain(*state0(), order, loss)
+        torch.cuda.synchronize()
+        pl_ms = (time.perf_counter() - t0) * 1e3
+        e = max(float((ka - pa).abs().max()), float((kw - pw).abs().max()))
+        print(f"  {label}: max abs err {e:.3g} over {order.numel()} updates "
+              f"(tolerance {ATOL}); plain version {pl_ms:.1f} ms")
+        if not e <= ATOL:
+            fail(f"{label} disagrees with its plain version")
+        return e, pl_ms
+
+    def b1(a, w, i, L):
+        return dcd_ell_epoch(X_rcv1.indices, X_rcv1.values, a, w, q_r,
+                             loss=L, idx=i)
+
+    def b1_plain(a, w, i, L):
+        return dcd_ell_epoch_plain(X_rcv1.indices, X_rcv1.values, a, w, q_r,
+                                   loss=L, idx=i)
+
+    def b2(a, w, i, L):
+        return dcd_indexed_epoch(X_cov, a, w, q_c, loss=L, idx=i)
+
+    def b2_plain(a, w, i, L):
+        return dcd_indexed_epoch_plain(X_cov, a, w, q_c, loss=L, idx=i)
+
+    err_b1e, plain_b1e = whole_epoch(
+        "B1 dcd_ell wide, a whole rcv1 epoch's order (hinge)", b1, b1_plain,
+        zeros_r, perm_r, hinge)
+    err_b2e, plain_b2e = whole_epoch(
+        "B2 dcd_indexed wide, a whole covtype epoch's order (hinge)", b2,
+        b2_plain, zeros_c, perm_c, hinge_c)
+    err_b1e = max(err_b1e, compare(
+        f"B1 dcd_ell wide, an epoch's order (first {PREFIX} ids)", b1,
+        b1_plain, zeros_r, perm_r[None, :PREFIX], losses[1:]))
+    err_b2e = max(err_b2e, compare(
+        f"B2 dcd_indexed wide, an epoch's order (first {PREFIX} ids)", b2,
+        b2_plain, zeros_c, perm_c[None, :PREFIX], losses[1:]))
+    same_bits("B1 dcd_ell wide (a whole rcv1 epoch, hinge)",
+              lambda: b1(a_r, w_r, perm_r, hinge), torch)
+    same_bits("B2 dcd_indexed wide (a whole covtype epoch, hinge)",
+              lambda: b2(a_c, w_c, perm_c, hinge_c), torch)
+    ms_b1e = cuda_ms(lambda: b1(a_r, w_r, perm_r, hinge), 2, torch)
+    ms_b2e = cuda_ms(lambda: b2(a_c, w_c, perm_c, hinge_c), 2, torch)
+    # bytes: α and w in and out, each id's row, q and id once; operations:
+    # a multiply-add per row entry for the dot and one for the axpy
+    by_b1e = 4 * (2 * n_r + 2 * (d_r + 1)) + n_r * (k_r * 8 + 2 * 4)
+    by_b2e = 4 * (2 * n_c + 2 * d_c) + n_c * (d_c * 4 + 2 * 4)
+    for name, route_ms, pl_ms, by, ops_n, n_ids, err, src, rep in [
+        ("dcd_ell_epoch", ms_b1e, plain_b1e, by_b1e, 4 * n_r * k_r, n_r,
+         err_b1e, "src/repro_torch/kernels/csrc/dcd_ell.cu",
+         "src/repro/kernels/dcd_ell.py:51"),
+        ("dcd_indexed_epoch", ms_b2e, plain_b2e, by_b2e, 4 * n_c * d_c, n_c,
+         err_b2e, "src/repro_torch/kernels/csrc/dcd_block.cu",
+         "src/repro/kernels/dcd_block.py:100"),
+    ]:
+        b_ms, b_by = bound(by, ops_n)
+        results[name] = dict(name=name, route="cuda", source=src,
+                             replaces=rep, variant="wide", launches=0,
+                             max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             ids=n_ids)
+        print(f"  {name} (wide, {n_ids} ids, a whole epoch): {route_ms:.4f} "
+              f"ms per launch ({route_ms / n_ids * 1e6:.1f} ns per update), "
+              f"plain {pl_ms:.1f} ms ({pl_ms / n_ids * 1e6:.1f} ns per "
+              f"update), bound {b_ms:.6f} ms ({b_by}), no library call "
+              "computes it")
+
     # B4 and B5 at the webspam shape: the (n, 4, k_loc) split the 2-D
     # solve makes of it, a few rounds of B = 64 ids per loss, (α, w)
     # carried through each chain; the kernel chain and the plain chain
@@ -762,10 +877,13 @@ def main():
     def launches(f, variant):
         return f.variant_launches[variant] if variant else f.launches
 
-    def run_path(label, want, fn):
+    def run_path(label, want, fn, rows=None, count=True):
         """Run one main path with every launch count set to 0 just before
         it; read the counts just after and hold them to ``want`` (every
-        other kernel: 0 launches)."""
+        other kernel: 0 launches).  Each count adds to its kernel's row
+        of the JSON line, ``rows[name]`` where the path launches the
+        kernel at a shape that has a row of its own; a check of the card
+        against the CPU (``count=False``) adds nothing."""
         for f, _ in counters.values():
             f.launches = 0
             for v in getattr(f, "variant_launches", {}):
@@ -774,7 +892,8 @@ def main():
         for name, (f, variant) in counters.items():
             got, expect = launches(f, variant), want.get(name, 0)
             if name in want:
-                results[name]["launches"] = got
+                if count:
+                    results[(rows or {}).get(name, name)]["launches"] += got
                 print(f"  launches {name} ({label}): {got} (expected "
                       f"{expect})")
             if got != expect:
@@ -842,6 +961,199 @@ def main():
              lambda: solve("webspam (1-D, ELL, B1 wide)", X_web,
                            duals.Hinge(1.0), n_w1, EPOCHS_2D,
                            accuracy=False))
+
+    # serial DCD and PASSCoDe-Lock: one launch of B1's (B2's) wide
+    # variant per epoch over the epoch's whole order
+    def timed(label, fn, n, epochs, gap0, falls=True):
+        """Run and time a solve; its gaps must be finite and, with
+        ``falls``, below the gap at α = 0 and falling."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        gaps = r.gaps.tolist()
+        sec = time.perf_counter() - t0
+        print(f"  {label}: {sec / epochs:.3f} s per epoch (gap included), "
+              f"{sec / (epochs * n) * 1e9:.1f} ns per update")
+        print(f"    gaps {gaps} (at α = 0: {gap0:.6g})")
+        if not all(math.isfinite(g) for g in gaps):
+            fail(f"{label}: non-finite gaps: {gaps}")
+        if falls and not (gaps[0] < gap0 and gaps[-1] <= gaps[0]):
+            fail(f"{label}: the gap did not fall: {gaps}")
+        return r
+
+    shapes = [("rcv1", X_rcv1, duals.Hinge(1.0), n_r, "dcd_ell",
+               results["dcd_ell_epoch"]["bound_ms"]),
+              ("covtype", X_cov, hinge_c, n_c, "dcd_indexed",
+               results["dcd_indexed_epoch"]["bound_ms"])]
+    for shape, X, loss, n, kern, b_ms in shapes:
+        gap0 = float(duality_gap(torch.zeros(n, device=dev), X, loss))
+        print(f"  {shape}: a whole-epoch launch's bound {b_ms:.4f} ms "
+              f"({b_ms / n * 1e6:.3f} ns per update)")
+        rows = {f"{kern}_wide": f"{kern}_epoch"}
+        run_path(f"{shape} dcd_solve", {f"{kern}_wide": EPOCHS},
+                 lambda: timed(f"{shape} serial DCD (dcd_solve)",
+                               lambda: dcd_solve(X, loss, epochs=EPOCHS,
+                                                 seed=0, device=dev),
+                               n, EPOCHS, gap0), rows)
+        run_path(f"{shape} Lock", {f"{kern}_wide": EPOCHS},
+                 lambda: timed(f"{shape} PASSCoDe-Lock({THREADS})",
+                               lambda: passcode_solve(
+                                   X, loss, n_threads=THREADS,
+                                   memory_model="lock", epochs=EPOCHS,
+                                   seed=0, device=dev),
+                               n, EPOCHS, gap0), rows)
+        # Lock's first epoch against serial DCD over the same seeded
+        # order (the reference's key chain: PRNGKey(0), split, split)
+        lock = passcode_solve(X, loss, n_threads=THREADS, memory_model="lock",
+                              epochs=1, seed=0, device=dev)
+        sub = prng.split(prng.PRNGKey(0, device=dev))[1]
+        order = _round_indices(prng.split(sub)[0], n, THREADS).reshape(-1)
+        sq = X.row_sq_norms() if kern == "dcd_ell" else (X * X).sum(1)
+        d = X.n_features if kern == "dcd_ell" else X.shape[1]
+        st = dcd_epoch(X, sq, DcdState(torch.zeros(n, device=dev),
+                                       torch.zeros(d, device=dev)),
+                       order.int(), loss)
+        e = max(float((lock.alpha - st.alpha).abs().max()),
+                float((lock.w_hat - st.w).abs().max()))
+        print(f"  {shape} Lock epoch 1 vs dcd_epoch over its order: max abs "
+              f"err {e:.3g} (tolerance {ATOL})")
+        if not e <= ATOL:
+            fail(f"{shape}: Lock's epoch differs from serial DCD over its "
+                 "order")
+
+    # PASSCoDe-Atomic and -Wild on rcv1's first PASSCODE_ROWS rows: torch
+    # ops, no kernel of the port.  A full Wild epoch (84,674 rounds) took
+    # 44–62 s, past the 60 s this smoke test gives one epoch, so both run
+    # on the same cut, which keeps their ε comparable.  Wild's nominal
+    # gap is w̄'s (eq. 6), and w̄ runs ahead of the ŵ its updates read:
+    # on rcv1's zipf-hot columns most of a conflicted feature's 8
+    # increments are lost, so its gap after one epoch may lie above the
+    # gap at α = 0 (the reference's semantics: at rcv1's width it rises
+    # past that with n: scripts/wild_gap_growth.py shows it in both).
+    # Wild is held to its primal at ŵ, the vector it predicts with
+    # (Cor. 1), below P(0) = the gap at α = 0.  Each epoch's α and ŵ are
+    # also held to the port's CPU path on the same rows and seed
+    n_p = min(PASSCODE_ROWS, n_r)
+    X_p = EllMatrix(X_rcv1.indices[:n_p], X_rcv1.values[:n_p], d_r)
+    X_p_cpu = EllMatrix(X_p.indices.cpu(), X_p.values.cpu(), d_r)
+    gap0_p = float(duality_gap(torch.zeros(n_p, device=dev), X_p, hinge))
+    reports = {}
+    for mm in ("atomic", "wild"):
+        kw = dict(n_threads=THREADS, memory_model=mm, epochs=1, seed=0,
+                  delay=0, conflict_rate=0.5)
+
+        def one_epoch(mm=mm, kw=kw):
+            r = timed(f"rcv1's first {n_p} rows PASSCoDe-{mm.capitalize()}"
+                      f"({THREADS}), {n_p // THREADS} rounds",
+                      lambda: passcode_solve(X_p, hinge, device=dev, **kw),
+                      n_p, 1, gap0_p, falls=mm == "atomic")
+            reports[mm] = backward_error_report(X_p, None, hinge, r)
+            return r
+
+        on_card = []
+        run_path(f"rcv1 {mm}", {}, lambda: on_card.append(one_epoch()))
+        t0 = time.perf_counter()
+        on_cpu = passcode_solve(X_p_cpu, hinge, device="cpu", **kw)
+        sec = time.perf_counter() - t0
+        e = max(float((on_card[0].alpha.cpu() - on_cpu.alpha).abs().max()),
+                float((on_card[0].w_hat.cpu() - on_cpu.w_hat).abs().max()))
+        print(f"    card path vs CPU path ({sec:.1f} s on the CPU): max abs "
+              f"err {e:.3g} on α and ŵ (tolerance {ATOL})")
+        if not e <= ATOL:
+            fail(f"rcv1 {mm}: the card path disagrees with its CPU path")
+        rep = reports[mm]
+        print(f"    backward-error report: {json.dumps(rep)}")
+        if not all(math.isfinite(v) for v in rep.values()):
+            fail(f"rcv1 {mm}: a non-finite field in the report")
+        if not rep["primal_at_w_hat"] < gap0_p:
+            fail(f"rcv1 {mm}: P(ŵ) = {rep['primal_at_w_hat']} is not below "
+                 f"P(0) = {gap0_p}")
+    eps_a, eps_w = reports["atomic"]["eps_norm"], reports["wild"]["eps_norm"]
+    if not eps_w > eps_a:
+        fail(f"rcv1: Wild's ε ({eps_w}) is not above Atomic's ({eps_a})")
+    if not eps_a <= 1e-4 * reports["atomic"]["w_bar_norm"]:
+        fail(f"rcv1: Atomic's ε ({eps_a}) is above 1e-4·‖w̄‖")
+    # where an Atomic round's time goes: 20 rounds of the first epoch
+    sub = prng.split(prng.PRNGKey(0, device=dev))[1]
+    kperm, kround = prng.split(sub)
+    ids20 = _round_indices(kperm, n_r, THREADS)[:20]
+    keys20 = prng.split(kround, 20)
+    w_pad = torch.zeros(d_r + 1, device=dev)
+    a0 = torch.zeros(n_r, device=dev)
+    # the epoch's int64 column ids, made once an epoch, made here before
+    X_r64 = EllMatrix(X_rcv1.indices.long(), X_rcv1.values, d_r)
+
+    def atomic20():
+        _parallel_epoch(X_r64, q_r, a0, w_pad, ids20, keys20, hinge,
+                        wild=False, delay=0, conflict_rate=0.5)
+
+    atomic20()  # warm
+    profile_rounds(f"rcv1 Atomic({THREADS})", atomic20, 20, torch)
+
+    # all three memory models on the card against their CPU path on tiny
+    # (Lock: the staged B1 / B2 kernel against its plain version); Wild
+    # one epoch at a time from the CPU path's state, as a rounding flip
+    # of a δ at a bound switches a feature between the sum and the last
+    # writer
+    def passcode_parity():
+        for label, Xs in [("ELL", small.X_train),
+                          ("dense", small.dense_train())]:
+            ell = label == "ELL"
+            sq = Xs.row_sq_norms() if ell else (Xs * Xs).sum(1)
+            n, d = (Xs.n_rows, Xs.n_features) if ell else Xs.shape
+            for mm in ("lock", "atomic", "wild"):
+                kw = dict(n_threads=THREADS, memory_model=mm, delay=2)
+                if mm != "wild":
+                    on_card = passcode_solve(Xs.to(dev), hinge, epochs=3,
+                                             seed=1, device=dev, **kw)
+                    on_cpu = passcode_solve(Xs, hinge, epochs=3, seed=1,
+                                            device="cpu", **kw)
+                    pairs = [(on_card.alpha, on_cpu.alpha),
+                             (on_card.w_hat, on_cpu.w_hat)]
+                else:
+                    a, w = torch.zeros(n), torch.zeros(d)
+                    key, pairs = prng.PRNGKey(1), []
+                    for _ in range(3):
+                        key, sub = prng.split(key)
+                        card = passcode_epoch(
+                            Xs.to(dev), sq.to(dev), a.to(dev), w.to(dev),
+                            sub.to(dev), hinge, device=dev, **kw)
+                        a, w = passcode_epoch(Xs, sq, a, w, sub, hinge,
+                                              device="cpu", **kw)
+                        pairs += [(card[0], a), (card[1], w)]
+                e = max(float((x.cpu() - y).abs().max()) for x, y in pairs)
+                print(f"  PASSCoDe-{mm} {label} (delay 2, 3 epochs) card path "
+                      f"vs CPU path: max abs err {e:.3g} (tolerance {ATOL})")
+                if not e <= ATOL:
+                    fail(f"PASSCoDe-{mm} {label}: the card path disagrees "
+                         "with its CPU path")
+
+    lock_ids = small.X_train.n_rows // THREADS * THREADS
+    want_tiny = {
+        ("dcd_ell" if dcd_ell_plan(lock_ids, small.X_train.k_max).variant
+         == "staged" else "dcd_ell_wide"): 3,
+        ("dcd_indexed" if dcd_dense_plan(lock_ids, small.recipe.d).variant
+         == "staged" else "dcd_indexed_wide"): 3}
+    run_path("PASSCoDe tiny, card vs CPU", want_tiny, passcode_parity,
+             count=False)
+
+    # the example twins as subprocesses on the card
+    def twins():
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        for twin in ("quickstart_torch", "train_svm_passcode_torch"):
+            out = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / f"{twin}.py"),
+                 "--device", "cuda", "--epochs", str(TWIN_EPOCHS)],
+                env=env, capture_output=True, text=True, timeout=600)
+            for line in (out.stdout + out.stderr).splitlines():
+                print(f"    {twin}: {line}")
+            gaps = [float(g) for g in re.findall(r"gap=\s*(\S+)",
+                                                 out.stdout)]
+            if out.returncode != 0 or len(gaps) < 3 or not all(
+                    math.isfinite(g) for g in gaps):
+                fail(f"{twin} exited {out.returncode} with gaps {gaps}")
+
+    run_path("example twins", {}, twins)
 
     # ---------------------------------------------------------- 5. result
     print(json.dumps({"kernels": list(results.values())}))

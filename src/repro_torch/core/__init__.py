@@ -1,4 +1,5 @@
-"""PASSCoDe core on PyTorch: losses, objectives, serial DCD and the
+"""PASSCoDe core on PyTorch: losses, objectives, serial DCD, the
+Lock/Atomic/Wild simulation with its backward-error report, and the
 data-parallel solver (counterpart of ``repro.core``).
 
 The solvers load on first use: they import the kernel layer, whose
@@ -18,6 +19,10 @@ from repro_torch.core.objective import (
 
 _LAZY = {"dcd_epoch": "repro_torch.core.dcd",
          "dcd_solve": "repro_torch.core.dcd",
+         "passcode_epoch": "repro_torch.core.passcode",
+         "passcode_solve": "repro_torch.core.passcode",
+         "PasscodeResult": "repro_torch.core.passcode",
+         "backward_error_report": "repro_torch.core.backward_error",
          "sharded_passcode_solve": "repro_torch.core.sharded"}
 
 __all__ = [
@@ -31,6 +36,10 @@ __all__ = [
     "w_of_alpha",
     "dcd_epoch",
     "dcd_solve",
+    "passcode_epoch",
+    "passcode_solve",
+    "PasscodeResult",
+    "backward_error_report",
     "sharded_passcode_solve",
 ]
 

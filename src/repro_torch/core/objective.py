@@ -48,6 +48,14 @@ def duality_gap(alpha, X, loss):
     return primal_objective(w, X, loss) + dual_objective(alpha, X, loss)
 
 
+def perturbed_primal_objective(w, X, loss, eps):
+    """Eq. (16): ½(w+ε)ᵀ(w+ε) + Σ ℓ_i(wᵀx_i) — the problem ŵ exactly
+    solves under PASSCoDe-Wild (Corollary 1)."""
+    z = _matvec(X, w)
+    we = w + eps
+    return 0.5 * torch.dot(we, we) + torch.sum(loss.primal_loss(z))
+
+
 def predict_accuracy(w, X):
     """Fraction of rows with wᵀx_i > 0 (x_i is label-folded)."""
     z = _matvec(X, w)

@@ -401,23 +401,37 @@ def _resolve_mesh(mesh, mesh_axes) -> SolverMesh:
     return mesh
 
 
-def prepare_solver(X_host, loss, *, mesh=None, block_size: int = 64,
-                   delay_rounds: int = 0, seed: int = 0,
+def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
+                   y=None, block_size: int = 64, delay_rounds: int = 0,
+                   pod_delay_rounds: int = 0, seed: int = 0,
                    record: bool = True, use_kernel="auto",
-                   gap_every: int = 1, overlap="auto",
+                   gap_every: int = 1, pipeline: bool = True,
+                   overlap="auto", shrink_every: int = 0,
+                   shrink_tol: float = 1e-3, repack="auto",
+                   repack_threshold: float = 0.5, adaptive: bool = False,
+                   adaptive_ratio: float = 0.95,
                    device=None) -> SolverSetup:
     """Resolve the knobs, size the blocks and place the dataset on the
     device — the reference's ``prepare_solver`` at p = 1, without lane
     padding and, at p = 1, without row padding.  On a 2-D mesh a dense X
     converts to ELL and is split into ``FeatureShardedEll`` slices on
-    the device."""
+    the device.  It takes every keyword of the reference's; ``y`` (the
+    reference's (K, n) multi-task labels) and the knobs outside the
+    ported slices raise ``NotImplementedError`` where a value would act
+    (``_reject_unported``).  ``shrink_tol``, ``repack_threshold`` and
+    ``adaptive_ratio`` act only with shrinking, repacking or the
+    adaptive delay, which raise, so they are accepted as they are."""
+    mesh = _resolve_mesh(mesh, mesh_axes)
+    _reject_unported(mesh=mesh, pod_delay_rounds=pod_delay_rounds,
+                     shrink_every=shrink_every, repack=repack,
+                     adaptive=adaptive, multitask=y is not None,
+                     pipeline=pipeline)
     dev = resolve_device(device)
     _check_use_kernel(use_kernel, dev)
     if int(block_size) < 1:
         raise ValueError(f"block_size must be ≥ 1, got {block_size}")
     if int(delay_rounds) < 0:
         raise ValueError(f"delay_rounds must be ≥ 0, got {delay_rounds}")
-    mesh = _resolve_mesh(mesh, ("data",))
     two_d = "model" in mesh.axis_names
     ell = isinstance(X_host, EllMatrix)
     fused = two_d and _fused_2d(use_kernel, dev)
@@ -528,11 +542,11 @@ def _validate_solver_inputs(X_host, y, loss):
 
 
 def _reject_unported(*, mesh, pod_delay_rounds, shrink_every, repack,
-                     adaptive, y, pipeline):
+                     adaptive, multitask, pipeline):
     """The reference's knobs outside the ported slices: each raises,
     naming the ROADMAP item that ports it; none is silently ignored."""
     axes = tuple(mesh.axis_names)
-    if y is not None and len(getattr(y, "shape", ())) == 2:
+    if multitask:
         raise NotImplementedError(
             "a (K, n) multi-task label matrix is ROADMAP A.9 (multi-task), "
             "not yet ported")
@@ -664,8 +678,11 @@ def sharded_passcode_solve(
     pipeline: bool = True,
     overlap="auto",
     shrink_every: int = 0,
+    shrink_tol: float = 1e-3,
     repack="auto",
+    repack_threshold: float = 0.5,
     adaptive: bool = False,
+    adaptive_ratio: float = 0.95,
 ) -> ShardedResult:
     """PASSCoDe-Atomic over one ``data`` shard on ``device`` (the card by
     default).  ``X_host``: a dense (n, d) tensor or an ``EllMatrix`` (the
@@ -689,21 +706,25 @@ def sharded_passcode_solve(
     are drawn through the reference's key chain from ``seed``;
     ``blocks`` replaces the draw with an explicit (epochs, n_blocks, B)
     schedule of row ids.  The knobs after ``blocks`` are the
-    reference's; any value outside the ported slices raises
-    ``NotImplementedError``.
+    reference's; any value outside the ported slices that would act
+    raises ``NotImplementedError`` naming its ROADMAP item
+    (``prepare_solver``).
     """
-    mesh = _resolve_mesh(mesh, mesh_axes)
-    _reject_unported(mesh=mesh, pod_delay_rounds=pod_delay_rounds,
-                     shrink_every=shrink_every, repack=repack,
-                     adaptive=adaptive, y=y, pipeline=pipeline)
     dev = resolve_device(device)
+    # a (K, n) label matrix is the multi-task solve: not folded into X
+    multitask = y is not None and len(getattr(y, "shape", ())) == 2
     X_host = X_host.to(dev) if isinstance(X_host, EllMatrix) else \
         torch.as_tensor(X_host, dtype=torch.float32, device=dev)
-    X_host = _validate_solver_inputs(X_host, y, loss)
-    setup = prepare_solver(X_host, loss, mesh=mesh, block_size=block_size,
-                           delay_rounds=delay_rounds, seed=seed,
-                           record=record, use_kernel=use_kernel,
-                           gap_every=gap_every, overlap=overlap, device=dev)
+    X_host = _validate_solver_inputs(X_host, None if multitask else y, loss)
+    setup = prepare_solver(
+        X_host, loss, mesh=mesh, mesh_axes=mesh_axes,
+        y=y if multitask else None, block_size=block_size,
+        delay_rounds=delay_rounds, pod_delay_rounds=pod_delay_rounds,
+        seed=seed, record=record, use_kernel=use_kernel,
+        gap_every=gap_every, pipeline=pipeline, overlap=overlap,
+        shrink_every=shrink_every, shrink_tol=shrink_tol, repack=repack,
+        repack_threshold=repack_threshold, adaptive=adaptive,
+        adaptive_ratio=adaptive_ratio, device=dev)
     draw = _block_schedule(setup, blocks, epochs)
     alpha, w = _init_alpha_w(setup, alpha0, w0)
     if setup.two_d:

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import prng
 from repro_torch.core import duals as td
+from repro_torch.core.passcode import passcode_epoch, passcode_solve
 from repro_torch.core.sharded import sharded_passcode_solve
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.kernels.dcd_block import (
@@ -315,6 +317,42 @@ def test_solver_kernel_path_matches_cpu_path(ell):
                                on_cpu.gaps.numpy(), rtol=1e-5, atol=ATOL)
     with pytest.raises(ValueError, match="plain engines"):
         sharded_passcode_solve(X.to(dev), td.Hinge(), use_kernel=False, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ell", [True, False], ids=["ell", "dense"])
+@pytest.mark.parametrize("memory_model,delay", [
+    ("lock", 0), ("atomic", 0), ("atomic", 2), ("wild", 0), ("wild", 2)])
+def test_passcode_card_matches_cpu(ell, memory_model, delay):
+    """PASSCoDe on the card against its CPU path on ``tiny``, 3 epochs:
+    Lock (the indexed kernel against its plain version) and Atomic as
+    whole solves; Wild one epoch at a time from the CPU path's state,
+    since a rounding flip of a δ at a bound switches a feature between
+    the sum and the last writer (``test_torch_passcode.py``)."""
+    dev = _cuda()
+    ds = make_dataset("tiny", device="cpu")
+    X = ds.X_train if ell else ds.dense_train()
+    kw = dict(n_threads=8, memory_model=memory_model, delay=delay)
+    if memory_model != "wild":
+        on_card = passcode_solve(X, td.Hinge(), epochs=3, seed=1, **kw)
+        on_cpu = passcode_solve(X, td.Hinge(), epochs=3, seed=1,
+                                device="cpu", **kw)
+        for a, b in [(on_card.alpha, on_cpu.alpha),
+                     (on_card.w_hat, on_cpu.w_hat),
+                     (on_card.w_bar, on_cpu.w_bar)]:
+            _close(a, b)
+        return
+    sq = X.row_sq_norms() if ell else torch.sum(X * X, dim=1)
+    n, d = (X.n_rows, X.n_features) if ell else X.shape
+    alpha, w = torch.zeros(n), torch.zeros(d)
+    key = prng.PRNGKey(1)
+    for _ in range(3):
+        key, sub = prng.split(key)
+        card = passcode_epoch(X, sq, alpha, w, sub, td.Hinge(), **kw)
+        alpha, w = passcode_epoch(X, sq, alpha, w, sub, td.Hinge(),
+                                  device="cpu", **kw)
+        _close(card[0], alpha)
+        _close(card[1], w)
 
 
 def _feature_case(dev, n=300, m=3, k=40, d_loc=500, b=48, seed=7,

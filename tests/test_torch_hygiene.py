@@ -4,6 +4,7 @@ caller asks for the CPU — without a card they raise, never carry on."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -21,12 +22,14 @@ from repro_torch.convert import (
 )
 from repro_torch.core import duals as td
 from repro_torch.core.dcd import dcd_solve
+from repro_torch.core.passcode import passcode_solve
 from repro_torch.core.sharded import sharded_passcode_solve
 from repro_torch.data.sparse import dense_to_ell
 from repro_torch.data.synthetic import make_dataset, make_paper_split
 from repro_torch.dist.mesh import solver_mesh_2d
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 
 
 def test_no_module_imports_jax_or_repro():
@@ -50,6 +53,8 @@ ENTRY_POINTS = {
     "sharded_passcode_solve": lambda: sharded_passcode_solve(
         torch.ones((4, 2)), td.Hinge(), epochs=1),
     "dcd_solve": lambda: dcd_solve(torch.ones((4, 2)), td.Hinge(), epochs=1),
+    "passcode_solve": lambda: passcode_solve(torch.ones((4, 2)), td.Hinge(),
+                                             epochs=1),
     "make_dataset": lambda: make_dataset("tiny"),
     "make_paper_split": lambda: make_paper_split("covtype"),
     "dense_to_ell": lambda: dense_to_ell(np.eye(3)),
@@ -71,3 +76,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(name,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("twin", ["quickstart_torch",
+                                  "train_svm_passcode_torch"])
+def test_example_twin_runs_on_cpu_without_jax(twin):
+    """Each example twin runs end to end with ``--device cpu`` on
+    ``tiny`` at 2 epochs, prints finite gaps, and imports neither jax
+    nor ``repro``."""
+    path = ROOT / "examples" / f"{twin}.py"
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{str(path)!r}, '--device', 'cpu', '--epochs', '2']\n"
+        f"runpy.run_path({str(path)!r}, run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print('imported:', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    gaps = [float(g) for g in re.findall(r"gap=\s*(\S+)", out.stdout)]
+    assert len(gaps) >= 3 and all(np.isfinite(gaps)), out.stdout

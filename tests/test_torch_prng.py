@@ -1,7 +1,8 @@
 """``repro_torch.prng`` against ``jax.random`` (threefry2x32,
-partitionable mode): keys, splits, random bits and permutations are
-bit-equal; the port's block draw is the reference's; and a solve given
-only ``seed=`` runs the reference's updates (atol 1e-5 on α and ŵ, the
+partitionable mode): keys, splits, random bits, permutations and float32
+uniforms are bit-equal, for one key and for a stack of keys; the port's
+block draw is the reference's; and a solve given only ``seed=`` runs the
+reference's updates (atol 1e-5 on α and ŵ, the
 gap at the tolerance of ``test_torch_solver.py``).
 """
 
@@ -53,6 +54,51 @@ def test_permutation_bit_equal(seed, n):
     kt = prng.split(prng.PRNGKey(seed))[1]
     np.testing.assert_array_equal(prng.permutation(kt, n).numpy(),
                                   np.asarray(jax.random.permutation(k, n)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape,lo,hi", [((47_237,), 0.0, 1.0),
+                                         ((3, 5), -2.0, 3.5), ((), 0.0, 1.0)])
+def test_uniform_bit_equal(seed, shape, lo, hi):
+    """float32 ``uniform`` at rcv1's d + 1, a 2-D shape on another range,
+    and a scalar; and its elements at given counters alone."""
+    k = jax.random.split(jax.random.PRNGKey(seed))[1]
+    kt = prng.split(prng.PRNGKey(seed))[1]
+    want = np.asarray(jax.random.uniform(k, shape, np.float32, lo, hi))
+    got = prng.uniform(kt, shape, lo, hi).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    flat = want.reshape(-1)
+    at = torch.tensor([[0, flat.size - 1], [flat.size // 2, 1 % flat.size]])
+    np.testing.assert_array_equal(
+        prng.uniform_at(kt, at, lo, hi).numpy(), flat[at.numpy()])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("p", [1, 8, 10, 20_000])
+def test_batched_split_permutation_uniform_bit_equal(seed, p):
+    """A stack of R keys draws what the reference draws key by key: the
+    per-round ``split(key)`` and ``permutation(korder, p)`` of Wild's
+    schedule, and ``uniform`` rows and their elements at counters."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), 6)
+    kt = prng.split(prng.PRNGKey(seed), 6)
+    np.testing.assert_array_equal(kt.numpy(), _np(keys))
+    np.testing.assert_array_equal(
+        prng.split(kt).numpy(),
+        np.stack([_np(jax.random.split(k)) for k in keys]))
+    np.testing.assert_array_equal(
+        prng.split(kt, 3).numpy(),
+        np.stack([_np(jax.random.split(k, 3)) for k in keys]))
+    np.testing.assert_array_equal(
+        prng.permutation(kt, p).numpy(),
+        np.stack([np.asarray(jax.random.permutation(k, p)) for k in keys]))
+    u = np.stack([np.asarray(jax.random.uniform(k, (p,))) for k in keys])
+    np.testing.assert_array_equal(prng.uniform(kt, (p,)).numpy(), u)
+    cnt = torch.from_numpy(np.random.default_rng(seed).integers(0, p,
+                                                                (6, 3, 4)))
+    np.testing.assert_array_equal(
+        prng.uniform_at(kt, cnt).numpy(),
+        np.take_along_axis(u, cnt.numpy().reshape(6, -1), 1).reshape(6, 3, 4))
 
 
 @pytest.mark.parametrize("p,my,n_loc,n_rows,B", [

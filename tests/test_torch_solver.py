@@ -36,7 +36,7 @@ from repro_torch.core import duals as td
 from repro_torch.core.dcd import dcd_solve
 from repro_torch.core.objective import _matvec, w_of_alpha
 from repro_torch.data.sparse import EllMatrix
-from repro_torch.core.sharded import sharded_passcode_solve
+from repro_torch.core.sharded import prepare_solver, sharded_passcode_solve
 from repro_torch.dist.mesh import solver_mesh_2d
 
 ATOL = 1e-5
@@ -265,6 +265,13 @@ KNOBS = [
     (dict(TWO_D, shrink_every=1), "A′.2", NotImplementedError),
     (dict(TWO_D, adaptive=True), "A′.2", NotImplementedError),
     (dict(pipeline=False), "A′.12", NotImplementedError),
+    # the reference's tuning values act only with their knob on
+    (dict(shrink_every=2, shrink_tol=1e-2), "A.7", NotImplementedError),
+    (dict(shrink_every=1, repack=True, repack_threshold=0.3), "A.7",
+     NotImplementedError),
+    (dict(adaptive=True, adaptive_ratio=0.5), "A.7", NotImplementedError),
+    (dict(TWO_D, adaptive=True, adaptive_ratio=0.5), "A′.2",
+     NotImplementedError),
 ]
 
 
@@ -278,3 +285,50 @@ def test_unported_knobs_raise(knob, item, error):
     with pytest.raises(error, match=item):
         sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
                                device="cpu", **knob)
+
+
+PREPARE_KNOBS = [
+    (dict(y=np.ones((2, 8), np.float32)), "A.9"),
+    (dict(mesh_axes=("task", "data")), "A.9"),
+    (dict(mesh_axes=("pod", "data")), "A.10"),
+    (dict(pod_delay_rounds=2), "A.10"),
+    (dict(shrink_every=1, shrink_tol=1e-2), "A.7"),
+    (dict(repack=True, repack_threshold=0.3), "A.7"),
+    (dict(adaptive=True, adaptive_ratio=0.5), "A.7"),
+    (dict(pipeline=False), "A′.12"),
+]
+
+
+@pytest.mark.parametrize("knob,item", PREPARE_KNOBS,
+                         ids=[f"knob{i}-{c[1]}".replace("′", "'")
+                              for i, c in enumerate(PREPARE_KNOBS)])
+def test_prepare_solver_unported_knobs_raise(knob, item):
+    """``prepare_solver`` takes every keyword of the reference's and
+    raises, naming the ROADMAP item, where a value would act."""
+    with pytest.raises(NotImplementedError, match=item):
+        prepare_solver(torch.ones((8, 3)), td.Hinge(), device="cpu", **knob)
+
+
+@pytest.mark.parametrize("knob", [dict(shrink_tol=1e-3),
+                                  dict(shrink_tol=0.25),
+                                  dict(repack_threshold=0.1),
+                                  dict(adaptive_ratio=0.5),
+                                  dict(mesh_axes=("data",), pipeline=True,
+                                       shrink_every=0, repack="auto",
+                                       adaptive=False)],
+                         ids=["shrink_tol", "shrink_tol_other",
+                              "repack_threshold", "adaptive_ratio",
+                              "defaults"])
+def test_reference_keywords_that_do_not_act_are_accepted(tiny, knob):
+    """The reference's call ``sharded_passcode_solve(X, Hinge(C=1),
+    shrink_tol=1e-3)`` and its siblings run, and give the same solve as
+    the call without the knob (ROADMAP C.1); ``prepare_solver`` takes
+    them too."""
+    Xp = _port_X(tiny, True)
+    kw = dict(epochs=2, block_size=32, seed=1, device="cpu")
+    base = sharded_passcode_solve(Xp, td.Hinge(C=1), **kw)
+    got = sharded_passcode_solve(Xp, td.Hinge(C=1), **kw, **knob)
+    for a, b in zip(got[:3], base[:3]):
+        assert torch.equal(a, b)
+    setup = prepare_solver(Xp, td.Hinge(C=1), device="cpu", **knob)
+    assert setup.n == Xp.n_rows
