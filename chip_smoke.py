@@ -16,7 +16,9 @@ result line):
    gives it: B1 (ELL) on the rcv1-shape shard (its staged variant) and
    on webspam's rows (its wide variant), and B2 (dense indexed) on the
    covtype-shape shard (its staged variant, and its wide one as
-   ``ms_before``), a few rounds of B = 64 ids each; B3
+   ``ms_before``), a few rounds of B = 64 ids each, through the
+   shard-grid wrappers over a grid of one shard, as the p = 1 solver
+   round calls them; B3
    (dense in-order, its stream variant) over one whole epoch of the
    covtype shard, and on a few rows for the other losses, from an
    aligned and an unaligned offset, with its wide variant re-timed on the
@@ -32,11 +34,21 @@ result line):
    covtype shapes (``ms_before``: the designs the staged variants
    replaced); B5 is timed alone (its own bucket pass) and on logistic;
    B1 and B4 are timed once more without the spin
-   (host-gated).  ``torch.profiler`` views 20 rounds of the rcv1, the
-   covtype and the webspam solve (wall time, device-busy time, idle
-   share); then the
-   solver's kernel paths against their CPU paths on a small input (1-D,
-   and 2-D with the overlapped round); B1's and B2's wide variants over
+   (host-gated).  The shard grid: B1 (staged at rcv1's rows, p = 8;
+   wide at webspam's rows, p = 2), B2 (staged at covtype's rows, p = 8)
+   and B4 + B5 (webspam split, data = 2, m = 4), each launch a grid of
+   p data shards laid out as the solver lays them out (the tail padded),
+   held to its plain version over a few rounds from α = 0 (each shard's
+   Δw, α and w; hinge, and squared hinge and logistic on one round), its
+   second launch to the same bits, and timed.  ``torch.profiler`` views
+   20 rounds of the rcv1, the covtype and the webspam solve, at p = 1
+   and over the shard grid (wall time, device-busy time, idle share);
+   then the solver's kernel paths against their CPU paths on a small
+   input (1-D, and 2-D with the overlapped round; p = 2 and 8, data =
+   2, with shrinking and repacking, and p = 4 with an adaptive delay
+   whose flag latches to 0); one p = 1 epoch of the rcv1, covtype and
+   webspam-rows solves against the single-block round the solver ran
+   before the shard grid, α and ŵ bit for bit; B1's and B2's wide variants over
    a whole epoch's order, the launch ``dcd_solve`` and PASSCoDe-Lock
    make (all n ids; held to the plain version, which is timed on it,
    over the whole order with hinge, and over its first ``PREFIX`` ids
@@ -49,7 +61,16 @@ result line):
    on covtype, and the 2-D solve on webspam (n = 280,000,
    d = 16,609,143, 3,728 nnz per row, hinge C = 1, B = 64, m = 4
    feature shards, 2 epochs), and webspam's rows on the 1-D mesh (2
-   epochs, B1's wide variant); serial DCD (``dcd_solve``) and
+   epochs, B1's wide variant); the same solves over p > 1 data shards
+   (rcv1 and covtype at p = 8, webspam on the 2-D mesh at data = 2 and
+   on the 1-D mesh at p = 2) and with the self-tuning (rcv1 at p = 8
+   with shrinking and repacking, and again with the adaptive delay from
+   delay_rounds = 1 at a gap-trend ratio of 0.3, its recorded flags held
+   to the latch rule from its recorded gaps; webspam at data = 2 with
+   shrinking), each printing
+   its active fractions, delay flags, rounds run per epoch (the final
+   epoch's all of them) and host reads of the round count, and calling
+   no plain version; serial DCD (``dcd_solve``) and
    PASSCoDe-Lock (``passcode_solve``, 8 threads) on rcv1 and covtype, 3
    epochs each, one wide B1 (B2) launch per epoch, Lock's first epoch
    held to ``dcd_epoch`` over the same seeded order; PASSCoDe-Atomic and
@@ -66,7 +87,10 @@ result line):
    the primal at 0; its ε above Atomic's, and Atomic's at most
    1e-4·‖w̄‖);
 5. one JSON line of per-kernel numbers (with each kernel's variant, and
-   B1's, B2's and B3's ``ms_before``), then the result line
+   B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
+   ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
+   ``dcd_feature_gram_data`` and ``dcd_feature_update_data``; every row
+   launched on a main path), then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one.  Data comes from
@@ -94,6 +118,7 @@ SHARDS = 4  # webspam's feature shards (the reference's model axis)
 DEVICE = "cuda"
 SPIN_CYCLES = 40_000_000  # about 20 ms at the H100's 1,980 MHz
 PREFIX = 4096  # ids of an epoch's order for the other losses' check
+ADAPTIVE_RATIO = 0.3  # the full-size adaptive path's gap-trend ratio
 THREADS = 8  # PASSCoDe's simulated threads (the examples' Atomic/Wild(8))
 PASSCODE_ROWS = 100_000  # rcv1 rows of the Atomic and Wild epochs
 TWIN_EPOCHS = 3
@@ -202,7 +227,11 @@ def main():
     from repro_torch.core import duals
     from repro_torch.core.backward_error import backward_error_report
     from repro_torch.core.dcd import DcdState, dcd_epoch, dcd_solve
-    from repro_torch.core.objective import duality_gap, predict_accuracy
+    from repro_torch.core.objective import (
+        duality_gap,
+        predict_accuracy,
+        w_of_alpha,
+    )
     from repro_torch.core.passcode import (
         _parallel_epoch,
         _round_indices,
@@ -224,16 +253,24 @@ def main():
         dcd_tile_plan,
         feature_update_plan,
         gram_plan,
+        solver_mesh,
         solver_mesh_2d,
     )
     from repro_torch.kernels import build, dcd_feature as feat, ops
     from repro_torch.kernels.dcd_block import (
         dcd_indexed_epoch,
         dcd_indexed_epoch_plain,
+        dcd_indexed_shards,
+        dcd_indexed_shards_plain,
         dcd_tile_epoch,
         dcd_tile_epoch_plain,
     )
-    from repro_torch.kernels.dcd_ell import dcd_ell_epoch, dcd_ell_epoch_plain
+    from repro_torch.kernels.dcd_ell import (
+        dcd_ell_epoch,
+        dcd_ell_epoch_plain,
+        dcd_ell_shards,
+        dcd_ell_shards_plain,
+    )
 
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -313,35 +350,41 @@ def main():
         return (torch.zeros(n_r, device=dev),
                 torch.zeros(d_r + 1, device=dev))
 
-    err_b1 = compare(
-        "B1 dcd_ell", lambda a, w, i, L: dcd_ell_epoch(
-            X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i),
-        lambda a, w, i, L: dcd_ell_epoch_plain(
-            X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i),
-        zeros_r, ids_r, losses)
+    def one_shard(shards, *Xq):
+        """B1's or B2's shard-grid wrapper as the p = 1 solver round
+        launches it, a grid of one shard (``shards`` a kernel wrapper or
+        its plain version; ``Xq`` the rows and q): returns (α, w + the
+        shard's Δw), the round's new state."""
+        def run(a, w, i, L, **kw):
+            *rows, q = Xq
+            a, dw = shards(*rows, a, w, q, loss=L, idx=i[None], n_loc=0,
+                           **kw)
+            return a, w + dw[0]
+        return run
+
+    # B1 and B2 at p = 1 through the wrapper the solver's round calls
+    # (``dcd_ell_shards`` / ``dcd_indexed_shards`` over a grid of one
+    # shard, which writes that shard's Δw)
+    r1 = one_shard(dcd_ell_shards, X_rcv1.indices, X_rcv1.values, q_r)
+    r1_plain = one_shard(dcd_ell_shards_plain, X_rcv1.indices,
+                         X_rcv1.values, q_r)
+    err_b1 = compare("B1 dcd_ell_shards p = 1", r1, r1_plain, zeros_r, ids_r,
+                     losses)
     err_b1 = max(err_b1, compare(
-        "B1 dcd_ell (mask, labels)", lambda a, w, i, L: dcd_ell_epoch(
-            X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i,
-            active=act_r, y=y_r),
-        lambda a, w, i, L: dcd_ell_epoch_plain(
-            X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i,
-            active=act_r, y=y_r),
+        "B1 dcd_ell_shards p = 1 (mask, labels)",
+        lambda a, w, i, L: r1(a, w, i, L, active=act_r, y=y_r),
+        lambda a, w, i, L: r1_plain(a, w, i, L, active=act_r, y=y_r),
         zeros_r, ids_r[:2], ["hinge"]))
     print(f"  B1 at the rcv1 shape: {dcd_ell_plan(B, k_r)}")
     # the wide variant at the same shape, as the staged one's "before"
     err_b1_before = compare(
-        "B1 dcd_ell wide at the rcv1 shape", lambda a, w, i, L: dcd_ell_epoch(
-            X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i,
-            wide=True),
-        lambda a, w, i, L: dcd_ell_epoch_plain(
-            X_rcv1.indices, X_rcv1.values, a, w, q_r, loss=L, idx=i),
-        zeros_r, ids_r[:2], ["hinge"])
+        "B1 dcd_ell_shards p = 1 wide at the rcv1 shape",
+        lambda a, w, i, L: r1(a, w, i, L, wide=True), r1_plain, zeros_r,
+        ids_r[:2], ["hinge"])
     a_r0, w_r0 = zeros_r()
-    same_bits("B1 dcd_ell staged (rcv1, hinge, mask, labels)",
-              lambda: dcd_ell_epoch(X_rcv1.indices, X_rcv1.values, a_r0,
-                                    w_r0, q_r, loss=duals.Hinge(1.0),
-                                    idx=ids_r[0], active=act_r, y=y_r),
-              torch)
+    same_bits("B1 dcd_ell_shards p = 1 staged (rcv1, hinge, mask, labels)",
+              lambda: r1(a_r0, w_r0, ids_r[0], duals.Hinge(1.0),
+                         active=act_r, y=y_r), torch)
 
     # B1's wide variant on webspam's rows (k = 3,728: a block too large
     # to stage), the 1-D webspam path's shape
@@ -354,17 +397,14 @@ def main():
         return (torch.zeros(n_w1, device=dev),
                 torch.zeros(d_w1 + 1, device=dev))
 
-    err_b1w = compare(
-        "B1 dcd_ell wide", lambda a, w, i, L: dcd_ell_epoch(
-            X_web.indices, X_web.values, a, w, q_w1, loss=L, idx=i),
-        lambda a, w, i, L: dcd_ell_epoch_plain(
-            X_web.indices, X_web.values, a, w, q_w1, loss=L, idx=i),
-        zeros_w1, ids_w1, losses)
+    r1w = one_shard(dcd_ell_shards, X_web.indices, X_web.values, q_w1)
+    r1w_plain = one_shard(dcd_ell_shards_plain, X_web.indices, X_web.values,
+                          q_w1)
+    err_b1w = compare("B1 dcd_ell_shards p = 1 wide", r1w, r1w_plain,
+                      zeros_w1, ids_w1, losses)
     a_w1, w_w1 = zeros_w1()
-    same_bits("B1 dcd_ell wide (webspam rows, hinge)",
-              lambda: dcd_ell_epoch(X_web.indices, X_web.values, a_w1, w_w1,
-                                    q_w1, loss=duals.Hinge(1.0),
-                                    idx=ids_w1[0]), torch)
+    same_bits("B1 dcd_ell_shards p = 1 wide (webspam rows, hinge)",
+              lambda: r1w(a_w1, w_w1, ids_w1[0], duals.Hinge(1.0)), torch)
 
     ids_c = blocks(n_c, 4)
 
@@ -375,34 +415,27 @@ def main():
     y_c = torch.where(torch.rand(n_c, generator=gen, device=dev) > 0.5,
                       1.0, -1.0)
     print(f"  B2 at the covtype shape: {dcd_dense_plan(B, d_c)}")
-    err_b2 = compare(
-        "B2 dcd_indexed", lambda a, w, i, L: dcd_indexed_epoch(
-            X_cov, a, w, q_c, loss=L, idx=i),
-        lambda a, w, i, L: dcd_indexed_epoch_plain(
-            X_cov, a, w, q_c, loss=L, idx=i),
-        zeros_c, ids_c, losses)
+    r2 = one_shard(dcd_indexed_shards, X_cov, q_c)
+    r2_plain = one_shard(dcd_indexed_shards_plain, X_cov, q_c)
+    err_b2 = compare("B2 dcd_indexed_shards p = 1", r2, r2_plain, zeros_c,
+                     ids_c, losses)
     err_b2 = max(err_b2, compare(
-        "B2 dcd_indexed (mask, labels)", lambda a, w, i, L: dcd_indexed_epoch(
-            X_cov, a, w, q_c, loss=L, idx=i, active=act_c, y=y_c),
-        lambda a, w, i, L: dcd_indexed_epoch_plain(
-            X_cov, a, w, q_c, loss=L, idx=i, active=act_c, y=y_c),
+        "B2 dcd_indexed_shards p = 1 (mask, labels)",
+        lambda a, w, i, L: r2(a, w, i, L, active=act_c, y=y_c),
+        lambda a, w, i, L: r2_plain(a, w, i, L, active=act_c, y=y_c),
         zeros_c, ids_c[:2], ["hinge"]))
     # the wide variant at the same shape, as the staged one's "before"
     err_b2_before = compare(
-        "B2 dcd_indexed wide at the covtype shape",
-        lambda a, w, i, L: dcd_indexed_epoch(X_cov, a, w, q_c, loss=L, idx=i,
-                                             wide=True),
-        lambda a, w, i, L: dcd_indexed_epoch_plain(
-            X_cov, a, w, q_c, loss=L, idx=i),
-        zeros_c, ids_c[:2], ["hinge"])
+        "B2 dcd_indexed_shards p = 1 wide at the covtype shape",
+        lambda a, w, i, L: r2(a, w, i, L, wide=True), r2_plain, zeros_c,
+        ids_c[:2], ["hinge"])
     a_c0, w_c0 = zeros_c()
     for wide in (False, True):
-        same_bits(f"B2 dcd_indexed {'wide' if wide else 'staged'} (covtype, "
-                  "hinge, mask, labels)",
-                  lambda: dcd_indexed_epoch(X_cov, a_c0, w_c0, q_c,
-                                            loss=duals.Hinge(1.0),
-                                            idx=ids_c[0], active=act_c,
-                                            y=y_c, wide=wide), torch)
+        same_bits(f"B2 dcd_indexed_shards p = 1 "
+                  f"{'wide' if wide else 'staged'} (covtype, hinge, mask, "
+                  "labels)",
+                  lambda: r2(a_c0, w_c0, ids_c[0], duals.Hinge(1.0),
+                             active=act_c, y=y_c, wide=wide), torch)
     # B3 runs its rows in order.  The main path gives it the whole
     # covtype shard in one launch (ops.dcd_epoch, hinge C = 0.0625), which
     # takes its stream variant: hold it to its plain version there, one
@@ -473,39 +506,46 @@ def main():
     a_r, w_r = zeros_r()
     t_ids = blocks(n_r, 64)
     it = iter(range(10**9))
-    ms_b1 = cuda_ms(lambda: dcd_ell_epoch(
-        X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
-        idx=t_ids[next(it) % 64]), 50, torch)
+    # (the wrapper alone, as the p = 1 round calls it: a grid of one
+    # shard, returning its Δw; the round's w + Δw is not timed)
+    def b1_p1(w_, ids, wide=False):
+        return dcd_ell_shards(X_rcv1.indices, X_rcv1.values, a_r, w_, q_r,
+                              loss=hinge, idx=ids[None], n_loc=0, wide=wide)
+
+    ms_b1 = cuda_ms(lambda: b1_p1(w_r, t_ids[next(it) % 64]), 50, torch)
     # the design B1 had before its staged variant (the wide kernel) at
     # the same shape, timed the same way
-    ms_b1_before = cuda_ms(lambda: dcd_ell_epoch(
+    ms_b1_before = cuda_ms(lambda: b1_p1(w_r, t_ids[next(it) % 64], True),
+                           50, torch)
+    plain_b1 = wall_ms(lambda: dcd_ell_shards_plain(
         X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
-        idx=t_ids[next(it) % 64], wide=True), 50, torch)
-    plain_b1 = wall_ms(lambda: dcd_ell_epoch_plain(
-        X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
-        idx=t_ids[0]), 2, torch)
+        idx=t_ids[:1], n_loc=0), 2, torch)
     w_ids = blocks(n_w1, 16)
-    ms_b1w = cuda_ms(lambda: dcd_ell_epoch(
+    ms_b1w = cuda_ms(lambda: dcd_ell_shards(
         X_web.indices, X_web.values, a_w1, w_w1, q_w1, loss=hinge,
-        idx=w_ids[next(it) % 16]), 20, torch)
-    plain_b1w = wall_ms(lambda: dcd_ell_epoch_plain(
+        idx=w_ids[next(it) % 16][None], n_loc=0), 20, torch)
+    plain_b1w = wall_ms(lambda: dcd_ell_shards_plain(
         X_web.indices, X_web.values, a_w1, w_w1, q_w1, loss=hinge,
-        idx=w_ids[0]), 2, torch)
+        idx=w_ids[:1], n_loc=0), 2, torch)
     a_c, w_c = zeros_c()
     c_ids = blocks(n_c, 64)
-    ms_b2 = cuda_ms(lambda: dcd_indexed_epoch(
-        X_cov, a_c, w_c, q_c, loss=hinge_c, idx=c_ids[next(it) % 64]), 50,
-        torch)
+
+    def b2_p1(ids, wide=False):
+        return dcd_indexed_shards(X_cov, a_c, w_c, q_c, loss=hinge_c,
+                                  idx=ids[None], n_loc=0, wide=wide)
+
+    ms_b2 = cuda_ms(lambda: b2_p1(c_ids[next(it) % 64]), 50, torch)
     # the design B2 had before its staged variant (the wide kernel) at the
     # same shape, timed the same way
-    ms_b2_before = cuda_ms(lambda: dcd_indexed_epoch(
-        X_cov, a_c, w_c, q_c, loss=hinge_c, idx=c_ids[next(it) % 64],
-        wide=True), 50, torch)
-    plain_b2 = wall_ms(lambda: dcd_indexed_epoch_plain(
-        X_cov, a_c, w_c, q_c, loss=hinge_c, idx=c_ids[0]), 2, torch)
+    ms_b2_before = cuda_ms(lambda: b2_p1(c_ids[next(it) % 64], True), 50,
+                           torch)
+    plain_b2 = wall_ms(lambda: dcd_indexed_shards_plain(
+        X_cov, a_c, w_c, q_c, loss=hinge_c, idx=c_ids[:1], n_loc=0), 2,
+        torch)
 
-    # bytes each timed call must move: α and w in and out (the wrapper
-    # returns new ones), and the visited rows with their q (and ids);
+    # bytes each timed call must move: α in and out (the wrapper returns
+    # a new one), w in and the shard's Δw out, and the visited rows with
+    # their q (and ids);
     # operations: a multiply-add per row entry for the dot, and one for
     # the axpy where the update scatters (every update from a cold
     # state in B1 and B2; the rows that moved in B3's epoch)
@@ -747,12 +787,10 @@ def main():
     # the same calls timed as they are issued, without the spin (how the
     # earlier times were taken): B1 staged and wide at the rcv1 shape, B4
     gated = {
-        "B1 staged": cuda_ms(lambda: dcd_ell_epoch(
-            X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
-            idx=t_ids[next(it) % 64]), 50, torch, spin=False),
-        "B1 wide": cuda_ms(lambda: dcd_ell_epoch(
-            X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
-            idx=t_ids[next(it) % 64], wide=True), 50, torch, spin=False),
+        "B1 staged": cuda_ms(lambda: b1_p1(w_r, t_ids[next(it) % 64]), 50,
+                             torch, spin=False),
+        "B1 wide": cuda_ms(lambda: b1_p1(w_r, t_ids[next(it) % 64], True),
+                           50, torch, spin=False),
         "B4": cuda_ms(lambda: feat.dcd_feature_gram(
             cols_w, vals_w, w_w, t_ids_w[next(it) % 64], workspace=ws), 50,
             torch, spin=False)}
@@ -806,29 +844,303 @@ def main():
                else f"torch.sparse.mm {lib_ms:.4f} ms")
         print(f"  {name} ({per}): {route_ms:.4f} ms per launch, plain "
               f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+    # ------------------------------- the shard grid: p data shards a launch
+    # B1, B2, B4 and B5 over p data shards (a CTA, or a group of CTAs, a
+    # shard) at the p > 1 main paths' shapes, the rows laid out as the
+    # solver lays them out (n_pad = p·n_loc, the tail zero rows, q = 1),
+    # held to their plain versions over a few rounds from α = 0: each
+    # round the kernel and the plain version take the same ids and their
+    # own carried (α, w), each shard's Δw compared, and w += the Δw sum
+    def pad_rows(t, n_pad, fill):
+        extra = n_pad - t.shape[0]
+        if extra == 0:
+            return t
+        return torch.cat([t, torch.full((extra, *t.shape[1:]), fill,
+                                        dtype=t.dtype, device=dev)])
+
+    def shard_ids(n, p, rounds):
+        """(n_loc, ids (rounds, p, B)): each shard's B distinct real rows
+        a round, shard-local."""
+        n_loc = -(-n // p)
+        per = []
+        for s_ in range(p):
+            v = min(max(n - s_ * n_loc, 1), n_loc)
+            per.append(torch.stack([
+                torch.randperm(v, generator=gen, device=dev)[:B]
+                for _ in range(rounds)]))
+        return n_loc, torch.stack(per, 1).int().contiguous()
+
+    def compare_grid(name, kernel, plain, state0, ids, losses):
+        err = 0.0
+        for lname, rounds in losses:
+            loss = duals.make_loss(lname, 0.5 if lname == "logistic" else 1.0)
+            (ka, kw), (pa, pw) = state0(), state0()
+            e = 0.0
+            for r in range(rounds):
+                ka, kdw = kernel(ka, kw, ids[r], loss)
+                pa, pdw = plain(pa, pw, ids[r], loss)
+                e = max(e, float((kdw - pdw).abs().max()))
+                kw, pw = kw + kdw.sum(0), pw + pdw.sum(0)
+            torch.cuda.synchronize()
+            e = max(e, float((ka - pa).abs().max()),
+                    float((kw - pw).abs().max()))
+            print(f"  {name} {lname}: max abs err {e:.3g} over {rounds} "
+                  f"rounds of {ids.shape[1]} × {B} updates (each shard's "
+                  f"Δw, α and w; tolerance {ATOL})")
+            if not e <= ATOL:
+                fail(f"{name} disagrees with its plain version ({lname})")
+            err = max(err, e)
+        return err
+
+    grid_losses = [("hinge", 3), ("squared_hinge", 1), ("logistic", 1)]
+    grid = {}  # name → (ms, plain ms, bytes, ops, what, err, library ms)
+
+    # B1 staged at rcv1, p = 8: n_loc = 84,675, one padding row
+    P_R = 8
+    n_loc_r8, ids_r8 = shard_ids(n_r, P_R, 16)
+    np_r8 = P_R * n_loc_r8
+    cols_r8 = pad_rows(X_rcv1.indices, np_r8, d_r)
+    vals_r8 = pad_rows(X_rcv1.values, np_r8, 0.0)
+    q_r8 = pad_rows(q_r, np_r8, 1.0)
+
+    def g1(a, w, i, L, wide=False):
+        return dcd_ell_shards(cols_r8, vals_r8, a, w, q_r8, loss=L, idx=i,
+                              n_loc=n_loc_r8, wide=wide)
+
+    def g1_plain(a, w, i, L):
+        return dcd_ell_shards_plain(cols_r8, vals_r8, a, w, q_r8, loss=L,
+                                    idx=i, n_loc=n_loc_r8)
+
+    def zeros_r8():
+        return (torch.zeros(np_r8, device=dev),
+                torch.zeros(d_r + 1, device=dev))
+
+    print(f"  B1 shard grid at rcv1, p = {P_R}: "
+          f"{dcd_ell_plan(B, k_r, False, P_R)}")
+    err_g1 = compare_grid(f"B1 dcd_ell_shards staged (rcv1, p = {P_R})", g1,
+                          g1_plain, zeros_r8, ids_r8, grid_losses)
+    a_g, w_g = zeros_r8()
+    same_bits(f"B1 dcd_ell_shards staged (rcv1, p = {P_R}, hinge)",
+              lambda: g1(a_g, w_g, ids_r8[0], hinge), torch)
+    ms_g1 = cuda_ms(lambda: g1(a_g, w_g, ids_r8[next(it) % 16], hinge), 50,
+                    torch)
+    plain_g1 = wall_ms(lambda: g1_plain(a_g, w_g, ids_r8[0], hinge), 1,
+                       torch)
+    grid["dcd_ell_shards"] = (
+        ms_g1, plain_g1,
+        4 * (2 * np_r8 + (1 + P_R) * (d_r + 1)) + P_R * B * (k_r * 8 + 8),
+        4 * P_R * B * k_r, f"rcv1, p = {P_R}, {B} ids a shard", err_g1, None,
+        "src/repro_torch/kernels/csrc/dcd_ell.cu",
+        "src/repro/kernels/dcd_ell.py:51", "staged")
+
+    # B1 wide at webspam's rows, p = 2 (n = 280,000: no padding)
+    P_W1 = 2
+    n_loc_w1, ids_w1g = shard_ids(n_w1, P_W1, 8)
+
+    def g1w(a, w, i, L):
+        return dcd_ell_shards(X_web.indices, X_web.values, a, w, q_w1,
+                              loss=L, idx=i, n_loc=n_loc_w1)
+
+    def g1w_plain(a, w, i, L):
+        return dcd_ell_shards_plain(X_web.indices, X_web.values, a, w, q_w1,
+                                    loss=L, idx=i, n_loc=n_loc_w1)
+
+    print(f"  B1 shard grid at webspam's rows, p = {P_W1}: "
+          f"{dcd_ell_plan(B, k_w1, False, P_W1)}")
+    err_g1w = compare_grid(f"B1 dcd_ell_shards wide (webspam rows, p = "
+                           f"{P_W1})", g1w, g1w_plain, zeros_w1, ids_w1g,
+                           [("hinge", 2), ("squared_hinge", 1),
+                            ("logistic", 1)])
+    a_g, w_g = zeros_w1()
+    same_bits(f"B1 dcd_ell_shards wide (webspam rows, p = {P_W1}, hinge)",
+              lambda: g1w(a_g, w_g, ids_w1g[0], hinge), torch)
+    ms_g1w = cuda_ms(lambda: g1w(a_g, w_g, ids_w1g[next(it) % 8], hinge),
+                     20, torch)
+    plain_g1w = wall_ms(lambda: g1w_plain(a_g, w_g, ids_w1g[0], hinge), 1,
+                        torch)
+    grid["dcd_ell_shards_wide"] = (
+        ms_g1w, plain_g1w,
+        4 * (2 * n_w1 + (1 + P_W1) * (d_w1 + 1))
+        + P_W1 * B * (k_w1 * 8 + 8),
+        4 * P_W1 * B * k_w1, f"webspam rows, p = {P_W1}, {B} ids a shard",
+        err_g1w, None, "src/repro_torch/kernels/csrc/dcd_ell.cu",
+        "src/repro/kernels/dcd_ell.py:51", "wide")
+
+    # B2 staged at covtype, p = 8: n_loc = 72,627, four padding rows
+    P_C = 8
+    n_loc_c8, ids_c8 = shard_ids(n_c, P_C, 16)
+    np_c8 = P_C * n_loc_c8
+    X_c8 = pad_rows(X_cov, np_c8, 0.0)
+    q_c8 = pad_rows(q_c, np_c8, 1.0)
+
+    def g2(a, w, i, L):
+        return dcd_indexed_shards(X_c8, a, w, q_c8, loss=L, idx=i,
+                                  n_loc=n_loc_c8)
+
+    def g2_plain(a, w, i, L):
+        return dcd_indexed_shards_plain(X_c8, a, w, q_c8, loss=L, idx=i,
+                                        n_loc=n_loc_c8)
+
+    def zeros_c8():
+        return torch.zeros(np_c8, device=dev), torch.zeros(d_c, device=dev)
+
+    print(f"  B2 shard grid at covtype, p = {P_C}: "
+          f"{dcd_dense_plan(B, d_c, False, P_C)}")
+    err_g2 = compare_grid(f"B2 dcd_indexed_shards staged (covtype, p = "
+                          f"{P_C})", g2, g2_plain, zeros_c8, ids_c8,
+                          grid_losses)
+    a_g, w_g = zeros_c8()
+    same_bits(f"B2 dcd_indexed_shards staged (covtype, p = {P_C}, hinge)",
+              lambda: g2(a_g, w_g, ids_c8[0], hinge_c), torch)
+    ms_g2 = cuda_ms(lambda: g2(a_g, w_g, ids_c8[next(it) % 16], hinge_c),
+                    50, torch)
+    plain_g2 = wall_ms(lambda: g2_plain(a_g, w_g, ids_c8[0], hinge_c), 1,
+                       torch)
+    grid["dcd_indexed_shards"] = (
+        ms_g2, plain_g2,
+        4 * (2 * np_c8 + (1 + P_C) * d_c) + P_C * B * (d_c * 4 + 8),
+        4 * P_C * B * d_c, f"covtype, p = {P_C}, {B} ids a shard", err_g2,
+        None, "src/repro_torch/kernels/csrc/dcd_block.cu",
+        "src/repro/kernels/dcd_block.py:100", "staged")
+
+    # B4 + B5 at webspam, data = 2, m = 4 (n = 280,000: no padding): per
+    # round B4 over the 2 × 4 (data, model) pairs, the sum over model per
+    # data shard, B5 into each data shard's replica of the slices
+    P_D = 2
+    n_loc_d, ids_d = shard_ids(n_w, P_D, 8)
+    ws2 = feat.gram_workspace(SHARDS, B, k_loc, d1_w, dev, P_D)
+    print(f"  B4 at the webspam split, data = {P_D}: "
+          f"{gram_plan(SHARDS, B, k_loc, d1_w, P_D)}; workspace "
+          f"{sum(t.numel() for t in ws2) * 4 / 1e6:.2f} MB")
+    err_g4 = err_g5 = 0.0
+    for lname, rounds in [("hinge", 3), ("squared_hinge", 1),
+                          ("logistic", 1)]:
+        loss = duals.make_loss(lname, 0.5 if lname == "logistic" else 1.0)
+        ka, kw = pa, pw = state_w()
+        e4 = e5 = 0.0
+        for r in range(rounds):
+            kb, kg = feat.dcd_feature_gram(cols_w, vals_w, kw, ids_d[r],
+                                           workspace=ws2, n_loc=n_loc_d)
+            pb, pg = feat.dcd_feature_gram_plain(cols_w, vals_w, pw,
+                                                 ids_d[r], n_loc_d)
+            e4 = max(e4, float((kb - pb).abs().max()),
+                     float((kg - pg).abs().max()))
+            ka, krep = feat.dcd_feature_update(
+                cols_w, vals_w, ka, q_w, kw, ids_d[r], kb.sum(1), kg.sum(1),
+                loss=loss, workspace=ws2, n_loc=n_loc_d)
+            pa, prep = feat.dcd_feature_update_plain(
+                cols_w, vals_w, pa, q_w, pw, ids_d[r], pb.sum(1), pg.sum(1),
+                loss=loss, n_loc=n_loc_d)
+            e5 = max(e5, float((krep - prep).abs().max()))
+            kw, pw = kw + (krep - kw).sum(0), pw + (prep - pw).sum(0)
+        torch.cuda.synchronize()
+        e5 = max(e5, float((ka - pa).abs().max()),
+                 float((kw - pw).abs().max()))
+        print(f"  B4 dcd_feature_gram data = {P_D} {lname}: max abs err "
+              f"{e4:.3g} over {rounds} rounds; B5 dcd_feature_update: "
+              f"{e5:.3g} over {rounds * P_D * B} updates (tolerance {ATOL})")
+        if not (e4 <= ATOL and e5 <= ATOL):
+            fail(f"B4/B5 over data shards disagree with their plain "
+                 f"versions ({lname})")
+        err_g4, err_g5 = max(err_g4, e4), max(err_g5, e5)
+    w_same = state_w()[1]
+    same_bits(f"B4 dcd_feature_gram (webspam, data = {P_D})",
+              lambda: feat.dcd_feature_gram(cols_w, vals_w, w_same, ids_d[0],
+                                            workspace=ws2, n_loc=n_loc_d),
+              torch)
+    b_d, g_d = ops.dcd_feature_gram(cols_w, vals_w, w_same, ids_d[0],
+                                    workspace=ws2, n_loc=n_loc_d)
+    a_same = torch.zeros(n_w, device=dev)
+    same_bits(f"B5 dcd_feature_update (webspam, data = {P_D}, hinge)",
+              lambda: feat.dcd_feature_update(
+                  cols_w, vals_w, a_same, q_w, w_same, ids_d[0], b_d, g_d,
+                  loss=hinge, workspace=ws2, n_loc=n_loc_d), torch)
+    ms_g4 = cuda_ms(lambda: feat.dcd_feature_gram(
+        cols_w, vals_w, w_same, ids_d[next(it) % 8], workspace=ws2,
+        n_loc=n_loc_d), 50, torch)
+    ms_g5 = cuda_ms(lambda: feat.dcd_feature_update(
+        cols_w, vals_w, a_same, q_w, w_same, ids_d[0], b_d, g_d, loss=hinge,
+        workspace=ws2, n_loc=n_loc_d), 50, torch)
+    plain_g4 = wall_ms(lambda: feat.dcd_feature_gram_plain(
+        cols_w, vals_w, w_same, ids_d[0], n_loc_d), 1, torch)
+    plain_g5 = wall_ms(lambda: feat.dcd_feature_update_plain(
+        cols_w, vals_w, a_same, q_w, w_same, ids_d[0], b_d, g_d, loss=hinge,
+        n_loc=n_loc_d), 1, torch)
+    mats_d = [sparse_block(j, ids_d[0][s_] + s_ * n_loc_d)
+              for s_ in range(P_D) for j in range(SHARDS)]
+    lib_g4 = cuda_ms(lambda: [torch.sparse.mm(S, St) for S, St in mats_d],
+                     20, torch)
+    rows_d = (ids_d[0].long()
+              + n_loc_d * torch.arange(P_D, device=dev)[:, None]).reshape(-1)
+    nnz_d = int((cols_w[rows_d] < d_loc).sum())
+    grid["dcd_feature_gram_data"] = (
+        ms_g4, plain_g4,
+        4 * P_D * B * SHARDS * k_loc + 8 * nnz_d + 4 * P_D * B
+        + 4 * P_D * SHARDS * (B + B * B),
+        2 * B * nnz_d + 2 * nnz_d, f"webspam, data = {P_D}, m = {SHARDS}, "
+        f"{B} ids a data shard", err_g4, lib_g4,
+        "src/repro_torch/kernels/csrc/dcd_feature.cu",
+        "src/repro/kernels/dcd_feature.py:60", "column-class")
+    grid["dcd_feature_update_data"] = (
+        ms_g5, plain_g5,
+        8 * n_w + 4 * (1 + P_D) * SHARDS * d1_w + 4 * P_D * B * SHARDS * k_loc
+        + 4 * nnz_d + P_D * (12 * B + 4 * B * B),
+        2 * nnz_d + P_D * B * B, f"webspam, data = {P_D}, m = {SHARDS}, "
+        f"{B} ids a data shard", err_g5, None,
+        "src/repro_torch/kernels/csrc/dcd_feature.cu",
+        "src/repro/kernels/dcd_feature.py:106", "column-class")
+    for name, (route_ms, pl_ms, by, ops_n, per, err, lib_ms, src, rep,
+               variant) in grid.items():
+        b_ms, b_by = bound(by, ops_n)
+        results[name] = dict(name=name, route="cuda", source=src,
+                             replaces=rep, variant=variant, launches=0,
+                             max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        lib = ("no library call computes it" if lib_ms is None
+               else f"torch.sparse.mm {lib_ms:.4f} ms")
+        print(f"  {name} ({per}): {route_ms:.4f} ms per launch, plain "
+              f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+    print(f"  shard-grid launches per epoch: rcv1 p = {P_R} "
+          f"{_n_blocks(n_loc_r8, B)}, covtype p = {P_C} "
+          f"{_n_blocks(n_loc_c8, B)}, webspam data = {P_D} "
+          f"{_n_blocks(n_loc_d, B)} (B4 and B5 each), webspam rows p = "
+          f"{P_W1} {_n_blocks(n_loc_w1, B)}")
+    del mats_d, a_g, w_g
+
     # where a round's time goes: 20 rounds of the solver's fused 2-D
     # engine on webspam (B4, the sum over shards, B5, the Δw round trip)
-    # and of its 1-D engine on rcv1 (B1 and the wrapper's copies, Δw and
-    # w + Δw), under torch.profiler
-    engine = functools.partial(
-        _block_update_2d(hinge, True, ws), cols_w, vals_w, q_w)
+    # and of its 1-D engine on rcv1 and covtype (B1/B2 and the wrapper's
+    # copies, Δw and w + Δw), each at p = 1 and over the p > 1 shard
+    # grid, under torch.profiler; the rounds' ids are (p, B), as the
+    # solver hands them
+    def profile(label, engine, a, w, rounds):
+        _scan_rounds(engine, a, w, torch.zeros_like(w), rounds[:2], 0)
+        profile_rounds(label, lambda: _scan_rounds(
+            engine, a, w, torch.zeros_like(w), rounds[:20], 0),
+            min(20, rounds.shape[0]), torch)
+
     w_p = torch.zeros_like(w_w)
-    _scan_rounds(engine, a_w, w_p, w_p, t_ids_w[:2], 0)  # warm
-    profile_rounds("webspam (2-D, fused)", lambda: _scan_rounds(
-        engine, a_w, w_p, w_p, t_ids_w[:20], 0), 20, torch)
-    engine_1d = functools.partial(
-        _block_update_1d(hinge, True), (X_rcv1.indices, X_rcv1.values), q_r)
-    a_p, w_p1 = zeros_r()
-    _scan_rounds(engine_1d, a_p, w_p1, w_p1, t_ids[:2], 0)  # warm
-    profile_rounds("rcv1 (1-D, B1 staged)", lambda: _scan_rounds(
-        engine_1d, a_p, w_p1, w_p1, t_ids[:20], 0), 20, torch)
-    engine_c = functools.partial(_block_update_1d(hinge_c, False), X_cov, q_c)
-    a_pc, w_pc = zeros_c()
-    _scan_rounds(engine_c, a_pc, w_pc, w_pc, c_ids[:2], 0)  # warm
-    profile_rounds("covtype (1-D, B2 staged)", lambda: _scan_rounds(
-        engine_c, a_pc, w_pc, w_pc, c_ids[:20], 0), 20, torch)
-    del fse, cols_w, vals_w, q_w, ws, mats, a_w, w_w, ka, kw, pa, pw
-    del engine, w_p, w_same, a_w1, w_w1, a_same, b_same, g_same, a_l
+    profile("webspam (2-D, fused)", functools.partial(
+        _block_update_2d(hinge, True, ws), cols_w, vals_w, q_w), a_w, w_p,
+        t_ids_w[:, None])
+    profile(f"webspam (2-D, fused, data = {P_D})", functools.partial(
+        _block_update_2d(hinge, True, ws2, n_loc_d), cols_w, vals_w, q_w),
+        a_w, w_p, ids_d)
+    profile("rcv1 (1-D, B1 staged)", functools.partial(
+        _block_update_1d(hinge, True), (X_rcv1.indices, X_rcv1.values), q_r),
+        *zeros_r(), t_ids[:, None])
+    profile(f"rcv1 (1-D, B1 staged, p = {P_R})", functools.partial(
+        _block_update_1d(hinge, True, n_loc_r8), (cols_r8, vals_r8), q_r8),
+        *zeros_r8(), ids_r8)
+    profile("covtype (1-D, B2 staged)", functools.partial(
+        _block_update_1d(hinge_c, False), X_cov, q_c), *zeros_c(),
+        c_ids[:, None])
+    profile(f"covtype (1-D, B2 staged, p = {P_C})", functools.partial(
+        _block_update_1d(hinge_c, False, n_loc_c8), X_c8, q_c8),
+        *zeros_c8(), ids_c8)
+    del fse, cols_w, vals_w, q_w, ws, ws2, mats, a_w, w_w, ka, kw, pa, pw
+    del w_p, w_same, a_w1, w_w1, a_same, b_same, g_same, a_l
+    del cols_r8, vals_r8, X_c8
     torch.cuda.empty_cache()
 
     # the solver's kernel path against its CPU path on a small input
@@ -862,17 +1174,149 @@ def main():
     if not e <= ATOL:
         fail("the solver's 2-D kernel path disagrees with its CPU path")
 
+    # p > 1 data shards and the self-tuning: the shard-grid kernels on the
+    # card against the same solves' CPU paths (their plain versions; the
+    # fused 2-D engine on both), at the CPU tests' tolerances: α and ŵ at
+    # atol 1e-5, the gaps at 1e-5 + 1e-6·M (M = ‖w(α)‖² + Σ|ℓ| + Σ|ℓ*| in
+    # float64), the active and delay records equal
+    def gap_tol(Xs, alpha, loss):
+        X64 = (EllMatrix(Xs.indices, Xs.values.double(), Xs.n_features)
+               if isinstance(Xs, EllMatrix) else Xs.double())
+        a = alpha.double()
+        wa = w_of_alpha(X64, a)
+        z = (torch.sum(wa[X64.indices.long()] * X64.values, 1)
+             if isinstance(X64, EllMatrix) else X64 @ wa)
+        return ATOL + 1e-6 * float(torch.dot(wa, wa)
+                                   + loss.primal_loss(z).abs().sum()
+                                   + loss.conj(a).abs().sum())
+
+    for label, Xs, kw in [
+            ("ELL, p = 2", small.X_train, dict(mesh=solver_mesh(n_devices=2))),
+            ("dense, p = 8", small.dense_train(),
+             dict(mesh=solver_mesh(n_devices=8))),
+            ("ELL, p = 8, delay 1", small.X_train,
+             dict(mesh=solver_mesh(n_devices=8), delay_rounds=1)),
+            ("2-D data = 2, m = 2, overlapped", small.X_train,
+             dict(mesh=solver_mesh_2d(data=2, model=2), delay_rounds=1)),
+            ("ELL, p = 8, shrinking and repacking", small.X_train,
+             dict(mesh=solver_mesh(n_devices=8), shrink_every=1,
+                  repack=True)),
+            ("2-D data = 2, m = 2, shrinking", small.X_train,
+             dict(mesh=solver_mesh_2d(data=2, model=2), shrink_every=1)),
+            # the adaptive delay's latch moves here: flags 1, 1, 0, 0
+            ("ELL, p = 4, adaptive ratio 0.5 from delay 1", small.X_train,
+             dict(mesh=solver_mesh(n_devices=4), delay_rounds=1,
+                  adaptive=True, adaptive_ratio=0.5))]:
+        kw.update(epochs=4, block_size=16, seed=2)
+        on_card = sharded_passcode_solve(Xs.to(dev), hinge, device=dev, **kw)
+        on_cpu = sharded_passcode_solve(Xs, hinge, device="cpu",
+                                        use_kernel=True, **kw)
+        e = max(float((on_card.alpha.cpu() - on_cpu.alpha).abs().max()),
+                float((on_card.w_hat.cpu() - on_cpu.w_hat).abs().max()))
+        eg = float((on_card.gaps.cpu() - on_cpu.gaps).abs().max())
+        tol = gap_tol(Xs, on_cpu.alpha, hinge)
+        same = (torch.equal(on_card.active.cpu(), on_cpu.active)
+                and torch.equal(on_card.delay.cpu(), on_cpu.delay))
+        print(f"  solver {label} kernel path vs CPU path: max abs err "
+              f"{e:.3g} (tolerance {ATOL}), gaps {eg:.3g} (tolerance "
+              f"{tol:.3g}), active {on_card.active.tolist()} and delay "
+              f"records equal: {same}")
+        if not (e <= ATOL and eg <= tol and same):
+            fail(f"the solver's {label} kernel path disagrees with its CPU "
+                 "path")
+        if kw.get("adaptive") and not (on_card.delay[0] == 1
+                                       and on_card.delay[-1] == 0):
+            fail(f"the solver's {label}: the delay flag did not latch to 0 "
+                 f"({on_card.delay.tolist()})")
+
+    # p = 1 keeps the bits of the single-block round it had before the
+    # shard grid: one epoch of the solver (its round a grid of one shard,
+    # w + that shard's Δw) against the same explicit schedule run through
+    # the single-block wrapper that round called before (B1/B2 updating a
+    # copy of w, then w + (w_new − w)), α and ŵ equal bit for bit, at
+    # rcv1 (B1 staged), covtype (B2 staged) and webspam's rows (B1 wide).
+    # The solver's gap takes w(α) through index_add_ (atomics in no fixed
+    # order), so it is evaluated twice on the same α to show its own
+    # spread from run to run.
+    from repro_torch.core.sharded import _make_gap_1d
+
+    def p1_bits(label, X, loss, kernel, rows, q, n, d, w_len):
+        nb = _n_blocks(n, B)
+        order = torch.randperm(n, generator=gen, device=dev)
+        sched = order[torch.arange(nb * B, device=dev) % n].int()
+        sched = sched.reshape(1, nb, B)
+        t0 = time.perf_counter()
+        r = sharded_passcode_solve(X, loss, epochs=1, block_size=B,
+                                   blocks=sched, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        a, w = torch.zeros(n, device=dev), torch.zeros(w_len, device=dev)
+        for blk in sched[0]:
+            a, w_new = kernel(*rows, a, w, q, loss=loss, idx=blk)
+            w = w + (w_new - w)
+        torch.cuda.synchronize()
+        same = torch.equal(r.alpha, a) and torch.equal(r.w_hat, w[:d])
+        ell = len(rows) == 2
+        gap = _make_gap_1d(loss, rows if ell else rows[0], ell, w_len)
+        g1, g2 = (float(gap(a, w)[0]) for _ in range(2))
+        print(f"  p = 1 {label}: one epoch ({nb} rounds) through the shard "
+              f"grid in {t1 - t0:.3f} s and through the single-block "
+              f"wrapper in {time.perf_counter() - t1:.3f} s: α and ŵ "
+              f"bit-identical: {same}; the gap of that α evaluated twice: "
+              f"{g1!r}, {g2!r}")
+        if not same:
+            fail(f"p = 1 {label}: the shard-grid round changed the bits of "
+                 "the single-block round")
+
+    p1_bits("rcv1 (B1 staged)", X_rcv1, hinge, dcd_ell_epoch,
+            (X_rcv1.indices, X_rcv1.values), q_r, n_r, d_r, d_r + 1)
+    p1_bits("covtype (B2 staged)", X_cov, hinge_c, dcd_indexed_epoch,
+            (X_cov,), q_c, n_c, d_c, d_c)
+    p1_bits("webspam rows (B1 wide)", X_web, hinge, dcd_ell_epoch,
+            (X_web.indices, X_web.values), q_w1, n_w1, d_w1, d_w1 + 1)
+
     # ----------------------------------------------------- 4. main paths
     # each kernel's launch count; B1's, B2's and B3's two variants count
-    # apart
-    counters = {"dcd_ell": (dcd_ell_epoch, "staged"),
-                "dcd_ell_wide": (dcd_ell_epoch, "wide"),
-                "dcd_indexed": (dcd_indexed_epoch, "staged"),
-                "dcd_indexed_wide": (dcd_indexed_epoch, "wide"),
+    # apart, and B1's and B2's shard-grid wrappers (the solver's round, at
+    # p = 1 a grid of one CTA, whose launches add to the p = 1 rows
+    # "dcd_ell", "dcd_ell_wide" and "dcd_indexed") apart from the
+    # single-block ones (serial DCD and Lock launch their wide variant
+    # over a whole epoch, the rows "dcd_ell_epoch" and
+    # "dcd_indexed_epoch")
+    counters = {"dcd_ell_epoch_staged": (dcd_ell_epoch, "staged"),
+                "dcd_ell_epoch": (dcd_ell_epoch, "wide"),
+                "dcd_ell_shards": (dcd_ell_shards, "staged"),
+                "dcd_ell_shards_wide": (dcd_ell_shards, "wide"),
+                "dcd_indexed_epoch_staged": (dcd_indexed_epoch, "staged"),
+                "dcd_indexed_epoch": (dcd_indexed_epoch, "wide"),
+                "dcd_indexed_shards": (dcd_indexed_shards, "staged"),
+                "dcd_indexed_shards_wide": (dcd_indexed_shards, "wide"),
                 "dcd_tile": (dcd_tile_epoch, "stream"),
                 "dcd_tile_wide": (dcd_tile_epoch, "wide"),
                 "dcd_feature_gram": (feat.dcd_feature_gram, None),
                 "dcd_feature_update": (feat.dcd_feature_update, None)}
+
+    # every plain version counts its calls from here on: a main path on
+    # the card calls none (the wrappers take them only for CPU tensors)
+    from repro_torch.kernels import dcd_block as b_mod, dcd_ell as e_mod
+    plain_calls = {"n": 0}
+
+    def counted(f):
+        @functools.wraps(f)
+        def call(*a, **k):
+            plain_calls["n"] += 1
+            return f(*a, **k)
+        return call
+
+    for mod, names in [(e_mod, ("dcd_ell_epoch_plain",
+                                "dcd_ell_shards_plain")),
+                       (b_mod, ("dcd_indexed_epoch_plain",
+                                "dcd_indexed_shards_plain",
+                                "dcd_tile_epoch_plain")),
+                       (feat, ("dcd_feature_gram_plain",
+                               "dcd_feature_update_plain"))]:
+        for name in names:
+            setattr(mod, name, counted(getattr(mod, name)))
 
     def launches(f, variant):
         return f.variant_launches[variant] if variant else f.launches
@@ -880,15 +1324,19 @@ def main():
     def run_path(label, want, fn, rows=None, count=True):
         """Run one main path with every launch count set to 0 just before
         it; read the counts just after and hold them to ``want`` (every
-        other kernel: 0 launches).  Each count adds to its kernel's row
-        of the JSON line, ``rows[name]`` where the path launches the
-        kernel at a shape that has a row of its own; a check of the card
-        against the CPU (``count=False``) adds nothing."""
+        other kernel: 0 launches; a callable ``want`` is asked after the
+        run, for a path whose rounds depend on its data).  Each count adds
+        to its kernel's row of the JSON line, ``rows[name]`` where the
+        path launches the kernel at a shape that has a row of its own; a
+        check of the card against the CPU (``count=False``) adds nothing.
+        A counted path calls no plain version."""
         for f, _ in counters.values():
             f.launches = 0
             for v in getattr(f, "variant_launches", {}):
                 f.variant_launches[v] = 0
+        plain_calls["n"] = 0
         fn()
+        want = want() if callable(want) else want
         for name, (f, variant) in counters.items():
             got, expect = launches(f, variant), want.get(name, 0)
             if name in want:
@@ -899,22 +1347,33 @@ def main():
             if got != expect:
                 fail(f"{label}: {name} launched {got} times, expected "
                      f"{expect}")
+        if count:
+            print(f"  plain-version calls ({label}): {plain_calls['n']}")
+            if plain_calls["n"]:
+                fail(f"{label}: a plain version ran on the card")
 
     def solve(label, X, loss, n, epochs, accuracy=True, **kw):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reads = sharded_passcode_solve.host_reads
         t0 = time.perf_counter()
         r = sharded_passcode_solve(X, loss, epochs=epochs, block_size=B,
                                    gap_every=1, seed=0, device=dev, **kw)
-        gaps = r.gaps.tolist()  # the solve's one host sync
+        gaps = r.gaps.tolist()  # the solve's one host sync at the end
         sec = time.perf_counter() - t0
-        nb = _n_blocks(n, B)
+        mesh = kw.get("mesh")
+        p = mesh.shape["data"] if mesh is not None else 1
+        nb = _n_blocks(-(-n // p), B)
+        done = sharded_passcode_solve.epoch_rounds
         print(f"  {label}: {sec / epochs:.3f} s per epoch (gap included), "
-              f"{epochs * nb * B / sec:.4g} updates/s, {nb} rounds per "
-              f"epoch ({sec / epochs / nb * 1e3:.4f} ms per round), peak "
+              f"{sum(done) * p * B / sec:.4g} updates/s, {nb} rounds per "
+              f"epoch ({sec / sum(done) * 1e3:.4f} ms per round run), peak "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         print(f"    gaps {gaps}")
         print(f"    eps  {r.eps.tolist()}")
+        print(f"    active {r.active.tolist()}, delay {r.delay.tolist()}, "
+              f"rounds run per epoch {done} of {nb}, host reads of the "
+              f"round count {sharded_passcode_solve.host_reads - reads}")
         if accuracy:
             print(f"    train accuracy "
                   f"{float(predict_accuracy(r.w_hat, X)):.4f}")
@@ -922,13 +1381,18 @@ def main():
             fail(f"{label}: result of the wrong shape or a non-finite gap")
         if not gaps[-1] < gaps[0]:
             fail(f"{label}: the duality gap did not fall: {gaps}")
+        if done[-1] != nb:
+            fail(f"{label}: the final epoch ran {done[-1]} of {nb} rounds")
+        return r
 
+    hinge1 = duals.Hinge(1.0)
     nb_r, nb_c = EPOCHS * _n_blocks(n_r, B), EPOCHS * _n_blocks(n_c, B)
-    run_path("rcv1", {"dcd_ell": nb_r}, lambda: solve(
-        "rcv1 (ELL, B1)", X_rcv1, duals.Hinge(1.0), n_r, EPOCHS))
-    run_path("covtype", {"dcd_indexed": nb_c}, lambda: solve(
+    run_path("rcv1", {"dcd_ell_shards": nb_r}, lambda: solve(
+        "rcv1 (ELL, B1)", X_rcv1, hinge1, n_r, EPOCHS),
+        {"dcd_ell_shards": "dcd_ell"})
+    run_path("covtype", {"dcd_indexed_shards": nb_c}, lambda: solve(
         "covtype (dense, B2 staged)", X_cov, duals.Hinge(0.0625), n_c,
-        EPOCHS))
+        EPOCHS), {"dcd_indexed_shards": "dcd_indexed"})
 
     def in_order():
         # the in-order epoch entry point (B3) on covtype, as the examples
@@ -953,14 +1417,82 @@ def main():
     print(f"  webspam 2-D: m = {SHARDS} shards, k_loc {k_loc}, split "
           f"{split_gb:.2f} GB (cols and vals)")
     run_path("webspam", {"dcd_feature_gram": nb_w, "dcd_feature_update": nb_w},
-             lambda: solve("webspam (2-D, B4 + B5)", X_web, duals.Hinge(1.0),
+             lambda: solve("webspam (2-D, B4 + B5)", X_web, hinge1,
                            X_web.n_rows, EPOCHS_2D, accuracy=False,
                            mesh=solver_mesh_2d(model=SHARDS)))
     nb_w1 = EPOCHS_2D * _n_blocks(n_w1, B)
-    run_path("webspam 1-D", {"dcd_ell_wide": nb_w1},
-             lambda: solve("webspam (1-D, ELL, B1 wide)", X_web,
-                           duals.Hinge(1.0), n_w1, EPOCHS_2D,
-                           accuracy=False))
+    run_path("webspam 1-D", {"dcd_ell_shards_wide": nb_w1},
+             lambda: solve("webspam (1-D, ELL, B1 wide)", X_web, hinge1,
+                           n_w1, EPOCHS_2D, accuracy=False),
+             {"dcd_ell_shards_wide": "dcd_ell_wide"})
+
+    # p > 1 data shards: the reference's data axis as a grid of CTAs (B1
+    # and B2 a CTA a shard; B4 and B5 a group a data shard), at full
+    # Table-3 size, and the self-tuning over them; a self-tuning path's
+    # launches are the rounds its epochs ran
+    def ran():
+        return sum(sharded_passcode_solve.epoch_rounds)
+
+    mesh_r, mesh_c = solver_mesh(n_devices=P_R), solver_mesh(n_devices=P_C)
+    mesh_w = solver_mesh_2d(data=P_D, model=SHARDS)
+    rows_d = {"dcd_feature_gram": "dcd_feature_gram_data",
+              "dcd_feature_update": "dcd_feature_update_data"}
+    run_path(f"rcv1 p = {P_R}",
+             {"dcd_ell_shards": EPOCHS * _n_blocks(n_loc_r8, B)},
+             lambda: solve(f"rcv1 (ELL, p = {P_R}, B1 shard grid)", X_rcv1,
+                           hinge1, n_r, EPOCHS, mesh=mesh_r))
+    run_path(f"covtype p = {P_C}",
+             {"dcd_indexed_shards": EPOCHS * _n_blocks(n_loc_c8, B)},
+             lambda: solve(f"covtype (dense, p = {P_C}, B2 shard grid)",
+                           X_cov, duals.Hinge(0.0625), n_c, EPOCHS,
+                           mesh=mesh_c))
+    nb_d = EPOCHS_2D * _n_blocks(n_loc_d, B)
+    run_path(f"webspam data = {P_D}",
+             {"dcd_feature_gram": nb_d, "dcd_feature_update": nb_d},
+             lambda: solve(f"webspam (2-D, data = {P_D}, m = {SHARDS}, B4 + "
+                           "B5 over the data grid)", X_web, hinge1, n_w,
+                           EPOCHS_2D, accuracy=False, mesh=mesh_w), rows_d)
+    run_path(f"webspam 1-D p = {P_W1}",
+             {"dcd_ell_shards_wide": EPOCHS_2D * _n_blocks(n_loc_w1, B)},
+             lambda: solve(f"webspam (1-D, ELL, p = {P_W1}, B1 wide shard "
+                           "grid)", X_web, hinge1, n_w1, EPOCHS_2D, accuracy=False,
+                           mesh=solver_mesh(n_devices=P_W1)))
+    run_path(f"rcv1 p = {P_R} shrinking",
+             lambda: {"dcd_ell_shards": ran()},
+             lambda: solve(f"rcv1 (ELL, p = {P_R}, shrink_every = 1, "
+                           "repack auto below 0.8 active)", X_rcv1, hinge1,
+                           n_r, EPOCHS, mesh=mesh_r, shrink_every=1,
+                           repack="auto", repack_threshold=0.8))
+    # the adaptive delay from delay_rounds = 1 with a ratio of 0.3: the
+    # flag stays 1 while each record's gap is at most 0.3 of the one
+    # before, and latches to 0 (synchronous reads) from the epoch after a
+    # record that is not; the recorded flags must follow that rule from
+    # the recorded gaps
+    adaptive = []
+    run_path(f"rcv1 p = {P_R} shrinking, adaptive",
+             lambda: {"dcd_ell_shards": ran()},
+             lambda: adaptive.append(solve(
+                 f"rcv1 (ELL, p = {P_R}, shrink_every = 1, repack auto, "
+                 "adaptive ratio 0.3, delay_rounds = 1)", X_rcv1, hinge1,
+                 n_r, EPOCHS, mesh=mesh_r, shrink_every=1, repack="auto",
+                 adaptive=True, adaptive_ratio=ADAPTIVE_RATIO,
+                 delay_rounds=1)))
+    g_ad, f_ad = adaptive[0].gaps.tolist(), adaptive[0].delay.tolist()
+    latch = [1.0]
+    for k in range(1, len(g_ad)):
+        latch.append(min(latch[-1], float(
+            g_ad[k - 1] <= ADAPTIVE_RATIO * g_ad[k - 2] if k > 1 else 1.0)))
+    print(f"  adaptive delay flags {f_ad}, by the latch rule from the gaps "
+          f"{latch}; the flag moved: {min(f_ad) < 1}")
+    if f_ad != latch:
+        fail(f"the adaptive delay flags {f_ad} do not follow the latch rule "
+             f"from the recorded gaps ({latch})")
+    run_path(f"webspam data = {P_D} shrinking",
+             lambda: {"dcd_feature_gram": ran(), "dcd_feature_update": ran()},
+             lambda: solve(f"webspam (2-D, data = {P_D}, m = {SHARDS}, "
+                           "shrink_every = 1)", X_web, hinge1, n_w,
+                           EPOCHS_2D, accuracy=False, mesh=mesh_w,
+                           shrink_every=1), rows_d)
 
     # serial DCD and PASSCoDe-Lock: one launch of B1's (B2's) wide
     # variant per epoch over the epoch's whole order
@@ -989,19 +1521,18 @@ def main():
         gap0 = float(duality_gap(torch.zeros(n, device=dev), X, loss))
         print(f"  {shape}: a whole-epoch launch's bound {b_ms:.4f} ms "
               f"({b_ms / n * 1e6:.3f} ns per update)")
-        rows = {f"{kern}_wide": f"{kern}_epoch"}
-        run_path(f"{shape} dcd_solve", {f"{kern}_wide": EPOCHS},
+        run_path(f"{shape} dcd_solve", {f"{kern}_epoch": EPOCHS},
                  lambda: timed(f"{shape} serial DCD (dcd_solve)",
                                lambda: dcd_solve(X, loss, epochs=EPOCHS,
                                                  seed=0, device=dev),
-                               n, EPOCHS, gap0), rows)
-        run_path(f"{shape} Lock", {f"{kern}_wide": EPOCHS},
+                               n, EPOCHS, gap0))
+        run_path(f"{shape} Lock", {f"{kern}_epoch": EPOCHS},
                  lambda: timed(f"{shape} PASSCoDe-Lock({THREADS})",
                                lambda: passcode_solve(
                                    X, loss, n_threads=THREADS,
                                    memory_model="lock", epochs=EPOCHS,
                                    seed=0, device=dev),
-                               n, EPOCHS, gap0), rows)
+                               n, EPOCHS, gap0))
         # Lock's first epoch against serial DCD over the same seeded
         # order (the reference's key chain: PRNGKey(0), split, split)
         lock = passcode_solve(X, loss, n_threads=THREADS, memory_model="lock",
@@ -1130,10 +1661,12 @@ def main():
 
     lock_ids = small.X_train.n_rows // THREADS * THREADS
     want_tiny = {
-        ("dcd_ell" if dcd_ell_plan(lock_ids, small.X_train.k_max).variant
-         == "staged" else "dcd_ell_wide"): 3,
-        ("dcd_indexed" if dcd_dense_plan(lock_ids, small.recipe.d).variant
-         == "staged" else "dcd_indexed_wide"): 3}
+        ("dcd_ell_epoch_staged" if dcd_ell_plan(
+            lock_ids, small.X_train.k_max).variant == "staged"
+         else "dcd_ell_epoch"): 3,
+        ("dcd_indexed_epoch_staged" if dcd_dense_plan(
+            lock_ids, small.recipe.d).variant == "staged"
+         else "dcd_indexed_epoch"): 3}
     run_path("PASSCoDe tiny, card vs CPU", want_tiny, passcode_parity,
              count=False)
 
@@ -1156,6 +1689,9 @@ def main():
     run_path("example twins", {}, twins)
 
     # ---------------------------------------------------------- 5. result
+    idle = [name for name, row in results.items() if row["launches"] < 1]
+    if idle:
+        fail(f"kernels no main path launched: {idle}")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,6 +127,16 @@ def unpad_primal(w_pad: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------- column-partitioned ELL ----
 
 
+def active_row_remap(mask: torch.Tensor):
+    """Fixed-capacity compaction of active rows: ``(ids, count)``, ids a
+    length-n int32 permutation listing the rows where ``mask`` is True
+    first, in their original order (stable), then the others; count how
+    many are True.  An all-True mask gives the identity."""
+    mask = mask.to(torch.bool)
+    ids = torch.argsort((~mask).to(torch.int8), stable=True).to(torch.int32)
+    return ids, torch.sum(mask.to(torch.int32))
+
+
 class FeatureShardedEll(NamedTuple):
     """ELL matrix column-partitioned into ``n_shards`` feature shards —
     the input layout of the 2-D (feature-sharded) solver, as

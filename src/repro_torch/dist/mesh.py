@@ -6,8 +6,13 @@ on the card unless the caller asks for the CPU, and never quietly on the
 CPU when the card is missing.  ``SolverMesh`` names the solver's axes
 and their sizes, without devices: on one card the reference's ``model``
 axis becomes m virtual feature shards, a leading tensor dimension.
-``pipeline_overlap`` is the reference's rule for the overlapped 2-D
-round.  ``lane_pad`` and ``cta_threads`` size a kernel's thread block.
+The reference's ``data`` axis becomes p virtual row shards
+the same way: each kernel runs a grid of p CTAs (or CTA groups), one a
+shard, and the psum over ``data`` becomes a sum of the p shards' Δw in
+shard order.  ``pipeline_overlap`` is the reference's rule for the
+overlapped 2-D round, ``resolve_self_tuning`` and
+``adaptive_delay_policy`` its rules for shrinking, repacking and the
+adaptive delay.  ``lane_pad`` and ``cta_threads`` size a kernel's thread block.
 The reference's 128-lane padding of d and k is TPU tiling, not
 semantics: the CUDA kernels take any width, so the port pads nothing but
 the thread count, which rounds up to whole warps.
@@ -28,6 +33,7 @@ shared memory when it fits).
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -81,12 +87,14 @@ class EllPlan(NamedTuple):
     ``table_slots`` entries and the ids' α, q, y, act in shared memory)
     or "wide" (rows and w in device memory, one update at a time across
     ``threads``).  ``smem_bytes`` is the staged kernel's dynamic shared
-    memory (0 for wide)."""
+    memory (0 for wide), per CTA; the grid holds ``shards`` CTAs, one a
+    data shard."""
 
     variant: str
     threads: int
     table_slots: int
     smem_bytes: int
+    shards: int = 1
 
 
 def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
@@ -98,7 +106,8 @@ def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def dcd_ell_plan(b: int, k: int, wide: bool = False) -> EllPlan:
+def dcd_ell_plan(b: int, k: int, wide: bool = False,
+                 shards: int = 1) -> EllPlan:
     """Pick B1's variant for a block of ``b`` ids over rows of ``k``
     slots, by shape.  The column table has a power-of-two size of at
     least 1.5 slots per entry (a load ≤ 2/3 under linear probing: every
@@ -106,14 +115,16 @@ def dcd_ell_plan(b: int, k: int, wide: bool = False) -> EllPlan:
     kernel when it holds at most ``ELL_STAGED_MAX_IDS`` ids, its rows at
     most ``ELL_STAGED_MAX_SLOTS`` slots (the update warp keeps a row in
     registers) and it fits the 227 KB of shared memory one CTA can use;
-    else, or when ``wide`` asks for it, the wide kernel."""
-    b, k = max(int(b), 1), max(int(k), 1)
+    else, or when ``wide`` asks for it, the wide kernel.  ``shards``
+    data shards run ``b`` ids each, a CTA a shard: the layout of one
+    CTA does not change with them."""
+    b, k, shards = max(int(b), 1), max(int(k), 1), max(int(shards), 1)
     slots = max(WARP, _pow2_at_least(-(-3 * b * k // 2)))
     need = dcd_ell_staged_bytes(b, k, slots)
     if (not wide and b <= ELL_STAGED_MAX_IDS and k <= ELL_STAGED_MAX_SLOTS
             and need <= SMEM_PER_CTA - STATIC_SMEM):
-        return EllPlan("staged", ELL_STAGED_THREADS, slots, need)
-    return EllPlan("wide", cta_threads(k), 0, 0)
+        return EllPlan("staged", ELL_STAGED_THREADS, slots, need, shards)
+    return EllPlan("wide", cta_threads(k), 0, 0, shards)
 
 
 # B2 staged: ids per block (its repeat scan is O(B²) per block), the CTA
@@ -131,12 +142,14 @@ class DensePlan(NamedTuple):
     act in shared memory, w in the registers of one warp, ``per_lane``
     words a lane) or "wide" (rows and w in device memory, one update at
     a time across ``threads``).  ``smem_bytes`` is the staged kernel's
-    dynamic shared memory (0 for wide)."""
+    dynamic shared memory (0 for wide), per CTA; the grid holds
+    ``shards`` CTAs, one a data shard."""
 
     variant: str
     threads: int
     per_lane: int
     smem_bytes: int
+    shards: int = 1
 
 
 def dcd_dense_staged_bytes(b: int, d: int) -> int:
@@ -147,21 +160,23 @@ def dcd_dense_staged_bytes(b: int, d: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def dcd_dense_plan(b: int, d: int, wide: bool = False) -> DensePlan:
+def dcd_dense_plan(b: int, d: int, wide: bool = False,
+                   shards: int = 1) -> DensePlan:
     """Pick B2's variant for a block of ``b`` ids over rows of ``d``
     floats, by shape.  The block takes the staged kernel when it holds
     at most ``DENSE_STAGED_MAX_IDS`` ids, d is at most
     ``DENSE_STAGED_MAX_D`` (one warp keeps w in registers) and the rows
     fit the shared memory one CTA can use; else, or when ``wide`` asks
     for it, the wide kernel.  ``per_lane`` is the power of two of w's
-    words a lane holds (at least ⌈d / 32⌉)."""
-    b, d = max(int(b), 1), max(int(d), 1)
+    words a lane holds (at least ⌈d / 32⌉).  ``shards`` data shards
+    run ``b`` ids each, a CTA a shard."""
+    b, d, shards = max(int(b), 1), max(int(d), 1), max(int(shards), 1)
     need = dcd_dense_staged_bytes(b, d)
     if (not wide and b <= DENSE_STAGED_MAX_IDS and d <= DENSE_STAGED_MAX_D
             and need <= SMEM_PER_CTA - STATIC_SMEM):
         return DensePlan("staged", DENSE_STAGED_THREADS,
-                         _pow2_at_least(-(-d // WARP)), need)
-    return DensePlan("wide", cta_threads(d), 0, 0)
+                         _pow2_at_least(-(-d // WARP)), need, shards)
+    return DensePlan("wide", cta_threads(d), 0, 0, shards)
 
 
 # B3 stream: one CTA of a consumer warp (w in registers, at most
@@ -240,21 +255,26 @@ class GramPlan(NamedTuple):
     ids and rows of k slots: ``classes`` column classes (one CTA per
     class and shard, and per tile of ``tile`` of G's columns, ``tiles``
     tiles), and the shared memory of the bucket pass and the Gram kernel
-    in bytes."""
+    in bytes.  ``data`` data shards, each with its own block of b ids,
+    multiply the grid and the workspace (``gram_workspace``) and change
+    no CTA's layout."""
 
     classes: int
     tile: int
     tiles: int
     bucket_smem: int
     gram_smem: int
+    data: int = 1
 
 
 @functools.lru_cache(maxsize=64)
-def gram_plan(m: int, b: int, k: int, d1: int) -> GramPlan:
+def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1) -> GramPlan:
     """Lay out B4 for a block of ``b`` ids over ``m`` shards of ``d1``
-    words and rows of ``k`` slots.  Raises if a row is too long for the
-    bucket pass to stage in shared memory."""
-    m, b, k, d1 = int(m), int(b), int(k), int(d1)
+    words and rows of ``k`` slots, for each of ``data`` data shards (the
+    classes depend on m alone, so a data shard runs what p = 1 runs).
+    Raises if a row is too long for the bucket pass to stage in shared
+    memory."""
+    m, b, k, d1, data = int(m), int(b), int(k), int(d1), max(int(data), 1)
     classes = max(1, min(GRAM_PARTIAL_WORDS // (m * b * b),
                          -(-d1 // GRAM_CLASS_COLS), GRAM_MAX_CLASSES))
     tile = max(1, min(b, 64, GRAM_TILE_WORDS // b))
@@ -266,7 +286,7 @@ def gram_plan(m: int, b: int, k: int, d1: int) -> GramPlan:
         raise ValueError(f"rows of {k} slots are too long for B4: its "
                          f"bucket pass stages a row in {bucket} bytes of "
                          f"shared memory, more than {SMEM_PER_CTA}")
-    return GramPlan(classes, tile, tiles, bucket, gram)
+    return GramPlan(classes, tile, tiles, bucket, gram, data)
 
 
 # B5: one CTA per column class of B4's plan and per shard; it stages the
@@ -283,13 +303,15 @@ class FeatureUpdatePlan(NamedTuple):
     lane of the recursion warp holds (a power of two ≥ ⌈b / 32⌉),
     whether G is staged in shared memory (``stage_gram``; else its row
     t is read from device memory a step ahead), and the dynamic shared
-    memory in bytes."""
+    memory in bytes.  ``data`` data shards multiply the grid to R ×
+    data × m CTAs."""
 
     classes: int
     threads: int
     per_lane: int
     stage_gram: bool
     smem_bytes: int
+    data: int = 1
 
 
 def feature_update_bytes(b: int, stage_gram: bool,
@@ -302,15 +324,18 @@ def feature_update_bytes(b: int, stage_gram: bool,
 
 
 @functools.lru_cache(maxsize=64)
-def feature_update_plan(m: int, b: int, k: int, d1: int) -> FeatureUpdatePlan:
+def feature_update_plan(m: int, b: int, k: int, d1: int,
+                        data: int = 1) -> FeatureUpdatePlan:
     """Lay out B5 for a block of ``b`` ids over ``m`` shards of ``d1``
-    words and rows of ``k`` slots: B4's classes, and G staged when the
-    whole layout fits the shared memory one CTA can use."""
+    words and rows of ``k`` slots, for each of ``data`` data shards:
+    B4's classes, and G staged when the whole layout fits the shared
+    memory one CTA can use."""
     classes = gram_plan(m, b, k, d1).classes
     stage = feature_update_bytes(b, True) <= SMEM_PER_CTA - STATIC_SMEM
     return FeatureUpdatePlan(classes, FEATURE_UPDATE_THREADS,
                              _pow2_at_least(-(-int(b) // WARP)), stage,
-                             feature_update_bytes(b, stage))
+                             feature_update_bytes(b, stage),
+                             max(int(data), 1))
 
 
 class SolverMesh(NamedTuple):
@@ -325,14 +350,38 @@ class SolverMesh(NamedTuple):
         return dict(zip(self.axis_names, self.axis_sizes))
 
 
+def solver_mesh(axis: str = "data", n_devices: int | None = None
+                ) -> SolverMesh:
+    """The 1-D solver mesh: ``n_devices`` virtual shards along ``axis``
+    (the reference's every local device; on one card the shards are
+    virtual, so the count defaults to 1, what the reference runs on one
+    chip).  ``axis="data"`` shards the rows (p data shards, one CTA
+    each), ``axis="model"`` the features (the legacy mesh, run as
+    (data = 1, model = n))."""
+    n = 1 if n_devices is None else int(n_devices)
+    if n < 1:
+        raise ValueError(f"n_devices must be ≥ 1, got {n_devices}")
+    return SolverMesh((axis,), (n,))
+
+
 def solver_mesh_2d(data: int = 1, model: int = 1) -> SolverMesh:
     """The 2-D ``("data", "model")`` mesh of the feature-sharded solver:
-    rows block-parallelize along ``data``, w and the features shard along
-    ``model`` (m virtual shards on one card)."""
+    rows block-parallelize along ``data`` (p virtual row shards), w and
+    the features shard along ``model`` (m virtual shards on one card)."""
     if int(data) < 1 or int(model) < 1:
         raise ValueError(f"mesh sizes must be ≥ 1, got data={data}, "
                          f"model={model}")
     return SolverMesh(("data", "model"), (int(data), int(model)))
+
+
+def data_axes(mesh) -> tuple:
+    """Axes that form the data-parallel dimension."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_size(mesh) -> int:
+    """The data-parallel shard count: the product of ``data_axes``."""
+    return math.prod(mesh.shape[a] for a in data_axes(mesh))
 
 
 def pipeline_overlap(overlap, *, two_d: bool, fused: bool,
@@ -369,3 +418,73 @@ def pipeline_overlap(overlap, *, two_d: bool, fused: bool,
             "round carries its aggregates with the delayed-round "
             "bookkeeping")
     return True
+
+
+def adaptive_delay_policy(gap_prev, gap_new, *, improve_ratio: float = 0.95):
+    """The gap-trend controller of the adaptive delay: 1 (the delayed
+    round, one round of staleness) while the gap improves by at least
+    ``1 − improve_ratio`` from one record to the next, 0 (synchronous)
+    once it stalls or rises.  Elementwise on tensors, so the solver
+    keeps the flag on the device; returns int32 0/1.  The solver applies
+    it through a one-way latch (it only ever lowers the carried flag)."""
+    return (gap_new <= improve_ratio * gap_prev).to(torch.int32)
+
+
+class SelfTuning(NamedTuple):
+    """Resolved self-tuning configuration of one solve (see
+    ``resolve_self_tuning``)."""
+
+    shrink_every: int
+    repack: bool
+    adaptive: bool
+    overlap: bool
+
+
+def resolve_self_tuning(shrink_every, repack, adaptive, *, overlap_knob,
+                        overlap_on: bool, pipeline: bool,
+                        record: bool) -> SelfTuning:
+    """Resolve and validate the solver's self-tuning knobs, the
+    reference's rule word for word.  ``shrink_every`` ∈ {0 = off, k ≥ 1}
+    recomputes the active mask every k epochs; ``repack`` ∈ {False,
+    True, "auto"} draws the epochs whose active fraction is below the
+    threshold over the compacted active set; ``adaptive`` runs the
+    gap-trend delay controller, which reads the recorded gap.  The
+    overlapped 2-D round keeps a (base, Gram) in flight that holds only
+    for the block sequence it was issued against, so ``overlap="auto"``
+    resolves off under shrinking or the adaptive delay, while an
+    explicit ``overlap=True`` keeps plain masked shrinking and rejects
+    repack and the adaptive delay."""
+    every = int(shrink_every or 0)
+    if every < 0:
+        raise ValueError(f"shrink_every must be >= 0, got {shrink_every}")
+    adaptive = bool(adaptive)
+    if (every or adaptive) and not pipeline:
+        raise ValueError(
+            "shrink_every/adaptive need pipeline=True — the active mask "
+            "and delay flag live in the on-device epoch-scan carry; the "
+            "host driver path has no carry to put them in")
+    if adaptive and not record:
+        raise ValueError(
+            "adaptive=True needs record=True — the gap-trend controller "
+            "reads the on-device duality-gap buffer as its input signal")
+    if repack not in (False, True, "auto"):
+        raise ValueError(f"repack must be False/True/'auto', got {repack!r}")
+    if repack is True and not every:
+        raise ValueError("repack=True needs shrink_every >= 1 — there is "
+                         "no active set to compact without shrinking")
+    if overlap_on and (every or adaptive):
+        if overlap_knob == "auto":
+            overlap_on = False
+        elif repack is True or adaptive:
+            raise ValueError(
+                "overlap=True is incompatible with repack/adaptive — the "
+                "in-flight (base, Gram) psum is only valid for a fixed "
+                "block sequence under a fixed delay schedule")
+    if repack == "auto":
+        repack = bool(every) and not overlap_on
+    if repack and overlap_on:
+        raise ValueError(
+            "repack=True is incompatible with the overlapped schedule — "
+            "the repacked draw changes the block sequence the in-flight "
+            "gram was issued against")
+    return SelfTuning(every, bool(repack), adaptive, overlap_on)

@@ -79,21 +79,39 @@
 // update is a row load from device memory, a CTA reduction, a scalar δ and
 // an axpy, with three barriers.
 //
-// The wrappers copy α and w into the output buffers; the kernels update
-// them in place and allocate nothing.  A δ of exactly 0 skips the axpy.
-// Two launches on the same inputs give the same bits (no atomics).
+// The wrappers copy α (and w, or its replicas) into the output buffers;
+// the kernels update them in place and allocate nothing.  A δ of exactly 0
+// skips the axpy.  Two launches on the same inputs give the same bits (no
+// atomics).
+//
+// B2's data shards.  The reference's p devices along "data" each run their
+// own block against their replica of w and psum their Δw; here they are a
+// grid of p CTAs, CTA s one shard: its ids are idx[s·m .. s·m + m) of the
+// shard's rows [s·n_loc, (s+1)·n_loc) (row s·n_loc + id).  The staged
+// kernel reads w + s·w_stride (w_stride 0: one w for every shard) into its
+// warp's registers and writes its d-word Δw slice dw[s] = w_new − w; the
+// wide kernel updates its own replica w + s·d in place (the wrapper fills
+// the replicas and takes Δw = replica − w).  No CTA reads what another
+// writes, so the result does not depend on which CTAs run together.  B3,
+// and B2 for the serial solvers, are one CTA with n_loc = 0 that updates w
+// in place.
 
 #include "dcd_delta.cuh"
 #include "dcd_stage.cuh"
 
 __global__ void dcd_dense_kernel(const int* __restrict__ idx, int m,
+                                 long long n_loc,
                                  const float* __restrict__ X, int d,
                                  float* alpha, const float* __restrict__ q,
                                  const float* __restrict__ act,
                                  const float* __restrict__ y, float* w,
                                  DcdLoss L) {
+  // data shard blockIdx.x: its ids, its rows, its replica of w
+  const long long row0 = (long long)blockIdx.x * n_loc;
+  if (idx) idx += (long long)blockIdx.x * m;
+  w += (long long)blockIdx.x * d;
   for (int t = 0; t < m; ++t) {
-    const long long i = idx ? idx[t] : t;
+    const long long i = idx ? row0 + idx[t] : t;
     const float* xi = X + i * d;
     float part = 0.0f;
     for (int j = threadIdx.x; j < d; j += blockDim.x) part += w[j] * xi[j];
@@ -107,11 +125,13 @@ __global__ void dcd_dense_kernel(const int* __restrict__ idx, int m,
 
 template <int W>
 __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
+                                        long long n_loc,
                                         const float* __restrict__ X, int d,
                                         float* alpha,
                                         const float* __restrict__ q,
                                         const float* __restrict__ act,
                                         const float* __restrict__ y, float* w,
+                                        long long w_stride, float* dw,
                                         DcdLoss L) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* rows = reinterpret_cast<float*>(smem);  // m rows of d floats
@@ -125,9 +145,14 @@ __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
   int* last = prev + m;  // no s > t has the same id
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
+  // data shard blockIdx.x: its ids, its rows, its view of w, its Δw slice
+  const long long row0 = (long long)blockIdx.x * n_loc;
+  idx += (long long)blockIdx.x * m;
+  w += (long long)blockIdx.x * w_stride;
+  float* dws = dw ? dw + (long long)blockIdx.x * d : nullptr;
 
   // 1. prologue
-  for (int t = tid; t < m; t += nt) ids[t] = idx[t];
+  for (int t = tid; t < m; t += nt) ids[t] = (int)(row0 + idx[t]);
   __syncthreads();
   const int E = m * d;
   for (int e = tid; e < E; e += nt) {
@@ -204,7 +229,12 @@ __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
 #pragma unroll
     for (int u = 0; u < W; ++u) {
       const int j = lane + 32 * u;
-      if (j < d) w[j] = wr[u];
+      if (j < d) {
+        if (dws)
+          dws[j] = wr[u] - w[j];
+        else
+          w[j] = wr[u];
+      }
     }
   }
   __syncthreads();
@@ -423,16 +453,18 @@ __global__ void dcd_tile_stream_kernel(int n, const float* __restrict__ X,
 // Plain C entries for ctypes.  act and y may be null.  Each returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a layout the kernel cannot take.
-extern "C" int dcd_block_indexed_launch(const int* idx, int m,
-                                        const float* X, int d, float* alpha,
-                                        const float* q, const float* act,
-                                        const float* y, float* w, int kind,
-                                        float C, float inv_two_c,
-                                        float eps_c, int newton_steps,
-                                        int threads, void* stream) {
+extern "C" int dcd_block_indexed_launch(const int* idx, int m, int shards,
+                                        long long n_loc, const float* X,
+                                        int d, float* alpha, const float* q,
+                                        const float* act, const float* y,
+                                        float* w, int kind, float C,
+                                        float inv_two_c, float eps_c,
+                                        int newton_steps, int threads,
+                                        void* stream) {
+  if (shards < 1 || shards > 65535) return (int)cudaErrorInvalidValue;
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
-  dcd_dense_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      idx, m, X, d, alpha, q, act, y, w, L);
+  dcd_dense_kernel<<<shards, threads, 0, (cudaStream_t)stream>>>(
+      idx, m, n_loc, X, d, alpha, q, act, y, w, L);
   return (int)cudaGetLastError();
 }
 
@@ -443,16 +475,17 @@ extern "C" int dcd_block_tile_launch(int n, const float* X, int d,
                                      int threads, void* stream) {
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
   dcd_dense_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      nullptr, n, X, d, alpha, q, nullptr, nullptr, w, L);
+      nullptr, n, 0, X, d, alpha, q, nullptr, nullptr, w, L);
   return (int)cudaGetLastError();
 }
 
 template <int W>
-static int dense_staged_launch(const int* idx, int m, const float* X, int d,
+static int dense_staged_launch(const int* idx, int m, int shards,
+                               long long n_loc, const float* X, int d,
                                float* alpha, const float* q, const float* act,
-                               const float* y, float* w, const DcdLoss& L,
-                               int threads, int smem_bytes,
-                               cudaStream_t st) {
+                               const float* y, float* w, long long w_stride,
+                               float* dw, const DcdLoss& L, int threads,
+                               int smem_bytes, cudaStream_t st) {
   static int smem_set = 0;  // the limit raised so far (this process)
   if (smem_bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -461,38 +494,39 @@ static int dense_staged_launch(const int* idx, int m, const float* X, int d,
     if (err != cudaSuccess) return (int)err;
     smem_set = smem_bytes;
   }
-  dcd_dense_staged_kernel<W><<<1, threads, smem_bytes, st>>>(
-      idx, m, X, d, alpha, q, act, y, w, L);
+  dcd_dense_staged_kernel<W><<<shards, threads, smem_bytes, st>>>(
+      idx, m, n_loc, X, d, alpha, q, act, y, w, w_stride, dw, L);
   return (int)cudaGetLastError();
 }
 
-extern "C" int dcd_block_staged_launch(const int* idx, int m, const float* X,
-                                       int d, float* alpha, const float* q,
-                                       const float* act, const float* y,
-                                       float* w, int kind, float C,
-                                       float inv_two_c, float eps_c,
-                                       int newton_steps, int per_lane,
-                                       int threads, int smem_bytes,
-                                       void* stream) {
+extern "C" int dcd_block_staged_launch(
+    const int* idx, int m, int shards, long long n_loc, const float* X,
+    int d, float* alpha, const float* q, const float* act, const float* y,
+    float* w, long long w_stride, float* dw, int kind, float C,
+    float inv_two_c, float eps_c, int newton_steps, int per_lane,
+    int threads, int smem_bytes, void* stream) {
   // the bytes the kernel carves (repro_torch/dist/mesh.py:
-  // dcd_dense_staged_bytes): the block's rows, eight m-word arrays
+  // dcd_dense_staged_bytes): the block's rows, eight m-word arrays.  More
+  // than one shard writes Δw slices, never w in place.
   const long long need = 4LL * m * d + 32LL * m;
   if (m < 1 || d < 1 || d > 32 * per_lane || threads < 32 ||
-      threads % 32 != 0 || threads > 1024 || smem_bytes < need)
+      threads % 32 != 0 || threads > 1024 || smem_bytes < need ||
+      shards < 1 || shards > 65535 || (shards > 1 && !dw))
     return (int)cudaErrorInvalidValue;
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
   cudaStream_t st = (cudaStream_t)stream;
+#define B2_LAUNCH(W)                                                       \
+  return dense_staged_launch<W>(idx, m, shards, n_loc, X, d, alpha, q, act, \
+                                y, w, w_stride, dw, L, threads, smem_bytes, \
+                                st)
   switch (per_lane) {
-    case 1: return dense_staged_launch<1>(idx, m, X, d, alpha, q, act, y, w,
-                                          L, threads, smem_bytes, st);
-    case 2: return dense_staged_launch<2>(idx, m, X, d, alpha, q, act, y, w,
-                                          L, threads, smem_bytes, st);
-    case 4: return dense_staged_launch<4>(idx, m, X, d, alpha, q, act, y, w,
-                                          L, threads, smem_bytes, st);
-    case 8: return dense_staged_launch<8>(idx, m, X, d, alpha, q, act, y, w,
-                                          L, threads, smem_bytes, st);
+    case 1: B2_LAUNCH(1);
+    case 2: B2_LAUNCH(2);
+    case 4: B2_LAUNCH(4);
+    case 8: B2_LAUNCH(8);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef B2_LAUNCH
 }
 
 template <int K, int W>

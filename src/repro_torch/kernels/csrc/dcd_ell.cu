@@ -8,9 +8,22 @@
 // α and w carry across all m ids: each update reads the previous one's
 // writes (serial-DCD semantics).  The TPU kernel leans on its grid running
 // in order; Hopper runs blocks in parallel and in no order, so ONE CTA
-// runs the whole id sequence in a loop.  The wrapper copies α and w into
-// the output buffers first; the kernels update them in place and allocate
-// nothing.  Padding slots (col == d, value 0) and any column outside
+// runs the whole id sequence in a loop.  The wrapper copies α into its
+// output buffer first, and the kernels allocate nothing.
+//
+// Data shards.  The reference's p devices along "data" each run their own
+// block against their replica of w, and psum their Δw.  Here they are a
+// grid of p CTAs, CTA s one shard: its ids are idx[s·m .. s·m + m) of the
+// shard's rows [s·n_loc, (s+1)·n_loc) (row s·n_loc + id), it reads
+// w + s·w_stride (w_stride 0: one w for every shard), and it writes its
+// own Δw slice (the staged kernel: dw[s] = w_new − w at the columns it
+// touched, into a slice the wrapper zeroed) or updates its own replica of
+// w in place (the wide kernel: w + s·(d + 1), which the wrapper filled;
+// the wrapper takes Δw = replica − w).  No CTA reads what another writes
+// (the shards' rows are disjoint), so the result does not depend on which
+// CTAs run together; the wrapper sums the p slices in shard order.  A
+// launch with p = 1, n_loc = 0 and no dw is the single block of the
+// serial solvers, updating w in place.  Padding slots (col == d, value 0) and any column outside
 // [0, d) are skipped, so the dummy slot w[d] stays exactly 0.  A δ of
 // exactly 0 (a row at its box, or frozen) scatters nothing.  Two variants,
 // chosen by shape (repro_torch/dist/mesh.py: dcd_ell_plan):
@@ -75,12 +88,14 @@ __device__ __forceinline__ unsigned col_hash(int c, int slots) {
 }
 
 __global__ void dcd_ell_staged_kernel(const int* __restrict__ idx, int m,
+                                      long long n_loc,
                                       const int* __restrict__ cols,
                                       const float* __restrict__ vals, int k,
                                       int d, float* alpha,
                                       const float* __restrict__ q,
                                       const float* __restrict__ act,
                                       const float* __restrict__ y, float* w,
+                                      long long w_stride, float* dw,
                                       DcdLoss L, int slots) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* key = reinterpret_cast<int*>(smem);        // column, or -1: empty
@@ -97,9 +112,13 @@ __global__ void dcd_ell_staged_kernel(const int* __restrict__ idx, int m,
   int* prev = reinterpret_cast<int*>(arun + m);  // last s < t, same id
   int* dup = prev + m;  // row t repeats a column
   const int tid = threadIdx.x, nt = blockDim.x;
+  // data shard blockIdx.x: its ids, its rows, its view of w
+  const long long row0 = (long long)blockIdx.x * n_loc;
+  idx += (long long)blockIdx.x * m;
+  w += (long long)blockIdx.x * w_stride;
 
   // 1. prologue
-  for (int t = tid; t < m; t += nt) ids[t] = idx[t];
+  for (int t = tid; t < m; t += nt) ids[t] = (int)(row0 + idx[t]);
   for (int s = tid; s < slots; s += nt) key[s] = -1;
   __syncthreads();
   for (int e = tid; e < E; e += nt) {
@@ -269,21 +288,32 @@ __global__ void dcd_ell_staged_kernel(const int* __restrict__ idx, int m,
     }
     if (lane == 0 && !later) alpha[ids[t]] = arun[t];
   }
+  // the shard's Δw slice (its touched columns), or w in place
+  float* dws = dw ? dw + (long long)blockIdx.x * (d + 1) : nullptr;
   for (int s = tid; s < slots; s += nt) {
     const int c = key[s];
-    if (c >= 0) w[c] = wt[s];
+    if (c >= 0) {
+      if (dws)
+        dws[c] = wt[s] - w[c];
+      else
+        w[c] = wt[s];
+    }
   }
 }
 
 __global__ void dcd_ell_kernel(const int* __restrict__ idx, int m,
-                               const int* __restrict__ cols,
+                               long long n_loc, const int* __restrict__ cols,
                                const float* __restrict__ vals, int k, int d,
                                float* alpha, const float* __restrict__ q,
                                const float* __restrict__ act,
                                const float* __restrict__ y, float* w,
                                DcdLoss L) {
+  // data shard blockIdx.x: its ids, its rows, its replica of w
+  const long long row0 = (long long)blockIdx.x * n_loc;
+  idx += (long long)blockIdx.x * m;
+  w += (long long)blockIdx.x * (d + 1);
   for (int t = 0; t < m; ++t) {
-    const long long i = idx[t];
+    const long long i = row0 + idx[t];
     const int* ci = cols + i * k;
     const float* vi = vals + i * k;
     float part = 0.0f;
@@ -302,34 +332,40 @@ __global__ void dcd_ell_kernel(const int* __restrict__ idx, int m,
   }
 }
 
-// Plain C entries for ctypes.  act and y may be null.  Each returns
+// Plain C entries for ctypes.  act, y and dw may be null.  `shards` CTAs
+// run one data shard each (see the note at the top).  Each returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a layout the kernel cannot take.
-extern "C" int dcd_ell_launch(const int* idx, int m, const int* cols,
+extern "C" int dcd_ell_launch(const int* idx, int m, int shards,
+                              long long n_loc, const int* cols,
                               const float* vals, int k, int d, float* alpha,
                               const float* q, const float* act,
                               const float* y, float* w, int kind, float C,
                               float inv_two_c, float eps_c, int newton_steps,
                               int threads, void* stream) {
+  if (shards < 1 || shards > 65535) return (int)cudaErrorInvalidValue;
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
-  dcd_ell_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      idx, m, cols, vals, k, d, alpha, q, act, y, w, L);
+  dcd_ell_kernel<<<shards, threads, 0, (cudaStream_t)stream>>>(
+      idx, m, n_loc, cols, vals, k, d, alpha, q, act, y, w, L);
   return (int)cudaGetLastError();
 }
 
 extern "C" int dcd_ell_staged_launch(
-    const int* idx, int m, const int* cols, const float* vals, int k, int d,
-    float* alpha, const float* q, const float* act, const float* y, float* w,
-    int kind, float C, float inv_two_c, float eps_c, int newton_steps,
-    int slots, int threads, int smem_bytes, void* stream) {
+    const int* idx, int m, int shards, long long n_loc, const int* cols,
+    const float* vals, int k, int d, float* alpha, const float* q,
+    const float* act, const float* y, float* w, long long w_stride,
+    float* dw, int kind, float C, float inv_two_c, float eps_c,
+    int newton_steps, int slots, int threads, int smem_bytes, void* stream) {
   // the bytes the kernel carves (repro_torch/dist/mesh.py:
   // dcd_ell_staged_bytes): the table's keys and w, the block's slots and
-  // values, eight m-word arrays; a table with room for every entry
+  // values, eight m-word arrays; a table with room for every entry.  More
+  // than one shard writes Δw slices, never w in place.
   const long long entries = (long long)m * k;
   const long long need = 8LL * slots + 8LL * entries + 32LL * m;
   if (slots < 32 || (slots & (slots - 1)) != 0 || slots < entries ||
       k > ELL_LANE_ENTRIES * 32 || threads < 32 || threads % 32 != 0 ||
-      threads > 1024 || smem_bytes < need)
+      threads > 1024 || smem_bytes < need || shards < 1 || shards > 65535 ||
+      (shards > 1 && !dw))
     return (int)cudaErrorInvalidValue;
   static int smem_set = 0;  // the limit raised so far (this process)
   if (smem_bytes > smem_set) {
@@ -340,7 +376,9 @@ extern "C" int dcd_ell_staged_launch(
     smem_set = smem_bytes;
   }
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
-  dcd_ell_staged_kernel<<<1, threads, smem_bytes, (cudaStream_t)stream>>>(
-      idx, m, cols, vals, k, d, alpha, q, act, y, w, L, slots);
+  dcd_ell_staged_kernel<<<shards, threads, smem_bytes,
+                          (cudaStream_t)stream>>>(idx, m, n_loc, cols, vals,
+                                                  k, d, alpha, q, act, y, w,
+                                                  w_stride, dw, L, slots);
   return (int)cudaGetLastError();
 }

@@ -90,6 +90,22 @@
 // chain of B shuffles and δs, then the widest shard's CTAs issuing their
 // scattered adds (1,000–2,000 a CTA at webspam).
 //
+// Data shards.  The reference's 2-D mesh is (data, model): each of p data
+// shards runs its own block against its own view of the feature-sharded
+// w.  Here shard s of a launch takes ids idx[s·B .. s·B + B) of its rows
+// [s·n_loc, (s+1)·n_loc) (row s·n_loc + id).  B4's bucket pass runs on a
+// grid (m, B, p) and reads w + s·w_stride (w_stride 0: one w for every
+// data shard); its Gram and reduce kernels, and B5, index the p·m
+// (data, model) pairs as one grid dimension, js = s·m + j, whose
+// workspace rows, partial Grams and outputs are js's own: the workspace,
+// base_p (p·m, B) and gram_p (p·m, B, B) are per data shard.  B5 runs
+// R × p·m CTAs; CTA (r, js) reads its data shard's summed (base, G) at
+// base + s·B and gram + s·B², and scatters into w + js·d1, its data
+// shard's own replica of the (m, d1) slices (the wrapper fills the
+// replicas and takes each shard's Δw = replica − w).  No CTA reads what
+// another data shard writes, so the result does not depend on which CTAs
+// run together.
+//
 // Both build with --fmad=false, as B1–B3, so δ̃·v and the adds round as
 // the plain version's do.
 
@@ -157,24 +173,25 @@ __device__ __forceinline__ unsigned gram_hash(int c, int slots) {
 // time so that the loads, and the gathers of w behind them, overlap.
 #define GRAM_LANE_BATCH 8
 __global__ void dcd_feature_bucket_kernel(
-    const int* __restrict__ idx, int B, const int* __restrict__ cols,
-    const float* __restrict__ vals, int m, int k, int d_loc,
-    const float* __restrict__ w, int d1, int R, int* __restrict__ bk_lc,
-    float* __restrict__ bk_v, int* __restrict__ roff,
-    float* __restrict__ base_p) {
+    const int* __restrict__ idx, int B, long long n_loc,
+    const int* __restrict__ cols, const float* __restrict__ vals, int m,
+    int k, int d_loc, const float* __restrict__ w, long long w_stride,
+    int d1, int R, int* __restrict__ bk_lc, float* __restrict__ bk_v,
+    int* __restrict__ roff, float* __restrict__ base_p) {
   extern __shared__ __align__(16) int cur[];  // [warps][R]: counts, cursors
   __shared__ float red[DCD_MAX_WARPS];
   __shared__ int tmp[DCD_MAX_WARPS];
-  const int j = blockIdx.x, t = blockIdx.y;
+  const int j = blockIdx.x, t = blockIdx.y, sd = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
   int* sc = cur + nw * R;  // the row's k column ids
   float* sv = reinterpret_cast<float*>(sc + k);
-  const long long rt = ((long long)idx[t] * m + j) * k;
+  const long long gid = sd * n_loc + idx[(long long)sd * B + t];
+  const long long rt = (gid * m + j) * k;
   const int* ct = cols + rt;
   const float* vt = vals + rt;
-  const float* wj = w + (long long)j * d1;
-  const long long row = (long long)j * B + t;
+  const float* wj = w + sd * w_stride + (long long)j * d1;
+  const long long row = ((long long)sd * m + j) * B + t;
   for (int i = tid; i < nw * R; i += blockDim.x) cur[i] = 0;
   __syncthreads();
   // each warp owns a contiguous run of slots, so warp order is slot order
@@ -503,8 +520,8 @@ __device__ __forceinline__ B5Smem b5_carve(unsigned char* smem, int B,
 // order).  The loads that do not depend on the ids issue first.  Returns
 // the class's entry count.
 __device__ __forceinline__ int b5_prologue(
-    const B5Smem& S, const int* __restrict__ idx, int B, int R,
-    int r, long long row0, const int* __restrict__ roff,
+    const B5Smem& S, const int* __restrict__ idx, long long grow0, int B,
+    int R, int r, long long row0, const int* __restrict__ roff,
     const float* __restrict__ alpha_in, const float* __restrict__ q,
     const float* __restrict__ act, const float* __restrict__ y,
     const float* __restrict__ base, const float* __restrict__ gram,
@@ -519,7 +536,7 @@ __device__ __forceinline__ int b5_prologue(
   if (stage_gram)
     for (int e = e0 + tid; e < B * B; e += nt) cp_async4(S.G + e, gram + e);
   for (int t = tid; t < B; t += nt) {
-    S.ids[t] = idx[t];
+    S.ids[t] = (int)(grow0 + idx[t]);
     S.bs[t] = base[t];
   }
   const int per = (B + nt - 1) / nt;
@@ -715,7 +732,7 @@ __device__ __forceinline__ void b5_alpha_out(const B5Smem& S, int B,
 // 0 scatters the chunk (and any later one, staged by all).
 template <int NC>
 __global__ void dcd_feature_update_kernel(
-    const int* __restrict__ idx, int B, int k, int R,
+    const int* __restrict__ idx, int B, long long n_loc, int m, int k, int R,
     const int* __restrict__ bk_lc, const float* __restrict__ bk_v,
     const int* __restrict__ roff, const float* __restrict__ alpha_in,
     float* __restrict__ alpha_out, const float* __restrict__ q,
@@ -725,12 +742,19 @@ __global__ void dcd_feature_update_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int tmp[DCD_MAX_WARPS];
   const B5Smem S = b5_carve(smem, B, stage_gram, chunk);
-  const int r = blockIdx.x, j = blockIdx.y;
+  // CTA (r, js): class r of feature shard j = js mod m of data shard
+  // sd = js div m
+  const int r = blockIdx.x, js = blockIdx.y;
+  const int sd = js / m, j = js - sd * m;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const long long row0 = (long long)j * B;
-  float* wj = w + (long long)j * d1;
-  const int total = b5_prologue(S, idx, B, R, r, row0, roff, alpha_in, q,
-                                act, y, base, gram, stage_gram, tmp);
+  const long long row0 = (long long)js * B;
+  float* wj = w + (long long)js * d1;
+  idx += (long long)sd * B;
+  base += (long long)sd * B;
+  gram += (long long)sd * B * B;
+  const int total =
+      b5_prologue(S, idx, sd * n_loc, B, R, r, row0, roff, alpha_in, q, act,
+                  y, base, gram, stage_gram, tmp);
   cp_async_wait_all();  // G
   __syncthreads();
   int n = min(chunk, total);
@@ -750,6 +774,7 @@ __global__ void dcd_feature_update_kernel(
     if (tid < 32) b5_apply_chunk(S, B, R, r, wj, c0, n);
     __syncthreads();
   }
+  // CTA (0, j = 0) of each data shard writes that shard's α
   if (r == 0 && j == 0) b5_alpha_out(S, B, alpha_out);
 }
 
@@ -770,8 +795,9 @@ static int bucket_smem_set = 0;
 // launch (0 = launched), or cudaErrorInvalidValue for a layout the
 // kernels cannot take.  act and y may be null.
 extern "C" int dcd_feature_gram_launch(
-    const int* idx, int B, const int* cols, const float* vals, int m, int k,
-    int d_loc, const float* w, int d1, int R, int tile, int tiles, int chunk,
+    const int* idx, int B, int data, long long n_loc, const int* cols,
+    const float* vals, int m, int k, int d_loc, const float* w,
+    long long w_stride, int d1, int R, int tile, int tiles, int chunk,
     int slots, int bucket_threads, int bucket_smem, int gram_threads,
     int gram_smem, int* bk_lc, float* bk_v, int* roff, float* part,
     float* base_p, float* gram_p, void* stream) {
@@ -790,7 +816,8 @@ extern "C" int dcd_feature_gram_launch(
       (long long)tile * tiles < B || bucket_threads < 32 ||
       bucket_threads % 32 != 0 || bucket_threads > 1024 ||
       (slots & (slots - 1)) != 0 || slots < chunk ||
-      bucket_smem < bucket_need || gram_smem < gram_need)
+      bucket_smem < bucket_need || gram_smem < gram_need || data < 1 ||
+      (long long)data * m > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
@@ -799,24 +826,29 @@ extern "C" int dcd_feature_gram_launch(
   if (err != cudaSuccess) return (int)err;
   err = smem_limit(dcd_feature_gram_kernel, gram_smem, &gram_set);
   if (err != cudaSuccess) return (int)err;
-  dcd_feature_bucket_kernel<<<dim3(m, B), bucket_threads, bucket_smem, st>>>(
-      idx, B, cols, vals, m, k, d_loc, w, d1, R, bk_lc, bk_v, roff, base_p);
+  dcd_feature_bucket_kernel<<<dim3(m, B, data), bucket_threads, bucket_smem,
+                              st>>>(idx, B, n_loc, cols, vals, m, k, d_loc, w,
+                                    w_stride, d1, R, bk_lc, bk_v, roff,
+                                    base_p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // the classes of a shard in x, so the widest shard's CTAs start first
-  dcd_feature_gram_kernel<<<dim3(R, m, tiles), gram_threads, gram_smem, st>>>(
-      B, k, R, tile, chunk, slots, bk_lc, bk_v, roff, R > 1 ? part : gram_p);
+  // the classes of a shard in x, so the widest shard's CTAs start first;
+  // the (data, model) pairs in y
+  dcd_feature_gram_kernel<<<dim3(R, data * m, tiles), gram_threads, gram_smem,
+                            st>>>(B, k, R, tile, chunk, slots, bk_lc, bk_v,
+                                  roff, R > 1 ? part : gram_p);
   err = cudaGetLastError();
   if (err != cudaSuccess || R == 1) return (int)err;
   const long long bb = (long long)B * B;
   const int blocks = (int)((bb + 255) / 256 < 1024 ? (bb + 255) / 256 : 1024);
-  dcd_feature_gram_reduce_kernel<<<dim3(blocks, m), 256, 0, st>>>(B, R, part,
-                                                                  gram_p);
+  dcd_feature_gram_reduce_kernel<<<dim3(blocks, data * m), 256, 0, st>>>(
+      B, R, part, gram_p);
   return (int)cudaGetLastError();
 }
 
 template <int NC>
-static int update_launch(const int* idx, int B, int m, int k, int R,
+static int update_launch(const int* idx, int B, int data, long long n_loc,
+                         int m, int k, int R,
                          const int* bk_lc, const float* bk_v, const int* roff,
                          const float* alpha_in, float* alpha_out,
                          const float* q, const float* act, const float* y,
@@ -828,17 +860,18 @@ static int update_launch(const int* idx, int B, int m, int k, int R,
   const cudaError_t err =
       smem_limit(dcd_feature_update_kernel<NC>, smem, &set);
   if (err != cudaSuccess) return (int)err;
-  dcd_feature_update_kernel<NC><<<dim3(R, m), threads, smem, st>>>(
-      idx, B, k, R, bk_lc, bk_v, roff, alpha_in, alpha_out, q, act, y, w, d1,
-      base, gram, stage_gram, chunk, L);
+  dcd_feature_update_kernel<NC><<<dim3(R, data * m), threads, smem, st>>>(
+      idx, B, n_loc, m, k, R, bk_lc, bk_v, roff, alpha_in, alpha_out, q, act,
+      y, w, d1, base, gram, stage_gram, chunk, L);
   return (int)cudaGetLastError();
 }
 
 // B5.  With `bucket`, B4's bucket pass (no base) first fills bk_lc, bk_v
 // and roff for this block.
 extern "C" int dcd_feature_update_launch(
-    const int* idx, int B, const int* cols, const float* vals, int m, int k,
-    int d_loc, const float* alpha_in, float* alpha_out, const float* q,
+    const int* idx, int B, int data, long long n_loc, const int* cols,
+    const float* vals, int m, int k, int d_loc, const float* alpha_in,
+    float* alpha_out, const float* q,
     const float* act, const float* y, float* w, int d1, const float* base,
     const float* gram, int kind, float C, float inv_two_c, float eps_c,
     int newton_steps, int R, int per_lane, int stage_gram, int chunk,
@@ -852,7 +885,8 @@ extern "C" int dcd_feature_update_launch(
   if (B < 1 || B > DCD_FEATURE_MAX_B || R < 1 || chunk < 1 ||
       per_lane < 1 || per_lane > 32 || (per_lane & (per_lane - 1)) != 0 ||
       32LL * per_lane < B || threads < 64 || threads % 32 != 0 ||
-      threads > 1024 || smem < need ||
+      threads > 1024 || smem < need || data < 1 ||
+      (long long)data * m > 65535 ||
       (bucket && (bucket_threads < 32 || bucket_threads % 32 != 0 ||
                   bucket_threads > 1024 || bucket_smem < bucket_need)))
     return (int)cudaErrorInvalidValue;
@@ -861,17 +895,19 @@ extern "C" int dcd_feature_update_launch(
     cudaError_t err =
         smem_limit(dcd_feature_bucket_kernel, bucket_smem, &bucket_smem_set);
     if (err != cudaSuccess) return (int)err;
-    dcd_feature_bucket_kernel<<<dim3(m, B), bucket_threads, bucket_smem,
-                                 st>>>(idx, B, cols, vals, m, k, d_loc, w, d1,
-                                       R, bk_lc, bk_v, roff, nullptr);
+    // w is not read without base_p: its stride is of no matter
+    dcd_feature_bucket_kernel<<<dim3(m, B, data), bucket_threads,
+                                 bucket_smem, st>>>(
+        idx, B, n_loc, cols, vals, m, k, d_loc, w, 0, d1, R, bk_lc, bk_v,
+        roff, nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
 #define B5_LAUNCH(NC)                                                         \
-  return update_launch<NC>(idx, B, m, k, R, bk_lc, bk_v, roff, alpha_in,     \
-                           alpha_out, q, act, y, w, d1, base, gram,          \
-                           stage_gram, chunk, L, threads, smem, st)
+  return update_launch<NC>(idx, B, data, n_loc, m, k, R, bk_lc, bk_v, roff, \
+                           alpha_in, alpha_out, q, act, y, w, d1, base,      \
+                           gram, stage_gram, chunk, L, threads, smem, st)
   switch (per_lane) {
     case 1: B5_LAUNCH(1);
     case 2: B5_LAUNCH(2);

@@ -18,6 +18,11 @@ ring of stages in shared memory by a producer warp while a consumer warp
 holds w in registers (rows of at most 256 floats, such as covtype's),
 and "wide", B2's wide kernel over rows 0..n-1.
 
+``dcd_indexed_shards`` runs B2 over the sharded solver's round: p data
+shards, each its own block of ids against w, as one launch of p CTAs,
+returning each shard's Δw (the reference's per-device Δw before the psum
+over ``data``).
+
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.
 α and w are float32; X is float32, (n, d), any d.
@@ -30,7 +35,7 @@ import torch
 from repro_torch.core.duals import kernel_params
 from repro_torch.dist.mesh import dcd_dense_plan, dcd_tile_plan
 from repro_torch.kernels import build
-from repro_torch.kernels.build import F, I, P
+from repro_torch.kernels.build import F, I, L, P
 
 
 def dcd_indexed_epoch_plain(X, alpha, w, sq_norms, *, loss, idx,
@@ -67,6 +72,32 @@ def _check(X, alpha, w, sq_norms, idx=None, active=None, y=None):
         "y": (y, (n,)), "idx": (idx, None)}, int32=("idx",))
 
 
+def _indexed_launch(plan, idx, m, n_loc, X, alpha, w, sq_norms, active, y,
+                    loss, w_stride=0, dw=None):
+    """Launch B2's kernel for ``plan`` on operands already checked:
+    ``plan.shards`` CTAs of ``m`` ids each.  The staged kernel writes the
+    shards' Δw slices into ``dw`` (or, with one shard and no ``dw``,
+    updates ``w`` in place); the wide kernel updates ``w`` in place, a
+    replica a shard."""
+    args = [build.ptr(idx), m, plan.shards, n_loc, build.ptr(X), X.shape[1],
+            build.ptr(alpha), build.ptr(sq_norms), build.ptr(active),
+            build.ptr(y), build.ptr(w)]
+    types = [P, I, I, L, P, I, P, P, P, P, P]
+    if plan.variant == "staged":
+        fn = "dcd_block_staged_launch"
+        types += [L, P, I, F, F, F, I, I, I, I, P]
+        args += [w_stride, build.ptr(dw), *kernel_params(loss),
+                 plan.per_lane, plan.threads, plan.smem_bytes]
+    else:
+        fn = "dcd_block_indexed_launch"
+        types += [I, F, F, F, I, I, P]
+        args += [*kernel_params(loss), plan.threads]
+    launch = build.entry("dcd_block", fn, types)
+    with torch.cuda.device(alpha.device):
+        err = launch(*args, build.stream())
+    build.check(err, fn)
+
+
 def dcd_indexed_epoch(X, alpha, w, sq_norms, *, loss, idx, active=None,
                       y=None, wide=False):
     """B2: run the updates of ``idx`` (int32) and return new (α, w).
@@ -82,29 +113,74 @@ def dcd_indexed_epoch(X, alpha, w, sq_norms, *, loss, idx, active=None,
                                        idx=idx, active=active, y=y)
     _check(X, alpha, w, sq_norms, idx, active, y)
     a_out, w_out = alpha.clone(), w.clone()
-    m, d = idx.shape[0], X.shape[1]
+    m = idx.shape[0]
     if m == 0:
         return a_out, w_out
-    plan = dcd_dense_plan(m, d, wide)
-    args = [build.ptr(idx), m, build.ptr(X), d, build.ptr(a_out),
-            build.ptr(sq_norms), build.ptr(active), build.ptr(y),
-            build.ptr(w_out), *kernel_params(loss)]
-    types = [P, I, P, I, P, P, P, P, P, I, F, F, F, I]
-    if plan.variant == "staged":
-        fn = "dcd_block_staged_launch"
-        types += [I, I, I, P]
-        args += [plan.per_lane, plan.threads, plan.smem_bytes]
-    else:
-        fn = "dcd_block_indexed_launch"
-        types += [I, P]
-        args += [plan.threads]
-    launch = build.entry("dcd_block", fn, types)
-    with torch.cuda.device(alpha.device):
-        err = launch(*args, build.stream())
-    build.check(err, fn)
+    plan = dcd_dense_plan(m, X.shape[1], wide)
+    _indexed_launch(plan, idx, m, 0, X, a_out, w_out, sq_norms, active, y,
+                    loss)
     dcd_indexed_epoch.launches += 1
     dcd_indexed_epoch.variant_launches[plan.variant] += 1
     return a_out, w_out
+
+
+def dcd_indexed_shards_plain(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
+                             active=None, y=None):
+    """The plain version of B2 over a grid of p data shards: shard s, in
+    shard order, runs its ids ``idx[s]`` (rows s·n_loc + id) against
+    ``w_eff`` (or ``w_eff[s]`` when it is (p, d)), as
+    ``dcd_indexed_epoch_plain`` does.  Returns (α, Δw (p, d))."""
+    dws = []
+    for s in range(idx.shape[0]):
+        w_s = w_eff[s] if w_eff.dim() == 2 else w_eff
+        alpha, w_new = dcd_indexed_epoch_plain(
+            X, alpha, w_s, sq_norms, loss=loss,
+            idx=idx[s].long() + s * n_loc, active=active, y=y)
+        dws.append(w_new - w_s)
+    return alpha, torch.stack(dws)
+
+
+def dcd_indexed_shards(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
+                       active=None, y=None, wide=False):
+    """B2 over a grid of p data shards: ``idx`` (p, B) int32 shard-local
+    ids, shard s owning rows [s·n_loc, (s+1)·n_loc) of X; ``w_eff`` the
+    (d,) primal every shard reads, or (p, d), one a shard.  Returns (α,
+    Δw (p, d)), which the caller sums in shard order.  CUDA tensors
+    launch one kernel of p CTAs (counted in
+    ``dcd_indexed_shards.launches`` and under its variant): the staged
+    kernel writes each shard's d-word Δw slice, the wide one updates a
+    replica of w a shard (Δw = replica − w_eff).  CPU tensors run
+    ``dcd_indexed_shards_plain``."""
+    if alpha.device.type != "cuda":
+        return dcd_indexed_shards_plain(X, alpha, w_eff, sq_norms, loss=loss,
+                                        idx=idx, n_loc=n_loc, active=active,
+                                        y=y)
+    idx, w_eff = idx.contiguous(), w_eff.contiguous()
+    p, m = idx.shape
+    d = X.shape[1]
+    if w_eff.dim() not in (1, 2) or (w_eff.dim() == 2
+                                     and w_eff.shape[0] != p):
+        raise ValueError(f"w_eff must be (d,) or ({p}, d)")
+    _check(X, alpha, w_eff[0] if w_eff.dim() == 2 else w_eff, sq_norms,
+           idx.view(-1), active, y)
+    a_out = alpha.clone()
+    if m == 0:
+        return a_out, torch.zeros((p, d), dtype=torch.float32,
+                                  device=alpha.device)
+    plan = dcd_dense_plan(m, d, wide, p)
+    if plan.variant == "staged":
+        dw = torch.empty((p, d), dtype=torch.float32, device=alpha.device)
+        _indexed_launch(plan, idx, m, n_loc, X, a_out, w_eff, sq_norms,
+                        active, y, loss,
+                        w_stride=d if w_eff.dim() == 2 else 0, dw=dw)
+    else:
+        rep = w_eff.expand(p, d).clone(memory_format=torch.contiguous_format)
+        _indexed_launch(plan, idx, m, n_loc, X, a_out, rep, sq_norms,
+                        active, y, loss)
+        dw = rep - w_eff
+    dcd_indexed_shards.launches += 1
+    dcd_indexed_shards.variant_launches[plan.variant] += 1
+    return a_out, dw
 
 
 def dcd_tile_epoch(X, alpha, w, sq_norms, *, loss, wide=False):
@@ -155,5 +231,7 @@ def tile_launch(plan, X, alpha, w, sq_norms, loss):
 
 dcd_indexed_epoch.launches = 0
 dcd_indexed_epoch.variant_launches = {"staged": 0, "wide": 0}
+dcd_indexed_shards.launches = 0
+dcd_indexed_shards.variant_launches = {"staged": 0, "wide": 0}
 dcd_tile_epoch.launches = 0
 dcd_tile_epoch.variant_launches = {"stream": 0, "wide": 0}

@@ -18,6 +18,11 @@ by shape (``repro_torch.dist.mesh.dcd_ell_plan``): "staged", the block's
 rows and columns of w in shared memory (a block of 64 rcv1 rows), and
 "wide", rows and w in device memory (rows too long to stage, such as
 webspam's).  No lane padding: k and d are taken as they are.
+
+``dcd_ell_shards`` runs the sharded solver's round: p data shards, each
+its own block of ids against w, as one launch of p CTAs, returning each
+shard's Δw (the reference's per-device Δw before the psum over
+``data``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from repro_torch.core.duals import kernel_params
 from repro_torch.dist.mesh import dcd_ell_plan
 from repro_torch.kernels import build
-from repro_torch.kernels.build import F, I, P
+from repro_torch.kernels.build import F, I, L, P
 
 
 def dcd_ell_epoch_plain(cols, vals, alpha, w_pad, sq_norms, *, loss, idx,
@@ -61,6 +66,34 @@ def _check(cols, vals, alpha, w_pad, sq_norms, idx, active, y):
         int32=("cols", "idx"))
 
 
+def _launch(plan, idx, m, n_loc, cols, vals, alpha, w, sq_norms, active, y,
+            loss, w_stride=0, dw=None):
+    """Launch B1's kernel for ``plan`` on operands already checked:
+    ``plan.shards`` CTAs of ``m`` ids each.  The staged kernel writes the
+    shards' Δw slices into ``dw`` (or, with one shard and no ``dw``,
+    updates ``w`` in place); the wide kernel updates ``w`` in place, a
+    replica a shard."""
+    k = cols.shape[1]
+    d = (w.shape[-1] if dw is None else dw.shape[-1]) - 1
+    args = [build.ptr(idx), m, plan.shards, n_loc, build.ptr(cols),
+            build.ptr(vals), k, d, build.ptr(alpha), build.ptr(sq_norms),
+            build.ptr(active), build.ptr(y), build.ptr(w)]
+    types = [P, I, I, L, P, P, I, I, P, P, P, P, P]
+    if plan.variant == "staged":
+        fn = "dcd_ell_staged_launch"
+        types += [L, P, I, F, F, F, I, I, I, I, P]
+        args += [w_stride, build.ptr(dw), *kernel_params(loss),
+                 plan.table_slots, plan.threads, plan.smem_bytes]
+    else:
+        fn = "dcd_ell_launch"
+        types += [I, F, F, F, I, I, P]
+        args += [*kernel_params(loss), plan.threads]
+    launch = build.entry("dcd_ell", fn, types)
+    with torch.cuda.device(alpha.device):
+        err = launch(*args, build.stream())
+    build.check(err, fn)
+
+
 def dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms, *, loss, idx,
                   active=None, y=None, wide=False):
     """Run the updates of ``idx`` (int32 row ids, any order, repeats
@@ -78,27 +111,12 @@ def dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms, *, loss, idx,
                                    loss=loss, idx=idx, active=active, y=y)
     _check(cols, vals, alpha, w_pad, sq_norms, idx, active, y)
     a_out, w_out = alpha.clone(), w_pad.clone()
-    m, k = idx.shape[0], cols.shape[1]
+    m = idx.shape[0]
     if m == 0:
         return a_out, w_out
-    plan = dcd_ell_plan(m, k, wide)
-    args = [build.ptr(idx), m, build.ptr(cols), build.ptr(vals), k,
-            w_pad.shape[0] - 1, build.ptr(a_out), build.ptr(sq_norms),
-            build.ptr(active), build.ptr(y), build.ptr(w_out),
-            *kernel_params(loss)]
-    types = [P, I, P, P, I, I, P, P, P, P, P, I, F, F, F, I]
-    if plan.variant == "staged":
-        fn = "dcd_ell_staged_launch"
-        types += [I, I, I, P]
-        args += [plan.table_slots, plan.threads, plan.smem_bytes]
-    else:
-        fn = "dcd_ell_launch"
-        types += [I, P]
-        args += [plan.threads]
-    launch = build.entry("dcd_ell", fn, types)
-    with torch.cuda.device(alpha.device):
-        err = launch(*args, build.stream())
-    build.check(err, fn)
+    plan = dcd_ell_plan(m, cols.shape[1], wide)
+    _launch(plan, idx, m, 0, cols, vals, a_out, w_out, sq_norms, active, y,
+            loss)
     dcd_ell_epoch.launches += 1
     dcd_ell_epoch.variant_launches[plan.variant] += 1
     return a_out, w_out
@@ -106,3 +124,70 @@ def dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms, *, loss, idx,
 
 dcd_ell_epoch.launches = 0
 dcd_ell_epoch.variant_launches = {"staged": 0, "wide": 0}
+
+
+def dcd_ell_shards_plain(cols, vals, alpha, w_eff, sq_norms, *, loss, idx,
+                         n_loc, active=None, y=None):
+    """The plain version of B1 over a grid of p data shards: shard s, in
+    shard order, runs its ids ``idx[s]`` (rows s·n_loc + id) against
+    ``w_eff`` (or ``w_eff[s]`` when it is (p, d+1)), as
+    ``dcd_ell_epoch_plain`` does.  Returns (α, Δw (p, d+1)), shard s's
+    Δw = w_new − its w_eff; the shards' rows are disjoint, so their α
+    updates do not meet."""
+    dws = []
+    for s in range(idx.shape[0]):
+        w_s = w_eff[s] if w_eff.dim() == 2 else w_eff
+        alpha, w_new = dcd_ell_epoch_plain(
+            cols, vals, alpha, w_s, sq_norms, loss=loss,
+            idx=idx[s].long() + s * n_loc, active=active, y=y)
+        dws.append(w_new - w_s)
+    return alpha, torch.stack(dws)
+
+
+def dcd_ell_shards(cols, vals, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
+                   active=None, y=None, wide=False):
+    """B1 over a grid of p data shards: ``idx`` (p, B) int32 shard-local
+    ids, shard s owning rows [s·n_loc, (s+1)·n_loc) of the (n, k) shard
+    layout; ``w_eff`` the (d+1,) primal every shard reads, or (p, d+1),
+    one a shard.  Returns (α, Δw (p, d+1)), the shards' own updates,
+    which the caller sums in shard order.  CUDA tensors launch one
+    kernel of p CTAs (counted in ``dcd_ell_shards.launches`` and under
+    its variant); CPU tensors run ``dcd_ell_shards_plain``.  The staged
+    kernel writes each shard's Δw slice into zeros; the wide kernel
+    updates a replica of w a shard, which the wrapper fills, and Δw is
+    replica − w_eff.  ``wide=True`` launches the wide variant whatever
+    the shape."""
+    if alpha.device.type != "cuda":
+        return dcd_ell_shards_plain(cols, vals, alpha, w_eff, sq_norms,
+                                    loss=loss, idx=idx, n_loc=n_loc,
+                                    active=active, y=y)
+    idx, w_eff = idx.contiguous(), w_eff.contiguous()
+    p, m = idx.shape
+    d1 = w_eff.shape[-1]
+    if w_eff.dim() not in (1, 2) or (w_eff.dim() == 2
+                                     and w_eff.shape[0] != p):
+        raise ValueError(f"w_eff must be (d+1,) or ({p}, d+1)")
+    _check(cols, vals, alpha, w_eff.view(-1), sq_norms, idx.view(-1),
+           active, y)
+    a_out = alpha.clone()
+    if m == 0:
+        return a_out, torch.zeros((p, d1), dtype=torch.float32,
+                                  device=alpha.device)
+    plan = dcd_ell_plan(m, cols.shape[1], wide, p)
+    if plan.variant == "staged":
+        dw = torch.zeros((p, d1), dtype=torch.float32, device=alpha.device)
+        _launch(plan, idx, m, n_loc, cols, vals, a_out, w_eff, sq_norms,
+                active, y, loss, w_stride=d1 if w_eff.dim() == 2 else 0,
+                dw=dw)
+    else:
+        rep = w_eff.expand(p, d1).clone(memory_format=torch.contiguous_format)
+        _launch(plan, idx, m, n_loc, cols, vals, a_out, rep, sq_norms,
+                active, y, loss)
+        dw = rep - w_eff
+    dcd_ell_shards.launches += 1
+    dcd_ell_shards.variant_launches[plan.variant] += 1
+    return a_out, dw
+
+
+dcd_ell_shards.launches = 0
+dcd_ell_shards.variant_launches = {"staged": 0, "wide": 0}

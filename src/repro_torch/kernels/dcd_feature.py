@@ -25,6 +25,11 @@ the shards:
   workspace for the same block (or, without one, from its own bucket
   pass); its layout is ``repro_torch.dist.mesh.feature_update_plan``'s.
 
+Both take a grid of p data shards: a (p, B) ``idx`` of shard-local ids
+(shard s's rows are [s·n_loc, (s+1)·n_loc)), a shared (m, d1) w or one
+(p, m, d1) w a data shard; B4 then returns (p, m, B) and (p, m, B, B),
+and B5 each data shard's updated replica of the slices, (p, m, d1).
+
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.  B4
 buckets the block's entries by column class into a workspace
@@ -52,17 +57,89 @@ from repro_torch.dist.mesh import (
     gram_plan,
 )
 from repro_torch.kernels import build
-from repro_torch.kernels.build import F, I, P
+from repro_torch.kernels.build import F, I, L, P
 
 MAX_BLOCK = 1024  # B5's recursion warp holds at most 32 columns a lane
 
 
-def dcd_feature_gram_plain(cols, vals, w, idx):
+class GramWorkspace(NamedTuple):
+    """B4's device workspace for blocks of b ids over (n, m, k) slices
+    of d1-word shards: each block row's real entries bucketed by column
+    class (local column ``lc`` and value ``v``, (m, b, k)), each row's
+    class offsets ((m, b, R + 1)), and the per-class partial Grams
+    ((m, R, b, b); empty when there is one class) — with p data shards,
+    p·m in place of m."""
+
+    lc: torch.Tensor
+    v: torch.Tensor
+    roff: torch.Tensor
+    part: torch.Tensor
+
+
+def gram_workspace(m: int, b: int, k: int, d1: int, device,
+                   data: int = 1) -> GramWorkspace:
+    """Allocate B4's workspace for blocks of ``b`` ids (uninitialised:
+    every launch writes what it reads), one for each of ``data`` data
+    shards: the leading dimension indexes the (data, model) pairs, data
+    shard s's model shard j at s·m + j."""
+    plan = gram_plan(m, b, k, d1, data)
+    parts = plan.classes if plan.classes > 1 else 0
+    pm = plan.data * m
+    return GramWorkspace(
+        torch.empty((pm, b, k), dtype=torch.int32, device=device),
+        torch.empty((pm, b, k), dtype=torch.float32, device=device),
+        torch.empty((pm, b, plan.classes + 1), dtype=torch.int32,
+                    device=device),
+        torch.empty((pm, parts, b, b), dtype=torch.float32, device=device))
+
+
+def _check_block(cols, vals, w, idx):
+    n, m, k = cols.shape
+    if idx.dim() == 1:
+        ok = w.dim() == 2 and w.shape[0] == m
+    else:
+        ok = idx.dim() == 2 and (
+            (w.dim() == 2 and w.shape[0] == m)
+            or (w.dim() == 3 and w.shape[:2] == (idx.shape[0], m)))
+    if not ok:
+        raise ValueError(f"expected idx (B,) and w ({m}, d_loc+1), or idx "
+                         f"(p, B) and w ({m}, d_loc+1) or (p, {m}, d_loc+1)")
+    if not 1 <= idx.shape[-1] <= MAX_BLOCK:
+        raise ValueError(f"the block must hold 1..{MAX_BLOCK} ids, got "
+                         f"{idx.shape[-1]}")
+
+
+def _check_workspace(workspace, pm, b, k, plan, device):
+    """The buckets of a workspace for this shape (``gram_workspace``)."""
+    build.check_operands(device, {
+        "lc": (workspace.lc, (pm, b, k)), "v": (workspace.v, (pm, b, k)),
+        "roff": (workspace.roff, (pm, b, plan.classes + 1))},
+        int32=("lc", "roff"))
+
+
+def _shards(idx, w):
+    """(p, idx (p, B), w stride between data shards, or 0) of a call:
+    a 1-D ``idx`` is one data shard."""
+    if idx.dim() == 1:
+        return 1, idx[None], 0
+    return idx.shape[0], idx, (w[0].numel() if w.dim() == 3 else 0)
+
+
+def dcd_feature_gram_plain(cols, vals, w, idx, n_loc: int = 0):
     """The plain version of B4, step by step as the Pallas kernel: gather
     the block's rows, base = Σ w[cols]·vals, then for each t scatter row
     t into a zeroed scratch, gather every row of the block against it
     for column G[:, t], and zero the slots row t touched.  All m shards
-    at once.  Returns (base_p (m, B), gram_p (m, B, B))."""
+    at once.  Returns (base_p (m, B), gram_p (m, B, B)); for a (p, B)
+    ``idx`` of p data shards (rows s·n_loc + id, against w or w[s]),
+    each shard in order, (p, m, B) and (p, m, B, B)."""
+    if idx.dim() == 2:
+        outs = [dcd_feature_gram_plain(cols, vals,
+                                       w[s] if w.dim() == 3 else w,
+                                       idx[s].long() + s * n_loc)
+                for s in range(idx.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
     d1 = w.shape[1]
     m, b = cols.shape[1], idx.shape[0]
     ids = flat_shard_ids(cols[idx.long()], d1).transpose(0, 1)  # (m, B, k)
@@ -79,83 +156,45 @@ def dcd_feature_gram_plain(cols, vals, w, idx):
     return base, gram
 
 
-class GramWorkspace(NamedTuple):
-    """B4's device workspace for blocks of b ids over (n, m, k) slices
-    of d1-word shards: each block row's real entries bucketed by column
-    class (local column ``lc`` and value ``v``, (m, b, k)), each row's
-    class offsets ((m, b, R + 1)), and the per-class partial Grams
-    ((m, R, b, b); empty when there is one class)."""
-
-    lc: torch.Tensor
-    v: torch.Tensor
-    roff: torch.Tensor
-    part: torch.Tensor
-
-
-def gram_workspace(m: int, b: int, k: int, d1: int,
-                   device) -> GramWorkspace:
-    """Allocate B4's workspace for blocks of ``b`` ids (uninitialised:
-    every launch writes what it reads)."""
-    plan = gram_plan(m, b, k, d1)
-    parts = plan.classes if plan.classes > 1 else 0
-    return GramWorkspace(
-        torch.empty((m, b, k), dtype=torch.int32, device=device),
-        torch.empty((m, b, k), dtype=torch.float32, device=device),
-        torch.empty((m, b, plan.classes + 1), dtype=torch.int32,
-                    device=device),
-        torch.empty((m, parts, b, b), dtype=torch.float32, device=device))
-
-
-def _check_block(cols, vals, w, idx):
-    n, m, k = cols.shape
-    if w.dim() != 2 or w.shape[0] != m or idx.dim() != 1:
-        raise ValueError(f"expected w ({m}, d_loc+1) and idx (B,)")
-    if not 1 <= idx.shape[0] <= MAX_BLOCK:
-        raise ValueError(f"the block must hold 1..{MAX_BLOCK} ids, got "
-                         f"{idx.shape[0]}")
-
-
-def _check_workspace(workspace, m, b, k, plan, device):
-    """The buckets of a workspace for this shape (``gram_workspace``)."""
-    build.check_operands(device, {
-        "lc": (workspace.lc, (m, b, k)), "v": (workspace.v, (m, b, k)),
-        "roff": (workspace.roff, (m, b, plan.classes + 1))},
-        int32=("lc", "roff"))
-
-
-def dcd_feature_gram(cols, vals, w, idx, *, workspace=None):
+def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0):
     """Every shard's partial (base, Gram) of the block ``idx`` (int32 row
     ids in [0, n), repeats allowed) against the primal slices ``w``.
-    CUDA tensors launch B4 (its bucket, Gram and reduction kernels,
-    counted once in ``dcd_feature_gram.launches``) with ``workspace``
-    (``gram_workspace`` for this shape; allocated for this call when
-    None); CPU tensors run the plain version.  Returns (base_p (m, B),
-    gram_p (m, B, B))."""
+    A (p, B) ``idx`` is p data shards, shard s's ids local to its rows
+    [s·n_loc, (s+1)·n_loc), against ``w`` (m, d1) or its own ``w[s]``
+    of a (p, m, d1) ``w``.  CUDA tensors launch B4 (its bucket, Gram and
+    reduction kernels over every (data, model) pair, counted once in
+    ``dcd_feature_gram.launches``) with ``workspace`` (``gram_workspace``
+    for this shape; allocated for this call when None); CPU tensors run
+    the plain version.  Returns (base_p (m, B), gram_p (m, B, B)), with
+    a leading p for a (p, B) ``idx``."""
     if w.device.type != "cuda":
-        return dcd_feature_gram_plain(cols, vals, w, idx)
+        return dcd_feature_gram_plain(cols, vals, w, idx, n_loc)
     _check_block(cols, vals, w, idx)
+    lead = idx.shape[:-1]
+    p, idx, w_stride = _shards(idx.contiguous(), w)
     n, m, k = cols.shape
-    d1, b = w.shape[1], idx.shape[0]
-    plan = gram_plan(m, b, k, d1)
+    d1, b = w.shape[-1], idx.shape[1]
+    plan = gram_plan(m, b, k, d1, p)
     if workspace is None:
-        workspace = gram_workspace(m, b, k, d1, w.device)
+        workspace = gram_workspace(m, b, k, d1, w.device, p)
     parts = plan.classes if plan.classes > 1 else 0
-    _check_workspace(workspace, m, b, k, plan, w.device)
+    _check_workspace(workspace, p * m, b, k, plan, w.device)
     build.check_operands(w.device, {
         "cols": (cols, None), "vals": (vals, (n, m, k)), "w": (w, None),
-        "idx": (idx, None), "part": (workspace.part, (m, parts, b, b))},
+        "idx": (idx, None), "part": (workspace.part, (p * m, parts, b, b))},
         int32=("cols", "idx"))
-    base_p = torch.empty((m, b), dtype=torch.float32, device=w.device)
-    gram_p = torch.empty((m, b, b), dtype=torch.float32, device=w.device)
+    base_p = torch.empty((*lead, m, b), dtype=torch.float32, device=w.device)
+    gram_p = torch.empty((*lead, m, b, b), dtype=torch.float32,
+                         device=w.device)
     launch = build.entry("dcd_feature", "dcd_feature_gram_launch",
-                         [P, I, P, P, I, I, I, P, I, I, I, I, I, I, I, I,
-                          I, I, P, P, P, P, P, P, P])
+                         [P, I, I, L, P, P, I, I, I, P, L, I, I, I, I, I, I,
+                          I, I, I, I, P, P, P, P, P, P, P])
     with torch.cuda.device(w.device):
-        err = launch(build.ptr(idx), b, build.ptr(cols), build.ptr(vals), m,
-                     k, d1 - 1, build.ptr(w), d1, plan.classes, plan.tile,
-                     plan.tiles, GRAM_CHUNK, GRAM_TABLE_SLOTS,
-                     GRAM_BUCKET_THREADS, plan.bucket_smem, GRAM_THREADS,
-                     plan.gram_smem, build.ptr(workspace.lc),
+        err = launch(build.ptr(idx), b, plan.data, n_loc, build.ptr(cols),
+                     build.ptr(vals), m, k, d1 - 1, build.ptr(w), w_stride,
+                     d1, plan.classes, plan.tile, plan.tiles, GRAM_CHUNK,
+                     GRAM_TABLE_SLOTS, GRAM_BUCKET_THREADS, plan.bucket_smem,
+                     GRAM_THREADS, plan.gram_smem, build.ptr(workspace.lc),
                      build.ptr(workspace.v), build.ptr(workspace.roff),
                      build.ptr(workspace.part), build.ptr(base_p),
                      build.ptr(gram_p), build.stream())
@@ -168,11 +207,24 @@ dcd_feature_gram.launches = 0
 
 
 def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
-                             gram, *, loss, active=None, y=None):
+                             gram, *, loss, active=None, y=None,
+                             n_loc: int = 0):
     """The plain version of B5, step by step as the Pallas kernel: the
     δ̃ history starts at 0, wx_t = y_t·(base_t + Σ δ̃·G[:, t]), α is read
     from the running output, and δ̃_t·vals_t scatters into every shard's
-    slice.  Returns new (α, w); the inputs are not changed."""
+    slice.  Returns new (α, w); the inputs are not changed.  For a
+    (p, B) ``idx`` of p data shards (rows s·n_loc + id; base (p, B),
+    gram (p, B, B)), each shard in order against w, or its own w[s] of
+    a (p, m, d1) w: returns (α, the shards' updated w (p, m, d1))."""
+    if idx.dim() == 2:
+        ws = []
+        for s in range(idx.shape[0]):
+            alpha, w_s = dcd_feature_update_plain(
+                cols, vals, alpha, sq_norms, w[s] if w.dim() == 3 else w,
+                idx[s].long() + s * n_loc, base[s], gram[s], loss=loss,
+                active=active, y=y)
+            ws.append(w_s)
+        return alpha, torch.stack(ws)
     alpha, w = alpha.clone(), w.clone()
     d1, b = w.shape[1], idx.shape[0]
     w_flat = w.reshape(-1)
@@ -193,48 +245,59 @@ def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
 
 
 def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
-                       loss, active=None, y=None, workspace=None):
+                       loss, active=None, y=None, workspace=None,
+                       n_loc: int = 0):
     """The block's B sequential updates against the summed (base, gram);
-    ``sq_norms`` are the full row norms.  CUDA tensors launch B5 (R × m
-    CTAs, R B4's column classes; counted in
+    ``sq_norms`` are the full row norms.  A (p, B) ``idx`` is p data
+    shards (as ``dcd_feature_gram``; base (p, B), gram (p, B, B)), each
+    updating its own replica of the (m, d1) slices.  CUDA tensors launch
+    B5 (R × p·m CTAs, R B4's column classes; counted in
     ``dcd_feature_update.launches``); CPU tensors run the plain version
     and ignore ``workspace``.  ``workspace`` must hold B4's buckets of
     this same block ``idx`` (``dcd_feature_gram`` with it, since the
     last call that filled it); with None, B5 buckets the block itself in
-    the same launch, to the same bits.  Returns new (α, w)."""
+    the same launch, to the same bits.  Returns new (α, w) — with a
+    (p, B) ``idx``, w is the p replicas (p, m, d1)."""
     if w.device.type != "cuda":
         return dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx,
                                         base, gram, loss=loss,
-                                        active=active, y=y)
+                                        active=active, y=y, n_loc=n_loc)
     _check_block(cols, vals, w, idx)
+    sharded = idx.dim() == 2
+    p, idx, _ = _shards(idx.contiguous(), w)
     n, m, k = cols.shape
-    d1, b = w.shape[1], idx.shape[0]
-    plan = feature_update_plan(m, b, k, d1)
-    gplan = gram_plan(m, b, k, d1)
+    d1, b = w.shape[-1], idx.shape[1]
+    plan = feature_update_plan(m, b, k, d1, p)
+    gplan = gram_plan(m, b, k, d1, p)
     bucket = workspace is None
     if bucket:
-        workspace = gram_workspace(m, b, k, d1, w.device)
-    _check_workspace(workspace, m, b, k, gplan, w.device)
+        workspace = gram_workspace(m, b, k, d1, w.device, p)
+    _check_workspace(workspace, p * m, b, k, gplan, w.device)
+    base, gram = base.contiguous(), gram.contiguous()
     build.check_operands(w.device, {
         "cols": (cols, None), "vals": (vals, (n, m, k)),
         "alpha": (alpha, (n,)), "sq_norms": (sq_norms, (n,)),
         "active": (active, (n,)), "y": (y, (n,)), "w": (w, None),
-        "idx": (idx, None), "base": (base, (b,)), "gram": (gram, (b, b))},
+        "idx": (idx, None), "base": (base.view(p, b), (p, b)),
+        "gram": (gram.view(p, b, b), (p, b, b))},
         int32=("cols", "idx"))
-    a_out, w_out = alpha.clone(), w.clone()
+    a_out = alpha.clone()
+    # each data shard's replica of the slices, which its CTAs update
+    w_out = (w.expand(p, m, d1).clone(memory_format=torch.contiguous_format)
+             if sharded else w.clone())
     launch = build.entry("dcd_feature", "dcd_feature_update_launch",
-                         [P, I, P, P, I, I, I, P, P, P, P, P, P, I, P, P,
-                          I, F, F, F, I, I, I, I, I, I, I, I, I, I, P, P, P,
-                          P])
+                         [P, I, I, L, P, P, I, I, I, P, P, P, P, P, P, I, P,
+                          P, I, F, F, F, I, I, I, I, I, I, I, I, I, I, P, P,
+                          P, P])
     with torch.cuda.device(w.device):
-        err = launch(build.ptr(idx), b, build.ptr(cols), build.ptr(vals), m,
-                     k, d1 - 1, build.ptr(alpha), build.ptr(a_out),
-                     build.ptr(sq_norms), build.ptr(active), build.ptr(y),
-                     build.ptr(w_out), d1, build.ptr(base), build.ptr(gram),
-                     *kernel_params(loss), plan.classes, plan.per_lane,
-                     int(plan.stage_gram), FEATURE_UPDATE_CHUNK,
-                     plan.threads, plan.smem_bytes, int(bucket),
-                     GRAM_BUCKET_THREADS, gplan.bucket_smem,
+        err = launch(build.ptr(idx), b, plan.data, n_loc, build.ptr(cols),
+                     build.ptr(vals), m, k, d1 - 1, build.ptr(alpha),
+                     build.ptr(a_out), build.ptr(sq_norms),
+                     build.ptr(active), build.ptr(y), build.ptr(w_out), d1,
+                     build.ptr(base), build.ptr(gram), *kernel_params(loss),
+                     plan.classes, plan.per_lane, int(plan.stage_gram),
+                     FEATURE_UPDATE_CHUNK, plan.threads, plan.smem_bytes,
+                     int(bucket), GRAM_BUCKET_THREADS, gplan.bucket_smem,
                      build.ptr(workspace.lc), build.ptr(workspace.v),
                      build.ptr(workspace.roff), build.stream())
     build.check(err, "dcd_feature_update_launch")

@@ -23,8 +23,12 @@ import torch
 from repro_torch.core.duals import Hinge, SquaredHinge
 from repro_torch.data.sparse import flat_shard_ids
 from repro_torch.kernels import dcd_feature as feat
-from repro_torch.kernels.dcd_block import dcd_indexed_epoch, dcd_tile_epoch
-from repro_torch.kernels.dcd_ell import dcd_ell_epoch
+from repro_torch.kernels.dcd_block import (
+    dcd_indexed_epoch,
+    dcd_indexed_shards,
+    dcd_tile_epoch,
+)
+from repro_torch.kernels.dcd_ell import dcd_ell_shards
 
 
 def dcd_epoch(X, alpha, w, sq_norms=None, *, c: float = 1.0,
@@ -81,69 +85,97 @@ def dcd_epoch(X, alpha, w, sq_norms=None, *, c: float = 1.0,
 
 
 def dcd_block_update(X, sq_norms, alpha, w, idx, *, loss, active=None,
-                     y=None):
+                     y=None, n_loc: int = 0):
     """One indexed block of sequential DCD updates on a dense shard (B2).
     Returns (updated α shard, local Δw = w_new − w), the reference's
-    round trip."""
-    a_new, w_new = dcd_indexed_epoch(X, alpha, w, sq_norms, loss=loss,
-                                     idx=idx, active=active, y=y)
-    return a_new, w_new - w
+    round trip.  A (p, B) ``idx`` is p data shards, shard s's ids local
+    to rows [s·n_loc, (s+1)·n_loc), each against ``w`` (or its own row
+    of a (p, d) ``w``): returns (α, Δw (p, d)), the shards' Δw before
+    their sum.  Either way it is one launch of the shard grid (a (B,)
+    ``idx`` is a grid of one shard)."""
+    if idx.dim() == 1:
+        a_new, dw = dcd_indexed_shards(X, alpha, w, sq_norms, loss=loss,
+                                       idx=idx[None], n_loc=0,
+                                       active=active, y=y)
+        return a_new, dw[0]
+    return dcd_indexed_shards(X, alpha, w, sq_norms, loss=loss, idx=idx,
+                              n_loc=n_loc, active=active, y=y)
 
 
 def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
-                         active=None, y=None):
+                         active=None, y=None, n_loc: int = 0):
     """One indexed block of sequential DCD updates on an ELL shard (B1)
     against the (d+1,) padded primal.  Returns (updated α shard, local
-    Δw_pad); the dummy slot of Δw_pad is identically zero."""
-    a_new, w_new = dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms,
-                                 loss=loss, idx=idx, active=active, y=y)
-    return a_new, w_new - w_pad
+    Δw_pad); the dummy slot of Δw_pad is identically zero.  A (p, B)
+    ``idx`` is p data shards as in ``dcd_block_update``: (α, Δw
+    (p, d+1))."""
+    if idx.dim() == 1:
+        a_new, dw = dcd_ell_shards(cols, vals, alpha, w_pad, sq_norms,
+                                   loss=loss, idx=idx[None], n_loc=0,
+                                   active=active, y=y)
+        return a_new, dw[0]
+    return dcd_ell_shards(cols, vals, alpha, w_pad, sq_norms, loss=loss,
+                          idx=idx, n_loc=n_loc, active=active, y=y)
 
 
 # ------------------- split-phase 2-D (feature-sharded) block entry points
 # cols/vals: (n, m, k) shard-local ELL slices, w: (m, d_loc + 1) primal
-# slices; see repro_torch.kernels.dcd_feature.
+# slices; see repro_torch.kernels.dcd_feature.  A (p, B) ``idx`` is p data
+# shards, shard s's ids local to its rows [s·n_loc, (s+1)·n_loc), each
+# with its own (base, Gram) and its own replica of w.
 
 
-def dcd_feature_gram(cols, vals, w_ref, idx, *, workspace=None):
+def dcd_feature_gram(cols, vals, w_ref, idx, *, workspace=None,
+                     n_loc: int = 0):
     """Phase 1: the block's (base, Gram) — B4's per-shard partials summed
     over the shard dimension, the reference's psum over ``model``.
     ``base`` is w_refᵀx_t against whatever reference primal the caller
     holds (one data-round stale in the overlapped round, repaired by
-    ``dcd_feature_base_correction``).  Returns (base (B,), gram (B, B))."""
+    ``dcd_feature_base_correction``).  Returns (base (B,), gram (B, B)),
+    or (p, B) and (p, B, B) for p data shards."""
     base_p, gram_p = feat.dcd_feature_gram(cols, vals, w_ref, idx,
-                                           workspace=workspace)
-    return base_p.sum(0), gram_p.sum(0)
+                                           workspace=workspace, n_loc=n_loc)
+    return base_p.sum(-2), gram_p.sum(-3)
 
 
-def dcd_feature_base_correction(cols, vals, dvec, idx):
+def dcd_feature_base_correction(cols, vals, dvec, idx, n_loc: int = 0):
     """Correct a stale base by the aggregate it was computed without:
     Δbase_t = Δwᵀx_t for the block's rows, each shard's partial summed
-    over shards.  ``dvec`` is the (m, d_loc + 1) missing aggregate."""
-    ids = flat_shard_ids(cols[idx.long()], dvec.shape[1])  # (B, m, k)
-    part = torch.sum(dvec.reshape(-1)[ids] * vals[idx.long()], dim=2)
-    return part.sum(1)
+    over shards.  ``dvec`` is the (m, d_loc + 1) missing aggregate; a
+    (p, B) ``idx`` gives each data shard's (p, B)."""
+    rows = idx.long()
+    if idx.dim() == 2:
+        rows = rows + n_loc * torch.arange(idx.shape[0],
+                                           device=idx.device)[:, None]
+    ids = flat_shard_ids(cols[rows], dvec.shape[-1])  # (..., B, m, k)
+    part = torch.sum(dvec.reshape(-1)[ids] * vals[rows], dim=-1)
+    return part.sum(-1)
 
 
 def dcd_feature_update(cols, vals, sq_norms, alpha, w, idx, base, gram, *,
-                       loss, active=None, y=None, workspace=None):
+                       loss, active=None, y=None, workspace=None,
+                       n_loc: int = 0):
     """Phase 2: the B-step δ recursion against a summed (base, Gram) —
     B5.  ``sq_norms`` are the full row norms; ``workspace``, if given,
     holds B4's buckets of this same block.  Returns (updated α, updated
-    primal slices)."""
+    primal slices) — for p data shards, each shard's updated replica
+    (p, m, d_loc + 1)."""
     return feat.dcd_feature_update(cols, vals, alpha, sq_norms, w, idx,
                                    base, gram, loss=loss, active=active,
-                                   y=y, workspace=workspace)
+                                   y=y, workspace=workspace, n_loc=n_loc)
 
 
 def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
-                             active=None, y=None, workspace=None):
-    """One indexed block of B sequential DCD updates on the feature
+                             active=None, y=None, workspace=None,
+                             n_loc: int = 0):
+    """One indexed block of B sequential updates on the feature
     shards — the fused counterpart of the solver's unfused engine, the
     eager composition of the phases above.  Returns (updated α, Δw =
-    w_new − w over the (m, d_loc + 1) slices)."""
-    base, gram = dcd_feature_gram(cols, vals, w, idx, workspace=workspace)
+    w_new − w over the (m, d_loc + 1) slices), or the p data shards' Δw
+    (p, m, d_loc + 1)."""
+    base, gram = dcd_feature_gram(cols, vals, w, idx, workspace=workspace,
+                                  n_loc=n_loc)
     a_new, w_new = dcd_feature_update(cols, vals, sq_norms, alpha, w, idx,
                                       base, gram, loss=loss, active=active,
-                                      y=y, workspace=workspace)
+                                      y=y, workspace=workspace, n_loc=n_loc)
     return a_new, w_new - w

@@ -560,3 +560,169 @@ def test_b5_kernel_is_deterministic(case):
                                     **kw)
     for a, b, c in zip(first, second, alone):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# ------------------------------------------------- data shards (a grid)
+# (n_loc, p, b): B1/B2 over p data shards of n_loc rows, b ids each; the
+# last has more shards than the card has SMs, so the result must not rest
+# on which CTAs run together
+SHARD_GRIDS = {"p3": (64, 3, 24), "p8": (25, 8, 16), "p150": (2, 150, 3)}
+
+
+def _shard_ids(rng, n_loc, p, b, dev):
+    ids = rng.integers(0, n_loc, (p, b)).astype(np.int32)
+    ids[:, -1] = ids[:, 0]  # a repeated id in every shard
+    return torch.from_numpy(ids).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_shard_w", [False, True], ids=["one_w", "own_w"])
+@pytest.mark.parametrize("wide", [False, True], ids=["by_shape", "wide"])
+@pytest.mark.parametrize("grid", sorted(SHARD_GRIDS))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b1_shard_grid_matches_plain(loss, grid, wide, per_shard_w):
+    from repro_torch.kernels.dcd_ell import (
+        dcd_ell_shards,
+        dcd_ell_shards_plain,
+    )
+    dev = _cuda()
+    n_loc, p, b = SHARD_GRIDS[grid]
+    cols, vals, alpha, w, active, y, _ = _ell_case(dev, n_loc * p, 300, 37,
+                                                   4)
+    rng = np.random.default_rng(11)
+    ids = _shard_ids(rng, n_loc, p, b, dev)
+    if per_shard_w:  # each shard its own w, at w's own scale
+        w = w + 0.001 * torch.arange(p, device=dev)[:, None]
+        w[:, -1] = 0.0
+    q = (vals * vals).sum(1)
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
+              active=active, y=y)
+    variant = "wide" if wide else "staged"
+    assert dcd_ell_plan(b, 37, wide, p) == dcd_ell_plan(b, 37, wide)._replace(
+        shards=p)
+    n0 = dcd_ell_shards.variant_launches[variant]
+    ka, kdw = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)
+    assert dcd_ell_shards.variant_launches[variant] == n0 + 1
+    pa, pdw = dcd_ell_shards_plain(cols, vals, alpha, w, q, **kw)
+    _close(ka, pa)
+    _close(kdw, pdw)
+    assert float(kdw[:, -1].abs().max()) == 0.0  # the dummy slots
+    again = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_shard_w", [False, True], ids=["one_w", "own_w"])
+@pytest.mark.parametrize("d", [54, 300], ids=["staged", "wide"])
+@pytest.mark.parametrize("grid", sorted(SHARD_GRIDS))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b2_shard_grid_matches_plain(loss, grid, d, per_shard_w):
+    from repro_torch.kernels.dcd_block import (
+        dcd_indexed_shards,
+        dcd_indexed_shards_plain,
+    )
+    dev = _cuda()
+    n_loc, p, b = SHARD_GRIDS[grid]
+    rng = np.random.default_rng(12)
+    X = torch.from_numpy((rng.standard_normal((n_loc * p, d)) * 0.3 /
+                          np.sqrt(d)).astype(np.float32)).to(dev)
+    X[-1] = 0.0  # a padding row
+    alpha, _, active, y, _ = _state(rng, n_loc * p, 1, dev)
+    w = torch.from_numpy((rng.standard_normal((p, d) if per_shard_w else d)
+                          * 0.1).astype(np.float32)).to(dev)
+    ids = _shard_ids(rng, n_loc, p, b, dev)
+    q = (X * X).sum(1)
+    q[-1] = 1.0
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
+              active=active, y=y)
+    variant = dcd_dense_plan(b, d, False, p).variant
+    assert variant == ("staged" if d == 54 else "wide")
+    n0 = dcd_indexed_shards.variant_launches[variant]
+    ka, kdw = dcd_indexed_shards(X, alpha, w, q, **kw)
+    assert dcd_indexed_shards.variant_launches[variant] == n0 + 1
+    pa, pdw = dcd_indexed_shards_plain(X, alpha, w, q, **kw)
+    _close(ka, pa)
+    _close(kdw, pdw)
+    again = dcd_indexed_shards(X, alpha, w, q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_shard_w", [False, True], ids=["one_w", "own_w"])
+@pytest.mark.parametrize("p", [2, 5])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b4_b5_data_grid_matches_plain(loss, p, per_shard_w):
+    dev = _cuda()
+    cols, vals, w, _ = _feature_case(dev, n=60 * p, repeat_col=False)
+    n, m, k = cols.shape
+    n_loc, b = 60, 16
+    rng = np.random.default_rng(13)
+    ids = _shard_ids(rng, n_loc, p, b, dev)
+    if per_shard_w:
+        w = (w[None] + 0.01 * torch.arange(p, device=dev)[:, None, None])
+        w[..., -1] = 0.0
+    ws = feat.gram_workspace(m, b, k, w.shape[-1], dev, p)
+    assert ws.lc.shape == (p * m, b, k)
+    n0 = (feat.dcd_feature_gram.launches, feat.dcd_feature_update.launches)
+    kb, kg = feat.dcd_feature_gram(cols, vals, w, ids, workspace=ws,
+                                   n_loc=n_loc)
+    pb, pg = feat.dcd_feature_gram_plain(cols, vals, w, ids, n_loc)
+    _close(kb, pb)
+    _close(kg, pg)
+    alpha, _, active, y, _ = _state(rng, n, 1, dev)
+    q = (vals * vals).sum((1, 2))
+    kw = dict(loss=td.make_loss(loss, 0.8), active=active, y=y, n_loc=n_loc)
+    base, gram = pb.sum(1), pg.sum(1)
+    ka, kwv = feat.dcd_feature_update(cols, vals, alpha, q, w, ids, base,
+                                      gram, workspace=ws, **kw)
+    sa, swv = feat.dcd_feature_update(cols, vals, alpha, q, w, ids, base,
+                                      gram, **kw)  # its own bucket pass
+    pa, pw = feat.dcd_feature_update_plain(cols, vals, alpha, q, w, ids,
+                                           base, gram, **kw)
+    _close(ka, pa)
+    _close(kwv, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(sa, ka) and torch.equal(swv, kwv)
+    assert kwv.shape == (p, m, w.shape[-1])
+    assert (feat.dcd_feature_gram.launches,
+            feat.dcd_feature_update.launches) == (n0[0] + 1, n0[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    dict(dense=False, p=2), dict(dense=True, p=8),
+    dict(dense=False, p=4, delay_rounds=1),
+    dict(dense=False, p=4, shrink_every=1, repack=True),
+    dict(dense=True, p=4, adaptive=True, delay_rounds=1,
+         adaptive_ratio=0.5),
+    dict(dense=False, p=2, model=2), dict(dense=False, p=2, model=2,
+                                          delay_rounds=1),
+    dict(dense=False, p=2, model=2, shrink_every=1)],
+    ids=["ell_p2", "dense_p8", "ell_p4_delay", "ell_p4_shrink_repack",
+         "dense_p4_adaptive", "2d_p2", "2d_p2_overlap", "2d_p2_shrink"])
+def test_sharded_solver_kernel_path_matches_cpu_path(knobs):
+    """p > 1 data shards on the card (the shard-grid kernels) against the
+    same solve's CPU path (their plain versions; the fused 2-D engine on
+    both)."""
+    from repro_torch.dist.mesh import solver_mesh
+    dev = _cuda()
+    knobs = dict(knobs)
+    ds = make_dataset("tiny", device="cpu")
+    X = ds.dense_train() if knobs.pop("dense") else ds.X_train
+    p, model = knobs.pop("p"), knobs.pop("model", None)
+    mesh = (solver_mesh(n_devices=p) if model is None
+            else solver_mesh_2d(data=p, model=model))
+    kw = dict(mesh=mesh, epochs=4, block_size=16, seed=4, **knobs)
+    on_card = sharded_passcode_solve(X.to(dev), td.Hinge(), **kw)
+    on_cpu = sharded_passcode_solve(X, td.Hinge(), use_kernel=True,
+                                    device="cpu", **kw)
+    _close(on_card.alpha, on_cpu.alpha)
+    _close(on_card.w_hat, on_cpu.w_hat)
+    np.testing.assert_allclose(on_card.gaps.cpu().numpy(),
+                               on_cpu.gaps.numpy(), rtol=1e-5, atol=ATOL)
+    np.testing.assert_array_equal(on_card.active.cpu().numpy(),
+                                  on_cpu.active.numpy())
+    np.testing.assert_array_equal(on_card.delay.cpu().numpy(),
+                                  on_cpu.delay.numpy())

@@ -313,3 +313,25 @@ def test_b3_stream_bytes_count_the_ring():
              np.empty(T, np.float32), np.empty(T, np.float32)]
     assert dcd_tile_stream_bytes(T, S, d) == S * sum(a.nbytes for a in stage)
 
+
+
+@pytest.mark.parametrize("shards", [1, 2, 8, 150])
+def test_shard_grid_plans_keep_each_ctas_layout(shards):
+    """p data shards multiply the grid and B4's workspace, and change no
+    CTA's layout: every plan at p shards is the p = 1 plan with its
+    shard count, and the workspace holds p·m (data, model) pairs."""
+    for b, k in [(64, 73), (64, 3728)]:
+        plan = dcd_ell_plan(b, k, False, shards)
+        assert plan == dcd_ell_plan(b, k)._replace(shards=shards)
+    for b, d in [(64, 54), (64, 300)]:
+        plan = dcd_dense_plan(b, d, False, shards)
+        assert plan == dcd_dense_plan(b, d)._replace(shards=shards)
+    m, b, k, d1 = 2, 16, 40, 501
+    g = gram_plan(m, b, k, d1, shards)
+    assert g == gram_plan(m, b, k, d1)._replace(data=shards)
+    u = feature_update_plan(m, b, k, d1, shards)
+    assert u == feature_update_plan(m, b, k, d1)._replace(data=shards)
+    ws = gram_workspace(m, b, k, d1, torch.device("cpu"), shards)
+    assert tuple(ws.lc.shape) == tuple(ws.v.shape) == (shards * m, b, k)
+    assert tuple(ws.roff.shape) == (shards * m, b, g.classes + 1)
+    assert tuple(ws.part.shape) == (shards * m, g.classes, b, b)

@@ -18,6 +18,8 @@ is often 100× the gap (the reference's own ELL and dense paths differ by
 17 float32 ulps of M, with M taken in float64 from the final α.
 """
 
+import types
+
 import jax
 import numpy as np
 import pytest
@@ -249,64 +251,127 @@ def test_dcd_solve_rejects_bad_perms():
 
 
 TWO_D = dict(mesh=solver_mesh_2d(model=2))
+ACTS = "acts"  # the knob is ported: it acts as the reference's does
 
-
+# (knob, the ROADMAP item that names it, what it does in the port): the
+# self-tuning knobs (A.7 on the 1-D mesh, A′.2 on the 2-D mesh) and
+# p > 1 data shards (A′.1) act; pods (A.10), multi-task (A.9) and the
+# host driver (A′.12) still raise
 KNOBS = [
-    (dict(shrink_every=1), "A.7", NotImplementedError),
-    (dict(repack=True), "A.7", NotImplementedError),
-    (dict(adaptive=True), "A.7", NotImplementedError),
+    (dict(shrink_every=1), "A.7", ACTS),
+    (dict(repack=True), "A.7", ValueError),  # without shrink_every
+    (dict(adaptive=True), "A.7", ACTS),
     (dict(pod_delay_rounds=1), "A.10", NotImplementedError),
     (dict(mesh_axes=("pod", "data")), "A.10", NotImplementedError),
-    (dict(mesh=solver_mesh_2d(data=2, model=2)), "A′.1",
-     NotImplementedError),
+    (dict(mesh=solver_mesh_2d(data=2, model=2)), "A′.1", ACTS),
     (dict(overlap=True), "2-D", ValueError),
     (dict(mesh_axes=("task", "data")), "A.9", NotImplementedError),
     (dict(y=np.ones((2, 8), np.float32)), "A.9", NotImplementedError),
-    (dict(TWO_D, shrink_every=1), "A′.2", NotImplementedError),
-    (dict(TWO_D, adaptive=True), "A′.2", NotImplementedError),
+    (dict(TWO_D, shrink_every=1), "A′.2", ACTS),
+    (dict(TWO_D, adaptive=True), "A′.2", ACTS),
     (dict(pipeline=False), "A′.12", NotImplementedError),
     # the reference's tuning values act only with their knob on
-    (dict(shrink_every=2, shrink_tol=1e-2), "A.7", NotImplementedError),
-    (dict(shrink_every=1, repack=True, repack_threshold=0.3), "A.7",
-     NotImplementedError),
-    (dict(adaptive=True, adaptive_ratio=0.5), "A.7", NotImplementedError),
-    (dict(TWO_D, adaptive=True, adaptive_ratio=0.5), "A′.2",
-     NotImplementedError),
+    (dict(shrink_every=2, shrink_tol=1e-2), "A.7", ACTS),
+    (dict(shrink_every=1, repack=True, repack_threshold=0.3), "A.7", ACTS),
+    (dict(adaptive=True, adaptive_ratio=0.5), "A.7", ACTS),
+    (dict(TWO_D, adaptive=True, adaptive_ratio=0.5), "A′.2", ACTS),
 ]
+KNOB_SOLVE = dict(epochs=3, block_size=32, seed=5)
 
 
-@pytest.mark.parametrize("knob,item,error", KNOBS,
+@pytest.fixture(scope="module")
+def ref_data_shards(tmp_path_factory):
+    """The reference's solve of knob 5 (data = 2, model = 2) on 4 fake
+    devices, in a child process (``test_torch_shards.reference_solves``)."""
+    from test_torch_shards import case, reference_solves
+    return reference_solves(
+        {"knob5": case(p=2, model=2, **KNOB_SOLVE)},
+        tmp_path_factory.mktemp("ref_knobs"))["knob5"]
+
+
+def _reference_knob_solve(knob, request):
+    """The reference's solve with ``knob`` on ``tiny``: in this process
+    where one device suffices (a 2-D mesh of m feature shards is held to
+    the reference's m = 1 solve, as in ``test_torch_solver2d``), else
+    from the child."""
+    if knob.get("mesh") is not None and knob["mesh"].shape["data"] > 1:
+        return types.SimpleNamespace(
+            **request.getfixturevalue("ref_data_shards"))
+    kw = {k: v for k, v in knob.items() if k != "mesh"}
+    if "mesh" in knob:
+        kw["mesh"] = jax.make_mesh((1, 1), ("data", "model"))
+    return rs.sharded_passcode_solve(make_dataset("tiny").X_train,
+                                     rd.Hinge(), **kw, **KNOB_SOLVE)
+
+
+@pytest.mark.parametrize("knob,item,expect", KNOBS,
                          ids=[f"knob{i}-{c[1]}".replace("′", "'")
                               for i, c in enumerate(KNOBS)])
-def test_unported_knobs_raise(knob, item, error):
-    """Each knob outside the ported slices raises, naming its ROADMAP
-    item; overlap=True on the 1-D mesh is the reference's ValueError
-    (``pipeline_overlap``)."""
-    with pytest.raises(error, match=item):
-        sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
-                               device="cpu", **knob)
+def test_unported_knobs_raise(tiny, request, knob, item, expect):
+    """Each knob of the reference either acts — the ported self-tuning
+    and data-shard knobs, whose solve is held to the reference's — or
+    raises: the reference's own ``ValueError`` (``resolve_self_tuning``,
+    ``pipeline_overlap``), with its message, or ``NotImplementedError``
+    naming the ROADMAP item of a knob still outside the port."""
+    if expect is NotImplementedError:
+        with pytest.raises(NotImplementedError, match=item):
+            sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
+                                   device="cpu", **knob)
+        return
+    if expect is ValueError:
+        with pytest.raises(ValueError) as want:
+            rs.sharded_passcode_solve(np.ones((8, 3), np.float32),
+                                      rd.Hinge(), epochs=1, **knob)
+        with pytest.raises(ValueError) as got:
+            sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
+                                   device="cpu", **knob)
+        assert str(got.value) == str(want.value)
+        return
+    Xp = _port_X(tiny, True)
+    p = sharded_passcode_solve(Xp, td.Hinge(), device="cpu", **knob,
+                               **KNOB_SOLVE)
+    _assert_result(p, _reference_knob_solve(knob, request), Xp, td.Hinge())
 
 
 PREPARE_KNOBS = [
-    (dict(y=np.ones((2, 8), np.float32)), "A.9"),
-    (dict(mesh_axes=("task", "data")), "A.9"),
-    (dict(mesh_axes=("pod", "data")), "A.10"),
-    (dict(pod_delay_rounds=2), "A.10"),
-    (dict(shrink_every=1, shrink_tol=1e-2), "A.7"),
-    (dict(repack=True, repack_threshold=0.3), "A.7"),
-    (dict(adaptive=True, adaptive_ratio=0.5), "A.7"),
-    (dict(pipeline=False), "A′.12"),
+    (dict(y=np.ones((2, 8), np.float32)), "A.9", NotImplementedError),
+    (dict(mesh_axes=("task", "data")), "A.9", NotImplementedError),
+    (dict(mesh_axes=("pod", "data")), "A.10", NotImplementedError),
+    (dict(pod_delay_rounds=2), "A.10", NotImplementedError),
+    (dict(shrink_every=1, shrink_tol=1e-2), "A.7", ACTS),
+    (dict(repack=True, repack_threshold=0.3), "A.7", ValueError),
+    (dict(adaptive=True, adaptive_ratio=0.5), "A.7", ACTS),
+    (dict(pipeline=False), "A′.12", NotImplementedError),
 ]
 
 
-@pytest.mark.parametrize("knob,item", PREPARE_KNOBS,
+@pytest.mark.parametrize("knob,item,expect", PREPARE_KNOBS,
                          ids=[f"knob{i}-{c[1]}".replace("′", "'")
                               for i, c in enumerate(PREPARE_KNOBS)])
-def test_prepare_solver_unported_knobs_raise(knob, item):
-    """``prepare_solver`` takes every keyword of the reference's and
-    raises, naming the ROADMAP item, where a value would act."""
-    with pytest.raises(NotImplementedError, match=item):
-        prepare_solver(torch.ones((8, 3)), td.Hinge(), device="cpu", **knob)
+def test_prepare_solver_unported_knobs_raise(knob, item, expect):
+    """``prepare_solver`` takes every keyword of the reference's: a
+    ported knob resolves as the reference's (``SelfTuning`` and the
+    tuning values), a bad combination raises the reference's
+    ``ValueError``, and a knob outside the port raises
+    ``NotImplementedError`` naming its ROADMAP item."""
+    X = torch.ones((8, 3))
+    if expect is NotImplementedError:
+        with pytest.raises(NotImplementedError, match=item):
+            prepare_solver(X, td.Hinge(), device="cpu", **knob)
+        return
+    if expect is ValueError:
+        with pytest.raises(ValueError) as want:
+            rs.prepare_solver(np.ones((8, 3), np.float32), rd.Hinge(),
+                              **knob)
+        with pytest.raises(ValueError) as got:
+            prepare_solver(X, td.Hinge(), device="cpu", **knob)
+        assert str(got.value) == str(want.value)
+        return
+    want = rs.prepare_solver(np.ones((8, 3), np.float32), rd.Hinge(), **knob)
+    got = prepare_solver(X, td.Hinge(), device="cpu", **knob)
+    assert tuple(got.tuning) == tuple(want.tuning)
+    assert (got.shrink_tol, got.repack_threshold, got.adaptive_ratio) == (
+        want.shrink_tol, want.repack_threshold, want.adaptive_ratio)
 
 
 @pytest.mark.parametrize("knob", [dict(shrink_tol=1e-3),
