@@ -40,13 +40,22 @@ result line):
    p data shards laid out as the solver lays them out (the tail padded),
    held to its plain version over a few rounds from α = 0 (each shard's
    Δw, α and w; hinge, and squared hinge and logistic on one round), its
-   second launch to the same bits, and timed.  ``torch.profiler`` views
+   second launch to the same bits, and timed.  The task grid of the
+   multi-task (one-vs-rest) solve: B1 at rcv1 with K = 53 classes over
+   p = 8 shards (424 CTAs), B2 at covtype with K = 7 over p = 8, and B4 +
+   B5 at the webspam split with K = 4 (m = 4), each launch K tasks with
+   their own α, w and labels on the shared rows, held to its plain
+   version over 2 rounds from α = 0, its second launch to the same bits,
+   and timed.  ``torch.profiler`` views
    20 rounds of the rcv1, the covtype and the webspam solve, at p = 1
    and over the shard grid (wall time, device-busy time, idle share);
    then the solver's kernel paths against their CPU paths on a small
    input (1-D, and 2-D with the overlapped round; p = 2 and 8, data =
    2, with shrinking and repacking, and p = 4 with an adaptive delay
-   whose flag latches to 0); one p = 1 epoch of the rcv1, covtype and
+   whose flag latches to 0; and the multi-task solve with K = 3 classes,
+   1-D ELL at p = 2 with shrinking and repacking, dense at p = 4 with an
+   adaptive delay, 2-D data = 2, m = 2 overlapped, each task's records
+   equal); one p = 1 epoch of the rcv1, covtype and
    webspam-rows solves against the single-block round the solver ran
    before the shard grid, α and ŵ bit for bit; B1's and B2's wide variants over
    a whole epoch's order, the launch ``dcd_solve`` and PASSCoDe-Lock
@@ -70,7 +79,18 @@ result line):
    shrinking), each printing
    its active fractions, delay flags, rounds run per epoch (the final
    epoch's all of them) and host reads of the round count, and calling
-   no plain version; serial DCD (``dcd_solve``) and
+   no plain version; the multi-task (one-vs-rest) solve, its classes the
+   argmax of x_iᵀV over a random (d, K) V drawn from the seed + 1: rcv1
+   K = 53 at p = 8 (3 epochs, and again with shrinking and repacking
+   below 0.8 active), covtype K = 7 at p = 8 (3 epochs), webspam on the
+   2-D mesh with K = 4, m = 4 (2 epochs), each printing its seconds per
+   epoch, each epoch's gaps over the tasks (min / median / max), rounds,
+   peak memory and top-1 accuracy against the majority share (with
+   shrinking the active fractions, rounds and host reads); K = 1 held
+   bit for bit to the binary solve on folded rows (rcv1 and covtype,
+   p = 8, one epoch), and the one solve to the loop over K binary solves
+   (covtype's 7 classes, rcv1's classes 0, 26 and 52) at atol 1e-5;
+   serial DCD (``dcd_solve``) and
    PASSCoDe-Lock (``passcode_solve``, 8 threads) on rcv1 and covtype, 3
    epochs each, one wide B1 (B2) launch per epoch, Lock's first epoch
    held to ``dcd_epoch`` over the same seeded order; PASSCoDe-Atomic and
@@ -89,7 +109,9 @@ result line):
 5. one JSON line of per-kernel numbers (with each kernel's variant, and
    B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
    ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
-   ``dcd_feature_gram_data`` and ``dcd_feature_update_data``; every row
+   ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
+   grids' ``dcd_ell_tasks``, ``dcd_indexed_tasks``,
+   ``dcd_feature_gram_tasks`` and ``dcd_feature_update_tasks``; every row
    launched on a main path), then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -122,6 +144,10 @@ ADAPTIVE_RATIO = 0.3  # the full-size adaptive path's gap-trend ratio
 THREADS = 8  # PASSCoDe's simulated threads (the examples' Atomic/Wild(8))
 PASSCODE_ROWS = 100_000  # rcv1 rows of the Atomic and Wild epochs
 TWIN_EPOCHS = 3
+SEED = 0  # the solves' seed; the multi-task classes draw V from SEED + 1
+# the multi-task paths' class counts: LIBSVM's rcv1.multiclass has 53
+# classes, covtype 7 cover types; webspam's 4 keep its 2-D state small
+K_R, K_C, K_W = 53, 7, 4
 
 
 def fail(msg):
@@ -229,6 +255,7 @@ def main():
     from repro_torch.core.dcd import DcdState, dcd_epoch, dcd_solve
     from repro_torch.core.objective import (
         duality_gap,
+        multiclass_accuracy,
         predict_accuracy,
         w_of_alpha,
     )
@@ -245,6 +272,7 @@ def main():
         _scan_rounds,
         sharded_passcode_solve,
     )
+    from repro_torch.data.labels import ovr_labels
     from repro_torch.data.sparse import EllMatrix, ell_column_split
     from repro_torch.data.synthetic import make_dataset, make_paper_split
     from repro_torch.dist.mesh import (
@@ -307,6 +335,35 @@ def main():
           f"{time.perf_counter() - t0:.1f}s")
     n_r, k_r, d_r = X_rcv1.n_rows, X_rcv1.k_max, X_rcv1.n_features
     n_c, d_c = X_cov.shape
+
+    # the multi-task paths' classes: the rows as the unfolded X, class
+    # ids argmax_k x_iᵀV[:, k] with V a (d, K) standard normal drawn on
+    # the card from SEED + 1, and Y their (K, n) one-vs-rest matrix
+    def class_ids(X, K):
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 1)
+        d = X.n_features if isinstance(X, EllMatrix) else X.shape[1]
+        V = torch.randn((d, K), generator=g, device=dev)
+        if not isinstance(X, EllMatrix):
+            return torch.argmax(X @ V, dim=1)
+        Vp = torch.cat([V, torch.zeros((1, K), device=dev)])  # dummy slot
+        rows = max(1, (1 << 26) // (X.k_max * K))
+        return torch.cat([
+            torch.argmax((Vp[c.long()] * v[..., None]).sum(1), dim=1)
+            for c, v in zip(X.indices.split(rows), X.values.split(rows))])
+
+    t0 = time.perf_counter()
+    classes = {}
+    for name, X, K in [("rcv1", X_rcv1, K_R), ("covtype", X_cov, K_C),
+                       ("webspam", X_web, K_W)]:
+        ids = class_ids(X, K)
+        counts = torch.bincount(ids, minlength=K)
+        classes[name] = (ids, ovr_labels(ids, K, device=dev),
+                         float(counts.max()) / ids.numel())
+        print(f"data: {name} {K} classes, sizes {int(counts.min())} to "
+              f"{int(counts.max())} (majority share "
+              f"{classes[name][2]:.4f})")
+    print(f"data: classes drawn in {time.perf_counter() - t0:.1f}s")
     q_r = X_rcv1.row_sq_norms()
     q_c = (X_cov * X_cov).sum(1)
     gen = torch.Generator(device=dev)
@@ -1107,13 +1164,229 @@ def main():
           f"{P_W1} {_n_blocks(n_loc_w1, B)}")
     del mats_d, a_g, w_g
 
+    # ----------------------- the task grid: K tasks of p shards a launch
+    # B1, B2, B4 and B5 over the multi-task paths' (task × shard) grids:
+    # rcv1 K = 53 at p = 8 (B1 staged, 424 CTAs), covtype K = 7 at p = 8
+    # (B2 staged, 56 CTAs) and the webspam split K = 4 at m = 4 (B4 over
+    # 16 (task, model) pairs, B5 R × 16 CTAs), with the paths' own labels
+    # folded on read and one (p, B) block for every task, as the solver
+    # draws it without repacking; held to the plain versions (which loop
+    # the tasks, then the shards) over 2 rounds from α = 0 with hinge,
+    # each pair's Δw, α and w compared; a second launch to the same bits;
+    # timed behind the spin
+    def pad_labels(Y, n_pad):
+        return torch.cat([Y, torch.ones((Y.shape[0], n_pad - Y.shape[1]),
+                                        device=dev)], 1).contiguous()
+
+    def compare_tasks(name, kernel, plain, state0, ids, rounds=2):
+        """The grid's rounds through the kernel and its plain version
+        (hinge), each carrying its own (α, w), w += each task's Δw summed
+        over its shards; returns (max abs err, the plain version's ms a
+        call)."""
+        (ka, kw), (pa, pw) = state0(), state0()
+        e, pl = 0.0, []
+        for r in range(rounds):
+            ka, kdw = kernel(ka, kw, ids[r])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pa, pdw = plain(pa, pw, ids[r])
+            torch.cuda.synchronize()
+            pl.append((time.perf_counter() - t0) * 1e3)
+            e = max(e, float((kdw - pdw).abs().max()))
+            kw, pw = kw + kdw.sum(1), pw + pdw.sum(1)
+        e = max(e, float((ka - pa).abs().max()), float((kw - pw).abs().max()))
+        print(f"  {name}: max abs err {e:.3g} over {rounds} rounds of "
+              f"{ka.shape[0]} × {ids.shape[1]} × {B} updates (each pair's "
+              f"Δw, α and w; tolerance {ATOL}); plain version "
+              f"{min(pl):.1f} ms a call")
+        if not e <= ATOL:
+            fail(f"{name} disagrees with its plain version")
+        return e, min(pl)
+
+    tasks = {}  # name → (ms, plain ms, bytes, ops, what, err, library ms)
+    Y_r8 = pad_labels(classes["rcv1"][1], np_r8)
+
+    def t1(a, w, i):
+        return dcd_ell_shards(cols_r8, vals_r8, a, w, q_r8, loss=hinge,
+                              idx=i, n_loc=n_loc_r8, y=Y_r8)
+
+    def t1_plain(a, w, i):
+        return dcd_ell_shards_plain(cols_r8, vals_r8, a, w, q_r8,
+                                    loss=hinge, idx=i, n_loc=n_loc_r8,
+                                    y=Y_r8)
+
+    def zeros_t1():
+        return (torch.zeros((K_R, np_r8), device=dev),
+                torch.zeros((K_R, d_r + 1), device=dev))
+
+    print(f"  B1 task grid at rcv1, K = {K_R}, p = {P_R}: "
+          f"{dcd_ell_plan(B, k_r, False, P_R, K_R)}")
+    err_t1, plain_t1 = compare_tasks(
+        f"B1 dcd_ell_shards staged (rcv1, K = {K_R}, p = {P_R})", t1,
+        t1_plain, zeros_t1, ids_r8)
+    a_t, w_t = zeros_t1()
+    same_bits(f"B1 dcd_ell_shards staged (rcv1, K = {K_R}, p = {P_R})",
+              lambda: t1(a_t, w_t, ids_r8[0]), torch)
+    ms_t1 = cuda_ms(lambda: t1(a_t, w_t, ids_r8[next(it) % 16]), 20, torch)
+    tasks["dcd_ell_tasks"] = (
+        ms_t1, plain_t1,
+        4 * (2 * K_R * np_r8 + K_R * (1 + P_R) * (d_r + 1))
+        + P_R * B * (k_r * 8 + 8) + 4 * K_R * P_R * B,
+        4 * K_R * P_R * B * k_r,
+        f"rcv1, K = {K_R}, p = {P_R}, {B} ids a pair", err_t1, None,
+        "src/repro_torch/kernels/csrc/dcd_ell.cu",
+        "src/repro/kernels/dcd_ell.py:51", "staged")
+    del a_t, w_t
+
+    Y_c8 = pad_labels(classes["covtype"][1], np_c8)
+
+    def t2(a, w, i):
+        return dcd_indexed_shards(X_c8, a, w, q_c8, loss=hinge_c, idx=i,
+                                  n_loc=n_loc_c8, y=Y_c8)
+
+    def t2_plain(a, w, i):
+        return dcd_indexed_shards_plain(X_c8, a, w, q_c8, loss=hinge_c,
+                                        idx=i, n_loc=n_loc_c8, y=Y_c8)
+
+    def zeros_t2():
+        return (torch.zeros((K_C, np_c8), device=dev),
+                torch.zeros((K_C, d_c), device=dev))
+
+    print(f"  B2 task grid at covtype, K = {K_C}, p = {P_C}: "
+          f"{dcd_dense_plan(B, d_c, False, P_C, K_C)}")
+    err_t2, plain_t2 = compare_tasks(
+        f"B2 dcd_indexed_shards staged (covtype, K = {K_C}, p = {P_C})", t2,
+        t2_plain, zeros_t2, ids_c8)
+    a_t, w_t = zeros_t2()
+    same_bits(f"B2 dcd_indexed_shards staged (covtype, K = {K_C}, p = "
+              f"{P_C})", lambda: t2(a_t, w_t, ids_c8[0]), torch)
+    ms_t2 = cuda_ms(lambda: t2(a_t, w_t, ids_c8[next(it) % 16]), 50, torch)
+    tasks["dcd_indexed_tasks"] = (
+        ms_t2, plain_t2,
+        4 * (2 * K_C * np_c8 + K_C * (1 + P_C) * d_c)
+        + P_C * B * (d_c * 4 + 8) + 4 * K_C * P_C * B,
+        4 * K_C * P_C * B * d_c,
+        f"covtype, K = {K_C}, p = {P_C}, {B} ids a pair", err_t2, None,
+        "src/repro_torch/kernels/csrc/dcd_block.cu",
+        "src/repro/kernels/dcd_block.py:100", "staged")
+    del a_t, w_t
+
+    # B4 + B5 at the webspam split, K = 4, data = 1: per round B4 over the
+    # K × m (task, model) pairs, each task's sum over model, B5 into each
+    # task's replica of the slices
+    Y_w = classes["webspam"][1]
+    wsK = feat.gram_workspace(SHARDS, B, k_loc, d1_w, dev, 1, K_W)
+    print(f"  B4 at the webspam split, K = {K_W}: "
+          f"{gram_plan(SHARDS, B, k_loc, d1_w, 1, K_W)}; workspace "
+          f"{sum(t.numel() for t in wsK) * 4 / 1e6:.2f} MB")
+    ids_t4 = t_ids_w[:, None]  # (rounds, 1, B): one block for every task
+
+    def t45(a, w, i, plain=False):
+        if plain:
+            b4, g4 = feat.dcd_feature_gram_plain(cols_w, vals_w, w, i,
+                                                 tasks=True)
+            a5, rep5 = feat.dcd_feature_update_plain(
+                cols_w, vals_w, a, q_w, w, i, b4.sum(2), g4.sum(2),
+                loss=hinge, y=Y_w)
+        else:
+            b4, g4 = feat.dcd_feature_gram(cols_w, vals_w, w, i,
+                                           workspace=wsK, tasks=True)
+            a5, rep5 = feat.dcd_feature_update(
+                cols_w, vals_w, a, q_w, w, i, b4.sum(2), g4.sum(2),
+                loss=hinge, y=Y_w, workspace=wsK)
+        return a5, b4, g4, rep5
+
+    e4 = e5 = 0.0
+    (ka, kw), (pa, pw) = [(torch.zeros((K_W, n_w), device=dev),
+                           torch.zeros((K_W, SHARDS, d1_w), device=dev))
+                          for _ in range(2)]
+    for r in range(2):
+        ka, kb, kg, krep = t45(ka, kw, ids_t4[r])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pa, pb, pg, prep = t45(pa, pw, ids_t4[r], plain=True)
+        torch.cuda.synchronize()
+        plain_t45 = (time.perf_counter() - t0) * 1e3
+        e4 = max(e4, float((kb - pb).abs().max()),
+                 float((kg - pg).abs().max()))
+        e5 = max(e5, float((krep - prep).abs().max()))
+        kw = kw + (krep - kw[:, None]).sum(1)
+        pw = pw + (prep - pw[:, None]).sum(1)
+    e5 = max(e5, float((ka - pa).abs().max()), float((kw - pw).abs().max()))
+    print(f"  B4 dcd_feature_gram (webspam, K = {K_W}): max abs err "
+          f"{e4:.3g} over 2 rounds; B5 dcd_feature_update: {e5:.3g} over "
+          f"{2 * K_W * B} updates (tolerance {ATOL}); plain B4 + B5 "
+          f"{plain_t45:.1f} ms a round")
+    if not (e4 <= ATOL and e5 <= ATOL):
+        fail("B4/B5 over tasks disagree with their plain versions")
+    w_t = kw
+    a_t = torch.zeros((K_W, n_w), device=dev)
+    same_bits(f"B4 dcd_feature_gram (webspam, K = {K_W})",
+              lambda: feat.dcd_feature_gram(cols_w, vals_w, w_t, ids_t4[0],
+                                            workspace=wsK, tasks=True),
+              torch)
+    b_t, g_t = ops.dcd_feature_gram(cols_w, vals_w, w_t, ids_t4[0],
+                                    workspace=wsK, tasks=True)
+    same_bits(f"B5 dcd_feature_update (webspam, K = {K_W}, hinge)",
+              lambda: feat.dcd_feature_update(
+                  cols_w, vals_w, a_t, q_w, w_t, ids_t4[0], b_t, g_t,
+                  loss=hinge, y=Y_w, workspace=wsK), torch)
+    ms_t4 = cuda_ms(lambda: feat.dcd_feature_gram(
+        cols_w, vals_w, w_t, ids_t4[next(it) % 64], workspace=wsK,
+        tasks=True), 20, torch)
+    ms_t5 = cuda_ms(lambda: feat.dcd_feature_update(
+        cols_w, vals_w, a_t, q_w, w_t, ids_t4[0], b_t, g_t, loss=hinge,
+        y=Y_w, workspace=wsK), 20, torch)
+    plain_t4 = wall_ms(lambda: feat.dcd_feature_gram_plain(
+        cols_w, vals_w, w_t, ids_t4[0], tasks=True), 1, torch)
+    plain_t5 = wall_ms(lambda: feat.dcd_feature_update_plain(
+        cols_w, vals_w, a_t, q_w, w_t, ids_t4[0], b_t, g_t, loss=hinge,
+        y=Y_w), 1, torch)
+    # the library yardstick as for B4: torch.sparse.mm of each (task,
+    # model) pair's block with its transpose
+    lib_t4 = cuda_ms(lambda: [torch.sparse.mm(S, St) for _ in range(K_W)
+                              for S, St in mats], 10, torch)
+    # bytes: the block's rows once (every task reads the same block), w at
+    # each real entry and the outputs per task; operations: the Gram once
+    # (it depends on the ids alone) and each task's base
+    tasks["dcd_feature_gram_tasks"] = (
+        ms_t4, plain_t4,
+        4 * B * SHARDS * k_loc + 4 * nnz4 + 4 * K_W * nnz4 + 4 * B
+        + 4 * K_W * SHARDS * (B + B * B),
+        2 * B * nnz4 + K_W * 2 * nnz4,
+        f"webspam, K = {K_W}, m = {SHARDS}, {B} ids", e4, lib_t4,
+        "src/repro_torch/kernels/csrc/dcd_feature.cu",
+        "src/repro/kernels/dcd_feature.py:60", "column-class")
+    tasks["dcd_feature_update_tasks"] = (
+        ms_t5, plain_t5,
+        8 * K_W * n_w + 8 * K_W * SHARDS * d1_w + 4 * B * SHARDS * k_loc
+        + 4 * nnz4 + 4 * K_W * B + K_W * (12 * B + 4 * B * B),
+        K_W * (2 * nnz4 + B * B),
+        f"webspam, K = {K_W}, m = {SHARDS}, {B} ids", e5, None,
+        "src/repro_torch/kernels/csrc/dcd_feature.cu",
+        "src/repro/kernels/dcd_feature.py:106", "column-class")
+    for name, (route_ms, pl_ms, by, ops_n, per, err, lib_ms, src, rep,
+               variant) in tasks.items():
+        b_ms, b_by = bound(by, ops_n)
+        results[name] = dict(name=name, route="cuda", source=src,
+                             replaces=rep, variant=variant, launches=0,
+                             max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        lib = ("no library call computes it" if lib_ms is None
+               else f"torch.sparse.mm {lib_ms:.4f} ms")
+        print(f"  {name} ({per}): {route_ms:.4f} ms per launch, plain "
+              f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+    del krep, prep, a_t, w_t, b_t, g_t
+
     # where a round's time goes: 20 rounds of the solver's fused 2-D
     # engine on webspam (B4, the sum over shards, B5, the Δw round trip)
     # and of its 1-D engine on rcv1 and covtype (B1/B2 and the wrapper's
     # copies, Δw and w + Δw), each at p = 1 and over the p > 1 shard
     # grid, under torch.profiler; the rounds' ids are (p, B), as the
     # solver hands them
-    def profile(label, engine, a, w, rounds):
+    def profile(label, engine, a, w, rounds, tasks=False):
+        if not tasks:
+            a, w = a[None], w[None]  # the solver's state: one task
         _scan_rounds(engine, a, w, torch.zeros_like(w), rounds[:2], 0)
         profile_rounds(label, lambda: _scan_rounds(
             engine, a, w, torch.zeros_like(w), rounds[:20], 0),
@@ -1138,6 +1411,20 @@ def main():
     profile(f"covtype (1-D, B2 staged, p = {P_C})", functools.partial(
         _block_update_1d(hinge_c, False, n_loc_c8), X_c8, q_c8),
         *zeros_c8(), ids_c8)
+    # and the multi-task rounds: the task grid over the K tasks' state
+    profile(f"rcv1 (1-D, B1 staged, K = {K_R}, p = {P_R})", functools.partial(
+        _block_update_1d(hinge, True, n_loc_r8, Y_r8), (cols_r8, vals_r8),
+        q_r8), *zeros_t1(), ids_r8, tasks=True)
+    profile(f"covtype (1-D, B2 staged, K = {K_C}, p = {P_C})",
+            functools.partial(_block_update_1d(hinge_c, False, n_loc_c8,
+                                               Y_c8), X_c8, q_c8),
+            *zeros_t2(), ids_c8, tasks=True)
+    profile(f"webspam (2-D, fused, K = {K_W})", functools.partial(
+        _block_update_2d(hinge, True, wsK, 0, Y_w), cols_w, vals_w, q_w),
+        torch.zeros((K_W, n_w), device=dev),
+        torch.zeros((K_W, SHARDS, d1_w), device=dev), t_ids_w[:, None],
+        tasks=True)
+    del wsK
     del fse, cols_w, vals_w, q_w, ws, ws2, mats, a_w, w_w, ka, kw, pa, pw
     del w_p, w_same, a_w1, w_w1, a_same, b_same, g_same, a_l
     del cols_r8, vals_r8, X_c8
@@ -1229,6 +1516,75 @@ def main():
             fail(f"the solver's {label}: the delay flag did not latch to 0 "
                  f"({on_card.delay.tolist()})")
 
+    # the multi-task solve (K = 3 one-vs-rest classes of tiny's rows) on
+    # the card, the task-grid kernels, against its CPU path, the plain
+    # versions: α and ŵ at atol 1e-5, each task's gaps at 1e-5 + 1e-6·M,
+    # each task's active, delay and round-count records equal.  With
+    # shrinking, a row whose α lands on the box in one float32 summation
+    # order and a rounding short of it in another flips the mask and the
+    # solves part (ROADMAP C.6): where the card parts from the CPU path on
+    # the same rows, it is held to the CPU path on the same rows dense
+    # (the other summation order), which must then part from the first
+    y3 = ovr_labels(torch.arange(small.X_train.n_rows) * 7 % 3, 3,
+                    device="cpu")
+
+    def tiny_gap_err(a, b, Xs, alpha):
+        return max(float((a.gaps[k].cpu() - b.gaps[k]).abs().max())
+                   - gap_tol(EllMatrix(Xs.indices,
+                                       Xs.values * y3[k][:, None],
+                                       Xs.n_features)
+                             if isinstance(Xs, EllMatrix)
+                             else Xs * y3[k][:, None], alpha[k], hinge)
+                   for k in range(3))
+
+    for label, Xs, kw in [
+            ("ELL, p = 2, shrinking and repacking", small.X_train,
+             dict(mesh=solver_mesh(n_devices=2), shrink_every=1,
+                  repack=True, repack_threshold=0.9)),
+            ("dense, p = 4, adaptive ratio 0.5 from delay 1",
+             small.dense_train(), dict(mesh=solver_mesh(n_devices=4),
+                                       delay_rounds=1, adaptive=True,
+                                       adaptive_ratio=0.5)),
+            ("2-D data = 2, m = 2, overlapped", small.X_train,
+             dict(mesh=solver_mesh_2d(data=2, model=2), delay_rounds=1))]:
+        kw.update(epochs=4, block_size=16, seed=2, y=y3)
+        on_card = sharded_passcode_solve(Xs.to(dev), hinge, device=dev,
+                                         **{**kw, "y": y3.to(dev)})
+        card_rounds = list(sharded_passcode_solve.task_rounds)
+        orders = [("the CPU path", Xs)]
+        if kw.get("shrink_every"):
+            orders.append(("the CPU path on the rows dense",
+                           small.dense_train()))
+        for what, Xc in orders:
+            on_cpu = sharded_passcode_solve(Xc, hinge, device="cpu",
+                                            use_kernel=True, **kw)
+            e = max(float((on_card.alpha.cpu() - on_cpu.alpha).abs().max()),
+                    float((on_card.w_hat.cpu() - on_cpu.w_hat).abs().max()))
+            eg = tiny_gap_err(on_card, on_cpu, Xs, on_cpu.alpha)
+            same = (torch.equal(on_card.active.cpu(), on_cpu.active)
+                    and torch.equal(on_card.delay.cpu(), on_cpu.delay)
+                    and card_rounds == sharded_passcode_solve.task_rounds)
+            print(f"  multi-task K = 3 {label} kernel path vs {what}: max "
+                  f"abs err {e:.3g} (tolerance {ATOL}), gaps within their "
+                  f"tolerance by {-eg:.3g}, per-task active, delay and "
+                  f"round records equal: {same} (rounds {card_rounds})")
+            if e <= ATOL and eg <= 0.0 and same:
+                break
+            if len(orders) == 1:
+                fail(f"the multi-task {label} kernel path disagrees with "
+                     "its CPU path")
+            first = on_cpu
+        else:
+            fail(f"the multi-task {label} kernel path agrees with neither "
+                 "summation order's CPU path")
+        if what != orders[0][0]:
+            part = float((first.alpha - on_cpu.alpha).abs().max())
+            print(f"    the CPU's two summation orders part by {part:.3g} "
+                  "on α: a mask flipped at the box (ROADMAP C.6)")
+            if not part > ATOL:
+                fail(f"the multi-task {label}: the card parts from the CPU "
+                     "path while the CPU's two orders agree")
+
     # p = 1 keeps the bits of the single-block round it had before the
     # shard grid: one epoch of the solver (its round a grid of one shard,
     # w + that shard's Δw) against the same explicit schedule run through
@@ -1294,7 +1650,13 @@ def main():
                 "dcd_tile": (dcd_tile_epoch, "stream"),
                 "dcd_tile_wide": (dcd_tile_epoch, "wide"),
                 "dcd_feature_gram": (feat.dcd_feature_gram, None),
-                "dcd_feature_update": (feat.dcd_feature_update, None)}
+                "dcd_feature_update": (feat.dcd_feature_update, None),
+                # the launches of a grid with more than one task
+                "dcd_ell_tasks": (dcd_ell_shards, "tasks"),
+                "dcd_indexed_tasks": (dcd_indexed_shards, "tasks"),
+                "dcd_feature_gram_tasks": (feat.dcd_feature_gram, "tasks"),
+                "dcd_feature_update_tasks": (feat.dcd_feature_update,
+                                             "tasks")}
 
     # every plain version counts its calls from here on: a main path on
     # the card calls none (the wrappers take them only for CPU tensors)
@@ -1319,6 +1681,8 @@ def main():
             setattr(mod, name, counted(getattr(mod, name)))
 
     def launches(f, variant):
+        if variant == "tasks":
+            return f.task_launches
         return f.variant_launches[variant] if variant else f.launches
 
     def run_path(label, want, fn, rows=None, count=True):
@@ -1327,11 +1691,13 @@ def main():
         other kernel: 0 launches; a callable ``want`` is asked after the
         run, for a path whose rounds depend on its data).  Each count adds
         to its kernel's row of the JSON line, ``rows[name]`` where the
-        path launches the kernel at a shape that has a row of its own; a
-        check of the card against the CPU (``count=False``) adds nothing.
-        A counted path calls no plain version."""
+        path launches the kernel at a shape that has a row of its own (a
+        ``rows[name]`` of None: checked and added to no row, as a task
+        grid's launches are also its wrapper's); a check of the card
+        against the CPU (``count=False``) adds nothing.  A counted path
+        calls no plain version."""
         for f, _ in counters.values():
-            f.launches = 0
+            f.launches = f.task_launches = 0
             for v in getattr(f, "variant_launches", {}):
                 f.variant_launches[v] = 0
         plain_calls["n"] = 0
@@ -1340,8 +1706,9 @@ def main():
         for name, (f, variant) in counters.items():
             got, expect = launches(f, variant), want.get(name, 0)
             if name in want:
-                if count:
-                    results[(rows or {}).get(name, name)]["launches"] += got
+                row = (rows or {}).get(name, name)
+                if count and row:
+                    results[row]["launches"] += got
                 print(f"  launches {name} ({label}): {got} (expected "
                       f"{expect})")
             if got != expect:
@@ -1493,6 +1860,178 @@ def main():
                            "shrink_every = 1)", X_web, hinge1, n_w,
                            EPOCHS_2D, accuracy=False, mesh=mesh_w,
                            shrink_every=1), rows_d)
+
+    # the multi-task (one-vs-rest) solve: K classes on the unfolded rows
+    # as one solve, every round one launch of the task grid (K × p CTAs,
+    # or K × m pairs on the 2-D mesh); its seconds per epoch, each task's
+    # gaps summarised over the tasks, its rounds and peak memory, and the
+    # top-1 accuracy of the K heads on the training rows against the
+    # majority class's share
+    def summary(vals):
+        v = sorted(vals)
+        return f"{v[0]:.6g} / {v[len(v) // 2]:.6g} / {v[-1]:.6g}"
+
+    def mt_solve(label, X, loss, data, n, epochs, **kw):
+        ids, Y, majority = classes[data]
+        K = Y.shape[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reads = sharded_passcode_solve.host_reads
+        t0 = time.perf_counter()
+        r = sharded_passcode_solve(X, loss, y=Y, epochs=epochs,
+                                   block_size=B, gap_every=1, seed=SEED,
+                                   device=dev, **kw)
+        gaps = r.gaps.tolist()  # the solve's one host sync at the end
+        sec = time.perf_counter() - t0
+        rounds = sharded_passcode_solve.task_rounds
+        done = sharded_passcode_solve.epoch_rounds
+        print(f"  {label}: {sec / epochs:.3f} s per epoch (gap included), "
+              f"{sec / sum(done) * 1e3:.4f} ms per round run, rounds run "
+              f"per epoch {done}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        for e in range(epochs):
+            print(f"    epoch {e + 1}: gap min / median / max over the "
+                  f"{K} tasks {summary([g[e] for g in gaps])}")
+        if kw.get("shrink_every"):
+            act = r.active.tolist()
+            for e in range(epochs):
+                print(f"    epoch {e + 1}: active fraction "
+                      f"{summary([a[e] for a in act])}, rounds run "
+                      f"{summary(rounds[e])}")
+            print(f"    host reads of the round counts "
+                  f"{sharded_passcode_solve.host_reads - reads} in "
+                  f"{epochs} epochs")
+            if sharded_passcode_solve.host_reads - reads != epochs:
+                fail(f"{label}: the round counts were not read once an "
+                     "epoch")
+        acc = float(multiclass_accuracy(r.w_hat, X, ids))
+        print(f"    top-1 accuracy of the {K} heads on the training rows "
+              f"{acc:.4f} (the majority class's share {majority:.4f})")
+        if (tuple(r.alpha.shape) != (K, n)
+                or not all(math.isfinite(g) for t in gaps for g in t)):
+            fail(f"{label}: result of the wrong shape or a non-finite gap")
+        if not all(t[-1] < t[0] for t in gaps):
+            fail(f"{label}: a task's gap did not fall")
+        if not acc > majority:
+            fail(f"{label}: accuracy {acc} not above the majority share")
+        return r
+
+    mt = {}
+    nb_r8, nb_c8 = _n_blocks(n_loc_r8, B), _n_blocks(n_loc_c8, B)
+    run_path(f"rcv1 K = {K_R}, p = {P_R}",
+             {"dcd_ell_shards": EPOCHS * nb_r8,
+              "dcd_ell_tasks": EPOCHS * nb_r8},
+             lambda: mt.update(rcv1=mt_solve(
+                 f"rcv1 multi-task (K = {K_R}, p = {P_R}, B1 task grid)",
+                 X_rcv1, hinge1, "rcv1", n_r, EPOCHS, mesh=mesh_r)),
+             {"dcd_ell_shards": None})
+    run_path(f"covtype K = {K_C}, p = {P_C}",
+             {"dcd_indexed_shards": EPOCHS * nb_c8,
+              "dcd_indexed_tasks": EPOCHS * nb_c8},
+             lambda: mt.update(covtype=mt_solve(
+                 f"covtype multi-task (K = {K_C}, p = {P_C}, B2 task grid)",
+                 X_cov, duals.Hinge(0.0625), "covtype", n_c, EPOCHS,
+                 mesh=mesh_c)),
+             {"dcd_indexed_shards": None})
+    nb_wt = EPOCHS_2D * _n_blocks(n_w, B)
+    run_path(f"webspam K = {K_W}",
+             {"dcd_feature_gram": nb_wt, "dcd_feature_update": nb_wt,
+              "dcd_feature_gram_tasks": nb_wt,
+              "dcd_feature_update_tasks": nb_wt},
+             lambda: mt_solve(f"webspam multi-task (2-D, K = {K_W}, m = "
+                              f"{SHARDS}, B4 + B5 task grid)", X_web, hinge1,
+                              "webspam", n_w, EPOCHS_2D,
+                              mesh=solver_mesh_2d(model=SHARDS)),
+             {"dcd_feature_gram": None, "dcd_feature_update": None})
+    run_path(f"rcv1 K = {K_R}, p = {P_R} shrinking",
+             lambda: {"dcd_ell_shards": ran(), "dcd_ell_tasks": ran()},
+             lambda: mt_solve(
+                 f"rcv1 multi-task (K = {K_R}, p = {P_R}, shrink_every = 1, "
+                 "repack below 0.8 active)", X_rcv1, hinge1, "rcv1", n_r,
+                 EPOCHS, mesh=mesh_r, shrink_every=1, repack="auto",
+                 repack_threshold=0.8),
+             {"dcd_ell_shards": None})
+
+    # K = 1 is the binary solve: one epoch at p = 8 of the class-0-vs-rest
+    # labels y, the binary solve of y·X against X with y[None], α and ŵ
+    # bit for bit, the recorded gap at rtol 1e-6.  An ELL solve's gap
+    # takes w(α) through index_add_, whose atomics add in no fixed order
+    # on the card, so where the recorded gaps part by more, both gaps are
+    # evaluated again in a fixed order (on the CPU, from the card's α and
+    # ŵ: the binary's on y·X, the K = 1 one on X with y folded on read)
+    # and held at rtol 1e-6, and the card gap's own spread is shown (the
+    # binary's evaluated twice on its α)
+    def fold(X, y):
+        if isinstance(X, EllMatrix):
+            return EllMatrix(X.indices, X.values * y[:, None], X.n_features)
+        return X * y[:, None]
+
+    def ell_gap(loss, X, alpha, w_hat, y=None):
+        rows = (X.indices, X.values)
+        w_view = torch.cat([w_hat, w_hat.new_zeros(1)])
+        return float(_make_gap_1d(loss, rows, True, X.n_features + 1)(
+            alpha, w_view, y)[0])
+
+    for data, X, loss, mesh in [("rcv1", X_rcv1, hinge1, mesh_r),
+                                ("covtype", X_cov, hinge_c, mesh_c)]:
+        y = classes[data][1][0]
+        kw = dict(epochs=1, block_size=B, seed=SEED, mesh=mesh, device=dev)
+        b = sharded_passcode_solve(fold(X, y), loss, **kw)
+        m1 = sharded_passcode_solve(X, loss, y=y[None], **kw)
+        torch.cuda.synchronize()
+        same = (torch.equal(m1.alpha[0], b.alpha)
+                and torch.equal(m1.w_hat[0], b.w_hat))
+        rel = float((m1.gaps[0] - b.gaps).abs().max() / b.gaps.abs().max())
+        print(f"  K = 1 is the binary solve ({data}, p = 8, one epoch): α "
+              f"and ŵ bit-identical: {same}; recorded gap "
+              f"{float(m1.gaps[0, 0])!r} against {float(b.gaps[0])!r} "
+              f"(relative {rel:.3g}, tolerance 1e-6)")
+        if not same:
+            fail(f"{data}: the K = 1 multi-task solve is not the binary one")
+        if rel > 1e-6:
+            if not isinstance(X, EllMatrix):
+                fail(f"{data}: the K = 1 gap parts from the binary one")
+            Xc = EllMatrix(X.indices.cpu(), X.values.cpu(), X.n_features)
+            gb = ell_gap(loss, fold(Xc, y.cpu()), b.alpha.cpu(),
+                         b.w_hat.cpu())
+            gm = ell_gap(loss, Xc, m1.alpha[0].cpu(), m1.w_hat[0].cpu(),
+                         y.cpu())
+            twice = [ell_gap(loss, fold(X, y), b.alpha, b.w_hat)
+                     for _ in range(2)]
+            rel_c = abs(gm - gb) / abs(gb)
+            print(f"    in a fixed order (CPU): {gm!r} against {gb!r} "
+                  f"(relative {rel_c:.3g}, tolerance 1e-6); the binary gap "
+                  f"evaluated twice on the card: {twice[0]!r}, "
+                  f"{twice[1]!r}")
+            if not rel_c <= 1e-6:
+                fail(f"{data}: the K = 1 gap parts from the binary one in "
+                     "a fixed order")
+        del b, m1
+
+    # one solve against the loop over K: each class's binary solve on the
+    # rows folded by Y[k] (the same seed and epochs), α and ŵ at atol
+    # 1e-5 against that class of the multi-task path's result
+    for data, X, loss, mesh, ks in [
+            ("covtype", X_cov, hinge_c, mesh_c, range(K_C)),
+            ("rcv1", X_rcv1, hinge1, mesh_r, (0, 26, 52))]:
+        r, Y = mt[data], classes[data][1]
+        errs, bits = [], []
+        for k in ks:
+            b = sharded_passcode_solve(fold(X, Y[k]), loss, epochs=EPOCHS,
+                                       block_size=B, seed=SEED, mesh=mesh,
+                                       device=dev)
+            errs.append(max(float((r.alpha[k] - b.alpha).abs().max()),
+                            float((r.w_hat[k] - b.w_hat).abs().max())))
+            bits.append(torch.equal(r.alpha[k], b.alpha)
+                        and torch.equal(r.w_hat[k], b.w_hat))
+            del b
+        print(f"  one solve vs the loop over K ({data}, classes "
+              f"{list(ks)}): max abs err {max(errs):.3g} (tolerance "
+              f"{ATOL}); bit-identical per class: {bits}")
+        if not max(errs) <= ATOL:
+            fail(f"{data}: the multi-task solve disagrees with the loop "
+                 "over K")
+    del mt
 
     # serial DCD and PASSCoDe-Lock: one launch of B1's (B2's) wide
     # variant per epoch over the epoch's whole order

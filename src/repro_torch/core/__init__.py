@@ -12,7 +12,9 @@ from repro_torch.core.duals import Hinge, Logistic, SquaredHinge
 from repro_torch.core.objective import (
     dual_objective,
     duality_gap,
+    multiclass_accuracy,
     predict_accuracy,
+    predict_multiclass,
     primal_objective,
     w_of_alpha,
 )
@@ -33,6 +35,8 @@ __all__ = [
     "primal_objective",
     "duality_gap",
     "predict_accuracy",
+    "predict_multiclass",
+    "multiclass_accuracy",
     "w_of_alpha",
     "dcd_epoch",
     "dcd_solve",

@@ -3,7 +3,10 @@ counterpart of ``repro/core/objective.py``.
 
 Works on dense (n, d) tensors or ``EllMatrix``.  Rows are label-folded
 (x_i = y_i·ẋ_i), so classification is correct iff wᵀx_i > 0 and binary
-accuracy needs no separate label vector.
+accuracy needs no separate label vector.  The multiclass helpers
+(``predict_multiclass``/``multiclass_accuracy``) take a (K, d)
+one-vs-rest weight stack over unfolded rows and integer class ids, the
+shapes the multi-task solver produces.
 """
 
 from __future__ import annotations
@@ -60,3 +63,29 @@ def predict_accuracy(w, X):
     """Fraction of rows with wᵀx_i > 0 (x_i is label-folded)."""
     z = _matvec(X, w)
     return torch.mean((z > 0).to(torch.float32))
+
+
+def predict_multiclass(W, X):
+    """Argmax class ids over a (K, d) one-vs-rest weight stack (or
+    (K, d + 1) heads whose last word is the ELL dummy slot).  ``X``
+    holds unfolded rows, dense or ELL.  Returns (n,) int32: row i goes
+    to the head with the largest margin w_kᵀx_i (the first on a tie).
+    The heads are scored one at a time, so no (K, nnz) temporary is
+    formed."""
+    W = torch.as_tensor(W, dtype=torch.float32)
+    if W.dim() != 2:
+        raise ValueError(f"expected a (K, d) weight stack, got "
+                         f"{tuple(W.shape)}")
+    d = X.n_features if isinstance(X, EllMatrix) else X.shape[1]
+    if W.shape[1] not in (d, d + 1):
+        raise ValueError(f"heads of {W.shape[1]} words for {d} features")
+    W = W.to(X.device)
+    scores = torch.stack([_matvec(X, w[:d]) for w in W])  # (K, n)
+    return torch.argmax(scores, dim=0).to(torch.int32)
+
+
+def multiclass_accuracy(W, X, y_int):
+    """Top-1 accuracy of the (K, d) stack against integer class ids."""
+    pred = predict_multiclass(W, X)
+    y = torch.as_tensor(y_int, device=pred.device)
+    return torch.mean((pred == y).to(torch.float32))

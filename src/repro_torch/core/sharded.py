@@ -76,9 +76,29 @@ reads w with its own shard's last-round updates but not its peers'
 preallocated device buffers every ``gap_every`` epochs (and at the
 last), over the real rows only.
 
-Knobs of the reference outside these slices — pods, multi-task labels,
-the ``pipeline=False`` host driver — raise ``NotImplementedError``
-naming their ROADMAP item.
+**Multi-task** (``y`` a (K, n) ±1 one-vs-rest matrix, DESIGN.md §16).
+The K binary problems share one unfolded X and run as **one** solve:
+the reference vmaps the per-task epoch over a leading (K,) axis, and
+here every piece of state carries that leading K — α (K, n_pad), w,
+Δw, the shrink mask and the records — and every round is one launch of
+the block engine over K × p (task, shard) pairs (``repro_torch.kernels``
+with a (K, n) α).  The labels are folded on read, by the kernels and by
+every closure that reads X (the gap, the shrink mask): y_i·wᵀx_i and
+the rank-1 update (δ·y_i)·x_i, exact sign flips, so K = 1 reproduces the
+binary solve on pre-folded rows bit for bit.  Each task draws the
+reference's one key chain, so without repacking every task runs the
+same blocks (one (p, B) id array at a task stride of 0); the
+self-tuning is per task — each class its own shrink mask, repack flag,
+round count and adaptive latch, the epoch counter shared — and a
+repacked epoch runs the most rounds any task needs, a task past its own
+count keeping its state (the reference's ``cond``-skipped round under
+the task vmap).  The binary solve is the same code at K = 1 with no
+labels.  A ``task`` mesh axis (``solver_mesh_tasks``) is admitted by the
+reference's ``task_axis_policy``; on one card its shards are virtual.
+
+Knobs of the reference outside these slices — pods and the
+``pipeline=False`` host driver — raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -86,6 +106,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -106,6 +127,7 @@ from repro_torch.dist.mesh import (
     resolve_device,
     resolve_self_tuning,
     solver_mesh_2d,
+    task_axis_policy,
 )
 from repro_torch.kernels.dcd_feature import gram_workspace
 from repro_torch.kernels.ops import (
@@ -119,6 +141,9 @@ from repro_torch.kernels.ops import (
 
 
 class ShardedResult(NamedTuple):
+    """A solve's result in user coordinates; a multi-task solve's carry
+    a leading K: α (K, n), ŵ (K, d) and each record (K, slots)."""
+
     alpha: torch.Tensor
     w_hat: torch.Tensor
     gaps: torch.Tensor
@@ -152,42 +177,55 @@ def _fused_2d(use_kernel, device: torch.device) -> bool:
                                   and device.type == "cuda")
 
 
-def _data_sum(dw, w):
-    """The psum over ``data``: the p shards' Δw (p, *w.shape) summed in
-    shard order (a Δw of w's own shape is already one)."""
-    if dw.dim() == w.dim():
-        return dw
-    return dw[0] if dw.shape[0] == 1 else dw.sum(0)
+def _shard_sum(dw):
+    """The psum over ``data``: each task's p shards' Δw (K, p, *w)
+    summed in shard order, (K, *w)."""
+    return dw[:, 0] if dw.shape[1] == 1 else dw.sum(1)
 
 
-def _block_update_1d(loss, ell: bool, n_loc: int = 0):
+def _per_shard(w):
+    """Each task's one w (K, *w) as a w a shard (K, 1, *w)."""
+    return w[:, None]
+
+
+def _task_rows(t, k):
+    """Task k's row of a (K, …) operand, or the shared operand itself
+    (None, or one row for every task)."""
+    return t if t is None or t.dim() == 1 else t[k]
+
+
+def _block_update_1d(loss, ell: bool, n_loc: int = 0, Y=None):
     """The round's block engine, the counterpart of the reference's
-    ``_local_block_update_ell`` / ``_local_block_update``: the B1 or B2
-    wrapper over the (p, B) shard-local ids, returning (updated α, the
-    shards' Δw (p, *w.shape)).  ``act`` freezes shrunk rows."""
+    ``_local_block_update_ell`` / ``_local_block_update`` under its task
+    vmap: the B1 or B2 wrapper over K tasks of p shards — α (K, n_pad),
+    w_eff (K, *w) or (K, p, *w), ids (p, B) or (K, p, B), the labels
+    ``Y`` (K, n_pad) or None (pre-folded rows) — returning (updated α,
+    the pairs' Δw (K, p, *w)).  ``act`` ((n_pad,) or (K, n_pad))
+    freezes shrunk rows."""
 
     def block_update(X_loc, sq_loc, alpha, w_eff, idx_block, act=None):
         if ell:
             cols_loc, vals_loc = X_loc
             return dcd_ell_block_update(cols_loc, vals_loc, sq_loc, alpha,
                                         w_eff, idx_block, loss=loss,
-                                        active=act, n_loc=n_loc)
+                                        active=act, y=Y, n_loc=n_loc)
         return dcd_block_update(X_loc, sq_loc, alpha, w_eff, idx_block,
-                                loss=loss, active=act, n_loc=n_loc)
+                                loss=loss, active=act, y=Y, n_loc=n_loc)
 
     return block_update
 
 
 def _local_block_update_feature(cols, vals, sq_norms, alpha, w, idx_block,
-                                loss, act=None):
+                                loss, act=None, y=None):
     """The unfused 2-D engine (the reference's
-    ``_local_block_update_feature``) for one data shard: B sequential
-    updates of the row ids ``idx_block``, each summing the m shards'
-    O(k_loc) partial dots — the reference's per-update psum over
+    ``_local_block_update_feature``) for one data shard of one task: B
+    sequential updates of the row ids ``idx_block``, each summing the m
+    shards' O(k_loc) partial dots — the reference's per-update psum over
     ``model`` — and scattering into every shard's own slice.
     ``sq_norms`` are the full row norms, so δ is one value for all
-    shards; ``act`` (0/1) freezes shrunk rows.  Returns (updated α, Δw
-    over the (m, d_loc + 1) slices)."""
+    shards; ``act`` (0/1) freezes shrunk rows; ``y`` folds the task's
+    labels on read.  Returns (updated α, Δw over the (m, d_loc + 1)
+    slices)."""
     alpha, w_cur = alpha.clone(), w.clone()
     d1 = w.shape[1]
     w_flat = w_cur.view(-1)
@@ -195,34 +233,47 @@ def _local_block_update_feature(cols, vals, sq_norms, alpha, w, idx_block,
         ids = flat_shard_ids(cols[i], d1)  # (m, k)
         v = vals[i]
         wx = torch.sum(torch.sum(w_flat[ids] * v, dim=1))
+        if y is not None:
+            wx = y[i] * wx
         delta = loss.delta(alpha[i], wx, sq_norms[i])
         if act is not None:
             delta = torch.where(act[i] > 0.0, delta, 0.0)
         alpha[i] = alpha[i] + delta
-        w_flat.index_add_(0, ids.reshape(-1), (delta * v).reshape(-1))
+        dscale = delta if y is None else delta * y[i]
+        w_flat.index_add_(0, ids.reshape(-1), (dscale * v).reshape(-1))
     return alpha, w_cur - w
 
 
-def _block_update_2d(loss, fused: bool, workspace, n_loc: int = 0):
-    """The 2-D block engine over the (p, B) shard-local ids (eager
-    composition; the overlapped round drives the split phases directly).
-    Returns (updated α, the data shards' Δw (p, m, d_loc + 1))."""
+def _block_update_2d(loss, fused: bool, workspace, n_loc: int = 0, Y=None):
+    """The 2-D block engine over K tasks of p data shards (eager
+    composition; the overlapped round drives the split phases directly):
+    α (K, n_pad), w_eff (K, m, d_loc + 1) or (K, p, m, d_loc + 1), ids
+    (p, B) or (K, p, B).  Returns (updated α, the pairs' Δw (K, p, m,
+    d_loc + 1)).  The unfused engine runs the tasks, then the shards, in
+    order."""
 
     def block_update(cols, vals, sq_norms, alpha, w_eff, idx_block,
                      act=None):
         if fused:
             return dcd_feature_block_update(cols, vals, sq_norms, alpha,
                                             w_eff, idx_block, loss=loss,
-                                            active=act, workspace=workspace,
+                                            active=act, y=Y,
+                                            workspace=workspace,
                                             n_loc=n_loc)
-        dws = []
-        for s in range(idx_block.shape[0]):
-            alpha, dw = _local_block_update_feature(
-                cols, vals, sq_norms, alpha,
-                w_eff[s] if w_eff.dim() == 3 else w_eff,
-                idx_block[s].long() + s * n_loc, loss, act)
-            dws.append(dw)
-        return alpha, torch.stack(dws)
+        alphas, dws = [], []
+        for k in range(alpha.shape[0]):
+            a_k, dw_k = alpha[k], []
+            ids = idx_block[k] if idx_block.dim() == 3 else idx_block
+            for s in range(ids.shape[0]):
+                w_s = w_eff[k, s] if w_eff.dim() == 4 else w_eff[k]
+                a_k, dw = _local_block_update_feature(
+                    cols, vals, sq_norms, a_k, w_s,
+                    ids[s].long() + s * n_loc, loss, _task_rows(act, k),
+                    _task_rows(Y, k))
+                dw_k.append(dw)
+            alphas.append(a_k)
+            dws.append(torch.stack(dw_k))
+        return torch.stack(alphas), torch.stack(dws)
 
     return block_update
 
@@ -261,40 +312,45 @@ def _device_block_perm_v(sub, my: int, p: int, n_loc: int, v: int,
 def _device_block_perm_masked(sub, my: int, p: int, n_loc: int,
                               n_blocks: int, block_size: int, act, rp):
     """``_device_block_perm`` over an arbitrary active row set — the
-    repacked epoch's draw.  ``act`` is the shard's (n_loc,) bool mask
-    (already ANDed with row validity), ``rp`` the repack flag (a bool
-    tensor).  ``active_row_remap`` compacts the active rows to the
-    front; the draw permutes [0, count) through the same key chain and
-    maps back.  Slots past the count cycle the drawn sequence when
-    ``rp`` is off (with ``act`` the valid prefix this is the plain draw
-    bit for bit) and point at the inactive rows, δ-gated no-ops, when it
-    is on (a fully active shard cycles).  Returns (n_blocks, B) int32."""
+    repacked epoch's draw, for K tasks at once.  ``act`` is the shard's
+    (K, n_loc) bool mask, a row a task (already ANDed with row
+    validity), ``rp`` the (K,) repack flags.  ``active_row_remap``
+    compacts each task's active rows to the front; the draw permutes
+    [0, count) through the same key chain — one permutation for every
+    task, as the reference's tasks share a key — and maps back.  Slots
+    past the count cycle the drawn sequence when the task's ``rp`` is
+    off (with ``act`` the valid prefix this is the plain draw bit for
+    bit) and point at the inactive rows, δ-gated no-ops, when it is on
+    (a fully active shard cycles).  Integer ops only: a task's ids are
+    those of its own binary draw.  Returns (K, n_blocks, B) int32."""
     m = n_blocks * block_size
     keys = prng.split(sub, p)
-    ids, cnt = active_row_remap(act)
-    v = torch.clamp(cnt, min=1)  # an all-frozen shard: one gated no-op
+    ids, cnt = active_row_remap(act)  # a row a task
+    v = torch.clamp(cnt, min=1)[:, None]  # an all-frozen shard: a no-op
     perm = prng.permutation(keys[my], n_loc)
-    order = torch.argsort((perm >= v).to(torch.int8), stable=True)
-    pos = torch.arange(m, device=perm.device)
-    cyc = perm[order][pos % v]
-    n_inact = n_loc - cnt
-    noop = cnt + pos % torch.clamp(n_inact, min=1)
-    fill = torch.where(rp & (n_inact > 0), noop, cyc)
-    sel = ids[torch.where(pos < v, cyc, fill)]
-    return sel.reshape(n_blocks, block_size).to(torch.int32)
+    order = torch.argsort((perm[None] >= v).to(torch.int8), dim=1,
+                          stable=True)
+    pos = torch.arange(m, device=perm.device)[None]
+    cyc = perm[order].gather(1, (pos % v).long())
+    n_inact = (n_loc - cnt)[:, None]
+    noop = cnt[:, None] + pos % torch.clamp(n_inact, min=1)
+    fill = torch.where(rp[:, None] & (n_inact > 0), noop, cyc)
+    sel = ids.long().gather(1, torch.where(pos < v, cyc, fill).long())
+    return sel.reshape(-1, n_blocks, block_size).to(torch.int32)
 
 
 def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
                  delay_rounds: int):
     """The round structure: per round the block engine runs against the
-    (possibly stale) effective w, and its Δw — summed over the ``data``
-    shards — is applied now (atomic) or one round late
+    (possibly stale) effective w, and its Δw — each task's summed over
+    the ``data`` shards — is applied now (atomic) or one round late
     (``delay_rounds``), the reference's exact bookkeeping.
-    ``block_update(alpha, w_eff, idx_block)`` closes over the shards."""
+    ``block_update(alpha, w_eff, idx_block)`` closes over the shards;
+    α, w and Δw carry the leading task dimension K."""
     for idx_block in blocks_loc:
         w_eff = w_loc + dw_prev if delay_rounds > 0 else w_loc
         alpha_loc, dw_loc = block_update(alpha_loc, w_eff, idx_block)
-        dw_all = _data_sum(dw_loc, w_loc)
+        dw_all = _shard_sum(dw_loc)
         if delay_rounds > 0:
             w_loc, dw_prev = w_loc + dw_prev, dw_all
         else:
@@ -303,55 +359,70 @@ def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
 
 
 def _scan_rounds_dyn(block_update, alpha, w, dw_prev, dw_own, blocks, act,
-                     n_run: int, delay_flag):
+                     n_run: int, delay_flag, runs=None, n_all: int = 0):
     """The self-tuning round scan (the reference's ``_scan_rounds_dyn``):
     ``_scan_rounds`` with (a) the active mask ``act`` gating every δ,
-    (b) only the first ``n_run`` rounds run (the repacked block count),
-    and (c) the delayed mode a runtime flag with real stale reads:
-    while ``delay_flag`` is set a round's Δw sum stays in flight for one
-    round and the next round reads w with its own shard's last-round
-    updates (``dw_own``, (p, *w.shape)) but not its peers', τ ≈
-    2·B·(p−1).  ``delay_flag`` is a host int (fixed) or a device int32
-    tensor (the adaptive latch, read without a sync).  Returns (α, w,
-    Δw in flight, dw_own)."""
+    (b) only the first ``n_run`` rounds run (the repacked block count,
+    the largest of the tasks'), and (c) the delayed mode a runtime flag
+    with real stale reads: while a task's ``delay_flag`` is set its
+    round's Δw sum stays in flight for one round and the next round
+    reads w with its own shard's last-round updates (``dw_own``,
+    (K, p, *w)) but not its peers', τ ≈ 2·B·(p−1).  ``delay_flag`` is a
+    host int (fixed) or a (K,) device int32 tensor (the tasks' adaptive
+    latches, read without a sync).  ``runs`` is each task's own round
+    count on the device, and rounds from ``n_all`` on (the fewest any
+    task runs) keep a task past its count where it was — the
+    reference's ``cond``-skipped round, a select under its task vmap.
+    Returns (α, w, Δw in flight, dw_own)."""
     fixed = not torch.is_tensor(delay_flag)
     on = delay_flag > 0
-    for idx_block in blocks[:n_run]:
+    if not fixed:
+        on_w = on.view(-1, *(1,) * (w.dim() - 1))  # (K, 1, …)
+        on_o = on_w[:, None]
+    for r, idx_block in enumerate(blocks[:n_run]):
         if fixed:  # never delayed: dw_prev stays 0, w_eff is w
-            w_eff = w + dw_own if on else w
+            w_eff = _per_shard(w) + dw_own if on else w
         else:
-            w_eff = w + torch.where(on, dw_own, dw_prev)
+            w_eff = _per_shard(w) + torch.where(on_o, dw_own,
+                                                _per_shard(dw_prev))
+        state = (alpha, w, dw_prev, dw_own)
         alpha, dw_loc = block_update(alpha, w_eff, idx_block, act)
-        dw_all = _data_sum(dw_loc, w)
+        dw_all = _shard_sum(dw_loc)
         if fixed and on:
             w, dw_prev, dw_own = w + dw_prev, dw_all, dw_loc
         elif fixed:  # never delayed: nothing is in flight
             w = w + dw_all
         else:
-            w = w + dw_prev + torch.where(on, 0.0, dw_all)
-            dw_prev = torch.where(on, dw_all, 0.0)
-            dw_own = torch.where(on, dw_loc, 0.0)
+            w = w + dw_prev + torch.where(on_w, 0.0, dw_all)
+            dw_prev = torch.where(on_w, dw_all, 0.0)
+            dw_own = torch.where(on_o, dw_loc, 0.0)
+        if runs is not None and r >= n_all:
+            keep = r < runs  # (K,): the tasks still within their count
+            alpha, w, dw_prev, dw_own = (
+                torch.where(keep.view(-1, *(1,) * (new.dim() - 1)), new,
+                            old)
+                for new, old in zip((alpha, w, dw_prev, dw_own), state))
     return alpha, w, dw_prev, dw_own
 
 
-def _overlap_round_fns(cols, vals, sq_norms, loss, n_loc: int = 0):
+def _overlap_round_fns(cols, vals, sq_norms, loss, n_loc: int = 0, Y=None):
     """The three split phases of the fused 2-D block round, bound to the
-    resident slices (``repro_torch.kernels.ops`` entry points), over the
-    (p, B) shard-local ids.  B4 (``gram_fn``) fills the workspace it is
-    given with the block's buckets, which B5 (``update_fn``) of the same
-    block reads."""
+    resident slices (``repro_torch.kernels.ops`` entry points), over K
+    tasks of the (p, B) shard-local ids.  B4 (``gram_fn``) fills the
+    workspace it is given with the block's buckets, which B5
+    (``update_fn``) of the same block reads."""
 
     def gram_fn(w_ref, idx, workspace):
         return dcd_feature_gram(cols, vals, w_ref, idx, workspace=workspace,
-                                n_loc=n_loc)
+                                n_loc=n_loc, tasks=True)
 
     def corr_fn(dvec, idx):
         return dcd_feature_base_correction(cols, vals, dvec, idx,
-                                           n_loc=n_loc)
+                                           n_loc=n_loc, tasks=True)
 
     def update_fn(alpha, w_ref, idx, base, gram, workspace, act=None):
         return dcd_feature_update(cols, vals, sq_norms, alpha, w_ref, idx,
-                                  base, gram, loss=loss, active=act,
+                                  base, gram, loss=loss, active=act, y=Y,
                                   workspace=workspace, n_loc=n_loc)
 
     return gram_fn, corr_fn, update_fn
@@ -383,7 +454,8 @@ def _scan_rounds_overlap(gram_fn, corr_fn, update_fn, alpha, w, dw_prev,
         inflight_next = (*gram_fn(w_next, idx_next, ws_next), ws_next)
         base = base0 + corr_fn(dw_prev, idx)
         alpha, w_upd = update_fn(alpha, w_next, idx, base, gram, ws, *extra)
-        w, dw_prev, inflight = (w_next, _data_sum(w_upd - w_next, w_next),
+        w, dw_prev, inflight = (w_next,
+                                _shard_sum(w_upd - _per_shard(w_next)),
                                 inflight_next)
     return alpha, w, dw_prev, inflight
 
@@ -402,7 +474,9 @@ def _make_gap_1d(loss, X_loc, ell: bool, d_run: int):
     caller hands the first n rows and α[:n]): gap(α) = ‖w(α)‖² + Σ_i
     [ℓ(w(α)ᵀx_i) + ℓ*(−α_i)] and ‖w(α) − ŵ‖ against the maintained
     primal view ``w_view`` (ε = w̄ − ŵ of ``core/backward_error.py``).
-    Returns device scalars: no host sync."""
+    ``y`` folds one task's labels on read: w(α) = Σ α_i·y_i·x_i and the
+    margin y_i·w(α)ᵀx_i, while ℓ*(−α) reads α.  Returns device scalars:
+    no host sync."""
     if ell:
         cols_loc, vals_loc = X_loc
 
@@ -421,9 +495,12 @@ def _make_gap_1d(loss, X_loc, ell: bool, d_run: int):
         def mv(wa):
             return X_loc @ wa
 
-    def gap(alpha_loc, w_view):
-        wa = rmv(alpha_loc)
-        s = torch.sum(loss.primal_loss(mv(wa)) + loss.conj(alpha_loc))
+    def gap(alpha_loc, w_view, y=None):
+        wa = rmv(alpha_loc if y is None else alpha_loc * y)
+        z = mv(wa)
+        if y is not None:
+            z = y * z
+        s = torch.sum(loss.primal_loss(z) + loss.conj(alpha_loc))
         e = wa - w_view  # the dummy slot is 0 in both
         return torch.dot(wa, wa) + s, torch.sqrt(torch.dot(e, e))
 
@@ -452,20 +529,23 @@ def _make_gap_2d(loss, cols, vals, chunk_elems: int = 1 << 26):
     (the reference's psums over ``model``).  Works in row chunks of about
     ``chunk_elems`` entries, so no (n, m, k_loc) temporary is formed,
     and scatters only real entries (padding lanes would all add 0 into
-    the m dummy slots)."""
+    the m dummy slots).  ``y`` folds one task's labels on read."""
     m = cols.shape[1]
     rows = _chunk_rows(cols, chunk_elems)
 
-    def gap(alpha, w_view):
+    def gap(alpha, w_view, y=None):
         d1 = w_view.shape[1]
+        ay = alpha if y is None else alpha * y
         wa = torch.zeros((m * d1,), dtype=torch.float32, device=alpha.device)
         for c, v, a in zip(cols.split(rows), vals.split(rows),
-                           alpha.split(rows)):
+                           ay.split(rows)):
             real = c < d1 - 1
             wa.index_add_(0, flat_shard_ids(c, d1)[real],
                           (a[:, None, None] * v)[real])
         wa = wa.view(m, d1)
         z = _row_dots_2d(cols, vals, wa, rows)
+        if y is not None:
+            z = y * z
         s = torch.sum(loss.primal_loss(z) + loss.conj(alpha))
         e = wa - w_view  # the dummy slots are 0 in both
         return (torch.sum(torch.sum(wa * wa, dim=1)) + s,
@@ -474,13 +554,23 @@ def _make_gap_2d(loss, cols, vals, chunk_elems: int = 1 << 26):
     return gap
 
 
+def _task_gaps(gap, alpha, w_view, Y, n: int):
+    """Each task's (gap, ‖w(α) − ŵ‖) over the real rows, task by task
+    with its labels folded on read: two (K,) device tensors."""
+    out = [gap(alpha[k, :n], w_view[k], None if Y is None else Y[k, :n])
+           for k in range(alpha.shape[0])]
+    return (torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]))
+
+
 def _make_shrink(setup, chunk_elems: int = 1 << 26):
     """The active-mask recompute (the reference's ``_make_shrink_1d`` /
-    ``_2d``): fresh projected gradients from (α, w_view) — wᵀx_i by the
-    layout's own matvec (on the 2-D mesh the sum of the shards' partial
-    dots, in row chunks) — through ``active_mask_from_w``, ANDed with
-    row validity so padding rows never count as active.  Returns an
-    (n_pad,) bool mask."""
+    ``_2d``), task by task: fresh projected gradients from (α, w_view) —
+    wᵀx_i by the layout's own matvec (on the 2-D mesh the sum of the
+    shards' partial dots, in row chunks), y_i·wᵀx_i with the task's
+    labels — through ``active_mask_from_w``, ANDed with row validity so
+    padding rows never count as active.  Returns a (K, n_pad) bool
+    mask, a row a task, and the (n_pad,) validity."""
     valid = torch.arange(setup.n_pad, device=setup.device) < setup.n
     if setup.two_d:
         cols, vals = setup.X
@@ -498,8 +588,14 @@ def _make_shrink(setup, chunk_elems: int = 1 << 26):
             return setup.X @ wv
 
     def mask_fn(alpha, w_view):
-        return active_mask_from_w(setup.loss, alpha, mv(w_view),
-                                  setup.shrink_tol) & valid
+        masks = []
+        for k in range(alpha.shape[0]):
+            wx = mv(w_view[k])
+            if setup.Y is not None:
+                wx = setup.Y[k] * wx
+            masks.append(active_mask_from_w(setup.loss, alpha[k], wx,
+                                            setup.shrink_tol) & valid)
+        return torch.stack(masks)
 
     return mask_fn, valid
 
@@ -507,7 +603,8 @@ def _make_shrink(setup, chunk_elems: int = 1 << 26):
 class SolverSetup(NamedTuple):
     """The resolved and placed half of a solve: knobs, sizes and the
     device-resident, row-padded dataset (n_pad = p·n_loc rows, shard s
-    the rows [s·n_loc, (s+1)·n_loc), the padding the tail)."""
+    the rows [s·n_loc, (s+1)·n_loc), the padding the tail), and for a
+    multi-task solve its K and the placed (K, n_pad) labels."""
 
     loss: object
     n: int
@@ -534,10 +631,17 @@ class SolverSetup(NamedTuple):
     shrink_tol: float = 1e-3
     repack_threshold: float = 0.5
     adaptive_ratio: float = 0.95
+    n_tasks: int = 0  # multi-task K (0 = binary)
+    Y: object = None  # placed (K, n_pad) ±1 labels (None = binary)
 
     @property
     def n_pad(self) -> int:
         return self.p * self.n_loc
+
+    @property
+    def K(self) -> int:
+        """The solve's task count: its state's leading dimension."""
+        return max(self.n_tasks, 1)
 
 
 def _resolve_mesh(mesh, mesh_axes) -> SolverMesh:
@@ -563,6 +667,20 @@ def _pad_rows(t, n_pad: int, fill):
                                     dtype=t.dtype, device=t.device)])
 
 
+def _place_labels(y, *, n: int, n_pad: int, device):
+    """The (K, n) ±1 label matrix padded to the solve's row layout, the
+    padding rows +1 (inert: their rows are zero and outside every sum;
+    the fold only has to stay finite).  Returns (K, the (K, n_pad)
+    float32 labels on ``device``)."""
+    Y = (y.to(device, torch.float32) if torch.is_tensor(y)
+         else torch.tensor(np.asarray(y, np.float32), device=device))
+    if Y.dim() != 2 or Y.shape[1] != n:
+        raise ValueError(f"label matrix has shape {tuple(Y.shape)} for "
+                         f"{n} rows")
+    K = int(Y.shape[0])
+    return K, _pad_rows(Y.T, n_pad, 1.0).T.contiguous()
+
+
 def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
                    y=None, block_size: int = 64, delay_rounds: int = 0,
                    pod_delay_rounds: int = 0, seed: int = 0,
@@ -578,13 +696,22 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
     padding: rows pad to n_pad = p·n_loc with zero rows (q = 1), which
     at p | n is no padding.  On a 2-D mesh a dense X converts to ELL and
     is split into ``FeatureShardedEll`` slices on the device.  It takes
-    every keyword of the reference's; ``y`` (the reference's (K, n)
-    multi-task labels), pods and ``pipeline=False`` raise
-    ``NotImplementedError`` (``_reject_unported``), and the self-tuning
-    knobs are validated by ``resolve_self_tuning``."""
+    every keyword of the reference's: ``y`` is the (K, n) multi-task
+    label matrix (admitted by ``task_axis_policy``, as a ``task`` mesh
+    axis is, and placed with its padding rows at +1); pods and
+    ``pipeline=False`` raise ``NotImplementedError``
+    (``_reject_unported``), and the self-tuning knobs are validated by
+    ``resolve_self_tuning``."""
     mesh = _resolve_mesh(mesh, mesh_axes)
+    if y is not None:
+        task_axis_policy(torch.as_tensor(y).shape[0], mesh=mesh,
+                         pipeline=pipeline)
+    elif "task" in mesh.axis_names:
+        raise ValueError(
+            "a 'task' mesh axis needs a (K, n) label matrix y "
+            "(DESIGN.md §16)")
     _reject_unported(mesh=mesh, pod_delay_rounds=pod_delay_rounds,
-                     multitask=y is not None, pipeline=pipeline)
+                     pipeline=pipeline)
     dev = resolve_device(device)
     _check_use_kernel(use_kernel, dev)
     if int(block_size) < 1:
@@ -635,6 +762,9 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
         lim = extra.get("d_loc", d)
         if not (0 <= int(cols.min()) and int(cols.max()) <= lim):
             raise ValueError(f"ELL column ids must lie in [0, {lim}]")
+    if y is not None:
+        extra["n_tasks"], extra["Y"] = _place_labels(y, n=n, n_pad=p * n_loc,
+                                                     device=dev)
     return SolverSetup(
         loss=loss, n=n, d=d, n_loc=n_loc,
         n_blocks=_n_blocks(n_loc, block_size),
@@ -648,39 +778,45 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
 
 
 def _init_alpha_w(setup: SolverSetup, alpha0=None, w0=None):
-    """(α (n_pad,), w) for a solve — zeros, or a warm start from carried
-    state.  A carried ``alpha0``/``w0`` *shorter* than n/d is the
-    streaming-append warm start: old coordinates keep their values, new
-    ones start at 0.  On a 2-D mesh a (d,) ``w0`` is re-blocked onto the
-    shards' slices."""
-    dev = setup.device
-    alpha = torch.zeros((setup.n_pad,), dtype=torch.float32, device=dev)
+    """(α (K, n_pad), w (K, *w_shape)) for a solve — zeros, or a warm
+    start from carried state: a (K, n')/(K, d') stack on a multi-task
+    solve, an (n',)/(d',) one on a binary solve (K = 1).  A carried
+    state *shorter* than n/d is the streaming-append warm start: old
+    coordinates keep their values, new ones start at 0.  On a 2-D mesh
+    each task's w0 is re-blocked onto the shards' slices."""
+    dev, K = setup.device, setup.K
+    alpha = torch.zeros((K, setup.n_pad), dtype=torch.float32, device=dev)
     if alpha0 is not None:
         a0 = torch.as_tensor(alpha0, dtype=torch.float32,
-                             device=dev).reshape(-1)[:setup.n]
-        alpha[: a0.shape[0]] = a0
-    w = torch.zeros(setup.w_shape, dtype=torch.float32, device=dev)
+                             device=dev).reshape(K, -1)[:, :setup.n]
+        alpha[:, :a0.shape[1]] = a0
+    w = torch.zeros((K, *setup.w_shape), dtype=torch.float32, device=dev)
     if w0 is not None:
         v0 = torch.as_tensor(w0, dtype=torch.float32,
-                             device=dev).reshape(-1)[:setup.d]
+                             device=dev).reshape(K, -1)[:, :setup.d]
         if setup.two_d:
-            flat = torch.zeros((setup.m * setup.d_loc,), dtype=torch.float32,
-                               device=dev)
-            flat[: v0.shape[0]] = v0
-            w[:, :setup.d_loc] = flat.view(setup.m, setup.d_loc)
+            flat = torch.zeros((K, setup.m * setup.d_loc),
+                               dtype=torch.float32, device=dev)
+            flat[:, :v0.shape[1]] = v0
+            w[:, :, :setup.d_loc] = flat.view(K, setup.m, setup.d_loc)
         else:
-            w[: v0.shape[0]] = v0
+            w[:, :v0.shape[1]] = v0
     return alpha, w
 
 
 def _finalize(setup: SolverSetup, alpha, w, gaps, epochs, eps=None,
               active=None, delay=None):
     """Back to user coordinates: drop the padding rows and the dummy
-    slot, and on a 2-D mesh stitch ŵ out of the shards' slices."""
+    slot, on a 2-D mesh stitch ŵ out of the shards' slices, task by
+    task; a binary solve drops the task dimension."""
+    K = setup.K
     if setup.two_d:
-        w = w[:, :setup.d_loc].reshape(-1)
-    return ShardedResult(alpha[:setup.n], w[:setup.d], gaps, epochs, eps,
-                         active, delay)
+        w = w[:, :, :setup.d_loc].reshape(K, -1)
+    out = (alpha[:, :setup.n], w[:, :setup.d], gaps, eps, active, delay)
+    if not setup.n_tasks:
+        out = tuple(t[0] for t in out)
+    alpha, w, gaps, eps, active, delay = out
+    return ShardedResult(alpha, w, gaps, epochs, eps, active, delay)
 
 
 def _validate_solver_inputs(X_host, y, loss):
@@ -714,24 +850,43 @@ def _validate_solver_inputs(X_host, y, loss):
     return X * y.to(X.device)[:, None]
 
 
-def _reject_unported(*, mesh, pod_delay_rounds, multitask, pipeline):
+def _validate_multitask_labels(X_host, Y):
+    """The multi-task mouth (DESIGN.md §16): a (K, n) ±1 one-vs-rest
+    label matrix — validated, not folded into X (each class flips other
+    rows, so the engines fold on read).  Returns it as float32."""
+    Y = (Y.to(torch.float32) if torch.is_tensor(Y)
+         else torch.tensor(np.asarray(Y, np.float32)))
+    if Y.dim() != 2 or Y.shape[0] < 1:
+        raise ValueError(
+            f"multi-task labels must be a (K, n) matrix, got shape "
+            f"{tuple(Y.shape)}")
+    n = (X_host.n_rows if isinstance(X_host, EllMatrix)
+         else X_host.shape[0])
+    if Y.shape[1] != n:
+        raise ValueError(
+            f"label matrix has {Y.shape[1]} columns for {n} rows")
+    if not bool(torch.isfinite(Y).all()):
+        raise ValueError("Y contains non-finite entries (NaN/Inf)")
+    if not bool(((Y == 1.0) | (Y == -1.0)).all()):
+        raise ValueError(
+            "multi-task labels must be in {-1, +1} (see "
+            "repro_torch.data.ovr_labels)")
+    return Y
+
+
+def _reject_unported(*, mesh, pod_delay_rounds, pipeline):
     """The reference's knobs outside the ported slices: each raises,
     naming the ROADMAP item that ports it; none is silently ignored."""
     axes = tuple(mesh.axis_names)
-    if multitask:
-        raise NotImplementedError(
-            "a (K, n) multi-task label matrix is ROADMAP A.9 (multi-task), "
-            "not yet ported")
     if "pod" in axes or pod_delay_rounds:
         raise NotImplementedError(
             "pods (a 'pod' mesh axis, pod_delay_rounds) are ROADMAP A.10, "
             "not yet ported")
-    if "task" in axes:
-        raise NotImplementedError(
-            "a 'task' mesh axis is ROADMAP A.9 (multi-task), not yet ported")
-    if axes not in (("data",), ("data", "model")):
+    if axes not in (("data",), ("data", "model"), ("task", "data"),
+                    ("task", "data", "model")):
         raise ValueError(f"mesh axes {axes}: the solver runs on ('data',) "
-                         "or ('data', 'model')")
+                         "or ('data', 'model'), with or without a leading "
+                         "'task'")
     if not pipeline:
         raise NotImplementedError(
             "pipeline=False (the per-epoch host driver) is ROADMAP A′.12, "
@@ -765,8 +920,11 @@ def _block_schedule(setup: SolverSetup, blocks, epochs: int):
     schedule repeats its last one: only the overlapped round's peek past
     the final epoch asks, and discards it) or through the reference's
     key chain, ``PRNGKey(seed)`` then per epoch ``key, sub =
-    split(key)``.  With an active mask ``act`` (n_pad,) and repack flag
-    ``rp`` the draw is the masked one (``_device_block_perm_masked``)."""
+    split(key)``: one chain for every task, so each task draws its own
+    binary solve's blocks.  With the tasks' active masks ``act``
+    (K, n_pad) and repack flags ``rp`` (K,) the draw is the masked one
+    (``_device_block_perm_masked``), each task's own: (n_blocks, K, p,
+    B)."""
     p, n_loc, nb, B = (setup.p, setup.n_loc, setup.n_blocks,
                        setup.block_size)
     if blocks is not None:
@@ -782,12 +940,12 @@ def _block_schedule(setup: SolverSetup, blocks, epochs: int):
         if act is None:
             per = [_device_block_perm(subs[e], my, p, n_loc, setup.n, nb, B)
                    for my in range(p)]
-        else:
-            acts = act.view(p, n_loc)
-            per = [_device_block_perm_masked(subs[e], my, p, n_loc, nb, B,
-                                             acts[my], rp)
-                   for my in range(p)]
-        return torch.stack(per, dim=1)  # (n_blocks, p, B)
+            return torch.stack(per, dim=1)  # (n_blocks, p, B)
+        acts = act.reshape(act.shape[0], p, n_loc)
+        per = [_device_block_perm_masked(subs[e], my, p, n_loc, nb, B,
+                                         acts[:, my], rp)
+               for my in range(p)]  # each (K, n_blocks, B)
+        return torch.stack(per, dim=2).transpose(0, 1).contiguous()
 
     return draw
 
@@ -800,101 +958,112 @@ def _workspaces(setup: SolverSetup):
         return (None, None)
     return tuple(
         gram_workspace(setup.m, setup.block_size, setup.X[0].shape[2],
-                       setup.w_shape[1], setup.device, setup.p)
+                       setup.w_shape[1], setup.device, setup.p, setup.K)
         for _ in range(2 if setup.overlap else 1))
 
 
 def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
                 epochs: int, overlap_fns=None, workspaces=None):
     """The epoch loop (the reference's ``_epoch_scan`` without pods,
-    the watchdog and the fault triple): draw each epoch's blocks, run
-    its rounds — the static ``_scan_rounds``, the self-tuning
-    ``_scan_rounds_dyn`` or the overlapped ``_scan_rounds_overlap``
-    (whose in-flight aggregate crosses epochs) — and record the gap,
-    ‖w(α) − ŵ‖, the active fraction and the delay flag into
-    preallocated device buffers.  Shrinking recomputes the mask every
-    ``shrink_every`` epochs (the final epoch runs unshrunk); repacking
-    draws an epoch over the compacted active set when the fraction
-    summed over the shards is below the threshold, and runs as many
-    rounds as the largest shard's count needs — read on the host once an
-    epoch, the solve's only sync (counted in
-    ``sharded_passcode_solve.host_reads``; the epochs' round counts are
-    kept in ``sharded_passcode_solve.epoch_rounds``); the adaptive delay
-    lowers its device flag at records (one-way), and with shrinking a
-    hard stall turns repacking off for good.  Returns (α, w, Δw in flight, gaps,
+    the watchdog and the fault triple, under its task vmap): draw each
+    epoch's blocks, run its rounds — the static ``_scan_rounds``, the
+    self-tuning ``_scan_rounds_dyn`` or the overlapped
+    ``_scan_rounds_overlap`` (whose in-flight aggregate crosses epochs)
+    — and record each task's gap, ‖w(α) − ŵ‖, active fraction and delay
+    flag into preallocated (K, slots) device buffers.  Shrinking
+    recomputes each task's mask every ``shrink_every`` epochs (the final
+    epoch runs unshrunk); repacking draws a task's epoch over its
+    compacted active set when its fraction, summed over the shards, is
+    below the threshold, and that task runs as many rounds as its
+    largest shard's count needs.  The tasks' counts are read on the host
+    together, once an epoch, the solve's only sync (counted in
+    ``sharded_passcode_solve.host_reads``): the epoch runs the largest,
+    a task past its own keeping its state.  The rounds run per epoch are
+    kept in ``sharded_passcode_solve.epoch_rounds`` and each task's in
+    ``task_rounds``.  The adaptive delay lowers each task's device flag
+    at records (one-way), and with shrinking a hard stall turns that
+    task's repacking off for good.  Returns (α, w, Δw in flight, gaps,
     eps, active, delay)."""
-    st, dev = setup.tuning, w.device
-    sharded_passcode_solve.epoch_rounds = []
+    st, dev, K = setup.tuning, w.device, setup.K
+    solve = sharded_passcode_solve
+    solve.epoch_rounds, solve.task_rounds = [], []
     n_gaps = _gap_slots(epochs, setup.gap_every) if setup.record else 0
-    gaps, epsb, actb, delayb = (torch.zeros((n_gaps,), dtype=torch.float32,
+    gaps, epsb, actb, delayb = (torch.zeros((K, n_gaps), dtype=torch.float32,
                                             device=dev) for _ in range(4))
     shrink_on, adaptive = st.shrink_every > 0, st.adaptive
     dyn = (shrink_on or adaptive) and not setup.overlap
     dw = torch.zeros_like(w)
-    dwo = torch.zeros((setup.p, *w.shape), dtype=torch.float32,
+    dwo = torch.zeros((K, setup.p, *w.shape[1:]), dtype=torch.float32,
                       device=dev) if dyn else None
     if shrink_on:
         mask_fn, valid = _make_shrink(setup)
-        act, frac = valid, torch.ones((), device=dev)
-        nrun = torch.tensor(setup.n_blocks, device=dev)
-        rp = torch.zeros((), dtype=torch.bool, device=dev)
+        act, frac = valid.expand(K, -1), torch.ones((K,), device=dev)
+        nrun = torch.full((K,), setup.n_blocks, device=dev)
+        rp = torch.zeros((K,), dtype=torch.bool, device=dev)
     if adaptive:
-        delay = torch.tensor(setup.delay_rounds, dtype=torch.int32,
-                             device=dev)
-        gapprev = torch.tensor(float("inf"), device=dev)
-        rpok = torch.ones((), dtype=torch.int32, device=dev)
+        delay = torch.full((K,), setup.delay_rounds, dtype=torch.int32,
+                           device=dev)
+        gapprev = torch.full((K,), float("inf"), device=dev)
+        rpok = torch.ones((K,), dtype=torch.int32, device=dev)
     inflight = None
     if setup.overlap:
-        first = draw(0, valid, rp) if shrink_on else draw(0)
+        first = draw(0, act, rp) if shrink_on else draw(0)
         inflight = (*overlap_fns[0](w, first[0], workspaces[0]),
                     workspaces[0])
     slot = 0
     for e in range(epochs):
         final = e == epochs - 1
-        n_run, act_run = setup.n_blocks, None
+        n_run, act_run, runs, n_all = setup.n_blocks, None, None, 0
         if shrink_on:
             if e % st.shrink_every == 0:
                 act = mask_fn(alpha, w + dw)
-                cnt = act.view(setup.p, setup.n_loc).sum(1)
-                frac = cnt.sum().float() / setup.n
+                cnt = act.view(K, setup.p, setup.n_loc).sum(2)
+                frac = cnt.sum(1).float() / setup.n
                 if st.repack:
                     rp = frac < setup.repack_threshold
-                    nrun = torch.clamp(-(-cnt.max() // setup.block_size), 1,
-                                       setup.n_blocks)
+                    nrun = torch.clamp(
+                        -(-cnt.max(1).values // setup.block_size), 1,
+                        setup.n_blocks)
             act_run = (valid if final else act).float()
             use_rp = rp & (not final)
             if adaptive:
                 use_rp = use_rp & (rpok > 0)
-            blocks = draw(e, torch.where(use_rp, act, valid), use_rp)
+            blocks = draw(e, torch.where(use_rp[:, None], act, valid),
+                          use_rp)
             if st.repack:
-                # the epoch's round count, read on the host: one sync an
-                # epoch, and none a round
-                n_run = int(torch.where(use_rp, nrun, setup.n_blocks))
-                sharded_passcode_solve.host_reads += 1
+                # the tasks' round counts, read on the host together: one
+                # sync an epoch, and none a round
+                runs = torch.where(use_rp, nrun, setup.n_blocks)
+                counts = runs.tolist()
+                solve.host_reads += 1
+                n_run, n_all = max(counts), min(counts)
+                solve.task_rounds.append(counts)
         else:
             blocks = draw(e)
-        sharded_passcode_solve.epoch_rounds.append(n_run)
+        if runs is None:
+            solve.task_rounds.append([n_run] * K)
+        solve.epoch_rounds.append(n_run)
         delay_flag = delay if adaptive else setup.delay_rounds
         if setup.overlap:
-            nxt = (draw(e + 1, valid, torch.zeros_like(rp)) if shrink_on
-                   else draw(e + 1))[0]
+            nxt = (draw(e + 1, valid.expand(K, -1), torch.zeros_like(rp))
+                   if shrink_on else draw(e + 1))[0]
             alpha, w, dw, inflight = _scan_rounds_overlap(
                 *overlap_fns, alpha, w, dw, blocks, inflight, nxt,
                 workspaces, act_run)
         elif dyn:
             alpha, w, dw, dwo = _scan_rounds_dyn(
                 engine, alpha, w, dw, dwo, blocks, act_run, n_run,
-                delay_flag)
+                delay_flag, runs if n_all < n_run else None, n_all)
         else:
             alpha, w, dw = _scan_rounds(engine, alpha, w, dw, blocks,
                                         setup.delay_rounds)
         if setup.record and ((e + 1) % setup.gap_every == 0 or final):
-            g, eps = gap(alpha[:setup.n], w + dw)
-            gaps[slot], epsb[slot] = g, eps
-            actb[slot] = frac if shrink_on else 1.0
-            delayb[slot] = delay_flag
+            g, eps = _task_gaps(gap, alpha, w + dw, setup.Y, setup.n)
+            gaps[:, slot], epsb[:, slot] = g, eps
+            actb[:, slot] = frac if shrink_on else 1.0
+            delayb[:, slot] = delay_flag
             if adaptive:
-                # the gap-trend controller, through a one-way latch
+                # each task's gap-trend controller, through a one-way latch
                 new_flag = adaptive_delay_policy(
                     gapprev, g, improve_ratio=setup.adaptive_ratio)
                 delay = torch.minimum(delay_flag, new_flag)
@@ -957,19 +1126,32 @@ def sharded_passcode_solve(
     ‖w(α) − ŵ‖, the active fraction and the delay flag every that many
     epochs plus the final one, kept on the device.  ``alpha0``/``w0``
     warm-start the solve; ``y`` (n,) ±1 labels are validated and folded
-    into X at the mouth.  The blocks are drawn through the reference's
-    key chain from ``seed``; ``blocks`` replaces the draw with an
-    explicit schedule ((epochs, n_blocks, B) row ids at p = 1,
-    (epochs, p, n_blocks, B) shard-local ids at p > 1).  Pods, a (K, n)
-    multi-task ``y`` and ``pipeline=False`` raise ``NotImplementedError``
-    naming their ROADMAP item (``prepare_solver``).
+    into X at the mouth.  A (K, n) ±1 ``y`` is the multi-task
+    (one-vs-rest) solve of K classes on the unfolded X (module
+    docstring): α (K, n), ŵ (K, d) and every record (K, slots) come
+    back, and ``alpha0``/``w0`` are (K, …) stacks.  The blocks are
+    drawn through the reference's key chain from ``seed``; ``blocks``
+    replaces the draw with an explicit schedule ((epochs, n_blocks, B)
+    row ids at p = 1, (epochs, p, n_blocks, B) shard-local ids at
+    p > 1), the same for every task.  Pods and ``pipeline=False`` raise
+    ``NotImplementedError`` naming their ROADMAP item
+    (``prepare_solver``); a multi-task solve with ``pipeline=False``
+    raises the reference's ``ValueError``.
     """
     dev = resolve_device(device)
     # a (K, n) label matrix is the multi-task solve: not folded into X
     multitask = y is not None and len(getattr(y, "shape", ())) == 2
     X_host = X_host.to(dev) if isinstance(X_host, EllMatrix) else \
         torch.as_tensor(X_host, dtype=torch.float32, device=dev)
-    X_host = _validate_solver_inputs(X_host, None if multitask else y, loss)
+    if multitask:
+        y = _validate_multitask_labels(X_host, y)
+        X_host = _validate_solver_inputs(X_host, None, loss)
+        if not pipeline:
+            raise ValueError(
+                "a multi-task solve needs pipeline=True (see "
+                "repro_torch.dist.mesh.task_axis_policy)")
+    else:
+        X_host = _validate_solver_inputs(X_host, y, loss)
     setup = prepare_solver(
         X_host, loss, mesh=mesh, mesh_axes=mesh_axes,
         y=y if multitask else None, block_size=block_size,
@@ -988,15 +1170,17 @@ def sharded_passcode_solve(
         workspaces = _workspaces(setup)
         engine = functools.partial(
             _block_update_2d(setup.loss, setup.fused, workspaces[0],
-                             setup.n_loc), cols, vals, setup.sq_norms)
+                             setup.n_loc, setup.Y), cols, vals,
+            setup.sq_norms)
         if setup.overlap:
             overlap_fns = _overlap_round_fns(cols, vals, setup.sq_norms,
-                                             setup.loss, setup.n_loc)
+                                             setup.loss, setup.n_loc,
+                                             setup.Y)
         gap = _make_gap_2d(setup.loss, cols[:n], vals[:n])
     else:
         engine = functools.partial(
-            _block_update_1d(setup.loss, setup.ell, setup.n_loc), setup.X,
-            setup.sq_norms)
+            _block_update_1d(setup.loss, setup.ell, setup.n_loc, setup.Y),
+            setup.X, setup.sq_norms)
         X_real = ((setup.X[0][:n], setup.X[1][:n]) if setup.ell
                   else setup.X[:n])
         gap = _make_gap_1d(setup.loss, X_real, setup.ell, setup.w_shape[0])
@@ -1011,6 +1195,7 @@ def sharded_passcode_solve(
 
 sharded_passcode_solve.host_reads = 0
 sharded_passcode_solve.epoch_rounds = []
+sharded_passcode_solve.task_rounds = []
 
 
 def sharded_passcode_feature(X_host, loss, *, mesh=None, epochs: int = 10,

@@ -131,10 +131,11 @@ def active_row_remap(mask: torch.Tensor):
     """Fixed-capacity compaction of active rows: ``(ids, count)``, ids a
     length-n int32 permutation listing the rows where ``mask`` is True
     first, in their original order (stable), then the others; count how
-    many are True.  An all-True mask gives the identity."""
+    many are True.  An all-True mask gives the identity.  A (K, n) mask
+    is K masks, compacted row by row: (K, n) ids and (K,) counts."""
     mask = mask.to(torch.bool)
     ids = torch.argsort((~mask).to(torch.int8), stable=True).to(torch.int32)
-    return ids, torch.sum(mask.to(torch.int32))
+    return ids, torch.sum(mask.to(torch.int32), dim=-1)
 
 
 class FeatureShardedEll(NamedTuple):

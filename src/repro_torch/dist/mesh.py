@@ -9,7 +9,11 @@ axis becomes m virtual feature shards, a leading tensor dimension.
 The reference's ``data`` axis becomes p virtual row shards
 the same way: each kernel runs a grid of p CTAs (or CTA groups), one a
 shard, and the psum over ``data`` becomes a sum of the p shards' Δw in
-shard order.  ``pipeline_overlap`` is the reference's rule for the
+shard order.  The multi-task solver's K one-vs-rest tasks (the
+reference's vmapped task axis, and its ``task`` mesh axis) are a task
+dimension of the same grid: K × p CTAs (or CTA groups), one a (task,
+shard) pair; ``solver_mesh_tasks`` and ``task_axis_policy`` are the
+reference's mesh and admission rule for them.  ``pipeline_overlap`` is the reference's rule for the
 overlapped 2-D round, ``resolve_self_tuning`` and
 ``adaptive_delay_policy`` its rules for shrinking, repacking and the
 adaptive delay.  ``lane_pad`` and ``cta_threads`` size a kernel's thread block.
@@ -87,14 +91,15 @@ class EllPlan(NamedTuple):
     ``table_slots`` entries and the ids' α, q, y, act in shared memory)
     or "wide" (rows and w in device memory, one update at a time across
     ``threads``).  ``smem_bytes`` is the staged kernel's dynamic shared
-    memory (0 for wide), per CTA; the grid holds ``shards`` CTAs, one a
-    data shard."""
+    memory (0 for wide), per CTA; the grid holds ``tasks`` × ``shards``
+    CTAs, one a (task, data shard) pair."""
 
     variant: str
     threads: int
     table_slots: int
     smem_bytes: int
     shards: int = 1
+    tasks: int = 1
 
 
 def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
@@ -107,7 +112,7 @@ def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def dcd_ell_plan(b: int, k: int, wide: bool = False,
-                 shards: int = 1) -> EllPlan:
+                 shards: int = 1, tasks: int = 1) -> EllPlan:
     """Pick B1's variant for a block of ``b`` ids over rows of ``k``
     slots, by shape.  The column table has a power-of-two size of at
     least 1.5 slots per entry (a load ≤ 2/3 under linear probing: every
@@ -116,15 +121,19 @@ def dcd_ell_plan(b: int, k: int, wide: bool = False,
     most ``ELL_STAGED_MAX_SLOTS`` slots (the update warp keeps a row in
     registers) and it fits the 227 KB of shared memory one CTA can use;
     else, or when ``wide`` asks for it, the wide kernel.  ``shards``
-    data shards run ``b`` ids each, a CTA a shard: the layout of one
-    CTA does not change with them."""
+    data shards of each of ``tasks`` tasks run ``b`` ids each, a CTA a
+    (task, shard) pair: one CTA holds one task's block, so its layout
+    (and its shared memory) is the binary plan's whatever the two
+    counts."""
     b, k, shards = max(int(b), 1), max(int(k), 1), max(int(shards), 1)
+    tasks = max(int(tasks), 1)
     slots = max(WARP, _pow2_at_least(-(-3 * b * k // 2)))
     need = dcd_ell_staged_bytes(b, k, slots)
     if (not wide and b <= ELL_STAGED_MAX_IDS and k <= ELL_STAGED_MAX_SLOTS
             and need <= SMEM_PER_CTA - STATIC_SMEM):
-        return EllPlan("staged", ELL_STAGED_THREADS, slots, need, shards)
-    return EllPlan("wide", cta_threads(k), 0, 0, shards)
+        return EllPlan("staged", ELL_STAGED_THREADS, slots, need, shards,
+                       tasks)
+    return EllPlan("wide", cta_threads(k), 0, 0, shards, tasks)
 
 
 # B2 staged: ids per block (its repeat scan is O(B²) per block), the CTA
@@ -143,13 +152,14 @@ class DensePlan(NamedTuple):
     words a lane) or "wide" (rows and w in device memory, one update at
     a time across ``threads``).  ``smem_bytes`` is the staged kernel's
     dynamic shared memory (0 for wide), per CTA; the grid holds
-    ``shards`` CTAs, one a data shard."""
+    ``tasks`` × ``shards`` CTAs, one a (task, data shard) pair."""
 
     variant: str
     threads: int
     per_lane: int
     smem_bytes: int
     shards: int = 1
+    tasks: int = 1
 
 
 def dcd_dense_staged_bytes(b: int, d: int) -> int:
@@ -161,22 +171,24 @@ def dcd_dense_staged_bytes(b: int, d: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def dcd_dense_plan(b: int, d: int, wide: bool = False,
-                   shards: int = 1) -> DensePlan:
+                   shards: int = 1, tasks: int = 1) -> DensePlan:
     """Pick B2's variant for a block of ``b`` ids over rows of ``d``
     floats, by shape.  The block takes the staged kernel when it holds
     at most ``DENSE_STAGED_MAX_IDS`` ids, d is at most
     ``DENSE_STAGED_MAX_D`` (one warp keeps w in registers) and the rows
     fit the shared memory one CTA can use; else, or when ``wide`` asks
     for it, the wide kernel.  ``per_lane`` is the power of two of w's
-    words a lane holds (at least ⌈d / 32⌉).  ``shards`` data shards
-    run ``b`` ids each, a CTA a shard."""
+    words a lane holds (at least ⌈d / 32⌉).  ``shards`` data shards of
+    each of ``tasks`` tasks run ``b`` ids each, a CTA a (task, shard)
+    pair, each CTA laid out as the binary plan's."""
     b, d, shards = max(int(b), 1), max(int(d), 1), max(int(shards), 1)
+    tasks = max(int(tasks), 1)
     need = dcd_dense_staged_bytes(b, d)
     if (not wide and b <= DENSE_STAGED_MAX_IDS and d <= DENSE_STAGED_MAX_D
             and need <= SMEM_PER_CTA - STATIC_SMEM):
         return DensePlan("staged", DENSE_STAGED_THREADS,
-                         _pow2_at_least(-(-d // WARP)), need, shards)
-    return DensePlan("wide", cta_threads(d), 0, 0, shards)
+                         _pow2_at_least(-(-d // WARP)), need, shards, tasks)
+    return DensePlan("wide", cta_threads(d), 0, 0, shards, tasks)
 
 
 # B3 stream: one CTA of a consumer warp (w in registers, at most
@@ -255,9 +267,10 @@ class GramPlan(NamedTuple):
     ids and rows of k slots: ``classes`` column classes (one CTA per
     class and shard, and per tile of ``tile`` of G's columns, ``tiles``
     tiles), and the shared memory of the bucket pass and the Gram kernel
-    in bytes.  ``data`` data shards, each with its own block of b ids,
-    multiply the grid and the workspace (``gram_workspace``) and change
-    no CTA's layout."""
+    in bytes.  ``data`` data shards of each of ``tasks`` tasks, each
+    pair with its own block of b ids and its own view of w, multiply
+    the grid and the workspace (``gram_workspace``) and change no CTA's
+    layout."""
 
     classes: int
     tile: int
@@ -265,16 +278,20 @@ class GramPlan(NamedTuple):
     bucket_smem: int
     gram_smem: int
     data: int = 1
+    tasks: int = 1
 
 
 @functools.lru_cache(maxsize=64)
-def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1) -> GramPlan:
+def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
+              tasks: int = 1) -> GramPlan:
     """Lay out B4 for a block of ``b`` ids over ``m`` shards of ``d1``
-    words and rows of ``k`` slots, for each of ``data`` data shards (the
-    classes depend on m alone, so a data shard runs what p = 1 runs).
-    Raises if a row is too long for the bucket pass to stage in shared
-    memory."""
+    words and rows of ``k`` slots, for each of ``data`` data shards of
+    each of ``tasks`` tasks (the classes depend on m alone, so a (task,
+    data shard) pair runs what the binary p = 1 launch runs, with the
+    same shared memory a CTA).  Raises if a row is too long for the
+    bucket pass to stage in shared memory."""
     m, b, k, d1, data = int(m), int(b), int(k), int(d1), max(int(data), 1)
+    tasks = max(int(tasks), 1)
     classes = max(1, min(GRAM_PARTIAL_WORDS // (m * b * b),
                          -(-d1 // GRAM_CLASS_COLS), GRAM_MAX_CLASSES))
     tile = max(1, min(b, 64, GRAM_TILE_WORDS // b))
@@ -286,7 +303,7 @@ def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1) -> GramPlan:
         raise ValueError(f"rows of {k} slots are too long for B4: its "
                          f"bucket pass stages a row in {bucket} bytes of "
                          f"shared memory, more than {SMEM_PER_CTA}")
-    return GramPlan(classes, tile, tiles, bucket, gram, data)
+    return GramPlan(classes, tile, tiles, bucket, gram, data, tasks)
 
 
 # B5: one CTA per column class of B4's plan and per shard; it stages the
@@ -303,8 +320,9 @@ class FeatureUpdatePlan(NamedTuple):
     lane of the recursion warp holds (a power of two ≥ ⌈b / 32⌉),
     whether G is staged in shared memory (``stage_gram``; else its row
     t is read from device memory a step ahead), and the dynamic shared
-    memory in bytes.  ``data`` data shards multiply the grid to R ×
-    data × m CTAs."""
+    memory in bytes.  ``data`` data shards of each of ``tasks`` tasks
+    multiply the grid to R × tasks × data × m CTAs, each laid out as the
+    binary plan's."""
 
     classes: int
     threads: int
@@ -312,6 +330,7 @@ class FeatureUpdatePlan(NamedTuple):
     stage_gram: bool
     smem_bytes: int
     data: int = 1
+    tasks: int = 1
 
 
 def feature_update_bytes(b: int, stage_gram: bool,
@@ -324,18 +343,19 @@ def feature_update_bytes(b: int, stage_gram: bool,
 
 
 @functools.lru_cache(maxsize=64)
-def feature_update_plan(m: int, b: int, k: int, d1: int,
-                        data: int = 1) -> FeatureUpdatePlan:
+def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
+                        tasks: int = 1) -> FeatureUpdatePlan:
     """Lay out B5 for a block of ``b`` ids over ``m`` shards of ``d1``
-    words and rows of ``k`` slots, for each of ``data`` data shards:
-    B4's classes, and G staged when the whole layout fits the shared
-    memory one CTA can use."""
+    words and rows of ``k`` slots, for each of ``data`` data shards of
+    each of ``tasks`` tasks: B4's classes, and G staged when the whole
+    layout fits the shared memory one CTA can use (one CTA runs one
+    task's recursion, so the layout does not depend on the counts)."""
     classes = gram_plan(m, b, k, d1).classes
     stage = feature_update_bytes(b, True) <= SMEM_PER_CTA - STATIC_SMEM
     return FeatureUpdatePlan(classes, FEATURE_UPDATE_THREADS,
                              _pow2_at_least(-(-int(b) // WARP)), stage,
                              feature_update_bytes(b, stage),
-                             max(int(data), 1))
+                             max(int(data), 1), max(int(tasks), 1))
 
 
 class SolverMesh(NamedTuple):
@@ -372,6 +392,59 @@ def solver_mesh_2d(data: int = 1, model: int = 1) -> SolverMesh:
         raise ValueError(f"mesh sizes must be ≥ 1, got data={data}, "
                          f"model={model}")
     return SolverMesh(("data", "model"), (int(data), int(model)))
+
+
+def solver_mesh_tasks(task: int = 2, data: int | None = None,
+                      model: int = 1, n_devices: int | None = None
+                      ) -> SolverMesh:
+    """The mesh with a leading ``task`` axis of the multi-task
+    (one-vs-rest) solver: the K tasks share one X while the per-class
+    (α, w) stacks split their leading (K,) axis over ``task``.  On one
+    card the task shards are virtual, like the data shards: the K tasks
+    run as a task dimension of the same launches whatever the axis's
+    size, which only admits K (``task_axis_policy``).  ``data`` defaults
+    to ``n_devices // (task · model)`` (1 without ``n_devices``);
+    ``model > 1`` appends the feature axis as ``solver_mesh_2d``
+    does."""
+    if data is None:
+        data = (1 if n_devices is None
+                else max(int(n_devices) // (int(task) * int(model)), 1))
+    if int(task) < 1 or int(data) < 1 or int(model) < 1:
+        raise ValueError(f"mesh sizes must be ≥ 1, got task={task}, "
+                         f"data={data}, model={model}")
+    if int(model) > 1:
+        return SolverMesh(("task", "data", "model"),
+                          (int(task), int(data), int(model)))
+    return SolverMesh(("task", "data"), (int(task), int(data)))
+
+
+def task_axis_policy(n_tasks: int, *, mesh, pipeline: bool = True) -> int:
+    """The reference's admission rule for the multi-task task axis, its
+    messages word for word: K ≥ 1; ``pipeline=True`` (the host driver
+    has no per-task carry); a ``task`` mesh axis needs K divisible by
+    its size and does not compose with a ``pod`` axis.  Returns the
+    validated K."""
+    K = int(n_tasks)
+    if K < 1:
+        raise ValueError(f"n_tasks must be >= 1, got {n_tasks}")
+    if not pipeline:
+        raise ValueError(
+            "a multi-task solve needs pipeline=True — the per-task "
+            "state (α/w stacks, latches, record buffers) lives in the "
+            "on-device epoch-scan carry; the host driver path has no "
+            "carry to put it in")
+    if "task" in mesh.axis_names:
+        t = mesh.shape["task"]
+        if K % t:
+            raise ValueError(
+                f"n_tasks={K} does not divide over the task mesh axis "
+                f"of size {t} — the per-class state stack must shard "
+                "evenly (no padding classes)")
+        if "pod" in mesh.axis_names:
+            raise ValueError(
+                "a 'task' mesh axis does not compose with a 'pod' axis "
+                "— run one multi-task solve per pod instead")
+    return K
 
 
 def data_axes(mesh) -> tuple:

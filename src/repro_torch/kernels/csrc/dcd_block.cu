@@ -95,6 +95,16 @@
 // writes, so the result does not depend on which CTAs run together.  B3,
 // and B2 for the serial solvers, are one CTA with n_loc = 0 that updates w
 // in place.
+//
+// B2's tasks.  The multi-task (one-vs-rest) solver's K binary problems on
+// one unfolded X are the grid's y dimension: CTA (s, k) runs data shard s
+// of task k on the shared rows and q, with its ids at idx + k·idx_ts
+// (idx_ts 0: every task draws the same blocks), its α and y at
+// + k·row_ts, its act at + k·act_ts (0: one mask for every task), its
+// view of w at w + k·w_ts + s·w_stride (staged; it writes the Δw slice
+// dw[k·p + s]) or its replica w + (k·p + s)·d (wide).  No CTA's arithmetic
+// changes with the task dimension: K = 1 gives the bits of the task-free
+// grid.
 
 #include "dcd_delta.cuh"
 #include "dcd_stage.cuh"
@@ -105,11 +115,17 @@ __global__ void dcd_dense_kernel(const int* __restrict__ idx, int m,
                                  float* alpha, const float* __restrict__ q,
                                  const float* __restrict__ act,
                                  const float* __restrict__ y, float* w,
-                                 DcdLoss L) {
-  // data shard blockIdx.x: its ids, its rows, its replica of w
+                                 DcdLoss L, long long idx_ts,
+                                 long long row_ts, long long act_ts) {
+  // data shard blockIdx.x of task blockIdx.y: its ids, its rows, its α, y
+  // and act, its replica of w
+  const long long task = blockIdx.y;
   const long long row0 = (long long)blockIdx.x * n_loc;
-  if (idx) idx += (long long)blockIdx.x * m;
-  w += (long long)blockIdx.x * d;
+  if (idx) idx += task * idx_ts + (long long)blockIdx.x * m;
+  alpha += task * row_ts;
+  if (y) y += task * row_ts;
+  if (act) act += task * act_ts;
+  w += (task * gridDim.x + blockIdx.x) * (long long)d;
   for (int t = 0; t < m; ++t) {
     const long long i = idx ? row0 + idx[t] : t;
     const float* xi = X + i * d;
@@ -132,7 +148,9 @@ __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
                                         const float* __restrict__ act,
                                         const float* __restrict__ y, float* w,
                                         long long w_stride, float* dw,
-                                        DcdLoss L) {
+                                        DcdLoss L, long long idx_ts,
+                                        long long row_ts, long long act_ts,
+                                        long long w_ts) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* rows = reinterpret_cast<float*>(smem);  // m rows of d floats
   int* ids = reinterpret_cast<int*>(rows + (long long)m * d);
@@ -145,11 +163,17 @@ __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
   int* last = prev + m;  // no s > t has the same id
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
-  // data shard blockIdx.x: its ids, its rows, its view of w, its Δw slice
+  // data shard blockIdx.x of task blockIdx.y: its ids, its rows, its α, y
+  // and act, its view of w, its Δw slice
+  const long long task = blockIdx.y;
   const long long row0 = (long long)blockIdx.x * n_loc;
-  idx += (long long)blockIdx.x * m;
-  w += (long long)blockIdx.x * w_stride;
-  float* dws = dw ? dw + (long long)blockIdx.x * d : nullptr;
+  idx += task * idx_ts + (long long)blockIdx.x * m;
+  alpha += task * row_ts;
+  if (y) y += task * row_ts;
+  if (act) act += task * act_ts;
+  w += task * w_ts + (long long)blockIdx.x * w_stride;
+  float* dws =
+      dw ? dw + (task * gridDim.x + blockIdx.x) * (long long)d : nullptr;
 
   // 1. prologue
   for (int t = tid; t < m; t += nt) ids[t] = (int)(row0 + idx[t]);
@@ -460,11 +484,14 @@ extern "C" int dcd_block_indexed_launch(const int* idx, int m, int shards,
                                         float* w, int kind, float C,
                                         float inv_two_c, float eps_c,
                                         int newton_steps, int threads,
+                                        int tasks, long long idx_ts,
+                                        long long row_ts, long long act_ts,
                                         void* stream) {
-  if (shards < 1 || shards > 65535) return (int)cudaErrorInvalidValue;
+  if (shards < 1 || shards > 65535 || tasks < 1 || tasks > 65535)
+    return (int)cudaErrorInvalidValue;
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
-  dcd_dense_kernel<<<shards, threads, 0, (cudaStream_t)stream>>>(
-      idx, m, n_loc, X, d, alpha, q, act, y, w, L);
+  dcd_dense_kernel<<<dim3(shards, tasks), threads, 0, (cudaStream_t)stream>>>(
+      idx, m, n_loc, X, d, alpha, q, act, y, w, L, idx_ts, row_ts, act_ts);
   return (int)cudaGetLastError();
 }
 
@@ -475,7 +502,7 @@ extern "C" int dcd_block_tile_launch(int n, const float* X, int d,
                                      int threads, void* stream) {
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
   dcd_dense_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      nullptr, n, 0, X, d, alpha, q, nullptr, nullptr, w, L);
+      nullptr, n, 0, X, d, alpha, q, nullptr, nullptr, w, L, 0, 0, 0);
   return (int)cudaGetLastError();
 }
 
@@ -485,7 +512,9 @@ static int dense_staged_launch(const int* idx, int m, int shards,
                                float* alpha, const float* q, const float* act,
                                const float* y, float* w, long long w_stride,
                                float* dw, const DcdLoss& L, int threads,
-                               int smem_bytes, cudaStream_t st) {
+                               int smem_bytes, int tasks, long long idx_ts,
+                               long long row_ts, long long act_ts,
+                               long long w_ts, cudaStream_t st) {
   static int smem_set = 0;  // the limit raised so far (this process)
   if (smem_bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -494,8 +523,9 @@ static int dense_staged_launch(const int* idx, int m, int shards,
     if (err != cudaSuccess) return (int)err;
     smem_set = smem_bytes;
   }
-  dcd_dense_staged_kernel<W><<<shards, threads, smem_bytes, st>>>(
-      idx, m, n_loc, X, d, alpha, q, act, y, w, w_stride, dw, L);
+  dcd_dense_staged_kernel<W><<<dim3(shards, tasks), threads, smem_bytes, st>>>(
+      idx, m, n_loc, X, d, alpha, q, act, y, w, w_stride, dw, L, idx_ts,
+      row_ts, act_ts, w_ts);
   return (int)cudaGetLastError();
 }
 
@@ -504,21 +534,23 @@ extern "C" int dcd_block_staged_launch(
     int d, float* alpha, const float* q, const float* act, const float* y,
     float* w, long long w_stride, float* dw, int kind, float C,
     float inv_two_c, float eps_c, int newton_steps, int per_lane,
-    int threads, int smem_bytes, void* stream) {
+    int threads, int smem_bytes, int tasks, long long idx_ts,
+    long long row_ts, long long act_ts, long long w_ts, void* stream) {
   // the bytes the kernel carves (repro_torch/dist/mesh.py:
   // dcd_dense_staged_bytes): the block's rows, eight m-word arrays.  More
-  // than one shard writes Δw slices, never w in place.
+  // than one (shard, task) pair writes Δw slices, never w in place.
   const long long need = 4LL * m * d + 32LL * m;
   if (m < 1 || d < 1 || d > 32 * per_lane || threads < 32 ||
       threads % 32 != 0 || threads > 1024 || smem_bytes < need ||
-      shards < 1 || shards > 65535 || (shards > 1 && !dw))
+      shards < 1 || shards > 65535 || tasks < 1 || tasks > 65535 ||
+      ((shards > 1 || tasks > 1) && !dw))
     return (int)cudaErrorInvalidValue;
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
   cudaStream_t st = (cudaStream_t)stream;
 #define B2_LAUNCH(W)                                                       \
   return dense_staged_launch<W>(idx, m, shards, n_loc, X, d, alpha, q, act, \
                                 y, w, w_stride, dw, L, threads, smem_bytes, \
-                                st)
+                                tasks, idx_ts, row_ts, act_ts, w_ts, st)
   switch (per_lane) {
     case 1: B2_LAUNCH(1);
     case 2: B2_LAUNCH(2);

@@ -23,7 +23,18 @@
 // (the shards' rows are disjoint), so the result does not depend on which
 // CTAs run together; the wrapper sums the p slices in shard order.  A
 // launch with p = 1, n_loc = 0 and no dw is the single block of the
-// serial solvers, updating w in place.  Padding slots (col == d, value 0) and any column outside
+// serial solvers, updating w in place.
+//
+// Tasks.  The multi-task (one-vs-rest) solver runs K binary problems on
+// one unfolded X: the reference vmaps the whole round over a leading task
+// axis.  Here the tasks are the grid's y dimension: CTA (s, k) runs data
+// shard s of task k.  It reads the shared rows (cols, vals, q), its ids at
+// idx + k·idx_ts (idx_ts 0: every task draws the same blocks), its α and y
+// at α + k·row_ts and y + k·row_ts, its act at act + k·act_ts (0: one mask
+// for every task), its view of w at w + k·w_ts + s·w_stride, and writes
+// its Δw slice dw[k·p + s] (staged) or its replica w + (k·p + s)·(d + 1)
+// (wide).  Nothing is shared between CTAs, so a task dimension changes no
+// CTA's arithmetic: K = 1 gives the bits of the task-free grid.  Padding slots (col == d, value 0) and any column outside
 // [0, d) are skipped, so the dummy slot w[d] stays exactly 0.  A δ of
 // exactly 0 (a row at its box, or frozen) scatters nothing.  Two variants,
 // chosen by shape (repro_torch/dist/mesh.py: dcd_ell_plan):
@@ -96,7 +107,9 @@ __global__ void dcd_ell_staged_kernel(const int* __restrict__ idx, int m,
                                       const float* __restrict__ act,
                                       const float* __restrict__ y, float* w,
                                       long long w_stride, float* dw,
-                                      DcdLoss L, int slots) {
+                                      DcdLoss L, int slots, long long idx_ts,
+                                      long long row_ts, long long act_ts,
+                                      long long w_ts) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* key = reinterpret_cast<int*>(smem);        // column, or -1: empty
   float* wt = reinterpret_cast<float*>(key + slots);  // w at that column
@@ -112,10 +125,15 @@ __global__ void dcd_ell_staged_kernel(const int* __restrict__ idx, int m,
   int* prev = reinterpret_cast<int*>(arun + m);  // last s < t, same id
   int* dup = prev + m;  // row t repeats a column
   const int tid = threadIdx.x, nt = blockDim.x;
-  // data shard blockIdx.x: its ids, its rows, its view of w
+  // data shard blockIdx.x of task blockIdx.y: its ids, its rows, its α,
+  // y and act, its view of w
+  const long long task = blockIdx.y;
   const long long row0 = (long long)blockIdx.x * n_loc;
-  idx += (long long)blockIdx.x * m;
-  w += (long long)blockIdx.x * w_stride;
+  idx += task * idx_ts + (long long)blockIdx.x * m;
+  alpha += task * row_ts;
+  if (y) y += task * row_ts;
+  if (act) act += task * act_ts;
+  w += task * w_ts + (long long)blockIdx.x * w_stride;
 
   // 1. prologue
   for (int t = tid; t < m; t += nt) ids[t] = (int)(row0 + idx[t]);
@@ -288,8 +306,9 @@ __global__ void dcd_ell_staged_kernel(const int* __restrict__ idx, int m,
     }
     if (lane == 0 && !later) alpha[ids[t]] = arun[t];
   }
-  // the shard's Δw slice (its touched columns), or w in place
-  float* dws = dw ? dw + (long long)blockIdx.x * (d + 1) : nullptr;
+  // the pair's Δw slice (its touched columns), or w in place
+  float* dws =
+      dw ? dw + (task * gridDim.x + blockIdx.x) * (long long)(d + 1) : nullptr;
   for (int s = tid; s < slots; s += nt) {
     const int c = key[s];
     if (c >= 0) {
@@ -307,11 +326,17 @@ __global__ void dcd_ell_kernel(const int* __restrict__ idx, int m,
                                float* alpha, const float* __restrict__ q,
                                const float* __restrict__ act,
                                const float* __restrict__ y, float* w,
-                               DcdLoss L) {
-  // data shard blockIdx.x: its ids, its rows, its replica of w
+                               DcdLoss L, long long idx_ts, long long row_ts,
+                               long long act_ts) {
+  // data shard blockIdx.x of task blockIdx.y: its ids, its rows, its α, y
+  // and act, its replica of w
+  const long long task = blockIdx.y;
   const long long row0 = (long long)blockIdx.x * n_loc;
-  idx += (long long)blockIdx.x * m;
-  w += (long long)blockIdx.x * (d + 1);
+  idx += task * idx_ts + (long long)blockIdx.x * m;
+  alpha += task * row_ts;
+  if (y) y += task * row_ts;
+  if (act) act += task * act_ts;
+  w += (task * gridDim.x + blockIdx.x) * (long long)(d + 1);
   for (int t = 0; t < m; ++t) {
     const long long i = row0 + idx[t];
     const int* ci = cols + i * k;
@@ -332,8 +357,9 @@ __global__ void dcd_ell_kernel(const int* __restrict__ idx, int m,
   }
 }
 
-// Plain C entries for ctypes.  act, y and dw may be null.  `shards` CTAs
-// run one data shard each (see the note at the top).  Each returns
+// Plain C entries for ctypes.  act, y and dw may be null.  `shards` ×
+// `tasks` CTAs run one (data shard, task) pair each (see the notes at the
+// top).  Each returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a layout the kernel cannot take.
 extern "C" int dcd_ell_launch(const int* idx, int m, int shards,
@@ -342,11 +368,15 @@ extern "C" int dcd_ell_launch(const int* idx, int m, int shards,
                               const float* q, const float* act,
                               const float* y, float* w, int kind, float C,
                               float inv_two_c, float eps_c, int newton_steps,
-                              int threads, void* stream) {
-  if (shards < 1 || shards > 65535) return (int)cudaErrorInvalidValue;
+                              int threads, int tasks, long long idx_ts,
+                              long long row_ts, long long act_ts,
+                              void* stream) {
+  if (shards < 1 || shards > 65535 || tasks < 1 || tasks > 65535)
+    return (int)cudaErrorInvalidValue;
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
-  dcd_ell_kernel<<<shards, threads, 0, (cudaStream_t)stream>>>(
-      idx, m, n_loc, cols, vals, k, d, alpha, q, act, y, w, L);
+  dcd_ell_kernel<<<dim3(shards, tasks), threads, 0, (cudaStream_t)stream>>>(
+      idx, m, n_loc, cols, vals, k, d, alpha, q, act, y, w, L, idx_ts, row_ts,
+      act_ts);
   return (int)cudaGetLastError();
 }
 
@@ -355,17 +385,19 @@ extern "C" int dcd_ell_staged_launch(
     const float* vals, int k, int d, float* alpha, const float* q,
     const float* act, const float* y, float* w, long long w_stride,
     float* dw, int kind, float C, float inv_two_c, float eps_c,
-    int newton_steps, int slots, int threads, int smem_bytes, void* stream) {
+    int newton_steps, int slots, int threads, int smem_bytes, int tasks,
+    long long idx_ts, long long row_ts, long long act_ts, long long w_ts,
+    void* stream) {
   // the bytes the kernel carves (repro_torch/dist/mesh.py:
   // dcd_ell_staged_bytes): the table's keys and w, the block's slots and
   // values, eight m-word arrays; a table with room for every entry.  More
-  // than one shard writes Δw slices, never w in place.
+  // than one (shard, task) pair writes Δw slices, never w in place.
   const long long entries = (long long)m * k;
   const long long need = 8LL * slots + 8LL * entries + 32LL * m;
   if (slots < 32 || (slots & (slots - 1)) != 0 || slots < entries ||
       k > ELL_LANE_ENTRIES * 32 || threads < 32 || threads % 32 != 0 ||
       threads > 1024 || smem_bytes < need || shards < 1 || shards > 65535 ||
-      (shards > 1 && !dw))
+      tasks < 1 || tasks > 65535 || ((shards > 1 || tasks > 1) && !dw))
     return (int)cudaErrorInvalidValue;
   static int smem_set = 0;  // the limit raised so far (this process)
   if (smem_bytes > smem_set) {
@@ -376,9 +408,9 @@ extern "C" int dcd_ell_staged_launch(
     smem_set = smem_bytes;
   }
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
-  dcd_ell_staged_kernel<<<shards, threads, smem_bytes,
-                          (cudaStream_t)stream>>>(idx, m, n_loc, cols, vals,
-                                                  k, d, alpha, q, act, y, w,
-                                                  w_stride, dw, L, slots);
+  dcd_ell_staged_kernel<<<dim3(shards, tasks), threads, smem_bytes,
+                          (cudaStream_t)stream>>>(
+      idx, m, n_loc, cols, vals, k, d, alpha, q, act, y, w, w_stride, dw, L,
+      slots, idx_ts, row_ts, act_ts, w_ts);
   return (int)cudaGetLastError();
 }

@@ -106,6 +106,21 @@
 // another data shard writes, so the result does not depend on which CTAs
 // run together.
 //
+// Tasks.  The multi-task (one-vs-rest) solver's K binary problems on one
+// unfolded X (the reference vmaps the round over a leading task axis) join
+// the data shards: pair z = k·p + s is data shard s of task k, and the
+// (task, data, model) triples are js = z·m + j.  B4's bucket grid is
+// (m, B, K·p); pair z reads its ids at idx + k·idx_ts + s·B (idx_ts 0:
+// every task draws the same block) and its view of w at w + k·w_ts +
+// s·w_stride, and writes its own workspace rows, base and partial Grams:
+// G is computed for every task, as the reference's vmapped kernel does,
+// though it depends on the ids alone.  B5 runs R × K·p·m CTAs; CTA
+// (r, js) reads task k's α, y and act at + k·row_ts, + k·row_ts and
+// + k·act_ts (act_ts 0: one mask for every task), pair z's (base, G), and
+// scatters into w + js·d1, the pair's own replica of the slices.  No CTA's
+// arithmetic changes with the task dimension: K = 1 gives the bits of the
+// task-free grid.
+//
 // Both build with --fmad=false, as B1–B3, so δ̃·v and the adds round as
 // the plain version's do.
 
@@ -177,21 +192,26 @@ __global__ void dcd_feature_bucket_kernel(
     const int* __restrict__ cols, const float* __restrict__ vals, int m,
     int k, int d_loc, const float* __restrict__ w, long long w_stride,
     int d1, int R, int* __restrict__ bk_lc, float* __restrict__ bk_v,
-    int* __restrict__ roff, float* __restrict__ base_p) {
+    int* __restrict__ roff, float* __restrict__ base_p, int data,
+    long long idx_ts, long long w_ts) {
   extern __shared__ __align__(16) int cur[];  // [warps][R]: counts, cursors
   __shared__ float red[DCD_MAX_WARPS];
   __shared__ int tmp[DCD_MAX_WARPS];
-  const int j = blockIdx.x, t = blockIdx.y, sd = blockIdx.z;
+  // pair z = blockIdx.z: data shard sd of task `task`
+  const int j = blockIdx.x, t = blockIdx.y, z = blockIdx.z;
+  const int sd = z % data;
+  const long long task = z / data;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
   int* sc = cur + nw * R;  // the row's k column ids
   float* sv = reinterpret_cast<float*>(sc + k);
-  const long long gid = sd * n_loc + idx[(long long)sd * B + t];
+  const long long gid =
+      sd * n_loc + idx[task * idx_ts + (long long)sd * B + t];
   const long long rt = (gid * m + j) * k;
   const int* ct = cols + rt;
   const float* vt = vals + rt;
-  const float* wj = w + sd * w_stride + (long long)j * d1;
-  const long long row = ((long long)sd * m + j) * B + t;
+  const float* wj = w + task * w_ts + sd * w_stride + (long long)j * d1;
+  const long long row = ((long long)z * m + j) * B + t;
   for (int i = tid; i < nw * R; i += blockDim.x) cur[i] = 0;
   __syncthreads();
   // each warp owns a contiguous run of slots, so warp order is slot order
@@ -738,20 +758,27 @@ __global__ void dcd_feature_update_kernel(
     float* __restrict__ alpha_out, const float* __restrict__ q,
     const float* __restrict__ act, const float* __restrict__ y, float* w,
     int d1, const float* __restrict__ base, const float* __restrict__ gram,
-    int stage_gram, int chunk, DcdLoss L) {
+    int stage_gram, int chunk, DcdLoss L, int data, long long idx_ts,
+    long long row_ts, long long act_ts) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int tmp[DCD_MAX_WARPS];
   const B5Smem S = b5_carve(smem, B, stage_gram, chunk);
-  // CTA (r, js): class r of feature shard j = js mod m of data shard
-  // sd = js div m
+  // CTA (r, js): class r of feature shard j = js mod m of pair z = js div
+  // m, data shard sd = z mod data of task z div data
   const int r = blockIdx.x, js = blockIdx.y;
-  const int sd = js / m, j = js - sd * m;
+  const int z = js / m, j = js - z * m;
+  const int sd = z % data;
+  const long long task = z / data;
   const int tid = threadIdx.x, nt = blockDim.x;
   const long long row0 = (long long)js * B;
   float* wj = w + (long long)js * d1;
-  idx += (long long)sd * B;
-  base += (long long)sd * B;
-  gram += (long long)sd * B * B;
+  idx += task * idx_ts + (long long)sd * B;
+  base += (long long)z * B;
+  gram += (long long)z * B * B;
+  alpha_in += task * row_ts;
+  alpha_out += task * row_ts;
+  if (y) y += task * row_ts;
+  if (act) act += task * act_ts;
   const int total =
       b5_prologue(S, idx, sd * n_loc, B, R, r, row0, roff, alpha_in, q, act,
                   y, base, gram, stage_gram, tmp);
@@ -774,7 +801,7 @@ __global__ void dcd_feature_update_kernel(
     if (tid < 32) b5_apply_chunk(S, B, R, r, wj, c0, n);
     __syncthreads();
   }
-  // CTA (0, j = 0) of each data shard writes that shard's α
+  // CTA (0, j = 0) of each pair writes that pair's α
   if (r == 0 && j == 0) b5_alpha_out(S, B, alpha_out);
 }
 
@@ -800,7 +827,8 @@ extern "C" int dcd_feature_gram_launch(
     long long w_stride, int d1, int R, int tile, int tiles, int chunk,
     int slots, int bucket_threads, int bucket_smem, int gram_threads,
     int gram_smem, int* bk_lc, float* bk_v, int* roff, float* part,
-    float* base_p, float* gram_p, void* stream) {
+    float* base_p, float* gram_p, int tasks, long long idx_ts,
+    long long w_ts, void* stream) {
   // the bytes each kernel carves (repro_torch/dist/mesh.py: gram_plan):
   // the bucket pass's per-warp class counts and the staged row; the Gram
   // kernel's table (key, count, run end), the chunk's entries staged and
@@ -817,8 +845,9 @@ extern "C" int dcd_feature_gram_launch(
       bucket_threads % 32 != 0 || bucket_threads > 1024 ||
       (slots & (slots - 1)) != 0 || slots < chunk ||
       bucket_smem < bucket_need || gram_smem < gram_need || data < 1 ||
-      (long long)data * m > 65535)
+      tasks < 1 || (long long)tasks * data * m > 65535)
     return (int)cudaErrorInvalidValue;
+  const int pairs = tasks * data;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   static int gram_set = 0;
@@ -826,22 +855,23 @@ extern "C" int dcd_feature_gram_launch(
   if (err != cudaSuccess) return (int)err;
   err = smem_limit(dcd_feature_gram_kernel, gram_smem, &gram_set);
   if (err != cudaSuccess) return (int)err;
-  dcd_feature_bucket_kernel<<<dim3(m, B, data), bucket_threads, bucket_smem,
-                              st>>>(idx, B, n_loc, cols, vals, m, k, d_loc, w,
-                                    w_stride, d1, R, bk_lc, bk_v, roff,
-                                    base_p);
+  dcd_feature_bucket_kernel<<<dim3(m, B, pairs), bucket_threads,
+                              bucket_smem, st>>>(
+      idx, B, n_loc, cols, vals, m, k, d_loc, w, w_stride, d1, R, bk_lc, bk_v,
+      roff, base_p, data, idx_ts, w_ts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the classes of a shard in x, so the widest shard's CTAs start first;
-  // the (data, model) pairs in y
-  dcd_feature_gram_kernel<<<dim3(R, data * m, tiles), gram_threads, gram_smem,
-                            st>>>(B, k, R, tile, chunk, slots, bk_lc, bk_v,
-                                  roff, R > 1 ? part : gram_p);
+  // the (task, data, model) triples in y
+  dcd_feature_gram_kernel<<<dim3(R, pairs * m, tiles), gram_threads,
+                            gram_smem, st>>>(B, k, R, tile, chunk, slots,
+                                             bk_lc, bk_v, roff,
+                                             R > 1 ? part : gram_p);
   err = cudaGetLastError();
   if (err != cudaSuccess || R == 1) return (int)err;
   const long long bb = (long long)B * B;
   const int blocks = (int)((bb + 255) / 256 < 1024 ? (bb + 255) / 256 : 1024);
-  dcd_feature_gram_reduce_kernel<<<dim3(blocks, data * m), 256, 0, st>>>(
+  dcd_feature_gram_reduce_kernel<<<dim3(blocks, pairs * m), 256, 0, st>>>(
       B, R, part, gram_p);
   return (int)cudaGetLastError();
 }
@@ -854,15 +884,18 @@ static int update_launch(const int* idx, int B, int data, long long n_loc,
                          const float* q, const float* act, const float* y,
                          float* w, int d1, const float* base,
                          const float* gram, int stage_gram, int chunk,
-                         const DcdLoss& L, int threads, int smem,
-                         cudaStream_t st) {
+                         const DcdLoss& L, int threads, int smem, int tasks,
+                         long long idx_ts, long long row_ts,
+                         long long act_ts, cudaStream_t st) {
   static int set = 0;
   const cudaError_t err =
       smem_limit(dcd_feature_update_kernel<NC>, smem, &set);
   if (err != cudaSuccess) return (int)err;
-  dcd_feature_update_kernel<NC><<<dim3(R, data * m), threads, smem, st>>>(
+  dcd_feature_update_kernel<NC><<<dim3(R, tasks * data * m), threads, smem,
+                                  st>>>(
       idx, B, n_loc, m, k, R, bk_lc, bk_v, roff, alpha_in, alpha_out, q, act,
-      y, w, d1, base, gram, stage_gram, chunk, L);
+      y, w, d1, base, gram, stage_gram, chunk, L, data, idx_ts, row_ts,
+      act_ts);
   return (int)cudaGetLastError();
 }
 
@@ -876,7 +909,8 @@ extern "C" int dcd_feature_update_launch(
     const float* gram, int kind, float C, float inv_two_c, float eps_c,
     int newton_steps, int R, int per_lane, int stage_gram, int chunk,
     int threads, int smem, int bucket, int bucket_threads, int bucket_smem,
-    int* bk_lc, float* bk_v, int* roff, void* stream) {
+    int* bk_lc, float* bk_v, int* roff, int tasks, long long idx_ts,
+    long long row_ts, long long act_ts, void* stream) {
   // the bytes each kernel carves (repro_torch/dist/mesh.py:
   // feature_update_bytes, gram_plan)
   const long long need = 4LL * (12LL * B + 1) +
@@ -885,8 +919,8 @@ extern "C" int dcd_feature_update_launch(
   if (B < 1 || B > DCD_FEATURE_MAX_B || R < 1 || chunk < 1 ||
       per_lane < 1 || per_lane > 32 || (per_lane & (per_lane - 1)) != 0 ||
       32LL * per_lane < B || threads < 64 || threads % 32 != 0 ||
-      threads > 1024 || smem < need || data < 1 ||
-      (long long)data * m > 65535 ||
+      threads > 1024 || smem < need || data < 1 || tasks < 1 ||
+      (long long)tasks * data * m > 65535 ||
       (bucket && (bucket_threads < 32 || bucket_threads % 32 != 0 ||
                   bucket_threads > 1024 || bucket_smem < bucket_need)))
     return (int)cudaErrorInvalidValue;
@@ -895,11 +929,11 @@ extern "C" int dcd_feature_update_launch(
     cudaError_t err =
         smem_limit(dcd_feature_bucket_kernel, bucket_smem, &bucket_smem_set);
     if (err != cudaSuccess) return (int)err;
-    // w is not read without base_p: its stride is of no matter
-    dcd_feature_bucket_kernel<<<dim3(m, B, data), bucket_threads,
+    // w is not read without base_p: its strides are of no matter
+    dcd_feature_bucket_kernel<<<dim3(m, B, tasks * data), bucket_threads,
                                  bucket_smem, st>>>(
         idx, B, n_loc, cols, vals, m, k, d_loc, w, 0, d1, R, bk_lc, bk_v,
-        roff, nullptr);
+        roff, nullptr, data, idx_ts, 0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -907,7 +941,8 @@ extern "C" int dcd_feature_update_launch(
 #define B5_LAUNCH(NC)                                                         \
   return update_launch<NC>(idx, B, data, n_loc, m, k, R, bk_lc, bk_v, roff, \
                            alpha_in, alpha_out, q, act, y, w, d1, base,      \
-                           gram, stage_gram, chunk, L, threads, smem, st)
+                           gram, stage_gram, chunk, L, threads, smem, tasks, \
+                           idx_ts, row_ts, act_ts, st)
   switch (per_lane) {
     case 1: B5_LAUNCH(1);
     case 2: B5_LAUNCH(2);

@@ -21,7 +21,8 @@ and "wide", B2's wide kernel over rows 0..n-1.
 ``dcd_indexed_shards`` runs B2 over the sharded solver's round: p data
 shards, each its own block of ids against w, as one launch of p CTAs,
 returning each shard's Δw (the reference's per-device Δw before the psum
-over ``data``).
+over ``data``); with a (K, n) α, K tasks of p shards each, as one
+launch of K × p CTAs (the multi-task solver's round).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.
@@ -36,6 +37,7 @@ from repro_torch.core.duals import kernel_params
 from repro_torch.dist.mesh import dcd_dense_plan, dcd_tile_plan
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, L, P
+from repro_torch.kernels.dcd_ell import task_grid, task_loop
 
 
 def dcd_indexed_epoch_plain(X, alpha, w, sq_norms, *, loss, idx,
@@ -73,25 +75,29 @@ def _check(X, alpha, w, sq_norms, idx=None, active=None, y=None):
 
 
 def _indexed_launch(plan, idx, m, n_loc, X, alpha, w, sq_norms, active, y,
-                    loss, w_stride=0, dw=None):
+                    loss, w_stride=0, dw=None, strides=(0, 0, 0, 0)):
     """Launch B2's kernel for ``plan`` on operands already checked:
-    ``plan.shards`` CTAs of ``m`` ids each.  The staged kernel writes the
-    shards' Δw slices into ``dw`` (or, with one shard and no ``dw``,
-    updates ``w`` in place); the wide kernel updates ``w`` in place, a
-    replica a shard."""
+    ``plan.shards`` × ``plan.tasks`` CTAs of ``m`` ids each.  The staged
+    kernel writes the (task, shard) pairs' Δw slices into ``dw`` (or,
+    with one pair and no ``dw``, updates ``w`` in place); the wide
+    kernel updates ``w`` in place, a replica a pair.  ``strides`` are
+    the task strides of the ids, of α and y, of act and of w (words)."""
+    idx_ts, row_ts, act_ts, w_ts = strides
     args = [build.ptr(idx), m, plan.shards, n_loc, build.ptr(X), X.shape[1],
             build.ptr(alpha), build.ptr(sq_norms), build.ptr(active),
             build.ptr(y), build.ptr(w)]
     types = [P, I, I, L, P, I, P, P, P, P, P]
     if plan.variant == "staged":
         fn = "dcd_block_staged_launch"
-        types += [L, P, I, F, F, F, I, I, I, I, P]
+        types += [L, P, I, F, F, F, I, I, I, I, I, L, L, L, L, P]
         args += [w_stride, build.ptr(dw), *kernel_params(loss),
-                 plan.per_lane, plan.threads, plan.smem_bytes]
+                 plan.per_lane, plan.threads, plan.smem_bytes, plan.tasks,
+                 idx_ts, row_ts, act_ts, w_ts]
     else:
         fn = "dcd_block_indexed_launch"
-        types += [I, F, F, F, I, I, P]
-        args += [*kernel_params(loss), plan.threads]
+        types += [I, F, F, F, I, I, I, L, L, L, P]
+        args += [*kernel_params(loss), plan.threads, plan.tasks, idx_ts,
+                 row_ts, act_ts]
     launch = build.entry("dcd_block", fn, types)
     with torch.cuda.device(alpha.device):
         err = launch(*args, build.stream())
@@ -129,7 +135,12 @@ def dcd_indexed_shards_plain(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     """The plain version of B2 over a grid of p data shards: shard s, in
     shard order, runs its ids ``idx[s]`` (rows s·n_loc + id) against
     ``w_eff`` (or ``w_eff[s]`` when it is (p, d)), as
-    ``dcd_indexed_epoch_plain`` does.  Returns (α, Δw (p, d))."""
+    ``dcd_indexed_epoch_plain`` does.  Returns (α, Δw (p, d)).  A (K, n)
+    α is K tasks (``dcd_ell.task_grid``), run in task order: (α (K, n),
+    Δw (K, p, d))."""
+    if alpha.dim() == 2:
+        return task_loop(dcd_indexed_shards_plain, (X,), alpha, w_eff,
+                         sq_norms, loss, idx, n_loc, active, y)
     dws = []
     for s in range(idx.shape[0]):
         w_s = w_eff[s] if w_eff.dim() == 2 else w_eff
@@ -145,41 +156,55 @@ def dcd_indexed_shards(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     """B2 over a grid of p data shards: ``idx`` (p, B) int32 shard-local
     ids, shard s owning rows [s·n_loc, (s+1)·n_loc) of X; ``w_eff`` the
     (d,) primal every shard reads, or (p, d), one a shard.  Returns (α,
-    Δw (p, d)), which the caller sums in shard order.  CUDA tensors
-    launch one kernel of p CTAs (counted in
-    ``dcd_indexed_shards.launches`` and under its variant): the staged
-    kernel writes each shard's d-word Δw slice, the wide one updates a
-    replica of w a shard (Δw = replica − w_eff).  CPU tensors run
-    ``dcd_indexed_shards_plain``."""
+    Δw (p, d)), which the caller sums in shard order.  With a (K, n) α
+    the grid has a task dimension (``dcd_ell.task_grid``: w_eff (K, d)
+    or (K, p, d), idx (p, B) or (K, p, B), y (K, n), active (n,) or
+    (K, n)) and returns (α (K, n), Δw (K, p, d)).  CUDA tensors launch
+    one kernel of K × p CTAs (counted in ``dcd_indexed_shards.launches``,
+    under its variant, and in ``dcd_indexed_shards.task_launches`` when
+    K > 1): the staged kernel writes each pair's d-word Δw slice, the
+    wide one updates a replica of w a pair (Δw = replica − w_eff).  CPU
+    tensors run ``dcd_indexed_shards_plain``."""
     if alpha.device.type != "cuda":
         return dcd_indexed_shards_plain(X, alpha, w_eff, sq_norms, loss=loss,
                                         idx=idx, n_loc=n_loc, active=active,
                                         y=y)
+    tasks = alpha.dim() == 2
     idx, w_eff = idx.contiguous(), w_eff.contiguous()
-    p, m = idx.shape
-    d = X.shape[1]
-    if w_eff.dim() not in (1, 2) or (w_eff.dim() == 2
-                                     and w_eff.shape[0] != p):
-        raise ValueError(f"w_eff must be (d,) or ({p}, d)")
-    _check(X, alpha, w_eff[0] if w_eff.dim() == 2 else w_eff, sq_norms,
-           idx.view(-1), active, y)
+    K, idx_ts, row_ts, act_ts = task_grid(alpha, idx, active, y)
+    p, m = idx.shape[-2:]
+    n, d = X.shape
+    W = w_eff if tasks else w_eff[None]  # (K, d) or (K, p, d)
+    if W.dim() not in (2, 3) or W.shape[0] != K or W.shape[-1] != d or (
+            W.dim() == 3 and W.shape[1] != p):
+        raise ValueError(f"w_eff must be (d,) or ({p}, d), a task each")
+    build.check_operands(alpha.device, {
+        "X": (X, None), "alpha": (alpha, (*alpha.shape[:-1], n)),
+        "w_eff": (W, None), "sq_norms": (sq_norms, (n,)),
+        "active": (active, None), "y": (y, None), "idx": (idx, None)},
+        int32=("idx",))
     a_out = alpha.clone()
+    lead = (K,) if tasks else ()
     if m == 0:
-        return a_out, torch.zeros((p, d), dtype=torch.float32,
+        return a_out, torch.zeros((*lead, p, d), dtype=torch.float32,
                                   device=alpha.device)
-    plan = dcd_dense_plan(m, d, wide, p)
+    plan = dcd_dense_plan(m, d, wide, p, K)
     if plan.variant == "staged":
-        dw = torch.empty((p, d), dtype=torch.float32, device=alpha.device)
-        _indexed_launch(plan, idx, m, n_loc, X, a_out, w_eff, sq_norms,
+        dw = torch.empty((*lead, p, d), dtype=torch.float32,
+                         device=alpha.device)
+        _indexed_launch(plan, idx, m, n_loc, X, a_out, W, sq_norms,
                         active, y, loss,
-                        w_stride=d if w_eff.dim() == 2 else 0, dw=dw)
+                        w_stride=d if W.dim() == 3 else 0, dw=dw,
+                        strides=(idx_ts, row_ts, act_ts, W[0].numel()))
     else:
-        rep = w_eff.expand(p, d).clone(memory_format=torch.contiguous_format)
+        Wp = W if W.dim() == 3 else W[:, None]
+        rep = Wp.expand(K, p, d).clone(memory_format=torch.contiguous_format)
         _indexed_launch(plan, idx, m, n_loc, X, a_out, rep, sq_norms,
-                        active, y, loss)
-        dw = rep - w_eff
+                        active, y, loss, strides=(idx_ts, row_ts, act_ts, 0))
+        dw = (rep - Wp).view(*lead, p, d)
     dcd_indexed_shards.launches += 1
     dcd_indexed_shards.variant_launches[plan.variant] += 1
+    dcd_indexed_shards.task_launches += int(K > 1)
     return a_out, dw
 
 
@@ -233,5 +258,6 @@ dcd_indexed_epoch.launches = 0
 dcd_indexed_epoch.variant_launches = {"staged": 0, "wide": 0}
 dcd_indexed_shards.launches = 0
 dcd_indexed_shards.variant_launches = {"staged": 0, "wide": 0}
+dcd_indexed_shards.task_launches = 0
 dcd_tile_epoch.launches = 0
 dcd_tile_epoch.variant_launches = {"stream": 0, "wide": 0}

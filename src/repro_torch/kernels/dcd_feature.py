@@ -29,6 +29,12 @@ Both take a grid of p data shards: a (p, B) ``idx`` of shard-local ids
 (shard s's rows are [s·n_loc, (s+1)·n_loc)), a shared (m, d1) w or one
 (p, m, d1) w a data shard; B4 then returns (p, m, B) and (p, m, B, B),
 and B5 each data shard's updated replica of the slices, (p, m, d1).
+Both also take K tasks of the multi-task solver (B4 with ``tasks=True``,
+B5 with a (K, n) α): a leading K on w, ids (p, B) shared by every task
+or (K, p, B), labels y (K, n), act (n,) or (K, n); B4 returns
+(K, p, m, B) and (K, p, m, B, B), B5 (K, n) α and the (K, p, m, d1)
+replicas.  Each (task, data shard) pair computes its own base and Gram,
+as the reference's vmapped kernel does.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.  B4
@@ -67,8 +73,8 @@ class GramWorkspace(NamedTuple):
     of d1-word shards: each block row's real entries bucketed by column
     class (local column ``lc`` and value ``v``, (m, b, k)), each row's
     class offsets ((m, b, R + 1)), and the per-class partial Grams
-    ((m, R, b, b); empty when there is one class) — with p data shards,
-    p·m in place of m."""
+    ((m, R, b, b); empty when there is one class) — with p data shards
+    of K tasks, K·p·m in place of m."""
 
     lc: torch.Tensor
     v: torch.Tensor
@@ -77,14 +83,15 @@ class GramWorkspace(NamedTuple):
 
 
 def gram_workspace(m: int, b: int, k: int, d1: int, device,
-                   data: int = 1) -> GramWorkspace:
+                   data: int = 1, tasks: int = 1) -> GramWorkspace:
     """Allocate B4's workspace for blocks of ``b`` ids (uninitialised:
     every launch writes what it reads), one for each of ``data`` data
-    shards: the leading dimension indexes the (data, model) pairs, data
-    shard s's model shard j at s·m + j."""
-    plan = gram_plan(m, b, k, d1, data)
+    shards of each of ``tasks`` tasks: the leading dimension indexes the
+    (task, data, model) triples, task t's data shard s's model shard j
+    at (t·data + s)·m + j."""
+    plan = gram_plan(m, b, k, d1, data, tasks)
     parts = plan.classes if plan.classes > 1 else 0
-    pm = plan.data * m
+    pm = plan.tasks * plan.data * m
     return GramWorkspace(
         torch.empty((pm, b, k), dtype=torch.int32, device=device),
         torch.empty((pm, b, k), dtype=torch.float32, device=device),
@@ -93,9 +100,17 @@ def gram_workspace(m: int, b: int, k: int, d1: int, device,
         torch.empty((pm, parts, b, b), dtype=torch.float32, device=device))
 
 
-def _check_block(cols, vals, w, idx):
+def _check_block(cols, vals, w, idx, tasks=False):
     n, m, k = cols.shape
-    if idx.dim() == 1:
+    if tasks:
+        K = w.shape[0]
+        ok = (w.dim() in (3, 4) and w.shape[-2] == m and idx.dim() in (2, 3)
+              and (idx.dim() == 2 or idx.shape[0] == K)
+              and (w.dim() == 3 or w.shape[1] == idx.shape[-2]))
+        if not ok:
+            raise ValueError(f"expected w (K, {m}, d_loc+1) or (K, p, {m}, "
+                             "d_loc+1), and idx (p, B) or (K, p, B)")
+    elif idx.dim() == 1:
         ok = w.dim() == 2 and w.shape[0] == m
     else:
         ok = idx.dim() == 2 and (
@@ -117,22 +132,38 @@ def _check_workspace(workspace, pm, b, k, plan, device):
         int32=("lc", "roff"))
 
 
-def _shards(idx, w):
-    """(p, idx (p, B), w stride between data shards, or 0) of a call:
-    a 1-D ``idx`` is one data shard."""
+def _grid(idx, w, tasks):
+    """The grid of a call: (K, p, idx, the ids' task stride, w's stride
+    between data shards (0: one w for every data shard), w's task
+    stride), in words.  A 1-D ``idx`` is one data shard, a call without
+    ``tasks`` one task."""
+    W = w if tasks else w[None]
     if idx.dim() == 1:
-        return 1, idx[None], 0
-    return idx.shape[0], idx, (w[0].numel() if w.dim() == 3 else 0)
+        idx = idx[None]
+    K, p, b = W.shape[0], idx.shape[-2], idx.shape[-1]
+    per_shard = W.dim() == 4
+    return (K, p, idx, p * b if idx.dim() == 3 else 0,
+            W[0, 0].numel() if per_shard else 0, W[0].numel())
 
 
-def dcd_feature_gram_plain(cols, vals, w, idx, n_loc: int = 0):
+def dcd_feature_gram_plain(cols, vals, w, idx, n_loc: int = 0,
+                           tasks: bool = False):
     """The plain version of B4, step by step as the Pallas kernel: gather
     the block's rows, base = Σ w[cols]·vals, then for each t scatter row
     t into a zeroed scratch, gather every row of the block against it
     for column G[:, t], and zero the slots row t touched.  All m shards
     at once.  Returns (base_p (m, B), gram_p (m, B, B)); for a (p, B)
     ``idx`` of p data shards (rows s·n_loc + id, against w or w[s]),
-    each shard in order, (p, m, B) and (p, m, B, B)."""
+    each shard in order, (p, m, B) and (p, m, B, B).  With ``tasks``
+    (w (K, …), idx (p, B) or (K, p, B)) each task in order:
+    (K, p, m, B) and (K, p, m, B, B)."""
+    if tasks:
+        outs = [dcd_feature_gram_plain(cols, vals, w[t],
+                                       idx[t] if idx.dim() == 3 else idx,
+                                       n_loc)
+                for t in range(w.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
     if idx.dim() == 2:
         outs = [dcd_feature_gram_plain(cols, vals,
                                        w[s] if w.dim() == 3 else w,
@@ -156,7 +187,8 @@ def dcd_feature_gram_plain(cols, vals, w, idx, n_loc: int = 0):
     return base, gram
 
 
-def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0):
+def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0,
+                     tasks: bool = False):
     """Every shard's partial (base, Gram) of the block ``idx`` (int32 row
     ids in [0, n), repeats allowed) against the primal slices ``w``.
     A (p, B) ``idx`` is p data shards, shard s's ids local to its rows
@@ -166,29 +198,34 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0):
     ``dcd_feature_gram.launches``) with ``workspace`` (``gram_workspace``
     for this shape; allocated for this call when None); CPU tensors run
     the plain version.  Returns (base_p (m, B), gram_p (m, B, B)), with
-    a leading p for a (p, B) ``idx``."""
+    a leading p for a (p, B) ``idx``.  ``tasks``: w carries a leading K
+    ((K, m, d1), or (K, p, m, d1) a replica a data shard) and ``idx`` is
+    (p, B), one block for every task, or (K, p, B); one launch over the
+    K·p pairs (``dcd_feature_gram.task_launches`` counts those with
+    K > 1) returns (K, p, m, B) and (K, p, m, B, B)."""
     if w.device.type != "cuda":
-        return dcd_feature_gram_plain(cols, vals, w, idx, n_loc)
-    _check_block(cols, vals, w, idx)
-    lead = idx.shape[:-1]
-    p, idx, w_stride = _shards(idx.contiguous(), w)
+        return dcd_feature_gram_plain(cols, vals, w, idx, n_loc, tasks)
+    _check_block(cols, vals, w, idx, tasks)
+    lead = (w.shape[0], idx.shape[-2]) if tasks else idx.shape[:-1]
+    K, p, idx, idx_ts, w_stride, w_ts = _grid(idx.contiguous(), w, tasks)
     n, m, k = cols.shape
-    d1, b = w.shape[-1], idx.shape[1]
-    plan = gram_plan(m, b, k, d1, p)
+    d1, b = w.shape[-1], idx.shape[-1]
+    plan = gram_plan(m, b, k, d1, p, K)
     if workspace is None:
-        workspace = gram_workspace(m, b, k, d1, w.device, p)
+        workspace = gram_workspace(m, b, k, d1, w.device, p, K)
     parts = plan.classes if plan.classes > 1 else 0
-    _check_workspace(workspace, p * m, b, k, plan, w.device)
+    kpm = K * p * m
+    _check_workspace(workspace, kpm, b, k, plan, w.device)
     build.check_operands(w.device, {
         "cols": (cols, None), "vals": (vals, (n, m, k)), "w": (w, None),
-        "idx": (idx, None), "part": (workspace.part, (p * m, parts, b, b))},
+        "idx": (idx, None), "part": (workspace.part, (kpm, parts, b, b))},
         int32=("cols", "idx"))
     base_p = torch.empty((*lead, m, b), dtype=torch.float32, device=w.device)
     gram_p = torch.empty((*lead, m, b, b), dtype=torch.float32,
                          device=w.device)
     launch = build.entry("dcd_feature", "dcd_feature_gram_launch",
                          [P, I, I, L, P, P, I, I, I, P, L, I, I, I, I, I, I,
-                          I, I, I, I, P, P, P, P, P, P, P])
+                          I, I, I, I, P, P, P, P, P, P, I, L, L, P])
     with torch.cuda.device(w.device):
         err = launch(build.ptr(idx), b, plan.data, n_loc, build.ptr(cols),
                      build.ptr(vals), m, k, d1 - 1, build.ptr(w), w_stride,
@@ -197,13 +234,15 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0):
                      GRAM_THREADS, plan.gram_smem, build.ptr(workspace.lc),
                      build.ptr(workspace.v), build.ptr(workspace.roff),
                      build.ptr(workspace.part), build.ptr(base_p),
-                     build.ptr(gram_p), build.stream())
+                     build.ptr(gram_p), K, idx_ts, w_ts, build.stream())
     build.check(err, "dcd_feature_gram_launch")
     dcd_feature_gram.launches += 1
+    dcd_feature_gram.task_launches += int(K > 1)
     return base_p, gram_p
 
 
 dcd_feature_gram.launches = 0
+dcd_feature_gram.task_launches = 0
 
 
 def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
@@ -215,7 +254,19 @@ def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
     slice.  Returns new (α, w); the inputs are not changed.  For a
     (p, B) ``idx`` of p data shards (rows s·n_loc + id; base (p, B),
     gram (p, B, B)), each shard in order against w, or its own w[s] of
-    a (p, m, d1) w: returns (α, the shards' updated w (p, m, d1))."""
+    a (p, m, d1) w: returns (α, the shards' updated w (p, m, d1)).  A
+    (K, n) α is K tasks (as ``dcd_feature_update``), each in order:
+    (α (K, n), the replicas (K, p, m, d1))."""
+    if alpha.dim() == 2:
+        outs = [dcd_feature_update_plain(
+            cols, vals, alpha[t], sq_norms, w[t],
+            idx[t] if idx.dim() == 3 else idx, base[t], gram[t], loss=loss,
+            active=(active[t] if active is not None and active.dim() == 2
+                    else active),
+            y=None if y is None else y[t], n_loc=n_loc)
+            for t in range(alpha.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
     if idx.dim() == 2:
         ws = []
         for s in range(idx.shape[0]):
@@ -257,38 +308,58 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     this same block ``idx`` (``dcd_feature_gram`` with it, since the
     last call that filled it); with None, B5 buckets the block itself in
     the same launch, to the same bits.  Returns new (α, w) — with a
-    (p, B) ``idx``, w is the p replicas (p, m, d1)."""
+    (p, B) ``idx``, w is the p replicas (p, m, d1).  A (K, n) α is K
+    tasks: w (K, m, d1) or (K, p, m, d1), idx (p, B) or (K, p, B), base
+    (K, p, B), gram (K, p, B, B), y (K, n), active (n,) or (K, n); one
+    launch of R × K·p·m CTAs (``dcd_feature_update.task_launches``
+    counts those with K > 1) returns (α (K, n), the replicas (K, p, m,
+    d1))."""
     if w.device.type != "cuda":
         return dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx,
                                         base, gram, loss=loss,
                                         active=active, y=y, n_loc=n_loc)
-    _check_block(cols, vals, w, idx)
-    sharded = idx.dim() == 2
-    p, idx, _ = _shards(idx.contiguous(), w)
+    tasks = alpha.dim() == 2
+    _check_block(cols, vals, w, idx, tasks)
+    sharded = tasks or idx.dim() == 2
+    K, p, idx, idx_ts, _, _ = _grid(idx.contiguous(), w, tasks)
     n, m, k = cols.shape
-    d1, b = w.shape[-1], idx.shape[1]
-    plan = feature_update_plan(m, b, k, d1, p)
-    gplan = gram_plan(m, b, k, d1, p)
+    d1, b = w.shape[-1], idx.shape[-1]
+    if tasks and ((y is not None and tuple(y.shape) != (K, n))
+                  or (active is not None
+                      and tuple(active.shape) not in ((n,), (K, n)))):
+        raise ValueError(f"y must be ({K}, {n}), active ({n},) or "
+                         f"({K}, {n})")
+    lead = (K,) if tasks else ()
+    plan = feature_update_plan(m, b, k, d1, p, K)
+    gplan = gram_plan(m, b, k, d1, p, K)
     bucket = workspace is None
     if bucket:
-        workspace = gram_workspace(m, b, k, d1, w.device, p)
-    _check_workspace(workspace, p * m, b, k, gplan, w.device)
+        workspace = gram_workspace(m, b, k, d1, w.device, p, K)
+    _check_workspace(workspace, K * p * m, b, k, gplan, w.device)
     base, gram = base.contiguous(), gram.contiguous()
+    row = (*lead, n)
     build.check_operands(w.device, {
         "cols": (cols, None), "vals": (vals, (n, m, k)),
-        "alpha": (alpha, (n,)), "sq_norms": (sq_norms, (n,)),
-        "active": (active, (n,)), "y": (y, (n,)), "w": (w, None),
-        "idx": (idx, None), "base": (base.view(p, b), (p, b)),
-        "gram": (gram.view(p, b, b), (p, b, b))},
+        "alpha": (alpha, row), "sq_norms": (sq_norms, (n,)),
+        "active": (active, None if tasks else (n,)), "y": (y, row),
+        "w": (w, None), "idx": (idx, None),
+        "base": (base.view(K * p, b), (K * p, b)),
+        "gram": (gram.view(K * p, b, b), (K * p, b, b))},
         int32=("cols", "idx"))
+    act_ts = n if active is not None and active.dim() == 2 else 0
     a_out = alpha.clone()
-    # each data shard's replica of the slices, which its CTAs update
-    w_out = (w.expand(p, m, d1).clone(memory_format=torch.contiguous_format)
-             if sharded else w.clone())
+    # each (task, data shard) pair's replica of the slices, which its CTAs
+    # update
+    if sharded:
+        Wp = w.view(K, -1, m, d1) if tasks else w.view(-1, m, d1)
+        w_out = Wp.expand(*lead, p, m, d1).clone(
+            memory_format=torch.contiguous_format)
+    else:
+        w_out = w.clone()
     launch = build.entry("dcd_feature", "dcd_feature_update_launch",
                          [P, I, I, L, P, P, I, I, I, P, P, P, P, P, P, I, P,
                           P, I, F, F, F, I, I, I, I, I, I, I, I, I, I, P, P,
-                          P, P])
+                          P, I, L, L, L, P])
     with torch.cuda.device(w.device):
         err = launch(build.ptr(idx), b, plan.data, n_loc, build.ptr(cols),
                      build.ptr(vals), m, k, d1 - 1, build.ptr(alpha),
@@ -299,10 +370,13 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
                      FEATURE_UPDATE_CHUNK, plan.threads, plan.smem_bytes,
                      int(bucket), GRAM_BUCKET_THREADS, gplan.bucket_smem,
                      build.ptr(workspace.lc), build.ptr(workspace.v),
-                     build.ptr(workspace.roff), build.stream())
+                     build.ptr(workspace.roff), K, idx_ts, n, act_ts,
+                     build.stream())
     build.check(err, "dcd_feature_update_launch")
     dcd_feature_update.launches += 1
+    dcd_feature_update.task_launches += int(K > 1)
     return a_out, w_out
 
 
 dcd_feature_update.launches = 0
+dcd_feature_update.task_launches = 0

@@ -13,7 +13,10 @@ correction`` (torch ops) and ``dcd_feature_update`` (B5);
 ``dcd_feature_block_update`` composes them eagerly and returns (α, Δw).
 
 Each runs its kernel on CUDA tensors and the kernel's plain version on
-CPU tensors.
+CPU tensors.  Each block engine also takes the multi-task solver's K
+tasks as a leading dimension (a (K, n) α; B4's phase ``tasks=True``):
+K × p pairs in one launch, each with its own α, w, labels and mask on
+the shared X.
 """
 
 from __future__ import annotations
@@ -92,7 +95,8 @@ def dcd_block_update(X, sq_norms, alpha, w, idx, *, loss, active=None,
     to rows [s·n_loc, (s+1)·n_loc), each against ``w`` (or its own row
     of a (p, d) ``w``): returns (α, Δw (p, d)), the shards' Δw before
     their sum.  Either way it is one launch of the shard grid (a (B,)
-    ``idx`` is a grid of one shard)."""
+    ``idx`` is a grid of one shard).  A (K, n) α is K tasks
+    (``dcd_indexed_shards``): (α (K, n), Δw (K, p, d))."""
     if idx.dim() == 1:
         a_new, dw = dcd_indexed_shards(X, alpha, w, sq_norms, loss=loss,
                                        idx=idx[None], n_loc=0,
@@ -108,7 +112,7 @@ def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
     against the (d+1,) padded primal.  Returns (updated α shard, local
     Δw_pad); the dummy slot of Δw_pad is identically zero.  A (p, B)
     ``idx`` is p data shards as in ``dcd_block_update``: (α, Δw
-    (p, d+1))."""
+    (p, d+1)); a (K, n) α K tasks: (α (K, n), Δw (K, p, d+1))."""
     if idx.dim() == 1:
         a_new, dw = dcd_ell_shards(cols, vals, alpha, w_pad, sq_norms,
                                    loss=loss, idx=idx[None], n_loc=0,
@@ -122,27 +126,41 @@ def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
 # cols/vals: (n, m, k) shard-local ELL slices, w: (m, d_loc + 1) primal
 # slices; see repro_torch.kernels.dcd_feature.  A (p, B) ``idx`` is p data
 # shards, shard s's ids local to its rows [s·n_loc, (s+1)·n_loc), each
-# with its own (base, Gram) and its own replica of w.
+# with its own (base, Gram) and its own replica of w.  ``tasks`` (a (K, n)
+# α for the update phases) puts K tasks in front: w (K, m, d_loc + 1) or
+# (K, p, m, d_loc + 1), idx (p, B) or (K, p, B), and a leading K on every
+# result.
 
 
 def dcd_feature_gram(cols, vals, w_ref, idx, *, workspace=None,
-                     n_loc: int = 0):
+                     n_loc: int = 0, tasks: bool = False):
     """Phase 1: the block's (base, Gram) — B4's per-shard partials summed
     over the shard dimension, the reference's psum over ``model``.
     ``base`` is w_refᵀx_t against whatever reference primal the caller
     holds (one data-round stale in the overlapped round, repaired by
     ``dcd_feature_base_correction``).  Returns (base (B,), gram (B, B)),
-    or (p, B) and (p, B, B) for p data shards."""
+    or (p, B) and (p, B, B) for p data shards ((K, p, B) and (K, p, B, B)
+    with ``tasks``)."""
     base_p, gram_p = feat.dcd_feature_gram(cols, vals, w_ref, idx,
-                                           workspace=workspace, n_loc=n_loc)
+                                           workspace=workspace, n_loc=n_loc,
+                                           tasks=tasks)
     return base_p.sum(-2), gram_p.sum(-3)
 
 
-def dcd_feature_base_correction(cols, vals, dvec, idx, n_loc: int = 0):
+def dcd_feature_base_correction(cols, vals, dvec, idx, n_loc: int = 0,
+                                tasks: bool = False):
     """Correct a stale base by the aggregate it was computed without:
     Δbase_t = Δwᵀx_t for the block's rows, each shard's partial summed
     over shards.  ``dvec`` is the (m, d_loc + 1) missing aggregate; a
-    (p, B) ``idx`` gives each data shard's (p, B)."""
+    (p, B) ``idx`` gives each data shard's (p, B).  With ``tasks`` each
+    task's (m, d_loc + 1) aggregate of a (K, m, d_loc + 1) ``dvec``
+    against its ids (idx (p, B) or (K, p, B)): (K, p, B)."""
+    if tasks:
+        return torch.stack([
+            dcd_feature_base_correction(cols, vals, dvec[t],
+                                        idx[t] if idx.dim() == 3 else idx,
+                                        n_loc)
+            for t in range(dvec.shape[0])])
     rows = idx.long()
     if idx.dim() == 2:
         rows = rows + n_loc * torch.arange(idx.shape[0],
@@ -159,7 +177,7 @@ def dcd_feature_update(cols, vals, sq_norms, alpha, w, idx, base, gram, *,
     B5.  ``sq_norms`` are the full row norms; ``workspace``, if given,
     holds B4's buckets of this same block.  Returns (updated α, updated
     primal slices) — for p data shards, each shard's updated replica
-    (p, m, d_loc + 1)."""
+    (p, m, d_loc + 1); for a (K, n) α, (K, p, m, d_loc + 1)."""
     return feat.dcd_feature_update(cols, vals, alpha, sq_norms, w, idx,
                                    base, gram, loss=loss, active=active,
                                    y=y, workspace=workspace, n_loc=n_loc)
@@ -172,10 +190,13 @@ def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
     shards — the fused counterpart of the solver's unfused engine, the
     eager composition of the phases above.  Returns (updated α, Δw =
     w_new − w over the (m, d_loc + 1) slices), or the p data shards' Δw
-    (p, m, d_loc + 1)."""
+    (p, m, d_loc + 1); for a (K, n) α, each task's (K, p, m, d_loc + 1)."""
+    tasks = alpha.dim() == 2
     base, gram = dcd_feature_gram(cols, vals, w, idx, workspace=workspace,
-                                  n_loc=n_loc)
+                                  n_loc=n_loc, tasks=tasks)
     a_new, w_new = dcd_feature_update(cols, vals, sq_norms, alpha, w, idx,
                                       base, gram, loss=loss, active=active,
                                       y=y, workspace=workspace, n_loc=n_loc)
+    if tasks and w.dim() == 3:
+        w = w[:, None]  # one w for every data shard of a task
     return a_new, w_new - w

@@ -726,3 +726,258 @@ def test_sharded_solver_kernel_path_matches_cpu_path(knobs):
                                   on_cpu.active.numpy())
     np.testing.assert_array_equal(on_card.delay.cpu().numpy(),
                                   on_cpu.delay.numpy())
+
+
+# ---------------------------------------------- tasks (the multi-task grid)
+# (K, n_loc, p, b): K tasks of p data shards; the last has more (task,
+# shard) pairs than the card has SMs, and more tasks than shards
+TASK_GRIDS = {"k3p2": (3, 40, 2, 16), "k53p3": (53, 8, 3, 6)}
+
+
+def _task_operands(rng, K, n, w_shape, dev, shared):
+    """K tasks' α, w, act (one mask for every task when ``shared``) and
+    ±1 labels."""
+    alpha = rng.uniform(0.05, 0.5, (K, n)).astype(np.float32)
+    w = (rng.standard_normal((K, *w_shape)) * 0.1).astype(np.float32)
+    act = (rng.random(n if shared else (K, n)) > 0.25).astype(np.float32)
+    y = np.where(rng.random((K, n)) > 0.5, 1.0, -1.0).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (alpha, w, act, y)]
+
+
+def _task_ids(rng, K, n_loc, p, b, dev, shared):
+    ids = rng.integers(0, n_loc, (p, b) if shared else (K, p, b))
+    ids[..., -1] = ids[..., 0]  # a repeated id in every block
+    return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "own"])
+@pytest.mark.parametrize("wide", [False, True], ids=["by_shape", "wide"])
+@pytest.mark.parametrize("grid", sorted(TASK_GRIDS))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b1_task_grid_matches_plain(loss, grid, wide, shared):
+    """B1 over K tasks of p shards in one launch against its plain
+    version: shared or per-task ids and masks, one w a task or a
+    replica a (task, shard) pair; a second launch gives the same bits."""
+    from repro_torch.kernels.dcd_ell import (
+        dcd_ell_shards,
+        dcd_ell_shards_plain,
+    )
+    dev = _cuda()
+    K, n_loc, p, b = TASK_GRIDS[grid]
+    cols, vals, *_ = _ell_case(dev, n_loc * p, 300, 37, 4)
+    rng = np.random.default_rng(21)
+    shape = (301,) if shared else (p, 301)
+    alpha, w, act, y = _task_operands(rng, K, n_loc * p, shape, dev, shared)
+    w[..., -1] = 0.0
+    ids = _task_ids(rng, K, n_loc, p, b, dev, shared)
+    q = (vals * vals).sum(1)
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
+              active=act, y=y)
+    variant = "wide" if wide else "staged"
+    assert dcd_ell_plan(b, 37, wide, p, K) == dcd_ell_plan(
+        b, 37, wide)._replace(shards=p, tasks=K)
+    n0 = (dcd_ell_shards.variant_launches[variant],
+          dcd_ell_shards.task_launches)
+    ka, kdw = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)
+    assert (dcd_ell_shards.variant_launches[variant],
+            dcd_ell_shards.task_launches) == (n0[0] + 1, n0[1] + 1)
+    pa, pdw = dcd_ell_shards_plain(cols, vals, alpha, w, q, **kw)
+    assert kdw.shape == (K, p, 301)
+    _close(ka, pa)
+    _close(kdw, pdw)
+    assert float(kdw[..., -1].abs().max()) == 0.0
+    again = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "own"])
+@pytest.mark.parametrize("d", [54, 300], ids=["staged", "wide"])
+@pytest.mark.parametrize("grid", sorted(TASK_GRIDS))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b2_task_grid_matches_plain(loss, grid, d, shared):
+    from repro_torch.kernels.dcd_block import (
+        dcd_indexed_shards,
+        dcd_indexed_shards_plain,
+    )
+    dev = _cuda()
+    K, n_loc, p, b = TASK_GRIDS[grid]
+    rng = np.random.default_rng(22)
+    X = torch.from_numpy((rng.standard_normal((n_loc * p, d)) * 0.3 /
+                          np.sqrt(d)).astype(np.float32)).to(dev)
+    alpha, w, act, y = _task_operands(rng, K, n_loc * p,
+                                      (d,) if shared else (p, d), dev,
+                                      shared)
+    ids = _task_ids(rng, K, n_loc, p, b, dev, shared)
+    q = (X * X).sum(1)
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
+              active=act, y=y)
+    n0 = dcd_indexed_shards.task_launches
+    ka, kdw = dcd_indexed_shards(X, alpha, w, q, **kw)
+    assert dcd_indexed_shards.task_launches == n0 + 1
+    pa, pdw = dcd_indexed_shards_plain(X, alpha, w, q, **kw)
+    assert kdw.shape == (K, p, d)
+    _close(ka, pa)
+    _close(kdw, pdw)
+    again = dcd_indexed_shards(X, alpha, w, q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B1", "B2"])
+def test_b1_b2_task_grid_k1_bit_equal_on_the_card(kernel):
+    """One task of the task grid launches the task-free grid's
+    arithmetic: the same bits as the binary-layout call."""
+    from repro_torch.kernels.dcd_block import dcd_indexed_shards
+    from repro_torch.kernels.dcd_ell import dcd_ell_shards
+    dev = _cuda()
+    rng = np.random.default_rng(23)
+    n_loc, p, b = 40, 3, 16
+    ids = _task_ids(rng, 1, n_loc, p, b, dev, True)
+    if kernel == "B1":
+        cols, vals, *_ = _ell_case(dev, n_loc * p, 300, 37, 4)
+        X, q, width, fn = (cols, vals), (vals * vals).sum(1), 301, \
+            dcd_ell_shards
+    else:
+        Xd = torch.from_numpy((rng.standard_normal((n_loc * p, 54)) * 0.05)
+                              .astype(np.float32)).to(dev)
+        X, q, width, fn = (Xd,), (Xd * Xd).sum(1), 54, dcd_indexed_shards
+    alpha, w, act, y = _task_operands(rng, 1, n_loc * p, (width,), dev, True)
+    w[..., -1] = 0.0 if kernel == "B1" else w[..., -1]
+    kw = dict(loss=td.Logistic(0.7), idx=ids, n_loc=n_loc, active=act)
+    ka, kdw = fn(*X, alpha, w, q, y=y, **kw)
+    ba, bdw = fn(*X, alpha[0], w[0], q, y=y[0], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ka[0], ba) and torch.equal(kdw[0], bdw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "own"])
+@pytest.mark.parametrize("K,p", [(3, 1), (2, 2)])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b4_b5_task_grid_matches_plain(loss, K, p, shared):
+    """B4 and B5 over K tasks of p data shards (one launch each) against
+    their plain versions; B5 with B4's workspace and with its own bucket
+    pass to the same bits; K = 1 of the grid is the task-free call."""
+    dev = _cuda()
+    cols, vals, w1, _ = _feature_case(dev, n=60 * p, repeat_col=False)
+    n, m, k = cols.shape
+    n_loc, b, d1 = 60, 16, w1.shape[-1]
+    rng = np.random.default_rng(24)
+    ids = _task_ids(rng, K, n_loc, p, b, dev, shared)
+    w = (w1[None] + 0.01 * torch.arange(K, device=dev)[:, None, None])
+    w[..., -1] = 0.0
+    ws = feat.gram_workspace(m, b, k, d1, dev, p, K)
+    assert ws.lc.shape == (K * p * m, b, k)
+    n0 = (feat.dcd_feature_gram.task_launches,
+          feat.dcd_feature_update.task_launches)
+    kb, kg = feat.dcd_feature_gram(cols, vals, w, ids, workspace=ws,
+                                   n_loc=n_loc, tasks=True)
+    pb, pg = feat.dcd_feature_gram_plain(cols, vals, w, ids, n_loc,
+                                         tasks=True)
+    assert kb.shape == (K, p, m, b) and kg.shape == (K, p, m, b, b)
+    _close(kb, pb)
+    _close(kg, pg)
+    alpha, _, act, y = _task_operands(rng, K, n, (1,), dev, shared)
+    q = (vals * vals).sum((1, 2))
+    kw = dict(loss=td.make_loss(loss, 0.8), active=act, y=y, n_loc=n_loc)
+    base, gram = pb.sum(2), pg.sum(2)
+    ka, kwv = feat.dcd_feature_update(cols, vals, alpha, q, w, ids, base,
+                                      gram, workspace=ws, **kw)
+    sa, swv = feat.dcd_feature_update(cols, vals, alpha, q, w, ids, base,
+                                      gram, **kw)
+    pa, pw = feat.dcd_feature_update_plain(cols, vals, alpha, q, w, ids,
+                                           base, gram, **kw)
+    assert kwv.shape == (K, p, m, d1)
+    _close(ka, pa)
+    _close(kwv, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(sa, ka) and torch.equal(swv, kwv)
+    assert (feat.dcd_feature_gram.task_launches,
+            feat.dcd_feature_update.task_launches) == (n0[0] + 1, n0[1] + 2)
+    if shared:  # one task of the grid: the task-free call's bits
+        tb, tg = feat.dcd_feature_gram(cols, vals, w[:1], ids, n_loc=n_loc,
+                                       tasks=True)
+        fb, fg = feat.dcd_feature_gram(cols, vals, w[0], ids, n_loc=n_loc)
+        ta, tw = feat.dcd_feature_update(
+            cols, vals, alpha[:1], q, w[:1], ids, tb.sum(2), tg.sum(2),
+            loss=kw["loss"], active=act, y=y[:1], n_loc=n_loc)
+        fa, fw = feat.dcd_feature_update(
+            cols, vals, alpha[0], q, w[0], ids, fb.sum(1), fg.sum(1),
+            loss=kw["loss"], active=act, y=y[0], n_loc=n_loc)
+        torch.cuda.synchronize()
+        assert torch.equal(tb[0], fb) and torch.equal(tg[0], fg)
+        assert torch.equal(ta[0], fa) and torch.equal(tw[0], fw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    dict(dense=False, p=2, shrink_every=1, repack=True,
+         repack_threshold=0.9),
+    dict(dense=True, p=4, adaptive=True, delay_rounds=1,
+         adaptive_ratio=0.5),
+    dict(dense=False, p=2, model=2, delay_rounds=1)],
+    ids=["ell_p2_shrink_repack", "dense_p4_adaptive", "2d_p2_overlap"])
+def test_multitask_solver_kernel_path_matches_cpu_path(knobs):
+    """A K = 3 one-vs-rest solve on the card (the task-grid kernels)
+    against the same solve's CPU path (their plain versions): α and ŵ at
+    atol 1e-5, every task's records equal."""
+    from repro_torch.data.labels import ovr_labels
+    from repro_torch.dist.mesh import solver_mesh
+    dev = _cuda()
+    knobs = dict(knobs)
+    ds = make_dataset("tiny", device="cpu")
+    X = ds.dense_train() if knobs.pop("dense") else ds.X_train
+    n = ds.X_train.n_rows
+    Y = ovr_labels(np.arange(n) * 7 % 3, 3, device="cpu")
+    p, model = knobs.pop("p"), knobs.pop("model", None)
+    mesh = (solver_mesh(n_devices=p) if model is None
+            else solver_mesh_2d(data=p, model=model))
+    kw = dict(mesh=mesh, epochs=4, block_size=16, seed=4, **knobs)
+    on_card = sharded_passcode_solve(X.to(dev), td.Hinge(), y=Y.to(dev),
+                                     **kw)
+    card_rounds = list(sharded_passcode_solve.task_rounds)
+    on_cpu = sharded_passcode_solve(X, td.Hinge(), y=Y, use_kernel=True,
+                                    device="cpu", **kw)
+    assert on_card.alpha.shape == (3, n)
+    _close(on_card.alpha, on_cpu.alpha)
+    _close(on_card.w_hat, on_cpu.w_hat)
+    np.testing.assert_allclose(on_card.gaps.cpu().numpy(),
+                               on_cpu.gaps.numpy(), rtol=1e-5, atol=ATOL)
+    np.testing.assert_array_equal(on_card.active.cpu().numpy(),
+                                  on_cpu.active.numpy())
+    np.testing.assert_array_equal(on_card.delay.cpu().numpy(),
+                                  on_cpu.delay.numpy())
+    assert card_rounds == sharded_passcode_solve.task_rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["1d_ell", "1d_dense", "2d"])
+def test_multitask_k1_bit_identical_on_the_card(mesh):
+    """K = 1 on the card: a (1, n) label matrix on unfolded rows gives
+    the binary solve's α and ŵ on pre-folded rows bit for bit (the gap
+    at rtol 1e-6: its w(α) is an ``index_add_`` with atomics)."""
+    from repro_torch.dist.mesh import solver_mesh
+    dev = _cuda()
+    ds = make_dataset("tiny", device="cpu")
+    n = ds.X_train.n_rows
+    y = torch.from_numpy(np.where(np.arange(n) % 3 == 0, 1.0, -1.0)
+                         .astype(np.float32))
+    dense = ds.dense_train()
+    X = dense if mesh == "1d_dense" else ds.X_train
+    Xf = dense * y[:, None] if mesh == "1d_dense" else type(X)(
+        X.indices, X.values * y[:, None], X.n_features)
+    m = solver_mesh_2d(data=2, model=2) if mesh == "2d" else \
+        solver_mesh(n_devices=4)
+    kw = dict(mesh=m, epochs=2, block_size=16, seed=3)
+    b = sharded_passcode_solve(Xf.to(dev), td.Hinge(), **kw)
+    r = sharded_passcode_solve(X.to(dev), td.Hinge(), y=y[None].to(dev),
+                               **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(r.alpha[0], b.alpha)
+    assert torch.equal(r.w_hat[0], b.w_hat)
+    np.testing.assert_allclose(r.gaps[0].cpu().numpy(), b.gaps.cpu().numpy(),
+                               rtol=1e-6)

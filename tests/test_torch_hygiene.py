@@ -18,12 +18,14 @@ from repro_torch.convert import (
     dense_from_numpy,
     ell_from_numpy,
     feature_sharded_from_numpy,
+    labels_from_numpy,
     w2d_from_numpy,
 )
 from repro_torch.core import duals as td
 from repro_torch.core.dcd import dcd_solve
 from repro_torch.core.passcode import passcode_solve
 from repro_torch.core.sharded import sharded_passcode_solve
+from repro_torch.data.labels import ovr_labels
 from repro_torch.data.sparse import dense_to_ell
 from repro_torch.data.synthetic import make_dataset, make_paper_split
 from repro_torch.dist.mesh import solver_mesh_2d
@@ -67,6 +69,10 @@ ENTRY_POINTS = {
     "sharded_passcode_solve_2d": lambda: sharded_passcode_solve(
         torch.ones((4, 2)), td.Hinge(), epochs=1,
         mesh=solver_mesh_2d(model=2)),
+    "sharded_passcode_solve_multitask": lambda: sharded_passcode_solve(
+        torch.ones((4, 2)), td.Hinge(), epochs=1, y=np.ones((3, 4))),
+    "ovr_labels": lambda: ovr_labels([0, 1, 2]),
+    "labels_from_numpy": lambda: labels_from_numpy(np.ones((2, 3))),
 }
 
 

@@ -335,3 +335,36 @@ def test_shard_grid_plans_keep_each_ctas_layout(shards):
     assert tuple(ws.lc.shape) == tuple(ws.v.shape) == (shards * m, b, k)
     assert tuple(ws.roff.shape) == (shards * m, b, g.classes + 1)
     assert tuple(ws.part.shape) == (shards * m, g.classes, b, b)
+
+
+@pytest.mark.parametrize("tasks", [1, 3, 53])
+@pytest.mark.parametrize("shards", [1, 8])
+def test_task_grid_plans_keep_each_ctas_layout(tasks, shards):
+    """A task dimension multiplies the CTAs and changes no CTA's layout:
+    one CTA holds one (task, shard) pair's block, so its shared memory,
+    threads and variant are the binary plan's, at the main paths'
+    shapes (rcv1 K = 53, covtype K = 7, webspam split K = 4)."""
+    for wide in (False, True):
+        got = dcd_ell_plan(64, 73, wide, shards, tasks)
+        assert got == dcd_ell_plan(64, 73, wide)._replace(shards=shards,
+                                                          tasks=tasks)
+        assert got.smem_bytes <= LIMIT
+        got = dcd_dense_plan(64, 54, wide, shards, tasks)
+        assert got == dcd_dense_plan(64, 54, wide)._replace(shards=shards,
+                                                            tasks=tasks)
+    s = WEBSPAM_SPLIT
+    g = gram_plan(s["m"], s["b"], s["k"], s["d1"], shards, tasks)
+    assert g == gram_plan(s["m"], s["b"], s["k"], s["d1"])._replace(
+        data=shards, tasks=tasks)
+    u = feature_update_plan(s["m"], s["b"], s["k"], s["d1"], shards, tasks)
+    assert u == feature_update_plan(s["m"], s["b"], s["k"], s["d1"])._replace(
+        data=shards, tasks=tasks)
+    assert max(g.bucket_smem, g.gram_smem, u.smem_bytes) <= LIMIT
+
+
+def test_gram_workspace_carries_the_task_pairs():
+    """B4's workspace has a row block per (task, data, model) triple."""
+    ws = gram_workspace(2, 8, 5, 33, "cpu", data=3, tasks=4)
+    plan = gram_plan(2, 8, 5, 33, 3, 4)
+    assert ws.lc.shape == ws.v.shape == (4 * 3 * 2, 8, 5)
+    assert ws.roff.shape == (24, 8, plan.classes + 1)

@@ -23,7 +23,9 @@ active fractions and delay flags) as numpy arrays.  A ``case`` is plain
 data: ``rows`` (the first rows of ``tiny``), ``dense`` (the rows as a
 dense matrix instead of ELL), ``loss`` (its name, C = 1), ``p`` (data
 shards), ``model`` (feature shards of a 2-D mesh, or None for the 1-D
-mesh) and ``kw`` (the other keywords of ``sharded_passcode_solve``).
+mesh), ``Y`` and ``task`` (a multi-task solve's label matrix and the
+size of its 'task' mesh axis, or None) and ``kw`` (the other keywords
+of ``sharded_passcode_solve``).
 On the installed jax, the reference's ``_finalize`` slices α[:n] of a
 row-sharded α, which raises ``ShardingTypeError`` when p ∤ n; the child
 wraps ``_finalize`` to fetch α and w to the host first.  Nothing of
@@ -62,7 +64,7 @@ from repro.core import duals as rd
 from repro.core import sharded as rs
 from repro.data import make_dataset
 from repro.data.sparse import EllMatrix
-from repro.dist.mesh import solver_mesh, solver_mesh_2d
+from repro.dist.mesh import solver_mesh, solver_mesh_2d, solver_mesh_tasks
 
 _finalize = rs._finalize
 
@@ -82,8 +84,13 @@ for name, c in cases.items():
         Xc = np.asarray(Xc.to_dense())
     mesh = (solver_mesh(n_devices=c["p"]) if c["model"] is None
             else solver_mesh_2d(data=c["p"], model=c["model"]))
-    res = rs.sharded_passcode_solve(Xc, rd.make_loss(c["loss"]), mesh=mesh,
-                                    **c["kw"])
+    if c.get("task"):
+        mesh = solver_mesh_tasks(task=c["task"], data=c["p"],
+                                 model=c["model"] or 1)
+    Y = c.get("Y")
+    res = rs.sharded_passcode_solve(
+        Xc, rd.make_loss(c["loss"]), mesh=mesh,
+        y=None if Y is None else np.asarray(Y, np.float32), **c["kw"])
     np.savez(os.path.join(sys.argv[2], name + ".npz"),
              **{k: np.asarray(getattr(res, k))
                 for k in ("alpha", "w_hat", "gaps", "eps", "active",
@@ -91,8 +98,13 @@ for name, c in cases.items():
 """
 
 
-def case(rows=256, dense=False, loss="hinge", p=2, model=None, **kw):
-    return dict(rows=rows, dense=dense, loss=loss, p=p, model=model, kw=kw)
+def case(rows=256, dense=False, loss="hinge", p=2, model=None, Y=None,
+         task=None, **kw):
+    """A reference solve for ``reference_solves``; ``Y`` a (K, rows) ±1
+    label matrix (nested lists) makes it a multi-task solve, ``task`` the
+    size of a leading 'task' mesh axis."""
+    return dict(rows=rows, dense=dense, loss=loss, p=p, model=model, kw=kw,
+                Y=Y, task=task)
 
 
 def reference_solves(cases: dict, out_dir) -> dict:
@@ -287,5 +299,5 @@ def test_shard_grid_plain_is_p_single_calls(tiny, dense, per_shard_w):
         assert torch.equal(got_dw[s], w_new - w_s)
         total = total + (w_new - w_s)
     assert torch.equal(got_a, a)
-    torch.testing.assert_close(ts._data_sum(got_dw, w_s), total, rtol=0,
-                               atol=1e-6)
+    torch.testing.assert_close(ts._shard_sum(got_dw[None])[0], total,
+                               rtol=0, atol=1e-6)

@@ -88,6 +88,35 @@ def _gap_atol(Xp, alpha, loss):
     return ATOL + 1e-6 * float(M)
 
 
+def _fold(Xp, y):
+    """The rows of ``Xp`` (dense or ELL) times ±1 labels ``y``."""
+    if isinstance(Xp, EllMatrix):
+        return EllMatrix(Xp.indices, Xp.values * y[:, None], Xp.n_features)
+    return Xp * y[:, None]
+
+
+def _assert_tasks(p, r, Xp, Y, loss, *, metrics=True):
+    """A multi-task result against the reference's, class by class
+    (``_assert_result`` on class k's slices, its gap tolerance from the
+    rows folded by ``Y[k]``).  The active fraction count/n is held to
+    one float32 rounding: under its task vmap the reference's XLA
+    divides by the constant n as a product with 1/n, a rounding off the
+    correctly rounded quotient (56/96: 0.5833334 against 0.5833333);
+    the delay flags are held equal."""
+    Y = torch.as_tensor(np.array(Y), dtype=torch.float32)
+    assert p.alpha.shape == tuple(np.asarray(r.alpha).shape)
+    keys = ("alpha", "w_hat", "gaps", "eps", "active", "delay")
+    for k in range(Y.shape[0]):
+        pk = types.SimpleNamespace(**{f: getattr(p, f)[k] for f in keys})
+        rk = types.SimpleNamespace(**{f: np.asarray(getattr(r, f))[k]
+                                      for f in keys})
+        if metrics:
+            np.testing.assert_allclose(pk.active.numpy(), rk.active,
+                                       rtol=2.0 ** -23, atol=0)
+            rk.active = pk.active.numpy()
+        _assert_result(pk, rk, _fold(Xp, Y[k]), loss, metrics=metrics)
+
+
 def _assert_result(p, r, Xp, loss, *, metrics=True):
     for port, ref in [(p.alpha, r.alpha), (p.w_hat, r.w_hat)]:
         np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0,
@@ -252,11 +281,13 @@ def test_dcd_solve_rejects_bad_perms():
 
 TWO_D = dict(mesh=solver_mesh_2d(model=2))
 ACTS = "acts"  # the knob is ported: it acts as the reference's does
+ONES = np.ones((8, 3), np.float32)  # the rows the raising cases are given
 
 # (knob, the ROADMAP item that names it, what it does in the port): the
-# self-tuning knobs (A.7 on the 1-D mesh, A′.2 on the 2-D mesh) and
-# p > 1 data shards (A′.1) act; pods (A.10), multi-task (A.9) and the
-# host driver (A′.12) still raise
+# self-tuning knobs (A.7 on the 1-D mesh, A′.2 on the 2-D mesh), p > 1
+# data shards (A′.1) and multi-task labels (A.9: a (K, n) y acts on
+# ``ONES``, a 'task' axis without one raises the reference's ValueError)
+# act; pods (A.10) and the host driver (A′.12) still raise
 KNOBS = [
     (dict(shrink_every=1), "A.7", ACTS),
     (dict(repack=True), "A.7", ValueError),  # without shrink_every
@@ -265,8 +296,8 @@ KNOBS = [
     (dict(mesh_axes=("pod", "data")), "A.10", NotImplementedError),
     (dict(mesh=solver_mesh_2d(data=2, model=2)), "A′.1", ACTS),
     (dict(overlap=True), "2-D", ValueError),
-    (dict(mesh_axes=("task", "data")), "A.9", NotImplementedError),
-    (dict(y=np.ones((2, 8), np.float32)), "A.9", NotImplementedError),
+    (dict(mesh_axes=("task", "data")), "A.9", ValueError),
+    (dict(y=np.ones((2, 8), np.float32)), "A.9", ACTS),
     (dict(TWO_D, shrink_every=1), "A′.2", ACTS),
     (dict(TWO_D, adaptive=True), "A′.2", ACTS),
     (dict(pipeline=False), "A′.12", NotImplementedError),
@@ -277,6 +308,19 @@ KNOBS = [
     (dict(TWO_D, adaptive=True, adaptive_ratio=0.5), "A′.2", ACTS),
 ]
 KNOB_SOLVE = dict(epochs=3, block_size=32, seed=5)
+
+
+def _reference_knob(knob):
+    """``knob`` as the reference takes it: its ``mesh_axes`` path with a
+    'task' axis names ``solver_mesh_tasks`` without importing it
+    (``repro/core/sharded.py:1885``, a NameError; ROADMAP C.7), so it is
+    handed the mesh that path builds on one device, every axis of size
+    1."""
+    axes = knob.get("mesh_axes", ())
+    if "task" not in axes:
+        return knob
+    kw = {k: v for k, v in knob.items() if k != "mesh_axes"}
+    return dict(kw, mesh=jax.make_mesh((1,) * len(axes), tuple(axes)))
 
 
 @pytest.fixture(scope="module")
@@ -311,8 +355,10 @@ def test_unported_knobs_raise(tiny, request, knob, item, expect):
     """Each knob of the reference either acts — the ported self-tuning
     and data-shard knobs, whose solve is held to the reference's — or
     raises: the reference's own ``ValueError`` (``resolve_self_tuning``,
-    ``pipeline_overlap``), with its message, or ``NotImplementedError``
-    naming the ROADMAP item of a knob still outside the port."""
+    ``pipeline_overlap``, the task axis's), with its message, or
+    ``NotImplementedError`` naming the ROADMAP item of a knob still
+    outside the port.  A (K, n) ``y`` is the multi-task solve, held
+    class by class to the reference's on the rows it is shaped for."""
     if expect is NotImplementedError:
         with pytest.raises(NotImplementedError, match=item):
             sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
@@ -321,11 +367,19 @@ def test_unported_knobs_raise(tiny, request, knob, item, expect):
     if expect is ValueError:
         with pytest.raises(ValueError) as want:
             rs.sharded_passcode_solve(np.ones((8, 3), np.float32),
-                                      rd.Hinge(), epochs=1, **knob)
+                                      rd.Hinge(), epochs=1,
+                                      **_reference_knob(knob))
         with pytest.raises(ValueError) as got:
             sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
                                    device="cpu", **knob)
         assert str(got.value) == str(want.value)
+        return
+    if "y" in knob:
+        r = rs.sharded_passcode_solve(ONES, rd.Hinge(), **knob, **KNOB_SOLVE)
+        Xp = torch.from_numpy(ONES)
+        p = sharded_passcode_solve(Xp, td.Hinge(), device="cpu", **knob,
+                                   **KNOB_SOLVE)
+        _assert_tasks(p, r, Xp, knob["y"], td.Hinge())
         return
     Xp = _port_X(tiny, True)
     p = sharded_passcode_solve(Xp, td.Hinge(), device="cpu", **knob,
@@ -334,8 +388,8 @@ def test_unported_knobs_raise(tiny, request, knob, item, expect):
 
 
 PREPARE_KNOBS = [
-    (dict(y=np.ones((2, 8), np.float32)), "A.9", NotImplementedError),
-    (dict(mesh_axes=("task", "data")), "A.9", NotImplementedError),
+    (dict(y=np.ones((2, 8), np.float32)), "A.9", ACTS),
+    (dict(mesh_axes=("task", "data")), "A.9", ValueError),
     (dict(mesh_axes=("pod", "data")), "A.10", NotImplementedError),
     (dict(pod_delay_rounds=2), "A.10", NotImplementedError),
     (dict(shrink_every=1, shrink_tol=1e-2), "A.7", ACTS),
@@ -353,7 +407,9 @@ def test_prepare_solver_unported_knobs_raise(knob, item, expect):
     ported knob resolves as the reference's (``SelfTuning`` and the
     tuning values), a bad combination raises the reference's
     ``ValueError``, and a knob outside the port raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    ``NotImplementedError`` naming its ROADMAP item.  A (K, n) ``y`` sets
+    the setup's task count and labels as the reference's (its padding
+    rows, none here, at +1)."""
     X = torch.ones((8, 3))
     if expect is NotImplementedError:
         with pytest.raises(NotImplementedError, match=item):
@@ -362,13 +418,16 @@ def test_prepare_solver_unported_knobs_raise(knob, item, expect):
     if expect is ValueError:
         with pytest.raises(ValueError) as want:
             rs.prepare_solver(np.ones((8, 3), np.float32), rd.Hinge(),
-                              **knob)
+                              **_reference_knob(knob))
         with pytest.raises(ValueError) as got:
             prepare_solver(X, td.Hinge(), device="cpu", **knob)
         assert str(got.value) == str(want.value)
         return
     want = rs.prepare_solver(np.ones((8, 3), np.float32), rd.Hinge(), **knob)
     got = prepare_solver(X, td.Hinge(), device="cpu", **knob)
+    assert got.n_tasks == want.n_tasks
+    if want.n_tasks:
+        np.testing.assert_array_equal(got.Y.numpy(), np.asarray(want.Y))
     assert tuple(got.tuning) == tuple(want.tuning)
     assert (got.shrink_tol, got.repack_threshold, got.adaptive_ratio) == (
         want.shrink_tol, want.repack_threshold, want.adaptive_ratio)

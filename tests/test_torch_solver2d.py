@@ -138,8 +138,8 @@ def test_2d_warm_start_and_layout_match_reference(tiny):
     pa0, pw0 = state_from_numpy(a0, w0, device="cpu")
     setup = ts.prepare_solver(Xp, td.Hinge(), mesh=solver_mesh_2d(),
                               device="cpu")
-    _, w = ts._init_alpha_w(setup, pa0, pw0)
-    np.testing.assert_array_equal(w2d_to_numpy(w, ref_setup.d1_loc),
+    _, w = ts._init_alpha_w(setup, pa0, pw0)  # (1, m, d_loc + 1): K = 1
+    np.testing.assert_array_equal(w2d_to_numpy(w[0], ref_setup.d1_loc),
                                   np.asarray(ref_w))
     p = ts.sharded_passcode_solve(Xp, td.Hinge(), mesh=solver_mesh_2d(),
                                   alpha0=pa0, w0=pw0, device="cpu", **kw)
