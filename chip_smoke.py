@@ -46,6 +46,21 @@ result line):
    B5 at the webspam split with K = 4 (m = 4), each launch K tasks with
    their own α, w and labels on the shared rows, held to its plain
    version over 2 rounds from α = 0, its second launch to the same bits,
+   and timed.  The pod grid of the pod solve (Hybrid-DCA): B1 at rcv1
+   with P = 2 pods of p = 4 shards, B2 at covtype (2, 4) (each pod's rows
+   padded to its own p·n_loc slots, as the solver lays them out) and B4 +
+   B5 at the webspam split (2, 1) with m = 4, each launch every pod's
+   shards, pod k's reading pod k's own w, held to its plain version over
+   2 rounds from α = 0 with hinge and one round with squared hinge and
+   logistic, its second launch to the same bits, and timed.  The
+   baselines' wide launches at their full shapes: B2 over the first
+   outer round of ``cocoa_solve`` on covtype (8 CTAs of 72,626 ids, the
+   partitions' whole local epochs) and B1 over the first epoch of
+   ``cocoa_pod_solve`` on rcv1's first ``PASSCODE_ROWS`` rows (2 CTAs of
+   50,048 ids, each pod's drawn blocks), each laid out and drawn as its
+   solve does, held to its plain version over the whole round with hinge
+   (the plain version timed on it) and over each CTA's first ``PREFIX``
+   ids with the other two losses, its second launch to the same bits,
    and timed.  ``torch.profiler`` views
    20 rounds of the rcv1, the covtype and the webspam solve, at p = 1
    and over the shard grid (wall time, device-busy time, idle share);
@@ -90,6 +105,22 @@ result line):
    bit for bit to the binary solve on folded rows (rcv1 and covtype,
    p = 8, one epoch), and the one solve to the loop over K binary solves
    (covtype's 7 classes, rcv1's classes 0, 26 and 52) at atol 1e-5;
+   the pod solve (each epoch a Hybrid-DCA outer round, P = 2): rcv1 at
+   (pod = 2, data = 4), 3 epochs at ``pod_delay_rounds`` 0 and 2 and at 2
+   with the adaptive pod latch (ratio 0.3, its flags held to the latch
+   rule from its gaps), ε at delay 0 at most 1e-4·‖ŵ‖ and at delay 2
+   above it; covtype at (2, 4), delay 1, binary and with K = 7 classes;
+   webspam at (2, 1, 4), 2 epochs, delay 1; each printing seconds per
+   epoch, gaps and ε epoch by epoch, flags and peak memory; the rcv1 pod
+   solve at (2, 1) held to the port's ``cocoa_pod_solve`` on the first
+   ``PASSCODE_ROWS`` rows (2 epochs at delays 0 and 1, 3 at delay 2,
+   atol 1e-5) and its error at full size printed; the paper's §5 comparison on covtype,
+   PASSCoDe at p = 8, ``cocoa_solve`` (8 partitions, 3 rounds of one
+   local epoch, one wide B2 launch of 8 CTAs a round) and
+   ``asyscd_solve`` (8 threads, one epoch: on all rows, or the first
+   ``PASSCODE_ROWS`` if its first 200 rounds put a full epoch past 60 s),
+   their gaps and seconds per epoch, and all three (and the pod oracle)
+   on the card against their CPU paths on ``tiny``;
    serial DCD (``dcd_solve``) and
    PASSCoDe-Lock (``passcode_solve``, 8 threads) on rcv1 and covtype, 3
    epochs each, one wide B1 (B2) launch per epoch, Lock's first epoch
@@ -111,8 +142,12 @@ result line):
    ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
    grids' ``dcd_ell_tasks``, ``dcd_indexed_tasks``,
-   ``dcd_feature_gram_tasks`` and ``dcd_feature_update_tasks``; every row
-   launched on a main path), then the result line
+   ``dcd_feature_gram_tasks`` and ``dcd_feature_update_tasks``, the pod
+   grids' ``dcd_ell_pods``, ``dcd_indexed_pods``,
+   ``dcd_feature_gram_pods`` and ``dcd_feature_update_pods``, the
+   baselines' wide launches ``dcd_indexed_cocoa`` and
+   ``dcd_ell_cocoa_pods``; every row launched on a main path), then the
+   result line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one.  Data comes from
@@ -248,6 +283,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()  # the script's clock, printed per path
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import prng
     from repro_torch.core import duals
@@ -265,10 +301,14 @@ def main():
         passcode_epoch,
         passcode_solve,
     )
+    from repro_torch.core.asyscd import _asyscd_epoch, asyscd_solve
+    from repro_torch.core.cocoa import cocoa_pod_solve, cocoa_solve
     from repro_torch.core.sharded import (
         _block_update_1d,
         _block_update_2d,
         _n_blocks,
+        _place_rows,
+        _pod_segments,
         _scan_rounds,
         sharded_passcode_solve,
     )
@@ -281,8 +321,10 @@ def main():
         dcd_tile_plan,
         feature_update_plan,
         gram_plan,
+        SolverMesh,
         solver_mesh,
         solver_mesh_2d,
+        solver_mesh_3d,
     )
     from repro_torch.kernels import build, dcd_feature as feat, ops
     from repro_torch.kernels.dcd_block import (
@@ -1378,6 +1420,355 @@ def main():
               f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
     del krep, prep, a_t, w_t, b_t, g_t
 
+    # ------------------------ the pod grid: P pods of p shards a launch
+    # B1, B2, B4 and B5 over the pod solver's grid (Hybrid-DCA): P pods of
+    # p data shards, pod k's shards reading pod k's own view of w (a
+    # (P, …) w a launch), each pod's rows padded to its own p·n_loc slots
+    # as the solver lays them out (``_pod_segments``): rcv1 at (P = 2,
+    # p = 4) (B1 staged, 8 CTAs), covtype at (2, 4) (B2 staged; pod 0's
+    # two padding rows sit inside the row range) and the webspam split at
+    # (2, 1) with m = 4 (B4 over 8 (pod, model) pairs, B5 R × 8 CTAs);
+    # held to the plain versions over 2 rounds from α = 0 with hinge and
+    # one round each with squared hinge and logistic (each shard's Δw, α
+    # and each pod's w, which takes its shards' Δw summed in shard
+    # order); a second launch to the same bits; timed behind the spin
+    def pod_ids(n, P, p, rounds):
+        """(n_loc, the real-row runs, ids (rounds, P·p, B)): each shard's
+        B distinct real rows a round, shard-local, drawn from its pod's
+        own real-row count."""
+        n_pod = max(-(-n // P), 1)
+        n_loc = -(-n_pod // p)
+        per = []
+        for s_ in range(P * p):
+            k_, my = divmod(s_, p)
+            npv = min(max(n - k_ * n_pod, 0), n_pod)
+            v = min(max(npv - my * n_loc, 1), n_loc)
+            per.append(torch.stack([
+                torch.randperm(v, generator=gen, device=dev)[:B]
+                for _ in range(rounds)]))
+        return (n_loc, _pod_segments(n, P, p, n_loc),
+                torch.stack(per, 1).int().contiguous())
+
+    def compare_pods(name, kernel, plain, state0, ids, P):
+        err = 0.0
+        for lname, rounds in [("hinge", 2), ("squared_hinge", 1),
+                              ("logistic", 1)]:
+            loss = duals.make_loss(lname, 0.5 if lname == "logistic" else 1.0)
+            (ka, kw), (pa, pw) = state0(), state0()
+            e = 0.0
+            for r in range(rounds):
+                ka, kdw = kernel(ka, kw, ids[r], loss)
+                pa, pdw = plain(pa, pw, ids[r], loss)
+                e = max(e, float((kdw - pdw).abs().max()))
+                kw = kw + kdw.unflatten(0, (P, -1)).sum(1)
+                pw = pw + pdw.unflatten(0, (P, -1)).sum(1)
+            torch.cuda.synchronize()
+            e = max(e, float((ka - pa).abs().max()),
+                    float((kw - pw).abs().max()))
+            print(f"  {name} {lname}: max abs err {e:.3g} over {rounds} "
+                  f"rounds of {ids.shape[1]} × {B} updates (each shard's "
+                  f"Δw, α and each pod's w; tolerance {ATOL})")
+            if not e <= ATOL:
+                fail(f"{name} disagrees with its plain version ({lname})")
+            err = max(err, e)
+        return err
+
+    pods = {}  # name → (ms, plain ms, bytes, ops, what, err, library ms)
+    P_P, P_PD = 2, 4  # the 1-D pod paths' pods and data shards a pod
+    S_P = P_P * P_PD
+    n_loc_rp, segs_rp, ids_rp = pod_ids(n_r, P_P, P_PD, 16)
+    np_rp = S_P * n_loc_rp
+    cols_rp = _place_rows(X_rcv1.indices, np_rp, segs_rp, d_r)
+    vals_rp = _place_rows(X_rcv1.values, np_rp, segs_rp, 0.0)
+    q_rp = _place_rows(q_r, np_rp, segs_rp, 1.0)
+
+    def p1(a, w, i, L):
+        return dcd_ell_shards(cols_rp, vals_rp, a, w, q_rp, loss=L, idx=i,
+                              n_loc=n_loc_rp)
+
+    def p1_plain(a, w, i, L):
+        return dcd_ell_shards_plain(cols_rp, vals_rp, a, w, q_rp, loss=L,
+                                    idx=i, n_loc=n_loc_rp)
+
+    def zeros_rp():
+        return (torch.zeros(np_rp, device=dev),
+                torch.zeros((P_P, d_r + 1), device=dev))
+
+    print(f"  B1 pod grid at rcv1, P = {P_P}, p = {P_PD}: "
+          f"{dcd_ell_plan(B, k_r, False, P_PD, 1, P_P)}; real rows "
+          f"{segs_rp}")
+    err_p1 = compare_pods(f"B1 dcd_ell_shards staged (rcv1, P = {P_P}, "
+                          f"p = {P_PD})", p1, p1_plain, zeros_rp, ids_rp,
+                          P_P)
+    a_p, w_p1 = zeros_rp()
+    same_bits(f"B1 dcd_ell_shards staged (rcv1, P = {P_P}, p = {P_PD})",
+              lambda: p1(a_p, w_p1, ids_rp[0], hinge), torch)
+    ms_p1 = cuda_ms(lambda: p1(a_p, w_p1, ids_rp[next(it) % 16], hinge),
+                    50, torch)
+    plain_p1 = wall_ms(lambda: p1_plain(a_p, w_p1, ids_rp[0], hinge), 1,
+                       torch)
+    pods["dcd_ell_pods"] = (
+        ms_p1, plain_p1,
+        4 * (2 * np_rp + (P_P + S_P) * (d_r + 1)) + S_P * B * (k_r * 8 + 8),
+        4 * S_P * B * k_r, f"rcv1, P = {P_P}, p = {P_PD}, {B} ids a shard",
+        err_p1, None, "src/repro_torch/kernels/csrc/dcd_ell.cu",
+        "src/repro/kernels/dcd_ell.py:51", "staged")
+    del cols_rp, vals_rp, a_p, w_p1
+
+    n_loc_cp, segs_cp, ids_cp = pod_ids(n_c, P_P, P_PD, 16)
+    np_cp = S_P * n_loc_cp
+    X_cp = _place_rows(X_cov, np_cp, segs_cp, 0.0)
+    q_cp = _place_rows(q_c, np_cp, segs_cp, 1.0)
+
+    def p2(a, w, i, L):
+        return dcd_indexed_shards(X_cp, a, w, q_cp, loss=L, idx=i,
+                                  n_loc=n_loc_cp)
+
+    def p2_plain(a, w, i, L):
+        return dcd_indexed_shards_plain(X_cp, a, w, q_cp, loss=L, idx=i,
+                                        n_loc=n_loc_cp)
+
+    def zeros_cp():
+        return (torch.zeros(np_cp, device=dev),
+                torch.zeros((P_P, d_c), device=dev))
+
+    print(f"  B2 pod grid at covtype, P = {P_P}, p = {P_PD}: "
+          f"{dcd_dense_plan(B, d_c, False, P_PD, 1, P_P)}; real rows "
+          f"{segs_cp}")
+    err_p2 = compare_pods(f"B2 dcd_indexed_shards staged (covtype, P = "
+                          f"{P_P}, p = {P_PD})", p2, p2_plain, zeros_cp,
+                          ids_cp, P_P)
+    a_p, w_p2 = zeros_cp()
+    same_bits(f"B2 dcd_indexed_shards staged (covtype, P = {P_P}, p = "
+              f"{P_PD})", lambda: p2(a_p, w_p2, ids_cp[0], hinge_c), torch)
+    ms_p2 = cuda_ms(lambda: p2(a_p, w_p2, ids_cp[next(it) % 16], hinge_c),
+                    50, torch)
+    plain_p2 = wall_ms(lambda: p2_plain(a_p, w_p2, ids_cp[0], hinge_c), 1,
+                       torch)
+    pods["dcd_indexed_pods"] = (
+        ms_p2, plain_p2,
+        4 * (2 * np_cp + (P_P + S_P) * d_c) + S_P * B * (d_c * 4 + 8),
+        4 * S_P * B * d_c, f"covtype, P = {P_P}, p = {P_PD}, {B} ids a "
+        "shard", err_p2, None, "src/repro_torch/kernels/csrc/dcd_block.cu",
+        "src/repro/kernels/dcd_block.py:100", "staged")
+    del X_cp, a_p, w_p2
+
+    # B4 + B5 at the webspam split, (pod = 2, data = 1), m = 4: n = 280,000
+    # splits into two pods of 140,000 rows, no padding; per round B4 over
+    # the 2 × 4 (pod, model) pairs against each pod's view, the sum over
+    # model per pod, B5 into each pod's replica of the slices
+    n_loc_wp, segs_wp, ids_wp = pod_ids(n_w, P_P, 1, 8)
+    wsP = feat.gram_workspace(SHARDS, B, k_loc, d1_w, dev, P_P)
+    print(f"  B4 at the webspam split, P = {P_P}: "
+          f"{gram_plan(SHARDS, B, k_loc, d1_w, 1, 1, P_P)}; real rows "
+          f"{segs_wp}")
+
+    def state_wp():
+        a, w = state_w()
+        return a, torch.stack([w, w + 1e-3 * (w != 0)])  # a view a pod
+
+    err_p4 = err_p5 = 0.0
+    for lname, rounds in [("hinge", 2), ("squared_hinge", 1),
+                          ("logistic", 1)]:
+        loss = duals.make_loss(lname, 0.5 if lname == "logistic" else 1.0)
+        ka, kw = pa, pw = state_wp()
+        e4 = e5 = 0.0
+        for r in range(rounds):
+            kb, kg = feat.dcd_feature_gram(cols_w, vals_w, kw, ids_wp[r],
+                                           workspace=wsP, n_loc=n_loc_wp)
+            pb, pg = feat.dcd_feature_gram_plain(cols_w, vals_w, pw,
+                                                 ids_wp[r], n_loc_wp)
+            e4 = max(e4, float((kb - pb).abs().max()),
+                     float((kg - pg).abs().max()))
+            ka, krep = feat.dcd_feature_update(
+                cols_w, vals_w, ka, q_w, kw, ids_wp[r], kb.sum(1), kg.sum(1),
+                loss=loss, workspace=wsP, n_loc=n_loc_wp)
+            pa, prep = feat.dcd_feature_update_plain(
+                cols_w, vals_w, pa, q_w, pw, ids_wp[r], pb.sum(1), pg.sum(1),
+                loss=loss, n_loc=n_loc_wp)
+            e5 = max(e5, float((krep - prep).abs().max()))
+            kw, pw = krep, prep  # one data shard a pod: its replica
+        torch.cuda.synchronize()
+        e5 = max(e5, float((ka - pa).abs().max()),
+                 float((kw - pw).abs().max()))
+        print(f"  B4 dcd_feature_gram P = {P_P} {lname}: max abs err "
+              f"{e4:.3g} over {rounds} rounds; B5 dcd_feature_update: "
+              f"{e5:.3g} over {rounds * P_P * B} updates (tolerance {ATOL})")
+        if not (e4 <= ATOL and e5 <= ATOL):
+            fail(f"B4/B5 over pods disagree with their plain versions "
+                 f"({lname})")
+        err_p4, err_p5 = max(err_p4, e4), max(err_p5, e5)
+    w_same = state_wp()[1]
+    same_bits(f"B4 dcd_feature_gram (webspam, P = {P_P})",
+              lambda: feat.dcd_feature_gram(cols_w, vals_w, w_same,
+                                            ids_wp[0], workspace=wsP,
+                                            n_loc=n_loc_wp), torch)
+    b_p, g_p = ops.dcd_feature_gram(cols_w, vals_w, w_same, ids_wp[0],
+                                    workspace=wsP, n_loc=n_loc_wp)
+    a_same = torch.zeros(n_w, device=dev)
+    same_bits(f"B5 dcd_feature_update (webspam, P = {P_P}, hinge)",
+              lambda: feat.dcd_feature_update(
+                  cols_w, vals_w, a_same, q_w, w_same, ids_wp[0], b_p, g_p,
+                  loss=hinge, workspace=wsP, n_loc=n_loc_wp),
+              torch)
+    ms_p4 = cuda_ms(lambda: feat.dcd_feature_gram(
+        cols_w, vals_w, w_same, ids_wp[next(it) % 8], workspace=wsP,
+        n_loc=n_loc_wp), 50, torch)
+    ms_p5 = cuda_ms(lambda: feat.dcd_feature_update(
+        cols_w, vals_w, a_same, q_w, w_same, ids_wp[0], b_p, g_p, loss=hinge,
+        workspace=wsP, n_loc=n_loc_wp), 50, torch)
+    plain_p4 = wall_ms(lambda: feat.dcd_feature_gram_plain(
+        cols_w, vals_w, w_same, ids_wp[0], n_loc_wp), 1, torch)
+    plain_p5 = wall_ms(lambda: feat.dcd_feature_update_plain(
+        cols_w, vals_w, a_same, q_w, w_same, ids_wp[0], b_p, g_p, loss=hinge,
+        n_loc=n_loc_wp), 1, torch)
+    mats_p = [sparse_block(j, ids_wp[0][s_] + s_ * n_loc_wp)
+              for s_ in range(P_P) for j in range(SHARDS)]
+    lib_p4 = cuda_ms(lambda: [torch.sparse.mm(S, St) for S, St in mats_p],
+                     20, torch)
+    rows_p = (ids_wp[0].long()
+              + n_loc_wp * torch.arange(P_P, device=dev)[:, None]).reshape(-1)
+    nnz_p = int((cols_w[rows_p] < d_loc).sum())
+    pods["dcd_feature_gram_pods"] = (
+        ms_p4, plain_p4,
+        4 * P_P * B * SHARDS * k_loc + 8 * nnz_p + 4 * P_P * B
+        + 4 * P_P * SHARDS * (B + B * B),
+        2 * B * nnz_p + 2 * nnz_p, f"webspam, P = {P_P}, data = 1, m = "
+        f"{SHARDS}, {B} ids a pod", err_p4, lib_p4,
+        "src/repro_torch/kernels/csrc/dcd_feature.cu",
+        "src/repro/kernels/dcd_feature.py:60", "column-class")
+    pods["dcd_feature_update_pods"] = (
+        ms_p5, plain_p5,
+        8 * n_w + 8 * P_P * SHARDS * d1_w + 4 * P_P * B * SHARDS * k_loc
+        + 4 * nnz_p + P_P * (12 * B + 4 * B * B),
+        2 * nnz_p + P_P * B * B, f"webspam, P = {P_P}, data = 1, m = "
+        f"{SHARDS}, {B} ids a pod", err_p5, None,
+        "src/repro_torch/kernels/csrc/dcd_feature.cu",
+        "src/repro/kernels/dcd_feature.py:106", "column-class")
+    for name, (route_ms, pl_ms, by, ops_n, per, err, lib_ms, src, rep,
+               variant) in pods.items():
+        b_ms, b_by = bound(by, ops_n)
+        results[name] = dict(name=name, route="cuda", source=src,
+                             replaces=rep, variant=variant, launches=0,
+                             max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        lib = ("no library call computes it" if lib_ms is None
+               else f"torch.sparse.mm {lib_ms:.4f} ms")
+        print(f"  {name} ({per}): {route_ms:.4f} ms per launch, plain "
+              f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+    print(f"  pod-grid launches per epoch: rcv1 (2, 4) "
+          f"{_n_blocks(n_loc_rp, B)}, covtype (2, 4) "
+          f"{_n_blocks(n_loc_cp, B)}, webspam (2, 1, 4) "
+          f"{_n_blocks(n_loc_wp, B)} (B4 and B5 each)")
+    del wsP, mats_p, b_p, g_p, krep, prep
+
+    # ------------------------- the baselines' wide launches, at full shape
+    # cocoa_solve's outer round on covtype (8 partitions: one launch of B2's
+    # wide variant over 8 CTAs, each a partition's whole local epoch of
+    # n // 8 ids against the shared w), and cocoa_pod_solve's epoch on
+    # rcv1's first PASSCODE_ROWS rows (P = 2: one launch of B1's wide
+    # variant over 2 CTAs, each a pod's drawn block sequence).  Each is the
+    # first round of its solve, laid out and drawn as the solve does it
+    # (the reference's key chain), held to its plain version on the same
+    # inputs from α = 0 with the main path's loss over the whole round
+    # (the plain version timed on it) and with the other two losses over
+    # each CTA's first PREFIX ids; its second launch to the same bits, and
+    # timed
+    from repro_torch.core.cocoa import _pod_rows
+    from repro_torch.core.sharded import _device_block_perm_v
+
+    K_CO = THREADS
+    n_k = n_c // K_CO
+    key_co, kpart = prng.split(prng.PRNGKey(SEED, device=dev))
+    part = prng.permutation(kpart, n_c)[: n_k * K_CO]
+    X_co = X_cov[part].contiguous()
+    q_co = (X_co * X_co).sum(1)
+    ids_co = prng.permutation(prng.split(prng.split(key_co)[1], K_CO),
+                              n_k).to(torch.int32).contiguous()
+    del part
+
+    n_o = min(PASSCODE_ROWS, n_r)
+    n_pod_o = -(-n_o // P_P)
+    nb_o = _n_blocks(n_pod_o, B)
+    rows_o, q_o = _pod_rows(EllMatrix(X_rcv1.indices[:n_o],
+                                      X_rcv1.values[:n_o], d_r), n_pod_o, P_P)
+    sub_o = prng.split(prng.PRNGKey(SEED, device=dev))[1]
+    ids_o = torch.stack([
+        _device_block_perm_v(sub_o, k_, P_P, n_pod_o,
+                             min(max(n_o - k_ * n_pod_o, 1), n_pod_o), nb_o,
+                             B).reshape(-1)
+        for k_ in range(P_P)]).to(torch.int32).contiguous()
+
+    def co_round(shards, rows, q, n_loc):
+        def run(a, w, i, L):
+            a, dw = shards(*rows, a, w, q, loss=L, idx=i, n_loc=n_loc)
+            return a, w + dw.sum(0)
+        return run
+
+    def zeros_co():
+        return (torch.zeros(n_k * K_CO, device=dev),
+                torch.zeros(d_c, device=dev))
+
+    def zeros_o():
+        return (torch.zeros(P_P * n_pod_o, device=dev),
+                torch.zeros(d_r + 1, device=dev))
+
+    wide_rounds = {}
+    for name, shards, plain, rows, q, n_loc, ids, state0, loss, what in [
+            ("dcd_indexed_cocoa", dcd_indexed_shards,
+             dcd_indexed_shards_plain, (X_co,), q_co, n_k, ids_co, zeros_co,
+             hinge_c, f"covtype, CoCoA's round: {K_CO} partitions of {n_k} "
+             "ids"),
+            ("dcd_ell_cocoa_pods", dcd_ell_shards, dcd_ell_shards_plain,
+             rows_o, q_o, n_pod_o, ids_o, zeros_o, hinge,
+             f"rcv1's first {n_o} rows, cocoa_pod_solve's epoch: {P_P} pods "
+             f"of {ids_o.shape[1]} ids")]:
+        kern, pl = co_round(shards, rows, q, n_loc), co_round(plain, rows, q,
+                                                              n_loc)
+        label = f"{name} (wide, {what})"
+        ka, kw = kern(*state0(), ids, loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pa, pw = pl(*state0(), ids, loss)
+        torch.cuda.synchronize()
+        pl_ms = (time.perf_counter() - t0) * 1e3
+        e = max(float((ka - pa).abs().max()), float((kw - pw).abs().max()))
+        print(f"  {label} hinge: max abs err {e:.3g} over {ids.numel()} "
+              f"updates (α and w; tolerance {ATOL}); plain version "
+              f"{pl_ms:.1f} ms")
+        if not e <= ATOL:
+            fail(f"{label} disagrees with its plain version")
+        e = max(e, compare(f"{label}, each CTA's first {PREFIX} ids", kern,
+                           pl, state0, ids[None, :, :PREFIX], losses[1:]))
+        a0, w0 = state0()
+        same_bits(f"{label} hinge", lambda: kern(a0, w0, ids, loss), torch)
+        ms = cuda_ms(lambda: kern(a0, w0, ids, loss), 2, torch)
+        wide_rounds[name] = (ms, pl_ms, e, ids.numel())
+    # bytes: α and w in and out a CTA, each id's row, q and id once;
+    # operations: a multiply-add per row entry for the dot and the axpy
+    for name, by, ops_n, src, rep in [
+            ("dcd_indexed_cocoa",
+             4 * (2 * n_k * K_CO + 2 * K_CO * d_c)
+             + n_k * K_CO * (d_c * 4 + 8), 4 * n_k * K_CO * d_c,
+             "src/repro_torch/kernels/csrc/dcd_block.cu",
+             "src/repro/kernels/dcd_block.py:100"),
+            ("dcd_ell_cocoa_pods",
+             4 * (2 * P_P * n_pod_o + 2 * P_P * (d_r + 1))
+             + ids_o.numel() * (k_r * 8 + 8), 4 * ids_o.numel() * k_r,
+             "src/repro_torch/kernels/csrc/dcd_ell.cu",
+             "src/repro/kernels/dcd_ell.py:51")]:
+        ms, pl_ms, err, n_ids = wide_rounds[name]
+        b_ms, b_by = bound(by, ops_n)
+        results[name] = dict(name=name, route="cuda", source=src,
+                             replaces=rep, variant="wide", launches=0,
+                             max_abs_err=err, ms=ms, plain_ms=pl_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             ids=n_ids)
+        print(f"  {name} (wide, {n_ids} ids a launch): {ms:.4f} ms per "
+              f"launch, plain {pl_ms:.1f} ms, bound {b_ms:.6f} ms ({b_by}), "
+              "no library call computes it")
+    del X_co, q_co, ids_co, rows_o, q_o, ids_o
+
     # where a round's time goes: 20 rounds of the solver's fused 2-D
     # engine on webspam (B4, the sum over shards, B5, the Δw round trip)
     # and of its 1-D engine on rcv1 and covtype (B1/B2 and the wrapper's
@@ -1631,6 +2022,8 @@ def main():
     p1_bits("webspam rows (B1 wide)", X_web, hinge, dcd_ell_epoch,
             (X_web.indices, X_web.values), q_w1, n_w1, d_w1, d_w1 + 1)
 
+    print(f"  [kernel phase done at {time.perf_counter() - t_start:.0f} s]")
+
     # ----------------------------------------------------- 4. main paths
     # each kernel's launch count; B1's, B2's and B3's two variants count
     # apart, and B1's and B2's shard-grid wrappers (the solver's round, at
@@ -1656,7 +2049,14 @@ def main():
                 "dcd_indexed_tasks": (dcd_indexed_shards, "tasks"),
                 "dcd_feature_gram_tasks": (feat.dcd_feature_gram, "tasks"),
                 "dcd_feature_update_tasks": (feat.dcd_feature_update,
-                                             "tasks")}
+                                             "tasks"),
+                # the launches of a grid of pods of p > 1 data shards
+                # (a view of w a pod, read from w's shape)
+                "dcd_ell_pods": (dcd_ell_shards, "pods"),
+                "dcd_indexed_pods": (dcd_indexed_shards, "pods"),
+                "dcd_feature_gram_pods": (feat.dcd_feature_gram, "pods"),
+                "dcd_feature_update_pods": (feat.dcd_feature_update,
+                                            "pods")}
 
     # every plain version counts its calls from here on: a main path on
     # the card calls none (the wrappers take them only for CPU tensors)
@@ -1683,6 +2083,8 @@ def main():
     def launches(f, variant):
         if variant == "tasks":
             return f.task_launches
+        if variant == "pods":
+            return f.pod_launches
         return f.variant_launches[variant] if variant else f.launches
 
     def run_path(label, want, fn, rows=None, count=True):
@@ -1697,11 +2099,12 @@ def main():
         against the CPU (``count=False``) adds nothing.  A counted path
         calls no plain version."""
         for f, _ in counters.values():
-            f.launches = f.task_launches = 0
+            f.launches = f.task_launches = f.pod_launches = 0
             for v in getattr(f, "variant_launches", {}):
                 f.variant_launches[v] = 0
         plain_calls["n"] = 0
         fn()
+        print(f"  [{label}: done at {time.perf_counter() - t_start:.0f} s]")
         want = want() if callable(want) else want
         for name, (f, variant) in counters.items():
             got, expect = launches(f, variant), want.get(name, 0)
@@ -2033,8 +2436,6 @@ def main():
                  "over K")
     del mt
 
-    # serial DCD and PASSCoDe-Lock: one launch of B1's (B2's) wide
-    # variant per epoch over the epoch's whole order
     def timed(label, fn, n, epochs, gap0, falls=True):
         """Run and time a solve; its gaps must be finite and, with
         ``falls``, below the gap at α = 0 and falling."""
@@ -2051,6 +2452,265 @@ def main():
         if falls and not (gaps[0] < gap0 and gaps[-1] <= gaps[0]):
             fail(f"{label}: the gap did not fall: {gaps}")
         return r
+
+    # pods (Hybrid-DCA): each epoch an outer round from the merged (α,
+    # w), each pod's rounds one launch of the pod grid (P·p CTAs, or
+    # (pod, data, model) triples), the pods' Δw merged at the epoch's end
+    # now or through a FIFO of pod_delay_rounds; each path prints its
+    # seconds per epoch, gaps and ε epoch by epoch, delay flags, peak
+    # memory and rounds
+    def pod_solve(label, X, loss, n, epochs, P, p, model=None, y=None,
+                  falls=True, **kw):
+        mesh = (SolverMesh(("pod", "data"), (P, p)) if model is None
+                else solver_mesh_3d(pod=P, data=p, model=model))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = sharded_passcode_solve(X, loss, mesh=mesh, y=y, epochs=epochs,
+                                   block_size=B, gap_every=1, seed=SEED,
+                                   device=dev, **kw)
+        gaps = r.gaps.tolist()  # the solve's one host sync at the end
+        sec = time.perf_counter() - t0
+        done = sharded_passcode_solve.epoch_rounds
+        print(f"  {label}: {sec / epochs:.3f} s per epoch (gap included), "
+              f"{sec / sum(done) * 1e3:.4f} ms per round, rounds per "
+              f"epoch {done}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        tasks = gaps if y is not None else [gaps]
+        eps = r.eps.tolist() if y is not None else [r.eps.tolist()]
+        for e in range(epochs):
+            g_e, e_e = [t[e] for t in tasks], [t[e] for t in eps]
+            print(f"    epoch {e + 1}: gap {summary(g_e)}, ε "
+                  f"{summary(e_e)}"
+                  + (f" (min / median / max over {len(tasks)} tasks)"
+                     if y is not None else ""))
+        print(f"    delay flags {r.delay.tolist()}, ‖ŵ‖ "
+              f"{float(torch.linalg.vector_norm(r.w_hat)):.6g}")
+        lead = (y.shape[0],) if y is not None else ()
+        if (tuple(r.alpha.shape) != (*lead, n)
+                or not all(math.isfinite(g) for t in tasks for g in t)):
+            fail(f"{label}: result of the wrong shape or a non-finite gap")
+        if falls and not all(t[-1] < t[0] for t in tasks):
+            fail(f"{label}: the duality gap did not fall: {gaps}")
+        return r
+
+    # a merge kept in flight for 2 outer rounds lets each pod's α move
+    # against a w that lacks the last two merges, and on rcv1 the gap can
+    # rise (the reference's semantics: the pod solve at (2, 1) follows the
+    # serial oracle through it, below); the delayed paths are held to
+    # the reference's own bound on staleness (tests/test_sharded_pod.py:
+    # the final gap within 20× the synchronous one) instead of a fall
+    pod_runs = {}
+    nb_rp = _n_blocks(n_loc_rp, B)
+    rows_p1 = {"dcd_ell_shards": None}
+    for delay, adapt in [(0, False), (2, False), (2, True)]:
+        what = f"pod_delay_rounds {delay}" + (", adaptive ratio 0.3"
+                                              if adapt else "")
+        run_path(f"rcv1 pods (2, 4), {what}",
+                 {"dcd_ell_shards": EPOCHS * nb_rp,
+                  "dcd_ell_pods": EPOCHS * nb_rp},
+                 lambda: pod_runs.update({(delay, adapt): pod_solve(
+                     f"rcv1 pods (P = {P_P}, p = {P_PD}, B1 pod grid), "
+                     f"{what}", X_rcv1, hinge1, n_r, EPOCHS, P_P, P_PD,
+                     falls=delay == 0, pod_delay_rounds=delay,
+                     adaptive=adapt, adaptive_ratio=ADAPTIVE_RATIO)}),
+                 rows_p1)
+    r0, r2, ra = (pod_runs[k] for k in ((0, False), (2, False), (2, True)))
+    for label, r in [("delay 2", r2), ("delay 2, adaptive", ra)]:
+        g, g0 = r.gaps.tolist(), float(r0.gaps[-1])
+        print(f"  rcv1 pods {label}: final gap {g[-1]:.6g}, "
+              f"{g[-1] / g0:.3f}× the synchronous run's {g0:.6g} (bound "
+              f"20×); below its first: {g[-1] < g[0]}")
+        if not g[-1] <= 20.0 * g0:
+            fail(f"rcv1 pods {label}: the final gap is past 20× the "
+                 "synchronous one")
+    wn0 = float(torch.linalg.vector_norm(r0.w_hat))
+    eps0, eps2 = r0.eps.tolist(), r2.eps.tolist()
+    print(f"  rcv1 pods: ε at delay 0 {eps0} (at most 1e-4·‖ŵ‖ = "
+          f"{1e-4 * wn0:.4g}); at delay 2 {eps2}")
+    if not max(eps0) <= 1e-4 * wn0:
+        fail(f"rcv1 pods: ε at delay 0 {eps0} is above 1e-4·‖ŵ‖")
+    if not min(eps2) > max(eps0):
+        fail(f"rcv1 pods: ε at delay 2 {eps2} is not above delay 0's")
+    g_ad, f_ad = ra.gaps.tolist(), ra.delay.tolist()
+    latch = [1.0]
+    for k in range(1, len(g_ad)):
+        latch.append(min(latch[-1], float(
+            g_ad[k - 1] <= ADAPTIVE_RATIO * g_ad[k - 2] if k > 1 else 1.0)))
+    print(f"  rcv1 pods adaptive: flags {f_ad}, by the latch rule from the "
+          f"gaps {latch}")
+    if f_ad != latch:
+        fail(f"the pod latch's flags {f_ad} do not follow the rule from the "
+             f"recorded gaps ({latch})")
+    del pod_runs, r0, r2, ra
+
+    nb_cp = _n_blocks(n_loc_cp, B)
+    rows_p2 = {"dcd_indexed_shards": None}
+    run_path("covtype pods (2, 4), pod_delay_rounds 1",
+             {"dcd_indexed_shards": EPOCHS * nb_cp,
+              "dcd_indexed_pods": EPOCHS * nb_cp},
+             lambda: pod_solve(f"covtype pods (P = {P_P}, p = {P_PD}, B2 "
+                               "pod grid), pod_delay_rounds 1", X_cov,
+                               hinge_c, n_c, EPOCHS, P_P, P_PD,
+                               pod_delay_rounds=1), rows_p2)
+    run_path(f"covtype pods (2, 4), K = {K_C}",
+             {"dcd_indexed_shards": EPOCHS * nb_cp,
+              "dcd_indexed_pods": EPOCHS * nb_cp,
+              "dcd_indexed_tasks": EPOCHS * nb_cp},
+             lambda: pod_solve(f"covtype pods multi-task (K = {K_C}, P = "
+                               f"{P_P}, p = {P_PD}), pod_delay_rounds 1",
+                               X_cov, hinge_c, n_c, EPOCHS, P_P, P_PD,
+                               y=classes["covtype"][1], pod_delay_rounds=1),
+             dict(rows_p2, dcd_indexed_tasks=None))
+    nb_wp = EPOCHS_2D * _n_blocks(n_loc_wp, B)
+    run_path("webspam pods (2, 1, 4), pod_delay_rounds 1",
+             {"dcd_feature_gram": nb_wp, "dcd_feature_update": nb_wp},
+             lambda: pod_solve(f"webspam pods (P = {P_P}, data = 1, m = "
+                               f"{SHARDS}, B4 + B5 pod grid), "
+                               "pod_delay_rounds 1", X_web, hinge1, n_w,
+                               EPOCHS_2D, P_P, 1, model=SHARDS,
+                               pod_delay_rounds=1),
+             # one data shard a pod: a view a shard, the pod counts stay 0
+             {"dcd_feature_gram": "dcd_feature_gram_pods",
+              "dcd_feature_update": "dcd_feature_update_pods"})
+
+    # the pod solve at (pod = 2, data = 1) held to the port's serial
+    # oracle cocoa_pod_solve (the P local epochs one wide B1 launch an
+    # epoch, the row "dcd_ell_cocoa_pods" on rcv1's first PASSCODE_ROWS
+    # rows) on those rows at atol 1e-5, 2 epochs at delays 0 and 1 (and 3
+    # epochs at delay 2, where both gaps rise); and the same at full
+    # size, its error printed
+    X_o = EllMatrix(X_rcv1.indices[:n_o], X_rcv1.values[:n_o], d_r)
+
+    def against_oracle(label, Xo, held, delays):
+        for delay in delays:
+            kw = dict(epochs=2 if delay < 2 else EPOCHS, block_size=B,
+                      pod_delay_rounds=delay, seed=SEED, device=dev)
+            t0 = time.perf_counter()
+            r = sharded_passcode_solve(Xo, hinge1, mesh=SolverMesh(
+                ("pod", "data"), (P_P, 1)), **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            o = cocoa_pod_solve(Xo, hinge1, n_pods=P_P, **kw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            e = max(float((r.alpha - o.alpha).abs().max()),
+                    float((r.w_hat - o.w).abs().max()))
+            eg = float((r.gaps.cpu() - o.gaps).abs().max())
+            print(f"  pod solve vs cocoa_pod_solve ({label}, P = {P_P}, "
+                  f"data = 1, delay {delay}): max abs err {e:.3g} on α and "
+                  f"ŵ ({'held at ' + str(ATOL) if held else 'printed'}), "
+                  f"gaps {r.gaps.tolist()} against {o.gaps.tolist()} "
+                  f"(max diff {eg:.3g}); {t1 - t0:.2f} s and "
+                  f"{t2 - t1:.2f} s")
+            if held and not e <= ATOL:
+                fail(f"the pod solve parts from cocoa_pod_solve ({label}, "
+                     f"delay {delay})")
+
+    # a view of w a pod over one data shard a pod: the pod solve's staged
+    # B1 grid counts no pod launch; each solve's epochs: its rounds, and
+    # one wide launch of the oracle
+    ep_o = 2 + 2 + EPOCHS
+    run_path(f"rcv1 pod solve vs cocoa_pod_solve ({n_o} rows)",
+             {"dcd_ell_shards": ep_o * nb_o, "dcd_ell_shards_wide": ep_o},
+             lambda: against_oracle(f"rcv1's first {n_o} rows", X_o, True,
+                                    (0, 1, 2)),
+             {"dcd_ell_shards": None,
+              "dcd_ell_shards_wide": "dcd_ell_cocoa_pods"})
+    nb_of = _n_blocks(-(-n_r // P_P), B)
+    run_path("rcv1 pod solve vs cocoa_pod_solve (full size)",
+             {"dcd_ell_shards": 4 * nb_of, "dcd_ell_shards_wide": 4},
+             lambda: against_oracle("rcv1 at full size", X_rcv1, False,
+                                    (0, 1)),
+             {"dcd_ell_shards": None, "dcd_ell_shards_wide": None})
+    del X_o
+
+    # the paper's §5 comparison on covtype (dense, the one Table-3 set the
+    # baselines' dense input takes at full size), per epoch: PASSCoDe (the
+    # sharded solver at p = 8), CoCoA (8 partitions, one local epoch an
+    # outer round, one B2 launch of 8 CTAs a round) and AsySCD (8
+    # threads, torch ops), each one's gap after each epoch and seconds per
+    # epoch
+    gap0_c = float(duality_gap(torch.zeros(n_c, device=dev), X_cov,
+                               hinge_c))
+    print(f"  §5 on covtype (hinge C = 0.0625, gap at α = 0 {gap0_c:.6g}):")
+    run_path("covtype §5 PASSCoDe p = 8",
+             {"dcd_indexed_shards": EPOCHS * nb_c8},
+             lambda: solve(f"covtype PASSCoDe (p = {P_C})", X_cov, hinge_c,
+                           n_c, EPOCHS, mesh=mesh_c))
+    run_path("covtype §5 CoCoA", {"dcd_indexed_shards_wide": EPOCHS},
+             lambda: timed(f"covtype CoCoA ({THREADS} partitions, one local "
+                           "epoch a round)", lambda: cocoa_solve(
+                               X_cov, hinge_c, n_partitions=THREADS,
+                               outer_rounds=EPOCHS, seed=SEED, device=dev),
+                           n_c, EPOCHS, gap0_c),
+             {"dcd_indexed_shards_wide": "dcd_indexed_cocoa"})
+    # AsySCD's epoch: n / 8 rounds, each a matrix-vector product over the
+    # whole X; its first 200 rounds timed set the epoch's size (the full
+    # rows, or the first PASSCODE_ROWS if a full epoch would pass 60 s)
+    sq_cov = (X_cov * X_cov).sum(1)
+    order = prng.permutation(prng.split(prng.PRNGKey(SEED, device=dev))[1],
+                             n_c)[: 200 * THREADS].reshape(200, THREADS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _asyscd_epoch(X_cov, sq_cov, torch.zeros(n_c, device=dev), order,
+                  hinge_c, 0.5)
+    torch.cuda.synchronize()
+    per_round = (time.perf_counter() - t0) / 200
+    full_s = per_round * (n_c // THREADS)
+    n_a = n_c if full_s <= 60.0 else min(PASSCODE_ROWS, n_c)
+    X_a = X_cov[:n_a]
+    print(f"  AsySCD: {per_round * 1e3:.4f} ms a round at full size, a full "
+          f"epoch about {full_s:.1f} s: the epoch runs on "
+          f"{'all' if n_a == n_c else 'the first'} {n_a} rows")
+    gap0_a = float(duality_gap(torch.zeros(n_a, device=dev), X_a, hinge_c))
+    run_path("covtype §5 AsySCD", {},
+             lambda: timed(f"covtype AsySCD ({THREADS} threads, {n_a} rows)",
+                           lambda: asyscd_solve(X_a, hinge_c,
+                                                n_threads=THREADS, epochs=1,
+                                                seed=SEED, device=dev),
+                           n_a, 1, gap0_a))
+    del X_a, sq_cov, order
+
+    # the three on the card against their CPU paths on tiny (and the pod
+    # oracle on ELL)
+    def baselines_parity():
+        Xs = small.dense_train()
+        for label, run in [
+                ("PASSCoDe p = 8", lambda X, d: sharded_passcode_solve(
+                    X, hinge, mesh=solver_mesh(n_devices=8), epochs=3,
+                    block_size=16, seed=2, device=d)),
+                ("CoCoA", lambda X, d: cocoa_solve(
+                    X, hinge, n_partitions=8, outer_rounds=3, seed=2,
+                    device=d)),
+                ("AsySCD", lambda X, d: asyscd_solve(
+                    X, hinge, n_threads=8, epochs=2, seed=2, device=d)),
+                ("cocoa_pod_solve (ELL)", lambda X, d: cocoa_pod_solve(
+                    small.X_train.to(d), hinge, n_pods=3, epochs=3,
+                    block_size=16, pod_delay_rounds=1, seed=2, device=d))]:
+            on_card, on_cpu = run(Xs.to(dev), dev), run(Xs, "cpu")
+            e = float((on_card.alpha.cpu() - on_cpu.alpha).abs().max())
+            print(f"  {label} card path vs CPU path on tiny: max abs err "
+                  f"{e:.3g} on α (tolerance {ATOL}); gaps "
+                  f"{on_card.gaps.cpu().tolist()}")
+            if not e <= ATOL:
+                fail(f"{label}: the card path disagrees with its CPU path")
+
+    n_s, d_s = small.X_train.n_rows, small.recipe.d
+    n_pod_s = -(-n_s // 3)
+    co = dcd_dense_plan(n_s // 8, d_s).variant  # CoCoA's local epoch
+    po = dcd_ell_plan(_n_blocks(n_pod_s, 16) * 16,
+                      small.X_train.k_max).variant  # the pod oracle's
+    want_s = {"dcd_indexed_shards": 3 * _n_blocks(-(-n_s // 8), 16)}
+    want_s["dcd_indexed_shards" + ("_wide" if co == "wide" else "")] = (
+        want_s.get("dcd_indexed_shards" + ("_wide" if co == "wide" else ""),
+                   0) + 3)
+    want_s["dcd_ell_shards" + ("_wide" if po == "wide" else "")] = 3
+    run_path("§5 baselines, card vs CPU on tiny", want_s, baselines_parity,
+             count=False)
+
+    # serial DCD and PASSCoDe-Lock: one launch of B1's (B2's) wide
+    # variant per epoch over the epoch's whole order
 
     shapes = [("rcv1", X_rcv1, duals.Hinge(1.0), n_r, "dcd_ell",
                results["dcd_ell_epoch"]["bound_ms"]),

@@ -6,7 +6,10 @@ same values to both packages.  Each function copies onto ``device`` (the
 card unless the caller asks for the CPU).  A multi-task solve's state is
 a (K, …) stack: ``labels_from_numpy`` carries the (K, n) label matrix,
 ``state_from_numpy`` (K, n) α and (K, d) w as they are, and the 2-D
-converters take and give a leading K.
+converters take and give a leading K.  The pod solver's pieces carry
+across too: ``pod_sharded_from_numpy`` a ``PodShardedEll``, and
+``key_from_numpy``/``fifo_from_numpy`` the segmented replay's key chain
+and merge FIFO of ``cocoa_pod_solve``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.data.sparse import EllMatrix, FeatureShardedEll
+from repro_torch.data.sparse import (
+    EllMatrix,
+    FeatureShardedEll,
+    PodShardedEll,
+)
 from repro_torch.dist.mesh import resolve_device
 
 
@@ -96,3 +103,37 @@ def w2d_to_numpy(w, d1_loc: int) -> np.ndarray:
     out = np.zeros((*lead, m, d1_loc), np.float32)
     out[..., :d1] = w
     return out.reshape(*lead, -1)
+
+
+def pod_sharded_from_numpy(indices, values, row_mask, d: int, n: int, *,
+                           device=None) -> PodShardedEll:
+    """A ``PodShardedEll`` from the reference's (P, rows_per_pod, k)
+    column ids and values and its (P, rows_per_pod) row mask."""
+    dev = resolve_device(device)
+    idx = np.array(indices, dtype=np.int32)
+    val = np.array(values, dtype=np.float32)
+    mask = np.array(row_mask, dtype=bool)
+    if idx.shape != val.shape or idx.ndim != 3 or mask.shape != idx.shape[:2]:
+        raise ValueError(f"indices {idx.shape}, values {val.shape} and "
+                         f"row_mask {mask.shape} must be (P, rows, k) and "
+                         "(P, rows)")
+    return PodShardedEll(torch.from_numpy(idx).to(dev),
+                         torch.from_numpy(val).to(dev),
+                         torch.from_numpy(mask).to(dev), int(d), int(n))
+
+
+def key_from_numpy(key, *, device=None) -> torch.Tensor:
+    """A key of ``repro_torch.prng`` from a ``jax.random`` raw key (two
+    uint32 words): a (2,) int64 tensor."""
+    dev = resolve_device(device)
+    k = np.asarray(key, dtype=np.uint32)
+    if k.shape != (2,):
+        raise ValueError(f"a raw key is two uint32 words, got shape "
+                         f"{k.shape}")
+    return torch.from_numpy(k.astype(np.int64)).to(dev)
+
+
+def fifo_from_numpy(fifo, *, device=None) -> tuple:
+    """``cocoa_pod_solve``'s in-flight merges (a sequence of (d,) arrays)
+    as a tuple of float32 tensors, oldest first."""
+    return tuple(dense_from_numpy(g, device=device) for g in fifo)

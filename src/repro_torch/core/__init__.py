@@ -1,6 +1,7 @@
 """PASSCoDe core on PyTorch: losses, objectives, serial DCD, the
-Lock/Atomic/Wild simulation with its backward-error report, and the
-data-parallel solver (counterpart of ``repro.core``).
+Lock/Atomic/Wild simulation with its backward-error report, the
+data-parallel solver with its pods, and the paper's CoCoA and AsySCD
+baselines (counterpart of ``repro.core``).
 
 The solvers load on first use: they import the kernel layer, whose
 modules import ``repro_torch.core.duals``, so an eager import here would
@@ -25,7 +26,13 @@ _LAZY = {"dcd_epoch": "repro_torch.core.dcd",
          "passcode_solve": "repro_torch.core.passcode",
          "PasscodeResult": "repro_torch.core.passcode",
          "backward_error_report": "repro_torch.core.backward_error",
-         "sharded_passcode_solve": "repro_torch.core.sharded"}
+         "sharded_passcode_solve": "repro_torch.core.sharded",
+         "cocoa_solve": "repro_torch.core.cocoa",
+         "cocoa_pod_solve": "repro_torch.core.cocoa",
+         "CocoaResult": "repro_torch.core.cocoa",
+         "CocoaPodResult": "repro_torch.core.cocoa",
+         "asyscd_solve": "repro_torch.core.asyscd",
+         "AsyscdResult": "repro_torch.core.asyscd"}
 
 __all__ = [
     "Hinge",
@@ -45,6 +52,12 @@ __all__ = [
     "PasscodeResult",
     "backward_error_report",
     "sharded_passcode_solve",
+    "cocoa_solve",
+    "cocoa_pod_solve",
+    "CocoaResult",
+    "CocoaPodResult",
+    "asyscd_solve",
+    "AsyscdResult",
 ]
 
 

@@ -96,9 +96,27 @@ the task vmap).  The binary solve is the same code at K = 1 with no
 labels.  A ``task`` mesh axis (``solver_mesh_tasks``) is admitted by the
 reference's ``task_axis_policy``; on one card its shards are virtual.
 
-Knobs of the reference outside these slices — pods and the
-``pipeline=False`` host driver — raise ``NotImplementedError`` naming
-their ROADMAP item.
+**Pods** (a ``pod`` mesh axis, ``solver_mesh_3d``; the reference's
+Hybrid-DCA, its DESIGN.md §13).  P pods of p data shards each: pod k
+owns the contiguous rows [k·⌈n/P⌉, (k+1)·⌈n/P⌉), padded to its own p·n_loc
+slots (``pod_row_layout``), so padding sits inside the row range, one
+run of padding a pod.  Each epoch is an outer round from the merged
+(α, w): every pod runs its own pipelined epoch — P·p shards in one
+launch a round, pod k's shards reading and updating pod k's own w, each
+round's Δw summed over the pod's p shards — from a zero Δw carry, its
+in-flight inner Δw flushed at the end; then α moves by 1/P of each pod's
+progress and g = (1/P)·Σ_pods Δw_pod lands now or through a FIFO of
+``pod_delay_rounds`` (``pod_merge_policy`` admits the knobs; under
+``adaptive`` the latch is the pod FIFO's, which drains once it drops).
+The draw passes each shard's fleet index k·p + my into P·p split keys
+with its pod's own valid count.  The gap and ‖w(α) − ŵ‖ reduce over the
+fleet's real rows, ŵ the merged (possibly stale) w.  At P = 1 the merge
+is the identity: the pod's own (α, w) stand, so a (pod = 1) mesh at
+``pod_delay_rounds`` 0 is the plain mesh bit for bit (the reference's
+a₀ + (a₁ − a₀) rounds differently from a₁, within atol 1e-5).
+
+The reference's ``pipeline=False`` epoch loop on the host raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -124,11 +142,13 @@ from repro_torch.dist.mesh import (
     adaptive_delay_policy,
     dp_size,
     pipeline_overlap,
+    pod_merge_policy,
     resolve_device,
     resolve_self_tuning,
     solver_mesh_2d,
     task_axis_policy,
 )
+from repro_torch.kernels.dcd_ell import pod_row
 from repro_torch.kernels.dcd_feature import gram_workspace
 from repro_torch.kernels.ops import (
     dcd_block_update,
@@ -177,9 +197,15 @@ def _fused_2d(use_kernel, device: torch.device) -> bool:
                                   and device.type == "cuda")
 
 
-def _shard_sum(dw):
+def _shard_sum(dw, pods: int = 1):
     """The psum over ``data``: each task's p shards' Δw (K, p, *w)
-    summed in shard order, (K, *w)."""
+    summed in shard order, (K, *w); with ``pods`` P > 1 the P·p shards
+    are P pods' and each pod's p shards sum apart, (K, P, *w) — the
+    reference's pod-local round psum."""
+    if pods > 1:
+        K, rest = dw.shape[0], dw.shape[2:]
+        return _shard_sum(dw.reshape(K * pods, -1, *rest)).view(K, pods,
+                                                                 *rest)
     return dw[:, 0] if dw.shape[1] == 1 else dw.sum(1)
 
 
@@ -201,7 +227,8 @@ def _block_update_1d(loss, ell: bool, n_loc: int = 0, Y=None):
     w_eff (K, *w) or (K, p, *w), ids (p, B) or (K, p, B), the labels
     ``Y`` (K, n_pad) or None (pre-folded rows) — returning (updated α,
     the pairs' Δw (K, p, *w)).  ``act`` ((n_pad,) or (K, n_pad))
-    freezes shrunk rows."""
+    freezes shrunk rows.  A w_eff (K, P, *w) for 1 < P < p is a view a
+    pod: the p shards are P pods'."""
 
     def block_update(X_loc, sq_loc, alpha, w_eff, idx_block, act=None):
         if ell:
@@ -248,7 +275,8 @@ def _block_update_2d(loss, fused: bool, workspace, n_loc: int = 0, Y=None):
     """The 2-D block engine over K tasks of p data shards (eager
     composition; the overlapped round drives the split phases directly):
     α (K, n_pad), w_eff (K, m, d_loc + 1) or (K, p, m, d_loc + 1), ids
-    (p, B) or (K, p, B).  Returns (updated α, the pairs' Δw (K, p, m,
+    (p, B) or (K, p, B); a w_eff (K, P, m, d_loc + 1) for 1 < P < p is
+    a view a pod.  Returns (updated α, the pairs' Δw (K, p, m,
     d_loc + 1)).  The unfused engine runs the tasks, then the shards, in
     order."""
 
@@ -265,7 +293,8 @@ def _block_update_2d(loss, fused: bool, workspace, n_loc: int = 0, Y=None):
             a_k, dw_k = alpha[k], []
             ids = idx_block[k] if idx_block.dim() == 3 else idx_block
             for s in range(ids.shape[0]):
-                w_s = w_eff[k, s] if w_eff.dim() == 4 else w_eff[k]
+                w_s = (w_eff[k, pod_row(s, ids.shape[0], w_eff[k])]
+                       if w_eff.dim() == 4 else w_eff[k])
                 a_k, dw = _local_block_update_feature(
                     cols, vals, sq_norms, a_k, w_s,
                     ids[s].long() + s * n_loc, loss, _task_rows(act, k),
@@ -340,17 +369,19 @@ def _device_block_perm_masked(sub, my: int, p: int, n_loc: int,
 
 
 def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
-                 delay_rounds: int):
+                 delay_rounds: int, pods: int = 1):
     """The round structure: per round the block engine runs against the
     (possibly stale) effective w, and its Δw — each task's summed over
     the ``data`` shards — is applied now (atomic) or one round late
     (``delay_rounds``), the reference's exact bookkeeping.
     ``block_update(alpha, w_eff, idx_block)`` closes over the shards;
-    α, w and Δw carry the leading task dimension K."""
+    α, w and Δw carry the leading task dimension K, and with ``pods``
+    P > 1 a pod dimension after it (w and Δw (K, P, *w): each pod's
+    rounds read and update its own w, the psum pod-local)."""
     for idx_block in blocks_loc:
         w_eff = w_loc + dw_prev if delay_rounds > 0 else w_loc
         alpha_loc, dw_loc = block_update(alpha_loc, w_eff, idx_block)
-        dw_all = _shard_sum(dw_loc)
+        dw_all = _shard_sum(dw_loc, pods)
         if delay_rounds > 0:
             w_loc, dw_prev = w_loc + dw_prev, dw_all
         else:
@@ -468,32 +499,46 @@ def _gap_slots(epochs: int, gap_every: int) -> int:
                if (e + 1) % gap_every == 0 or e == epochs - 1)
 
 
-def _make_gap_1d(loss, X_loc, ell: bool, d_run: int):
+def _make_gap_1d(loss, X_loc, ell: bool, d_run: int, segments=None):
     """The duality gap and the backward-error metric over the rows of
-    ``X_loc`` (the real rows: the padding is the layout's tail, so the
-    caller hands the first n rows and α[:n]): gap(α) = ‖w(α)‖² + Σ_i
+    ``X_loc`` (the real rows: where the padding is the layout's tail the
+    caller hands the first n rows and α[:n]; a pod layout's real rows
+    are the runs ``segments``, (start, _, count) each, of the padded
+    ``X_loc``, and α the runs concatenated): gap(α) = ‖w(α)‖² + Σ_i
     [ℓ(w(α)ᵀx_i) + ℓ*(−α_i)] and ‖w(α) − ŵ‖ against the maintained
     primal view ``w_view`` (ε = w̄ − ŵ of ``core/backward_error.py``).
     ``y`` folds one task's labels on read: w(α) = Σ α_i·y_i·x_i and the
     margin y_i·w(α)ᵀx_i, while ℓ*(−α) reads α.  Returns device scalars:
     no host sync."""
+    rows = X_loc[0] if ell else X_loc
+    runs = segments or ((0, 0, rows.shape[0]),)
+    lens = [c for _, _, c in runs]
     if ell:
-        cols_loc, vals_loc = X_loc
+        parts = [(X_loc[0][a:a + c], X_loc[1][a:a + c]) for a, _, c in runs]
 
         def rmv(a):
             wa = torch.zeros((d_run,), dtype=torch.float32,
                              device=a.device)
-            return wa.index_add_(0, cols_loc.reshape(-1).long(),
-                                 (a[:, None] * vals_loc).reshape(-1))
+            for (cols_loc, vals_loc), ap in zip(parts, a.split(lens)):
+                wa.index_add_(0, cols_loc.reshape(-1).long(),
+                              (ap[:, None] * vals_loc).reshape(-1))
+            return wa
 
         def mv(wa):
-            return torch.sum(wa[cols_loc.long()] * vals_loc, dim=1)
+            z = [torch.sum(wa[c.long()] * v, dim=1) for c, v in parts]
+            return z[0] if len(z) == 1 else torch.cat(z)
     else:
+        parts = [X_loc[a:a + c] for a, _, c in runs]
+
         def rmv(a):
-            return X_loc.T @ a
+            wa = None
+            for X_p, ap in zip(parts, a.split(lens)):
+                wa = X_p.T @ ap if wa is None else wa + X_p.T @ ap
+            return wa
 
         def mv(wa):
-            return X_loc @ wa
+            z = [X_p @ wa for X_p in parts]
+            return z[0] if len(z) == 1 else torch.cat(z)
 
     def gap(alpha_loc, w_view, y=None):
         wa = rmv(alpha_loc if y is None else alpha_loc * y)
@@ -523,27 +568,34 @@ def _chunk_rows(cols, chunk_elems: int) -> int:
     return max(1, chunk_elems // (m * k))
 
 
-def _make_gap_2d(loss, cols, vals, chunk_elems: int = 1 << 26):
+def _make_gap_2d(loss, cols, vals, chunk_elems: int = 1 << 26,
+                 segments=None):
     """``_make_gap_1d`` for the feature shards: w(α) stays one slice per
     shard, each row's dot and ‖w(α)‖² are sums of the shards' partials
     (the reference's psums over ``model``).  Works in row chunks of about
     ``chunk_elems`` entries, so no (n, m, k_loc) temporary is formed,
     and scatters only real entries (padding lanes would all add 0 into
-    the m dummy slots).  ``y`` folds one task's labels on read."""
+    the m dummy slots).  ``y`` folds one task's labels on read.
+    ``segments`` are a pod layout's runs of real rows, as for
+    ``_make_gap_1d``."""
     m = cols.shape[1]
     rows = _chunk_rows(cols, chunk_elems)
+    runs = segments or ((0, 0, cols.shape[0]),)
+    parts = [(cols[a:a + c], vals[a:a + c]) for a, _, c in runs]
 
     def gap(alpha, w_view, y=None):
         d1 = w_view.shape[1]
         ay = alpha if y is None else alpha * y
         wa = torch.zeros((m * d1,), dtype=torch.float32, device=alpha.device)
-        for c, v, a in zip(cols.split(rows), vals.split(rows),
-                           ay.split(rows)):
-            real = c < d1 - 1
-            wa.index_add_(0, flat_shard_ids(c, d1)[real],
-                          (a[:, None, None] * v)[real])
+        for (cp, vp), ap in zip(parts, ay.split([c for _, _, c in runs])):
+            for c, v, a in zip(cp.split(rows), vp.split(rows),
+                               ap.split(rows)):
+                real = c < d1 - 1
+                wa.index_add_(0, flat_shard_ids(c, d1)[real],
+                              (a[:, None, None] * v)[real])
         wa = wa.view(m, d1)
-        z = _row_dots_2d(cols, vals, wa, rows)
+        z = [_row_dots_2d(cp, vp, wa, rows) for cp, vp in parts]
+        z = z[0] if len(z) == 1 else torch.cat(z)
         if y is not None:
             z = y * z
         s = torch.sum(loss.primal_loss(z) + loss.conj(alpha))
@@ -554,10 +606,12 @@ def _make_gap_2d(loss, cols, vals, chunk_elems: int = 1 << 26):
     return gap
 
 
-def _task_gaps(gap, alpha, w_view, Y, n: int):
-    """Each task's (gap, ‖w(α) − ŵ‖) over the real rows, task by task
-    with its labels folded on read: two (K,) device tensors."""
-    out = [gap(alpha[k, :n], w_view[k], None if Y is None else Y[k, :n])
+def _task_gaps(gap, alpha, w_view, Y, segs):
+    """Each task's (gap, ‖w(α) − ŵ‖) over the real rows (the layout's
+    runs ``segs``), task by task with its labels folded on read: two
+    (K,) device tensors."""
+    out = [gap(_real_rows(alpha[k], segs), w_view[k],
+               None if Y is None else _real_rows(Y[k], segs))
            for k in range(alpha.shape[0])]
     return (torch.stack([o[0] for o in out]),
             torch.stack([o[1] for o in out]))
@@ -603,8 +657,10 @@ def _make_shrink(setup, chunk_elems: int = 1 << 26):
 class SolverSetup(NamedTuple):
     """The resolved and placed half of a solve: knobs, sizes and the
     device-resident, row-padded dataset (n_pad = p·n_loc rows, shard s
-    the rows [s·n_loc, (s+1)·n_loc), the padding the tail), and for a
-    multi-task solve its K and the placed (K, n_pad) labels."""
+    the rows [s·n_loc, (s+1)·n_loc), the padding the tail — on a pod
+    mesh each pod's p / P shards with their own padded tail, the real
+    rows the runs ``segs``), and for a multi-task solve its K and the
+    placed (K, n_pad) labels."""
 
     loss: object
     n: int
@@ -633,6 +689,10 @@ class SolverSetup(NamedTuple):
     adaptive_ratio: float = 0.95
     n_tasks: int = 0  # multi-task K (0 = binary)
     Y: object = None  # placed (K, n_pad) ±1 labels (None = binary)
+    pod_on: bool = False  # a 'pod' mesh axis: the Hybrid-DCA outer round
+    pods: int = 1  # P: p is P pods of p / P data shards
+    pod_delay_rounds: int = 0
+    segs: tuple = ()  # the real rows' runs (start, user row, count)
 
     @property
     def n_pad(self) -> int:
@@ -667,8 +727,50 @@ def _pad_rows(t, n_pad: int, fill):
                                     dtype=t.dtype, device=t.device)])
 
 
-def _place_labels(y, *, n: int, n_pad: int, device):
-    """The (K, n) ±1 label matrix padded to the solve's row layout, the
+def _pod_segments(n: int, pods: int, p_pod: int, n_loc: int) -> tuple:
+    """The real rows of the pod layout as runs (start, user row, count):
+    pod k's rows [k·n_pod_loc, k·n_pod_loc + c_k) of the user's order
+    (n_pod_loc = ⌈n/P⌉) start at k·p_pod·n_loc of the padded layout, the
+    rest of the pod's p_pod·n_loc slots padding — the layout of a gather
+    through ``pod_row_layout``'s rowmap.  Adjacent runs merge: one run
+    (0, 0, n), padding only at the tail, when no pod pads inside (P = 1,
+    or p_pod·n_loc = n_pod_loc)."""
+    n_pod_loc = max(-(-n // pods), 1)
+    runs = []
+    for k in range(pods):
+        c = min(max(n - k * n_pod_loc, 0), n_pod_loc)
+        start, src = k * p_pod * n_loc, k * n_pod_loc
+        if c and runs and runs[-1][0] + runs[-1][2] == start:
+            runs[-1] = (runs[-1][0], runs[-1][1], runs[-1][2] + c)
+        elif c:
+            runs.append((start, src, c))
+    return tuple(runs)
+
+
+def _place_rows(t, n_pad: int, segs, fill):
+    """``t``'s n rows placed into the ``n_pad`` slots of the layout whose
+    real rows are the runs ``segs``, every other slot ``fill`` (no copy
+    when the layout is ``t`` padded at its tail and nothing is padded)."""
+    if len(segs) == 1 and segs[0][:2] == (0, 0):
+        return _pad_rows(t, n_pad, fill)
+    out = torch.full((n_pad, *t.shape[1:]), fill, dtype=t.dtype,
+                     device=t.device)
+    for start, src, c in segs:
+        out[start:start + c] = t[src:src + c]
+    return out
+
+
+def _real_rows(t, segs):
+    """The real rows of a padded (…, n_pad) tensor in the user's order:
+    its last dimension's runs ``segs`` (a view where there is one run)."""
+    if len(segs) == 1:
+        start, _, c = segs[0]
+        return t[..., start:start + c]
+    return torch.cat([t[..., a:a + c] for a, _, c in segs], dim=-1)
+
+
+def _place_labels(y, *, n: int, n_pad: int, device, segs):
+    """The (K, n) ±1 label matrix placed into the solve's row layout, the
     padding rows +1 (inert: their rows are zero and outside every sum;
     the fold only has to stay finite).  Returns (K, the (K, n_pad)
     float32 labels on ``device``)."""
@@ -678,7 +780,7 @@ def _place_labels(y, *, n: int, n_pad: int, device):
         raise ValueError(f"label matrix has shape {tuple(Y.shape)} for "
                          f"{n} rows")
     K = int(Y.shape[0])
-    return K, _pad_rows(Y.T, n_pad, 1.0).T.contiguous()
+    return K, _place_rows(Y.T, n_pad, segs, 1.0).T.contiguous()
 
 
 def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
@@ -698,11 +800,23 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
     is split into ``FeatureShardedEll`` slices on the device.  It takes
     every keyword of the reference's: ``y`` is the (K, n) multi-task
     label matrix (admitted by ``task_axis_policy``, as a ``task`` mesh
-    axis is, and placed with its padding rows at +1); pods and
-    ``pipeline=False`` raise ``NotImplementedError``
+    axis is, and placed with its padding rows at +1); a ``pod`` mesh
+    axis and ``pod_delay_rounds`` are admitted by ``pod_merge_policy``
+    (each pod's rows padded to its own p·n_loc slots, ⌈n/P⌉ rows a pod,
+    ``_pod_segments``; ``overlap="auto"`` resolves off);
+    ``pipeline=False`` raises ``NotImplementedError``
     (``_reject_unported``), and the self-tuning knobs are validated by
     ``resolve_self_tuning``."""
     mesh = _resolve_mesh(mesh, mesh_axes)
+    pod_on = "pod" in mesh.axis_names
+    if pod_on:
+        pod_merge_policy(pod_delay_rounds, n_pods=mesh.shape["pod"],
+                         pipeline=pipeline, record=record,
+                         shrink_every=shrink_every, adaptive=adaptive,
+                         overlap=overlap)
+    elif pod_delay_rounds:
+        raise ValueError(
+            "pod_delay_rounds needs a mesh with a 'pod' axis")
     if y is not None:
         task_axis_policy(torch.as_tensor(y).shape[0], mesh=mesh,
                          pipeline=pipeline)
@@ -710,8 +824,7 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
         raise ValueError(
             "a 'task' mesh axis needs a (K, n) label matrix y "
             "(DESIGN.md §16)")
-    _reject_unported(mesh=mesh, pod_delay_rounds=pod_delay_rounds,
-                     pipeline=pipeline)
+    _reject_unported(mesh=mesh, pipeline=pipeline)
     dev = resolve_device(device)
     _check_use_kernel(use_kernel, dev)
     if int(block_size) < 1:
@@ -720,51 +833,66 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
         raise ValueError(f"delay_rounds must be ≥ 0, got {delay_rounds}")
     two_d = "model" in mesh.axis_names
     p = dp_size(mesh)
+    pods = mesh.shape["pod"] if pod_on else 1
     ell = isinstance(X_host, EllMatrix)
     fused = two_d and _fused_2d(use_kernel, dev)
     overlap_on = pipeline_overlap(overlap, two_d=two_d, fused=fused,
                                   delay_rounds=int(delay_rounds))
+    if pod_on:
+        # pod_merge_policy rejected an explicit overlap=True; "auto"
+        # resolves off: the in-flight (base, Gram) is not valid under the
+        # merge-rescaled outer schedule
+        overlap_on = False
     tuning = resolve_self_tuning(shrink_every, repack, adaptive,
                                  overlap_knob=overlap, overlap_on=overlap_on,
                                  pipeline=pipeline, record=record)
     if two_d:
         ell_m = X_host.to(dev) if ell else dense_to_ell(X_host, device=dev)
-        n, d = ell_m.n_rows, ell_m.n_features
+        n = ell_m.n_rows
+    else:
+        n = X_host.n_rows if ell else len(X_host)
+    if n < 1:
+        raise ValueError("X has no rows")
+    # ceil twice on a pod mesh: each pod's contiguous rows carry their own
+    # padded tail, then subdivide over its p / P data shards
+    n_loc = -(-max(-(-n // pods), 1) // (p // pods))
+    segs = _pod_segments(n, pods, p // pods, n_loc)
+    n_pad = p * n_loc
+    if two_d:
+        d = ell_m.n_features
         m = mesh.shape["model"]
         fse = ell_column_split(
             EllMatrix(ell_m.indices.to(torch.int32),
                       ell_m.values.to(torch.float32), d), m)
-        n_loc = -(-n // p)
-        X = (_pad_rows(fse.indices, p * n_loc, fse.d_loc),
-             _pad_rows(fse.values, p * n_loc, 0.0))
-        sq_norms = _pad_rows(fse.row_sq_norms(), p * n_loc, 1.0)
+        del ell_m
+        X = (_place_rows(fse.indices, n_pad, segs, fse.d_loc),
+             _place_rows(fse.values, n_pad, segs, 0.0))
+        sq_norms = _place_rows(fse.row_sq_norms(), n_pad, segs, 1.0)
         w_shape, extra = (m, fse.d_loc + 1), dict(m=m, d_loc=fse.d_loc)
     elif ell:
-        n, d = X_host.n_rows, X_host.n_features
-        n_loc = -(-n // p)
+        d = X_host.n_features
         cols = X_host.indices.to(dev, torch.int32).contiguous()
         vals = X_host.values.to(dev, torch.float32).contiguous()
-        sq_norms = _pad_rows(torch.sum(vals * vals, dim=1), p * n_loc, 1.0)
-        X = (_pad_rows(cols, p * n_loc, d), _pad_rows(vals, p * n_loc, 0.0))
+        sq_norms = _place_rows(torch.sum(vals * vals, dim=1), n_pad, segs,
+                               1.0)
+        X = (_place_rows(cols, n_pad, segs, d),
+             _place_rows(vals, n_pad, segs, 0.0))
         w_shape, extra = (d + 1,), {}
     else:
         X = torch.as_tensor(X_host, dtype=torch.float32,
                             device=dev).contiguous()
-        n, d = X.shape
-        n_loc = -(-n // p)
-        sq_norms = _pad_rows(torch.sum(X * X, dim=1), p * n_loc, 1.0)
-        X = _pad_rows(X, p * n_loc, 0.0)
+        d = X.shape[1]
+        sq_norms = _place_rows(torch.sum(X * X, dim=1), n_pad, segs, 1.0)
+        X = _place_rows(X, n_pad, segs, 0.0)
         w_shape, extra = (d,), {}
-    if n < 1:
-        raise ValueError("X has no rows")
     if ell or two_d:
         cols = X[0]
         lim = extra.get("d_loc", d)
         if not (0 <= int(cols.min()) and int(cols.max()) <= lim):
             raise ValueError(f"ELL column ids must lie in [0, {lim}]")
     if y is not None:
-        extra["n_tasks"], extra["Y"] = _place_labels(y, n=n, n_pad=p * n_loc,
-                                                     device=dev)
+        extra["n_tasks"], extra["Y"] = _place_labels(y, n=n, n_pad=n_pad,
+                                                     device=dev, segs=segs)
     return SolverSetup(
         loss=loss, n=n, d=d, n_loc=n_loc,
         n_blocks=_n_blocks(n_loc, block_size),
@@ -774,7 +902,8 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
         device=dev, two_d=two_d, fused=fused, overlap=tuning.overlap, p=p,
         tuning=tuning, shrink_tol=float(shrink_tol),
         repack_threshold=float(repack_threshold),
-        adaptive_ratio=float(adaptive_ratio), **extra)
+        adaptive_ratio=float(adaptive_ratio), pod_on=pod_on, pods=pods,
+        pod_delay_rounds=int(pod_delay_rounds), segs=segs, **extra)
 
 
 def _init_alpha_w(setup: SolverSetup, alpha0=None, w0=None):
@@ -782,14 +911,18 @@ def _init_alpha_w(setup: SolverSetup, alpha0=None, w0=None):
     start from carried state: a (K, n')/(K, d') stack on a multi-task
     solve, an (n',)/(d',) one on a binary solve (K = 1).  A carried
     state *shorter* than n/d is the streaming-append warm start: old
-    coordinates keep their values, new ones start at 0.  On a 2-D mesh
-    each task's w0 is re-blocked onto the shards' slices."""
+    coordinates keep their values, new ones start at 0.  On a pod mesh
+    α0 lands in each pod's rows, whatever pod count it was carried
+    from; on a 2-D mesh each task's w0 is re-blocked onto the shards'
+    slices."""
     dev, K = setup.device, setup.K
     alpha = torch.zeros((K, setup.n_pad), dtype=torch.float32, device=dev)
     if alpha0 is not None:
         a0 = torch.as_tensor(alpha0, dtype=torch.float32,
                              device=dev).reshape(K, -1)[:, :setup.n]
-        alpha[:, :a0.shape[1]] = a0
+        for start, src, c in setup.segs:
+            c = min(c, max(a0.shape[1] - src, 0))
+            alpha[:, start:start + c] = a0[:, src:src + c]
     w = torch.zeros((K, *setup.w_shape), dtype=torch.float32, device=dev)
     if w0 is not None:
         v0 = torch.as_tensor(w0, dtype=torch.float32,
@@ -806,13 +939,15 @@ def _init_alpha_w(setup: SolverSetup, alpha0=None, w0=None):
 
 def _finalize(setup: SolverSetup, alpha, w, gaps, epochs, eps=None,
               active=None, delay=None):
-    """Back to user coordinates: drop the padding rows and the dummy
-    slot, on a 2-D mesh stitch ŵ out of the shards' slices, task by
-    task; a binary solve drops the task dimension."""
+    """Back to user coordinates: drop the padding rows (a pod layout's
+    real rows are its runs ``segs``) and the dummy slot, on a 2-D mesh
+    stitch ŵ out of the shards' slices, task by task; a binary solve
+    drops the task dimension."""
     K = setup.K
     if setup.two_d:
         w = w[:, :, :setup.d_loc].reshape(K, -1)
-    out = (alpha[:, :setup.n], w[:, :setup.d], gaps, eps, active, delay)
+    out = (_real_rows(alpha, setup.segs), w[:, :setup.d], gaps, eps, active,
+           delay)
     if not setup.n_tasks:
         out = tuple(t[0] for t in out)
     alpha, w, gaps, eps, active, delay = out
@@ -874,19 +1009,16 @@ def _validate_multitask_labels(X_host, Y):
     return Y
 
 
-def _reject_unported(*, mesh, pod_delay_rounds, pipeline):
+def _reject_unported(*, mesh, pipeline):
     """The reference's knobs outside the ported slices: each raises,
     naming the ROADMAP item that ports it; none is silently ignored."""
     axes = tuple(mesh.axis_names)
-    if "pod" in axes or pod_delay_rounds:
-        raise NotImplementedError(
-            "pods (a 'pod' mesh axis, pod_delay_rounds) are ROADMAP A.10, "
-            "not yet ported")
     if axes not in (("data",), ("data", "model"), ("task", "data"),
-                    ("task", "data", "model")):
+                    ("task", "data", "model"), ("pod", "data"),
+                    ("pod", "data", "model")):
         raise ValueError(f"mesh axes {axes}: the solver runs on ('data',) "
                          "or ('data', 'model'), with or without a leading "
-                         "'task'")
+                         "'task' or 'pod'")
     if not pipeline:
         raise NotImplementedError(
             "pipeline=False (the per-epoch host driver) is ROADMAP A′.12, "
@@ -914,6 +1046,22 @@ def _as_blocks(blocks, setup: SolverSetup, epochs: int):
     return blocks if p > 1 else blocks[:, None]
 
 
+def _shard_valid(setup: SolverSetup) -> list:
+    """Each shard's real-row count for the draw, v = clip(npv − my·n_loc,
+    1, n_loc), shard s the data shard my = s mod p_pod of pod k = s /
+    p_pod and npv = clip(n − k·⌈n/P⌉, 0, ⌈n/P⌉) its pod's real rows (off
+    a pod mesh, P = 1 and npv = n): the reference's draw of each
+    device."""
+    p_pod = setup.p // setup.pods
+    n_pod_loc = max(-(-setup.n // setup.pods), 1)
+    out = []
+    for s in range(setup.p):
+        k, my = divmod(s, p_pod)
+        npv = min(max(setup.n - k * n_pod_loc, 0), n_pod_loc)
+        out.append(min(max(npv - my * setup.n_loc, 1), setup.n_loc))
+    return out
+
+
 def _block_schedule(setup: SolverSetup, blocks, epochs: int):
     """``draw(e, act=None, rp=None)``: epoch e's (n_blocks, p, B)
     shard-local ids, round-major — from ``blocks`` (an epoch past the
@@ -924,7 +1072,8 @@ def _block_schedule(setup: SolverSetup, blocks, epochs: int):
     binary solve's blocks.  With the tasks' active masks ``act``
     (K, n_pad) and repack flags ``rp`` (K,) the draw is the masked one
     (``_device_block_perm_masked``), each task's own: (n_blocks, K, p,
-    B)."""
+    B).  On a pod mesh shard s is the fleet index k·p_pod + my of P·p_pod
+    split keys, with its pod's own valid count (``_shard_valid``)."""
     p, n_loc, nb, B = (setup.p, setup.n_loc, setup.n_blocks,
                        setup.block_size)
     if blocks is not None:
@@ -936,9 +1085,12 @@ def _block_schedule(setup: SolverSetup, blocks, epochs: int):
         key, sub = prng.split(key)
         subs.append(sub)
 
+    valid = _shard_valid(setup)
+
     def draw(e, act=None, rp=None):
         if act is None:
-            per = [_device_block_perm(subs[e], my, p, n_loc, setup.n, nb, B)
+            per = [_device_block_perm_v(subs[e], my, p, n_loc, valid[my], nb,
+                                        B)
                    for my in range(p)]
             return torch.stack(per, dim=1)  # (n_blocks, p, B)
         acts = act.reshape(act.shape[0], p, n_loc)
@@ -958,7 +1110,8 @@ def _workspaces(setup: SolverSetup):
         return (None, None)
     return tuple(
         gram_workspace(setup.m, setup.block_size, setup.X[0].shape[2],
-                       setup.w_shape[1], setup.device, setup.p, setup.K)
+                       setup.w_shape[1], setup.device,
+                       setup.p, setup.K)
         for _ in range(2 if setup.overlap else 1))
 
 
@@ -982,8 +1135,10 @@ def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
     kept in ``sharded_passcode_solve.epoch_rounds`` and each task's in
     ``task_rounds``.  The adaptive delay lowers each task's device flag
     at records (one-way), and with shrinking a hard stall turns that
-    task's repacking off for good.  Returns (α, w, Δw in flight, gaps,
-    eps, active, delay)."""
+    task's repacking off for good.  On a pod mesh every epoch is the
+    Hybrid-DCA outer round (``_pod_epoch``), the adaptive flag the pod
+    FIFO's latch.  Returns (α, w, Δw in flight, gaps, eps, active,
+    delay)."""
     st, dev, K = setup.tuning, w.device, setup.K
     solve = sharded_passcode_solve
     solve.epoch_rounds, solve.task_rounds = [], []
@@ -991,7 +1146,14 @@ def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
     gaps, epsb, actb, delayb = (torch.zeros((K, n_gaps), dtype=torch.float32,
                                             device=dev) for _ in range(4))
     shrink_on, adaptive = st.shrink_every > 0, st.adaptive
-    dyn = (shrink_on or adaptive) and not setup.overlap
+    dyn = (shrink_on or adaptive) and not setup.overlap and not setup.pod_on
+    # the delay flag's start: the inner delay, or on a pod mesh whether
+    # the pod merge starts delayed
+    delay0 = (int(setup.pod_delay_rounds > 0) if setup.pod_on
+              else setup.delay_rounds)
+    fifo = (torch.zeros((K, setup.pod_delay_rounds, *w.shape[1:]),
+                        dtype=torch.float32, device=dev)
+            if setup.pod_on else None)
     dw = torch.zeros_like(w)
     dwo = torch.zeros((K, setup.p, *w.shape[1:]), dtype=torch.float32,
                       device=dev) if dyn else None
@@ -1001,8 +1163,7 @@ def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
         nrun = torch.full((K,), setup.n_blocks, device=dev)
         rp = torch.zeros((K,), dtype=torch.bool, device=dev)
     if adaptive:
-        delay = torch.full((K,), setup.delay_rounds, dtype=torch.int32,
-                           device=dev)
+        delay = torch.full((K,), delay0, dtype=torch.int32, device=dev)
         gapprev = torch.full((K,), float("inf"), device=dev)
         rpok = torch.ones((K,), dtype=torch.int32, device=dev)
     inflight = None
@@ -1043,8 +1204,11 @@ def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
         if runs is None:
             solve.task_rounds.append([n_run] * K)
         solve.epoch_rounds.append(n_run)
-        delay_flag = delay if adaptive else setup.delay_rounds
-        if setup.overlap:
+        delay_flag = delay if adaptive else delay0
+        if setup.pod_on:
+            alpha, w, fifo = _pod_epoch(setup, engine, alpha, w, blocks,
+                                        fifo, delay if adaptive else None)
+        elif setup.overlap:
             nxt = (draw(e + 1, valid.expand(K, -1), torch.zeros_like(rp))
                    if shrink_on else draw(e + 1))[0]
             alpha, w, dw, inflight = _scan_rounds_overlap(
@@ -1058,7 +1222,7 @@ def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
             alpha, w, dw = _scan_rounds(engine, alpha, w, dw, blocks,
                                         setup.delay_rounds)
         if setup.record and ((e + 1) % setup.gap_every == 0 or final):
-            g, eps = _task_gaps(gap, alpha, w + dw, setup.Y, setup.n)
+            g, eps = _task_gaps(gap, alpha, w + dw, setup.Y, setup.segs)
             gaps[:, slot], epsb[:, slot] = g, eps
             actb[:, slot] = frac if shrink_on else 1.0
             delayb[:, slot] = delay_flag
@@ -1072,7 +1236,49 @@ def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
                     rpok = rpok * adaptive_delay_policy(gapprev, g)
                 gapprev = g
             slot += 1
+    if setup.pod_on and setup.pod_delay_rounds:
+        dw = fifo.sum(1)  # the merges still in flight, to flush
     return alpha, w, dw, gaps, epsb, actb, delayb
+
+
+def _pod_epoch(setup: SolverSetup, engine, alpha, w, blocks, fifo,
+               latch=None):
+    """One Hybrid-DCA outer round (the reference's pod branch of
+    ``_epoch_scan``): from the merged snapshot (α₀, w₀) every pod runs
+    its epoch's rounds on its own view of w, from a zero Δw carry, and
+    flushes its in-flight inner Δw into Δw_pod = (w₁ + Δw_in) − w₀; α
+    moves by 1/P of each pod's progress (its rows are its own), and
+    g = (1/P)·Σ_pods Δw_pod, summed in pod order, lands now
+    (``pod_delay_rounds`` 0) or enters the FIFO (K, delay, *w) while its
+    head lands.  ``latch`` (the adaptive delay's (K,) flags) drains a
+    task's whole FIFO and merges synchronously once its flag is 0.  At
+    P = 1 the merge's scale is 1 and the pod's own α₁ stands (and, at
+    delay 0, w₁): the identity without the round trip's rounding.
+    Returns (α, w, FIFO)."""
+    P, K = setup.pods, alpha.shape[0]
+    a0, w0 = alpha, w
+    wv = w0 if P == 1 else w0[:, None].expand(K, P, *w0.shape[1:])
+    a1, w1, dwi = _scan_rounds(engine, a0, wv.contiguous(),
+                               torch.zeros_like(wv), blocks,
+                               setup.delay_rounds, P)
+    if setup.delay_rounds > 0:
+        w1 = w1 + dwi  # the pod's inner rounds end synchronous
+    if P == 1:
+        alpha, g = a1, w1 - w0
+    else:
+        scale = 1.0 / P
+        alpha = a0 + scale * (a1 - a0)
+        g = scale * (w1 - w0[:, None]).sum(1)
+    if not setup.pod_delay_rounds:
+        return alpha, (w1 if P == 1 else w0 + g), fifo
+    w_async = w0 + fifo[:, 0]
+    fifo_async = torch.cat([fifo[:, 1:], g[:, None]], 1)
+    if latch is None:
+        return alpha, w_async, fifo_async
+    sync = (latch == 0).view(K, *(1,) * (w0.dim() - 1))
+    w = torch.where(sync, w0 + fifo.sum(1) + g, w_async)
+    fifo = torch.where(sync[:, None], torch.zeros_like(fifo), fifo_async)
+    return alpha, w, fifo
 
 
 def sharded_passcode_solve(
@@ -1133,10 +1339,14 @@ def sharded_passcode_solve(
     drawn through the reference's key chain from ``seed``; ``blocks``
     replaces the draw with an explicit schedule ((epochs, n_blocks, B)
     row ids at p = 1, (epochs, p, n_blocks, B) shard-local ids at
-    p > 1), the same for every task.  Pods and ``pipeline=False`` raise
-    ``NotImplementedError`` naming their ROADMAP item
-    (``prepare_solver``); a multi-task solve with ``pipeline=False``
-    raises the reference's ``ValueError``.
+    p > 1), the same for every task.  A ``pod`` mesh axis
+    (``solver_mesh_3d``, or ``SolverMesh(("pod", "data"), (P, p))``) runs
+    the Hybrid-DCA outer round of P pods (module docstring), each
+    epoch's merge delayed by ``pod_delay_rounds``; ``alpha0``/``w0``
+    carried from any pod count warm-start it.  ``pipeline=False`` raises
+    ``NotImplementedError`` naming its ROADMAP item (``prepare_solver``);
+    a multi-task solve with ``pipeline=False`` raises the reference's
+    ``ValueError``.
     """
     dev = resolve_device(device)
     # a (K, n) label matrix is the multi-task solve: not folded into X
@@ -1163,7 +1373,6 @@ def sharded_passcode_solve(
         adaptive_ratio=adaptive_ratio, device=dev)
     draw = _block_schedule(setup, blocks, epochs)
     alpha, w = _init_alpha_w(setup, alpha0, w0)
-    n = setup.n
     overlap_fns = workspaces = None
     if setup.two_d:
         cols, vals = setup.X
@@ -1176,19 +1385,19 @@ def sharded_passcode_solve(
             overlap_fns = _overlap_round_fns(cols, vals, setup.sq_norms,
                                              setup.loss, setup.n_loc,
                                              setup.Y)
-        gap = _make_gap_2d(setup.loss, cols[:n], vals[:n])
+        gap = _make_gap_2d(setup.loss, cols, vals, segments=setup.segs)
     else:
         engine = functools.partial(
             _block_update_1d(setup.loss, setup.ell, setup.n_loc, setup.Y),
             setup.X, setup.sq_norms)
-        X_real = ((setup.X[0][:n], setup.X[1][:n]) if setup.ell
-                  else setup.X[:n])
-        gap = _make_gap_1d(setup.loss, X_real, setup.ell, setup.w_shape[0])
+        gap = _make_gap_1d(setup.loss, setup.X, setup.ell, setup.w_shape[0],
+                           segments=setup.segs)
     alpha, w, dw, gaps, eps, active, delay = _epoch_scan(
         setup, engine, gap, draw, alpha, w, epochs=epochs,
         overlap_fns=overlap_fns, workspaces=workspaces)
     st = setup.tuning
-    if setup.delay_rounds > 0 or st.shrink_every or st.adaptive:
+    if (setup.delay_rounds > 0 or st.shrink_every or st.adaptive
+            or setup.pod_delay_rounds > 0):
         w = w + dw  # flush the in-flight aggregate (0 when synchronous)
     return _finalize(setup, alpha, w, gaps, epochs, eps, active, delay)
 

@@ -9,9 +9,12 @@ from repro_torch.data.labels import (
 )
 from repro_torch.data.sparse import (
     EllMatrix,
+    PodShardedEll,
     dense_to_ell,
     ell_matvec,
     ell_row_dot,
+    ell_row_partition,
+    pod_row_layout,
 )
 from repro_torch.data.synthetic import (
     DATASET_RECIPES,
@@ -21,9 +24,12 @@ from repro_torch.data.synthetic import (
 
 __all__ = [
     "EllMatrix",
+    "PodShardedEll",
     "dense_to_ell",
     "ell_matvec",
     "ell_row_dot",
+    "ell_row_partition",
+    "pod_row_layout",
     "MultitaskLabels",
     "multitask_labels",
     "ovr_labels",

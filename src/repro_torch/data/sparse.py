@@ -124,6 +124,102 @@ def unpad_primal(w_pad: torch.Tensor) -> torch.Tensor:
     return w_pad[:-1]
 
 
+# ---------------------------------------------- row-partitioned ELL ----
+
+
+def pod_row_layout(n: int, n_pods: int, per_pod_rows: int | None = None):
+    """Contiguous row partition across pods (the pod solver's layout,
+    the reference's ``pod_row_layout``).  Pod k owns global rows
+    [k·n_pod_loc, (k+1)·n_pod_loc), n_pod_loc = ⌈n / n_pods⌉, each pod's
+    slice padded to ``per_pod_rows`` slots (the solver passes p·n_loc,
+    so it subdivides evenly over the pod's data shards).  Returns host
+    numpy ``(rowmap, mask)``: ``rowmap`` (n_pods, per_pod_rows) int32
+    global row ids with the sentinel n on padding slots (a gather through
+    it, with a padding row appended at index n, builds the layout in one
+    pass), ``mask = rowmap < n``.  A larger ``per_pod_rows`` pads more;
+    a smaller one raises (it would drop rows)."""
+    n = int(n)
+    n_pods = int(n_pods)
+    if n_pods < 1:
+        raise ValueError(f"n_pods must be >= 1, got {n_pods}")
+    n_pod_loc = max(-(-n // n_pods), 1)
+    if per_pod_rows is None:
+        per_pod_rows = n_pod_loc
+    elif per_pod_rows < n_pod_loc:
+        raise ValueError(
+            f"per_pod_rows={per_pod_rows} < rows per pod {n_pod_loc}")
+    base = (np.arange(n_pods, dtype=np.int64)[:, None] * n_pod_loc
+            + np.arange(per_pod_rows, dtype=np.int64)[None, :])
+    mask = (np.arange(per_pod_rows)[None, :]
+            < np.clip(n - np.arange(n_pods)[:, None] * n_pod_loc,
+                      0, n_pod_loc))
+    rowmap = np.where(mask, base, n).astype(np.int32)
+    return rowmap, mask
+
+
+class PodShardedEll(NamedTuple):
+    """An ELL matrix row-partitioned into ``n_pods`` pod shards
+    (``pod_row_layout``): padding slots hold all-padding rows (index
+    ``n_features``, value 0) and are False in ``row_mask``.
+
+    Attributes:
+        indices: (n_pods, rows_per_pod, k_max) int32 column ids.
+        values:  (n_pods, rows_per_pod, k_max) float32.
+        row_mask: (n_pods, rows_per_pod) bool, True on real rows.
+        n_features: the true feature dimension d.
+        n_rows: the true row count n.
+    """
+
+    indices: torch.Tensor
+    values: torch.Tensor
+    row_mask: torch.Tensor
+    n_features: int
+    n_rows: int
+
+    @property
+    def n_pods(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def rows_per_pod(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def k_max(self) -> int:
+        return self.indices.shape[2]
+
+    def row_sq_norms(self) -> torch.Tensor:
+        """(n_pods, rows_per_pod) ‖x_i‖², padding rows at 1 (q = 1, so a
+        padding row's δ stays finite, the solver's convention)."""
+        sq = torch.sum(self.values * self.values, dim=2)
+        return torch.where(self.row_mask, sq, torch.ones_like(sq))
+
+    def to_ell(self) -> EllMatrix:
+        """The original ``EllMatrix``: the real rows in (pod, slot) order
+        are the original row order."""
+        m = self.row_mask.reshape(-1)
+        return EllMatrix(self.indices.reshape(-1, self.k_max)[m],
+                         self.values.reshape(-1, self.k_max)[m],
+                         self.n_features)
+
+
+def ell_row_partition(mat: EllMatrix, n_pods: int,
+                      per_pod_rows: int | None = None) -> PodShardedEll:
+    """Partition an ``EllMatrix`` by contiguous row ranges into
+    ``n_pods`` pod shards, one gather through ``pod_row_layout``'s
+    rowmap, on the matrix's device (never densifies).  The inverse is
+    ``PodShardedEll.to_ell``."""
+    rowmap, mask = pod_row_layout(mat.n_rows, n_pods, per_pod_rows)
+    d, k, dev = mat.n_features, mat.k_max, mat.device
+    idx = torch.cat([mat.indices.to(torch.int32),
+                     torch.full((1, k), d, dtype=torch.int32, device=dev)])
+    val = torch.cat([mat.values.to(torch.float32),
+                     torch.zeros((1, k), dtype=torch.float32, device=dev)])
+    rows = torch.from_numpy(rowmap).to(dev).long()
+    return PodShardedEll(idx[rows], val[rows], torch.from_numpy(mask).to(dev),
+                         d, mat.n_rows)
+
+
 # ------------------------------------------- column-partitioned ELL ----
 
 

@@ -13,7 +13,11 @@ shard order.  The multi-task solver's K one-vs-rest tasks (the
 reference's vmapped task axis, and its ``task`` mesh axis) are a task
 dimension of the same grid: K × p CTAs (or CTA groups), one a (task,
 shard) pair; ``solver_mesh_tasks`` and ``task_axis_policy`` are the
-reference's mesh and admission rule for them.  ``pipeline_overlap`` is the reference's rule for the
+reference's mesh and admission rule for them.  The pod solver's P pods
+(the reference's ``pod`` axis, Hybrid-DCA) join the data shards: P·p
+CTAs (or CTA groups), pod k's p shards reading pod k's own w;
+``solver_mesh_3d`` and ``pod_merge_policy`` are the reference's mesh and
+admission rule for them.  ``pipeline_overlap`` is the reference's rule for the
 overlapped 2-D round, ``resolve_self_tuning`` and
 ``adaptive_delay_policy`` its rules for shrinking, repacking and the
 adaptive delay.  ``lane_pad`` and ``cta_threads`` size a kernel's thread block.
@@ -91,8 +95,8 @@ class EllPlan(NamedTuple):
     ``table_slots`` entries and the ids' α, q, y, act in shared memory)
     or "wide" (rows and w in device memory, one update at a time across
     ``threads``).  ``smem_bytes`` is the staged kernel's dynamic shared
-    memory (0 for wide), per CTA; the grid holds ``tasks`` × ``shards``
-    CTAs, one a (task, data shard) pair."""
+    memory (0 for wide), per CTA; the grid holds ``tasks`` × ``pods`` ×
+    ``shards`` CTAs, one a (task, pod, data shard) triple."""
 
     variant: str
     threads: int
@@ -100,6 +104,7 @@ class EllPlan(NamedTuple):
     smem_bytes: int
     shards: int = 1
     tasks: int = 1
+    pods: int = 1
 
 
 def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
@@ -112,7 +117,7 @@ def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def dcd_ell_plan(b: int, k: int, wide: bool = False,
-                 shards: int = 1, tasks: int = 1) -> EllPlan:
+                 shards: int = 1, tasks: int = 1, pods: int = 1) -> EllPlan:
     """Pick B1's variant for a block of ``b`` ids over rows of ``k``
     slots, by shape.  The column table has a power-of-two size of at
     least 1.5 slots per entry (a load ≤ 2/3 under linear probing: every
@@ -122,18 +127,19 @@ def dcd_ell_plan(b: int, k: int, wide: bool = False,
     registers) and it fits the 227 KB of shared memory one CTA can use;
     else, or when ``wide`` asks for it, the wide kernel.  ``shards``
     data shards of each of ``tasks`` tasks run ``b`` ids each, a CTA a
-    (task, shard) pair: one CTA holds one task's block, so its layout
-    (and its shared memory) is the binary plan's whatever the two
-    counts."""
+    (task, shard) pair, and ``pods`` pods of ``shards`` data shards each
+    multiply the grid again: one CTA holds one task's block, so its
+    layout (and its shared memory) is the binary plan's whatever the
+    three counts."""
     b, k, shards = max(int(b), 1), max(int(k), 1), max(int(shards), 1)
-    tasks = max(int(tasks), 1)
+    tasks, pods = max(int(tasks), 1), max(int(pods), 1)
     slots = max(WARP, _pow2_at_least(-(-3 * b * k // 2)))
     need = dcd_ell_staged_bytes(b, k, slots)
     if (not wide and b <= ELL_STAGED_MAX_IDS and k <= ELL_STAGED_MAX_SLOTS
             and need <= SMEM_PER_CTA - STATIC_SMEM):
         return EllPlan("staged", ELL_STAGED_THREADS, slots, need, shards,
-                       tasks)
-    return EllPlan("wide", cta_threads(k), 0, 0, shards, tasks)
+                       tasks, pods)
+    return EllPlan("wide", cta_threads(k), 0, 0, shards, tasks, pods)
 
 
 # B2 staged: ids per block (its repeat scan is O(B²) per block), the CTA
@@ -152,7 +158,8 @@ class DensePlan(NamedTuple):
     words a lane) or "wide" (rows and w in device memory, one update at
     a time across ``threads``).  ``smem_bytes`` is the staged kernel's
     dynamic shared memory (0 for wide), per CTA; the grid holds
-    ``tasks`` × ``shards`` CTAs, one a (task, data shard) pair."""
+    ``tasks`` × ``pods`` × ``shards`` CTAs, one a (task, pod, data
+    shard) triple."""
 
     variant: str
     threads: int
@@ -160,6 +167,7 @@ class DensePlan(NamedTuple):
     smem_bytes: int
     shards: int = 1
     tasks: int = 1
+    pods: int = 1
 
 
 def dcd_dense_staged_bytes(b: int, d: int) -> int:
@@ -171,7 +179,8 @@ def dcd_dense_staged_bytes(b: int, d: int) -> int:
 
 @functools.lru_cache(maxsize=64)
 def dcd_dense_plan(b: int, d: int, wide: bool = False,
-                   shards: int = 1, tasks: int = 1) -> DensePlan:
+                   shards: int = 1, tasks: int = 1,
+                   pods: int = 1) -> DensePlan:
     """Pick B2's variant for a block of ``b`` ids over rows of ``d``
     floats, by shape.  The block takes the staged kernel when it holds
     at most ``DENSE_STAGED_MAX_IDS`` ids, d is at most
@@ -180,15 +189,17 @@ def dcd_dense_plan(b: int, d: int, wide: bool = False,
     for it, the wide kernel.  ``per_lane`` is the power of two of w's
     words a lane holds (at least ⌈d / 32⌉).  ``shards`` data shards of
     each of ``tasks`` tasks run ``b`` ids each, a CTA a (task, shard)
-    pair, each CTA laid out as the binary plan's."""
+    pair (of ``pods`` pods: a (task, pod, shard) triple), each CTA laid
+    out as the binary plan's."""
     b, d, shards = max(int(b), 1), max(int(d), 1), max(int(shards), 1)
-    tasks = max(int(tasks), 1)
+    tasks, pods = max(int(tasks), 1), max(int(pods), 1)
     need = dcd_dense_staged_bytes(b, d)
     if (not wide and b <= DENSE_STAGED_MAX_IDS and d <= DENSE_STAGED_MAX_D
             and need <= SMEM_PER_CTA - STATIC_SMEM):
         return DensePlan("staged", DENSE_STAGED_THREADS,
-                         _pow2_at_least(-(-d // WARP)), need, shards, tasks)
-    return DensePlan("wide", cta_threads(d), 0, 0, shards, tasks)
+                         _pow2_at_least(-(-d // WARP)), need, shards, tasks,
+                         pods)
+    return DensePlan("wide", cta_threads(d), 0, 0, shards, tasks, pods)
 
 
 # B3 stream: one CTA of a consumer warp (w in registers, at most
@@ -270,7 +281,7 @@ class GramPlan(NamedTuple):
     in bytes.  ``data`` data shards of each of ``tasks`` tasks, each
     pair with its own block of b ids and its own view of w, multiply
     the grid and the workspace (``gram_workspace``) and change no CTA's
-    layout."""
+    layout; so do ``pods`` pods of ``data`` data shards each."""
 
     classes: int
     tile: int
@@ -279,19 +290,20 @@ class GramPlan(NamedTuple):
     gram_smem: int
     data: int = 1
     tasks: int = 1
+    pods: int = 1
 
 
 @functools.lru_cache(maxsize=64)
 def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
-              tasks: int = 1) -> GramPlan:
+              tasks: int = 1, pods: int = 1) -> GramPlan:
     """Lay out B4 for a block of ``b`` ids over ``m`` shards of ``d1``
     words and rows of ``k`` slots, for each of ``data`` data shards of
     each of ``tasks`` tasks (the classes depend on m alone, so a (task,
     data shard) pair runs what the binary p = 1 launch runs, with the
-    same shared memory a CTA).  Raises if a row is too long for the
-    bucket pass to stage in shared memory."""
+    same shared memory a CTA), and of ``pods`` pods.  Raises if a row is
+    too long for the bucket pass to stage in shared memory."""
     m, b, k, d1, data = int(m), int(b), int(k), int(d1), max(int(data), 1)
-    tasks = max(int(tasks), 1)
+    tasks, pods = max(int(tasks), 1), max(int(pods), 1)
     classes = max(1, min(GRAM_PARTIAL_WORDS // (m * b * b),
                          -(-d1 // GRAM_CLASS_COLS), GRAM_MAX_CLASSES))
     tile = max(1, min(b, 64, GRAM_TILE_WORDS // b))
@@ -303,7 +315,7 @@ def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
         raise ValueError(f"rows of {k} slots are too long for B4: its "
                          f"bucket pass stages a row in {bucket} bytes of "
                          f"shared memory, more than {SMEM_PER_CTA}")
-    return GramPlan(classes, tile, tiles, bucket, gram, data, tasks)
+    return GramPlan(classes, tile, tiles, bucket, gram, data, tasks, pods)
 
 
 # B5: one CTA per column class of B4's plan and per shard; it stages the
@@ -331,6 +343,7 @@ class FeatureUpdatePlan(NamedTuple):
     smem_bytes: int
     data: int = 1
     tasks: int = 1
+    pods: int = 1
 
 
 def feature_update_bytes(b: int, stage_gram: bool,
@@ -344,7 +357,8 @@ def feature_update_bytes(b: int, stage_gram: bool,
 
 @functools.lru_cache(maxsize=64)
 def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
-                        tasks: int = 1) -> FeatureUpdatePlan:
+                        tasks: int = 1,
+                        pods: int = 1) -> FeatureUpdatePlan:
     """Lay out B5 for a block of ``b`` ids over ``m`` shards of ``d1``
     words and rows of ``k`` slots, for each of ``data`` data shards of
     each of ``tasks`` tasks: B4's classes, and G staged when the whole
@@ -355,7 +369,8 @@ def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
     return FeatureUpdatePlan(classes, FEATURE_UPDATE_THREADS,
                              _pow2_at_least(-(-int(b) // WARP)), stage,
                              feature_update_bytes(b, stage),
-                             max(int(data), 1), max(int(tasks), 1))
+                             max(int(data), 1), max(int(tasks), 1),
+                             max(int(pods), 1))
 
 
 class SolverMesh(NamedTuple):
@@ -445,6 +460,70 @@ def task_axis_policy(n_tasks: int, *, mesh, pipeline: bool = True) -> int:
                 "a 'task' mesh axis does not compose with a 'pod' axis "
                 "— run one multi-task solve per pod instead")
     return K
+
+
+def solver_mesh_3d(pod: int = 2, data: int | None = None, model: int = 1,
+                   n_devices: int | None = None) -> SolverMesh:
+    """The 3-D ``(pod, data, model)`` mesh of the pod solver (Hybrid-DCA):
+    each pod runs the pipelined 1-D or 2-D solve on its own contiguous
+    row shard — rows over ``data``, features over ``model``, both
+    pod-local — while the ``pod`` axis carries only the per-epoch merge
+    of the pods' Δw, which ``pod_delay_rounds`` may keep in flight.  On
+    one card every axis is virtual: P·p CTAs (or CTA groups) a round.
+    The mesh always carries ``model`` (the 2-D solver, even at m = 1), as
+    the reference's does; a 1-D pod mesh is ``SolverMesh(("pod",
+    "data"), (P, p))``.  ``data`` defaults to ``n_devices // (pod ·
+    model)`` (1 without ``n_devices``)."""
+    if data is None:
+        data = (1 if n_devices is None
+                else max(int(n_devices) // (int(pod) * int(model)), 1))
+    if int(pod) < 1 or int(data) < 1 or int(model) < 1:
+        raise ValueError(f"mesh sizes must be ≥ 1, got pod={pod}, "
+                         f"data={data}, model={model}")
+    return SolverMesh(("pod", "data", "model"),
+                      (int(pod), int(data), int(model)))
+
+
+def pod_merge_policy(pod_delay_rounds: int, *, n_pods: int,
+                     pipeline: bool = True, record: bool = True,
+                     shrink_every: int = 0, adaptive: bool = False,
+                     overlap="auto") -> int:
+    """The reference's admission and staleness rule for the cross-pod
+    merge, its messages word for word.  ``pod_delay_rounds = k`` lets the
+    merge issued at outer round t land at t + k (a FIFO of k in-flight
+    scaled Δw sums); k = 0 is the synchronous CoCoA outer round.  Raises
+    for k < 0, ``n_pods`` < 1, ``pipeline=False``, ``shrink_every``,
+    ``overlap=True`` and ``adaptive`` without ``record``.  Returns the
+    validated k."""
+    k = int(pod_delay_rounds)
+    if k < 0:
+        raise ValueError(
+            f"pod_delay_rounds must be >= 0, got {pod_delay_rounds}")
+    if int(n_pods) < 1:
+        raise ValueError(f"n_pods must be >= 1, got {n_pods}")
+    if not pipeline:
+        raise ValueError(
+            "a pod mesh needs pipeline=True — the cross-pod merge scan "
+            "(and its in-flight delayed aggregates) lives in the "
+            "on-device epoch-scan carry; the host driver path has no "
+            "carry to put it in")
+    if shrink_every:
+        raise ValueError(
+            "shrink_every is not composed with the pod merge loop — "
+            "the active mask needs the dyn round scan, which the pod "
+            "path's static inner rounds do not run")
+    if overlap is True:
+        raise ValueError(
+            "overlap=True is not composed with the pod merge loop — "
+            "the in-flight (base, Gram) psum is only valid under the "
+            "plain epoch schedule, not the merge-rescaled one; leave "
+            "overlap='auto'")
+    if adaptive and not record:
+        raise ValueError(
+            "adaptive=True needs record=True — the pod-level anneal "
+            "latch reads the on-device duality-gap buffer as its input "
+            "signal")
+    return k
 
 
 def data_axes(mesh) -> tuple:

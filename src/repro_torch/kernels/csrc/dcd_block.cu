@@ -105,6 +105,14 @@
 // dw[k·p + s]) or its replica w + (k·p + s)·d (wide).  No CTA's arithmetic
 // changes with the task dimension: K = 1 gives the bits of the task-free
 // grid.
+//
+// B2's pods.  The pod solver's P pods of p data shards are the grid's x
+// dimension, P·p CTAs (CTA s: data shard s mod p of pod s / p), pod k's
+// shards reading pod k's own w: the staged kernel reads its view at
+// w + k·w_ts + (s / pod_shards)·w_stride, pod_shards = p (1: a w a
+// shard); the wrapper sums each pod's p slices in shard order.  The wide
+// kernel's replicas are a pair's own already.  P = 1 gives the bits of
+// the pod-free grid.
 
 #include "dcd_delta.cuh"
 #include "dcd_stage.cuh"
@@ -150,7 +158,7 @@ __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
                                         long long w_stride, float* dw,
                                         DcdLoss L, long long idx_ts,
                                         long long row_ts, long long act_ts,
-                                        long long w_ts) {
+                                        long long w_ts, int pod_shards) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* rows = reinterpret_cast<float*>(smem);  // m rows of d floats
   int* ids = reinterpret_cast<int*>(rows + (long long)m * d);
@@ -171,7 +179,7 @@ __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
   alpha += task * row_ts;
   if (y) y += task * row_ts;
   if (act) act += task * act_ts;
-  w += task * w_ts + (long long)blockIdx.x * w_stride;
+  w += task * w_ts + (long long)(blockIdx.x / pod_shards) * w_stride;
   float* dws =
       dw ? dw + (task * gridDim.x + blockIdx.x) * (long long)d : nullptr;
 
@@ -514,7 +522,8 @@ static int dense_staged_launch(const int* idx, int m, int shards,
                                float* dw, const DcdLoss& L, int threads,
                                int smem_bytes, int tasks, long long idx_ts,
                                long long row_ts, long long act_ts,
-                               long long w_ts, cudaStream_t st) {
+                               long long w_ts, int pod_shards,
+                               cudaStream_t st) {
   static int smem_set = 0;  // the limit raised so far (this process)
   if (smem_bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -525,7 +534,7 @@ static int dense_staged_launch(const int* idx, int m, int shards,
   }
   dcd_dense_staged_kernel<W><<<dim3(shards, tasks), threads, smem_bytes, st>>>(
       idx, m, n_loc, X, d, alpha, q, act, y, w, w_stride, dw, L, idx_ts,
-      row_ts, act_ts, w_ts);
+      row_ts, act_ts, w_ts, pod_shards);
   return (int)cudaGetLastError();
 }
 
@@ -535,7 +544,8 @@ extern "C" int dcd_block_staged_launch(
     float* w, long long w_stride, float* dw, int kind, float C,
     float inv_two_c, float eps_c, int newton_steps, int per_lane,
     int threads, int smem_bytes, int tasks, long long idx_ts,
-    long long row_ts, long long act_ts, long long w_ts, void* stream) {
+    long long row_ts, long long act_ts, long long w_ts, int pod_shards,
+    void* stream) {
   // the bytes the kernel carves (repro_torch/dist/mesh.py:
   // dcd_dense_staged_bytes): the block's rows, eight m-word arrays.  More
   // than one (shard, task) pair writes Δw slices, never w in place.
@@ -543,14 +553,16 @@ extern "C" int dcd_block_staged_launch(
   if (m < 1 || d < 1 || d > 32 * per_lane || threads < 32 ||
       threads % 32 != 0 || threads > 1024 || smem_bytes < need ||
       shards < 1 || shards > 65535 || tasks < 1 || tasks > 65535 ||
-      ((shards > 1 || tasks > 1) && !dw))
+      ((shards > 1 || tasks > 1) && !dw) || pod_shards < 1 ||
+      shards % pod_shards != 0)
     return (int)cudaErrorInvalidValue;
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
   cudaStream_t st = (cudaStream_t)stream;
 #define B2_LAUNCH(W)                                                       \
   return dense_staged_launch<W>(idx, m, shards, n_loc, X, d, alpha, q, act, \
                                 y, w, w_stride, dw, L, threads, smem_bytes, \
-                                tasks, idx_ts, row_ts, act_ts, w_ts, st)
+                                tasks, idx_ts, row_ts, act_ts, w_ts,      \
+                                pod_shards, st)
   switch (per_lane) {
     case 1: B2_LAUNCH(1);
     case 2: B2_LAUNCH(2);

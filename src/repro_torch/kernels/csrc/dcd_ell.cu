@@ -34,7 +34,17 @@
 // for every task), its view of w at w + k·w_ts + s·w_stride, and writes
 // its Δw slice dw[k·p + s] (staged) or its replica w + (k·p + s)·(d + 1)
 // (wide).  Nothing is shared between CTAs, so a task dimension changes no
-// CTA's arithmetic: K = 1 gives the bits of the task-free grid.  Padding slots (col == d, value 0) and any column outside
+// CTA's arithmetic: K = 1 gives the bits of the task-free grid.
+//
+// Pods.  The pod solver (Hybrid-DCA) runs P pods of p data shards, pod
+// k's shards reading and updating pod k's own w within an epoch.  They
+// are the grid's x dimension, P·p CTAs, CTA s data shard s mod p of pod
+// s / p (the fleet index); the staged kernel reads its view of w at
+// w + k·w_ts + (s / pod_shards)·w_stride, pod_shards = p shards a w
+// (pod_shards 1: a w a shard, as above), and the wrapper sums each pod's
+// p Δw slices in shard order.  The wide kernel's replicas are a pair's
+// own already.  Integer index math only: P = 1 gives the bits of the
+// pod-free grid.  Padding slots (col == d, value 0) and any column outside
 // [0, d) are skipped, so the dummy slot w[d] stays exactly 0.  A δ of
 // exactly 0 (a row at its box, or frozen) scatters nothing.  Two variants,
 // chosen by shape (repro_torch/dist/mesh.py: dcd_ell_plan):
@@ -109,7 +119,7 @@ __global__ void dcd_ell_staged_kernel(const int* __restrict__ idx, int m,
                                       long long w_stride, float* dw,
                                       DcdLoss L, int slots, long long idx_ts,
                                       long long row_ts, long long act_ts,
-                                      long long w_ts) {
+                                      long long w_ts, int pod_shards) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* key = reinterpret_cast<int*>(smem);        // column, or -1: empty
   float* wt = reinterpret_cast<float*>(key + slots);  // w at that column
@@ -133,7 +143,7 @@ __global__ void dcd_ell_staged_kernel(const int* __restrict__ idx, int m,
   alpha += task * row_ts;
   if (y) y += task * row_ts;
   if (act) act += task * act_ts;
-  w += task * w_ts + (long long)blockIdx.x * w_stride;
+  w += task * w_ts + (long long)(blockIdx.x / pod_shards) * w_stride;
 
   // 1. prologue
   for (int t = tid; t < m; t += nt) ids[t] = (int)(row0 + idx[t]);
@@ -387,7 +397,7 @@ extern "C" int dcd_ell_staged_launch(
     float* dw, int kind, float C, float inv_two_c, float eps_c,
     int newton_steps, int slots, int threads, int smem_bytes, int tasks,
     long long idx_ts, long long row_ts, long long act_ts, long long w_ts,
-    void* stream) {
+    int pod_shards, void* stream) {
   // the bytes the kernel carves (repro_torch/dist/mesh.py:
   // dcd_ell_staged_bytes): the table's keys and w, the block's slots and
   // values, eight m-word arrays; a table with room for every entry.  More
@@ -397,7 +407,8 @@ extern "C" int dcd_ell_staged_launch(
   if (slots < 32 || (slots & (slots - 1)) != 0 || slots < entries ||
       k > ELL_LANE_ENTRIES * 32 || threads < 32 || threads % 32 != 0 ||
       threads > 1024 || smem_bytes < need || shards < 1 || shards > 65535 ||
-      tasks < 1 || tasks > 65535 || ((shards > 1 || tasks > 1) && !dw))
+      tasks < 1 || tasks > 65535 || ((shards > 1 || tasks > 1) && !dw) ||
+      pod_shards < 1 || shards % pod_shards != 0)
     return (int)cudaErrorInvalidValue;
   static int smem_set = 0;  // the limit raised so far (this process)
   if (smem_bytes > smem_set) {
@@ -411,6 +422,6 @@ extern "C" int dcd_ell_staged_launch(
   dcd_ell_staged_kernel<<<dim3(shards, tasks), threads, smem_bytes,
                           (cudaStream_t)stream>>>(
       idx, m, n_loc, cols, vals, k, d, alpha, q, act, y, w, w_stride, dw, L,
-      slots, idx_ts, row_ts, act_ts, w_ts);
+      slots, idx_ts, row_ts, act_ts, w_ts, pod_shards);
   return (int)cudaGetLastError();
 }

@@ -121,6 +121,14 @@
 // arithmetic changes with the task dimension: K = 1 gives the bits of the
 // task-free grid.
 //
+// Pods.  The pod solver's P pods of p data shards join the data shards:
+// data = P·p, data shard s is shard s mod p of pod s / p, and pod k's
+// shards read pod k's own w — B4's bucket pass at w + k·w_ts +
+// (s / pod_shards)·w_stride, pod_shards = p (1: a w a data shard).  B5
+// scatters into its pair's own replica, which the wrapper fills from its
+// pod's w.  The (task, pod·data, model) triples stay one grid dimension;
+// P = 1 gives the bits of the pod-free grid.
+//
 // Both build with --fmad=false, as B1–B3, so δ̃·v and the adds round as
 // the plain version's do.
 
@@ -193,7 +201,7 @@ __global__ void dcd_feature_bucket_kernel(
     int k, int d_loc, const float* __restrict__ w, long long w_stride,
     int d1, int R, int* __restrict__ bk_lc, float* __restrict__ bk_v,
     int* __restrict__ roff, float* __restrict__ base_p, int data,
-    long long idx_ts, long long w_ts) {
+    long long idx_ts, long long w_ts, int pod_shards) {
   extern __shared__ __align__(16) int cur[];  // [warps][R]: counts, cursors
   __shared__ float red[DCD_MAX_WARPS];
   __shared__ int tmp[DCD_MAX_WARPS];
@@ -210,7 +218,8 @@ __global__ void dcd_feature_bucket_kernel(
   const long long rt = (gid * m + j) * k;
   const int* ct = cols + rt;
   const float* vt = vals + rt;
-  const float* wj = w + task * w_ts + sd * w_stride + (long long)j * d1;
+  const float* wj =
+      w + task * w_ts + (sd / pod_shards) * w_stride + (long long)j * d1;
   const long long row = ((long long)z * m + j) * B + t;
   for (int i = tid; i < nw * R; i += blockDim.x) cur[i] = 0;
   __syncthreads();
@@ -828,7 +837,7 @@ extern "C" int dcd_feature_gram_launch(
     int slots, int bucket_threads, int bucket_smem, int gram_threads,
     int gram_smem, int* bk_lc, float* bk_v, int* roff, float* part,
     float* base_p, float* gram_p, int tasks, long long idx_ts,
-    long long w_ts, void* stream) {
+    long long w_ts, int pod_shards, void* stream) {
   // the bytes each kernel carves (repro_torch/dist/mesh.py: gram_plan):
   // the bucket pass's per-warp class counts and the staged row; the Gram
   // kernel's table (key, count, run end), the chunk's entries staged and
@@ -845,7 +854,8 @@ extern "C" int dcd_feature_gram_launch(
       bucket_threads % 32 != 0 || bucket_threads > 1024 ||
       (slots & (slots - 1)) != 0 || slots < chunk ||
       bucket_smem < bucket_need || gram_smem < gram_need || data < 1 ||
-      tasks < 1 || (long long)tasks * data * m > 65535)
+      tasks < 1 || (long long)tasks * data * m > 65535 || pod_shards < 1 ||
+      data % pod_shards != 0)
     return (int)cudaErrorInvalidValue;
   const int pairs = tasks * data;
   cudaStream_t st = (cudaStream_t)stream;
@@ -858,7 +868,7 @@ extern "C" int dcd_feature_gram_launch(
   dcd_feature_bucket_kernel<<<dim3(m, B, pairs), bucket_threads,
                               bucket_smem, st>>>(
       idx, B, n_loc, cols, vals, m, k, d_loc, w, w_stride, d1, R, bk_lc, bk_v,
-      roff, base_p, data, idx_ts, w_ts);
+      roff, base_p, data, idx_ts, w_ts, pod_shards);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the classes of a shard in x, so the widest shard's CTAs start first;
@@ -933,7 +943,7 @@ extern "C" int dcd_feature_update_launch(
     dcd_feature_bucket_kernel<<<dim3(m, B, tasks * data), bucket_threads,
                                  bucket_smem, st>>>(
         idx, B, n_loc, cols, vals, m, k, d_loc, w, 0, d1, R, bk_lc, bk_v,
-        roff, nullptr, data, idx_ts, 0);
+        roff, nullptr, data, idx_ts, 0, 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -22,7 +22,9 @@ and "wide", B2's wide kernel over rows 0..n-1.
 shards, each its own block of ids against w, as one launch of p CTAs,
 returning each shard's Δw (the reference's per-device Δw before the psum
 over ``data``); with a (K, n) α, K tasks of p shards each, as one
-launch of K × p CTAs (the multi-task solver's round).
+launch of K × p CTAs (the multi-task solver's round); with one view of
+w a pod, the pod solver's P pods of p shards, pod k's shards reading pod
+k's own w (``dcd_ell.pod_grid``).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.
@@ -37,7 +39,13 @@ from repro_torch.core.duals import kernel_params
 from repro_torch.dist.mesh import dcd_dense_plan, dcd_tile_plan
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, L, P
-from repro_torch.kernels.dcd_ell import task_grid, task_loop
+from repro_torch.kernels.dcd_ell import (
+    pod_grid,
+    pod_row,
+    replicas,
+    task_grid,
+    task_loop,
+)
 
 
 def dcd_indexed_epoch_plain(X, alpha, w, sq_norms, *, loss, idx,
@@ -75,24 +83,28 @@ def _check(X, alpha, w, sq_norms, idx=None, active=None, y=None):
 
 
 def _indexed_launch(plan, idx, m, n_loc, X, alpha, w, sq_norms, active, y,
-                    loss, w_stride=0, dw=None, strides=(0, 0, 0, 0)):
+                    loss, w_stride=0, dw=None, strides=(0, 0, 0, 0),
+                    pod_shards=1):
     """Launch B2's kernel for ``plan`` on operands already checked:
-    ``plan.shards`` × ``plan.tasks`` CTAs of ``m`` ids each.  The staged
+    ``plan.pods`` · ``plan.shards`` × ``plan.tasks`` CTAs of ``m`` ids
+    each, the staged kernel's view of w a row of ``w`` (at ``w_stride``)
+    for every ``pod_shards`` consecutive shards.  The staged
     kernel writes the (task, shard) pairs' Δw slices into ``dw`` (or,
     with one pair and no ``dw``, updates ``w`` in place); the wide
     kernel updates ``w`` in place, a replica a pair.  ``strides`` are
     the task strides of the ids, of α and y, of act and of w (words)."""
     idx_ts, row_ts, act_ts, w_ts = strides
-    args = [build.ptr(idx), m, plan.shards, n_loc, build.ptr(X), X.shape[1],
+    args = [build.ptr(idx), m, plan.pods * plan.shards, n_loc, build.ptr(X),
+            X.shape[1],
             build.ptr(alpha), build.ptr(sq_norms), build.ptr(active),
             build.ptr(y), build.ptr(w)]
     types = [P, I, I, L, P, I, P, P, P, P, P]
     if plan.variant == "staged":
         fn = "dcd_block_staged_launch"
-        types += [L, P, I, F, F, F, I, I, I, I, I, L, L, L, L, P]
+        types += [L, P, I, F, F, F, I, I, I, I, I, L, L, L, L, I, P]
         args += [w_stride, build.ptr(dw), *kernel_params(loss),
                  plan.per_lane, plan.threads, plan.smem_bytes, plan.tasks,
-                 idx_ts, row_ts, act_ts, w_ts]
+                 idx_ts, row_ts, act_ts, w_ts, pod_shards]
     else:
         fn = "dcd_block_indexed_launch"
         types += [I, F, F, F, I, I, I, L, L, L, P]
@@ -134,7 +146,8 @@ def dcd_indexed_shards_plain(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
                              active=None, y=None):
     """The plain version of B2 over a grid of p data shards: shard s, in
     shard order, runs its ids ``idx[s]`` (rows s·n_loc + id) against
-    ``w_eff`` (or ``w_eff[s]`` when it is (p, d)), as
+    ``w_eff`` (or ``w_eff[s]`` when it is (p, d); with P pods of the p
+    shards, ``w_eff[s // (p / P)]`` of a (P, d) ``w_eff``), as
     ``dcd_indexed_epoch_plain`` does.  Returns (α, Δw (p, d)).  A (K, n)
     α is K tasks (``dcd_ell.task_grid``), run in task order: (α (K, n),
     Δw (K, p, d))."""
@@ -143,7 +156,8 @@ def dcd_indexed_shards_plain(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
                          sq_norms, loss, idx, n_loc, active, y)
     dws = []
     for s in range(idx.shape[0]):
-        w_s = w_eff[s] if w_eff.dim() == 2 else w_eff
+        w_s = w_eff[pod_row(s, idx.shape[0], w_eff)] if w_eff.dim() == 2 \
+            else w_eff
         alpha, w_new = dcd_indexed_epoch_plain(
             X, alpha, w_s, sq_norms, loss=loss,
             idx=idx[s].long() + s * n_loc, active=active, y=y)
@@ -164,7 +178,11 @@ def dcd_indexed_shards(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     under its variant, and in ``dcd_indexed_shards.task_launches`` when
     K > 1): the staged kernel writes each pair's d-word Δw slice, the
     wide one updates a replica of w a pair (Δw = replica − w_eff).  CPU
-    tensors run ``dcd_indexed_shards_plain``."""
+    tensors run ``dcd_indexed_shards_plain``.  A ``w_eff`` of P views for
+    P·p shards, (P, d) or (K, P, d), is the pod solver's grid, as
+    ``dcd_ell.dcd_ell_shards`` takes it: Δw a shard (P·p, d); its
+    launches also count in ``dcd_indexed_shards.pod_launches`` when
+    1 < P < P·p."""
     if alpha.device.type != "cuda":
         return dcd_indexed_shards_plain(X, alpha, w_eff, sq_norms, loss=loss,
                                         idx=idx, n_loc=n_loc, active=active,
@@ -172,12 +190,12 @@ def dcd_indexed_shards(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     tasks = alpha.dim() == 2
     idx, w_eff = idx.contiguous(), w_eff.contiguous()
     K, idx_ts, row_ts, act_ts = task_grid(alpha, idx, active, y)
-    p, m = idx.shape[-2:]
+    S, m = idx.shape[-2:]
     n, d = X.shape
-    W = w_eff if tasks else w_eff[None]  # (K, d) or (K, p, d)
-    if W.dim() not in (2, 3) or W.shape[0] != K or W.shape[-1] != d or (
-            W.dim() == 3 and W.shape[1] != p):
-        raise ValueError(f"w_eff must be (d,) or ({p}, d), a task each")
+    W = w_eff if tasks else w_eff[None]  # (K, d), (K, S, d) or (K, P, d)
+    if W.shape[-1] != d:
+        raise ValueError(f"w_eff must have {d} features")
+    n_pods, p, pod_shards = pod_grid(W, K, S)
     build.check_operands(alpha.device, {
         "X": (X, None), "alpha": (alpha, (*alpha.shape[:-1], n)),
         "w_eff": (W, None), "sq_norms": (sq_norms, (n,)),
@@ -186,25 +204,27 @@ def dcd_indexed_shards(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     a_out = alpha.clone()
     lead = (K,) if tasks else ()
     if m == 0:
-        return a_out, torch.zeros((*lead, p, d), dtype=torch.float32,
+        return a_out, torch.zeros((*lead, S, d), dtype=torch.float32,
                                   device=alpha.device)
-    plan = dcd_dense_plan(m, d, wide, p, K)
+    plan = dcd_dense_plan(m, d, wide, p, K, n_pods)
     if plan.variant == "staged":
-        dw = torch.empty((*lead, p, d), dtype=torch.float32,
+        dw = torch.empty((*lead, S, d), dtype=torch.float32,
                          device=alpha.device)
         _indexed_launch(plan, idx, m, n_loc, X, a_out, W, sq_norms,
                         active, y, loss,
                         w_stride=d if W.dim() == 3 else 0, dw=dw,
-                        strides=(idx_ts, row_ts, act_ts, W[0].numel()))
+                        strides=(idx_ts, row_ts, act_ts, W[0].numel()),
+                        pod_shards=pod_shards)
     else:
-        Wp = W if W.dim() == 3 else W[:, None]
-        rep = Wp.expand(K, p, d).clone(memory_format=torch.contiguous_format)
+        rep, Wp = replicas(W, S)
         _indexed_launch(plan, idx, m, n_loc, X, a_out, rep, sq_norms,
                         active, y, loss, strides=(idx_ts, row_ts, act_ts, 0))
-        dw = (rep - Wp).view(*lead, p, d)
+        dw = (rep.view(Wp.shape[0], Wp.shape[1], -1, d) - Wp).view(
+            *lead, S, d)
     dcd_indexed_shards.launches += 1
     dcd_indexed_shards.variant_launches[plan.variant] += 1
     dcd_indexed_shards.task_launches += int(K > 1)
+    dcd_indexed_shards.pod_launches += int(n_pods > 1)
     return a_out, dw
 
 
@@ -259,5 +279,6 @@ dcd_indexed_epoch.variant_launches = {"staged": 0, "wide": 0}
 dcd_indexed_shards.launches = 0
 dcd_indexed_shards.variant_launches = {"staged": 0, "wide": 0}
 dcd_indexed_shards.task_launches = 0
+dcd_indexed_shards.pod_launches = 0
 dcd_tile_epoch.launches = 0
 dcd_tile_epoch.variant_launches = {"stream": 0, "wide": 0}

@@ -25,7 +25,9 @@ shard's Δw (the reference's per-device Δw before the psum over
 ``data``); with a (K, n) α, K tasks of the multi-task solver, each its
 own α, w, labels and mask on the shared rows, as one launch of K × p
 CTAs (``task_grid`` lays out the operands, ``task_loop`` runs a
-shard-grid plain version task by task).
+shard-grid plain version task by task); with one view of w a pod, the
+pod solver's P pods of p data shards, CTA s the data shard s mod p of
+pod s / p, pod k's shards reading pod k's own w (``pod_grid``).
 """
 
 from __future__ import annotations
@@ -82,9 +84,11 @@ def _check_grid(cols, vals, alpha, w, sq_norms, idx, active, y):
 
 
 def _launch(plan, idx, m, n_loc, cols, vals, alpha, w, sq_norms, active, y,
-            loss, w_stride=0, dw=None, strides=(0, 0, 0, 0)):
+            loss, w_stride=0, dw=None, strides=(0, 0, 0, 0), pod_shards=1):
     """Launch B1's kernel for ``plan`` on operands already checked:
-    ``plan.shards`` × ``plan.tasks`` CTAs of ``m`` ids each.  The staged
+    ``plan.pods`` · ``plan.shards`` × ``plan.tasks`` CTAs of ``m`` ids
+    each, the staged kernel's view of w a row of ``w`` (at ``w_stride``)
+    for every ``pod_shards`` consecutive shards.  The staged
     kernel writes the (task, shard) pairs' Δw slices into ``dw`` (or,
     with one pair and no ``dw``, updates ``w`` in place); the wide kernel
     updates ``w`` in place, a replica a pair.  ``strides`` are the task
@@ -92,16 +96,17 @@ def _launch(plan, idx, m, n_loc, cols, vals, alpha, w, sq_norms, active, y,
     k = cols.shape[1]
     d = (w.shape[-1] if dw is None else dw.shape[-1]) - 1
     idx_ts, row_ts, act_ts, w_ts = strides
-    args = [build.ptr(idx), m, plan.shards, n_loc, build.ptr(cols),
+    args = [build.ptr(idx), m, plan.pods * plan.shards, n_loc,
+            build.ptr(cols),
             build.ptr(vals), k, d, build.ptr(alpha), build.ptr(sq_norms),
             build.ptr(active), build.ptr(y), build.ptr(w)]
     types = [P, I, I, L, P, P, I, I, P, P, P, P, P]
     if plan.variant == "staged":
         fn = "dcd_ell_staged_launch"
-        types += [L, P, I, F, F, F, I, I, I, I, I, L, L, L, L]
+        types += [L, P, I, F, F, F, I, I, I, I, I, L, L, L, L, I]
         args += [w_stride, build.ptr(dw), *kernel_params(loss),
                  plan.table_slots, plan.threads, plan.smem_bytes,
-                 plan.tasks, idx_ts, row_ts, act_ts, w_ts]
+                 plan.tasks, idx_ts, row_ts, act_ts, w_ts, pod_shards]
     else:
         fn = "dcd_ell_launch"
         types += [I, F, F, F, I, I, I, L, L, L]
@@ -149,7 +154,8 @@ def dcd_ell_shards_plain(cols, vals, alpha, w_eff, sq_norms, *, loss, idx,
                          n_loc, active=None, y=None):
     """The plain version of B1 over a grid of p data shards: shard s, in
     shard order, runs its ids ``idx[s]`` (rows s·n_loc + id) against
-    ``w_eff`` (or ``w_eff[s]`` when it is (p, d+1)), as
+    ``w_eff`` (or ``w_eff[s]`` when it is (p, d+1); with P pods of the p
+    shards, ``w_eff[s // (p / P)]`` of a (P, d+1) ``w_eff``), as
     ``dcd_ell_epoch_plain`` does.  Returns (α, Δw (p, d+1)), shard s's
     Δw = w_new − its w_eff; the shards' rows are disjoint, so their α
     updates do not meet.  A (K, n) α is K tasks (``task_grid``): task k,
@@ -160,7 +166,8 @@ def dcd_ell_shards_plain(cols, vals, alpha, w_eff, sq_norms, *, loss, idx,
                           sq_norms, loss, idx, n_loc, active, y)
     dws = []
     for s in range(idx.shape[0]):
-        w_s = w_eff[s] if w_eff.dim() == 2 else w_eff
+        w_s = w_eff[pod_row(s, idx.shape[0], w_eff)] if w_eff.dim() == 2 \
+            else w_eff
         alpha, w_new = dcd_ell_epoch_plain(
             cols, vals, alpha, w_s, sq_norms, loss=loss,
             idx=idx[s].long() + s * n_loc, active=active, y=y)
@@ -189,6 +196,46 @@ def task_grid(alpha, idx, active, y):
         raise ValueError(f"active must have shape ({n},) or {(*lead, n)}")
     act_ts = n if active is not None and active.dim() == 2 else 0
     return K, p * m if idx.dim() == 3 else 0, n, act_ts
+
+
+def pod_row(s: int, shards: int, w_rows) -> int:
+    """The row of a (g, …) stack of views of w that shard ``s`` of a
+    grid of ``shards`` reads: one a shard (g = shards) or one a pod
+    (g = P pods of shards / P consecutive shards each)."""
+    g = w_rows.shape[0]
+    if shards % g:
+        raise ValueError(f"{g} views of w for {shards} shards")
+    return s // (shards // g)
+
+
+def pod_grid(W, K: int, shards: int):
+    """The views of w of a shard-grid call over ``shards`` shards, read
+    from ``W``'s shape: (K, d1), one view every shard of a task reads,
+    or (K, g, d1), g views that each serve shards / g consecutive shards
+    — a view a shard (g = shards), or a view a pod (1 < g < shards: P =
+    g pods of p = shards / g data shards each, shard s the data shard
+    s mod p of pod s / p, the fleet index).  Returns (P, p, the shards a
+    view serves), raising on shapes that do not match."""
+    if W.dim() not in (2, 3) or W.shape[0] != K:
+        raise ValueError(f"w_eff must be (d1,) or (g, d1), a task each, "
+                         f"for {K} task(s)")
+    g = W.shape[1] if W.dim() == 3 else 1
+    if shards % g:
+        raise ValueError(f"{g} views of w for {shards} shards")
+    n_pods = g if 1 < g < shards else 1
+    return n_pods, shards // n_pods, shards // g if W.dim() == 3 else 1
+
+
+def replicas(W, shards: int):
+    """The wide kernels' replicas of w, one a (task, shard) pair, each
+    filled from the view its shard reads (``pod_grid``'s W): (K, shards,
+    d1), and the views broadcast to them, to take Δw = replica − view."""
+    K, d1 = W.shape[0], W.shape[-1]
+    Wp = (W if W.dim() == 3 else W[:, None])[:, :, None]
+    g = Wp.shape[1]
+    rep = Wp.expand(K, g, shards // g, d1).clone(
+        memory_format=torch.contiguous_format).view(K, shards, d1)
+    return rep, Wp
 
 
 def task_loop(plain, X, alpha, w_eff, sq_norms, loss, idx, n_loc, active,
@@ -221,7 +268,13 @@ def dcd_ell_shards(cols, vals, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     tensors run ``dcd_ell_shards_plain``.  The staged kernel writes each
     pair's Δw slice into zeros; the wide kernel updates a replica of w a
     pair, which the wrapper fills, and Δw is replica − w_eff.
-    ``wide=True`` launches the wide variant whatever the shape."""
+    ``wide=True`` launches the wide variant whatever the shape.
+    A ``w_eff`` of P views for P·p shards, (P, d+1) or (K, P, d+1), is
+    the pod solver's grid (``pod_grid``): shard s the data shard s mod p
+    of pod s / p, reading pod s / p's w; the Δw slices come back a shard
+    each, (P·p, d+1), for the caller to sum over each pod's p shards.
+    It is one launch of K × P·p CTAs, also counted in
+    ``dcd_ell_shards.pod_launches`` when 1 < P < P·p."""
     if alpha.device.type != "cuda":
         return dcd_ell_shards_plain(cols, vals, alpha, w_eff, sq_norms,
                                     loss=loss, idx=idx, n_loc=n_loc,
@@ -229,39 +282,39 @@ def dcd_ell_shards(cols, vals, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     tasks = alpha.dim() == 2
     idx, w_eff = idx.contiguous(), w_eff.contiguous()
     K, idx_ts, row_ts, act_ts = task_grid(alpha, idx, active, y)
-    p, m = idx.shape[-2:]
-    W = w_eff if tasks else w_eff[None]  # (K, d+1) or (K, p, d+1)
+    S, m = idx.shape[-2:]
+    W = w_eff if tasks else w_eff[None]  # (K, d+1), (K, S, d+1), (K, P, d+1)
     d1 = W.shape[-1]
-    if W.dim() not in (2, 3) or W.shape[0] != K or (W.dim() == 3
-                                                    and W.shape[1] != p):
-        raise ValueError(f"w_eff must be (d+1,) or ({p}, d+1), a task each")
+    n_pods, p, pod_shards = pod_grid(W, K, S)
     _check_grid(cols, vals, alpha, W, sq_norms, idx, active, y)
     a_out = alpha.clone()
     lead = (K,) if tasks else ()
     if m == 0:
-        return a_out, torch.zeros((*lead, p, d1), dtype=torch.float32,
+        return a_out, torch.zeros((*lead, S, d1), dtype=torch.float32,
                                   device=alpha.device)
-    plan = dcd_ell_plan(m, cols.shape[1], wide, p, K)
+    plan = dcd_ell_plan(m, cols.shape[1], wide, p, K, n_pods)
     w_ts = W[0].numel()
     if plan.variant == "staged":
-        dw = torch.zeros((*lead, p, d1), dtype=torch.float32,
+        dw = torch.zeros((*lead, S, d1), dtype=torch.float32,
                          device=alpha.device)
         _launch(plan, idx, m, n_loc, cols, vals, a_out, W, sq_norms,
                 active, y, loss, w_stride=d1 if W.dim() == 3 else 0, dw=dw,
-                strides=(idx_ts, row_ts, act_ts, w_ts))
+                strides=(idx_ts, row_ts, act_ts, w_ts),
+                pod_shards=pod_shards)
     else:
-        Wp = W if W.dim() == 3 else W[:, None]
-        rep = Wp.expand(K, p, d1).clone(
-            memory_format=torch.contiguous_format)
+        rep, Wp = replicas(W, S)
         _launch(plan, idx, m, n_loc, cols, vals, a_out, rep, sq_norms,
                 active, y, loss, strides=(idx_ts, row_ts, act_ts, 0))
-        dw = (rep - Wp).view(*lead, p, d1)
+        dw = (rep.view(Wp.shape[0], Wp.shape[1], -1, d1) - Wp).view(
+            *lead, S, d1)
     dcd_ell_shards.launches += 1
     dcd_ell_shards.variant_launches[plan.variant] += 1
     dcd_ell_shards.task_launches += int(K > 1)
+    dcd_ell_shards.pod_launches += int(n_pods > 1)
     return a_out, dw
 
 
 dcd_ell_shards.launches = 0
 dcd_ell_shards.variant_launches = {"staged": 0, "wide": 0}
 dcd_ell_shards.task_launches = 0
+dcd_ell_shards.pod_launches = 0

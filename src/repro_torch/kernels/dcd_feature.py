@@ -34,7 +34,11 @@ B5 with a (K, n) α): a leading K on w, ids (p, B) shared by every task
 or (K, p, B), labels y (K, n), act (n,) or (K, n); B4 returns
 (K, p, m, B) and (K, p, m, B, B), B5 (K, n) α and the (K, p, m, d1)
 replicas.  Each (task, data shard) pair computes its own base and Gram,
-as the reference's vmapped kernel does.
+as the reference's vmapped kernel does.  With one (m, d1) view of w a
+pod, (P, m, d1) or (K, P, m, d1) for 1 < P < p (the pod solver), the p
+data shards are P pods of p / P each, data shard s of pod s // (p / P):
+pod k's shards read pod k's w, and B5's replicas are filled from it
+(``dcd_ell.pod_grid``).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; it never falls back from one to the other.  B4
@@ -64,6 +68,7 @@ from repro_torch.dist.mesh import (
 )
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, L, P
+from repro_torch.kernels.dcd_ell import pod_grid, pod_row
 
 MAX_BLOCK = 1024  # B5's recursion warp holds at most 32 columns a lane
 
@@ -102,23 +107,27 @@ def gram_workspace(m: int, b: int, k: int, d1: int, device,
 
 def _check_block(cols, vals, w, idx, tasks=False):
     n, m, k = cols.shape
+    shards = idx.shape[-2] if idx.dim() > 1 else 1
+    views = w.shape[-3] if w.dim() == (4 if tasks else 3) else 1
     if tasks:
         K = w.shape[0]
         ok = (w.dim() in (3, 4) and w.shape[-2] == m and idx.dim() in (2, 3)
               and (idx.dim() == 2 or idx.shape[0] == K)
-              and (w.dim() == 3 or w.shape[1] == idx.shape[-2]))
+              and shards % views == 0)
         if not ok:
-            raise ValueError(f"expected w (K, {m}, d_loc+1) or (K, p, {m}, "
-                             "d_loc+1), and idx (p, B) or (K, p, B)")
+            raise ValueError(f"expected w (K, {m}, d_loc+1) or (K, g, {m}, "
+                             "d_loc+1) for g | p, and idx (p, B) or "
+                             "(K, p, B)")
     elif idx.dim() == 1:
         ok = w.dim() == 2 and w.shape[0] == m
     else:
-        ok = idx.dim() == 2 and (
+        ok = idx.dim() == 2 and shards % views == 0 and (
             (w.dim() == 2 and w.shape[0] == m)
-            or (w.dim() == 3 and w.shape[:2] == (idx.shape[0], m)))
+            or (w.dim() == 3 and w.shape[1] == m))
     if not ok:
         raise ValueError(f"expected idx (B,) and w ({m}, d_loc+1), or idx "
-                         f"(p, B) and w ({m}, d_loc+1) or (p, {m}, d_loc+1)")
+                         f"(p, B) and w ({m}, d_loc+1) or (g, {m}, d_loc+1) "
+                         "for g | p (a view a data shard, or a view a pod)")
     if not 1 <= idx.shape[-1] <= MAX_BLOCK:
         raise ValueError(f"the block must hold 1..{MAX_BLOCK} ids, got "
                          f"{idx.shape[-1]}")
@@ -134,16 +143,17 @@ def _check_workspace(workspace, pm, b, k, plan, device):
 
 def _grid(idx, w, tasks):
     """The grid of a call: (K, p, idx, the ids' task stride, w's stride
-    between data shards (0: one w for every data shard), w's task
-    stride), in words.  A 1-D ``idx`` is one data shard, a call without
-    ``tasks`` one task."""
+    between its views (0: one w for every data shard), w's task stride,
+    the data shards a view serves, the pods P), in words.  A 1-D ``idx``
+    is one data shard, a call without ``tasks`` one task."""
     W = w if tasks else w[None]
     if idx.dim() == 1:
         idx = idx[None]
     K, p, b = W.shape[0], idx.shape[-2], idx.shape[-1]
-    per_shard = W.dim() == 4
+    n_pods, _, pod_shards = pod_grid(W.flatten(-2), K, p)
     return (K, p, idx, p * b if idx.dim() == 3 else 0,
-            W[0, 0].numel() if per_shard else 0, W[0].numel())
+            W[0, 0].numel() if W.dim() == 4 else 0, W[0].numel(),
+            pod_shards, n_pods)
 
 
 def dcd_feature_gram_plain(cols, vals, w, idx, n_loc: int = 0,
@@ -166,7 +176,8 @@ def dcd_feature_gram_plain(cols, vals, w, idx, n_loc: int = 0,
                 torch.stack([o[1] for o in outs]))
     if idx.dim() == 2:
         outs = [dcd_feature_gram_plain(cols, vals,
-                                       w[s] if w.dim() == 3 else w,
+                                       w[pod_row(s, idx.shape[0], w)]
+                                       if w.dim() == 3 else w,
                                        idx[s].long() + s * n_loc)
                 for s in range(idx.shape[0])]
         return (torch.stack([o[0] for o in outs]),
@@ -202,15 +213,19 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0,
     ((K, m, d1), or (K, p, m, d1) a replica a data shard) and ``idx`` is
     (p, B), one block for every task, or (K, p, B); one launch over the
     K·p pairs (``dcd_feature_gram.task_launches`` counts those with
-    K > 1) returns (K, p, m, B) and (K, p, m, B, B)."""
+    K > 1) returns (K, p, m, B) and (K, p, m, B, B).  A w of P views
+    for 1 < P < p, (P, m, d1) or (K, P, m, d1), makes the p data shards
+    P pods' (module docstring), also counted in
+    ``dcd_feature_gram.pod_launches``."""
     if w.device.type != "cuda":
         return dcd_feature_gram_plain(cols, vals, w, idx, n_loc, tasks)
     _check_block(cols, vals, w, idx, tasks)
     lead = (w.shape[0], idx.shape[-2]) if tasks else idx.shape[:-1]
-    K, p, idx, idx_ts, w_stride, w_ts = _grid(idx.contiguous(), w, tasks)
+    (K, p, idx, idx_ts, w_stride, w_ts, pod_shards,
+     n_pods) = _grid(idx.contiguous(), w, tasks)
     n, m, k = cols.shape
     d1, b = w.shape[-1], idx.shape[-1]
-    plan = gram_plan(m, b, k, d1, p, K)
+    plan = gram_plan(m, b, k, d1, p // n_pods, K, n_pods)
     if workspace is None:
         workspace = gram_workspace(m, b, k, d1, w.device, p, K)
     parts = plan.classes if plan.classes > 1 else 0
@@ -225,24 +240,27 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0,
                          device=w.device)
     launch = build.entry("dcd_feature", "dcd_feature_gram_launch",
                          [P, I, I, L, P, P, I, I, I, P, L, I, I, I, I, I, I,
-                          I, I, I, I, P, P, P, P, P, P, I, L, L, P])
+                          I, I, I, I, P, P, P, P, P, P, I, L, L, I, P])
     with torch.cuda.device(w.device):
-        err = launch(build.ptr(idx), b, plan.data, n_loc, build.ptr(cols),
+        err = launch(build.ptr(idx), b, p, n_loc, build.ptr(cols),
                      build.ptr(vals), m, k, d1 - 1, build.ptr(w), w_stride,
                      d1, plan.classes, plan.tile, plan.tiles, GRAM_CHUNK,
                      GRAM_TABLE_SLOTS, GRAM_BUCKET_THREADS, plan.bucket_smem,
                      GRAM_THREADS, plan.gram_smem, build.ptr(workspace.lc),
                      build.ptr(workspace.v), build.ptr(workspace.roff),
                      build.ptr(workspace.part), build.ptr(base_p),
-                     build.ptr(gram_p), K, idx_ts, w_ts, build.stream())
+                     build.ptr(gram_p), K, idx_ts, w_ts, pod_shards,
+                     build.stream())
     build.check(err, "dcd_feature_gram_launch")
     dcd_feature_gram.launches += 1
     dcd_feature_gram.task_launches += int(K > 1)
+    dcd_feature_gram.pod_launches += int(n_pods > 1)
     return base_p, gram_p
 
 
 dcd_feature_gram.launches = 0
 dcd_feature_gram.task_launches = 0
+dcd_feature_gram.pod_launches = 0
 
 
 def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
@@ -271,7 +289,8 @@ def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
         ws = []
         for s in range(idx.shape[0]):
             alpha, w_s = dcd_feature_update_plain(
-                cols, vals, alpha, sq_norms, w[s] if w.dim() == 3 else w,
+                cols, vals, alpha, sq_norms,
+                w[pod_row(s, idx.shape[0], w)] if w.dim() == 3 else w,
                 idx[s].long() + s * n_loc, base[s], gram[s], loss=loss,
                 active=active, y=y)
             ws.append(w_s)
@@ -313,7 +332,10 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     (K, p, B), gram (K, p, B, B), y (K, n), active (n,) or (K, n); one
     launch of R × K·p·m CTAs (``dcd_feature_update.task_launches``
     counts those with K > 1) returns (α (K, n), the replicas (K, p, m,
-    d1))."""
+    d1)).  A w of P views for 1 < P < p, (P, m, d1) or (K, P, m, d1),
+    makes the p data shards P pods', each data shard's replica filled
+    from its pod's view; counted also in
+    ``dcd_feature_update.pod_launches``."""
     if w.device.type != "cuda":
         return dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx,
                                         base, gram, loss=loss,
@@ -321,7 +343,7 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     tasks = alpha.dim() == 2
     _check_block(cols, vals, w, idx, tasks)
     sharded = tasks or idx.dim() == 2
-    K, p, idx, idx_ts, _, _ = _grid(idx.contiguous(), w, tasks)
+    K, p, idx, idx_ts, _, _, _, n_pods = _grid(idx.contiguous(), w, tasks)
     n, m, k = cols.shape
     d1, b = w.shape[-1], idx.shape[-1]
     if tasks and ((y is not None and tuple(y.shape) != (K, n))
@@ -330,8 +352,8 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
         raise ValueError(f"y must be ({K}, {n}), active ({n},) or "
                          f"({K}, {n})")
     lead = (K,) if tasks else ()
-    plan = feature_update_plan(m, b, k, d1, p, K)
-    gplan = gram_plan(m, b, k, d1, p, K)
+    plan = feature_update_plan(m, b, k, d1, p // n_pods, K, n_pods)
+    gplan = gram_plan(m, b, k, d1, p // n_pods, K, n_pods)
     bucket = workspace is None
     if bucket:
         workspace = gram_workspace(m, b, k, d1, w.device, p, K)
@@ -349,11 +371,12 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     act_ts = n if active is not None and active.dim() == 2 else 0
     a_out = alpha.clone()
     # each (task, data shard) pair's replica of the slices, which its CTAs
-    # update
+    # update, filled from the view its shard reads
     if sharded:
-        Wp = w.view(K, -1, m, d1) if tasks else w.view(-1, m, d1)
-        w_out = Wp.expand(*lead, p, m, d1).clone(
-            memory_format=torch.contiguous_format)
+        Wp = w.view(K, -1, 1, m, d1)
+        g = Wp.shape[1]
+        w_out = Wp.expand(K, g, p // g, m, d1).clone(
+            memory_format=torch.contiguous_format).view(*lead, p, m, d1)
     else:
         w_out = w.clone()
     launch = build.entry("dcd_feature", "dcd_feature_update_launch",
@@ -361,7 +384,7 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
                           P, I, F, F, F, I, I, I, I, I, I, I, I, I, I, P, P,
                           P, I, L, L, L, P])
     with torch.cuda.device(w.device):
-        err = launch(build.ptr(idx), b, plan.data, n_loc, build.ptr(cols),
+        err = launch(build.ptr(idx), b, p, n_loc, build.ptr(cols),
                      build.ptr(vals), m, k, d1 - 1, build.ptr(alpha),
                      build.ptr(a_out), build.ptr(sq_norms),
                      build.ptr(active), build.ptr(y), build.ptr(w_out), d1,
@@ -375,8 +398,10 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     build.check(err, "dcd_feature_update_launch")
     dcd_feature_update.launches += 1
     dcd_feature_update.task_launches += int(K > 1)
+    dcd_feature_update.pod_launches += int(n_pods > 1)
     return a_out, w_out
 
 
 dcd_feature_update.launches = 0
 dcd_feature_update.task_launches = 0
+dcd_feature_update.pod_launches = 0

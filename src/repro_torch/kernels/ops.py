@@ -16,7 +16,10 @@ Each runs its kernel on CUDA tensors and the kernel's plain version on
 CPU tensors.  Each block engine also takes the multi-task solver's K
 tasks as a leading dimension (a (K, n) α; B4's phase ``tasks=True``):
 K × p pairs in one launch, each with its own α, w, labels and mask on
-the shared X.
+the shared X; and the pod solver's P pods (a w of P views for p shards,
+1 < P < p): the p shards are P pods' (shard s of pod s // (p / P)),
+each pod's shards reading the pod's own view of w, one launch for the
+whole fleet.
 """
 
 from __future__ import annotations
@@ -96,7 +99,8 @@ def dcd_block_update(X, sq_norms, alpha, w, idx, *, loss, active=None,
     of a (p, d) ``w``): returns (α, Δw (p, d)), the shards' Δw before
     their sum.  Either way it is one launch of the shard grid (a (B,)
     ``idx`` is a grid of one shard).  A (K, n) α is K tasks
-    (``dcd_indexed_shards``): (α (K, n), Δw (K, p, d))."""
+    (``dcd_indexed_shards``): (α (K, n), Δw (K, p, d)).  A (P, d) (or
+    (K, P, d)) ``w`` for 1 < P < p is a view a pod."""
     if idx.dim() == 1:
         a_new, dw = dcd_indexed_shards(X, alpha, w, sq_norms, loss=loss,
                                        idx=idx[None], n_loc=0,
@@ -112,7 +116,8 @@ def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
     against the (d+1,) padded primal.  Returns (updated α shard, local
     Δw_pad); the dummy slot of Δw_pad is identically zero.  A (p, B)
     ``idx`` is p data shards as in ``dcd_block_update``: (α, Δw
-    (p, d+1)); a (K, n) α K tasks: (α (K, n), Δw (K, p, d+1))."""
+    (p, d+1)); a (K, n) α K tasks: (α (K, n), Δw (K, p, d+1)); a
+    (P, d+1) (or (K, P, d+1)) ``w_pad`` for 1 < P < p a view a pod."""
     if idx.dim() == 1:
         a_new, dw = dcd_ell_shards(cols, vals, alpha, w_pad, sq_norms,
                                    loss=loss, idx=idx[None], n_loc=0,
@@ -129,7 +134,8 @@ def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
 # with its own (base, Gram) and its own replica of w.  ``tasks`` (a (K, n)
 # α for the update phases) puts K tasks in front: w (K, m, d_loc + 1) or
 # (K, p, m, d_loc + 1), idx (p, B) or (K, p, B), and a leading K on every
-# result.
+# result.  A w of P views for 1 < P < p, (P, m, d_loc + 1) or
+# (K, P, m, d_loc + 1), makes the p data shards P pods', a view a pod.
 
 
 def dcd_feature_gram(cols, vals, w_ref, idx, *, workspace=None,
@@ -190,7 +196,8 @@ def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
     shards — the fused counterpart of the solver's unfused engine, the
     eager composition of the phases above.  Returns (updated α, Δw =
     w_new − w over the (m, d_loc + 1) slices), or the p data shards' Δw
-    (p, m, d_loc + 1); for a (K, n) α, each task's (K, p, m, d_loc + 1)."""
+    (p, m, d_loc + 1); for a (K, n) α, each task's (K, p, m, d_loc + 1).
+    With a view a pod each data shard's Δw is against its pod's view."""
     tasks = alpha.dim() == 2
     base, gram = dcd_feature_gram(cols, vals, w, idx, workspace=workspace,
                                   n_loc=n_loc, tasks=tasks)
@@ -199,4 +206,8 @@ def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
                                       y=y, workspace=workspace, n_loc=n_loc)
     if tasks and w.dim() == 3:
         w = w[:, None]  # one w for every data shard of a task
+    if w.dim() == w_new.dim() >= 3 and 1 < w.shape[-3] < w_new.shape[-3]:
+        # a view a pod against its shards' replicas
+        dw = w_new.unflatten(-3, (w.shape[-3], -1)) - w.unsqueeze(-3)
+        return a_new, dw.flatten(-4, -3)
     return a_new, w_new - w

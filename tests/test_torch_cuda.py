@@ -981,3 +981,264 @@ def test_multitask_k1_bit_identical_on_the_card(mesh):
     assert torch.equal(r.w_hat[0], b.w_hat)
     np.testing.assert_allclose(r.gaps[0].cpu().numpy(), b.gaps.cpu().numpy(),
                                rtol=1e-6)
+
+
+# ------------------------------------------------- pods (the pod grid)
+# (P, p, n_loc, b): P pods of p data shards, pod k's shards reading pod
+# k's own view of w; the last has more shards than pods and one a pod
+POD_GRIDS = {"P2p4": (2, 4, 25, 16), "P3p2": (3, 2, 20, 12),
+             "P4p1": (4, 1, 30, 8)}
+
+
+def _pod_views(rng, K, P, width, dev):
+    """K tasks' (P, width) views of w, a pod's at its own scale."""
+    w = (rng.standard_normal((K, P, width)) * 0.1).astype(np.float32)
+    w += 0.01 * np.arange(P, dtype=np.float32)[None, :, None]
+    return torch.from_numpy(w).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tasks", [1, 3], ids=["binary", "k3"])
+@pytest.mark.parametrize("wide", [False, True], ids=["by_shape", "wide"])
+@pytest.mark.parametrize("grid", sorted(POD_GRIDS))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b1_pod_grid_matches_plain(loss, grid, wide, tasks):
+    """B1 over P pods of p shards in one launch against its plain
+    version, and against the same launch with each shard handed its
+    pod's view as a view of its own (the bits of the pod-free grid); a
+    second launch gives the same bits."""
+    from repro_torch.kernels.dcd_ell import (
+        dcd_ell_shards,
+        dcd_ell_shards_plain,
+    )
+    dev = _cuda()
+    P, p, n_loc, b = POD_GRIDS[grid]
+    S = P * p
+    cols, vals, *_ = _ell_case(dev, n_loc * S, 300, 37, 4)
+    rng = np.random.default_rng(31)
+    alpha, _, act, y = _task_operands(rng, tasks, n_loc * S, (1,), dev,
+                                      True)
+    w = _pod_views(rng, tasks, P, 301, dev)
+    w[..., -1] = 0.0
+    ids = _task_ids(rng, tasks, n_loc, S, b, dev, True)
+    if tasks == 1:
+        alpha, w, y = alpha[0], w[0], y[0]
+    q = (vals * vals).sum(1)
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
+              active=act, y=y)
+    variant = "wide" if wide else "staged"
+    assert dcd_ell_plan(b, 37, wide, p, tasks, P) == dcd_ell_plan(
+        b, 37, wide)._replace(shards=p, tasks=tasks, pods=P)
+    n0 = (dcd_ell_shards.variant_launches[variant],
+          dcd_ell_shards.pod_launches)
+    ka, kdw = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)
+    assert (dcd_ell_shards.variant_launches[variant],
+            dcd_ell_shards.pod_launches) == (n0[0] + 1, n0[1] + (p > 1))
+    pa, pdw = dcd_ell_shards_plain(cols, vals, alpha, w, q, **kw)
+    assert kdw.shape == (*alpha.shape[:-1], S, 301)
+    _close(ka, pa)
+    _close(kdw, pdw)
+    assert float(kdw[..., -1].abs().max()) == 0.0
+    own = w.repeat_interleave(p, dim=-2)  # each shard its pod's view
+    oa, odw = dcd_ell_shards(cols, vals, alpha, own, q, wide=wide, **kw)
+    again = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(oa, ka) and torch.equal(odw, kdw)
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tasks", [1, 3], ids=["binary", "k3"])
+@pytest.mark.parametrize("d", [54, 300], ids=["staged", "wide"])
+@pytest.mark.parametrize("grid", sorted(POD_GRIDS))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b2_pod_grid_matches_plain(loss, grid, d, tasks):
+    from repro_torch.kernels.dcd_block import (
+        dcd_indexed_shards,
+        dcd_indexed_shards_plain,
+    )
+    dev = _cuda()
+    P, p, n_loc, b = POD_GRIDS[grid]
+    S = P * p
+    rng = np.random.default_rng(32)
+    X = torch.from_numpy((rng.standard_normal((n_loc * S, d)) * 0.3 /
+                          np.sqrt(d)).astype(np.float32)).to(dev)
+    alpha, _, act, y = _task_operands(rng, tasks, n_loc * S, (1,), dev,
+                                      True)
+    w = _pod_views(rng, tasks, P, d, dev)
+    ids = _task_ids(rng, tasks, n_loc, S, b, dev, True)
+    if tasks == 1:
+        alpha, w, y = alpha[0], w[0], y[0]
+    q = (X * X).sum(1)
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
+              active=act, y=y)
+    assert dcd_dense_plan(b, d, False, p, tasks, P).variant == (
+        "staged" if d == 54 else "wide")
+    n0 = dcd_indexed_shards.pod_launches
+    ka, kdw = dcd_indexed_shards(X, alpha, w, q, **kw)
+    assert dcd_indexed_shards.pod_launches == n0 + (p > 1)
+    pa, pdw = dcd_indexed_shards_plain(X, alpha, w, q, **kw)
+    assert kdw.shape == (*alpha.shape[:-1], S, d)
+    _close(ka, pa)
+    _close(kdw, pdw)
+    own = w.repeat_interleave(p, dim=-2)
+    oa, odw = dcd_indexed_shards(X, alpha, own, q, **kw)
+    again = dcd_indexed_shards(X, alpha, w, q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(oa, ka) and torch.equal(odw, kdw)
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tasks", [1, 2], ids=["binary", "k2"])
+@pytest.mark.parametrize("P,p", [(2, 1), (2, 2), (3, 1)])
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b4_b5_pod_grid_matches_plain(loss, P, p, tasks):
+    """B4 and B5 over the (task, pod·data, model) triples in one launch
+    each against their plain versions, and against the same launches
+    with each data shard handed its pod's view as its own; B5 with B4's
+    workspace and with its own bucket pass to the same bits."""
+    dev = _cuda()
+    S = P * p
+    cols, vals, w1, _ = _feature_case(dev, n=40 * S, repeat_col=False)
+    n, m, k = cols.shape
+    n_loc, b, d1 = 40, 16, w1.shape[-1]
+    rng = np.random.default_rng(33)
+    ids = _task_ids(rng, tasks, n_loc, S, b, dev, True)
+    w = (w1[None, None] + 0.01 * torch.arange(tasks * P, device=dev)
+         .view(tasks, P, 1, 1))
+    w[..., -1] = 0.0
+    alpha, _, act, y = _task_operands(rng, tasks, n, (1,), dev, True)
+    lead = dict(tasks=True) if tasks > 1 else {}
+    if tasks == 1:
+        w, alpha, y = w[0], alpha[0], y[0]
+    ws = feat.gram_workspace(m, b, k, d1, dev, S, tasks)
+    assert ws.lc.shape == (tasks * S * m, b, k)
+    n0 = (feat.dcd_feature_gram.pod_launches,
+          feat.dcd_feature_update.pod_launches)
+    kb, kg = feat.dcd_feature_gram(cols, vals, w, ids, workspace=ws,
+                                   n_loc=n_loc, **lead)
+    pb, pg = feat.dcd_feature_gram_plain(cols, vals, w, ids, n_loc, **lead)
+    _close(kb, pb)
+    _close(kg, pg)
+    q = (vals * vals).sum((1, 2))
+    kw = dict(loss=td.make_loss(loss, 0.8), active=act, y=y, n_loc=n_loc)
+    base, gram = pb.sum(-2), pg.sum(-3)
+    ka, kwv = feat.dcd_feature_update(cols, vals, alpha, q, w, ids, base,
+                                      gram, workspace=ws, **kw)
+    sa, swv = feat.dcd_feature_update(cols, vals, alpha, q, w, ids, base,
+                                      gram, **kw)
+    pa, pw = feat.dcd_feature_update_plain(cols, vals, alpha, q, w, ids,
+                                           base, gram, **kw)
+    assert kwv.shape == (*alpha.shape[:-1], S, m, d1)
+    _close(ka, pa)
+    _close(kwv, pw)
+    own = w.repeat_interleave(p, dim=-3)
+    ob, og = feat.dcd_feature_gram(cols, vals, own, ids, n_loc=n_loc,
+                                   **lead)
+    oa, owv = feat.dcd_feature_update(cols, vals, alpha, q, own, ids, base,
+                                      gram, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sa, ka) and torch.equal(swv, kwv)
+    assert torch.equal(ob, kb) and torch.equal(og, kg)
+    assert torch.equal(oa, ka) and torch.equal(owv, kwv)
+    assert (feat.dcd_feature_gram.pod_launches,
+            feat.dcd_feature_update.pod_launches) == (
+                n0[0] + (p > 1), n0[1] + 2 * (p > 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    dict(dense=False, P=2, p=2, pod_delay_rounds=1),
+    dict(dense=True, P=2, p=4, delay_rounds=1),
+    dict(dense=False, P=3, p=1, pod_delay_rounds=2, adaptive=True,
+         adaptive_ratio=0.5),
+    dict(dense=False, P=2, p=1, model=2, pod_delay_rounds=1),
+    dict(dense=False, P=2, p=2, model=2),
+    dict(dense=True, P=2, p=2, tasks=3, pod_delay_rounds=1)],
+    ids=["ell_P2p2_delay1", "dense_P2p4_inner", "ell_P3_adaptive",
+         "2d_P2m2_delay1", "2d_P2p2m2", "dense_P2p2_k3"])
+def test_pod_solver_kernel_path_matches_cpu_path(knobs):
+    """The pod solve on the card (the pod-grid kernels) against the same
+    solve's CPU path: α and ŵ at atol 1e-5, the records equal or at the
+    gap's tolerance."""
+    from repro_torch.data.labels import ovr_labels
+    from repro_torch.dist.mesh import SolverMesh, solver_mesh_3d
+    dev = _cuda()
+    knobs = dict(knobs)
+    ds = make_dataset("tiny", device="cpu")
+    X = ds.dense_train() if knobs.pop("dense") else ds.X_train
+    P, p, model = knobs.pop("P"), knobs.pop("p"), knobs.pop("model", None)
+    K = knobs.pop("tasks", 0)
+    mesh = (SolverMesh(("pod", "data"), (P, p)) if model is None
+            else solver_mesh_3d(pod=P, data=p, model=model))
+    n = ds.X_train.n_rows
+    Y = ovr_labels(np.arange(n) * 7 % 3, 3, device="cpu") if K else None
+    kw = dict(mesh=mesh, epochs=4, block_size=16, seed=4, **knobs)
+    on_card = sharded_passcode_solve(
+        X.to(dev), td.Hinge(), y=None if Y is None else Y.to(dev), **kw)
+    on_cpu = sharded_passcode_solve(X, td.Hinge(), y=Y, use_kernel=True,
+                                    device="cpu", **kw)
+    _close(on_card.alpha, on_cpu.alpha)
+    _close(on_card.w_hat, on_cpu.w_hat)
+    np.testing.assert_allclose(on_card.gaps.cpu().numpy(),
+                               on_cpu.gaps.numpy(), rtol=1e-5, atol=ATOL)
+    np.testing.assert_allclose(on_card.eps.cpu().numpy(),
+                               on_cpu.eps.numpy(), rtol=1e-5, atol=ATOL)
+    np.testing.assert_array_equal(on_card.delay.cpu().numpy(),
+                                  on_cpu.delay.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["1d_ell", "1d_dense", "2d"])
+def test_pod1_is_the_plain_mesh_on_the_card(mesh):
+    """A (pod = 1) mesh at pod_delay_rounds 0 is the plain mesh on the
+    card too: α and ŵ bit for bit.  The gap takes w(α) through
+    ``index_add_``, whose atomics add in another order from call to
+    call: two evaluations of one α part by up to 2.3e-6 relative on the
+    2-D mesh here, so the records are held at rtol 1e-5."""
+    from repro_torch.dist.mesh import SolverMesh, solver_mesh, solver_mesh_3d
+    dev = _cuda()
+    ds = make_dataset("tiny", device="cpu")
+    X = (ds.dense_train() if mesh == "1d_dense" else ds.X_train).to(dev)
+    plain, pod = ((solver_mesh_2d(data=2, model=2),
+                   solver_mesh_3d(pod=1, data=2, model=2)) if mesh == "2d"
+                  else (solver_mesh(n_devices=4),
+                        SolverMesh(("pod", "data"), (1, 4))))
+    kw = dict(epochs=3, block_size=16, seed=3)
+    a = sharded_passcode_solve(X, td.Hinge(), mesh=plain, **kw)
+    b = sharded_passcode_solve(X, td.Hinge(), mesh=pod, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a.alpha, b.alpha) and torch.equal(a.w_hat, b.w_hat)
+    np.testing.assert_allclose(a.gaps.cpu().numpy(), b.gaps.cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cocoa", "cocoa_pod_ell",
+                                    "cocoa_pod_dense", "asyscd"])
+def test_baselines_on_the_card_match_cpu_path(solver):
+    """CoCoA (B2 over K partitions a round), the pod oracle (B1 or B2
+    over P pods an epoch) and AsySCD (torch ops) on the card against
+    their CPU paths."""
+    from repro_torch.core import asyscd_solve, cocoa_pod_solve, cocoa_solve
+    dev = _cuda()
+    ds = make_dataset("tiny", device="cpu")
+    X = ds.X_train if solver == "cocoa_pod_ell" else ds.dense_train()
+    loss = td.SquaredHinge(0.8)
+    if solver == "cocoa":
+        run = lambda Xs, d: cocoa_solve(Xs, loss, n_partitions=4,  # noqa
+                                        outer_rounds=3, seed=2, device=d)
+    elif solver == "asyscd":
+        run = lambda Xs, d: asyscd_solve(Xs, loss, n_threads=8,  # noqa
+                                         epochs=2, seed=2, device=d)
+    else:
+        run = lambda Xs, d: cocoa_pod_solve(  # noqa
+            Xs, loss, n_pods=3, epochs=3, block_size=16,
+            pod_delay_rounds=1, seed=2, device=d)
+    on_card, on_cpu = run(X.to(dev), dev), run(X, "cpu")
+    _close(on_card.alpha, on_cpu.alpha)
+    if solver != "asyscd":
+        _close(on_card.w, on_cpu.w)
+    np.testing.assert_allclose(on_card.gaps.numpy(), on_cpu.gaps.numpy(),
+                               rtol=1e-5, atol=1e-4)

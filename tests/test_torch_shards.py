@@ -27,9 +27,14 @@ mesh), ``Y`` and ``task`` (a multi-task solve's label matrix and the
 size of its 'task' mesh axis, or None) and ``kw`` (the other keywords
 of ``sharded_passcode_solve``).
 On the installed jax, the reference's ``_finalize`` slices α[:n] of a
-row-sharded α, which raises ``ShardingTypeError`` when p ∤ n; the child
-wraps ``_finalize`` to fetch α and w to the host first.  Nothing of
-``repro`` changes.
+row-sharded α, which raises ``ShardingTypeError`` when p ∤ n, and on a
+pod mesh scatters the row-sharded α through the rowmap ``setup.ridx``,
+which raises it at every mesh (ROADMAP C.9); the child wraps
+``_finalize`` to fetch α, w and ``ridx`` to the host first
+(``finalize_on_host``).  Nothing of ``repro`` changes.  A ``case``'s
+``pods`` (P) and ``kw["pod_delay_rounds"]`` run it on a pod mesh: (pod =
+P, data = p) for the 1-D mesh, ``solver_mesh_3d(pod=P, data=p,
+model=m)`` for the 2-D one.
 """
 
 import json
@@ -64,12 +69,15 @@ from repro.core import duals as rd
 from repro.core import sharded as rs
 from repro.data import make_dataset
 from repro.data.sparse import EllMatrix
-from repro.dist.mesh import solver_mesh, solver_mesh_2d, solver_mesh_tasks
+from repro.dist.mesh import (solver_mesh, solver_mesh_2d, solver_mesh_3d,
+                             solver_mesh_tasks)
 
 _finalize = rs._finalize
 
 
 def _finalize_on_host(setup, alpha, w, *args, **kw):
+    if setup.ridx is not None:
+        setup = setup._replace(ridx=np.asarray(jax.device_get(setup.ridx)))
     return _finalize(setup, jax.device_get(alpha), jax.device_get(w),
                      *args, **kw)
 
@@ -84,6 +92,13 @@ for name, c in cases.items():
         Xc = np.asarray(Xc.to_dense())
     mesh = (solver_mesh(n_devices=c["p"]) if c["model"] is None
             else solver_mesh_2d(data=c["p"], model=c["model"]))
+    P = c.get("pods")
+    if P and c["model"] is None:
+        mesh = jax.make_mesh((P, c["p"]), ("pod", "data"),
+                             devices=jax.devices()[:P * c["p"]])
+    elif P:
+        mesh = solver_mesh_3d(pod=P, data=c["p"], model=c["model"],
+                              n_devices=P * c["p"] * c["model"])
     if c.get("task"):
         mesh = solver_mesh_tasks(task=c["task"], data=c["p"],
                                  model=c["model"] or 1)
@@ -99,12 +114,28 @@ for name, c in cases.items():
 
 
 def case(rows=256, dense=False, loss="hinge", p=2, model=None, Y=None,
-         task=None, **kw):
+         task=None, pods=None, **kw):
     """A reference solve for ``reference_solves``; ``Y`` a (K, rows) ±1
     label matrix (nested lists) makes it a multi-task solve, ``task`` the
-    size of a leading 'task' mesh axis."""
+    size of a leading 'task' mesh axis, ``pods`` the size of a leading
+    'pod' axis (with ``pod_delay_rounds`` among ``kw``)."""
     return dict(rows=rows, dense=dense, loss=loss, p=p, model=model, kw=kw,
-                Y=Y, task=task)
+                Y=Y, task=task, pods=pods)
+
+
+def finalize_on_host(finalize):
+    """The reference's ``_finalize`` with α, w and the pod rowmap
+    ``setup.ridx`` fetched to the host first (the child's wrapper, for a
+    solve in this process)."""
+
+    def on_host(setup, alpha, w, *args, **kw):
+        if setup.ridx is not None:
+            setup = setup._replace(
+                ridx=np.asarray(jax.device_get(setup.ridx)))
+        return finalize(setup, jax.device_get(alpha), jax.device_get(w),
+                        *args, **kw)
+
+    return on_host
 
 
 def reference_solves(cases: dict, out_dir) -> dict:

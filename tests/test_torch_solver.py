@@ -285,15 +285,16 @@ ONES = np.ones((8, 3), np.float32)  # the rows the raising cases are given
 
 # (knob, the ROADMAP item that names it, what it does in the port): the
 # self-tuning knobs (A.7 on the 1-D mesh, A′.2 on the 2-D mesh), p > 1
-# data shards (A′.1) and multi-task labels (A.9: a (K, n) y acts on
+# data shards (A′.1), multi-task labels (A.9: a (K, n) y acts on
 # ``ONES``, a 'task' axis without one raises the reference's ValueError)
-# act; pods (A.10) and the host driver (A′.12) still raise
+# and pods (A.10: a 'pod' axis acts, pod_delay_rounds without one raises
+# the reference's ValueError) act; pipeline=False (A′.12) still raises
 KNOBS = [
     (dict(shrink_every=1), "A.7", ACTS),
     (dict(repack=True), "A.7", ValueError),  # without shrink_every
     (dict(adaptive=True), "A.7", ACTS),
-    (dict(pod_delay_rounds=1), "A.10", NotImplementedError),
-    (dict(mesh_axes=("pod", "data")), "A.10", NotImplementedError),
+    (dict(pod_delay_rounds=1), "A.10", ValueError),
+    (dict(mesh_axes=("pod", "data")), "A.10", ACTS),
     (dict(mesh=solver_mesh_2d(data=2, model=2)), "A′.1", ACTS),
     (dict(overlap=True), "2-D", ValueError),
     (dict(mesh_axes=("task", "data")), "A.9", ValueError),
@@ -337,13 +338,19 @@ def _reference_knob_solve(knob, request):
     """The reference's solve with ``knob`` on ``tiny``: in this process
     where one device suffices (a 2-D mesh of m feature shards is held to
     the reference's m = 1 solve, as in ``test_torch_solver2d``), else
-    from the child."""
+    from the child.  A pod mesh's solve raises in the reference's
+    ``_finalize`` on the installed jax (ROADMAP C.9), so its α, w and
+    rowmap are fetched to the host first, as the child does."""
     if knob.get("mesh") is not None and knob["mesh"].shape["data"] > 1:
         return types.SimpleNamespace(
             **request.getfixturevalue("ref_data_shards"))
     kw = {k: v for k, v in knob.items() if k != "mesh"}
     if "mesh" in knob:
         kw["mesh"] = jax.make_mesh((1, 1), ("data", "model"))
+    if "pod" in knob.get("mesh_axes", ()):
+        from test_torch_shards import finalize_on_host
+        request.getfixturevalue("monkeypatch").setattr(
+            rs, "_finalize", finalize_on_host(rs._finalize))
     return rs.sharded_passcode_solve(make_dataset("tiny").X_train,
                                      rd.Hinge(), **kw, **KNOB_SOLVE)
 
@@ -390,8 +397,8 @@ def test_unported_knobs_raise(tiny, request, knob, item, expect):
 PREPARE_KNOBS = [
     (dict(y=np.ones((2, 8), np.float32)), "A.9", ACTS),
     (dict(mesh_axes=("task", "data")), "A.9", ValueError),
-    (dict(mesh_axes=("pod", "data")), "A.10", NotImplementedError),
-    (dict(pod_delay_rounds=2), "A.10", NotImplementedError),
+    (dict(mesh_axes=("pod", "data")), "A.10", ACTS),
+    (dict(pod_delay_rounds=2), "A.10", ValueError),
     (dict(shrink_every=1, shrink_tol=1e-2), "A.7", ACTS),
     (dict(repack=True, repack_threshold=0.3), "A.7", ValueError),
     (dict(adaptive=True, adaptive_ratio=0.5), "A.7", ACTS),
