@@ -137,7 +137,32 @@ result line):
    nominal gap is that of w̄: a finite gap, and the primal at ŵ below
    the primal at 0; its ε above Atomic's, and Atomic's at most
    1e-4·‖w̄‖);
-5. one JSON line of per-kernel numbers (with each kernel's variant, and
+5. the resilience phase (``resilience_phase``; ``repro_torch.resilience``
+   at full Table-3 width, each path counted as a main path): rcv1 at
+   p = 8 (B1's staged shard grid), 3 epochs, whole (twice: the second
+   timed), segmented at ``checkpoint_every=1`` without and with
+   checkpoints into ``build/chip_smoke_ckpt/`` (seconds per epoch each,
+   a checkpoint's bytes, each save's seconds) and resumed from the last
+   boundary but one (its load's seconds), α and ŵ bit for bit and the
+   gaps at rtol 1e-6 against the whole solve; the fault harness on the
+   same solve — a NaN in w at epoch 1 with ``delay_rounds=1`` (attempts
+   (1, 2, 1), a code-2 trip, a bit-clean replay), NaN values in X for
+   segment 1 (a code-2 trip, a bit-clean replay), the NaN kept armed
+   (``SolverDiverged`` with a finite result) and armed only under
+   asynchrony (rung 1 latched, healthy); rcv1 pods (2, 4) with the merge
+   of epoch 1 dropped (a trip, a bit-clean replay); covtype K = 7 at
+   p = 8 (B2's task grid) resumed from ``ckpt_1`` after the later ones
+   are wiped, bit for bit; webspam on the 2-D mesh, m = 4,
+   ``delay_rounds=1`` (the overlapped B4 + B5 round, its in-flight
+   (base, Gram) rebuilt at each segment's entry), 2 epochs whole,
+   segmented and segmented with checkpoints, bit for bit; a K = 53 rcv1
+   checkpoint at p = 8 (its bytes, save and load seconds); and rcv1 pods
+   (2, 4) in child processes on the card: killed by SIGKILL after its
+   second segment (exit −9, only ``ckpt_1`` left), resumed on the same
+   mesh (its uninterrupted run's bits) and onto (4, 2) (its last gap at
+   most 2× the uninterrupted (4, 2) run's + 1e-3); then the phase's
+   seconds;
+6. one JSON line of per-kernel numbers (with each kernel's variant, and
    B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
    ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
@@ -275,6 +300,384 @@ def bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# a child of the resilience phase's kill check: rcv1 drawn as the parent
+# draws it, solved on a pod mesh; "kill" dies by the fault harness after
+# its second segment and before its save, "resume" resumes on the same
+# mesh beside an uninterrupted run, "elastic" resumes onto (4, 2) beside
+# an uninterrupted (4, 2) run; the last two print one JSON line
+KILL_CHILD = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from repro_torch.core.duals import Hinge
+from repro_torch.data.synthetic import make_paper_split
+from repro_torch.dist.mesh import SolverMesh
+from repro_torch.resilience import FaultPlan, solve_segmented
+
+mode, ckpt = sys.argv[2], sys.argv[3]
+X, _ = make_paper_split("rcv1", seed=0, device="cuda")
+kw = dict(epochs=3, checkpoint_every=1, block_size=64, seed=0,
+          device="cuda")
+mesh = SolverMesh(("pod", "data"), (4, 2) if mode == "elastic" else (2, 4))
+if mode == "kill":
+    solve_segmented(X, Hinge(1.0), mesh=mesh, ckpt_dir=ckpt,
+                    fault_plan=FaultPlan(sigkill_segment=1), **kw)
+    print("UNREACHABLE")
+    sys.exit(0)
+full = solve_segmented(X, Hinge(1.0), mesh=mesh, **kw)
+res = solve_segmented(X, Hinge(1.0), mesh=mesh, ckpt_dir=ckpt, resume=True,
+                      **kw)
+print(json.dumps({
+    "resumed_from": res.resumed_from, "attempts": list(res.attempts),
+    "bits": bool(torch.equal(full.result.alpha, res.result.alpha)
+                 and torch.equal(full.result.w_hat, res.result.w_hat)),
+    "gaps": res.result.gaps.tolist(), "full_gaps": full.result.gaps.tolist()}))
+"""
+
+
+def resilience_phase(torch, dev, run_path, X_rcv1, X_cov, X_web, Y_cov,
+                     Y_rcv1):
+    """The segmented solve (``repro_torch.resilience``) at full Table-3
+    width through the kernels its meshes launch: rcv1 at p = 8 (B1's
+    staged shard grid) segmented against whole, its checkpoints' bytes
+    and save and load seconds, and every fault of the harness with its
+    recovery; rcv1 pods (2, 4) with a dropped merge and killed in a child
+    process (a bit resume, and an elastic one onto (4, 2)); covtype
+    K = 7 at p = 8 (B2's task grid) resumed; webspam on the 2-D mesh
+    (B4 + B5, the overlapped round) segmented; a K = 53 rcv1 checkpoint.
+    α and ŵ bit for bit against the uninterrupted or clean run, the gaps
+    at rtol 1e-6 (the gap's sum adds with float atomics)."""
+    import shutil
+
+    from repro_torch.core import duals
+    from repro_torch.core.sharded import _n_blocks, sharded_passcode_solve
+    from repro_torch.dist.mesh import SolverMesh, solver_mesh, solver_mesh_2d
+    from repro_torch.resilience import (
+        FaultPlan,
+        SolverDiverged,
+        solve_segmented,
+    )
+    from repro_torch.resilience import segmented as seg_mod
+
+    t_phase = time.perf_counter()
+    hinge1, hinge_c = duals.Hinge(1.0), duals.Hinge(0.0625)
+    n_r, n_c, n_w = X_rcv1.n_rows, X_cov.shape[0], X_web.n_rows
+    nb_r8 = _n_blocks(-(-n_r // 8), B)
+    nb_c8 = _n_blocks(-(-n_c // 8), B)
+    nb_rp = _n_blocks(-(-(-(-n_r // 2)) // 4), B)
+    nb_w = _n_blocks(n_w, B)
+    mesh_r8, mesh_c8 = solver_mesh(n_devices=8), solver_mesh(n_devices=8)
+    mesh_rp = SolverMesh(("pod", "data"), (2, 4))
+    ckroot = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckroot, ignore_errors=True)
+    ckroot.mkdir(parents=True)
+
+    # the boundaries' saves and the resumes' restores, timed where the
+    # solve makes them; the watchdog's codes as the host reads them
+    io = {"save": [], "load": []}
+    codes = []
+    save, restore, health = (seg_mod._save_boundary, seg_mod._restore,
+                             seg_mod._health)
+
+    def timed_io(kind, f):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **k)
+            torch.cuda.synchronize()
+            io[kind].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def read_health(st):
+        codes.append(health(st))
+        return codes[-1]
+
+    seg_mod._save_boundary = timed_io("save", save)
+    seg_mod._restore = timed_io("load", restore)
+    seg_mod._health = read_health
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def bits(label, a, b):
+        same = torch.equal(a.alpha, b.alpha) and torch.equal(a.w_hat,
+                                                             b.w_hat)
+        ga, gb = a.gaps.cpu().double(), b.gaps.cpu().double()
+        diff = (ga - gb).abs()
+        rel = float((diff / gb.abs().clamp(min=1e-30)).max())
+        print(f"    {label}: α and ŵ bit-identical: {same}; gaps "
+              f"{a.gaps.tolist()} (largest relative difference {rel:.3g}, "
+              "tolerance 1e-6)")
+        if not same:
+            fail(f"resilience: {label}: α or ŵ differ")
+        if not bool((diff <= 1e-6 * gb.abs()).all()):
+            fail(f"resilience: {label}: the gaps differ past rtol 1e-6")
+
+    def ckpt_bytes(d):
+        return sum(f.stat().st_size for f in Path(d).rglob("*")
+                   if f.is_file())
+
+    def recovery(label, r):
+        print(f"    {label}: health {r.health}, attempts {r.attempts}, "
+              f"rollbacks {r.rollbacks}, rung {r.rung}, epochs lost "
+              f"{r.epochs_lost}, resumed from {r.resumed_from}")
+
+    kw_r = dict(epochs=EPOCHS, block_size=B, seed=SEED, device=dev,
+                mesh=mesh_r8)
+    out = {}
+
+    def rcv1_segmented():
+        # the whole solve twice: the first warms the path, the second is
+        # timed
+        for _ in range(2):
+            out["whole"], t_w = wall(lambda: sharded_passcode_solve(
+                X_rcv1, hinge1, **kw_r))
+        seg, t_s = wall(lambda: solve_segmented(
+            X_rcv1, hinge1, checkpoint_every=1, **kw_r))
+        d = str(ckroot / "rcv1")
+        ck, t_c = wall(lambda: solve_segmented(
+            X_rcv1, hinge1, checkpoint_every=1, ckpt_dir=d, keep=EPOCHS,
+            **kw_r))
+        print(f"  rcv1 p = 8, {EPOCHS} epochs: {t_w / EPOCHS:.4f} s per "
+              f"epoch whole, {t_s / EPOCHS:.4f} segmented at "
+              f"checkpoint_every=1, {t_c / EPOCHS:.4f} with its "
+              f"checkpoints ({t_s / t_w:.3f}× and {t_c / t_w:.3f}× the "
+              "whole solve)")
+        recovery("segmented", seg)
+        bits("segmented vs whole", seg.result, out["whole"])
+        bits("checkpointed vs whole", ck.result, out["whole"])
+        if seg.attempts != (1,) * EPOCHS or seg.health != 0:
+            fail("resilience: the clean segmented run did not pass clean")
+        n_b = ckpt_bytes(Path(d) / "ckpt_1")
+        print(f"    a checkpoint takes {n_b} bytes; saves "
+              f"{[round(s, 4) for s in io['save']]} s")
+        shutil.rmtree(Path(d) / f"ckpt_{EPOCHS}")
+        io["load"].clear()
+        res = solve_segmented(X_rcv1, hinge1, checkpoint_every=1, ckpt_dir=d,
+                              resume=True, keep=EPOCHS, **kw_r)
+        recovery("resumed from the wiped last boundary", res)
+        print(f"    load (read, convert, place): {io['load'][0]:.4f} s")
+        bits("resumed vs whole", res.result, out["whole"])
+        if res.resumed_from != EPOCHS - 1:
+            fail(f"resilience: resumed from {res.resumed_from}")
+
+    run_path("resilience: rcv1 p = 8 segmented",
+             {"dcd_ell_shards": (4 * EPOCHS + 1) * nb_r8}, rcv1_segmented)
+
+    def nan_fault():
+        kw = dict(kw_r, delay_rounds=1, checkpoint_every=1)
+        clean = sharded_passcode_solve(X_rcv1, hinge1, **{
+            k: v for k, v in kw.items() if k != "checkpoint_every"})
+        del codes[:]
+        r = solve_segmented(X_rcv1, hinge1,
+                            fault_plan=FaultPlan(nan_psum_epoch=1), **kw)
+        recovery("NaN in w at epoch 1, delay_rounds 1", r)
+        print(f"    watchdog codes read {codes}")
+        if r.attempts != (1, 2, 1) or r.health != 0 or 2 not in codes:
+            fail("resilience: the NaN fault did not trip code 2 and replay")
+        bits("replayed vs clean", r.result, clean)
+
+    run_path("resilience: rcv1 p = 8 NaN fault",
+             {"dcd_ell_shards": (EPOCHS + 4) * nb_r8}, nan_fault)
+
+    def payload_fault():
+        del codes[:]
+        r = solve_segmented(X_rcv1, hinge1, checkpoint_every=1,
+                            fault_plan=FaultPlan(corrupt_payload_segment=1),
+                            **kw_r)
+        recovery("NaN values in X for segment 1 (5 %)", r)
+        print(f"    watchdog codes read {codes}")
+        if r.attempts != (1, 2, 1) or 2 not in codes:
+            fail("resilience: the payload fault did not trip code 2")
+        bits("replayed vs whole", r.result, out["whole"])
+
+    run_path("resilience: rcv1 p = 8 payload fault",
+             {"dcd_ell_shards": (EPOCHS + 1) * nb_r8}, payload_fault)
+
+    def persistent():
+        try:
+            solve_segmented(X_rcv1, hinge1, checkpoint_every=1,
+                            delay_rounds=1, fault_plan=FaultPlan(
+                                nan_psum_epoch=1, persistent=True), **kw_r)
+        except SolverDiverged as ex:
+            fin = bool(torch.isfinite(ex.result.alpha).all()
+                       and torch.isfinite(ex.result.w_hat).all())
+            print(f"    SolverDiverged at epoch {ex.epoch}, history "
+                  f"{ex.history}, its result finite: {fin}, rounds "
+                  f"{ex.result.rounds}")
+            if not fin or ex.epoch != 1 or ex.history != (1, 4):
+                fail("resilience: SolverDiverged's result or record")
+            return
+        fail("resilience: a persistent fault did not raise SolverDiverged")
+
+    run_path("resilience: rcv1 p = 8 persistent fault",
+             {"dcd_ell_shards": 5 * nb_r8}, persistent)
+
+    def async_only():
+        r = solve_segmented(X_rcv1, hinge1, checkpoint_every=1,
+                            delay_rounds=1, fault_plan=FaultPlan(
+                                nan_psum_epoch=1, persistent=True,
+                                async_only=True), **kw_r)
+        recovery("a fault only under asynchrony", r)
+        if r.rung != 1 or r.health != 0 or r.attempts != (1, 3, 1):
+            fail("resilience: the ladder did not latch rung 1 and recover")
+
+    run_path("resilience: rcv1 p = 8 async-only fault",
+             {"dcd_ell_shards": 5 * nb_r8}, async_only)
+
+    def drop_merge():
+        kw = dict(kw_r, mesh=mesh_rp, checkpoint_every=1)
+        clean = solve_segmented(X_rcv1, hinge1, **kw)
+        del codes[:]
+        r = solve_segmented(X_rcv1, hinge1,
+                            fault_plan=FaultPlan(drop_merge_epoch=1), **kw)
+        recovery("the merge of epoch 1 dropped, pods (2, 4)", r)
+        print(f"    watchdog codes read {codes}; ε of the clean run "
+              f"{clean.result.eps.tolist()}")
+        if r.rollbacks < 1 or r.attempts != (1, 2, 1):
+            fail("resilience: the dropped merge did not trip and replay")
+        bits("replayed vs clean", r.result, clean.result)
+
+    run_path("resilience: rcv1 pods (2, 4) dropped merge",
+             {"dcd_ell_shards": (EPOCHS + 4) * nb_rp,
+              "dcd_ell_pods": (EPOCHS + 4) * nb_rp}, drop_merge,
+             {"dcd_ell_shards": None})
+
+    def covtype_resume():
+        d = str(ckroot / "covtype")
+        kw = dict(kw_r, mesh=mesh_c8, y=Y_cov, checkpoint_every=1,
+                  ckpt_dir=d, keep=EPOCHS)
+        full = solve_segmented(X_cov, hinge_c, **kw)
+        for s in range(2, EPOCHS + 1):
+            shutil.rmtree(Path(d) / f"ckpt_{s}")
+        io["load"].clear()
+        res = solve_segmented(X_cov, hinge_c, resume=True, **kw)
+        recovery(f"covtype K = {Y_cov.shape[0]}, p = 8, resumed from "
+                 "ckpt_1", res)
+        print(f"    checkpoint {ckpt_bytes(Path(d) / 'ckpt_1')} bytes, load "
+              f"{io['load'][0]:.4f} s")
+        if res.resumed_from != 1:
+            fail("resilience: covtype did not resume from ckpt_1")
+        bits("resumed vs uninterrupted", res.result, full.result)
+
+    run_path(f"resilience: covtype K = {Y_cov.shape[0]} p = 8 resume",
+             {"dcd_indexed_shards": (2 * EPOCHS - 1) * nb_c8,
+              "dcd_indexed_tasks": (2 * EPOCHS - 1) * nb_c8},
+             covtype_resume, {"dcd_indexed_shards": None})
+
+    def webspam_segmented():
+        kw = dict(epochs=EPOCHS_2D, block_size=B, seed=SEED, device=dev,
+                  mesh=solver_mesh_2d(model=SHARDS), delay_rounds=1)
+        whole, t_w = wall(lambda: sharded_passcode_solve(X_web, hinge1,
+                                                         **kw))
+        seg, t_s = wall(lambda: solve_segmented(
+            X_web, hinge1, checkpoint_every=1, **kw))
+        del io["save"][:]
+        d = str(ckroot / "webspam")
+        ck, t_c = wall(lambda: solve_segmented(
+            X_web, hinge1, checkpoint_every=1, ckpt_dir=d, keep=EPOCHS_2D,
+            **kw))
+        print(f"  webspam 2-D m = {SHARDS}, delay_rounds 1 (overlapped): "
+              f"{t_w / EPOCHS_2D:.4f} s per epoch whole, "
+              f"{t_s / EPOCHS_2D:.4f} segmented at checkpoint_every=1, "
+              f"{t_c / EPOCHS_2D:.4f} with its checkpoints (each solve's "
+              f"column split included); a checkpoint "
+              f"{ckpt_bytes(Path(d) / 'ckpt_1')} bytes, saves "
+              f"{[round(s, 4) for s in io['save']]} s")
+        recovery("segmented", seg)
+        bits("segmented vs whole", seg.result, whole)
+        bits("checkpointed vs whole", ck.result, whole)
+        shutil.rmtree(d)
+
+    # B4: one a round, plus the prologue a segment (the whole solve's one)
+    run_path(f"resilience: webspam 2-D m = {SHARDS} segmented",
+             {"dcd_feature_gram": 3 * EPOCHS_2D * nb_w + 1 + 2 * EPOCHS_2D,
+              "dcd_feature_update": 3 * EPOCHS_2D * nb_w},
+             webspam_segmented)
+
+    def rcv1_k53_checkpoint():
+        d = str(ckroot / "rcv1_k53")
+        del io["save"][:]
+        r = solve_segmented(X_rcv1, hinge1, epochs=1, checkpoint_every=1,
+                            y=Y_rcv1, ckpt_dir=d, block_size=B, seed=SEED,
+                            device=dev, mesh=mesh_r8)
+        recovery(f"rcv1 K = {Y_rcv1.shape[0]}, p = 8, 1 epoch", r)
+        print(f"    a K = {Y_rcv1.shape[0]} checkpoint takes "
+              f"{ckpt_bytes(Path(d) / 'ckpt_1')} bytes, its save "
+              f"{io['save'][0]:.4f} s")
+        st, _, _ = seg_mod._restore(
+            seg_mod.solver_mouth(X_rcv1, hinge1, y=Y_rcv1, device=dev,
+                                 mesh=mesh_r8, block_size=B, seed=SEED),
+            d, 1, 1, watchdog=True)
+        print(f"    its load (read, convert, place) {io['load'][-1]:.4f} s")
+        if st["alpha"].shape[0] != Y_rcv1.shape[0] or not all(
+                v.device.type == ("cpu" if k in ("epoch", "slot") else dev.type)
+                for k, v in st.items()):
+            fail("resilience: the K-task state did not land on the card")
+        shutil.rmtree(d)
+
+    run_path(f"resilience: rcv1 K = {Y_rcv1.shape[0]} checkpoint",
+             {"dcd_ell_shards": nb_r8, "dcd_ell_tasks": nb_r8},
+             rcv1_k53_checkpoint, {"dcd_ell_shards": None})
+
+    def kills():
+        d = str(ckroot / "kill")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+        def child(mode, where=d):
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, "-c", KILL_CHILD, str(ROOT / "src"), mode,
+                 where], env=env, capture_output=True, text=True,
+                timeout=300)
+            print(f"    child {mode}: exit {done.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            return done
+
+        k = child("kill")
+        have = sorted(p.name for p in Path(d).iterdir())
+        print(f"    checkpoints left by the killed child: {have}")
+        if k.returncode != -9 or "UNREACHABLE" in k.stdout or have != [
+                "ckpt_1"]:
+            fail(f"resilience: the killed child exited {k.returncode} "
+                 f"leaving {have}: {k.stderr[-2000:]}")
+        # each resume from what the killed child left (a resume saves the
+        # boundaries it runs)
+        shutil.copytree(d, d + "_elastic")
+        for mode in ("resume", "elastic"):
+            c = child(mode, d if mode == "resume" else d + "_elastic")
+            if c.returncode != 0:
+                fail(f"resilience: the {mode} child failed: "
+                     f"{c.stderr[-2000:]}")
+            rep = json.loads(c.stdout.strip().splitlines()[-1])
+            print(f"    {mode}: resumed from {rep['resumed_from']}, "
+                  f"attempts {rep['attempts']}, gaps {rep['gaps']}, the "
+                  f"uninterrupted run's {rep['full_gaps']}, α and ŵ "
+                  f"bit-identical: {rep['bits']}")
+            if rep["resumed_from"] != 1 or rep["attempts"] != [1, 1]:
+                fail(f"resilience: the {mode} child did not resume from 1")
+            if mode == "resume" and not rep["bits"]:
+                fail("resilience: the resume after the kill is not the "
+                     "uninterrupted run's bits")
+            g, g_ref = rep["gaps"][-1], rep["full_gaps"][-1]
+            if mode == "elastic" and not (math.isfinite(g)
+                                          and g <= 2.0 * g_ref + 1e-3):
+                fail(f"resilience: the elastic resume's gap {g} is past "
+                     f"2 × {g_ref} + 1e-3")
+
+    run_path("resilience: rcv1 pods (2, 4) killed and resumed", {}, kills)
+
+    seg_mod._save_boundary, seg_mod._restore, seg_mod._health = (
+        save, restore, health)
+    shutil.rmtree(ckroot, ignore_errors=True)
+    print(f"  resilience phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -2887,7 +3290,11 @@ def main():
 
     run_path("example twins", {}, twins)
 
-    # ---------------------------------------------------------- 5. result
+    # ---------------------------------------------------- 5. resilience
+    resilience_phase(torch, dev, run_path, X_rcv1, X_cov, X_web,
+                     classes["covtype"][1], classes["rcv1"][1])
+
+    # ---------------------------------------------------------- 6. result
     idle = [name for name, row in results.items() if row["launches"] < 1]
     if idle:
         fail(f"kernels no main path launched: {idle}")

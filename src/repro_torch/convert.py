@@ -9,7 +9,12 @@ a (K, …) stack: ``labels_from_numpy`` carries the (K, n) label matrix,
 converters take and give a leading K.  The pod solver's pieces carry
 across too: ``pod_sharded_from_numpy`` a ``PodShardedEll``, and
 ``key_from_numpy``/``fifo_from_numpy`` the segmented replay's key chain
-and merge FIFO of ``cocoa_pod_solve``.
+and merge FIFO of ``cocoa_pod_solve``.  ``solver_state_from_numpy``
+carries a whole ``SolverState`` of the segmented solver across, as the
+reference's ``load_solver_state`` returns it, so a port solve resumes
+mid-solve from a checkpoint the reference wrote; ``solver_state_to_
+numpy`` is its inverse, the layout the port's checkpoints are written
+in.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.sharded import device_put_state
 from repro_torch.data.sparse import (
     EllMatrix,
     FeatureShardedEll,
@@ -124,10 +130,11 @@ def pod_sharded_from_numpy(indices, values, row_mask, d: int, n: int, *,
 
 def key_from_numpy(key, *, device=None) -> torch.Tensor:
     """A key of ``repro_torch.prng`` from a ``jax.random`` raw key (two
-    uint32 words): a (2,) int64 tensor."""
+    uint32 words): a (2,) int64 tensor; a stack of keys (..., 2), such
+    as a multi-task state's (K, 2), gives the same stack."""
     dev = resolve_device(device)
     k = np.asarray(key, dtype=np.uint32)
-    if k.shape != (2,):
+    if k.ndim < 1 or k.shape[-1] != 2:
         raise ValueError(f"a raw key is two uint32 words, got shape "
                          f"{k.shape}")
     return torch.from_numpy(k.astype(np.int64)).to(dev)
@@ -137,3 +144,75 @@ def fifo_from_numpy(fifo, *, device=None) -> tuple:
     """``cocoa_pod_solve``'s in-flight merges (a sequence of (d,) arrays)
     as a tuple of float32 tensors, oldest first."""
     return tuple(dense_from_numpy(g, device=device) for g in fifo)
+
+
+# the state leaves of the primal's layout: w (K, *w), the delayed round's
+# Δw, a shard's own last-round Δw (K, p, *w) and the pod FIFO
+# (K, delay, *w); on disk each primal is its flat (w_len,) words
+_PRIMAL_KEYS = ("w", "dw", "dwo", "pbuf")
+_BOOL_KEYS = ("act", "rp")
+_INT_KEYS = ("slot", "epoch", "nrun", "delay", "rpok", "health")
+
+
+def solver_state_to_numpy(state: dict, setup) -> dict:
+    """A ``SolverState`` of the port (every leaf with its leading task
+    dimension K but ``epoch``) in the reference's layout, as numpy: a
+    binary solve's (``setup.n_tasks`` 0) leaves lose the K = 1 axis, the
+    key is two uint32 words, each primal is flat — the 2-D (m, d_loc + 1)
+    slices concatenated, m·(d_loc + 1) words — with the pod FIFO's axis
+    next to it.  ``dwo`` keeps the port's shard axis (K, p, w_len) at
+    p > 1, where the reference's one-device view cannot hold every
+    shard's, and drops it at p = 1, the reference's (K, w_len)."""
+    out = {}
+    for k, v in state.items():
+        a = v.detach().cpu().numpy()
+        if k == "key":
+            a = a.astype(np.uint32)
+        elif k in _PRIMAL_KEYS:
+            lead = a.shape[:-len(setup.w_shape)]
+            a = a.reshape(*lead, -1)
+            if k == "dwo" and setup.p == 1:
+                a = a[:, 0]
+        if not setup.n_tasks and k != "epoch":
+            a = a[0]
+        out[k] = a
+    return out
+
+
+def solver_state_from_numpy(state: dict, setup) -> dict:
+    """The port's ``SolverState`` for ``setup`` (a ``SolverSetup``) from
+    the reference's layout, as ``load_solver_state`` returns it (either
+    package's): the binary leaves gain the K = 1 axis, the raw key goes
+    through ``key_from_numpy``, each flat primal becomes ``setup``'s
+    layout (the 2-D slices through ``w2d_from_numpy``, which drops the
+    reference's lane padding) with the pod FIFO on the port's axis 1, and
+    a ``dwo`` without a shard axis (the reference's, one device's view)
+    serves every shard.  The leaves are placed for ``setup``
+    (``core.sharded.device_put_state``: on its device, the host-driven
+    ``epoch`` and ``slot`` on the host).  Only the leaves given are
+    converted: the caller checks the layout (α's rows, the primal's
+    length) before it asks for more than the layout-free leaves."""
+    K = max(int(setup.n_tasks), 1)
+    out = {}
+    for k, v in state.items():
+        a = np.asarray(v)
+        if not setup.n_tasks and k != "epoch":
+            a = a[None]
+        if k == "key":
+            out[k] = key_from_numpy(a, device="cpu")
+        elif k in _PRIMAL_KEYS:
+            if k == "dwo" and a.ndim == 2:
+                a = np.broadcast_to(a[:, None], (K, setup.p, a.shape[-1]))
+            if setup.two_d:
+                out[k] = w2d_from_numpy(a, setup.m, setup.d_loc,
+                                        device="cpu")
+            elif a.shape[-1] != setup.w_shape[0]:
+                raise ValueError(f"a primal of {a.shape[-1]} words for a "
+                                 f"layout of {setup.w_shape[0]}")
+            else:
+                out[k] = torch.from_numpy(np.array(a, np.float32))
+        else:
+            out[k] = torch.from_numpy(np.array(a)).to(
+                torch.bool if k in _BOOL_KEYS else
+                torch.int32 if k in _INT_KEYS else torch.float32)
+    return device_put_state(setup, out)

@@ -115,6 +115,20 @@ is the identity: the pod's own (α, w) stand, so a (pod = 1) mesh at
 ``pod_delay_rounds`` 0 is the plain mesh bit for bit (the reference's
 a₀ + (a₁ − a₀) rounds differently from a₁, within atol 1e-5).
 
+**The carried state** (the reference's ``SolverState``).  A solve is a
+flat dict of tensors with the reference's key names
+(``pipeline_state_keys``, the checkpoint schema): α, w, the Δw in
+flight, the key chain, the record buffers and the self-tuning, pod FIFO
+and watchdog latches, each with the leading K (the epoch and the record
+slot, which the host's loop drives, live on the host).
+``init_pipeline_state`` makes the epoch-0 state, ``build_pipeline`` a
+segment runner that advances it by some epochs of a ``total_epochs``
+schedule, every decision keyed on the global epoch, and
+``finalize_state`` the result: ``sharded_passcode_solve`` is one such
+segment, and ``repro_torch.resilience.solve_segmented`` chains several
+(bit for bit the whole solve) with the watchdog's health code, the fault
+triple and the degraded knobs of a retry.
+
 The reference's ``pipeline=False`` epoch loop on the host raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -147,6 +161,7 @@ from repro_torch.dist.mesh import (
     resolve_self_tuning,
     solver_mesh_2d,
     task_axis_policy,
+    watchdog_trip,
 )
 from repro_torch.kernels.dcd_ell import pod_row
 from repro_torch.kernels.dcd_feature import gram_workspace
@@ -499,6 +514,36 @@ def _gap_slots(epochs: int, gap_every: int) -> int:
                if (e + 1) % gap_every == 0 or e == epochs - 1)
 
 
+def _abs_max(t):
+    """max |t| as a device scalar, with no |t| temporary (webspam's
+    values are 14 GB)."""
+    return torch.maximum(t.amax(), t.amin().neg())
+
+
+def _fixed_point_scale(bound):
+    """The scale 2^⌊62 − log₂ bound⌋ of ``_scatter_fixed``: a sum of
+    terms whose magnitudes add to at most ``bound`` stays inside int64
+    (a device scalar, float64; no host read)."""
+    return torch.exp2(torch.floor(
+        62.0 - torch.log2(bound.double().clamp(min=1e-30))))
+
+
+def _scatter_fixed(acc, idx, terms, scale):
+    """``acc.index_add_(0, idx, terms)`` into an int64 accumulator of
+    fixed-point words (``terms`` × ``scale``, rounded): integer adds
+    commute, so the sum is the same bits whichever order the card's
+    atomics land in, where float atomics' are not."""
+    acc.index_add_(0, idx, torch.round(terms.double() * scale).long())
+
+
+def _from_fixed(acc, scale, bound):
+    """The float32 sum out of ``_scatter_fixed``'s accumulator; NaN
+    where ``bound`` is not finite (a NaN α or value poisons the sum, as
+    it does a float one)."""
+    out = (acc.double() / scale).float()
+    return torch.where(torch.isfinite(bound), out, float("nan"))
+
+
 def _make_gap_1d(loss, X_loc, ell: bool, d_run: int, segments=None):
     """The duality gap and the backward-error metric over the rows of
     ``X_loc`` (the real rows: where the padding is the layout's tail the
@@ -509,14 +554,28 @@ def _make_gap_1d(loss, X_loc, ell: bool, d_run: int, segments=None):
     primal view ``w_view`` (ε = w̄ − ŵ of ``core/backward_error.py``).
     ``y`` folds one task's labels on read: w(α) = Σ α_i·y_i·x_i and the
     margin y_i·w(α)ᵀx_i, while ℓ*(−α) reads α.  Returns device scalars:
-    no host sync."""
+    no host sync.  On the card the ELL w(α) is summed in fixed point
+    (``_scatter_fixed``), so a record is the same bits run to run; on
+    the CPU the float scatter is already in a fixed order."""
     rows = X_loc[0] if ell else X_loc
     runs = segments or ((0, 0, rows.shape[0]),)
     lens = [c for _, _, c in runs]
     if ell:
         parts = [(X_loc[0][a:a + c], X_loc[1][a:a + c]) for a, _, c in runs]
+        vmax = (torch.stack([_abs_max(v) for _, v in parts]).amax()
+                if rows.is_cuda and X_loc[1].numel() else None)
 
         def rmv(a):
+            if vmax is not None:
+                bound = a.abs().sum() * vmax
+                scale = _fixed_point_scale(bound)
+                acc = torch.zeros((d_run,), dtype=torch.int64,
+                                  device=a.device)
+                for (cols_loc, vals_loc), ap in zip(parts, a.split(lens)):
+                    _scatter_fixed(acc, cols_loc.reshape(-1).long(),
+                                   (ap[:, None] * vals_loc).reshape(-1),
+                                   scale)
+                return _from_fixed(acc, scale, bound)
             wa = torch.zeros((d_run,), dtype=torch.float32,
                              device=a.device)
             for (cols_loc, vals_loc), ap in zip(parts, a.split(lens)):
@@ -577,22 +636,38 @@ def _make_gap_2d(loss, cols, vals, chunk_elems: int = 1 << 26,
     and scatters only real entries (padding lanes would all add 0 into
     the m dummy slots).  ``y`` folds one task's labels on read.
     ``segments`` are a pod layout's runs of real rows, as for
-    ``_make_gap_1d``."""
+    ``_make_gap_1d``; on the card w(α) is summed in fixed point, as
+    there."""
     m = cols.shape[1]
     rows = _chunk_rows(cols, chunk_elems)
     runs = segments or ((0, 0, cols.shape[0]),)
     parts = [(cols[a:a + c], vals[a:a + c]) for a, _, c in runs]
+    fixed = vals.is_cuda and vals.numel() > 0
+    vmax = _abs_max(vals) if fixed else None
 
     def gap(alpha, w_view, y=None):
         d1 = w_view.shape[1]
         ay = alpha if y is None else alpha * y
-        wa = torch.zeros((m * d1,), dtype=torch.float32, device=alpha.device)
+        if fixed:
+            bound = ay.abs().sum() * vmax
+            scale = _fixed_point_scale(bound)
+            wa = torch.zeros((m * d1,), dtype=torch.int64,
+                             device=alpha.device)
+        else:
+            wa = torch.zeros((m * d1,), dtype=torch.float32,
+                             device=alpha.device)
         for (cp, vp), ap in zip(parts, ay.split([c for _, _, c in runs])):
             for c, v, a in zip(cp.split(rows), vp.split(rows),
                                ap.split(rows)):
                 real = c < d1 - 1
-                wa.index_add_(0, flat_shard_ids(c, d1)[real],
-                              (a[:, None, None] * v)[real])
+                if fixed:
+                    _scatter_fixed(wa, flat_shard_ids(c, d1)[real],
+                                   (a[:, None, None] * v)[real], scale)
+                else:
+                    wa.index_add_(0, flat_shard_ids(c, d1)[real],
+                                  (a[:, None, None] * v)[real])
+        if fixed:
+            wa = _from_fixed(wa, scale, bound)
         wa = wa.view(m, d1)
         z = [_row_dots_2d(cp, vp, wa, rows) for cp, vp in parts]
         z = z[0] if len(z) == 1 else torch.cat(z)
@@ -617,29 +692,31 @@ def _task_gaps(gap, alpha, w_view, Y, segs):
             torch.stack([o[1] for o in out]))
 
 
-def _make_shrink(setup, chunk_elems: int = 1 << 26):
+def _make_shrink(setup, X=None, chunk_elems: int = 1 << 26):
     """The active-mask recompute (the reference's ``_make_shrink_1d`` /
     ``_2d``), task by task: fresh projected gradients from (α, w_view) —
     wᵀx_i by the layout's own matvec (on the 2-D mesh the sum of the
     shards' partial dots, in row chunks), y_i·wᵀx_i with the task's
     labels — through ``active_mask_from_w``, ANDed with row validity so
     padding rows never count as active.  Returns a (K, n_pad) bool
-    mask, a row a task, and the (n_pad,) validity."""
+    mask, a row a task, and the (n_pad,) validity.  ``X`` is the dataset
+    the segment runs on (``setup.X`` by default)."""
+    X = setup.X if X is None else X
     valid = torch.arange(setup.n_pad, device=setup.device) < setup.n
     if setup.two_d:
-        cols, vals = setup.X
+        cols, vals = X
         rows = _chunk_rows(cols, chunk_elems)
 
         def mv(wv):
             return _row_dots_2d(cols, vals, wv, rows)
     elif setup.ell:
-        cols, vals = setup.X
+        cols, vals = X
 
         def mv(wv):
             return torch.sum(wv[cols.long()] * vals, dim=1)
     else:
         def mv(wv):
-            return setup.X @ wv
+            return X @ wv
 
     def mask_fn(alpha, w_view):
         masks = []
@@ -1062,13 +1139,14 @@ def _shard_valid(setup: SolverSetup) -> list:
     return out
 
 
-def _block_schedule(setup: SolverSetup, blocks, epochs: int):
-    """``draw(e, act=None, rp=None)``: epoch e's (n_blocks, p, B)
-    shard-local ids, round-major — from ``blocks`` (an epoch past the
-    schedule repeats its last one: only the overlapped round's peek past
-    the final epoch asks, and discards it) or through the reference's
-    key chain, ``PRNGKey(seed)`` then per epoch ``key, sub =
-    split(key)``: one chain for every task, so each task draws its own
+def _block_draw(setup: SolverSetup, blocks, total: int):
+    """``draw(e, sub, act=None, rp=None)``: global epoch e's (n_blocks,
+    p, B) shard-local ids, round-major — from ``blocks`` (indexed by the
+    global epoch; an epoch past the schedule repeats its last one: only
+    the overlapped round's peek past the final epoch asks, and discards
+    it) or from the epoch subkey ``sub`` of the reference's key chain
+    (``PRNGKey(seed)`` then per epoch ``key, sub = split(key)``, carried
+    in the state): one chain for every task, so each task draws its own
     binary solve's blocks.  With the tasks' active masks ``act``
     (K, n_pad) and repack flags ``rp`` (K,) the draw is the masked one
     (``_device_block_perm_masked``), each task's own: (n_blocks, K, p,
@@ -1077,24 +1155,18 @@ def _block_schedule(setup: SolverSetup, blocks, epochs: int):
     p, n_loc, nb, B = (setup.p, setup.n_loc, setup.n_blocks,
                        setup.block_size)
     if blocks is not None:
-        blocks = _as_blocks(blocks, setup, epochs)
-        return lambda e, act=None, rp=None: (
-            blocks[min(e, epochs - 1)].transpose(0, 1).contiguous())
-    key, subs = prng.PRNGKey(setup.seed, device=setup.device), []
-    for _ in range(epochs + 1):  # + the peek past the final epoch
-        key, sub = prng.split(key)
-        subs.append(sub)
-
+        blocks = _as_blocks(blocks, setup, total)
+        return lambda e, sub, act=None, rp=None: (
+            blocks[min(e, total - 1)].transpose(0, 1).contiguous())
     valid = _shard_valid(setup)
 
-    def draw(e, act=None, rp=None):
+    def draw(e, sub, act=None, rp=None):
         if act is None:
-            per = [_device_block_perm_v(subs[e], my, p, n_loc, valid[my], nb,
-                                        B)
+            per = [_device_block_perm_v(sub, my, p, n_loc, valid[my], nb, B)
                    for my in range(p)]
             return torch.stack(per, dim=1)  # (n_blocks, p, B)
         acts = act.reshape(act.shape[0], p, n_loc)
-        per = [_device_block_perm_masked(subs[e], my, p, n_loc, nb, B,
+        per = [_device_block_perm_masked(sub, my, p, n_loc, nb, B,
                                          acts[:, my], rp)
                for my in range(p)]  # each (K, n_blocks, B)
         return torch.stack(per, dim=2).transpose(0, 1).contiguous()
@@ -1115,83 +1187,338 @@ def _workspaces(setup: SolverSetup):
         for _ in range(2 if setup.overlap else 1))
 
 
-def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
-                epochs: int, overlap_fns=None, workspaces=None):
-    """The epoch loop (the reference's ``_epoch_scan`` without pods,
-    the watchdog and the fault triple, under its task vmap): draw each
-    epoch's blocks, run its rounds — the static ``_scan_rounds``, the
-    self-tuning ``_scan_rounds_dyn`` or the overlapped
-    ``_scan_rounds_overlap`` (whose in-flight aggregate crosses epochs)
-    — and record each task's gap, ‖w(α) − ŵ‖, active fraction and delay
-    flag into preallocated (K, slots) device buffers.  Shrinking
+def pipeline_state_keys(*, dyn: bool, shrink_on: bool, adaptive: bool,
+                        pod_fifo: int, watchdog: bool):
+    """The key set of the solver's carried state (``SolverState``, the
+    reference's names) for a knob combination — the checkpoint schema.
+    ``inflight`` is absent on purpose: the overlapped round's in-flight
+    (base, Gram) is a function of the carried (w, key) and is rebuilt at
+    segment entry."""
+    keys = ["alpha", "w", "dw", "key", "gaps", "epsb", "actb", "delayb",
+            "slot", "epoch"]
+    if dyn:
+        keys.append("dwo")
+    if shrink_on:
+        keys += ["act", "frac", "nrun", "rp"]
+    if adaptive:
+        keys += ["delay", "gapprev"]
+        if shrink_on:
+            keys.append("rpok")
+    if pod_fifo:
+        keys.append("pbuf")
+    if watchdog:
+        keys += ["health", "gph", "eph"]
+    return keys
+
+
+# the host-driven counters of the state: the host runs the epoch loop, so
+# the epoch and the record slot live on its side and cost no device read
+_HOST_KEYS = ("epoch", "slot")
+
+
+class _Knobs(NamedTuple):
+    """A segment's effective asynchrony (the solve's own, or a rung of
+    ``degrade_ladder``) and the round scan it selects."""
+
+    delay_rounds: int
+    pod_delay_rounds: int
+    overlap: bool
+    dyn: bool  # the self-tuning round scan
+    delay0: int  # the delay flag's start
+    pod_fifo: int  # the pod merge FIFO's length (0: none)
+
+
+def _segment_knobs(setup: SolverSetup, delay_rounds=None,
+                   pod_delay_rounds=None, overlap_on=None) -> _Knobs:
+    """The reference's mode resolution for a segment built with the
+    given overrides: the overlapped round needs the solve's own overlap
+    and ``delay_rounds ≥ 1`` (a segment may only turn it off), the
+    self-tuning scan runs where neither the overlap nor a pod axis does,
+    and the delay flag starts at the inner delay — on a pod mesh at
+    whether the pod merge starts delayed."""
+    dr = setup.delay_rounds if delay_rounds is None else int(delay_rounds)
+    pdr = (setup.pod_delay_rounds if pod_delay_rounds is None
+           else int(pod_delay_rounds))
+    ov = setup.overlap and (overlap_on is None or bool(overlap_on))
+    ov = ov and dr >= 1
+    tn = setup.tuning
+    dyn = (tn.shrink_every > 0 or tn.adaptive) and not ov and not setup.pod_on
+    delay0 = int(pdr > 0) if setup.pod_on else dr
+    pod_fifo = pdr if (setup.pod_on and pdr > 0) else 0
+    return _Knobs(dr, pdr, ov, dyn, delay0, pod_fifo)
+
+
+def init_pipeline_state(setup: SolverSetup, *, total_epochs: int,
+                        watchdog: bool = False, alpha0=None, w0=None,
+                        delay_rounds=None, pod_delay_rounds=None,
+                        overlap_on=None) -> dict:
+    """The epoch-0 ``SolverState`` of a ``total_epochs`` solve: a flat
+    dict with ``pipeline_state_keys``' names, every leaf with the leading
+    task dimension K (K = 1 on a binary solve) except ``epoch``.  α and w
+    are zeros or the warm start ``alpha0``/``w0`` re-blocked onto this
+    setup's layout (``_init_alpha_w``, the elastic restore's path too);
+    ``dwo`` is (K, p, *w), a shard's own last-round Δw, and ``pbuf`` the
+    pod FIFO (K, delay, *w).  The override knobs are a degraded
+    segment's (``degrade_ladder``)."""
+    kn = _segment_knobs(setup, delay_rounds, pod_delay_rounds, overlap_on)
+    tn, dev, K = setup.tuning, setup.device, setup.K
+    f32, i32 = torch.float32, torch.int32
+    n_gaps = (_gap_slots(int(total_epochs), setup.gap_every)
+              if setup.record else 0)
+    alpha, w = _init_alpha_w(setup, alpha0, w0)
+    st = {"alpha": alpha, "w": w, "dw": torch.zeros_like(w),
+          "key": prng.PRNGKey(setup.seed, device=dev).expand(K, 2).clone(),
+          "slot": torch.zeros((K,), dtype=i32),
+          "epoch": torch.zeros((), dtype=i32)}
+    for k in ("gaps", "epsb", "actb", "delayb"):
+        st[k] = torch.zeros((K, n_gaps), dtype=f32, device=dev)
+    if kn.dyn:
+        st["dwo"] = torch.zeros((K, setup.p, *setup.w_shape), dtype=f32,
+                                device=dev)
+    if tn.shrink_every > 0:
+        valid = torch.arange(setup.n_pad, device=dev) < setup.n
+        st["act"] = valid.expand(K, -1).clone()
+        st["frac"] = torch.ones((K,), dtype=f32, device=dev)
+        st["nrun"] = torch.full((K,), setup.n_blocks, dtype=i32, device=dev)
+        st["rp"] = torch.zeros((K,), dtype=torch.bool, device=dev)
+    if tn.adaptive:
+        st["delay"] = torch.full((K,), kn.delay0, dtype=i32, device=dev)
+        st["gapprev"] = torch.full((K,), float("inf"), device=dev)
+        if tn.shrink_every > 0:
+            st["rpok"] = torch.ones((K,), dtype=i32, device=dev)
+    if kn.pod_fifo:
+        st["pbuf"] = torch.zeros((K, kn.pod_fifo, *setup.w_shape),
+                                 dtype=f32, device=dev)
+    if watchdog:
+        st["health"] = torch.zeros((K,), dtype=i32, device=dev)
+        st["gph"] = torch.full((K,), float("inf"), device=dev)
+        st["eph"] = torch.full((K,), float("inf"), device=dev)
+    return st
+
+
+def device_put_state(setup: SolverSetup, state: dict) -> dict:
+    """A ``SolverState`` placed for ``setup``: every leaf on its device,
+    the host-driven counters (``epoch``, ``slot``) on the host.  On one
+    card this is the whole of the reference's re-sharding point: a
+    restored state's leaves land here in the port's layout."""
+    cpu = torch.device("cpu")
+    return {k: v.to(cpu if k in _HOST_KEYS else setup.device)
+            for k, v in state.items()}
+
+
+def finalize_state(setup: SolverSetup, state: dict, *,
+                   epochs: int) -> ShardedResult:
+    """A ``ShardedResult`` out of a ``SolverState``: the in-flight
+    aggregate flushed — the pod FIFO drained, or the delayed round's Δw
+    (zeros when the run ended synchronous) — and the padding and dummy
+    slots dropped (``_finalize``)."""
+    tn, w = setup.tuning, state["w"]
+    if "pbuf" in state:
+        w = w + state["pbuf"].sum(1)
+    elif (setup.delay_rounds > 0 or tn.shrink_every or tn.adaptive
+          or setup.pod_delay_rounds > 0):
+        w = w + state["dw"]
+    return _finalize(setup, state["alpha"], w, state["gaps"], epochs,
+                     state["epsb"], state["actb"], state["delayb"])
+
+
+def _check_pipeline_chaos(*, record, watchdog, fault, pod_on):
+    """The resilience knobs, the reference's checks: the watchdog reads
+    the records, and the drop and dup faults hit the cross-pod merge."""
+    if watchdog and not record:
+        raise ValueError(
+            "watchdog=True requires record=True: the divergence test "
+            "keys on the recorded gap/eps schedule")
+    if fault is None:
+        return None
+    fault = tuple(int(v) for v in fault)
+    if len(fault) != 3:
+        raise ValueError("fault must be (nan_epoch, drop_epoch, "
+                         "dup_epoch), -1 disabling each")
+    if not pod_on and (fault[1] >= 0 or fault[2] >= 0):
+        raise ValueError(
+            "drop/dup merge faults target the cross-pod merge and need "
+            "a pod mesh; on a single-pod mesh only the NaN-psum fault "
+            "is meaningful")
+    return fault
+
+
+def _merge_fault(fault, e: int):
+    """The armed faults of epoch ``e``'s cross-pod merge g, in the
+    reference's order (NaN, drop, dup), as a function of g; None when
+    none is armed there."""
+    if fault is None or e not in fault:
+        return None
+    nan_e, drop_e, dup_e = fault
+
+    def hit(g):
+        if e == nan_e:
+            g = g + float("nan")
+        if e == drop_e:
+            g = g * 0.0
+        if e == dup_e:
+            g = g * 2.0
+        return g
+
+    return hit
+
+
+def _bad_count(alpha, w_view):
+    """The watchdog's census: each task's count of non-finite entries
+    of α and of the primal view, (K,)."""
+    K = alpha.shape[0]
+    return ((~torch.isfinite(alpha)).sum(1)
+            + (~torch.isfinite(w_view)).reshape(K, -1).sum(1))
+
+
+def _engines(setup: SolverSetup, X, workspaces, overlap: bool):
+    """A segment's closures over the dataset ``X`` (``setup.X``, or a
+    copy the fault harness poisoned): the round's block engine, the
+    overlapped round's split phases, the record's gap and the shrink
+    mask with the rows' validity."""
+    overlap_fns = None
+    if setup.two_d:
+        cols, vals = X
+        engine = functools.partial(
+            _block_update_2d(setup.loss, setup.fused, workspaces[0],
+                             setup.n_loc, setup.Y), cols, vals,
+            setup.sq_norms)
+        if overlap:
+            overlap_fns = _overlap_round_fns(cols, vals, setup.sq_norms,
+                                             setup.loss, setup.n_loc,
+                                             setup.Y)
+        gap = _make_gap_2d(setup.loss, cols, vals, segments=setup.segs)
+    else:
+        engine = functools.partial(
+            _block_update_1d(setup.loss, setup.ell, setup.n_loc, setup.Y),
+            X, setup.sq_norms)
+        gap = _make_gap_1d(setup.loss, X, setup.ell, setup.w_shape[0],
+                           segments=setup.segs)
+    shrink = _make_shrink(setup, X) if setup.tuning.shrink_every else None
+    return engine, overlap_fns, gap, shrink
+
+
+def build_pipeline(setup: SolverSetup, *, epochs: int,
+                   total_epochs: int | None = None, blocks=None,
+                   watchdog: bool = False, watchdog_blowup: float = 4.0,
+                   watchdog_floor: float = 1e-3, fault=None,
+                   delay_rounds=None, pod_delay_rounds=None,
+                   overlap_on=None):
+    """The segment runner: ``run(X, state) → state`` advances a
+    ``SolverState`` by ``epochs`` epochs of a ``total_epochs`` schedule,
+    from the global epoch ``state["epoch"]`` (``_epoch_scan``), so chained
+    segments are the whole solve bit for bit.  ``X`` is ``setup.X`` or a
+    poisoned copy of it.  ``watchdog`` adds the sticky health code;
+    ``fault`` is the (nan_epoch, drop_epoch, dup_epoch) triple (−1 off,
+    global epochs); ``delay_rounds``/``pod_delay_rounds``/``overlap_on``
+    override the setup's knobs for a degraded retry.  ``blocks=`` is an
+    explicit schedule of all ``total_epochs`` epochs."""
+    total = int(epochs if total_epochs is None else total_epochs)
+    kn = _segment_knobs(setup, delay_rounds, pod_delay_rounds, overlap_on)
+    fault = _check_pipeline_chaos(record=setup.record, watchdog=watchdog,
+                                  fault=fault, pod_on=setup.pod_on)
+    draw = _block_draw(setup, blocks, total)
+    workspaces = _workspaces(setup) if setup.two_d else None
+    wd = (float(watchdog_blowup), float(watchdog_floor)) if watchdog else None
+
+    def run(X, state):
+        e0 = int(state["epoch"])
+        if e0 + epochs > total:
+            raise ValueError(f"a segment of {epochs} epochs from epoch "
+                             f"{e0} runs past the schedule's {total}")
+        engine, overlap_fns, gap, shrink = _engines(setup, X, workspaces,
+                                                    kn.overlap)
+        return _epoch_scan(setup, state, e0=e0, epochs=epochs, total=total,
+                           kn=kn, engine=engine, gap=gap, draw=draw,
+                           shrink=shrink, overlap_fns=overlap_fns,
+                           workspaces=workspaces, watchdog=wd, fault=fault)
+
+    return run
+
+
+def _epoch_scan(setup: SolverSetup, state: dict, *, e0: int, epochs: int,
+                total: int, kn: _Knobs, engine, gap, draw, shrink=None,
+                overlap_fns=None, workspaces=None, watchdog=None,
+                fault=None) -> dict:
+    """The epoch loop (the reference's ``_epoch_scan`` under its task
+    vmap) over the global epochs e0 … e0 + epochs − 1 of a ``total``
+    schedule, from and to a ``SolverState``: split the carried key, draw
+    each epoch's blocks, run its rounds — the static ``_scan_rounds``,
+    the self-tuning ``_scan_rounds_dyn`` or the overlapped
+    ``_scan_rounds_overlap`` (whose in-flight aggregate crosses epochs
+    and is rebuilt at entry from the carried (w, key) through the peek of
+    the next draw) — and record each task's gap, ‖w(α) − ŵ‖, active
+    fraction and delay flag into the (K, slots) device buffers.  Every
+    decision keys on the global epoch: the record slots, the shrink
+    schedule, the final unshrunk epoch and the armed faults.  Shrinking
     recomputes each task's mask every ``shrink_every`` epochs (the final
     epoch runs unshrunk); repacking draws a task's epoch over its
     compacted active set when its fraction, summed over the shards, is
     below the threshold, and that task runs as many rounds as its
     largest shard's count needs.  The tasks' counts are read on the host
-    together, once an epoch, the solve's only sync (counted in
+    together, once an epoch, the solve's only sync besides the
+    watchdog's once a segment (counted in
     ``sharded_passcode_solve.host_reads``): the epoch runs the largest,
     a task past its own keeping its state.  The rounds run per epoch are
-    kept in ``sharded_passcode_solve.epoch_rounds`` and each task's in
-    ``task_rounds``.  The adaptive delay lowers each task's device flag
-    at records (one-way), and with shrinking a hard stall turns that
+    appended to ``sharded_passcode_solve.epoch_rounds`` and each task's
+    to ``task_rounds``.  The adaptive delay lowers each task's device
+    flag at records (one-way), and with shrinking a hard stall turns that
     task's repacking off for good.  On a pod mesh every epoch is the
     Hybrid-DCA outer round (``_pod_epoch``), the adaptive flag the pod
-    FIFO's latch.  Returns (α, w, Δw in flight, gaps, eps, active,
-    delay)."""
-    st, dev, K = setup.tuning, w.device, setup.K
+    FIFO's latch.  ``watchdog`` ((blowup, floor)) folds each record's
+    ``watchdog_trip`` code into the sticky (K,) ``health``, the healthy
+    baselines ``gph``/``eph`` advancing on clean records only;
+    ``fault``'s NaN poisons w after the rounds on one pod, and on a pod
+    mesh the faults hit the merge g before the FIFO.  The state handed
+    in is not modified."""
+    c = dict(state)
+    tn, K = setup.tuning, setup.K
     solve = sharded_passcode_solve
-    solve.epoch_rounds, solve.task_rounds = [], []
-    n_gaps = _gap_slots(epochs, setup.gap_every) if setup.record else 0
-    gaps, epsb, actb, delayb = (torch.zeros((K, n_gaps), dtype=torch.float32,
-                                            device=dev) for _ in range(4))
-    shrink_on, adaptive = st.shrink_every > 0, st.adaptive
-    dyn = (shrink_on or adaptive) and not setup.overlap and not setup.pod_on
-    # the delay flag's start: the inner delay, or on a pod mesh whether
-    # the pod merge starts delayed
-    delay0 = (int(setup.pod_delay_rounds > 0) if setup.pod_on
-              else setup.delay_rounds)
-    fifo = (torch.zeros((K, setup.pod_delay_rounds, *w.shape[1:]),
-                        dtype=torch.float32, device=dev)
-            if setup.pod_on else None)
-    dw = torch.zeros_like(w)
-    dwo = torch.zeros((K, setup.p, *w.shape[1:]), dtype=torch.float32,
-                      device=dev) if dyn else None
+    shrink_on, adaptive = tn.shrink_every > 0, tn.adaptive
+    alpha, w, dw = c["alpha"], c["w"], c["dw"]
+    dwo, fifo = c.get("dwo"), c.get("pbuf")
+    key = c["key"][0]  # the tasks share one chain
+    # the record buffers are written in place: copies, so a rollback's
+    # snapshot of the state handed in stays as it was
+    recs = {k: c[k].clone() for k in ("gaps", "epsb", "actb", "delayb")}
+    slot = int(c["slot"][0])
     if shrink_on:
-        mask_fn, valid = _make_shrink(setup)
-        act, frac = valid.expand(K, -1), torch.ones((K,), device=dev)
-        nrun = torch.full((K,), setup.n_blocks, device=dev)
-        rp = torch.zeros((K,), dtype=torch.bool, device=dev)
+        mask_fn, valid = shrink
+        act, frac, nrun, rp = c["act"], c["frac"], c["nrun"], c["rp"]
     if adaptive:
-        delay = torch.full((K,), delay0, dtype=torch.int32, device=dev)
-        gapprev = torch.full((K,), float("inf"), device=dev)
-        rpok = torch.ones((K,), dtype=torch.int32, device=dev)
+        delay, gapprev, rpok = c["delay"], c["gapprev"], c.get("rpok")
+    if watchdog is not None:
+        health, gph, eph = c["health"], c["gph"], c["eph"]
     inflight = None
-    if setup.overlap:
-        first = draw(0, act, rp) if shrink_on else draw(0)
-        inflight = (*overlap_fns[0](w, first[0], workspaces[0]),
+    if kn.overlap:
+        # the in-flight (base, Gram) the previous epoch issued for this
+        # one's first block, against the carried w: the draw's peek
+        sub0 = prng.split(key)[1]
+        first = (draw(e0, sub0, valid.expand(K, -1), torch.zeros_like(rp))
+                 if shrink_on else draw(e0, sub0))[0]
+        inflight = (*overlap_fns[0](w, first, workspaces[0]),
                     workspaces[0])
-    slot = 0
-    for e in range(epochs):
-        final = e == epochs - 1
+    for e in range(e0, e0 + epochs):
+        key, sub = prng.split(key)
+        final = e == total - 1
         n_run, act_run, runs, n_all = setup.n_blocks, None, None, 0
         if shrink_on:
-            if e % st.shrink_every == 0:
+            if e % tn.shrink_every == 0:
                 act = mask_fn(alpha, w + dw)
                 cnt = act.view(K, setup.p, setup.n_loc).sum(2)
                 frac = cnt.sum(1).float() / setup.n
-                if st.repack:
+                if tn.repack:
                     rp = frac < setup.repack_threshold
                     nrun = torch.clamp(
                         -(-cnt.max(1).values // setup.block_size), 1,
-                        setup.n_blocks)
+                        setup.n_blocks).to(torch.int32)
             act_run = (valid if final else act).float()
             use_rp = rp & (not final)
             if adaptive:
                 use_rp = use_rp & (rpok > 0)
-            blocks = draw(e, torch.where(use_rp[:, None], act, valid),
+            blocks = draw(e, sub, torch.where(use_rp[:, None], act, valid),
                           use_rp)
-            if st.repack:
+            if tn.repack:
                 # the tasks' round counts, read on the host together: one
                 # sync an epoch, and none a round
                 runs = torch.where(use_rp, nrun, setup.n_blocks)
@@ -1200,32 +1527,40 @@ def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
                 n_run, n_all = max(counts), min(counts)
                 solve.task_rounds.append(counts)
         else:
-            blocks = draw(e)
+            blocks = draw(e, sub)
         if runs is None:
             solve.task_rounds.append([n_run] * K)
         solve.epoch_rounds.append(n_run)
-        delay_flag = delay if adaptive else delay0
+        delay_flag = delay if adaptive else kn.delay0
         if setup.pod_on:
-            alpha, w, fifo = _pod_epoch(setup, engine, alpha, w, blocks,
-                                        fifo, delay if adaptive else None)
-        elif setup.overlap:
-            nxt = (draw(e + 1, valid.expand(K, -1), torch.zeros_like(rp))
-                   if shrink_on else draw(e + 1))[0]
+            alpha, w, fifo = _pod_epoch(
+                setup, engine, alpha, w, blocks, fifo,
+                delay if adaptive else None, delay_rounds=kn.delay_rounds,
+                pod_delay_rounds=kn.pod_delay_rounds,
+                hit=_merge_fault(fault, e))
+        elif kn.overlap:
+            sub_next = prng.split(key)[1]  # the next epoch's subkey
+            nxt = (draw(e + 1, sub_next, valid.expand(K, -1),
+                        torch.zeros_like(rp))
+                   if shrink_on else draw(e + 1, sub_next))[0]
             alpha, w, dw, inflight = _scan_rounds_overlap(
                 *overlap_fns, alpha, w, dw, blocks, inflight, nxt,
                 workspaces, act_run)
-        elif dyn:
+        elif kn.dyn:
             alpha, w, dw, dwo = _scan_rounds_dyn(
                 engine, alpha, w, dw, dwo, blocks, act_run, n_run,
                 delay_flag, runs if n_all < n_run else None, n_all)
         else:
             alpha, w, dw = _scan_rounds(engine, alpha, w, dw, blocks,
-                                        setup.delay_rounds)
+                                        kn.delay_rounds)
+        if fault is not None and not setup.pod_on and e == fault[0]:
+            w = w + float("nan")  # a poisoned psum reaching w
         if setup.record and ((e + 1) % setup.gap_every == 0 or final):
-            g, eps = _task_gaps(gap, alpha, w + dw, setup.Y, setup.segs)
-            gaps[:, slot], epsb[:, slot] = g, eps
-            actb[:, slot] = frac if shrink_on else 1.0
-            delayb[:, slot] = delay_flag
+            w_view = w + dw
+            g, eps = _task_gaps(gap, alpha, w_view, setup.Y, setup.segs)
+            recs["gaps"][:, slot], recs["epsb"][:, slot] = g, eps
+            recs["actb"][:, slot] = frac if shrink_on else 1.0
+            recs["delayb"][:, slot] = delay_flag
             if adaptive:
                 # each task's gap-trend controller, through a one-way latch
                 new_flag = adaptive_delay_policy(
@@ -1235,14 +1570,35 @@ def _epoch_scan(setup: SolverSetup, engine, gap, draw, alpha, w, *,
                     # the sticky repack guard keys on a hard stall
                     rpok = rpok * adaptive_delay_policy(gapprev, g)
                 gapprev = g
+            if watchdog is not None:
+                code = watchdog_trip(gph, g, eph, eps,
+                                     _bad_count(alpha, w_view),
+                                     blowup=watchdog[0], floor=watchdog[1])
+                ok = code == 0
+                health = torch.maximum(health, code)
+                gph, eph = torch.where(ok, g, gph), torch.where(ok, eps, eph)
             slot += 1
-    if setup.pod_on and setup.pod_delay_rounds:
-        dw = fifo.sum(1)  # the merges still in flight, to flush
-    return alpha, w, dw, gaps, epsb, actb, delayb
+    c.update(recs, alpha=alpha, w=w, dw=dw, key=key.expand(K, 2).clone(),
+             slot=torch.full((K,), slot, dtype=torch.int32),
+             epoch=torch.tensor(e0 + epochs, dtype=torch.int32))
+    if dwo is not None:
+        c["dwo"] = dwo
+    if fifo is not None:
+        c["pbuf"] = fifo
+    if shrink_on:
+        c.update(act=act, frac=frac, nrun=nrun, rp=rp)
+    if adaptive:
+        c.update(delay=delay, gapprev=gapprev)
+        if rpok is not None:
+            c["rpok"] = rpok
+    if watchdog is not None:
+        c.update(health=health, gph=gph, eph=eph)
+    return c
 
 
 def _pod_epoch(setup: SolverSetup, engine, alpha, w, blocks, fifo,
-               latch=None):
+               latch=None, *, delay_rounds: int, pod_delay_rounds: int,
+               hit=None):
     """One Hybrid-DCA outer round (the reference's pod branch of
     ``_epoch_scan``): from the merged snapshot (α₀, w₀) every pod runs
     its epoch's rounds on its own view of w, from a zero Δw carry, and
@@ -1251,17 +1607,18 @@ def _pod_epoch(setup: SolverSetup, engine, alpha, w, blocks, fifo,
     g = (1/P)·Σ_pods Δw_pod, summed in pod order, lands now
     (``pod_delay_rounds`` 0) or enters the FIFO (K, delay, *w) while its
     head lands.  ``latch`` (the adaptive delay's (K,) flags) drains a
-    task's whole FIFO and merges synchronously once its flag is 0.  At
-    P = 1 the merge's scale is 1 and the pod's own α₁ stands (and, at
-    delay 0, w₁): the identity without the round trip's rounding.
+    task's whole FIFO and merges synchronously once its flag is 0.
+    ``hit`` (the fault harness) rewrites g before the FIFO.  At P = 1 the
+    merge's scale is 1 and the pod's own α₁ stands (and, at delay 0 and
+    with no fault, w₁): the identity without the round trip's rounding.
     Returns (α, w, FIFO)."""
     P, K = setup.pods, alpha.shape[0]
     a0, w0 = alpha, w
     wv = w0 if P == 1 else w0[:, None].expand(K, P, *w0.shape[1:])
     a1, w1, dwi = _scan_rounds(engine, a0, wv.contiguous(),
-                               torch.zeros_like(wv), blocks,
-                               setup.delay_rounds, P)
-    if setup.delay_rounds > 0:
+                               torch.zeros_like(wv), blocks, delay_rounds,
+                               P)
+    if delay_rounds > 0:
         w1 = w1 + dwi  # the pod's inner rounds end synchronous
     if P == 1:
         alpha, g = a1, w1 - w0
@@ -1269,8 +1626,10 @@ def _pod_epoch(setup: SolverSetup, engine, alpha, w, blocks, fifo,
         scale = 1.0 / P
         alpha = a0 + scale * (a1 - a0)
         g = scale * (w1 - w0[:, None]).sum(1)
-    if not setup.pod_delay_rounds:
-        return alpha, (w1 if P == 1 else w0 + g), fifo
+    if hit is not None:
+        g = hit(g)
+    if not pod_delay_rounds:
+        return alpha, (w1 if P == 1 and hit is None else w0 + g), fifo
     w_async = w0 + fifo[:, 0]
     fifo_async = torch.cat([fifo[:, 1:], g[:, None]], 1)
     if latch is None:
@@ -1279,6 +1638,31 @@ def _pod_epoch(setup: SolverSetup, engine, alpha, w, blocks, fifo,
     w = torch.where(sync, w0 + fifo.sum(1) + g, w_async)
     fifo = torch.where(sync[:, None], torch.zeros_like(fifo), fifo_async)
     return alpha, w, fifo
+
+
+def solver_mouth(X_host, loss, *, y=None, device=None,
+                 pipeline: bool = True, **knobs) -> SolverSetup:
+    """The solve's inputs validated and placed (``prepare_solver``) on
+    ``device``, the card by default: (n,) ±1 labels ``y`` are checked
+    and folded into X; a (K, n) ``y`` is the multi-task solve's label
+    matrix, checked and kept apart.  ``knobs`` are
+    ``prepare_solver``'s."""
+    dev = resolve_device(device)
+    # a (K, n) label matrix is the multi-task solve: not folded into X
+    multitask = y is not None and len(getattr(y, "shape", ())) == 2
+    X_host = X_host.to(dev) if isinstance(X_host, EllMatrix) else \
+        torch.as_tensor(X_host, dtype=torch.float32, device=dev)
+    if multitask:
+        y = _validate_multitask_labels(X_host, y)
+        X_host = _validate_solver_inputs(X_host, None, loss)
+        if not pipeline:
+            raise ValueError(
+                "a multi-task solve needs pipeline=True (see "
+                "repro_torch.dist.mesh.task_axis_policy)")
+    else:
+        X_host = _validate_solver_inputs(X_host, y, loss)
+    return prepare_solver(X_host, loss, y=y if multitask else None,
+                          pipeline=pipeline, device=dev, **knobs)
 
 
 def sharded_passcode_solve(
@@ -1348,60 +1732,27 @@ def sharded_passcode_solve(
     a multi-task solve with ``pipeline=False`` raises the reference's
     ``ValueError``.
     """
-    dev = resolve_device(device)
-    # a (K, n) label matrix is the multi-task solve: not folded into X
-    multitask = y is not None and len(getattr(y, "shape", ())) == 2
-    X_host = X_host.to(dev) if isinstance(X_host, EllMatrix) else \
-        torch.as_tensor(X_host, dtype=torch.float32, device=dev)
-    if multitask:
-        y = _validate_multitask_labels(X_host, y)
-        X_host = _validate_solver_inputs(X_host, None, loss)
-        if not pipeline:
-            raise ValueError(
-                "a multi-task solve needs pipeline=True (see "
-                "repro_torch.dist.mesh.task_axis_policy)")
-    else:
-        X_host = _validate_solver_inputs(X_host, y, loss)
-    setup = prepare_solver(
-        X_host, loss, mesh=mesh, mesh_axes=mesh_axes,
-        y=y if multitask else None, block_size=block_size,
-        delay_rounds=delay_rounds, pod_delay_rounds=pod_delay_rounds,
-        seed=seed, record=record, use_kernel=use_kernel,
-        gap_every=gap_every, pipeline=pipeline, overlap=overlap,
-        shrink_every=shrink_every, shrink_tol=shrink_tol, repack=repack,
-        repack_threshold=repack_threshold, adaptive=adaptive,
-        adaptive_ratio=adaptive_ratio, device=dev)
-    draw = _block_schedule(setup, blocks, epochs)
-    alpha, w = _init_alpha_w(setup, alpha0, w0)
-    overlap_fns = workspaces = None
-    if setup.two_d:
-        cols, vals = setup.X
-        workspaces = _workspaces(setup)
-        engine = functools.partial(
-            _block_update_2d(setup.loss, setup.fused, workspaces[0],
-                             setup.n_loc, setup.Y), cols, vals,
-            setup.sq_norms)
-        if setup.overlap:
-            overlap_fns = _overlap_round_fns(cols, vals, setup.sq_norms,
-                                             setup.loss, setup.n_loc,
-                                             setup.Y)
-        gap = _make_gap_2d(setup.loss, cols, vals, segments=setup.segs)
-    else:
-        engine = functools.partial(
-            _block_update_1d(setup.loss, setup.ell, setup.n_loc, setup.Y),
-            setup.X, setup.sq_norms)
-        gap = _make_gap_1d(setup.loss, setup.X, setup.ell, setup.w_shape[0],
-                           segments=setup.segs)
-    alpha, w, dw, gaps, eps, active, delay = _epoch_scan(
-        setup, engine, gap, draw, alpha, w, epochs=epochs,
-        overlap_fns=overlap_fns, workspaces=workspaces)
-    st = setup.tuning
-    if (setup.delay_rounds > 0 or st.shrink_every or st.adaptive
-            or setup.pod_delay_rounds > 0):
-        w = w + dw  # flush the in-flight aggregate (0 when synchronous)
-    return _finalize(setup, alpha, w, gaps, epochs, eps, active, delay)
+    setup = solver_mouth(
+        X_host, loss, y=y, device=device, mesh=mesh, mesh_axes=mesh_axes,
+        block_size=block_size, delay_rounds=delay_rounds,
+        pod_delay_rounds=pod_delay_rounds, seed=seed, record=record,
+        use_kernel=use_kernel, gap_every=gap_every, pipeline=pipeline,
+        overlap=overlap, shrink_every=shrink_every, shrink_tol=shrink_tol,
+        repack=repack, repack_threshold=repack_threshold,
+        adaptive=adaptive, adaptive_ratio=adaptive_ratio)
+    # one segment of the carried-state machinery (``build_pipeline``)
+    # that ``repro_torch.resilience.solve_segmented`` runs in several
+    sharded_passcode_solve.epoch_rounds = []
+    sharded_passcode_solve.task_rounds = []
+    st = init_pipeline_state(setup, total_epochs=epochs, alpha0=alpha0,
+                             w0=w0)
+    st = build_pipeline(setup, epochs=epochs, blocks=blocks)(setup.X, st)
+    return finalize_state(setup, st, epochs=epochs)
 
 
+# the host reads of the solver's device state (the repacked round counts
+# once an epoch, the segmented solve's health code once a segment), and
+# the rounds run per epoch of the last solve, in all and per task
 sharded_passcode_solve.host_reads = 0
 sharded_passcode_solve.epoch_rounds = []
 sharded_passcode_solve.task_rounds = []

@@ -582,6 +582,49 @@ def adaptive_delay_policy(gap_prev, gap_new, *, improve_ratio: float = 0.95):
     return (gap_new <= improve_ratio * gap_prev).to(torch.int32)
 
 
+def watchdog_trip(gap_prev, gap_new, eps_prev, eps_new, n_bad, *,
+                  blowup: float = 4.0, floor: float = 1e-3):
+    """The divergence watchdog of the segmented solve, the reference's
+    rule: from the last *healthy* record's (gap, ε) — +inf before the
+    first, which then only sets the baseline — the fresh record and
+    ``n_bad``, the count of non-finite entries in (α, ŵ), an int32 code
+    a task:
+
+      0  healthy — the record becomes the next baseline;
+      1  divergence trend — the gap or ε past ``blowup`` × its last
+         healthy value + ``floor`` (the floor keeps float noise around a
+         converged ε of ~1e-7 from tripping; a dropped or doubled pod
+         merge moves ε by O(‖Δw‖));
+      2  non-finite — anything NaN/Inf in α, ŵ, the gap or ε.
+
+    Elementwise torch ops on (K,) tensors: the solver keeps the code on
+    the device and latches its max, and the host reads it once a
+    segment."""
+    nonfin = ((n_bad > 0) | ~torch.isfinite(gap_new)
+              | ~torch.isfinite(eps_new))
+    div = ((gap_new > blowup * gap_prev + floor)
+           | (eps_new > blowup * eps_prev + floor))
+    return torch.where(nonfin, 2, torch.where(div, 1, 0)).to(torch.int32)
+
+
+def degrade_ladder(rung: int, *, delay_rounds: int, pod_delay_rounds: int,
+                   overlap) -> dict:
+    """Which asynchrony a retry of a tripped segment may keep, the
+    reference's ladder.  Rung 0 replays with the solve's own knobs (a
+    transient fault: the replay from the healthy boundary is the
+    fault-free solve bit for bit).  Rung 1, once a same-knob replay trips
+    again, is synchronous: ``delay_rounds`` 0, the pod FIFO drained
+    (``pod_delay_rounds`` 0) and no overlap — every source of staleness
+    removed.  Rungs are sticky and the retries bounded; past them the
+    solve raises ``SolverDiverged``."""
+    if rung <= 0:
+        return {"rung": 0, "delay_rounds": int(delay_rounds),
+                "pod_delay_rounds": int(pod_delay_rounds),
+                "overlap": overlap}
+    return {"rung": 1, "delay_rounds": 0, "pod_delay_rounds": 0,
+            "overlap": False}
+
+
 class SelfTuning(NamedTuple):
     """Resolved self-tuning configuration of one solve (see
     ``resolve_self_tuning``)."""

@@ -8,6 +8,8 @@ PyTorch is installed (see the README for the command).  Tolerance atol
 scatters with atomics in no fixed order.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -33,10 +35,13 @@ from repro_torch.dist.mesh import (
     dcd_tile_plan,
     feature_update_plan,
     gram_plan,
+    SolverMesh,
+    solver_mesh,
     solver_mesh_2d,
 )
 from repro_torch.kernels import dcd_feature as feat
 from repro_torch.kernels.dcd_ell import dcd_ell_epoch, dcd_ell_epoch_plain
+from repro_torch.resilience import FaultPlan, solve_segmented
 
 LOSSES = ["hinge", "squared_hinge", "logistic"]
 ATOL = 1e-5
@@ -1242,3 +1247,47 @@ def test_baselines_on_the_card_match_cpu_path(solver):
         _close(on_card.w, on_cpu.w)
     np.testing.assert_allclose(on_card.gaps.numpy(), on_cpu.gaps.numpy(),
                                rtol=1e-5, atol=1e-4)
+
+
+SEGMENTED_MESHES = {
+    "1d": dict(mesh=solver_mesh(n_devices=2), delay_rounds=1),
+    "2d_overlap": dict(mesh=solver_mesh_2d(model=2), delay_rounds=1),
+    "pod": dict(mesh=SolverMesh(("pod", "data"), (2, 2)),
+                pod_delay_rounds=1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(SEGMENTED_MESHES))
+def test_segmented_on_the_card_bit_identical(kind, tmp_path):
+    """On the card (B1 on the 1-D and pod meshes, B4 + B5 overlapped on
+    the 2-D one): segmented against whole, a resume against the
+    uninterrupted run and a NaN fault replayed against the clean run —
+    α and ŵ bit for bit; the gaps at rtol 1e-6, as the gap's sum adds
+    with float atomics."""
+    dev = _cuda()
+    X = make_dataset("tiny", device="cpu").X_train.to(dev)
+    kw = dict(epochs=4, block_size=16, seed=4, device=dev,
+              **SEGMENTED_MESHES[kind])
+
+    def same(a, b):
+        assert torch.equal(a.alpha, b.alpha) and torch.equal(a.w_hat,
+                                                             b.w_hat)
+        np.testing.assert_allclose(a.gaps.cpu().numpy(),
+                                   b.gaps.cpu().numpy(), rtol=1e-6, atol=0)
+
+    whole = sharded_passcode_solve(X, td.Hinge(), **kw)
+    seg = solve_segmented(X, td.Hinge(), checkpoint_every=1,
+                          ckpt_dir=str(tmp_path), keep=10, **kw)
+    assert seg.attempts == (1,) * 4 and seg.health == 0
+    same(whole, seg.result)
+    for s in (2, 3, 4):
+        shutil.rmtree(tmp_path / f"ckpt_{s}")
+    res = solve_segmented(X, td.Hinge(), checkpoint_every=1, resume=True,
+                          ckpt_dir=str(tmp_path), keep=10, **kw)
+    assert res.resumed_from == 1 and res.attempts == (1, 1, 1)
+    same(whole, res.result)
+    fault = solve_segmented(X, td.Hinge(), checkpoint_every=2,
+                            fault_plan=FaultPlan(nan_psum_epoch=2), **kw)
+    assert fault.attempts == (1, 2) and fault.rollbacks == 1
+    same(whole, fault.result)

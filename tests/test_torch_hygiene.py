@@ -28,7 +28,8 @@ from repro_torch.core.sharded import sharded_passcode_solve
 from repro_torch.data.labels import ovr_labels
 from repro_torch.data.sparse import dense_to_ell
 from repro_torch.data.synthetic import make_dataset, make_paper_split
-from repro_torch.dist.mesh import solver_mesh_2d
+from repro_torch.dist.mesh import SolverMesh, solver_mesh_2d
+from repro_torch.resilience import solve_segmented
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -71,6 +72,11 @@ ENTRY_POINTS = {
         mesh=solver_mesh_2d(model=2)),
     "sharded_passcode_solve_multitask": lambda: sharded_passcode_solve(
         torch.ones((4, 2)), td.Hinge(), epochs=1, y=np.ones((3, 4))),
+    "solve_segmented": lambda: solve_segmented(
+        torch.ones((4, 2)), td.Hinge(), epochs=2, checkpoint_every=1),
+    "solve_segmented_pods": lambda: solve_segmented(
+        torch.ones((4, 2)), td.Hinge(), epochs=2, checkpoint_every=1,
+        mesh=SolverMesh(("pod", "data"), (2, 1))),
     "ovr_labels": lambda: ovr_labels([0, 1, 2]),
     "labels_from_numpy": lambda: labels_from_numpy(np.ones((2, 3))),
 }
@@ -82,6 +88,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(name,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
+
+
+def test_solve_segmented_runs_on_cpu_when_asked(tmp_path, monkeypatch):
+    """Without a card, ``device="cpu"`` runs the segmented solve, its
+    checkpoints and a resume, and nothing reaches for CUDA."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(epochs=2, checkpoint_every=1, ckpt_dir=str(tmp_path),
+              block_size=2, device="cpu")
+    r = solve_segmented(torch.ones((4, 2)), td.Hinge(), **kw)
+    again = solve_segmented(torch.ones((4, 2)), td.Hinge(), resume=True,
+                            **kw)
+    assert r.attempts == (1, 1) and again.resumed_from == 2
+    assert r.result.alpha.device.type == "cpu"
 
 
 @pytest.mark.parametrize("twin", ["quickstart_torch",
