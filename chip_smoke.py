@@ -162,7 +162,34 @@ result line):
    mesh (its uninterrupted run's bits) and onto (4, 2) (its last gap at
    most 2× the uninterrupted (4, 2) run's + 1e-3); then the phase's
    seconds;
-6. one JSON line of per-kernel numbers (with each kernel's variant, and
+6. the serving phase (``serve_phase``; ``repro_torch.serve`` at rcv1's
+   full width, each path counted as a main path): a snapshot booted by
+   ``load_snapshot`` from the checkpoint of a 2-epoch segmented rcv1
+   solve at p = 8 (its ``w_pad[:d]`` and α the solve's bits);
+   ``SERVE_ROWS`` rcv1 rows picked by the seed scored through ``submit``
+   and ``step`` and held to a float64 host dot product at atol 1e-5 +
+   1e-6·Σ|w_j x_j|; the threaded engine under a closed loop of 192
+   requests in flight (20,000 requests, ``max_batch`` 64, queue depth
+   512: p50, p99, requests/s, batches, rung steps; one dispatch's device
+   time from CUDA events and one ``step()``'s wall time); a flood of
+   3,000 requests at queue depth 32 and a 10 ms deadline (every ticket
+   terminal, served + shed = submitted); 10 publishes of ŵ plus a seeded
+   perturbation during 11,000 requests (nothing dropped, every version a
+   published one, no batch version-mixed, every score held to its
+   version's w on the host; the pauses) and one publish at webspam's
+   width (d = 16,609,143) during 256 webspam rows; an
+   ``IncrementalTrainer`` over rcv1 at p = 8 fitted for 2 epochs, the
+   ``SERVE_ROWS`` rows ingested with flipped labels tripping the drift
+   re-solve over 681,495 rows (its gap below a 2-epoch solve from
+   scratch, the append's time); a persistent NaN on rcv1's first
+   ``PASSCODE_ROWS`` rows giving up (nothing published, X, α and w kept,
+   the reference's ledger) and a transient one recovering in one retry;
+   the one-vs-rest trainer, K = 53 at p = 8, fitted for 1 epoch, 1,024
+   rows scored in one dispatch against the (53, d + 1) stack (labels the
+   argmax, margins held to the host), the ``SERVE_ROWS`` rows appended
+   with their class ids and re-solved (α (53, 681,495)), published and
+   scored again; then the phase's seconds;
+7. one JSON line of per-kernel numbers (with each kernel's variant, and
    B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
    ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
@@ -678,6 +705,471 @@ def resilience_phase(torch, dev, run_path, X_rcv1, X_cov, X_web, Y_cov,
         save, restore, health)
     shutil.rmtree(ckroot, ignore_errors=True)
     print(f"  resilience phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+SERVE_ROWS = 4096  # rcv1 rows scored against the host, and appended
+
+
+def serve_phase(torch, dev, run_path, X_rcv1, X_web, ids_rcv1):
+    """The serving engine (``repro_torch.serve``) at rcv1's full width:
+    a snapshot booted from a checkpoint of the segmented solve, scores
+    held to a float64 host dot product, the threaded engine's latency
+    under a closed loop, an overload flood, hot-swaps under live traffic
+    (and one publish at webspam's width), a drift-triggered warm-start
+    re-solve against a solve from scratch, the watchdog's give-up and
+    the transient retry, and the one-vs-rest model (K = 53).  Every
+    re-solve is B1 over the shard grid (p = 8) or the task grid, counted
+    through ``run_path``; the scoring is the engine's plain gather and
+    sum, which launches no kernel of the port."""
+    import shutil
+    from collections import deque
+
+    import numpy as np
+
+    from repro_torch.core import duals
+    from repro_torch.core.sharded import _n_blocks
+    from repro_torch.data.sparse import EllMatrix, ell_append
+    from repro_torch.dist.mesh import solver_mesh
+    from repro_torch.resilience import FaultPlan, solve_segmented
+    from repro_torch.serve import (
+        IncrementalTrainer,
+        RequestShed,
+        ScoreOutcome,
+        ServeEngine,
+        SnapshotStore,
+        load_snapshot,
+        make_snapshot,
+        snapshot_from_result,
+    )
+    from repro_torch.serve.engine import score_batch
+
+    t_phase = time.perf_counter()
+    hinge1 = duals.Hinge(1.0)
+    n_r, k_r, d_r = X_rcv1.n_rows, X_rcv1.k_max, X_rcv1.n_features
+    mesh8 = solver_mesh(n_devices=8)
+
+    def nb8(n):
+        return _n_blocks(-(-n // 8), B)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    pick = torch.randperm(n_r, generator=gen, device=dev)[:SERVE_ROWS]
+    picked = EllMatrix(X_rcv1.indices[pick], X_rcv1.values[pick], d_r)
+
+    def host_rows(X, rows=None):
+        """[(cols, vals), ...] of X's rows on the host, padding dropped."""
+        idx = (X.indices if rows is None else X.indices[rows]).cpu().numpy()
+        val = (X.values if rows is None else X.values[rows]).cpu().numpy()
+        keep = idx < X.n_features
+        return [(i[m], v[m]) for i, v, m in zip(idx, val, keep)]
+
+    def host_w(snap):
+        return snap.w_pad.double().cpu().numpy()
+
+    def held(outs, reqs, w_of):
+        """Largest error of each outcome's score (and margins) against a
+        float64 host dot product with the w of its version, failing past
+        atol 1e-5 + 1e-6·Σ|w_j x_j|."""
+        err = 0.0
+        for o, (c, v) in zip(outs, reqs):
+            w = w_of(o.version)
+            w2 = w if w.ndim == 2 else w[None]
+            prod = w2[:, c] * v.astype(np.float64)
+            ref, mag = prod.sum(1), np.abs(prod).sum(1)
+            got = np.asarray(o.margins if w.ndim == 2 else [o.score])
+            e = np.abs(got - ref)
+            if not bool((e <= 1e-5 + 1e-6 * mag).all()):
+                fail(f"serve: a score differs from the host's by "
+                     f"{float(e.max())} (version {o.version})")
+            err = max(err, float(e.max()))
+        return err
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    root = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    kw8 = dict(mesh=mesh8, block_size=B, seed=SEED)
+    reqs = host_rows(picked)
+    out = {}
+
+    # ---- boot: the segmented solve's checkpoint → a snapshot ------------
+    def boot():
+        res, t = wall(lambda: solve_segmented(
+            X_rcv1, hinge1, epochs=2, checkpoint_every=2,
+            ckpt_dir=str(root / "boot"), device=dev, **kw8))
+        snap, t_l = wall(lambda: load_snapshot(str(root / "boot"), 1,
+                                               device=dev))
+        same = (torch.equal(snap.w_pad[:d_r], res.result.w_hat)
+                and torch.equal(snap.alpha, res.result.alpha))
+        print(f"  boot: rcv1 p = 8, 2 epochs segmented in {t:.3f} s, gaps "
+              f"{res.result.gaps.tolist()}; load_snapshot in {t_l:.4f} s "
+              f"(step {snap.meta['ckpt_step']}, w_pad "
+              f"{tuple(snap.w_pad.shape)} on {snap.w_pad.device}); "
+              f"w_pad[:d] and α equal the solve's: {same}")
+        if not same or snap.meta != {"ckpt_step": 2}:
+            fail("serve: the booted snapshot is not the solve's ŵ and α")
+        out["snap"] = snap
+
+    run_path("serve: boot from a checkpoint", {"dcd_ell_shards": 2 * nb8(n_r)},
+             boot)
+    snap = out["snap"]
+    w_boot = host_w(snap)
+
+    # ---- scoring against the host ---------------------------------------
+    def scoring():
+        # a queue deep enough that the ladder stays at full batches
+        eng = ServeEngine(SnapshotStore(snap), k_max=k_r, max_batch=64,
+                          queue_depth=4 * SERVE_ROWS,
+                          default_deadline_s=60.0, device=dev)
+        tickets = [eng.submit(cols=c, vals=v) for c, v in reqs]
+        while len(eng.queue):
+            eng.step()
+        outs = [t.result(1.0) for t in tickets]
+        if not all(isinstance(o, ScoreOutcome) for o in outs):
+            fail("serve: a scoring request was shed")
+        err = held(outs, reqs, lambda v: w_boot)
+        print(f"  scoring: {len(outs)} rcv1 rows through submit and step "
+              f"({eng.health()['batches']} batches), largest error against "
+              f"the float64 host dot {err:.3g} (tolerance 1e-5 + "
+              "1e-6·Σ|w_j x_j|)")
+
+    run_path("serve: scoring against the host", {}, scoring)
+
+    # ---- latency under a closed loop ------------------------------------
+    def closed_loop(eng, rows, n_req, window, publish=None):
+        inflight, tickets = deque(), []
+        for i in range(n_req):
+            if len(inflight) >= window:
+                inflight.popleft().result(60.0)
+            if publish is not None:
+                publish(i)
+            c, v = rows[i % len(rows)]
+            t = eng.submit(cols=c, vals=v)
+            inflight.append(t)
+            tickets.append((t, (c, v)))
+        for t in inflight:
+            t.result(60.0)
+        return tickets
+
+    def latency():
+        eng = ServeEngine(SnapshotStore(snap), k_max=k_r, max_batch=64,
+                          queue_depth=512, default_deadline_s=60.0,
+                          device=dev).start()
+        try:
+            _, t = wall(lambda: closed_loop(eng, reqs, 20_000, 192))
+        finally:
+            eng.stop()
+        h = eng.health()
+        print(f"  latency, closed loop of 192 in flight, 20,000 rcv1 "
+              f"requests, max_batch 64, queue_depth 512: p50 "
+              f"{h['p50_ms']:.4f} ms, p99 {h['p99_ms']:.4f} ms, "
+              f"{h['served'] / t:.1f} requests/s over the loop "
+              f"({h['qps']:.1f} by the engine's own clock), "
+              f"{h['batches']} batches, rung steps {h['rung_steps']}, "
+              f"shed {h['shed']}")
+        if h["served"] != 20_000 or h["shed_total"]:
+            fail("serve: the closed loop lost or shed a request")
+        # one dispatch on the device (staging copy, gather and sum,
+        # margins back to a pinned buffer), behind the spin
+        eng = ServeEngine(SnapshotStore(snap), k_max=k_r, max_batch=64,
+                          queue_depth=512, default_deadline_s=60.0,
+                          device=dev)
+        eng._cols[:], eng._vals[:] = d_r, 0.0
+        for i, (c, v) in enumerate(reqs[:64]):
+            eng._cols[i, :len(c)], eng._vals[i, :len(c)] = c, v
+        back = torch.empty((1, 64), pin_memory=True)
+        on_dev = eng._stage.to(dev)
+
+        def dispatch():
+            st = eng._stage.to(dev, non_blocking=True)
+            m = score_batch(snap.w_pad, st[0], st[1].view(torch.float32))
+            back.copy_(m, non_blocking=True)
+
+        ms = cuda_ms(dispatch, 200, torch)
+        ms_gather = cuda_ms(lambda: score_batch(
+            snap.w_pad, on_dev[0], on_dev[1].view(torch.float32)), 200,
+            torch)
+        steps = []
+        for _ in range(50):
+            for c, v in reqs[:64]:
+                eng.submit(cols=c, vals=v)
+            t0 = time.perf_counter()
+            eng.step()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        print(f"  one scoring dispatch (64 × {k_r}): {ms:.4f} ms of device "
+              f"time (copy in, gather and sum, margins out; the gather and "
+              f"sum alone {ms_gather:.4f} ms); one step() {np.mean(steps):.4f} "
+              f"ms wall (median {np.median(steps):.4f})")
+
+    run_path("serve: latency under load", {}, latency)
+
+    # ---- an overload flood ----------------------------------------------
+    def flood():
+        eng = ServeEngine(SnapshotStore(snap), k_max=k_r, max_batch=64,
+                          queue_depth=32, default_deadline_s=0.010,
+                          batch_wait_s=0.001, device=dev).start()
+        tickets = []
+        try:
+            for i in range(3000):
+                c, v = reqs[i % len(reqs)]
+                tickets.append(eng.submit(cols=c, vals=v))
+                if len(eng.queue) > 32:
+                    fail("serve: the queue grew past its bound")
+        finally:
+            eng.stop()
+        outs = [t.result(5.0) for t in tickets]
+        served = sum(isinstance(o, ScoreOutcome) for o in outs)
+        shed = [o for o in outs if isinstance(o, RequestShed)]
+        h = eng.health()
+        reasons = {r: sum(o.reason == r for o in shed)
+                   for r in ("deadline", "backpressure", "shutdown",
+                             "invalid")}
+        print(f"  flood: 3,000 requests at queue_depth 32, 10 ms deadline: "
+              f"served {served}, shed {len(shed)} {reasons}, every ticket "
+              f"terminal: {all(t.done() for t in tickets)}; rung steps "
+              f"{h['rung_steps']}")
+        if (served + len(shed) != 3000 or not all(t.done() for t in tickets)
+                or served != h["served"] or len(shed) != h["shed_total"]
+                or not shed):
+            fail("serve: the flood lost a request or miscounted")
+
+    run_path("serve: overload flood", {}, flood)
+
+    # ---- hot-swap under live traffic ------------------------------------
+    def hot_swap():
+        base = snap.w_pad[:d_r]
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 4)
+        store = SnapshotStore(snap)
+        eng = ServeEngine(store, k_max=k_r, max_batch=64, queue_depth=512,
+                          default_deadline_s=60.0, device=dev)
+        batches = []
+        take = eng.queue.take
+
+        def recording_take(*a, **k):
+            live, expired = take(*a, **k)
+            if live:
+                batches.append([r.rid for r in live])
+            return live, expired
+
+        eng.queue.take = recording_take
+        ws, builds = {1: w_boot}, []
+
+        def publish(i):
+            if i and i % 1000 == 0 and len(ws) <= 10:
+                v = len(ws) + 1
+                w = base + 1e-3 * torch.randn(d_r, generator=g, device=dev)
+                s, t_b = wall(lambda: make_snapshot(w, v, device=dev))
+                builds.append(t_b)
+                ws[v] = host_w(s)
+                eng.publish(s)
+
+        eng.start()
+        try:
+            tickets = closed_loop(eng, reqs, 11_000, 192, publish)
+        finally:
+            eng.stop()
+        outs = [t.result(1.0) for t, _ in tickets]
+        by_rid = {o.rid: o for o in outs if isinstance(o, ScoreOutcome)}
+        mixed = sum(len({by_rid[r].version for r in b}) != 1
+                    for b in batches)
+        h = eng.health()
+        versions = sorted({o.version for o in by_rid.values()})
+        print(f"  hot-swap: {h['swaps']} publishes during 11,000 requests: "
+              f"served {len(by_rid)}, versions seen {versions}, batches "
+              f"{len(batches)} (version-mixed {mixed}); pause largest "
+              f"{h['swap_pause_max_s'] * 1e3:.4f} ms, mean "
+              f"{h['swap_pause_mean_s'] * 1e3:.4f} ms; a snapshot's build "
+              f"{np.mean(builds) * 1e3:.4f} ms")
+        if len(by_rid) != len(outs) or h["swaps"] != 10:
+            fail("serve: a request was dropped across the hot-swaps")
+        if not set(versions) <= set(ws) or mixed:
+            fail("serve: an outcome's version was never published, or a "
+                 "batch mixed versions")
+        err = held(outs, [r for _, r in tickets], ws.__getitem__)
+        print(f"    every score against its version's w on the host: "
+              f"largest error {err:.3g}")
+
+    run_path("serve: hot-swap under traffic", {}, hot_swap)
+
+    # ---- one publish at webspam's width ---------------------------------
+    def webspam_swap():
+        d_w, k_w = X_web.n_features, X_web.k_max
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 5)
+        rows = torch.randperm(X_web.n_rows, generator=g, device=dev)[:256]
+        wreq = host_rows(X_web, rows)
+        zero = make_snapshot(torch.zeros(d_w, device=dev), 1, device=dev)
+        eng = ServeEngine(SnapshotStore(zero), k_max=k_w, max_batch=64,
+                          queue_depth=512, default_deadline_s=60.0,
+                          device=dev).start()
+        w = torch.randn(d_w, generator=g, device=dev)
+        new, t_b = wall(lambda: make_snapshot(w, 2, device=dev))
+        pause = []
+
+        def publish(i):
+            if i == 128:
+                pause.append(eng.publish(new))
+
+        try:
+            tickets = closed_loop(eng, wreq, 256, 64, publish)
+        finally:
+            eng.stop()
+        pause = pause[0]
+        outs = [t.result(5.0) for t, _ in tickets]
+        if not all(isinstance(o, ScoreOutcome) for o in outs):
+            fail("serve: a webspam-width request was dropped")
+        ws = {1: host_w(zero), 2: host_w(new)}
+        err = held(outs, [r for _, r in tickets], ws.__getitem__)
+        print(f"  webspam width (d = {d_w}): the snapshot built in "
+              f"{t_b * 1e3:.4f} ms, its publish paused {pause * 1e3:.4f} "
+              f"ms under traffic; 256 rows of {k_w} nonzeros scored, "
+              f"versions {sorted({o.version for o in outs})}, largest "
+              f"error against the host {err:.3g}")
+
+    run_path("serve: webspam-width publish", {}, webspam_swap)
+
+    # ---- drift and the warm start ---------------------------------------
+    n_app = n_r + SERVE_ROWS
+
+    def drift():
+        tr = IncrementalTrainer(X_rcv1, hinge1, epochs=2, device=dev,
+                                solver_kwargs=dict(kw8))
+        res0, t_fit = wall(tr.fit)
+        store = SnapshotStore(snapshot_from_result(res0, 1))
+        eng = ServeEngine(store, k_max=k_r, trainer=tr, device=dev)
+        eng.ingest(picked, -torch.ones(SERVE_ROWS, device=dev))
+        base0 = tr.err_base
+        err_new = tr.error_on(tr._pending_matrix(), tr.w)
+        app, t_app = wall(lambda: ell_append(tr.X, tr._pending_matrix()))
+        del app
+        res, t_re = wall(eng.train_if_drifted)
+        if res is None or store.version != 2:
+            fail("serve: the flipped rows did not trip the drift re-solve")
+        if tr.X.n_rows != n_app or tr.alpha.shape != (n_app,):
+            fail(f"serve: the re-solve ran over {tr.X.n_rows} rows")
+        scratch, t_s = wall(lambda: solve_segmented(
+            tr.X, hinge1, epochs=2, device=dev, **kw8))
+        g_w = float(res.result.gaps[-1])
+        g_s = float(scratch.result.gaps[-1])
+        print(f"  drift: fit rcv1 p = 8, 2 epochs ({t_fit / 2:.4f} s per "
+              f"epoch), its error {base0:.4f} on its rows and {err_new:.4f} "
+              f"on the {SERVE_ROWS} rows ingested with flipped labels "
+              f"({tr.err_base:.4f} after the re-solve), ledger "
+              f"{tr.ledger}; the append to {n_app} rows {t_app * 1e3:.4f} ms "
+              f"alone; the warm re-solve and publish {t_re:.3f} s "
+              f"({t_re / 2:.4f} s per epoch, the drift check and append "
+              f"included); from scratch {t_s / 2:.4f} s per epoch")
+        print(f"    gaps: warm {res.result.gaps.tolist()}, scratch "
+              f"{scratch.result.gaps.tolist()} (warm / scratch at 2 epochs "
+              f"{g_w / g_s:.4f})")
+        if tr.ledger["drift_trips"] != 1 or not g_w < g_s:
+            fail("serve: the warm gap is not below the scratch gap")
+
+    run_path("serve: drift and warm start",
+             {"dcd_ell_shards": 2 * nb8(n_r) + 4 * nb8(n_app)}, drift)
+
+    # ---- the watchdog gives up; a transient fault recovers --------------
+    n_w = PASSCODE_ROWS
+    X_w = EllMatrix(X_rcv1.indices[:n_w], X_rcv1.values[:n_w], d_r)
+    extra = EllMatrix(X_rcv1.indices[n_w:n_w + 512],
+                      X_rcv1.values[n_w:n_w + 512], d_r)
+
+    def watchdog():
+        tr = IncrementalTrainer(
+            X_w, hinge1, epochs=2, retries=1, backoff_s=0.001, device=dev,
+            solver_kwargs=dict(kw8, max_retries=0))
+        store = SnapshotStore(snapshot_from_result(tr.fit(), 1))
+        eng = ServeEngine(store, k_max=k_r, trainer=tr, device=dev)
+        eng.ingest(extra, torch.ones(512, device=dev))
+        X0, a0, w0 = tr.X, tr.alpha.clone(), tr.w.clone()
+        tr.fault_plan = FaultPlan(nan_psum_epoch=1, persistent=True)
+        gave_up = eng.train_if_drifted(force=True)
+        want = {"solves": 1, "diverged": 2, "retries": 1, "gave_up": 1,
+                "drift_trips": 0}
+        kept = (tr.X is X0 and torch.equal(tr.alpha, a0)
+                and torch.equal(tr.w, w0) and tr.pending_rows == 512)
+        print(f"  watchdog: a persistent NaN at epoch 1 on {n_w} rows + 512 "
+              f"pending: resolve gave {gave_up}, version {store.version}, "
+              f"X, α and w kept: {kept}, ledger {tr.ledger}")
+        if gave_up is not None or store.version != 1 or not kept or \
+                tr.ledger != want:
+            fail("serve: the tripped re-solve published or moved state")
+        t2 = IncrementalTrainer(
+            X_w, hinge1, epochs=2, retries=2, backoff_s=0.001, device=dev,
+            fault_plan=FaultPlan(nan_psum_epoch=1),
+            solver_kwargs=dict(kw8, max_retries=0))
+        res = t2.fit()
+        print(f"    a transient NaN: fit {'recovered' if res else 'failed'}"
+              f", ledger {t2.ledger}")
+        if res is None or t2.ledger != {"solves": 1, "diverged": 1,
+                                        "retries": 1, "gave_up": 0,
+                                        "drift_trips": 0}:
+            fail("serve: the transient fault did not recover in one retry")
+
+    run_path("serve: watchdog give-up and transient retry",
+             {"dcd_ell_shards": 2 * nb8(n_w) + 4 * nb8(n_w + 512)
+              + 4 * nb8(n_w)}, watchdog)
+
+    # ---- one-vs-rest, K = 53 --------------------------------------------
+    K = int(ids_rcv1.max()) + 1
+
+    def one_vs_rest():
+        torch.cuda.reset_peak_memory_stats()
+        tr = IncrementalTrainer(X_rcv1, hinge1, n_classes=K, y0=ids_rcv1,
+                                epochs=1, device=dev,
+                                solver_kwargs=dict(kw8))
+        res, t_fit = wall(tr.fit)
+        store = SnapshotStore(snapshot_from_result(res, 1))
+        eng = ServeEngine(store, k_max=k_r, max_batch=1024,
+                          queue_depth=4096, default_deadline_s=60.0,
+                          device=dev)
+
+        batch = [reqs[i % len(reqs)] for i in range(1024)]
+
+        def score(version):
+            tickets = [eng.submit(cols=c, vals=v) for c, v in batch]
+            if eng.step() != 1024:
+                fail("serve: 1,024 rows did not go in one dispatch")
+            outs = [t.result(1.0) for t in tickets]
+            w = host_w(store.current())
+            bad = sum(o.label != int(np.argmax(o.margins))
+                      or o.version != version for o in outs)
+            if bad:
+                fail(f"serve: {bad} K-class outcomes with a wrong label "
+                     "or version")
+            return held(outs, batch, lambda v: w)
+
+        e1 = score(1)
+        tr.add_labeled(picked, ids_rcv1[pick])
+        res2, t_re = wall(tr.resolve)
+        if res2 is None or tuple(tr.alpha.shape) != (K, n_app):
+            fail(f"serve: the K-class re-solve gave α "
+                 f"{tuple(tr.alpha.shape)}")
+        eng.publish(snapshot_from_result(res2, 2))
+        e2 = score(2)
+        print(f"  one-vs-rest K = {K}: fit 1 epoch {t_fit:.3f} s, the "
+              f"{SERVE_ROWS}-row append and re-solve {t_re:.3f} s (α "
+              f"{tuple(tr.alpha.shape)}), gaps min/max "
+              f"{float(res2.result.gaps[:, -1].min()):.4g} / "
+              f"{float(res2.result.gaps[:, -1].max()):.4g}; 1,024 rows in "
+              f"one dispatch against the ({K}, {d_r + 1}) stack, labels the "
+              f"argmax, largest margin error {max(e1, e2):.3g}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    run_path(f"serve: one-vs-rest K = {K}",
+             {"dcd_ell_shards": nb8(n_r) + nb8(n_app),
+              "dcd_ell_tasks": nb8(n_r) + nb8(n_app)}, one_vs_rest,
+             {"dcd_ell_shards": None})
+
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  serve phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -3294,7 +3786,10 @@ def main():
     resilience_phase(torch, dev, run_path, X_rcv1, X_cov, X_web,
                      classes["covtype"][1], classes["rcv1"][1])
 
-    # ---------------------------------------------------------- 6. result
+    # ------------------------------------------------------------ 6. serve
+    serve_phase(torch, dev, run_path, X_rcv1, X_web, classes["rcv1"][0])
+
+    # ---------------------------------------------------------- 7. result
     idle = [name for name, row in results.items() if row["launches"] < 1]
     if idle:
         fail(f"kernels no main path launched: {idle}")

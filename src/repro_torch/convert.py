@@ -15,6 +15,9 @@ reference's ``load_solver_state`` returns it, so a port solve resumes
 mid-solve from a checkpoint the reference wrote; ``solver_state_to_
 numpy`` is its inverse, the layout the port's checkpoints are written
 in.
+``snapshot_from_numpy`` carries a serving snapshot of the reference's
+(``repro.serve.ModelSnapshot``) across, so both engines score the same
+model.
 """
 
 from __future__ import annotations
@@ -216,3 +219,17 @@ def solver_state_from_numpy(state: dict, setup) -> dict:
                 torch.bool if k in _BOOL_KEYS else
                 torch.int32 if k in _INT_KEYS else torch.float32)
     return device_put_state(setup, out)
+
+
+def snapshot_from_numpy(snap, *, device=None):
+    """The port's ``ModelSnapshot`` from a reference one (numpy ``w_pad``,
+    already padded, and ``alpha``; the version, d and meta kept), on
+    ``device``."""
+    from repro_torch.serve.snapshot import ModelSnapshot
+
+    dev = resolve_device(device)
+    alpha = (None if snap.alpha is None
+             else dense_from_numpy(snap.alpha, device=dev))
+    return ModelSnapshot(dense_from_numpy(snap.w_pad, device=dev),
+                         int(snap.version), int(snap.d), alpha,
+                         None if snap.meta is None else dict(snap.meta))

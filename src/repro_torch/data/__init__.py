@@ -11,8 +11,12 @@ from repro_torch.data.sparse import (
     EllMatrix,
     PodShardedEll,
     dense_to_ell,
+    ell_append,
+    ell_from_rows,
     ell_matvec,
+    ell_repack,
     ell_row_dot,
+    ell_row_nnz,
     ell_row_partition,
     pod_row_layout,
 )
@@ -26,7 +30,11 @@ __all__ = [
     "EllMatrix",
     "PodShardedEll",
     "dense_to_ell",
+    "ell_append",
+    "ell_from_rows",
     "ell_matvec",
+    "ell_repack",
+    "ell_row_nnz",
     "ell_row_dot",
     "ell_row_partition",
     "pod_row_layout",

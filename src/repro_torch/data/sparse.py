@@ -124,6 +124,97 @@ def unpad_primal(w_pad: torch.Tensor) -> torch.Tensor:
     return w_pad[:-1]
 
 
+# ---------------------------------------------- streaming row append ---
+
+
+def ell_row_nnz(mat: EllMatrix) -> torch.Tensor:
+    """Per-row count of real (non-padding) entries, (n,) int64 on the
+    matrix's device."""
+    return (mat.indices < mat.n_features).sum(dim=1)
+
+
+def ell_repack(mat: EllMatrix, k_max: int) -> EllMatrix:
+    """Re-pack an ``EllMatrix`` to another ``k_max``, on its device.
+
+    Real entries are compacted to the front of each row (stable: the
+    within-row order is kept) and the tail refilled with the ``index ==
+    n_features`` / ``value == 0`` sentinel.  Shrinking below a row's
+    nonzero count raises, as ``dense_to_ell`` does: truncation would
+    silently corrupt X."""
+    idx, val = mat.indices, mat.values
+    n, k = idx.shape
+    d = mat.n_features
+    k_max = max(int(k_max), 1)
+    pad = idx >= d
+    need = int((~pad).sum(dim=1).max()) if n else 0
+    if k_max < need:
+        raise ValueError(f"k_max={k_max} < max per-row nnz {need}")
+    # a stable sort on the padding mask floats the real entries to the
+    # front (an integer key: CUDA's stable sort takes no bool)
+    order = torch.argsort(pad.to(torch.int32), dim=1, stable=True)
+    keep = min(k, k_max)
+    order = order[:, :keep]
+    out_idx = torch.full((n, k_max), d, dtype=torch.int32, device=idx.device)
+    out_val = torch.zeros((n, k_max), dtype=torch.float32, device=idx.device)
+    out_idx[:, :keep] = torch.gather(idx, 1, order).to(torch.int32)
+    out_val[:, :keep] = torch.gather(val, 1, order).to(torch.float32)
+    return EllMatrix(out_idx, out_val, d)
+
+
+def ell_append(mat: EllMatrix, rows: EllMatrix,
+               k_max: int | None = None) -> EllMatrix:
+    """Append ``rows`` below ``mat``, on ``mat``'s device (``rows`` are
+    moved there): the serving engine's streaming ingest, under which the
+    warm-start re-solve keeps the old duals and the new rows enter at
+    α = 0.  Both must share ``n_features``; ``k_max`` defaults to
+    ``max(mat.k_max, rows.k_max)`` (never lossy), and forcing it smaller
+    raises in ``ell_repack`` if a row would truncate."""
+    if rows.n_features != mat.n_features:
+        raise ValueError(
+            f"n_features mismatch: have {mat.n_features}, "
+            f"appending {rows.n_features}")
+    if k_max is None:
+        k_max = max(mat.k_max, rows.k_max)
+    a = ell_repack(mat, k_max)
+    b = ell_repack(rows.to(mat.device), k_max)
+    return EllMatrix(torch.cat([a.indices, b.indices]),
+                     torch.cat([a.values, b.values]), mat.n_features)
+
+
+def ell_from_rows(rows, d: int, k_max: int | None = None, *,
+                  device=None) -> EllMatrix:
+    """Pack sparse rows ``[(cols, vals), ...]`` into an ``EllMatrix`` on
+    ``device`` (the card unless the caller asks for the CPU) without
+    densifying: the serving engine's request and ingest format.  Every
+    ``cols`` holds ids in [0, d), as many as its ``vals``; ``k_max``
+    defaults to the longest row (≥ 1), and forcing it smaller raises."""
+    dev = resolve_device(device)
+    d = int(d)
+    packed = []
+    for i, (cols, vals) in enumerate(rows):
+        c = np.asarray(cols, dtype=np.int64).reshape(-1)
+        v = np.asarray(vals, dtype=np.float32).reshape(-1)
+        if c.shape[0] != v.shape[0]:
+            raise ValueError(
+                f"row {i}: {c.shape[0]} ids vs {v.shape[0]} values")
+        if c.size and (c.min() < 0 or c.max() >= d):
+            raise ValueError(f"row {i}: column id out of range [0, {d})")
+        packed.append((c, v))
+    need = max([len(c) for c, _ in packed], default=0) or 1
+    if k_max is None:
+        k_max = need
+    elif k_max < need:
+        raise ValueError(f"k_max={k_max} < max per-row nnz {need}")
+    n = len(packed)
+    indices = np.full((n, k_max), d, dtype=np.int32)
+    values = np.zeros((n, k_max), dtype=np.float32)
+    for i, (c, v) in enumerate(packed):
+        indices[i, : len(c)] = c
+        values[i, : len(c)] = v
+    return EllMatrix(torch.from_numpy(indices).to(dev),
+                     torch.from_numpy(values).to(dev), d)
+
+
 # ---------------------------------------------- row-partitioned ELL ----
 
 

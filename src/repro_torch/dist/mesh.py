@@ -20,7 +20,11 @@ CTAs (or CTA groups), pod k's p shards reading pod k's own w;
 admission rule for them.  ``pipeline_overlap`` is the reference's rule for the
 overlapped 2-D round, ``resolve_self_tuning`` and
 ``adaptive_delay_policy`` its rules for shrinking, repacking and the
-adaptive delay.  ``lane_pad`` and ``cta_threads`` size a kernel's thread block.
+adaptive delay, ``watchdog_trip`` and ``degrade_ladder`` the segmented
+solve's recovery, and ``serve_admission_policy``, ``serve_rung``,
+``serve_degrade_ladder`` and ``drift_trip`` the serving engine's
+admission, overload ladder and re-solve trigger.  ``lane_pad`` and
+``cta_threads`` size a kernel's thread block.
 The reference's 128-lane padding of d and k is TPU tiling, not
 semantics: the CUDA kernels take any width, so the port pads nothing but
 the thread count, which rounds up to whole warps.
@@ -623,6 +627,84 @@ def degrade_ladder(rung: int, *, delay_rounds: int, pod_delay_rounds: int,
                 "overlap": overlap}
     return {"rung": 1, "delay_rounds": 0, "pod_delay_rounds": 0,
             "overlap": False}
+
+
+# --- the serving engine's admission and degradation policy -----------
+#
+# What load the serving engine may admit and how it backs off under
+# pressure decides how much work reaches the card per dispatch, so it
+# is distribution policy, the reference's rules word for word; the
+# engine in ``repro_torch.serve`` only consumes them.
+
+
+def serve_admission_policy(*, queue_depth: int, max_batch: int,
+                           deadline_s: float, swap_grace_s: float) -> dict:
+    """Validate and normalise the serving admission knobs.
+    ``queue_depth`` bounds the request queue (past it, offers are refused
+    and the caller sheds with a backpressure outcome); ``max_batch`` is
+    the scoring dispatch's fixed batch shape (the degrade ladder lowers
+    only the live count); ``deadline_s`` is the default per-request
+    deadline; ``swap_grace_s`` bounds how long a publish waits for pinned
+    readers to drain (stragglers finish on the old snapshot)."""
+    depth, batch = int(queue_depth), int(max_batch)
+    if depth < 1:
+        raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
+    if batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    if not (float(deadline_s) > 0.0):
+        raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+    if float(swap_grace_s) < 0.0:
+        raise ValueError(
+            f"swap_grace_s must be >= 0, got {swap_grace_s}")
+    return {"queue_depth": depth, "max_batch": batch,
+            "deadline_s": float(deadline_s),
+            "swap_grace_s": float(swap_grace_s)}
+
+
+def serve_rung(occupancy: float, prev_rung: int = 0, *,
+               up: tuple = (0.5, 0.85),
+               down: tuple = (0.2, 0.6)) -> int:
+    """The rung of ``serve_degrade_ladder`` for a queue fill
+    ``occupancy`` ∈ [0, 1], with hysteresis: climb to rung r + 1 while
+    occupancy ≥ ``up[r]``, descend to r − 1 only once it has fallen
+    below ``down[r − 1]``.  Not sticky: overload is a load condition,
+    not a fault."""
+    occ = float(occupancy)
+    r = int(prev_rung)
+    if not (0 <= r <= len(up)):
+        raise ValueError(f"prev_rung out of range: {prev_rung}")
+    while r < len(up) and occ >= up[r]:
+        r += 1
+    while r > 0 and occ < down[r - 1]:
+        r -= 1
+    return r
+
+
+def serve_degrade_ladder(rung: int, *, max_batch: int) -> dict:
+    """Which throughput knobs each pressure rung keeps.  Rung 0 is full
+    service (the whole ``max_batch``, incremental training allowed);
+    rung 1 scores ``max_batch // 4`` live rows a dispatch (the shape is
+    unchanged) so deadlines are shed at a finer cadence; rung 2 also
+    pauses incremental training and answers from the last healthy
+    snapshot only.  Rungs above 2 clamp to 2."""
+    r = max(0, min(int(rung), 2))
+    if int(max_batch) < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    live = int(max_batch) if r == 0 else max(1, int(max_batch) // 4)
+    return {"rung": r, "max_batch": live, "train": r < 2}
+
+
+def drift_trip(err_base, err_new, *, ratio: float = 2.0,
+               floor: float = 0.05):
+    """The drift trigger of the warm-start re-solve, the serving twin of
+    ``watchdog_trip``: 1 where the published model's error on freshly
+    ingested rows ``err_new`` exceeds ``ratio`` × its error on the data
+    it was trained on plus ``floor`` (the floor keeps noise on a
+    near-perfect baseline from tripping), else 0.  Elementwise float32
+    torch ops; returns int32 (0-d for scalar inputs)."""
+    base = torch.as_tensor(err_base, dtype=torch.float32)
+    new = torch.as_tensor(err_new, dtype=torch.float32)
+    return (new > ratio * base + floor).to(torch.int32)
 
 
 class SelfTuning(NamedTuple):

@@ -1291,3 +1291,91 @@ def test_segmented_on_the_card_bit_identical(kind, tmp_path):
                             fault_plan=FaultPlan(nan_psum_epoch=2), **kw)
     assert fault.attempts == (1, 2) and fault.rollbacks == 1
     same(whole, fault.result)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [0, 4])
+def test_serve_engine_on_the_card_matches_cpu(K):
+    """The same payloads scored against the same snapshot by an engine on
+    the card and one on the CPU: every score and margin at atol 1e-6
+    (the gather-and-sum adds its k_max products in another order), the
+    labels and the versions equal."""
+    from repro_torch.serve import ServeEngine, SnapshotStore, make_snapshot
+    dev = _cuda()
+    rng = np.random.default_rng(3 + K)
+    d, kmax = 300, 9
+    w = rng.standard_normal((K, d) if K else d).astype(np.float32)
+    pays = [(rng.integers(0, d, size=int(k)),
+             rng.standard_normal(int(k)).astype(np.float32))
+            for k in rng.integers(1, kmax + 1, size=40)]
+    outs = {}
+    for where in (dev, "cpu"):
+        eng = ServeEngine(SnapshotStore(make_snapshot(w, 1, device=where)),
+                          k_max=kmax, max_batch=16, queue_depth=64,
+                          default_deadline_s=30.0, device=where)
+        tickets = [eng.submit(cols=c, vals=v) for c, v in pays]
+        while len(eng.queue):
+            eng.step()
+        outs[str(where)] = [t.result(1.0) for t in tickets]
+    for a, b in zip(outs[str(dev)], outs["cpu"]):
+        assert (a.version, a.label) == (b.version, b.label)
+        np.testing.assert_allclose(a.score, b.score, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(a.margins, b.margins, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [0, 3])
+def test_trainer_resolve_on_the_card_matches_cpu(K):
+    """An ``IncrementalTrainer`` fit and one append-and-resolve on the
+    card (B1 over the shard grid, or the task grid) against the same on
+    the CPU: α and ŵ at atol 1e-5, the ledgers equal."""
+    from repro_torch.serve import IncrementalTrainer
+    dev = _cuda()
+    X = make_dataset("tiny", device="cpu").X_train
+    n0 = X.n_rows - 40
+    head = type(X)(X.indices[:n0], X.values[:n0], X.n_features)
+    tail = type(X)(X.indices[n0:], X.values[n0:], X.n_features)
+    ids = torch.arange(X.n_rows) % 3
+    runs = {}
+    for where in (dev, "cpu"):
+        kw = dict(epochs=3, device=where, solver_kwargs=dict(
+            block_size=16, seed=2, mesh=solver_mesh(n_devices=2)))
+        if K:
+            kw.update(n_classes=K, y0=ids[:n0])
+        tr = IncrementalTrainer(head, td.Hinge(), **kw)
+        tr.fit()
+        tr.add_labeled(tail, ids[n0:] if K else -torch.ones(40))
+        assert tr.resolve(epochs=2) is not None
+        runs[str(where)] = tr
+    a, b = runs[str(dev)], runs["cpu"]
+    assert a.ledger == b.ledger
+    _close(a.alpha, b.alpha)
+    _close(a.w, b.w)
+
+
+@pytest.mark.cuda
+def test_ell_append_on_the_card_matches_cpu():
+    """``ell_repack``/``ell_append`` on the card against the CPU, bit for
+    bit, with the padding scattered among the entries and a widened
+    k_max."""
+    from repro_torch.data.sparse import (EllMatrix, ell_append, ell_repack,
+                                         ell_row_nnz)
+    dev = _cuda()
+    rng = np.random.default_rng(8)
+    n, k, d = 5000, 24, 1000
+    idx = rng.integers(0, d, size=(n, k)).astype(np.int32)
+    idx[rng.random((n, k)) < 0.4] = d
+    val = np.where(idx < d, rng.standard_normal((n, k)), 0.0).astype(
+        np.float32)
+    cpu = EllMatrix(torch.from_numpy(idx), torch.from_numpy(val), d)
+    card = cpu.to(dev)
+    for out_card, out_cpu in (
+            (ell_repack(card, k + 3), ell_repack(cpu, k + 3)),
+            (ell_append(card, EllMatrix(cpu.indices[:700],
+                                        cpu.values[:700], d)),
+             ell_append(cpu, EllMatrix(cpu.indices[:700],
+                                       cpu.values[:700], d)))):
+        assert out_card.indices.device.type == "cuda"
+        assert torch.equal(out_card.indices.cpu(), out_cpu.indices)
+        assert torch.equal(out_card.values.cpu(), out_cpu.values)
+    assert torch.equal(ell_row_nnz(card).cpu(), ell_row_nnz(cpu))

@@ -30,6 +30,14 @@ from repro_torch.data.sparse import dense_to_ell
 from repro_torch.data.synthetic import make_dataset, make_paper_split
 from repro_torch.dist.mesh import SolverMesh, solver_mesh_2d
 from repro_torch.resilience import solve_segmented
+from repro_torch.serve import (
+    IncrementalTrainer,
+    ScoreOutcome,
+    ServeEngine,
+    SnapshotStore,
+    load_snapshot,
+    make_snapshot,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -39,6 +47,10 @@ def test_no_module_imports_jax_or_repro():
     mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                   "repro_torch.")]
     assert "repro_torch.core.sharded" in mods and len(mods) >= 15
+    assert {"repro_torch.serve", "repro_torch.serve.engine",
+            "repro_torch.serve.trainer", "repro_torch.serve.snapshot",
+            "repro_torch.serve.queue", "repro_torch.serve.metrics"} <= set(
+        mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -79,6 +91,12 @@ ENTRY_POINTS = {
         mesh=SolverMesh(("pod", "data"), (2, 1))),
     "ovr_labels": lambda: ovr_labels([0, 1, 2]),
     "labels_from_numpy": lambda: labels_from_numpy(np.ones((2, 3))),
+    "ServeEngine": lambda: ServeEngine(SnapshotStore(make_snapshot(
+        np.ones(3), 1, device="cpu")), k_max=2),
+    "IncrementalTrainer": lambda: IncrementalTrainer(
+        dense_to_ell(np.eye(3), device="cpu"), td.Hinge()),
+    "make_snapshot": lambda: make_snapshot(np.ones(3), 1),
+    "load_snapshot": lambda: load_snapshot("no_such_checkpoint_dir"),
 }
 
 
@@ -101,6 +119,26 @@ def test_solve_segmented_runs_on_cpu_when_asked(tmp_path, monkeypatch):
                             **kw)
     assert r.attempts == (1, 1) and again.resumed_from == 2
     assert r.result.alpha.device.type == "cpu"
+
+
+def test_serving_runs_on_cpu_when_asked(tmp_path, monkeypatch):
+    """Without a card, ``device="cpu"`` boots a snapshot from a
+    checkpoint, scores through the engine and fits a trainer, and
+    nothing reaches for CUDA."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = dense_to_ell(np.eye(4, dtype=np.float32), device="cpu")
+    tr = IncrementalTrainer(X, td.Hinge(), epochs=2, device="cpu",
+                            solver_kwargs=dict(block_size=2))
+    solve_segmented(X, td.Hinge(), epochs=2, checkpoint_every=1,
+                    ckpt_dir=str(tmp_path), block_size=2, device="cpu")
+    snap = load_snapshot(str(tmp_path), 1, device="cpu")
+    eng = ServeEngine(SnapshotStore(snap), k_max=2, trainer=tr,
+                      device="cpu")
+    t = eng.submit(cols=[0, 3], vals=[1.0, -1.0])
+    assert eng.step() == 1
+    assert isinstance(t.result(1.0), ScoreOutcome)
+    assert tr.fit() is not None and tr.alpha.device.type == "cpu"
+    assert snap.w_pad.device.type == "cpu" and not snap.w_pad.is_pinned()
 
 
 @pytest.mark.parametrize("twin", ["quickstart_torch",
