@@ -11,7 +11,8 @@ result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. the build of every kernel source, with nvcc's ``-Xptxas -v``
-   register and spill report;
+   register and spill report; then phase 7 (below), first in time so
+   that its child has the card's memory to itself;
 3. each kernel against its plain version at the shapes the main path
    gives it: B1 (ELL) on the rcv1-shape shard (its staged variant) and
    on webspam's rows (its wide variant), and B2 (dense indexed) on the
@@ -58,10 +59,13 @@ result line):
    partitions' whole local epochs) and B1 over the first epoch of
    ``cocoa_pod_solve`` on rcv1's first ``PASSCODE_ROWS`` rows (2 CTAs of
    50,048 ids, each pod's drawn blocks), each laid out and drawn as its
-   solve does, held to its plain version over the whole round with hinge
-   (the plain version timed on it) and over each CTA's first ``PREFIX``
-   ids with the other two losses, its second launch to the same bits,
-   and timed.  ``torch.profiler`` views
+   solve does, held to its plain version over the whole round with
+   hinge and over each CTA's first ``PREFIX`` ids with the other two
+   losses, its second launch to the same bits, and timed.  Each
+   whole-round launch (B3's epoch, the whole-epoch orders below, these
+   rounds) is held to its plain version replayed on CPU copies of the
+   same inputs, and the plain version is timed on the card over the
+   round's first ``PLAIN_IDS`` updates.  ``torch.profiler`` views
    20 rounds of the rcv1, the covtype and the webspam solve, at p = 1
    and over the shard grid (wall time, device-busy time, idle share);
    then the solver's kernel paths against their CPU paths on a small
@@ -74,9 +78,14 @@ result line):
    webspam-rows solves against the single-block round the solver ran
    before the shard grid, α and ŵ bit for bit; B1's and B2's wide variants over
    a whole epoch's order, the launch ``dcd_solve`` and PASSCoDe-Lock
-   make (all n ids; held to the plain version, which is timed on it,
-   over the whole order with hinge, and over its first ``PREFIX`` ids
-   with the other two losses; each launched twice to the same bits);
+   make (all n ids, timed; held to the plain version over the whole
+   order with hinge, and over its first ``PREFIX`` ids with the other
+   two losses; each launched twice to the same bits);
+   B4 and B5 past 1,024 ids, in their rows layout, on one block of all
+   ``SHIM_ROWS`` rows of rcv1's first rows split into m = 4 feature
+   shards (held to their plain versions, B5 with each loss; each
+   launched twice to the same bits; the rows ``dcd_feature_gram_rows``
+   and ``dcd_feature_update_rows``);
 4. the main paths, each with every launch count set to 0 just before
    it and read just after: ``sharded_passcode_solve`` on rcv1
    (n = 677,399, d = 47,236, 73 nnz per row, hinge C = 1, B = 64,
@@ -131,7 +140,13 @@ result line):
    the full rcv1 under ``torch.profiler``; all three memory models on the
    card against their CPU path on ``tiny``; and both example twins
    (``examples/quickstart_torch.py``, ``train_svm_passcode_torch.py``)
-   as subprocesses on the card.  Each must go through its kernels,
+   as subprocesses on the card; the per-epoch host driver
+   (``pipeline=False``, 2 epochs) against the pipelined solve at the
+   same seed — rcv1 at p = 8 at delays 0 and 1, webspam on the 2-D mesh
+   (m = 4) fused at delay 0 and overlapped at delay 1 — α and ŵ within
+   1e-5, the gaps within 1e-3, s/epoch of both; and the
+   ``sharded_passcode_feature`` shim on those ``SHIM_ROWS`` rows (1 and
+   3 epochs, its gap falling).  Each must go through its kernels,
    launch them (and each variant of B1, B2 and B3) the expected number
    of times, and give finite duality gaps that fall (Wild, whose
    nominal gap is that of w̄: a finite gap, and the primal at ŵ below
@@ -189,7 +204,22 @@ result line):
    argmax, margins held to the host), the ``SERVE_ROWS`` rows appended
    with their class ids and re-solved (α (53, 681,495)), published and
    scored again; then the phase's seconds;
-7. one JSON line of per-kernel numbers (with each kernel's variant, and
+7. the LM stack (``lm_phase``, in a child process: ``chip_smoke.py
+   --lm-phase``): every arch of ``repro_torch.configs`` at its full
+   published width in float32 and at full depth where the card holds it
+   (qwen2-vl-72b and deepseek-coder-33b cut to 8 layers, phi3.5-moe to
+   4, jamba on its smoke config: each cut and its reason printed), B = 2
+   and S = 64: ``forward_train`` (finite logits), ``prefill`` of S
+   tokens then ``decode_step`` of one against ``forward_train(moe_no_drop
+   =True)`` at positions S − 1 and S (rtol/atol 2e-3), ``lm_features``
+   for the decoder-only families; init seconds, forward, prefill and
+   decode ms (CUDA events) and peak memory an arch; then the linear
+   probe (``examples/linear_probe_lm_torch.py``) on the full-width
+   mistral-nemo-12b's features (256 × 5120; B2's task grid and its wide
+   epoch launch counted, added to the ``dcd_indexed_tasks`` and
+   ``dcd_indexed_epoch`` rows) and on its smoke config, each above the
+   majority share; the child's nonzero exit fails the script;
+8. one JSON line of per-kernel numbers (with each kernel's variant, and
    B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
    ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
@@ -198,8 +228,9 @@ result line):
    grids' ``dcd_ell_pods``, ``dcd_indexed_pods``,
    ``dcd_feature_gram_pods`` and ``dcd_feature_update_pods``, the
    baselines' wide launches ``dcd_indexed_cocoa`` and
-   ``dcd_ell_cocoa_pods``; every row launched on a main path), then the
-   result line
+   ``dcd_ell_cocoa_pods``, the rows layout's ``dcd_feature_gram_rows`` and
+   ``dcd_feature_update_rows``; every row launched on a main path), then
+   the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one.  Data comes from
@@ -235,6 +266,15 @@ SEED = 0  # the solves' seed; the multi-task classes draw V from SEED + 1
 # the multi-task paths' class counts: LIBSVM's rcv1.multiclass has 53
 # classes, covtype 7 cover types; webspam's 4 keep its 2-D state small
 K_R, K_C, K_W = 53, 7, 4
+SHIM_ROWS = 4096  # the shim's rcv1 rows: one block, a 64 MB Gram
+# the whole-round launches (B3's covtype epoch, B1's and B2's whole-epoch
+# orders, CoCoA's rounds) are held to their plain version over the whole
+# round, replayed on CPU copies of the same inputs (``replay_on_host``:
+# each update's few torch ops cost about 0.04–0.07 ms there against
+# 0.11–0.15 ms of launches on the card, where the whole rounds took
+# 280–380 s of the run); the plain version on the card is timed over the
+# round's first PLAIN_IDS updates (each CTA's first PLAIN_IDS / CTAs)
+PLAIN_IDS = 32_768
 
 
 def fail(msg):
@@ -282,6 +322,23 @@ def wall_ms(fn, reps, torch):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def replay_on_host(plain, *args):
+    """``plain(*args)`` with every tensor of ``args`` copied to the CPU
+    (``plain`` closes over CPU copies of the rows it reads).  Returns its
+    outputs, on the CPU, and its seconds."""
+    args = [a.cpu() if hasattr(a, "cpu") else a for a in args]
+    t0 = time.perf_counter()
+    out = plain(*args)
+    return out, time.perf_counter() - t0
+
+
+def max_err(kernel_out, plain_out):
+    """The largest |kernel − plain| over paired outputs, compared on the
+    plain outputs' device."""
+    return max(float((k.to(p.device) - p).abs().max())
+               for k, p in zip(kernel_out, plain_out))
+
+
 def same_bits(label, fn, torch):
     """Launch ``fn`` twice on the same inputs; fail unless every output
     has the same bits."""
@@ -293,25 +350,38 @@ def same_bits(label, fn, torch):
         fail(f"{label}: two launches on the same inputs differ")
 
 
+PROFILED_TWICE = []  # the windows profile_rounds had to take again
+
+
 def profile_rounds(label, run, rounds, torch):
     """Device time by kernel of ``run()`` (``rounds`` solver rounds)
-    under torch.profiler, against the rounds' wall time."""
+    under torch.profiler, against the rounds' wall time.  A window in
+    which the profiler delivered no device activity at all (its CUPTI
+    buffers lost it: seen once, on rounds whose kernels the other
+    windows of the same run saw) is profiled once more; a second empty
+    window fails."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
+    for attempt in (1, 2):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / rounds
-    dev_us = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0))
-        if t > 0 and not ev.key.startswith("aten::"):
-            dev_us[ev.key[:40]] = dev_us.get(ev.key[:40], 0) + t
-    busy = sum(dev_us.values()) / 1e3 / rounds
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / rounds
+        dev_us = {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0))
+            if t > 0 and not ev.key.startswith("aten::"):
+                dev_us[ev.key[:40]] = dev_us.get(ev.key[:40], 0) + t
+        busy = sum(dev_us.values()) / 1e3 / rounds
+        if busy > 0.0:
+            break
+        print(f"  {label}: the profiler saw no device time in window "
+              f"{attempt}")
+        PROFILED_TWICE.append(label)
     print(f"  {label} round profile ({rounds} rounds): {wall:.4f} ms wall, "
           f"{busy:.4f} ms device busy, idle share "
           f"{max(0.0, 1 - busy / wall):.3f}")
@@ -1172,6 +1242,229 @@ def serve_phase(torch, dev, run_path, X_rcv1, X_web, ids_rcv1):
     print(f"  serve phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 7: each arch at its full published width in float32, at full
+# depth where one card holds it; these three cut in depth (the layers
+# run), jamba on its smoke config (one full-width period does not fit)
+LM_DEPTH = {"qwen2-vl-72b": 8, "deepseek-coder-33b": 8,
+            "phi3.5-moe-42b-a6.6b": 4}
+LM_SMOKE = ("jamba-1.5-large-398b",)
+LM_B, LM_S = 2, 64
+LM_RTOL = LM_ATOL = 2e-3  # the reference's prefill/decode smoke check
+PROBE_ARCH = "mistral-nemo-12b"
+
+
+def lm_phase(torch, dev):
+    """Phase 7, in a child process (``chip_smoke.py --lm-phase``): the LM
+    stack's three smoke steps for every arch, then the linear probe at
+    full width.  Prints a line per arch and, last, one JSON line of the
+    probe's kernel launches."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.kernels import dcd_block
+    from repro_torch.models import (
+        decode_step,
+        forward_train,
+        init_cache,
+        init_params,
+        lm_features,
+        prefill,
+    )
+    from repro_torch.models.transformer import cache_max_len, vocab_padded
+    sys.path.insert(0, str(ROOT / "examples"))
+    from linear_probe_lm_torch import linear_probe
+
+    def events_ms(fn, reps=2):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def err(a, b):
+        """max |a − b| − rtol·|b|: ≤ atol passes."""
+        return float(((a - b).abs() - LM_RTOL * b.abs()).max())
+
+    card = card_line()
+    launches = {}
+    for arch in ARCHS:
+        cfg, full = get_config(arch), get_config(arch)
+        if arch in LM_SMOKE:
+            cfg = get_smoke_config(arch)
+            period = dataclasses.replace(full, n_layers=full.attn_period)
+            embed = full.vocab_size * full.d_model * (
+                1 if full.tie_embeddings else 2)
+            print(f"  {arch}: its smoke config ({cfg.n_layers} layers, "
+                  f"d_model {cfg.d_model}): one full-width period of "
+                  f"{full.attn_period} layers is "
+                  f"{(period.n_params() - embed) * 4 / 1e9:.0f} GB of "
+                  "float32 weights, past the card's 80 GB")
+        elif arch in LM_DEPTH:
+            cfg = dataclasses.replace(full, n_layers=LM_DEPTH[arch])
+            print(f"  {arch}: depth cut from {full.n_layers} to "
+                  f"{cfg.n_layers} layers at full width (the full depth, "
+                  f"{full.n_params() * 4 / 1e9:.0f} GB of float32 "
+                  "weights, does not fit the card)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_par = sum(t.numel() for t in _leaves(params))
+        # the batch: S + 1 positions, the prompt its first S
+        S = LM_S
+        full_b = {}
+        if cfg.embeds_in and cfg.family != "encdec":
+            full_b["embeds"] = torch.randn((LM_B, S + 1, cfg.d_model),
+                                           generator=gen, device=dev) * 0.1
+        else:
+            full_b["tokens"] = torch.randint(0, cfg.vocab_size,
+                                             (LM_B, S + 1), generator=gen,
+                                             device=dev)
+        if cfg.mrope_sections:
+            full_b["positions"] = torch.arange(S + 1, device=dev)[
+                None, None].expand(3, LM_B, S + 1)
+        if cfg.family == "encdec":
+            full_b["enc_embeds"] = torch.randn(
+                (LM_B, cfg.enc_len, cfg.d_model), generator=gen,
+                device=dev) * 0.1
+        pre = {k: (v[..., :S] if k == "positions" else
+                   v[:, :S] if k in ("tokens", "embeds") else v)
+               for k, v in full_b.items()}
+        step = {k: v[:, S:S + 1] for k, v in full_b.items()
+                if k in ("tokens", "embeds")}
+        if cfg.mrope_sections:
+            step["positions"] = torch.full((3, LM_B, 1), S, device=dev)
+        with torch.inference_mode():
+            logits, aux = forward_train(cfg, params, full_b)
+            if (logits.shape != (LM_B, S + 1, vocab_padded(cfg))
+                    or not bool(torch.isfinite(logits).all())
+                    or not math.isfinite(float(aux))):
+                fail(f"{arch}: forward_train gave non-finite logits or "
+                     "the wrong shape")
+            fwd_ms = events_ms(lambda: forward_train(cfg, params, full_b))
+            ref = (forward_train(cfg, params, full_b, moe_no_drop=True)[0]
+                   if cfg.n_experts else logits)
+            cache = init_cache(cfg, LM_B, cache_max_len(S),
+                               dtype=torch.float32, device=dev)
+            pl, cache = prefill(cfg, params, pre, cache)
+            e_pre = err(pl[:, 0], ref[:, S - 1])
+            dl, _ = decode_step(cfg, params, step, cache)
+            e_dec = err(dl[:, 0], ref[:, S])
+            pre_ms = events_ms(lambda: prefill(cfg, params, pre, cache))
+            dec_ms = events_ms(lambda: decode_step(cfg, params, step, cache))
+            feat_note = "lm_features: "
+            if cfg.family == "encdec":
+                feat_note += "none (encdec, as the reference)"
+            elif cfg.mrope_sections:
+                feat_note += ("none (M-RoPE needs (3, B, S) positions, "
+                              "which lm_features does not take; ROADMAP "
+                              "C.14)")
+            else:
+                f = lm_features(cfg, params, full_b["tokens"][:, :S])
+                if f.shape != (LM_B, cfg.d_model) or not bool(
+                        torch.isfinite(f).all()):
+                    fail(f"{arch}: lm_features non-finite or misshapen")
+                feat_note += f"{tuple(f.shape)} finite"
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers, "
+              f"d_model {cfg.d_model}, {n_par / 1e9:.3f}B parameters "
+              f"(float32); init {init_s:.2f} s; forward {fwd_ms:.2f} ms, "
+              f"prefill {pre_ms:.2f} ms, decode {dec_ms:.2f} ms (B = "
+              f"{LM_B}, S = {S}; CUDA events); peak {peak:.2f} GiB; "
+              f"prefill/decode vs forward: {e_pre:.3g}, {e_dec:.3g} (≤ "
+              f"{LM_ATOL} at rtol {LM_RTOL}); {feat_note}; {card}")
+        if not (e_pre <= LM_ATOL and e_dec <= LM_ATOL):
+            fail(f"{arch}: prefill → decode disagrees with forward_train")
+        if arch == PROBE_ARCH:
+            # the linear probe on this full-width model's features, its
+            # solves' kernel launches counted (the plain versions, none)
+            sh, ep = dcd_block.dcd_indexed_shards, dcd_block.dcd_indexed_epoch
+            for f in (sh, ep):
+                f.launches = f.task_launches = 0
+                for v in f.variant_launches:
+                    f.variant_launches[v] = 0
+            t0 = time.perf_counter()
+            r = linear_probe(cfg, params, device=dev)
+            print(f"  linear probe on {arch} (full width, {cfg.n_layers} "
+                  f"layers), n = 256 sequences, X = 256 × {r['d']}: "
+                  f"multi-task PASSCoDe top-1 {r['acc']:.4f}, loop-over-K "
+                  f"dcd_solve top-1 {r['acc_ref']:.4f}, max |ΔW| "
+                  f"{r['head_gap']:.3g}, majority share {r['majority']:.4f}"
+                  f" ({time.perf_counter() - t0:.1f} s)")
+            if not (r["acc"] > r["majority"] and r["acc_ref"]
+                    > r["majority"]):
+                fail("the full-width probe does not beat the majority")
+            launches = {"dcd_indexed_tasks": sh.task_launches,
+                        "dcd_indexed_shards_wide":
+                            sh.variant_launches["wide"],
+                        "dcd_indexed_epoch": ep.variant_launches["wide"]}
+            print(f"  probe launches: {launches}")
+            if not (launches["dcd_indexed_tasks"] and
+                    launches["dcd_indexed_epoch"]):
+                fail("the probe's solves launched no B2 kernel")
+        del params, cache, logits, ref
+        torch.cuda.empty_cache()
+    smoke = get_smoke_config(PROBE_ARCH)
+    r = linear_probe(smoke, init_params(
+        smoke, torch.Generator(device=dev).manual_seed(SEED), device=dev),
+        device=dev)
+    print(f"  linear probe on the smoke {PROBE_ARCH}: top-1 {r['acc']:.4f}"
+          f" (loop over K {r['acc_ref']:.4f}, majority {r['majority']:.4f};"
+          " the reference example's floor of 0.7: ROADMAP C.15)")
+    if not r["acc"] > r["majority"]:
+        fail("the smoke probe does not beat the majority")
+    print(json.dumps({"lm_probe_launches": launches}))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_main():
+    """The child's entry: phase 7 alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm_phase(torch, torch.device(DEVICE))
+    return 0
+
+
+def run_lm_phase():
+    """Phase 7 in a child process; returns the probe's kernel launches.
+    A nonzero exit fails the script."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--lm-phase"], capture_output=True, text=True,
+                         timeout=600)
+    lines = out.stdout.splitlines()
+    for line in lines[:-1] + out.stderr.splitlines()[-40:]:
+        print(f"  {line}" if not line.startswith("  ") else line)
+    print(f"  LM phase: {time.perf_counter() - t0:.1f} s")
+    if out.returncode != 0 or not lines:
+        fail(f"the LM phase exited {out.returncode}")
+    return json.loads(lines[-1])["lm_probe_launches"]
+
+
 def main():
     import torch
 
@@ -1188,6 +1481,7 @@ def main():
         duality_gap,
         multiclass_accuracy,
         predict_accuracy,
+        primal_objective,
         w_of_alpha,
     )
     from repro_torch.core.passcode import (
@@ -1205,6 +1499,7 @@ def main():
         _place_rows,
         _pod_segments,
         _scan_rounds,
+        sharded_passcode_feature,
         sharded_passcode_solve,
     )
     from repro_torch.data.labels import ovr_labels
@@ -1256,6 +1551,13 @@ def main():
         for line in text.splitlines():
             if line.strip():
                 print(f"  {name}: {line.strip()}")
+
+    # ------------------------------------------------------------ 7. LM
+    # first in time: the child has the card's memory to itself (the data
+    # phases below keep about 40 GB resident, and the full-depth
+    # mistral-nemo-12b needs 49 GB)
+    print("phase 7: the LM stack (a child process)")
+    lm_launches = run_lm_phase()
 
     # ------------------------------------------------------------ data
     t0 = time.perf_counter()
@@ -1433,8 +1735,10 @@ def main():
     # B3 runs its rows in order.  The main path gives it the whole
     # covtype shard in one launch (ops.dcd_epoch, hinge C = 0.0625), which
     # takes its stream variant: hold it to its plain version there, one
-    # epoch from α = 0, w = 0, and time both on those inputs, with the
-    # wide variant (the design the stream one replaced) re-timed on the
+    # whole epoch from α = 0, w = 0 (the plain version replayed on CPU
+    # copies of the same inputs, and timed on the card over the epoch's
+    # first PLAIN_IDS rows), and time the kernel on it, with the wide
+    # variant (the design the stream one replaced) held and re-timed on the
     # same inputs as its "before".  A few rows suffice for the other two
     # losses, from an aligned and from an unaligned offset (a view whose
     # base and q are not 16-byte aligned: the stages are copied in 4-byte
@@ -1442,23 +1746,24 @@ def main():
     hinge_c = duals.Hinge(0.0625)
     print(f"  B3 at the covtype shape: {dcd_tile_plan(n_c, d_c)}")
     a0_c, w0_c = torch.zeros(n_c, device=dev), torch.zeros(d_c, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pa3, pw3 = dcd_tile_epoch_plain(X_cov, a0_c, w0_c, q_c, loss=hinge_c)
-    torch.cuda.synchronize()
-    plain_b3 = (time.perf_counter() - t0) * 1e3
-    moved_b3 = int((pa3 != a0_c).sum())  # rows whose update scattered
+    X_cov_h, q_c_h = X_cov.cpu(), q_c.cpu()  # the host replays' rows
+    p3, host_b3 = replay_on_host(
+        lambda a, w: dcd_tile_epoch_plain(X_cov_h, a, w, q_c_h,
+                                          loss=hinge_c), a0_c, w0_c)
+    moved_b3 = int((p3[0] != 0).sum())  # rows whose update scattered
+    n_p3 = min(PLAIN_IDS, n_c)  # the epoch's first rows, timed on the card
+    plain_b3 = wall_ms(lambda: dcd_tile_epoch_plain(
+        X_cov[:n_p3], a0_c[:n_p3], w0_c, q_c[:n_p3], loss=hinge_c), 1, torch)
     err_b3 = err_b3_before = 0.0
     for wide in (False, True):
-        ka3, kw3 = dcd_tile_epoch(X_cov, a0_c, w0_c, q_c, loss=hinge_c,
-                                  wide=wide)
-        torch.cuda.synchronize()
-        e = max(float((ka3 - pa3).abs().max()),
-                float((kw3 - pw3).abs().max()))
+        e = max_err(dcd_tile_epoch(X_cov, a0_c, w0_c, q_c, loss=hinge_c,
+                                   wide=wide), p3)
         what = "wide" if wide else "stream"
         print(f"  B3 dcd_tile {what} hinge: max abs err {e:.3g} over one "
               f"epoch of {n_c} rows ({moved_b3} scattered; |w| max "
-              f"{float(pw3.abs().max()):.4g}; tolerance {ATOL})")
+              f"{float(p3[1].abs().max()):.4g}; tolerance {ATOL}); plain "
+              f"version on the host {host_b3:.1f} s, on the card "
+              f"{plain_b3:.1f} ms over the first {n_p3} rows")
         if not e <= ATOL:
             fail(f"B3 dcd_tile {what} disagrees with its plain version "
                  "(hinge, full covtype epoch)")
@@ -1576,7 +1881,8 @@ def main():
     results["dcd_ell"]["ms_before"] = ms_b1_before
     results["dcd_indexed"]["ms_before"] = ms_b2_before
     results["dcd_tile"].update(ms_before=ms_b3_before,
-                               ms_logistic=ms_b3_logistic)
+                               ms_logistic=ms_b3_logistic, plain_ids=n_p3,
+                               plain_host_ms=host_b3 * 1e3)
     for name, what, ms, e in [
             ("dcd_ell", f"its staged variant (the wide kernel at the rcv1 "
              f"shape, {B} ids", ms_b1_before, err_b1_before),
@@ -1591,28 +1897,29 @@ def main():
     # and PASSCoDe-Lock hand the kernel all n ids of the epoch at once,
     # past the staged plans' 1,024.  Each is held to its plain version
     # over the whole order with the main path's loss (hinge; C = 0.0625
-    # on covtype), from α = 0 and w = 0, and the plain version (one
-    # update at a time, about 0.15 ms an update here) is timed on that
-    # run; the other two losses over the order's first PREFIX ids (still
-    # the wide plan)
+    # on covtype), from α = 0 and w = 0, the plain version replayed on CPU
+    # copies of the same inputs (and timed on the card over the order's
+    # first PLAIN_IDS ids, one update at a time, about 0.15 ms an update
+    # there); the other two losses over the order's first PREFIX ids
+    # (still the wide plan)
     perm_r = torch.randperm(n_r, generator=gen, device=dev).int()
     perm_c = torch.randperm(n_c, generator=gen, device=dev).int()
     print(f"  B1 over a whole rcv1 epoch: {dcd_ell_plan(n_r, k_r)}; B2 over "
           f"a whole covtype epoch: {dcd_dense_plan(n_c, d_c)}")
 
-    def whole_epoch(label, kernel, plain, state0, order, loss):
-        ka, kw = kernel(*state0(), order, loss)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pa, pw = plain(*state0(), order, loss)
-        torch.cuda.synchronize()
-        pl_ms = (time.perf_counter() - t0) * 1e3
-        e = max(float((ka - pa).abs().max()), float((kw - pw).abs().max()))
+    def whole_epoch(label, kernel, plain, host, state0, order, loss):
+        ka = kernel(*state0(), order, loss)
+        p, host_s = replay_on_host(host, *state0(), order, loss)
+        e = max_err(ka, p)
+        pl_ms = wall_ms(lambda: plain(*state0(), order[:PLAIN_IDS], loss), 1,
+                        torch)
         print(f"  {label}: max abs err {e:.3g} over {order.numel()} updates "
-              f"(tolerance {ATOL}); plain version {pl_ms:.1f} ms")
+              f"(tolerance {ATOL}); plain version on the host {host_s:.1f} "
+              f"s, on the card {pl_ms:.1f} ms over the first "
+              f"{min(PLAIN_IDS, order.numel())} ids")
         if not e <= ATOL:
             fail(f"{label} disagrees with its plain version")
-        return e, pl_ms
+        return e, pl_ms, host_s * 1e3
 
     def b1(a, w, i, L):
         return dcd_ell_epoch(X_rcv1.indices, X_rcv1.values, a, w, q_r,
@@ -1622,18 +1929,29 @@ def main():
         return dcd_ell_epoch_plain(X_rcv1.indices, X_rcv1.values, a, w, q_r,
                                    loss=L, idx=i)
 
+    cols_r_h, vals_r_h, q_r_h = (X_rcv1.indices.cpu(), X_rcv1.values.cpu(),
+                                 q_r.cpu())
+
+    def b1_host(a, w, i, L):
+        return dcd_ell_epoch_plain(cols_r_h, vals_r_h, a, w, q_r_h, loss=L,
+                                   idx=i)
+
     def b2(a, w, i, L):
         return dcd_indexed_epoch(X_cov, a, w, q_c, loss=L, idx=i)
 
     def b2_plain(a, w, i, L):
         return dcd_indexed_epoch_plain(X_cov, a, w, q_c, loss=L, idx=i)
 
-    err_b1e, plain_b1e = whole_epoch(
+    def b2_host(a, w, i, L):
+        return dcd_indexed_epoch_plain(X_cov_h, a, w, q_c_h, loss=L, idx=i)
+
+    err_b1e, plain_b1e, host_b1e = whole_epoch(
         "B1 dcd_ell wide, a whole rcv1 epoch's order (hinge)", b1, b1_plain,
-        zeros_r, perm_r, hinge)
-    err_b2e, plain_b2e = whole_epoch(
+        b1_host, zeros_r, perm_r, hinge)
+    err_b2e, plain_b2e, host_b2e = whole_epoch(
         "B2 dcd_indexed wide, a whole covtype epoch's order (hinge)", b2,
-        b2_plain, zeros_c, perm_c, hinge_c)
+        b2_plain, b2_host, zeros_c, perm_c, hinge_c)
+    del cols_r_h, vals_r_h, q_r_h, X_cov_h, q_c_h
     err_b1e = max(err_b1e, compare(
         f"B1 dcd_ell wide, an epoch's order (first {PREFIX} ids)", b1,
         b1_plain, zeros_r, perm_r[None, :PREFIX], losses[1:]))
@@ -1650,12 +1968,14 @@ def main():
     # a multiply-add per row entry for the dot and one for the axpy
     by_b1e = 4 * (2 * n_r + 2 * (d_r + 1)) + n_r * (k_r * 8 + 2 * 4)
     by_b2e = 4 * (2 * n_c + 2 * d_c) + n_c * (d_c * 4 + 2 * 4)
-    for name, route_ms, pl_ms, by, ops_n, n_ids, err, src, rep in [
-        ("dcd_ell_epoch", ms_b1e, plain_b1e, by_b1e, 4 * n_r * k_r, n_r,
-         err_b1e, "src/repro_torch/kernels/csrc/dcd_ell.cu",
+    for name, route_ms, pl_ms, host_ms, by, ops_n, n_ids, err, src, rep in [
+        ("dcd_ell_epoch", ms_b1e, plain_b1e, host_b1e, by_b1e,
+         4 * n_r * k_r, n_r, err_b1e,
+         "src/repro_torch/kernels/csrc/dcd_ell.cu",
          "src/repro/kernels/dcd_ell.py:51"),
-        ("dcd_indexed_epoch", ms_b2e, plain_b2e, by_b2e, 4 * n_c * d_c, n_c,
-         err_b2e, "src/repro_torch/kernels/csrc/dcd_block.cu",
+        ("dcd_indexed_epoch", ms_b2e, plain_b2e, host_b2e, by_b2e,
+         4 * n_c * d_c, n_c, err_b2e,
+         "src/repro_torch/kernels/csrc/dcd_block.cu",
          "src/repro/kernels/dcd_block.py:100"),
     ]:
         b_ms, b_by = bound(by, ops_n)
@@ -1663,10 +1983,12 @@ def main():
                              replaces=rep, variant="wide", launches=0,
                              max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             ids=n_ids)
+                             ids=n_ids, plain_ids=min(PLAIN_IDS, n_ids),
+                             plain_host_ms=host_ms)
         print(f"  {name} (wide, {n_ids} ids, a whole epoch): {route_ms:.4f} "
               f"ms per launch ({route_ms / n_ids * 1e6:.1f} ns per update), "
-              f"plain {pl_ms:.1f} ms ({pl_ms / n_ids * 1e6:.1f} ns per "
+              f"plain {pl_ms:.1f} ms over the first {min(PLAIN_IDS, n_ids)} "
+              f"ids ({pl_ms / min(PLAIN_IDS, n_ids) * 1e6:.1f} ns per "
               f"update), bound {b_ms:.6f} ms ({b_by}), no library call "
               "computes it")
 
@@ -2565,10 +2887,11 @@ def main():
     # variant over 2 CTAs, each a pod's drawn block sequence).  Each is the
     # first round of its solve, laid out and drawn as the solve does it
     # (the reference's key chain), held to its plain version on the same
-    # inputs from α = 0 with the main path's loss over the whole round
-    # (the plain version timed on it) and with the other two losses over
-    # each CTA's first PREFIX ids; its second launch to the same bits, and
-    # timed
+    # inputs from α = 0 with the main path's loss over the whole round (the
+    # plain version replayed on CPU copies of the inputs, and timed on the
+    # card over each CTA's first PLAIN_IDS / CTAs ids) and with the other
+    # two losses over each CTA's first PREFIX ids; its second launch to the
+    # same bits, and timed
     from repro_torch.core.cocoa import _pod_rows
     from repro_torch.core.sharded import _device_block_perm_v
 
@@ -2621,16 +2944,16 @@ def main():
         kern, pl = co_round(shards, rows, q, n_loc), co_round(plain, rows, q,
                                                               n_loc)
         label = f"{name} (wide, {what})"
-        ka, kw = kern(*state0(), ids, loss)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pa, pw = pl(*state0(), ids, loss)
-        torch.cuda.synchronize()
-        pl_ms = (time.perf_counter() - t0) * 1e3
-        e = max(float((ka - pa).abs().max()), float((kw - pw).abs().max()))
-        print(f"  {label} hinge: max abs err {e:.3g} over {ids.numel()} "
-              f"updates (α and w; tolerance {ATOL}); plain version "
-              f"{pl_ms:.1f} ms")
+        p, host_s = replay_on_host(
+            co_round(plain, [r.cpu() for r in rows], q.cpu(), n_loc),
+            *state0(), ids, loss)
+        e = max_err(kern(*state0(), ids, loss), p)
+        head = ids[:, :PLAIN_IDS // ids.shape[0]].contiguous()
+        pl_ms = wall_ms(lambda: pl(*state0(), head, loss), 1, torch)
+        print(f"  {label} hinge: max abs err {e:.3g} over the whole round, "
+              f"{ids.numel()} updates (α and w; tolerance {ATOL}); plain "
+              f"version on the host {host_s:.1f} s, on the card "
+              f"{pl_ms:.1f} ms over each CTA's first {head.shape[1]} ids")
         if not e <= ATOL:
             fail(f"{label} disagrees with its plain version")
         e = max(e, compare(f"{label}, each CTA's first {PREFIX} ids", kern,
@@ -2638,7 +2961,8 @@ def main():
         a0, w0 = state0()
         same_bits(f"{label} hinge", lambda: kern(a0, w0, ids, loss), torch)
         ms = cuda_ms(lambda: kern(a0, w0, ids, loss), 2, torch)
-        wide_rounds[name] = (ms, pl_ms, e, ids.numel())
+        wide_rounds[name] = (ms, pl_ms, e, ids.numel(), head.numel(),
+                             host_s * 1e3)
     # bytes: α and w in and out a CTA, each id's row, q and id once;
     # operations: a multiply-add per row entry for the dot and the axpy
     for name, by, ops_n, src, rep in [
@@ -2652,16 +2976,17 @@ def main():
              + ids_o.numel() * (k_r * 8 + 8), 4 * ids_o.numel() * k_r,
              "src/repro_torch/kernels/csrc/dcd_ell.cu",
              "src/repro/kernels/dcd_ell.py:51")]:
-        ms, pl_ms, err, n_ids = wide_rounds[name]
+        ms, pl_ms, err, n_ids, n_plain, host_ms = wide_rounds[name]
         b_ms, b_by = bound(by, ops_n)
         results[name] = dict(name=name, route="cuda", source=src,
                              replaces=rep, variant="wide", launches=0,
                              max_abs_err=err, ms=ms, plain_ms=pl_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             ids=n_ids)
+                             ids=n_ids, plain_ids=n_plain,
+                             plain_host_ms=host_ms)
         print(f"  {name} (wide, {n_ids} ids a launch): {ms:.4f} ms per "
-              f"launch, plain {pl_ms:.1f} ms, bound {b_ms:.6f} ms ({b_by}), "
-              "no library call computes it")
+              f"launch, plain {pl_ms:.1f} ms over {n_plain} ids, bound "
+              f"{b_ms:.6f} ms ({b_by}), no library call computes it")
     del X_co, q_co, ids_co, rows_o, q_o, ids_o
 
     # where a round's time goes: 20 rounds of the solver's fused 2-D
@@ -2917,6 +3242,118 @@ def main():
     p1_bits("webspam rows (B1 wide)", X_web, hinge, dcd_ell_epoch,
             (X_web.indices, X_web.values), q_w1, n_w1, d_w1, d_w1 + 1)
 
+    # ---- B4 and B5 past 1,024 ids, their rows layout: the shim's one
+    # block of all SHIM_ROWS rows of rcv1's first rows, split into m =
+    # SHARDS feature shards; B5 of each loss fed the plain version's
+    # (base, G) on both sides, so each kernel is held on its own
+    t0 = time.perf_counter()
+    X_shim = EllMatrix(X_rcv1.indices[:SHIM_ROWS].contiguous(),
+                       X_rcv1.values[:SHIM_ROWS].contiguous(), d_r)
+    fs = ell_column_split(X_shim, SHARDS)
+    cols_s, vals_s, q_s = fs.indices, fs.values, fs.row_sq_norms()
+    k_s, d_loc_s = fs.k_loc, fs.d_loc
+    d1_s, Bs = d_loc_s + 1, SHIM_ROWS
+    ids_s = torch.randperm(Bs, generator=gen, device=dev).int()
+    ws_s = feat.gram_workspace(SHARDS, Bs, k_s, d1_s, dev)
+    print(f"  B4 past 1,024 ids (rcv1's first {Bs} rows, m = {SHARDS}, "
+          f"k_loc {k_s}): {gram_plan(SHARDS, Bs, k_s, d1_s)}")
+    print(f"  B5 past 1,024 ids: {feature_update_plan(SHARDS, Bs, k_s, d1_s)}")
+    w_s = torch.randn((SHARDS, d1_s), generator=gen, device=dev) * 1e-3
+    w_s[:, d_loc_s] = 0.0
+    kb_s, kg_s = feat.dcd_feature_gram(cols_s, vals_s, w_s, ids_s,
+                                       workspace=ws_s)
+    pb_s, pg_s = feat.dcd_feature_gram_plain(cols_s, vals_s, w_s, ids_s)
+    torch.cuda.synchronize()
+    err_b4r = max(float((kb_s - pb_s).abs().max()),
+                  float((kg_s - pg_s).abs().max()))
+    print(f"  B4 rows layout: max abs err {err_b4r:.3g} over G "
+          f"({SHARDS} × {Bs} × {Bs}) and base (tolerance {ATOL})")
+    base_s, gram_s = pb_s.sum(0), pg_s.sum(0)
+    err_b5r = 0.0
+    for lname in ("hinge", "squared_hinge", "logistic"):
+        loss = duals.make_loss(lname, 1.0)
+        a0 = torch.full((Bs,), 0.25 if lname == "logistic" else 0.0,
+                        device=dev)
+        ka, kwv = feat.dcd_feature_update(cols_s, vals_s, a0, q_s, w_s,
+                                          ids_s, base_s, gram_s, loss=loss,
+                                          workspace=ws_s)
+        pa, pwv = feat.dcd_feature_update_plain(cols_s, vals_s, a0, q_s,
+                                                w_s, ids_s, base_s, gram_s,
+                                                loss=loss)
+        torch.cuda.synchronize()
+        e5 = max(float((ka - pa).abs().max()), float((kwv - pwv).abs().max()))
+        print(f"  B5 rows layout {lname}: max abs err {e5:.3g} over {Bs} "
+              f"updates (tolerance {ATOL})")
+        err_b5r = max(err_b5r, e5)
+    if not (err_b4r <= ATOL and err_b5r <= ATOL):
+        fail("B4/B5 past 1,024 ids disagree with their plain versions")
+    same_bits("B4 dcd_feature_gram rows layout",
+              lambda: feat.dcd_feature_gram(cols_s, vals_s, w_s, ids_s,
+                                            workspace=ws_s), torch)
+    a_s0 = torch.zeros(Bs, device=dev)
+    same_bits("B5 dcd_feature_update rows layout (hinge)",
+              lambda: feat.dcd_feature_update(
+                  cols_s, vals_s, a_s0, q_s, w_s, ids_s, base_s, gram_s,
+                  loss=hinge, workspace=ws_s), torch)
+    ms_b4r = cuda_ms(lambda: feat.dcd_feature_gram(
+        cols_s, vals_s, w_s, ids_s, workspace=ws_s), 5, torch)
+    ms_b5r = cuda_ms(lambda: feat.dcd_feature_update(
+        cols_s, vals_s, a_s0, q_s, w_s, ids_s, base_s, gram_s, loss=hinge,
+        workspace=ws_s), 5, torch)
+    plain_b4r = wall_ms(lambda: feat.dcd_feature_gram_plain(
+        cols_s, vals_s, w_s, ids_s), 1, torch)
+    plain_b5r = wall_ms(lambda: feat.dcd_feature_update_plain(
+        cols_s, vals_s, a_s0, q_s, w_s, ids_s, base_s, gram_s, loss=hinge),
+        1, torch)
+    # the library yardstick: each shard's block as a (B, d_loc + 1) sparse
+    # matrix times its transpose, built outside the timed region
+    real_s = cols_s[ids_s.long()] < d_loc_s  # (B, m, k)
+    mats_s = []
+    for j in range(SHARDS):
+        c, v, r = cols_s[ids_s.long(), j], vals_s[ids_s.long(), j], \
+            real_s[:, j]
+        rows = torch.arange(Bs, device=dev)[:, None].expand_as(c)[r]
+        cr = c[r].long()
+        mats_s.append((torch.sparse_coo_tensor(
+            torch.stack([rows, cr]), v[r], (Bs, d1_s)).coalesce(),
+            torch.sparse_coo_tensor(torch.stack([cr, rows]), v[r],
+                                    (d1_s, Bs)).coalesce()))
+    lib_b4r = cuda_ms(lambda: [torch.sparse.mm(S, St) for S, St in mats_s],
+                      5, torch)
+    # this block's work: each shard's column counts L give Σ L² products
+    # of G, the scatter and base its nnz real entries
+    nnz_s = int(real_s.sum())
+    flat_s = (cols_s[ids_s.long()].long()
+              + d1_s * torch.arange(SHARDS, device=dev)[:, None])[real_s]
+    pairs_s = int((torch.bincount(flat_s).long() ** 2).sum())
+    by_b4r = (4 * Bs * SHARDS * k_s + 8 * nnz_s + 4 * Bs
+              + 4 * SHARDS * (Bs + Bs * Bs))
+    by_b5r = (8 * Bs + 8 * SHARDS * d1_s + 4 * Bs * SHARDS * k_s
+              + 4 * nnz_s + 12 * Bs + 4 * Bs * Bs)
+    for name, route_ms, pl_ms, lib_ms, by, ops_n, err, rep in [
+        ("dcd_feature_gram_rows", ms_b4r, plain_b4r, lib_b4r, by_b4r,
+         2 * pairs_s + 2 * nnz_s, err_b4r,
+         "src/repro/kernels/dcd_feature.py:60"),
+        ("dcd_feature_update_rows", ms_b5r, plain_b5r, None, by_b5r,
+         2 * nnz_s + Bs * (Bs - 1), err_b5r,
+         "src/repro/kernels/dcd_feature.py:106"),
+    ]:
+        b_ms, b_by = bound(by, ops_n)
+        results[name] = dict(name=name, route="cuda",
+                             source="src/repro_torch/kernels/csrc/"
+                                    "dcd_feature.cu",
+                             replaces=rep, variant="rows", launches=0,
+                             max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             library_ms=lib_ms)
+        lib = ("no library call computes it" if lib_ms is None
+               else f"torch.sparse.mm {lib_ms:.4f} ms")
+        print(f"  {name} (rcv1's first {Bs} rows, m = {SHARDS}, one block "
+              f"of {Bs} ids): {route_ms:.4f} ms per launch, plain "
+              f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+    del kb_s, kg_s, pb_s, pg_s, mats_s
+    print(f"  B4/B5 past 1,024 ids: {time.perf_counter() - t0:.1f} s")
+
     print(f"  [kernel phase done at {time.perf_counter() - t_start:.0f} s]")
 
     # ----------------------------------------------------- 4. main paths
@@ -2951,7 +3388,11 @@ def main():
                 "dcd_indexed_pods": (dcd_indexed_shards, "pods"),
                 "dcd_feature_gram_pods": (feat.dcd_feature_gram, "pods"),
                 "dcd_feature_update_pods": (feat.dcd_feature_update,
-                                            "pods")}
+                                            "pods"),
+                # the launches of a block past 1,024 ids (the rows layout)
+                "dcd_feature_gram_rows": (feat.dcd_feature_gram, "rows"),
+                "dcd_feature_update_rows": (feat.dcd_feature_update,
+                                            "rows")}
 
     # every plain version counts its calls from here on: a main path on
     # the card calls none (the wrappers take them only for CPU tensors)
@@ -2980,6 +3421,8 @@ def main():
             return f.task_launches
         if variant == "pods":
             return f.pod_launches
+        if variant == "rows":
+            return f.rows_launches
         return f.variant_launches[variant] if variant else f.launches
 
     def run_path(label, want, fn, rows=None, count=True):
@@ -2995,6 +3438,7 @@ def main():
         calls no plain version."""
         for f, _ in counters.values():
             f.launches = f.task_launches = f.pod_launches = 0
+            f.rows_launches = 0
             for v in getattr(f, "variant_launches", {}):
                 f.variant_launches[v] = 0
         plain_calls["n"] = 0
@@ -3122,6 +3566,85 @@ def main():
              lambda: solve(f"webspam (1-D, ELL, p = {P_W1}, B1 wide shard "
                            "grid)", X_web, hinge1, n_w1, EPOCHS_2D, accuracy=False,
                            mesh=solver_mesh(n_devices=P_W1)))
+    # A′.12: the per-epoch host driver (pipeline=False) against the
+    # pipelined solve at the same seed, 2 epochs each: rcv1 at p = P_R (B1's
+    # shard grid) at delays 0 and 1; webspam on the 2-D mesh, m = SHARDS,
+    # the fused round at delay 0 and the overlapped one at delay 1 (the
+    # unfused engine, use_kernel=False, is the CPU path and is refused on
+    # the card)
+    def driver_pair(label, X, loss, n, want, **kw):
+        out = {}
+
+        def run():
+            for pipe in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = sharded_passcode_solve(X, loss, epochs=2, block_size=B,
+                                           gap_every=1, seed=SEED,
+                                           device=dev, pipeline=pipe, **kw)
+                gaps = r.gaps.tolist()
+                out[pipe] = (r, (time.perf_counter() - t0) / 2, gaps)
+
+        run_path(label, want, run)
+        (rp, sp, gp), (rd, sd, gd) = out[True], out[False]
+        ea = float((rp.alpha - rd.alpha).abs().max())
+        ew = float((rp.w_hat - rd.w_hat).abs().max())
+        eg = max(abs(a - b) - 1e-3 * abs(a) for a, b in zip(gp, gd))
+        print(f"  {label}: pipelined {sp:.3f} s per epoch, driver "
+              f"{sd:.3f} s per epoch; gaps {gp} and {gd}; max abs "
+              f"diff α {ea:.3g}, ŵ {ew:.3g} (tolerance {ATOL}), the gaps "
+              f"within 1e-3 + 1e-3·|gap|: {eg <= 1e-3}")
+        if not (ea <= ATOL and ew <= ATOL and eg <= 1e-3 and len(gp)
+                == len(gd) == 2 and gd[-1] < gd[0] and rd.eps is None):
+            fail(f"{label}: the driver disagrees with the pipelined solve")
+
+    nb_r8 = _n_blocks(n_loc_r8, B)
+    for dr in (0, 1):
+        driver_pair(f"rcv1 p = {P_R} pipeline=False delay {dr}", X_rcv1,
+                    hinge1, n_r, {"dcd_ell_shards": 4 * nb_r8},
+                    mesh=mesh_r, delay_rounds=dr)
+    nb_w2 = _n_blocks(n_w, B)
+    driver_pair("webspam 2-D pipeline=False delay 0", X_web, hinge1, n_w,
+                {"dcd_feature_gram": 4 * nb_w2,
+                 "dcd_feature_update": 4 * nb_w2},
+                mesh=solver_mesh_2d(model=SHARDS))
+    # the overlapped round's grams: the pipelined solve's one at entry and
+    # one a round; the driver's one a round and a prologue an epoch
+    driver_pair("webspam 2-D pipeline=False overlapped delay 1", X_web,
+                hinge1, n_w,
+                {"dcd_feature_gram": 4 * nb_w2 + 3,
+                 "dcd_feature_update": 4 * nb_w2},
+                mesh=solver_mesh_2d(model=SHARDS), delay_rounds=1,
+                overlap=True)
+
+    # the feature-sharded shim: one block of all SHIM_ROWS rows an epoch,
+    # B4 and B5 in their rows layout, its objective falling
+    def shim():
+        hinge_s = duals.Hinge(1.0)
+        g0 = float(duality_gap(torch.zeros(SHIM_ROWS, device=dev), X_shim,
+                               hinge_s))
+        gaps = []
+        for ep in (1, 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a, w = sharded_passcode_feature(
+                X_shim, hinge_s, mesh=solver_mesh_2d(model=SHARDS),
+                epochs=ep)
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / ep
+            gaps.append(float(duality_gap(a, X_shim, hinge_s)))
+            print(f"  shim, {ep} epoch(s) of one {SHIM_ROWS}-id block: "
+                  f"{sec:.4f} s per epoch, gap {gaps[-1]:.6g}, primal "
+                  f"{float(primal_objective(w, X_shim, hinge_s)):.6g}")
+        print(f"  shim gaps: {g0:.6g} at α = 0, then {gaps}")
+        if not (math.isfinite(gaps[-1]) and gaps[1] < gaps[0] < g0):
+            fail(f"shim: the duality gap did not fall ({g0}, {gaps})")
+
+    run_path("sharded_passcode_feature shim",
+             {"dcd_feature_gram": 4, "dcd_feature_update": 4,
+              "dcd_feature_gram_rows": 4, "dcd_feature_update_rows": 4},
+             shim, {"dcd_feature_gram": None, "dcd_feature_update": None})
+
     run_path(f"rcv1 p = {P_R} shrinking",
              lambda: {"dcd_ell_shards": ran()},
              lambda: solve(f"rcv1 (ELL, p = {P_R}, shrink_every = 1, "
@@ -3789,10 +4312,18 @@ def main():
     # ------------------------------------------------------------ 6. serve
     serve_phase(torch, dev, run_path, X_rcv1, X_web, classes["rcv1"][0])
 
-    # ---------------------------------------------------------- 7. result
+    # the LM phase's probe: B2's task grid and its wide epoch launches
+    results["dcd_indexed_tasks"]["launches"] += lm_launches[
+        "dcd_indexed_tasks"]
+    results["dcd_indexed_epoch"]["launches"] += lm_launches[
+        "dcd_indexed_epoch"]
+
+    # ---------------------------------------------------------- 8. result
     idle = [name for name, row in results.items() if row["launches"] < 1]
     if idle:
         fail(f"kernels no main path launched: {idle}")
+    print(f"profiler windows taken twice (no device activity in the "
+          f"first): {PROFILED_TWICE or 'none'}")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3801,4 +4332,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(lm_main() if sys.argv[1:] == ["--lm-phase"] else main())

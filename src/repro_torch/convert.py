@@ -17,7 +17,11 @@ numpy`` is its inverse, the layout the port's checkpoints are written
 in.
 ``snapshot_from_numpy`` carries a serving snapshot of the reference's
 (``repro.serve.ModelSnapshot``) across, so both engines score the same
-model.
+model.  ``params_from_numpy`` carries an LM's parameter pytree across
+(its stacked (L, …) layer groups become the port's per-layer dicts) and
+``cache_from_numpy`` a decode cache, so both packages run one model
+from one cache; ``params_to_numpy`` and ``cache_to_numpy`` are their
+inverses.
 """
 
 from __future__ import annotations
@@ -233,3 +237,90 @@ def snapshot_from_numpy(snap, *, device=None):
     return ModelSnapshot(dense_from_numpy(snap.w_pad, device=dev),
                          int(snap.version), int(snap.d), alpha,
                          None if snap.meta is None else dict(snap.meta))
+
+
+# the layer groups the reference stacks along a leading (L, …) axis
+_LAYER_GROUPS = ("attn", "mlp", "moe", "ssm", "enc_attn", "enc_mlp",
+                 "cross")
+
+
+def _unstack(group: dict, dev) -> list:
+    """A stacked {name: (L, …)} group as L per-layer dicts."""
+    n = len(next(iter(group.values())))
+    return [{k: torch.tensor(np.asarray(v)[i], device=dev)
+             for k, v in group.items()} for i in range(n)]
+
+
+def _stack(layers: list) -> dict:
+    return {k: np.stack([lp[k].detach().cpu().numpy() for lp in layers])
+            for k in layers[0]}
+
+
+def params_from_numpy(cfg, params, *, device=None) -> dict:
+    """The reference's LM parameter pytree (numpy or jax arrays) in the
+    port's layout (``repro_torch.models.transformer``): each stacked
+    layer group a list of per-layer dicts, a hybrid model's ``periods``
+    a list of slots {"block": [...], "mlp": [...]}, every other leaf a
+    tensor.  ``cfg`` is the model's config: the embedding must have its
+    padded vocabulary and width."""
+    from repro_torch.models.transformer import vocab_padded
+    dev = resolve_device(device)
+    want = (vocab_padded(cfg), cfg.d_model)
+    if tuple(np.shape(params["embed"])) != want:
+        raise ValueError(f"the embedding is {tuple(np.shape(params['embed']))}"
+                         f", {cfg.name} has {want}")
+    out = {}
+    for k, v in params.items():
+        if k in _LAYER_GROUPS:
+            out[k] = _unstack(v, dev)
+        elif k == "periods":
+            out[k] = [{"block": _unstack(slot["block"], dev),
+                       "mlp": _unstack(slot["mlp"], dev)} for slot in v]
+        else:
+            out[k] = torch.tensor(np.asarray(v), device=dev)
+    return out
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameters as the reference's stacked numpy pytree."""
+    out = {}
+    for k, v in params.items():
+        if k in _LAYER_GROUPS:
+            out[k] = _stack(v)
+        elif k == "periods":
+            out[k] = [{"block": _stack(slot["block"]),
+                       "mlp": _stack(slot["mlp"])} for slot in v]
+        else:
+            out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def cache_from_numpy(cache, *, device=None):
+    """A decode cache of the reference's (its ``Cache``, or any object with
+    its fields, as numpy or jax arrays) as the port's ``Cache``."""
+    from repro_torch.models.ssm import SsmCacheSlice
+    from repro_torch.models.transformer import Cache
+    dev = resolve_device(device)
+
+    def t(a):
+        return None if a is None else torch.tensor(np.asarray(a), device=dev)
+
+    ssm = (None if cache.ssm is None
+           else SsmCacheSlice(*(t(f) for f in cache.ssm)))
+    return Cache(t(cache.attn_k), t(cache.attn_v), ssm, t(cache.cross_k),
+                 t(cache.cross_v), int(np.asarray(cache.length)))
+
+
+def cache_to_numpy(cache) -> dict:
+    """The port's ``Cache`` as a dict of numpy arrays with the reference's
+    field names (``ssm`` a dict of ``h``, ``conv_x``, ``conv_bc``)."""
+
+    def a(t):
+        return None if t is None else t.detach().cpu().numpy()
+
+    out = {f: a(getattr(cache, f))
+           for f in ("attn_k", "attn_v", "cross_k", "cross_v")}
+    out["ssm"] = (None if cache.ssm is None
+                  else {f: a(getattr(cache.ssm, f)) for f in cache.ssm._fields})
+    out["length"] = np.int32(cache.length)
+    return out

@@ -129,8 +129,20 @@ segment, and ``repro_torch.resilience.solve_segmented`` chains several
 (bit for bit the whole solve) with the watchdog's health code, the fault
 triple and the degraded knobs of a retry.
 
-The reference's ``pipeline=False`` epoch loop on the host raises
-``NotImplementedError`` naming its ROADMAP item.
+**The per-epoch host driver** (``pipeline=False``, the reference's
+legacy path).  ``make_sharded_epoch`` and ``make_sharded_epoch_2d`` build
+one epoch over an explicit block schedule ((p·n_blocks, B) shard-local
+ids, shard i owning rows [i·n_blocks, (i+1)·n_blocks)) on the same round
+engines the pipelined solve runs (``_scan_rounds``, and on the 2-D mesh
+with ``overlap`` the overlapped round with its prologue (base, Gram)
+rebuilt each dispatch and its last round wrapping to the epoch's own
+first block); ``_drive_epochs`` draws each epoch's blocks from the one
+key chain the pipelined solve consumes, dispatches the epoch, keeps the
+gap on the device and flushes the delayed Δw at the end.
+``sharded_passcode_feature`` is the reference's back-compat shim: one
+block of B = n rows an epoch on a (data = 1, model = m) mesh, whose
+n × n Gram takes B4 and B5 past 1,024 ids (their device-memory layout,
+``gram_plan``/``feature_update_plan``).
 """
 
 from __future__ import annotations
@@ -383,6 +395,17 @@ def _device_block_perm_masked(sub, my: int, p: int, n_loc: int,
     return sel.reshape(-1, n_blocks, block_size).to(torch.int32)
 
 
+def _masked_block_perms(key, p: int, n_loc: int, n_rows: int,
+                        n_blocks: int, block_size: int):
+    """All shards' masked block permutations for one epoch, drawn on the
+    host (the ``pipeline=False`` driver): row ``my`` is
+    ``_device_block_perm(key, my, …)`` flattened.  Returns (p,
+    n_blocks·B) int32."""
+    return torch.stack([
+        _device_block_perm(key, my, p, n_loc, n_rows, n_blocks,
+                           block_size).reshape(-1) for my in range(p)])
+
+
 def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
                  delay_rounds: int, pods: int = 1):
     """The round structure: per round the block engine runs against the
@@ -504,6 +527,151 @@ def _scan_rounds_overlap(gram_fn, corr_fn, update_fn, alpha, w, dw_prev,
                                 _shard_sum(w_upd - _per_shard(w_next)),
                                 inflight_next)
     return alpha, w, dw_prev, inflight
+
+
+def _check_interpret(interpret):
+    """``interpret`` picks the Pallas kernels' interpreter in the
+    reference; the port has none, so only its default (None) is taken."""
+    if interpret is not None:
+        raise ValueError(
+            f"interpret={interpret!r}: the port has no kernel interpreter "
+            "(a CPU tensor runs the kernels' plain versions)")
+
+
+def _round_major(blocks_idx, p: int, device):
+    """(p·n_blocks, B) shard-local ids, shard i owning rows
+    [i·n_blocks, (i+1)·n_blocks), as the round scan's (n_blocks, p, B)."""
+    b = torch.as_tensor(blocks_idx, dtype=torch.int32, device=device)
+    if b.dim() != 2 or b.shape[0] % p:
+        raise ValueError(f"blocks_idx must be (p·n_blocks, B) for p = {p}, "
+                         f"got {tuple(b.shape)}")
+    return b.view(p, -1, b.shape[1]).transpose(0, 1).contiguous()
+
+
+def make_sharded_epoch(mesh, loss, *, delay_rounds: int = 0,
+                       use_kernel="auto", interpret=None, ell: bool = False,
+                       device=None):
+    """One epoch of the 1-D solver over an explicit block schedule — the
+    reference's ``make_sharded_epoch`` (the ``pipeline=False`` path):
+    ``epoch(X, sq_norms, alpha, w, blocks_idx, carry_dw) → (alpha, w,
+    carry_dw)`` runs ``_scan_rounds`` over the B1 (``ell``: X a (cols,
+    vals) pair, w the (d + 1,) primal with the dummy slot at d) or B2
+    (dense X, w (d,)) shard grid.  α is the (p·n_loc,) row-padded dual
+    of the solver's layout (``prepare_solver``), ``blocks_idx`` the
+    (p·n_blocks, B) shard-local ids, ``carry_dw`` the Δw in flight
+    (``delay_rounds``).  The engine follows the tensors' device (the
+    kernels for CUDA tensors); ``device`` is where the epoch may run,
+    the card unless the caller asks for the CPU."""
+    _check_interpret(interpret)
+    dev = resolve_device(device)
+    _check_use_kernel(use_kernel, dev)
+    if tuple(mesh.axis_names) != ("data",):
+        raise ValueError(f"make_sharded_epoch needs a ('data',) mesh, got "
+                         f"{tuple(mesh.axis_names)}")
+    p, delay = dp_size(mesh), int(delay_rounds)
+
+    def epoch(X, sq_norms, alpha, w, blocks_idx, carry_dw):
+        n_loc = alpha.shape[-1] // p
+        engine = functools.partial(_block_update_1d(loss, ell, n_loc), X,
+                                   sq_norms)
+        a, w_new, dw = _scan_rounds(engine, alpha[None], w[None],
+                                    carry_dw[None],
+                                    _round_major(blocks_idx, p, alpha.device),
+                                    delay)
+        return a[0], w_new[0], dw[0]
+
+    return epoch
+
+
+def make_sharded_epoch_2d(mesh, loss, *, delay_rounds: int = 0,
+                          use_kernel="auto", interpret=None, overlap=False,
+                          device=None):
+    """One epoch of the 2-D feature-sharded solver over an explicit block
+    schedule — the reference's ``make_sharded_epoch_2d``: X the (cols,
+    vals) pair of (p·n_loc, m, k_loc) slices, w the (m, d_loc + 1)
+    slices, α and ``blocks_idx`` as for ``make_sharded_epoch``.  The
+    engine is the fused B4 → B5 round for ``use_kernel`` True (and
+    "auto" on the card), else the unfused one; ``overlap`` (validated by
+    ``pipeline_overlap``) runs the overlapped round with the per-dispatch
+    prologue: the (base, Gram) of the epoch's first block is formed
+    against the entering w each dispatch, and the last round's peek
+    wraps to that same first block (the pipelined solve instead carries
+    the aggregate across epochs).  B4's workspaces are allocated at the
+    first call and kept while the shapes stay."""
+    _check_interpret(interpret)
+    dev = resolve_device(device)
+    _check_use_kernel(use_kernel, dev)
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError(f"make_sharded_epoch_2d needs a ('data', 'model') "
+                         f"mesh, got {tuple(mesh.axis_names)}")
+    fused = _fused_2d(use_kernel, dev)
+    delay = int(delay_rounds)
+    overlap = pipeline_overlap(overlap, two_d=True, fused=fused,
+                               delay_rounds=delay)
+    p = dp_size(mesh)
+    kept = {}
+
+    def epoch(X, sq_norms, alpha, w, blocks_idx, carry_dw):
+        cols, vals = X
+        n_loc = alpha.shape[-1] // p
+        blocks = _round_major(blocks_idx, p, alpha.device)
+        shape = (tuple(cols.shape), blocks.shape[-1], w.shape[-1])
+        if fused and kept.get("shape") != shape:
+            kept.update(shape=shape, ws=_gram_workspaces(
+                cols, blocks.shape[-1], w.shape[-1], p, 1, overlap))
+        ws = kept["ws"] if fused else (None, None)
+        a, w_new, dw = alpha[None], w[None], carry_dw[None]
+        if overlap:
+            gram_fn, corr_fn, update_fn = _overlap_round_fns(
+                cols, vals, sq_norms, loss, n_loc)
+            inflight = (*gram_fn(w_new, blocks[0], ws[0]), ws[0])
+            a, w_new, dw, _ = _scan_rounds_overlap(
+                gram_fn, corr_fn, update_fn, a, w_new, dw, blocks, inflight,
+                blocks[0], ws)
+        else:
+            engine = functools.partial(
+                _block_update_2d(loss, fused, ws[0], n_loc), cols, vals,
+                sq_norms)
+            a, w_new, dw = _scan_rounds(engine, a, w_new, dw, blocks, delay)
+        return a[0], w_new[0], dw[0]
+
+    return epoch
+
+
+def _drive_epochs(epoch_fn, X, sq_norms, alpha, w, carry_dw, *, p, n_loc,
+                  n, n_blocks, block_size, epochs, key, record, gap_every,
+                  delay_rounds, gap_fn, draw=None):
+    """The host-side per-epoch driver (the reference's ``pipeline=False``
+    path): each epoch splits the one key chain the pipelined solve
+    consumes (``key, sub = split(key)``), draws every shard's masked
+    block permutation (``_masked_block_perms``; ``draw(e, sub)`` —
+    ``_block_draw``'s, for an explicit schedule — in its place when
+    given), dispatches the epoch and, every ``gap_every`` epochs and at
+    the last, keeps ``gap_fn(alpha, w)`` on the device; one host read
+    after the solve.  The delayed Δw in flight is flushed at the end.
+    Returns (alpha, w, gaps)."""
+    gap_every = max(int(gap_every), 1)
+    solve = sharded_passcode_solve
+    gaps = []
+    for e in range(epochs):
+        key, sub = prng.split(key)
+        if draw is None:
+            blocks = _masked_block_perms(sub, p, n_loc, n, n_blocks,
+                                         block_size)
+        else:
+            blocks = draw(e, sub).transpose(0, 1)
+        solve.epoch_rounds.append(n_blocks)
+        solve.task_rounds.append([n_blocks])
+        alpha, w, carry_dw = epoch_fn(
+            X, sq_norms, alpha, w, blocks.reshape(p * n_blocks, block_size),
+            carry_dw)
+        if record and ((e + 1) % gap_every == 0 or e == epochs - 1):
+            gaps.append(gap_fn(alpha, w + carry_dw))
+    if delay_rounds > 0:
+        w = w + carry_dw  # flush the in-flight aggregate
+    gaps = (torch.stack(gaps) if gaps
+            else torch.zeros((0,), dtype=torch.float32, device=alpha.device))
+    return alpha, w, gaps
 
 
 def _gap_slots(epochs: int, gap_every: int) -> int:
@@ -881,9 +1049,9 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
     axis and ``pod_delay_rounds`` are admitted by ``pod_merge_policy``
     (each pod's rows padded to its own p·n_loc slots, ⌈n/P⌉ rows a pod,
     ``_pod_segments``; ``overlap="auto"`` resolves off);
-    ``pipeline=False`` raises ``NotImplementedError``
-    (``_reject_unported``), and the self-tuning knobs are validated by
-    ``resolve_self_tuning``."""
+    ``pipeline=False`` keeps the reference's own ``ValueError``s (a
+    multi-task ``y``, a pod axis, shrinking or the adaptive delay), and
+    the self-tuning knobs are validated by ``resolve_self_tuning``."""
     mesh = _resolve_mesh(mesh, mesh_axes)
     pod_on = "pod" in mesh.axis_names
     if pod_on:
@@ -901,7 +1069,7 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
         raise ValueError(
             "a 'task' mesh axis needs a (K, n) label matrix y "
             "(DESIGN.md §16)")
-    _reject_unported(mesh=mesh, pipeline=pipeline)
+    _reject_unported(mesh=mesh)
     dev = resolve_device(device)
     _check_use_kernel(use_kernel, dev)
     if int(block_size) < 1:
@@ -1026,7 +1194,7 @@ def _finalize(setup: SolverSetup, alpha, w, gaps, epochs, eps=None,
     out = (_real_rows(alpha, setup.segs), w[:, :setup.d], gaps, eps, active,
            delay)
     if not setup.n_tasks:
-        out = tuple(t[0] for t in out)
+        out = tuple(None if t is None else t[0] for t in out)
     alpha, w, gaps, eps, active, delay = out
     return ShardedResult(alpha, w, gaps, epochs, eps, active, delay)
 
@@ -1086,9 +1254,8 @@ def _validate_multitask_labels(X_host, Y):
     return Y
 
 
-def _reject_unported(*, mesh, pipeline):
-    """The reference's knobs outside the ported slices: each raises,
-    naming the ROADMAP item that ports it; none is silently ignored."""
+def _reject_unported(*, mesh):
+    """The mesh axes the solver runs on; any other layout raises."""
     axes = tuple(mesh.axis_names)
     if axes not in (("data",), ("data", "model"), ("task", "data"),
                     ("task", "data", "model"), ("pod", "data"),
@@ -1096,10 +1263,6 @@ def _reject_unported(*, mesh, pipeline):
         raise ValueError(f"mesh axes {axes}: the solver runs on ('data',) "
                          "or ('data', 'model'), with or without a leading "
                          "'task' or 'pod'")
-    if not pipeline:
-        raise NotImplementedError(
-            "pipeline=False (the per-epoch host driver) is ROADMAP A′.12, "
-            "not yet ported")
 
 
 def _as_blocks(blocks, setup: SolverSetup, epochs: int):
@@ -1174,17 +1337,26 @@ def _block_draw(setup: SolverSetup, blocks, total: int):
     return draw
 
 
-def _workspaces(setup: SolverSetup):
-    """B4's workspaces on the card: one for the eager round, two that
+def _gram_workspaces(cols, block_size: int, d1: int, p: int, K: int,
+                     overlap: bool):
+    """B4's workspaces on the card for blocks of ``block_size`` ids over
+    the (n, m, k) slices ``cols``: one for the eager round, two that
     alternate for the overlapped one (B4 of block t + 1 runs before B5
     of block t, which reads block t's buckets); None on the CPU."""
-    if not (setup.fused and setup.device.type == "cuda"):
+    if not cols.is_cuda:
         return (None, None)
-    return tuple(
-        gram_workspace(setup.m, setup.block_size, setup.X[0].shape[2],
-                       setup.w_shape[1], setup.device,
-                       setup.p, setup.K)
-        for _ in range(2 if setup.overlap else 1))
+    return tuple(gram_workspace(cols.shape[1], block_size, cols.shape[2],
+                                d1, cols.device, p, K)
+                 for _ in range(2 if overlap else 1))
+
+
+def _workspaces(setup: SolverSetup):
+    """The solve's B4 workspaces (``_gram_workspaces``) for the fused
+    engine; None for the unfused one."""
+    if not setup.fused:
+        return (None, None)
+    return _gram_workspaces(setup.X[0], setup.block_size, setup.w_shape[1],
+                            setup.p, setup.K, setup.overlap)
 
 
 def pipeline_state_keys(*, dyn: bool, shrink_on: bool, adaptive: bool,
@@ -1727,10 +1899,12 @@ def sharded_passcode_solve(
     (``solver_mesh_3d``, or ``SolverMesh(("pod", "data"), (P, p))``) runs
     the Hybrid-DCA outer round of P pods (module docstring), each
     epoch's merge delayed by ``pod_delay_rounds``; ``alpha0``/``w0``
-    carried from any pod count warm-start it.  ``pipeline=False`` raises
-    ``NotImplementedError`` naming its ROADMAP item (``prepare_solver``);
-    a multi-task solve with ``pipeline=False`` raises the reference's
-    ``ValueError``.
+    carried from any pod count warm-start it.  ``pipeline=False`` runs
+    the per-epoch host driver (``_drive_epochs`` over
+    ``make_sharded_epoch`` or ``make_sharded_epoch_2d``: the same key
+    chain, so the same update sequence; gaps only, no ``eps``); with a
+    multi-task ``y``, a pod axis, shrinking or the adaptive delay it
+    raises the reference's ``ValueError``.
     """
     setup = solver_mouth(
         X_host, loss, y=y, device=device, mesh=mesh, mesh_axes=mesh_axes,
@@ -1744,10 +1918,46 @@ def sharded_passcode_solve(
     # that ``repro_torch.resilience.solve_segmented`` runs in several
     sharded_passcode_solve.epoch_rounds = []
     sharded_passcode_solve.task_rounds = []
+    if not pipeline:
+        return _driver_solve(setup, epochs=epochs, alpha0=alpha0, w0=w0,
+                             blocks=blocks, use_kernel=use_kernel)
     st = init_pipeline_state(setup, total_epochs=epochs, alpha0=alpha0,
                              w0=w0)
     st = build_pipeline(setup, epochs=epochs, blocks=blocks)(setup.X, st)
     return finalize_state(setup, st, epochs=epochs)
+
+
+def _driver_solve(setup: SolverSetup, *, epochs: int, alpha0, w0, blocks,
+                  use_kernel) -> ShardedResult:
+    """The ``pipeline=False`` solve: the setup's epoch function
+    (``make_sharded_epoch`` or ``make_sharded_epoch_2d``) under
+    ``_drive_epochs``, from the key ``PRNGKey(seed)``."""
+    mesh = (solver_mesh_2d(data=setup.p, model=setup.m) if setup.two_d
+            else SolverMesh(("data",), (setup.p,)))
+    if setup.two_d:
+        epoch_fn = make_sharded_epoch_2d(
+            mesh, setup.loss, delay_rounds=setup.delay_rounds,
+            use_kernel=use_kernel, overlap=setup.overlap,
+            device=setup.device)
+        gap = _make_gap_2d(setup.loss, *setup.X, segments=setup.segs)
+    else:
+        epoch_fn = make_sharded_epoch(
+            mesh, setup.loss, delay_rounds=setup.delay_rounds,
+            use_kernel=use_kernel, ell=setup.ell, device=setup.device)
+        gap = _make_gap_1d(setup.loss, setup.X, setup.ell,
+                           setup.w_shape[0], segments=setup.segs)
+    alpha, w = _init_alpha_w(setup, alpha0, w0)
+    draw = None if blocks is None else _block_draw(setup, blocks, epochs)
+    alpha, w, gaps = _drive_epochs(
+        epoch_fn, setup.X, setup.sq_norms, alpha[0], w[0],
+        torch.zeros_like(w[0]), p=setup.p, n_loc=setup.n_loc, n=setup.n,
+        n_blocks=setup.n_blocks, block_size=setup.block_size, epochs=epochs,
+        key=prng.PRNGKey(setup.seed, device=setup.device),
+        record=setup.record, gap_every=setup.gap_every,
+        delay_rounds=setup.delay_rounds,
+        gap_fn=lambda a, w_view: gap(_real_rows(a, setup.segs), w_view)[0],
+        draw=draw)
+    return _finalize(setup, alpha[None], w[None], gaps[None], epochs)
 
 
 # the host reads of the solver's device state (the repacked round counts
@@ -1759,10 +1969,18 @@ sharded_passcode_solve.task_rounds = []
 
 
 def sharded_passcode_feature(X_host, loss, *, mesh=None, epochs: int = 10,
-                             seed: int = 0):
-    """The reference's back-compat shim (one n-row block per epoch on the
-    2-D mesh).  Not ported: its B = n would need an n × n Gram."""
-    raise NotImplementedError(
-        "sharded_passcode_feature (one block of B = n rows, an n × n Gram) "
-        "is ROADMAP A′.12, not yet ported; call sharded_passcode_solve "
-        "with mesh=solver_mesh_2d(model=m)")
+                             seed: int = 0, device=None):
+    """The reference's back-compat shim for the old feature-sharded demo:
+    ``sharded_passcode_solve`` on a (data = 1, model = m) mesh with one
+    block of B = n rows an epoch and no records — one serial pass over a
+    permutation of all rows, Algorithm 1's order.  ``mesh`` defaults to
+    ``solver_mesh_2d(model=1)`` (the port's shards are virtual; the
+    reference takes one a device).  On the card the block's n × n Gram
+    takes B4 and B5's layout past 1,024 ids.  Returns ``(alpha, w_hat)``."""
+    if mesh is None:
+        mesh = solver_mesh_2d(data=1, model=1)
+    n = X_host.n_rows if isinstance(X_host, EllMatrix) else X_host.shape[0]
+    r = sharded_passcode_solve(X_host, loss, mesh=mesh, epochs=epochs,
+                               block_size=n, seed=seed, record=False,
+                               device=device)
+    return r.alpha, r.w_hat

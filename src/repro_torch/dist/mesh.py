@@ -275,6 +275,19 @@ GRAM_WALKERS = 2  # interleaved walkers of each column t of G
 GRAM_THREADS = 64 * GRAM_WALKERS  # 64 columns t of G per CTA
 GRAM_BUCKET_THREADS = 512
 GRAM_TILE_WORDS = 4096  # G accumulator words per walker (B × tile)
+# Past GRAM_SHARED_MAX_IDS ids a block's Gram no longer fits the layout
+# above (the walkers' (B, tile) accumulators in shared memory, B5's
+# recursion in one warp's registers): B4 and B5 take their "rows" layout,
+# one column class, G written in tiles of GRAM_ROWS_TILE columns straight
+# to device memory by CTAs of GRAM_ROWS_THREADS rows (one a thread), and
+# B5's recursion on one CTA of FEATURE_UPDATE_ROWS_THREADS a (task, data
+# shard) pair, its accumulators in shared memory (device memory past
+# that) and δ̃ in device memory.  What bounds the block then is G itself:
+# b² floats for every (task, data, model) triple and their sum.
+GRAM_SHARED_MAX_IDS = 1024
+GRAM_ROWS_TILE = 64
+GRAM_ROWS_THREADS = 256
+HBM_BYTES = 80 * 10**9  # the H100's device memory
 
 
 class GramPlan(NamedTuple):
@@ -295,6 +308,30 @@ class GramPlan(NamedTuple):
     data: int = 1
     tasks: int = 1
     pods: int = 1
+    layout: str = "shared"  # or "rows": past GRAM_SHARED_MAX_IDS ids
+
+
+def gram_rows_bytes(tile: int, threads: int = GRAM_ROWS_THREADS) -> int:
+    """Shared memory of B4's rows-layout Gram kernel: the chunk's column
+    table (key, count, run end per slot), a chunk's entries staged
+    (column, tile row, value, slot) and sorted (tile row, value), the
+    tile rows' offsets (tile + 1), and each thread's accumulators of the
+    tile's columns."""
+    return (12 * GRAM_TABLE_SLOTS + 24 * GRAM_CHUNK + 4 * (tile + 1)
+            + 4 * threads * tile)
+
+
+def _check_gram_fits(m: int, b: int, pairs: int) -> None:
+    """Raise where the block's Gram matrices cannot be allocated: b²
+    floats for each of the ``pairs`` (task, data shard) pairs' m
+    partials and their sum."""
+    need = 4 * b * b * pairs * (m + 1)
+    if need > HBM_BYTES:
+        raise ValueError(
+            f"a block of {b} ids needs {need / 1e9:.1f} GB for its Gram "
+            f"matrices (b² floats for each of {pairs} pair(s) × ({m} "
+            f"shard partials + their sum)), more than the card's "
+            f"{HBM_BYTES / 1e9:.0f} GB")
 
 
 @functools.lru_cache(maxsize=64)
@@ -304,22 +341,32 @@ def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
     words and rows of ``k`` slots, for each of ``data`` data shards of
     each of ``tasks`` tasks (the classes depend on m alone, so a (task,
     data shard) pair runs what the binary p = 1 launch runs, with the
-    same shared memory a CTA), and of ``pods`` pods.  Raises if a row is
-    too long for the bucket pass to stage in shared memory."""
+    same shared memory a CTA), and of ``pods`` pods.  Past
+    ``GRAM_SHARED_MAX_IDS`` ids the layout is "rows" (one class, tiles of
+    ``GRAM_ROWS_TILE`` columns, ``gram_rows_bytes``).  Raises if a row is
+    too long for the bucket pass to stage in shared memory, or where the
+    block's Gram matrices cannot be allocated (``_check_gram_fits``)."""
     m, b, k, d1, data = int(m), int(b), int(k), int(d1), max(int(data), 1)
     tasks, pods = max(int(tasks), 1), max(int(pods), 1)
-    classes = max(1, min(GRAM_PARTIAL_WORDS // (m * b * b),
-                         -(-d1 // GRAM_CLASS_COLS), GRAM_MAX_CLASSES))
-    tile = max(1, min(b, 64, GRAM_TILE_WORDS // b))
+    rows = b > GRAM_SHARED_MAX_IDS
+    if rows:
+        _check_gram_fits(m, b, tasks * data * pods)
+        classes, tile = 1, GRAM_ROWS_TILE
+        gram = gram_rows_bytes(tile)
+    else:
+        classes = max(1, min(GRAM_PARTIAL_WORDS // (m * b * b),
+                             -(-d1 // GRAM_CLASS_COLS), GRAM_MAX_CLASSES))
+        tile = max(1, min(b, 64, GRAM_TILE_WORDS // b))
+        gram = (12 * GRAM_TABLE_SLOTS + 24 * GRAM_CHUNK + 4 * (2 * b + 1)
+                + 4 * GRAM_WALKERS * b * tile)
     tiles = -(-b // tile)
     bucket = 4 * (GRAM_BUCKET_THREADS // WARP) * classes + 8 * k
-    gram = (12 * GRAM_TABLE_SLOTS + 24 * GRAM_CHUNK + 4 * (2 * b + 1)
-            + 4 * GRAM_WALKERS * b * tile)
     if bucket > SMEM_PER_CTA - STATIC_SMEM:
         raise ValueError(f"rows of {k} slots are too long for B4: its "
                          f"bucket pass stages a row in {bucket} bytes of "
                          f"shared memory, more than {SMEM_PER_CTA}")
-    return GramPlan(classes, tile, tiles, bucket, gram, data, tasks, pods)
+    return GramPlan(classes, tile, tiles, bucket, gram, data, tasks, pods,
+                    "rows" if rows else "shared")
 
 
 # B5: one CTA per column class of B4's plan and per shard; it stages the
@@ -327,6 +374,7 @@ def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
 # a chunk of FEATURE_UPDATE_CHUNK staged at a time
 FEATURE_UPDATE_THREADS = 128
 FEATURE_UPDATE_CHUNK = 2048
+FEATURE_UPDATE_ROWS_THREADS = 1024  # the rows layout's recursion CTA
 
 
 class FeatureUpdatePlan(NamedTuple):
@@ -348,6 +396,7 @@ class FeatureUpdatePlan(NamedTuple):
     data: int = 1
     tasks: int = 1
     pods: int = 1
+    layout: str = "shared"  # or "rows": past GRAM_SHARED_MAX_IDS ids
 
 
 def feature_update_bytes(b: int, stage_gram: bool,
@@ -367,8 +416,20 @@ def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
     words and rows of ``k`` slots, for each of ``data`` data shards of
     each of ``tasks`` tasks: B4's classes, and G staged when the whole
     layout fits the shared memory one CTA can use (one CTA runs one
-    task's recursion, so the layout does not depend on the counts)."""
-    classes = gram_plan(m, b, k, d1).classes
+    task's recursion, so the layout does not depend on the counts).
+    Past ``GRAM_SHARED_MAX_IDS`` ids the layout is "rows": one CTA of
+    ``FEATURE_UPDATE_ROWS_THREADS`` a pair runs the recursion, its b
+    accumulators in shared memory (``smem_bytes``) where they fit and in
+    device memory (``smem_bytes`` 0) past that, no lane registers
+    (``per_lane`` 0), G read from device memory; then the scatter."""
+    classes = gram_plan(m, b, k, d1, data, tasks, pods).classes
+    if int(b) > GRAM_SHARED_MAX_IDS:
+        acc = 4 * int(b)
+        return FeatureUpdatePlan(
+            classes, FEATURE_UPDATE_ROWS_THREADS, 0, False,
+            acc if acc <= SMEM_PER_CTA - STATIC_SMEM else 0,
+            max(int(data), 1), max(int(tasks), 1), max(int(pods), 1),
+            "rows")
     stage = feature_update_bytes(b, True) <= SMEM_PER_CTA - STATIC_SMEM
     return FeatureUpdatePlan(classes, FEATURE_UPDATE_THREADS,
                              _pow2_at_least(-(-int(b) // WARP)), stage,

@@ -129,13 +129,21 @@
 // pod's w.  The (task, pod·data, model) triples stay one grid dimension;
 // P = 1 gives the bits of the pod-free grid.
 //
+// Blocks past 1,024 ids (the shim's one block of B = n rows; repro_torch/
+// dist/mesh.py: GRAM_SHARED_MAX_IDS) take the "rows" layout: one column
+// class; B4's bucket pass as above (its rows stepping over a grid of at most
+// 65,535 in y), then dcd_feature_gram_rows_kernel, G in tiles of 64 columns
+// straight to device memory; B5 as dcd_feature_recursion_rows_kernel (one
+// CTA a pair, δ̃ to device memory) and dcd_feature_scatter_rows_kernel.
+// Below it every launch keeps the layout above and its bits.
+//
 // Both build with --fmad=false, as B1–B3, so δ̃·v and the adds round as
 // the plain version's do.
 
 #include "dcd_delta.cuh"
 #include "dcd_stage.cuh"
 
-#define DCD_FEATURE_MAX_B 1024
+#define DCD_FEATURE_MAX_B 1024  // the shared layout's ids a block
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -195,18 +203,14 @@ __device__ __forceinline__ unsigned gram_hash(int c, int slots) {
 // slots are staged in shared memory, loaded GRAM_LANE_BATCH a lane at a
 // time so that the loads, and the gathers of w behind them, overlap.
 #define GRAM_LANE_BATCH 8
-__global__ void dcd_feature_bucket_kernel(
+__device__ __forceinline__ void bucket_row(
     const int* __restrict__ idx, int B, long long n_loc,
     const int* __restrict__ cols, const float* __restrict__ vals, int m,
     int k, int d_loc, const float* __restrict__ w, long long w_stride,
     int d1, int R, int* __restrict__ bk_lc, float* __restrict__ bk_v,
     int* __restrict__ roff, float* __restrict__ base_p, int data,
-    long long idx_ts, long long w_ts, int pod_shards) {
-  extern __shared__ __align__(16) int cur[];  // [warps][R]: counts, cursors
-  __shared__ float red[DCD_MAX_WARPS];
-  __shared__ int tmp[DCD_MAX_WARPS];
-  // pair z = blockIdx.z: data shard sd of task `task`
-  const int j = blockIdx.x, t = blockIdx.y, z = blockIdx.z;
+    long long idx_ts, long long w_ts, int pod_shards, int j, int t, int z,
+    int* cur, float* red, int* tmp) {
   const int sd = z % data;
   const long long task = z / data;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -291,6 +295,27 @@ __global__ void dcd_feature_bucket_kernel(
     __syncwarp();
   }
 }
+
+__global__ void dcd_feature_bucket_kernel(
+    const int* __restrict__ idx, int B, long long n_loc,
+    const int* __restrict__ cols, const float* __restrict__ vals, int m,
+    int k, int d_loc, const float* __restrict__ w, long long w_stride,
+    int d1, int R, int* __restrict__ bk_lc, float* __restrict__ bk_v,
+    int* __restrict__ roff, float* __restrict__ base_p, int data,
+    long long idx_ts, long long w_ts, int pod_shards) {
+  extern __shared__ __align__(16) int cur[];  // [warps][R]: counts, cursors
+  __shared__ float red[DCD_MAX_WARPS];
+  __shared__ int tmp[DCD_MAX_WARPS];
+  // pair z = blockIdx.z: data shard sd of task `task`; the rows t step by
+  // gridDim.y, which holds at most 65,535 (one row a CTA up to there)
+  for (int t = blockIdx.y; t < B; t += gridDim.y) {
+    bucket_row(idx, B, n_loc, cols, vals, m, k, d_loc, w, w_stride, d1, R,
+               bk_lc, bk_v, roff, base_p, data, idx_ts, w_ts, pod_shards,
+               blockIdx.x, t, blockIdx.z, cur, red, tmp);
+    __syncthreads();  // the row's cursors are read before the next zeroes
+  }
+}
+
 
 // G[s, t] += v·v_s over the run [i, end) of one column (rows s_row, values
 // s_v); Gp points at column t of the caller's accumulator (row stride
@@ -505,6 +530,135 @@ __global__ void dcd_feature_gram_reduce_kernel(int B, int R,
     for (int r = 0; r < R; ++r)
       acc += part[((long long)j * R + r) * bb + i];
     gram_p[j * bb + i] = acc;
+  }
+}
+
+// B4's rows layout (B > 1,024 ids, one column class: a row's bucketed
+// entries are its real entries in slot order, roff[row] = (0, count)).
+// CTA (x, y, js) computes G[s, t] of triple js for the tile of columns
+// t ∈ [x·tile, x·tile + tile) and the rows s ∈ [y·nt, y·nt + nt), one row
+// a thread, and writes them straight to G in device memory: the walkers'
+// (B, tile) accumulators of the shared layout would not fit.  The tile
+// rows' entries are staged in chunks, counted by local column in an
+// open-addressing table and sorted into one run a column; each thread then
+// walks its row s's entries in slot order and, for each, its column's run:
+// acc[t] += v_s·v_t, into its own column of the [tile][nt] accumulators in
+// shared memory (no cell is added to by two threads).  Within a run the
+// order is the placement's race, which orders adds into one cell only
+// where row t repeats a column, as in the shared layout.  Work Σ L² over
+// the runs, and every CTA of a tile stages the tile's rows once.
+__global__ void dcd_feature_gram_rows_kernel(int B, int k, int tile,
+                                             int chunk, int slots,
+                                             const int* __restrict__ bk_lc,
+                                             const float* __restrict__ bk_v,
+                                             const int* __restrict__ roff,
+                                             float* __restrict__ gram_p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* key = reinterpret_cast<int*>(smem);
+  int* cnt = key + slots;
+  int* runend = cnt + slots;
+  int* u_lc = runend + slots;
+  int* u_t = u_lc + chunk;
+  float* u_v = reinterpret_cast<float*>(u_t + chunk);
+  int* u_slot = reinterpret_cast<int*>(u_v + chunk);
+  int* s_t = u_slot + chunk;
+  float* s_v = reinterpret_cast<float*>(s_t + chunk);
+  int* segoff = reinterpret_cast<int*>(s_v + chunk);  // tile + 1
+  float* acc = reinterpret_cast<float*>(segoff + tile + 1);  // [tile][nt]
+  __shared__ int tmp[DCD_MAX_WARPS];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int t0 = blockIdx.x * tile, tn = min(tile, B - t0);
+  const int s = blockIdx.y * nt + tid;
+  const long long row0 = (long long)blockIdx.z * B;
+  for (int i = tid; i < slots; i += nt) {
+    key[i] = -1;
+    cnt[i] = 0;
+  }
+  for (int c = 0; c < tile; ++c) acc[c * nt + tid] = 0.0f;
+  if (tid == 0) {  // the tile rows' offsets in the staged entries
+    int run = 0;
+    for (int c = 0; c < tn; ++c) {
+      segoff[c] = run;
+      run += roff[(row0 + t0 + c) * 2 + 1];
+    }
+    segoff[tn] = run;
+  }
+  __syncthreads();
+  const int total = segoff[tn];
+  const bool mine = s < B;
+  const int ns = mine ? roff[(row0 + s) * 2 + 1] : 0;
+  const int* slc = bk_lc + (row0 + (mine ? s : 0)) * k;
+  const float* sv = bk_v + (row0 + (mine ? s : 0)) * k;
+  for (int c0 = 0; c0 < total; c0 += chunk) {
+    const int n = min(chunk, total - c0);
+    for (int e = tid; e < n; e += nt) {
+      const int q = c0 + e;
+      int lo = 0, hi = tn - 1;  // the tile row whose entries hold q
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (segoff[mid] <= q)
+          lo = mid;
+        else
+          hi = mid - 1;
+      }
+      const long long src = (row0 + t0 + lo) * k + (q - segoff[lo]);
+      u_lc[e] = bk_lc[src];
+      u_v[e] = bk_v[src];
+      u_t[e] = lo;
+    }
+    __syncthreads();
+    for (int e = tid; e < n; e += nt) {
+      const int lc = u_lc[e];
+      unsigned h = gram_hash(lc, slots);
+      for (;;) {
+        const int got = atomicCAS(key + h, -1, lc);
+        if (got == -1 || got == lc) break;
+        h = (h + 1) & (unsigned)(slots - 1);
+      }
+      u_slot[e] = (int)h;
+      atomicAdd(cnt + h, 1);
+    }
+    __syncthreads();
+    const int per_h = (slots + nt - 1) / nt;
+    const int h0 = min(slots, tid * per_h), h1 = min(slots, h0 + per_h);
+    int hs = 0;
+    for (int h = h0; h < h1; ++h) hs += cnt[h];
+    int tot2;
+    int at = block_excl_scan(hs, tmp, &tot2);
+    for (int h = h0; h < h1; ++h) {
+      runend[h] = at;
+      at += cnt[h];
+    }
+    __syncthreads();
+    for (int e = tid; e < n; e += nt) {
+      const int pos = atomicAdd(runend + u_slot[e], 1);
+      s_t[pos] = u_t[e];
+      s_v[pos] = u_v[e];
+    }
+    __syncthreads();
+    for (int e = 0; e < ns; ++e) {
+      const int lc = slc[e];
+      const float v = sv[e];
+      unsigned h = gram_hash(lc, slots);
+      int kh = key[h];
+      while (kh != -1 && kh != lc) {
+        h = (h + 1) & (unsigned)(slots - 1);
+        kh = key[h];
+      }
+      if (kh == lc)
+        for (int q = runend[h] - cnt[h]; q < runend[h]; ++q)
+          acc[s_t[q] * nt + tid] = acc[s_t[q] * nt + tid] + v * s_v[q];
+    }
+    __syncthreads();
+    for (int i = tid; i < slots; i += nt) {
+      key[i] = -1;
+      cnt[i] = 0;
+    }
+    __syncthreads();
+  }
+  if (mine) {
+    float* out = gram_p + row0 * B + (long long)s * B + t0;
+    for (int c = 0; c < tn; ++c) out[c] = acc[c * nt + tid];
   }
 }
 
@@ -814,6 +968,114 @@ __global__ void dcd_feature_update_kernel(
   if (r == 0 && j == 0) b5_alpha_out(S, B, alpha_out);
 }
 
+// B5's rows layout (B > 1,024 ids), the recursion: one CTA a (task, data
+// shard) pair z runs the block's B steps, the shared layout's right-looking
+// recursion spread over the CTA instead of one warp's registers.  acc[u] =
+// Σ_{s<t} δ̃_s·G[s, u] lives in shared memory (acc_g null) or, past what
+// fits, in device memory; thread 0 takes each step's δ — its α read from
+// and written back to the output α, so a repeated id reads its running
+// value — and every thread then adds δ̃_t·G[t, u] to its columns u > t.
+// G's row t + 1 is prefetched into L2 a step ahead and thread 0 loads the
+// next step's scalars behind its write of α.  δ̃ goes to dtil_g for the
+// scatter.  What bounds it: the chain of B steps, two barriers each.
+__global__ void dcd_feature_recursion_rows_kernel(
+    const int* __restrict__ idx, int B, long long n_loc,
+    float* __restrict__ alpha_out, const float* __restrict__ q,
+    const float* __restrict__ act, const float* __restrict__ y,
+    const float* __restrict__ base, const float* __restrict__ gram,
+    float* __restrict__ acc_g, float* __restrict__ dtil_g, DcdLoss L,
+    int data, long long idx_ts, long long row_ts, long long act_ts) {
+  extern __shared__ __align__(16) float acc_s[];
+  __shared__ float s_dt;
+  const int z = blockIdx.x, sd = z % data;
+  const long long task = z / data;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  idx += task * idx_ts + (long long)sd * B;
+  base += (long long)z * B;
+  gram += (long long)z * B * B;
+  alpha_out += task * row_ts;
+  if (y) y += task * row_ts;
+  if (act) act += task * act_ts;
+  float* acc = acc_g ? acc_g + (long long)z * B : acc_s;
+  float* dtil = dtil_g + (long long)z * B;
+  const long long g0 = sd * n_loc;
+  for (int u = tid; u < B; u += nt) acc[u] = 0.0f;
+  long long i = 0;
+  float yi = 1.0f, qi = 1.0f, ai = 1.0f, bt = 0.0f, a = 0.0f;
+  if (tid == 0) {
+    i = g0 + idx[0];
+    yi = y ? y[i] : 1.0f;
+    qi = q[i];
+    ai = act ? act[i] : 1.0f;
+    bt = base[0];
+    a = alpha_out[i];
+  }
+  __syncthreads();
+  for (int t = 0; t < B; ++t) {
+    const float* grow = gram + (long long)t * B;
+    if (t + 1 < B)
+      for (int u = 32 * tid; u < B; u += 32 * nt)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(grow + B + u));
+    if (tid == 0) {
+      float dl = dcd_delta(L, a, yi * (bt + acc[t]), qi);
+      if (!(ai > 0.0f)) dl = 0.0f;
+      alpha_out[i] = a + dl;
+      s_dt = dl * yi;
+      dtil[t] = dl * yi;
+      if (t + 1 < B) {  // the next step's scalars, behind the write of α
+        i = g0 + idx[t + 1];
+        yi = y ? y[i] : 1.0f;
+        qi = q[i];
+        ai = act ? act[i] : 1.0f;
+        bt = base[t + 1];
+        a = alpha_out[i];
+      }
+    }
+    __syncthreads();
+    const float dt = s_dt;
+    if (dt != 0.0f)
+      for (int u = t + 1 + tid; u < B; u += nt) acc[u] = acc[u] + dt * grow[u];
+    __syncthreads();
+  }
+}
+
+// B5's rows layout, the scatter: CTA (r, js), one warp, adds δ̃_t·v of its
+// class-r entries of each row t into its triple's replica of the slices,
+// rows in order (a __syncwarp after each row that adds, as the shared
+// layout's); the rows' δ̃ and bounds load 32 rows at a time.
+__global__ void dcd_feature_scatter_rows_kernel(
+    int B, int m, int k, int R, const int* __restrict__ bk_lc,
+    const float* __restrict__ bk_v, const int* __restrict__ roff,
+    const float* __restrict__ dtil_g, float* w, int d1) {
+  const int r = blockIdx.x, js = blockIdx.y, z = js / m;
+  const int lane = threadIdx.x & 31;
+  const long long row0 = (long long)js * B;
+  const float* dtil = dtil_g + (long long)z * B;
+  float* wj = w + (long long)js * d1;
+  for (int t0 = 0; t0 < B; t0 += 32) {
+    const int tl = t0 + lane;
+    float s_l = 0.0f;
+    int a_l = 0, b_l = 0;
+    if (tl < B) {
+      s_l = dtil[tl];
+      a_l = roff[(row0 + tl) * (R + 1) + r];
+      b_l = roff[(row0 + tl) * (R + 1) + r + 1];
+    }
+    const int nrow = min(32, B - t0);
+    for (int c = 0; c < nrow; ++c) {
+      const float sc = __shfl_sync(0xffffffffu, s_l, c);
+      const int a = __shfl_sync(0xffffffffu, a_l, c);
+      const int b = __shfl_sync(0xffffffffu, b_l, c);
+      if (sc != 0.0f && a < b) {
+        const long long rt = (row0 + t0 + c) * k;
+        for (int e = a + lane; e < b; e += 32)
+          atomicAdd(wj + (long long)bk_lc[rt + e] * R + r, sc * bk_v[rt + e]);
+        __syncwarp();
+      }
+    }
+  }
+}
+
 // The dynamic shared memory limit of `kernel`, raised to `bytes` when
 // `*set` (the limit raised so far in this process) is below it.
 template <typename K>
@@ -837,18 +1099,22 @@ extern "C" int dcd_feature_gram_launch(
     int slots, int bucket_threads, int bucket_smem, int gram_threads,
     int gram_smem, int* bk_lc, float* bk_v, int* roff, float* part,
     float* base_p, float* gram_p, int tasks, long long idx_ts,
-    long long w_ts, int pod_shards, void* stream) {
-  // the bytes each kernel carves (repro_torch/dist/mesh.py: gram_plan):
-  // the bucket pass's per-warp class counts and the staged row; the Gram
-  // kernel's table (key, count, run end), the chunk's entries staged and
-  // sorted (6 words each), the rows' offsets and starts, and each
-  // walker's (B, tile) accumulator
-  const int walkers = gram_threads / 64;
+    long long w_ts, int pod_shards, int rows, void* stream) {
+  // the bytes each kernel carves (repro_torch/dist/mesh.py: gram_plan,
+  // gram_rows_bytes): the bucket pass's per-warp class counts and the
+  // staged row; the Gram kernel's table (key, count, run end), the
+  // chunk's entries staged and sorted (6 words each), and in the shared
+  // layout the rows' offsets and starts and each walker's (B, tile)
+  // accumulator, in the rows layout the tile rows' offsets and each
+  // thread's tile of accumulators
+  const int walkers = rows ? 1 : gram_threads / 64;
   const long long bucket_need = 4LL * (bucket_threads / 32) * R + 8LL * k;
-  const long long gram_need = 12LL * slots + 24LL * chunk +
-                              4LL * (2 * B + 1) +
-                              4LL * walkers * B * tile;
-  if (B < 1 || R < 1 || walkers < 1 || gram_threads % 64 != 0 ||
+  const long long gram_need =
+      12LL * slots + 24LL * chunk +
+      (rows ? 4LL * (tile + 1) + 4LL * gram_threads * tile
+            : 4LL * (2 * B + 1) + 4LL * walkers * B * tile);
+  if (B < 1 || R < 1 || walkers < 1 ||
+      gram_threads % (rows ? 32 : 64) != 0 || (rows && R != 1) ||
       gram_threads > 1024 || tile < 1 || tile > 64 ||
       (long long)tile * tiles < B || bucket_threads < 32 ||
       bucket_threads % 32 != 0 || bucket_threads > 1024 ||
@@ -863,13 +1129,23 @@ extern "C" int dcd_feature_gram_launch(
   static int gram_set = 0;
   err = smem_limit(dcd_feature_bucket_kernel, bucket_smem, &bucket_smem_set);
   if (err != cudaSuccess) return (int)err;
-  err = smem_limit(dcd_feature_gram_kernel, gram_smem, &gram_set);
-  if (err != cudaSuccess) return (int)err;
-  dcd_feature_bucket_kernel<<<dim3(m, B, pairs), bucket_threads,
-                              bucket_smem, st>>>(
+  dcd_feature_bucket_kernel<<<dim3(m, B < 65535 ? B : 65535, pairs),
+                              bucket_threads, bucket_smem, st>>>(
       idx, B, n_loc, cols, vals, m, k, d_loc, w, w_stride, d1, R, bk_lc, bk_v,
       roff, base_p, data, idx_ts, w_ts, pod_shards);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (rows) {
+    static int rows_set = 0;
+    err = smem_limit(dcd_feature_gram_rows_kernel, gram_smem, &rows_set);
+    if (err != cudaSuccess) return (int)err;
+    dcd_feature_gram_rows_kernel<<<
+        dim3(tiles, (B + gram_threads - 1) / gram_threads, pairs * m),
+        gram_threads, gram_smem, st>>>(B, k, tile, chunk, slots, bk_lc, bk_v,
+                                       roff, gram_p);
+    return (int)cudaGetLastError();
+  }
+  err = smem_limit(dcd_feature_gram_kernel, gram_smem, &gram_set);
   if (err != cudaSuccess) return (int)err;
   // the classes of a shard in x, so the widest shard's CTAs start first;
   // the (task, data, model) triples in y
@@ -920,16 +1196,23 @@ extern "C" int dcd_feature_update_launch(
     int newton_steps, int R, int per_lane, int stage_gram, int chunk,
     int threads, int smem, int bucket, int bucket_threads, int bucket_smem,
     int* bk_lc, float* bk_v, int* roff, int tasks, long long idx_ts,
-    long long row_ts, long long act_ts, void* stream) {
+    long long row_ts, long long act_ts, int rows, float* acc_g,
+    float* dtil_g, void* stream) {
   // the bytes each kernel carves (repro_torch/dist/mesh.py:
-  // feature_update_bytes, gram_plan)
-  const long long need = 4LL * (12LL * B + 1) +
-                         (stage_gram ? 4LL * B * B : 0) + 8LL * chunk;
+  // feature_update_bytes, gram_plan; in the rows layout the recursion's
+  // B accumulators unless they are in device memory)
+  const long long need =
+      rows ? (acc_g ? 0 : 4LL * B)
+           : 4LL * (12LL * B + 1) + (stage_gram ? 4LL * B * B : 0) +
+                 8LL * chunk;
   const long long bucket_need = 4LL * (bucket_threads / 32) * R + 8LL * k;
-  if (B < 1 || B > DCD_FEATURE_MAX_B || R < 1 || chunk < 1 ||
-      per_lane < 1 || per_lane > 32 || (per_lane & (per_lane - 1)) != 0 ||
-      32LL * per_lane < B || threads < 64 || threads % 32 != 0 ||
-      threads > 1024 || smem < need || data < 1 || tasks < 1 ||
+  const bool lanes_ok = rows || (B <= DCD_FEATURE_MAX_B && per_lane >= 1 &&
+                                 per_lane <= 32 &&
+                                 (per_lane & (per_lane - 1)) == 0 &&
+                                 32LL * per_lane >= B && chunk >= 1);
+  if (B < 1 || R < 1 || !lanes_ok || (rows && !dtil_g) ||
+      threads < (rows ? 32 : 64) || threads % 32 != 0 || threads > 1024 ||
+      smem < need || data < 1 || tasks < 1 ||
       (long long)tasks * data * m > 65535 ||
       (bucket && (bucket_threads < 32 || bucket_threads % 32 != 0 ||
                   bucket_threads > 1024 || bucket_smem < bucket_need)))
@@ -940,14 +1223,28 @@ extern "C" int dcd_feature_update_launch(
         smem_limit(dcd_feature_bucket_kernel, bucket_smem, &bucket_smem_set);
     if (err != cudaSuccess) return (int)err;
     // w is not read without base_p: its strides are of no matter
-    dcd_feature_bucket_kernel<<<dim3(m, B, tasks * data), bucket_threads,
-                                 bucket_smem, st>>>(
+    dcd_feature_bucket_kernel<<<dim3(m, B < 65535 ? B : 65535, tasks * data),
+                                 bucket_threads, bucket_smem, st>>>(
         idx, B, n_loc, cols, vals, m, k, d_loc, w, 0, d1, R, bk_lc, bk_v,
         roff, nullptr, data, idx_ts, 0, 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
+  if (rows) {
+    static int rec_set = 0;
+    cudaError_t err =
+        smem_limit(dcd_feature_recursion_rows_kernel, smem, &rec_set);
+    if (err != cudaSuccess) return (int)err;
+    dcd_feature_recursion_rows_kernel<<<tasks * data, threads, smem, st>>>(
+        idx, B, n_loc, alpha_out, q, act, y, base, gram, acc_g, dtil_g, L,
+        data, idx_ts, row_ts, act_ts);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    dcd_feature_scatter_rows_kernel<<<dim3(R, tasks * data * m), 32, 0, st>>>(
+        B, m, k, R, bk_lc, bk_v, roff, dtil_g, w, d1);
+    return (int)cudaGetLastError();
+  }
 #define B5_LAUNCH(NC)                                                         \
   return update_launch<NC>(idx, B, data, n_loc, m, k, R, bk_lc, bk_v, roff, \
                            alpha_in, alpha_out, q, act, y, w, d1, base,      \

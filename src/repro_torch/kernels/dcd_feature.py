@@ -25,6 +25,13 @@ the shards:
   workspace for the same block (or, without one, from its own bucket
   pass); its layout is ``repro_torch.dist.mesh.feature_update_plan``'s.
 
+A block past ``GRAM_SHARED_MAX_IDS`` = 1,024 ids (the shim's one block of
+B = n rows) takes both kernels' "rows" layout (``gram_plan``): one column
+class, G written in row tiles to device memory, B5's recursion on one CTA
+a (task, data shard) pair with its accumulators in shared memory (device
+memory past what fits) and δ̃ in device memory, then the scatter.  Below
+it every launch keeps its layout and its bits.
+
 Both take a grid of p data shards: a (p, B) ``idx`` of shard-local ids
 (shard s's rows are [s·n_loc, (s+1)·n_loc)), a shared (m, d1) w or one
 (p, m, d1) w a data shard; B4 then returns (p, m, B) and (p, m, B, B),
@@ -61,6 +68,7 @@ from repro_torch.dist.mesh import (
     FEATURE_UPDATE_CHUNK,
     GRAM_BUCKET_THREADS,
     GRAM_CHUNK,
+    GRAM_ROWS_THREADS,
     GRAM_TABLE_SLOTS,
     GRAM_THREADS,
     feature_update_plan,
@@ -69,8 +77,6 @@ from repro_torch.dist.mesh import (
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, L, P
 from repro_torch.kernels.dcd_ell import pod_grid, pod_row
-
-MAX_BLOCK = 1024  # B5's recursion warp holds at most 32 columns a lane
 
 
 class GramWorkspace(NamedTuple):
@@ -128,9 +134,8 @@ def _check_block(cols, vals, w, idx, tasks=False):
         raise ValueError(f"expected idx (B,) and w ({m}, d_loc+1), or idx "
                          f"(p, B) and w ({m}, d_loc+1) or (g, {m}, d_loc+1) "
                          "for g | p (a view a data shard, or a view a pod)")
-    if not 1 <= idx.shape[-1] <= MAX_BLOCK:
-        raise ValueError(f"the block must hold 1..{MAX_BLOCK} ids, got "
-                         f"{idx.shape[-1]}")
+    if idx.shape[-1] < 1:
+        raise ValueError("the block must hold at least one id")
 
 
 def _check_workspace(workspace, pm, b, k, plan, device):
@@ -238,21 +243,24 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0,
     base_p = torch.empty((*lead, m, b), dtype=torch.float32, device=w.device)
     gram_p = torch.empty((*lead, m, b, b), dtype=torch.float32,
                          device=w.device)
+    rows = plan.layout == "rows"
     launch = build.entry("dcd_feature", "dcd_feature_gram_launch",
                          [P, I, I, L, P, P, I, I, I, P, L, I, I, I, I, I, I,
-                          I, I, I, I, P, P, P, P, P, P, I, L, L, I, P])
+                          I, I, I, I, P, P, P, P, P, P, I, L, L, I, I, P])
     with torch.cuda.device(w.device):
         err = launch(build.ptr(idx), b, p, n_loc, build.ptr(cols),
                      build.ptr(vals), m, k, d1 - 1, build.ptr(w), w_stride,
                      d1, plan.classes, plan.tile, plan.tiles, GRAM_CHUNK,
                      GRAM_TABLE_SLOTS, GRAM_BUCKET_THREADS, plan.bucket_smem,
-                     GRAM_THREADS, plan.gram_smem, build.ptr(workspace.lc),
+                     GRAM_ROWS_THREADS if rows else GRAM_THREADS,
+                     plan.gram_smem, build.ptr(workspace.lc),
                      build.ptr(workspace.v), build.ptr(workspace.roff),
                      build.ptr(workspace.part), build.ptr(base_p),
                      build.ptr(gram_p), K, idx_ts, w_ts, pod_shards,
-                     build.stream())
+                     int(rows), build.stream())
     build.check(err, "dcd_feature_gram_launch")
     dcd_feature_gram.launches += 1
+    dcd_feature_gram.rows_launches += int(rows)
     dcd_feature_gram.task_launches += int(K > 1)
     dcd_feature_gram.pod_launches += int(n_pods > 1)
     return base_p, gram_p
@@ -261,6 +269,7 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0,
 dcd_feature_gram.launches = 0
 dcd_feature_gram.task_launches = 0
 dcd_feature_gram.pod_launches = 0
+dcd_feature_gram.rows_launches = 0
 
 
 def dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx, base,
@@ -379,10 +388,17 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
             memory_format=torch.contiguous_format).view(*lead, p, m, d1)
     else:
         w_out = w.clone()
+    rows = plan.layout == "rows"
+    # the rows layout's δ̃ (and accumulators, where shared memory cannot
+    # hold them) in device memory, a row a (task, data shard) pair
+    dtil = (torch.empty((K * p, b), dtype=torch.float32, device=w.device)
+            if rows else None)
+    acc = (torch.empty((K * p, b), dtype=torch.float32, device=w.device)
+           if rows and plan.smem_bytes == 0 else None)
     launch = build.entry("dcd_feature", "dcd_feature_update_launch",
                          [P, I, I, L, P, P, I, I, I, P, P, P, P, P, P, I, P,
                           P, I, F, F, F, I, I, I, I, I, I, I, I, I, I, P, P,
-                          P, I, L, L, L, P])
+                          P, I, L, L, L, I, P, P, P])
     with torch.cuda.device(w.device):
         err = launch(build.ptr(idx), b, p, n_loc, build.ptr(cols),
                      build.ptr(vals), m, k, d1 - 1, build.ptr(alpha),
@@ -394,9 +410,11 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
                      int(bucket), GRAM_BUCKET_THREADS, gplan.bucket_smem,
                      build.ptr(workspace.lc), build.ptr(workspace.v),
                      build.ptr(workspace.roff), K, idx_ts, n, act_ts,
+                     int(rows), build.ptr(acc), build.ptr(dtil),
                      build.stream())
     build.check(err, "dcd_feature_update_launch")
     dcd_feature_update.launches += 1
+    dcd_feature_update.rows_launches += int(rows)
     dcd_feature_update.task_launches += int(K > 1)
     dcd_feature_update.pod_launches += int(n_pods > 1)
     return a_out, w_out
@@ -405,3 +423,4 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
 dcd_feature_update.launches = 0
 dcd_feature_update.task_launches = 0
 dcd_feature_update.pod_launches = 0
+dcd_feature_update.rows_launches = 0

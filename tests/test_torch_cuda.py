@@ -17,7 +17,10 @@ import torch
 from repro_torch import prng
 from repro_torch.core import duals as td
 from repro_torch.core.passcode import passcode_epoch, passcode_solve
-from repro_torch.core.sharded import sharded_passcode_solve
+from repro_torch.core.sharded import (
+    sharded_passcode_feature,
+    sharded_passcode_solve,
+)
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.kernels.dcd_block import (
     dcd_indexed_epoch,
@@ -565,6 +568,123 @@ def test_b5_kernel_is_deterministic(case):
                                     **kw)
     for a, b, c in zip(first, second, alone):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# ------------------------------------------ B4/B5 past 1,024 ids (rows)
+# (feature case, data shards): the rows layout at 1,025 and 1,500 ids,
+# one data shard and two
+ROWS_CASES = {"b1025": (dict(n=1100, m=2, k=20, b=1025), 1),
+              "b1500": (dict(n=1600, m=3, k=12, d_loc=300, b=1500), 1),
+              "b1100_data2": (dict(n=2400, m=2, k=16, b=1100), 2)}
+
+
+def _rows_inputs(dev, case, repeat_col=True):
+    spec, p = ROWS_CASES[case]
+    cols, vals, w, idx = _feature_case(dev, repeat_col=repeat_col, **spec)
+    n, m, k = cols.shape
+    if p > 1:  # shard s's ids local to its rows [s·n/p, (s+1)·n/p)
+        rng = np.random.default_rng(3)
+        idx = torch.from_numpy(rng.integers(0, n // p, (p, spec["b"]))
+                               .astype(np.int32)).to(dev)
+    assert gram_plan(m, spec["b"], k, w.shape[1], p).layout == "rows"
+    rng = np.random.default_rng(8)
+    alpha, _, active, y, _ = _state(rng, n, 1, dev)
+    q = (vals * vals).sum((1, 2))
+    return cols, vals, w, idx, alpha, q, active, y, n // p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROWS_CASES))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b4_b5_rows_layout_match_plain(loss, case):
+    """Past 1,024 ids: B4's G in row tiles and B5's CTA recursion against
+    their plain versions, with a mask, labels, repeated ids and a row
+    that repeats a column; B5 with B4's workspace and without one."""
+    dev = _cuda()
+    cols, vals, w, idx, alpha, q, active, y, n_loc = _rows_inputs(dev, case)
+    n, m, k = cols.shape
+    p = idx.shape[0] if idx.dim() == 2 else 1
+    ws = feat.gram_workspace(m, idx.shape[-1], k, w.shape[1], dev, p)
+    r0 = (feat.dcd_feature_gram.rows_launches,
+          feat.dcd_feature_update.rows_launches)
+    kb, kg = feat.dcd_feature_gram(cols, vals, w, idx, workspace=ws,
+                                   n_loc=n_loc)
+    pb, pg = feat.dcd_feature_gram_plain(cols, vals, w, idx, n_loc)
+    _close(kb, pb)
+    _close(kg, pg)
+    base, gram = pb.sum(-2), pg.sum(-3)
+    kw = dict(loss=td.make_loss(loss, 0.8), active=active, y=y,
+              n_loc=n_loc)
+    ka, kwv = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
+                                      gram, workspace=ws, **kw)
+    sa, sw = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
+                                     gram, **kw)
+    assert (feat.dcd_feature_gram.rows_launches,
+            feat.dcd_feature_update.rows_launches) == (r0[0] + 1, r0[1] + 2)
+    pa, pw = feat.dcd_feature_update_plain(cols, vals, alpha, q, w, idx,
+                                           base, gram, **kw)
+    for a in (ka, sa):
+        _close(a, pa)
+    for w_ in (kwv, sw):
+        _close(w_, pw)
+
+
+@pytest.mark.cuda
+def test_b5_rows_layout_accumulators_in_device_memory(monkeypatch):
+    """B5's rows layout with its accumulators in device memory (the plan
+    past 57,856 ids, forced here at 1,025) gives the shared-memory
+    accumulators' bits."""
+    dev = _cuda()
+    cols, vals, w, idx, alpha, q, active, y, _ = _rows_inputs(
+        dev, "b1025", repeat_col=False)
+    base, gram = (t.sum(0) for t in
+                  feat.dcd_feature_gram_plain(cols, vals, w, idx))
+    kw = dict(loss=td.Hinge(0.8), active=active, y=y)
+    in_smem = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
+                                      gram, **kw)
+    plan = feat.feature_update_plan
+    monkeypatch.setattr(feat, "feature_update_plan",
+                        lambda *a: plan(*a)._replace(smem_bytes=0))
+    in_hbm = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
+                                     gram, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(in_smem, in_hbm))
+
+
+@pytest.mark.cuda
+def test_b4_b5_rows_layout_are_deterministic():
+    """No row repeats a column: second launches give the same bits."""
+    dev = _cuda()
+    cols, vals, w, idx, alpha, q, active, y, _ = _rows_inputs(
+        dev, "b1500", repeat_col=False)
+    first = feat.dcd_feature_gram(cols, vals, w, idx)
+    second = feat.dcd_feature_gram(cols, vals, w, idx)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    base, gram = first[0].sum(0), first[1].sum(0)
+    kw = dict(loss=td.Hinge(0.8), active=active, y=y)
+    one = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base, gram,
+                                  **kw)
+    two = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base, gram,
+                                  **kw)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_feature_shim_on_the_card_matches_cpu():
+    """The shim's one block of n = 1,200 rows an epoch on the card (B4 and
+    B5 in their rows layout) against its CPU path (the unfused engine)."""
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    X = torch.from_numpy((rng.random((1200, 40)) < 0.2)
+                         * rng.standard_normal((1200, 40)).astype(
+                             np.float32) * 0.3).float()
+    n0 = feat.dcd_feature_update.rows_launches
+    a_card, w_card = sharded_passcode_feature(
+        X.to(dev), td.Hinge(), mesh=solver_mesh_2d(model=2), epochs=2)
+    assert feat.dcd_feature_update.rows_launches == n0 + 2
+    a_cpu, w_cpu = sharded_passcode_feature(
+        X, td.Hinge(), mesh=solver_mesh_2d(model=2), epochs=2, device="cpu")
+    _close(a_card, a_cpu)
+    _close(w_card, w_cpu)
 
 
 # ------------------------------------------------- data shards (a grid)

@@ -178,9 +178,13 @@ def test_cpu_wrappers_do_not_launch_and_block_limit(tiny):
                                  idx, loss=td.Hinge())
     assert (feat.dcd_feature_gram.launches,
             feat.dcd_feature_update.launches) == before
-    with pytest.raises(ValueError, match="1..1024"):
+    # past 1,024 ids the block takes the kernels' rows layout; only an
+    # empty block is refused
+    feat._check_block(fse.indices, fse.values, w,
+                      torch.zeros(1025, dtype=torch.int32))
+    with pytest.raises(ValueError, match="at least one id"):
         feat._check_block(fse.indices, fse.values, w,
-                          torch.zeros(1025, dtype=torch.int32))
+                          torch.zeros(0, dtype=torch.int32))
 
 
 def test_webspam_stream_draw_law(monkeypatch):

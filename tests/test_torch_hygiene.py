@@ -24,7 +24,13 @@ from repro_torch.convert import (
 from repro_torch.core import duals as td
 from repro_torch.core.dcd import dcd_solve
 from repro_torch.core.passcode import passcode_solve
-from repro_torch.core.sharded import sharded_passcode_solve
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.sharded import (
+    make_sharded_epoch,
+    sharded_passcode_feature,
+    sharded_passcode_solve,
+)
+from repro_torch.models import init_cache, init_params, lm_features
 from repro_torch.data.labels import ovr_labels
 from repro_torch.data.sparse import dense_to_ell
 from repro_torch.data.synthetic import make_dataset, make_paper_split
@@ -97,6 +103,17 @@ ENTRY_POINTS = {
         dense_to_ell(np.eye(3), device="cpu"), td.Hinge()),
     "make_snapshot": lambda: make_snapshot(np.ones(3), 1),
     "load_snapshot": lambda: load_snapshot("no_such_checkpoint_dir"),
+    "sharded_passcode_feature": lambda: sharded_passcode_feature(
+        torch.ones((4, 2)), td.Hinge(), epochs=1),
+    "make_sharded_epoch": lambda: make_sharded_epoch(SolverMesh(
+        ("data",), (1,)), td.Hinge()),
+    "init_params": lambda: init_params(get_smoke_config("mamba2-780m"), 0),
+    "init_cache": lambda: init_cache(get_smoke_config("mamba2-780m"), 1, 8),
+    # lm_features runs where its parameters are: the default path's
+    "lm_features": lambda: lm_features(
+        get_smoke_config("mamba2-780m"),
+        init_params(get_smoke_config("mamba2-780m"), 0),
+        torch.zeros((1, 4), dtype=torch.int64)),
 }
 
 
@@ -162,3 +179,25 @@ def test_example_twin_runs_on_cpu_without_jax(twin):
     assert out.returncode == 0, out.stdout + out.stderr
     gaps = [float(g) for g in re.findall(r"gap=\s*(\S+)", out.stdout)]
     assert len(gaps) >= 3 and all(np.isfinite(gaps)), out.stdout
+
+
+def test_probe_twin_runs_on_cpu_without_jax():
+    """The linear-probe twin runs end to end with ``--device cpu`` on the
+    smoke mistral-nemo-12b (features, the K = 4 multi-task solve, the
+    loop over K), beats the majority share on both, and imports neither
+    jax nor ``repro``."""
+    path = ROOT / "examples" / "linear_probe_lm_torch.py"
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{str(path)!r}, '--device', 'cpu']\n"
+        f"runpy.run_path({str(path)!r}, run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print('imported:', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    top1 = [float(a) for a in re.findall(r"top1=(\S+)", out.stdout)]
+    assert len(top1) == 2 and all(0.0 <= a <= 1.0 for a in top1), out.stdout

@@ -368,3 +368,77 @@ def test_gram_workspace_carries_the_task_pairs():
     plan = gram_plan(2, 8, 5, 33, 3, 4)
     assert ws.lc.shape == ws.v.shape == (4 * 3 * 2, 8, 5)
     assert ws.roff.shape == (24, 8, plan.classes + 1)
+
+
+# B4's and B5's plans below the rows layout, as the shared layout gave
+# them before it existed (GramPlan and FeatureUpdatePlan fields, in order)
+SHARED_PLANS = {
+    (4, 64, 3136, 4_152_287): ((128, 64, 1, 33280, 82436, 1, 1, 1),
+                               (128, 128, 2, True, 35844, 1, 1, 1)),
+    (2, 1024, 20, 501): ((1, 4, 256, 224, 90116, 1, 1, 1),
+                         (1, 128, 32, False, 65540, 1, 1, 1)),
+    (3, 48, 40, 501): ((8, 48, 1, 832, 67972, 1, 1, 1),
+                       (8, 128, 2, True, 27908, 1, 1, 1)),
+    (4, 256, 3136, 4_152_287): ((8, 16, 16, 25600, 83972, 1, 1, 1),
+                                (8, 128, 8, False, 28676, 1, 1, 1)),
+    (1, 1, 73, 47_237): ((512, 1, 1, 33352, 49172, 1, 1, 1),
+                         (512, 128, 1, True, 16440, 1, 1, 1)),
+    (4, 64, 40, 1000, 2, 3, 1): ((16, 64, 1, 1344, 82436, 2, 3, 1),
+                                 (16, 128, 2, True, 35844, 2, 3, 1)),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SHARED_PLANS))
+def test_b4_b5_plans_below_the_rows_layout_are_unchanged(shape):
+    g, u = gram_plan(*shape), feature_update_plan(*shape)
+    assert g.layout == u.layout == "shared"
+    assert (tuple(g)[:8], tuple(u)[:8]) == SHARED_PLANS[shape]
+
+
+@pytest.mark.parametrize("b", [1025, 4096, 12_000])
+def test_b4_rows_layout_past_1024_ids(b):
+    """Past ``GRAM_SHARED_MAX_IDS`` B4 takes one column class and tiles of
+    64 columns of G, whatever the width; its Gram kernel's bytes do not
+    grow with b and are the arrays it carves: the chunk's table (key,
+    count, run end), a chunk's entries staged (column, tile row, value,
+    slot) and sorted (tile row, value), the tile rows' offsets and each
+    thread's tile of accumulators."""
+    m, k, d1 = 4, 100, 12_001
+    plan = gram_plan(m, b, k, d1)
+    assert plan.layout == "rows" and plan.classes == 1
+    assert (plan.tile, plan.tiles) == (mesh.GRAM_ROWS_TILE, -(-b // 64))
+    i32, f32 = np.int32, np.float32
+    arrays = [np.empty(GRAM_TABLE_SLOTS, i32)] * 3
+    arrays += [np.empty(GRAM_CHUNK, t) for t in (i32, i32, f32, i32, i32,
+                                                 f32)]
+    arrays += [np.empty(plan.tile + 1, i32),
+               np.empty((plan.tile, mesh.GRAM_ROWS_THREADS), f32)]
+    assert plan.gram_smem == sum(a.nbytes for a in arrays) <= LIMIT
+    assert plan.bucket_smem == 4 * (mesh.GRAM_BUCKET_THREADS // 32) + 8 * k
+    ws = gram_workspace(m, b, k, d1, torch.device("meta"), 2, 3)
+    assert tuple(ws.part.shape) == (2 * 3 * m, 0, b, b)  # G written directly
+    assert tuple(ws.roff.shape) == (2 * 3 * m, b, 2)
+
+
+@pytest.mark.parametrize("b,acc_in_smem", [(1025, True), (4096, True),
+                                           (57_856, True), (57_857, False),
+                                           (100_000, False)])
+def test_b5_rows_layout_past_1024_ids(b, acc_in_smem):
+    """B5's rows layout: one recursion CTA a pair, no lane registers, its
+    b accumulators in shared memory while they fit one CTA's and in
+    device memory past that."""
+    plan = feature_update_plan(1, b, 10, 101)
+    assert plan.layout == "rows" and plan.classes == 1
+    assert plan.threads == mesh.FEATURE_UPDATE_ROWS_THREADS <= 1024
+    assert plan.per_lane == 0 and not plan.stage_gram
+    assert plan.smem_bytes == (4 * b if acc_in_smem else 0) <= LIMIT
+
+
+def test_rows_layout_raises_only_where_the_grams_cannot_be_allocated():
+    """The limit is the card's memory for the Gram matrices (b² floats for
+    each pair's m partials and their sum), not a count of ids."""
+    gram_plan(1, 70_000, 10, 101)  # 39 GB: allocatable
+    with pytest.raises(ValueError, match="Gram matrices"):
+        gram_plan(4, 70_000, 10, 101)  # 98 GB
+    with pytest.raises(ValueError, match="80 GB"):
+        feature_update_plan(1, 4096, 10, 101, 64, 16)  # 1,024 pairs

@@ -288,7 +288,8 @@ ONES = np.ones((8, 3), np.float32)  # the rows the raising cases are given
 # data shards (A′.1), multi-task labels (A.9: a (K, n) y acts on
 # ``ONES``, a 'task' axis without one raises the reference's ValueError)
 # and pods (A.10: a 'pod' axis acts, pod_delay_rounds without one raises
-# the reference's ValueError) act; pipeline=False (A′.12) still raises
+# the reference's ValueError) act, and so does pipeline=False (A′.12, the
+# per-epoch host driver, held to the reference's pipelined solve)
 KNOBS = [
     (dict(shrink_every=1), "A.7", ACTS),
     (dict(repack=True), "A.7", ValueError),  # without shrink_every
@@ -301,7 +302,7 @@ KNOBS = [
     (dict(y=np.ones((2, 8), np.float32)), "A.9", ACTS),
     (dict(TWO_D, shrink_every=1), "A′.2", ACTS),
     (dict(TWO_D, adaptive=True), "A′.2", ACTS),
-    (dict(pipeline=False), "A′.12", NotImplementedError),
+    (dict(pipeline=False), "A′.12", ACTS),
     # the reference's tuning values act only with their knob on
     (dict(shrink_every=2, shrink_tol=1e-2), "A.7", ACTS),
     (dict(shrink_every=1, repack=True, repack_threshold=0.3), "A.7", ACTS),
@@ -340,11 +341,15 @@ def _reference_knob_solve(knob, request):
     the reference's m = 1 solve, as in ``test_torch_solver2d``), else
     from the child.  A pod mesh's solve raises in the reference's
     ``_finalize`` on the installed jax (ROADMAP C.9), so its α, w and
-    rowmap are fetched to the host first, as the child does."""
+    rowmap are fetched to the host first, as the child does.  The
+    reference's ``pipeline=False`` driver raises at a scatter on the
+    installed jax (ROADMAP C.4), so that knob is held to the reference's
+    pipelined solve, which the reference asserts equal to its driver
+    (``tests/test_sharded_pipeline.py``)."""
     if knob.get("mesh") is not None and knob["mesh"].shape["data"] > 1:
         return types.SimpleNamespace(
             **request.getfixturevalue("ref_data_shards"))
-    kw = {k: v for k, v in knob.items() if k != "mesh"}
+    kw = {k: v for k, v in knob.items() if k not in ("mesh", "pipeline")}
     if "mesh" in knob:
         kw["mesh"] = jax.make_mesh((1, 1), ("data", "model"))
     if "pod" in knob.get("mesh_axes", ()):
@@ -361,16 +366,10 @@ def _reference_knob_solve(knob, request):
 def test_unported_knobs_raise(tiny, request, knob, item, expect):
     """Each knob of the reference either acts — the ported self-tuning
     and data-shard knobs, whose solve is held to the reference's — or
-    raises: the reference's own ``ValueError`` (``resolve_self_tuning``,
-    ``pipeline_overlap``, the task axis's), with its message, or
-    ``NotImplementedError`` naming the ROADMAP item of a knob still
-    outside the port.  A (K, n) ``y`` is the multi-task solve, held
-    class by class to the reference's on the rows it is shaped for."""
-    if expect is NotImplementedError:
-        with pytest.raises(NotImplementedError, match=item):
-            sharded_passcode_solve(torch.ones((8, 3)), td.Hinge(), epochs=1,
-                                   device="cpu", **knob)
-        return
+    raises the reference's own ``ValueError`` (``resolve_self_tuning``,
+    ``pipeline_overlap``, the task axis's), with its message.  A (K, n)
+    ``y`` is the multi-task solve, held class by class to the
+    reference's on the rows it is shaped for."""
     if expect is ValueError:
         with pytest.raises(ValueError) as want:
             rs.sharded_passcode_solve(np.ones((8, 3), np.float32),
@@ -391,7 +390,9 @@ def test_unported_knobs_raise(tiny, request, knob, item, expect):
     Xp = _port_X(tiny, True)
     p = sharded_passcode_solve(Xp, td.Hinge(), device="cpu", **knob,
                                **KNOB_SOLVE)
-    _assert_result(p, _reference_knob_solve(knob, request), Xp, td.Hinge())
+    # the host driver records the gap only, as the reference's does
+    _assert_result(p, _reference_knob_solve(knob, request), Xp, td.Hinge(),
+                   metrics="pipeline" not in knob)
 
 
 PREPARE_KNOBS = [
@@ -402,7 +403,7 @@ PREPARE_KNOBS = [
     (dict(shrink_every=1, shrink_tol=1e-2), "A.7", ACTS),
     (dict(repack=True, repack_threshold=0.3), "A.7", ValueError),
     (dict(adaptive=True, adaptive_ratio=0.5), "A.7", ACTS),
-    (dict(pipeline=False), "A′.12", NotImplementedError),
+    (dict(pipeline=False), "A′.12", ACTS),
 ]
 
 
@@ -412,16 +413,11 @@ PREPARE_KNOBS = [
 def test_prepare_solver_unported_knobs_raise(knob, item, expect):
     """``prepare_solver`` takes every keyword of the reference's: a
     ported knob resolves as the reference's (``SelfTuning`` and the
-    tuning values), a bad combination raises the reference's
-    ``ValueError``, and a knob outside the port raises
-    ``NotImplementedError`` naming its ROADMAP item.  A (K, n) ``y`` sets
-    the setup's task count and labels as the reference's (its padding
-    rows, none here, at +1)."""
+    tuning values, ``pipeline=False``'s), and a bad combination raises
+    the reference's ``ValueError``.  A (K, n) ``y`` sets the setup's task
+    count and labels as the reference's (its padding rows, none here, at
+    +1)."""
     X = torch.ones((8, 3))
-    if expect is NotImplementedError:
-        with pytest.raises(NotImplementedError, match=item):
-            prepare_solver(X, td.Hinge(), device="cpu", **knob)
-        return
     if expect is ValueError:
         with pytest.raises(ValueError) as want:
             rs.prepare_solver(np.ones((8, 3), np.float32), rd.Hinge(),

@@ -168,7 +168,8 @@ def test_2d_dense_input_and_record_off(tiny):
 
 def test_2d_explicit_blocks_and_shim(tiny):
     """An explicit schedule replaces the draw (the overlapped round's
-    peek past the last epoch included); the n-row-block shim raises."""
+    peek past the last epoch included); the n-row-block shim runs one
+    block of all n rows an epoch, as the reference's does."""
     X, Xp = tiny
     key, blocks = jax.random.PRNGKey(SEED), []
     for _ in range(EPOCHS):
@@ -182,8 +183,43 @@ def test_2d_explicit_blocks_and_shim(tiny):
                                       **kw)
     np.testing.assert_array_equal(sched.alpha.numpy(), seeded.alpha.numpy())
     np.testing.assert_array_equal(sched.w_hat.numpy(), seeded.w_hat.numpy())
-    with pytest.raises(NotImplementedError, match="A′.12"):
-        ts.sharded_passcode_feature(Xp, td.Hinge())
+    alpha, w = ts.sharded_passcode_feature(Xp, td.Hinge(), epochs=2,
+                                           device="cpu")
+    r_alpha, r_w = rs.sharded_passcode_feature(X, rd.Hinge(), epochs=2)
+    np.testing.assert_allclose(alpha.numpy(), np.asarray(r_alpha), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(w.numpy(), np.asarray(r_w), rtol=0,
+                               atol=ATOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_shim(epochs):
+    ds = make_dataset("tiny")
+    return rs.sharded_passcode_feature(ds.dense_train(), rd.Hinge(C=1.0),
+                                       epochs=epochs)
+
+
+@pytest.mark.parametrize("model", [1, 8])
+def test_feature_shim_matches_reference(model):
+    """The shim on the reference's own inputs (``tests/test_sharded_
+    feature.py``'s dense ``tiny`` at 8 epochs, and ``tests/test_sharded.
+    py``'s 8-shard ``model`` mesh): (α, w) of one n-row block an epoch,
+    held to the reference's shim on one device at atol 1e-5 (m shards
+    only reorder float32 sums), and the legacy contract: shapes and a
+    duality gap below 1."""
+    from repro_torch.core.objective import duality_gap
+    from repro_torch.dist.mesh import solver_mesh
+    X = torch.tensor(np.asarray(make_dataset("tiny").dense_train()))
+    alpha, w = ts.sharded_passcode_feature(
+        X, td.Hinge(C=1.0), mesh=solver_mesh("model", model), epochs=8,
+        device="cpu")
+    r_alpha, r_w = _ref_shim(8)
+    assert alpha.shape == (X.shape[0],) and w.shape == (X.shape[1],)
+    np.testing.assert_allclose(alpha.numpy(), np.asarray(r_alpha), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(w.numpy(), np.asarray(r_w), rtol=0,
+                               atol=ATOL)
+    assert float(duality_gap(alpha, X, td.Hinge(C=1.0))) < 1.0
 
 
 def test_2d_gap_in_row_chunks_matches_one_pass(tiny):
