@@ -11,8 +11,8 @@ result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. the build of every kernel source, with nvcc's ``-Xptxas -v``
-   register and spill report; then phase 7 (below), first in time so
-   that its child has the card's memory to itself;
+   register and spill report; then phases 7 and 8 (below), first in
+   time so that their children have the card's memory to themselves;
 3. each kernel against its plain version at the shapes the main path
    gives it: B1 (ELL) on the rcv1-shape shard (its staged variant) and
    on webspam's rows (its wide variant), and B2 (dense indexed) on the
@@ -219,7 +219,25 @@ result line):
    epoch launch counted, added to the ``dcd_indexed_tasks`` and
    ``dcd_indexed_epoch`` rows) and on its smoke config, each above the
    majority share; the child's nonzero exit fails the script;
-8. one JSON line of per-kernel numbers (with each kernel's variant, and
+8. LM training and serving (``lm_train_phase``, in a second child
+   process: ``chip_smoke.py --lm-train-phase``), in float32: (a) four
+   train steps with remat on of minicpm-2b (WSD), mamba2-780m and
+   granite-moe-3b-a800m at full published width and depth, B = 2,
+   S = 64, on the Markov corpus — step 0's loss against the
+   cross-entropy of an inference forward (1e-5 relative), every loss and
+   grad norm finite, one step with remat off from the same parameters
+   (loss and grad norm within 1e-4), ms a step (CUDA events), AdamW's
+   time alone and its share, peak memory; (b) ``examples/
+   train_lm_torch.py``'s LM_100M through the fault-tolerant loop, 60
+   steps at B = 8, S = 256, a checkpoint every 20 steps and one fault
+   injected at step 30 — one failure and one restart, the loss falling,
+   ms a step, a checkpoint's save and restore seconds, the final
+   checkpoint read back bit for bit; (c) ``repro_torch.launch.train``
+   for 8 steps and ``repro_torch.launch.serve`` on mistral-nemo-12b and
+   the hybrid, smoke configs — tokens in the vocabulary, the cache S +
+   the decode steps long.  No kernel of B1–B5 runs here; the child's
+   nonzero exit fails the script;
+9. one JSON line of per-kernel numbers (with each kernel's variant, and
    B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
    ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
@@ -1424,6 +1442,257 @@ def lm_phase(torch, dev):
     print(json.dumps({"lm_probe_launches": launches}))
 
 
+# phase 8: LM training and serving.  (a) train steps at full published
+# width and depth in float32 with remat on; (b) the example's LM_100M
+# through the fault-tolerant loop with one injected fault; (c) both
+# launchers on the smoke configs
+TRAIN_ARCHS = ("minicpm-2b", "mamba2-780m", "granite-moe-3b-a800m")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 64, 4
+TRAIN_LOSS_RTOL = 1e-5  # step 0's loss against the inference forward's CE
+TRAIN_NOREMAT_RTOL = 1e-4  # remat off against on: loss and grad_norm
+LOOP_STEPS, LOOP_B, LOOP_S, LOOP_CKPT_EVERY, LOOP_FAULT_AT = 60, 8, 256, 20, 30
+
+
+def lm_train_phase(torch, dev):
+    """Phase 8, in a child process (``chip_smoke.py --lm-train-phase``).
+    Prints a line a check and, last, one JSON line of the numbers."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import get_schedule
+    from repro_torch.data.lm_data import MarkovCorpus, make_lm_batch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.optim import adamw_update, make_schedule
+    from repro_torch.train import (
+        cross_entropy,
+        make_train_step,
+        restore_checkpoint,
+        save_checkpoint,
+        train_state_for,
+    )
+    from repro_torch.tree import leaves, tree_map
+    sys.path.insert(0, str(ROOT / "examples"))
+    from train_lm_torch import LM_100M, train
+
+    card = card_line()
+    out = {"archs": {}}
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    # ---- (a) full-width train steps
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        def fresh():
+            """Step 0's state: the parameters from SEED, zero moments."""
+            return train_state_for(init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED),
+                device=dev))
+
+        state = fresh()
+        params = state.params
+        n_par = sum(t.numel() for t in leaves(params))
+        sched = make_schedule(get_schedule(arch), peak_lr=1e-4,
+                              total_steps=100, warmup_steps=2)
+        corpus = MarkovCorpus(cfg.vocab_size, seed=SEED, device=dev)
+        batches = [make_lm_batch(corpus, t, TRAIN_B, TRAIN_S)
+                   for t in range(TRAIN_STEPS)]
+        with torch.inference_mode():
+            logits, _ = forward_train(cfg, params, batches[0])
+            ce_ref = float(cross_entropy(logits, batches[0]["labels"],
+                                         cfg.vocab_size))
+            del logits
+        step = make_train_step(cfg, schedule=sched, remat=True)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+        metrics = []
+        ev[0].record()
+        for t in range(TRAIN_STEPS):
+            state, m = step(state, batches[t])
+            ev[t + 1].record()
+            metrics.append(m)
+        torch.cuda.synchronize()
+        step_ms = [ev[t].elapsed_time(ev[t + 1]) for t in range(TRAIN_STEPS)]
+        losses = [float(m["loss"]) for m in metrics]
+        gnorms = [float(m["grad_norm"]) for m in metrics]
+        if not all(math.isfinite(v) for v in losses + gnorms):
+            fail(f"{arch}: a train step's loss or grad_norm is not finite")
+        if rel(losses[0], ce_ref) > TRAIN_LOSS_RTOL:
+            fail(f"{arch}: step 0's loss {losses[0]} against the forward's "
+                 f"cross-entropy {ce_ref}")
+        # the optimizer alone on the same state: one more AdamW update
+        grads = tree_map(torch.zeros_like, state.params)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        adamw_update(state.params, grads, state.opt, lr=1e-4)
+        e1.record()
+        torch.cuda.synchronize()
+        opt_ms = e0.elapsed_time(e1)
+        del grads
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # remat off from the same parameters (drawn again from SEED) and a
+        # fresh optimizer
+        del state, params
+        torch.cuda.empty_cache()
+        state, m_off = make_train_step(cfg, schedule=sched, remat=False)(
+            fresh(), batches[0])
+        e_loss = rel(float(m_off["loss"]), losses[0])
+        e_gn = rel(float(m_off["grad_norm"]), gnorms[0])
+        ms = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+        print(f"  {arch}: {cfg.n_layers} of {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {n_par / 1e9:.3f}B parameters (float32, "
+              f"remat on, B = {TRAIN_B}, S = {TRAIN_S}, {get_schedule(arch)}"
+              f" schedule): step 0 {step_ms[0]:.1f} ms, then "
+              f"{ms:.1f} ms a step (CUDA events, steps 1–"
+              f"{TRAIN_STEPS - 1}); AdamW alone {opt_ms:.1f} ms "
+              f"({opt_ms / ms:.3f} of a step); peak {peak:.2f} GiB; losses "
+              f"{[round(v, 4) for v in losses]}, grad_norm "
+              f"{[round(v, 4) for v in gnorms]}; step 0 vs the forward's CE "
+              f"{rel(losses[0], ce_ref):.2e} (≤ {TRAIN_LOSS_RTOL}); remat "
+              f"off: loss {e_loss:.2e}, grad_norm {e_gn:.2e} (≤ "
+              f"{TRAIN_NOREMAT_RTOL}); {card}")
+        if e_loss > TRAIN_NOREMAT_RTOL or e_gn > TRAIN_NOREMAT_RTOL:
+            fail(f"{arch}: the step without remat parts from the step "
+                 "with it")
+        out["archs"][arch] = {"params": n_par, "step_ms": step_ms,
+                              "opt_ms": opt_ms, "peak_gib": peak,
+                              "losses": losses, "grad_norms": gnorms}
+        del state, m, m_off, metrics, batches
+        torch.cuda.empty_cache()
+        if torch.cuda.memory_allocated() > 2**30:
+            fail(f"{arch}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                 "still allocated after its train steps")
+
+    # ---- (b) the LM_100M loop with one injected fault
+    ckpt = ROOT / "build" / "chip_smoke_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    fired = []
+
+    def fault_hook(t):
+        if t == LOOP_FAULT_AT and not fired:
+            fired.append(t)
+            raise RuntimeError(f"injected fault at step {t}")
+
+    step_dt = {}
+    t0 = time.perf_counter()
+    state, report, first, last = train(
+        LM_100M, steps=LOOP_STEPS, batch=LOOP_B, seq=LOOP_S, lr=3e-3,
+        ckpt_dir=str(ckpt), device=dev, ckpt_every=LOOP_CKPT_EVERY,
+        step_deadline_s=1e-9, fault_hook=fault_hook,
+        on_straggler=lambda t, dt: step_dt.setdefault(t, []).append(dt),
+        log=lambda msg: print(f"    {msg}"))
+    loop_s = time.perf_counter() - t0
+    dts = sorted(d for v in step_dt.values() for d in v)
+    restarts = [r for r in report.restarts if r[0] == "failure"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(str(ckpt), 10_000, state)
+    save_s = time.perf_counter() - t0
+    ck_bytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+    t0 = time.perf_counter()
+    back, back_step = restore_checkpoint(str(ckpt), LOOP_STEPS, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(leaves(state), leaves(back)))
+    print(f"  LM_100M loop ({LM_100M.n_params() / 1e6:.1f}M parameters, "
+          f"B = {LOOP_B}, S = {LOOP_S}, WSD, a checkpoint every "
+          f"{LOOP_CKPT_EVERY} steps, a fault at step {LOOP_FAULT_AT}): "
+          f"{report.final_step} steps, {report.n_failures} failure, "
+          f"restarts {report.restarts}; loss {first:.4f} → {last:.4f}; "
+          f"{len(dts)} steps timed, median {dts[len(dts) // 2] * 1e3:.1f} "
+          f"ms, mean {sum(dts) / len(dts) * 1e3:.1f} ms a step (host clock,"
+          f" one loss read a step); the whole loop {loop_s:.1f} s; a "
+          f"checkpoint of {ck_bytes / 1e9:.3f} GB saved in {save_s:.3f} s, "
+          f"restored in {restore_s:.3f} s; the final checkpoint (step "
+          f"{back_step}) read back {'bit-equal' if same else 'DIFFERENT'};"
+          f" {card}")
+    if report.n_failures != 1 or len(restarts) != 1:
+        fail(f"the loop reported {report.n_failures} failures and "
+             f"{restarts} restarts, not one")
+    if not last < first:
+        fail(f"the LM_100M loss did not fall: {first} → {last}")
+    if not same or back_step != LOOP_STEPS:
+        fail("the final checkpoint does not read back the final state")
+    out["loop"] = {"steps": report.final_step, "failures": report.n_failures,
+                   "first": first, "last": last,
+                   "step_ms_median": dts[len(dts) // 2] * 1e3,
+                   "step_ms_mean": sum(dts) / len(dts) * 1e3,
+                   "loop_s": loop_s, "ckpt_gb": ck_bytes / 1e9,
+                   "save_s": save_s, "restore_s": restore_s}
+    del state, back
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- (c) the launchers on the card, smoke configs
+    lckpt = ROOT / "build" / "chip_smoke_launch_ckpt"
+    shutil.rmtree(lckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    rep = launch_train.main(["--arch", "minitron-4b", "--steps", "8",
+                             "--batch", "2", "--seq", "32", "--ckpt-dir",
+                             str(lckpt)])
+    print(f"  launch.train minitron-4b (smoke): {rep.final_step} steps, "
+          f"losses {[round(v, 4) for v in rep.losses]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if rep.final_step != 8 or not all(math.isfinite(v) for v in rep.losses):
+        fail("the train launcher did not run 8 finite steps")
+    shutil.rmtree(lckpt, ignore_errors=True)
+    out["launch"] = {}
+    for arch, S, gen in (("mistral-nemo-12b", 16, 6),
+                         ("jamba-1.5-large-398b", 16, 4)):
+        from repro_torch.configs import get_smoke_config
+        t0 = time.perf_counter()
+        r = launch_serve.main(["--arch", arch, "--requests", "2",
+                               "--prompt-len", str(S), "--gen", str(gen)])
+        V = get_smoke_config(arch).vocab_size
+        toks = r["tokens"]
+        ok = (toks.shape == (2, gen) and int(toks.min()) >= 0
+              and int(toks.max()) < V and r["cache_length"] == S + gen - 1)
+        print(f"  launch.serve {arch} (smoke): tokens {toks.tolist()}, "
+              f"cache length {r['cache_length']} (S + {gen - 1} decode "
+              f"steps), {'in the vocabulary' if ok else 'WRONG'} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            fail(f"the serve launcher on {arch} gave {toks} and a cache "
+                 f"of {r['cache_length']}")
+        out["launch"][arch] = toks.tolist()
+    print(json.dumps({"lm_train": out}))
+
+
+def lm_train_main():
+    """The child's entry: phase 8 alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm_train_phase(torch, torch.device(DEVICE))
+    return 0
+
+
+def run_lm_train_phase():
+    """Phase 8 in a child process; a nonzero exit fails the script."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--lm-train-phase"], capture_output=True,
+                         text=True, timeout=600)
+    lines = out.stdout.splitlines()
+    for line in lines[:-1] + out.stderr.splitlines()[-40:]:
+        print(f"  {line}" if not line.startswith("  ") else line)
+    print(f"  LM training phase: {time.perf_counter() - t0:.1f} s")
+    if out.returncode != 0 or not lines:
+        fail(f"the LM training phase exited {out.returncode}")
+    return json.loads(lines[-1])["lm_train"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1558,6 +1827,8 @@ def main():
     # mistral-nemo-12b needs 49 GB)
     print("phase 7: the LM stack (a child process)")
     lm_launches = run_lm_phase()
+    print("phase 8: LM training and serving (a child process)")
+    run_lm_train_phase()
 
     # ------------------------------------------------------------ data
     t0 = time.perf_counter()
@@ -4318,7 +4589,7 @@ def main():
     results["dcd_indexed_epoch"]["launches"] += lm_launches[
         "dcd_indexed_epoch"]
 
-    # ---------------------------------------------------------- 8. result
+    # ---------------------------------------------------------- 9. result
     idle = [name for name, row in results.items() if row["launches"] < 1]
     if idle:
         fail(f"kernels no main path launched: {idle}")
@@ -4332,4 +4603,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(lm_main() if sys.argv[1:] == ["--lm-phase"] else main())
+    sys.exit(lm_main() if sys.argv[1:] == ["--lm-phase"]
+             else lm_train_main() if sys.argv[1:] == ["--lm-train-phase"]
+             else main())

@@ -1,9 +1,9 @@
 """minicpm-2b — WSD schedule, llama-like arch [arXiv:2404.06395; hf].
 
 40L d_model=2304 36H (full MHA kv=36) d_ff=5760 vocab=122753.
-The WSD (warmup-stable-decay) schedule lives in the reference's
-``repro.optim.schedules`` (the port's comes with ROADMAP A.14b)
-and is selected by this config's ``schedule`` hint in the launcher.
+The WSD (warmup-stable-decay) schedule lives in
+``repro_torch.optim.schedules`` and is selected by this config's
+``SCHEDULE`` hint in the launcher.
 """
 
 from repro_torch.configs.base import ModelConfig

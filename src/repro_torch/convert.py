@@ -21,10 +21,16 @@ model.  ``params_from_numpy`` carries an LM's parameter pytree across
 (its stacked (L, …) layer groups become the port's per-layer dicts) and
 ``cache_from_numpy`` a decode cache, so both packages run one model
 from one cache; ``params_to_numpy`` and ``cache_to_numpy`` are their
-inverses.
+inverses.  ``train_state_from_numpy`` carries the reference's LM
+``TrainState`` across (parameters, both moments, the master copy, the
+compression residual, the counts) and ``train_state_to_numpy`` gives the
+port's in the reference's stacked layout, which the port's LM
+checkpoints are written in.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ from repro_torch.data.sparse import (
     PodShardedEll,
 )
 from repro_torch.dist.mesh import resolve_device
+from repro_torch.tree import map_layer_groups
 
 
 def ell_from_numpy(indices, values, d: int, *, device=None) -> EllMatrix:
@@ -239,21 +246,11 @@ def snapshot_from_numpy(snap, *, device=None):
                          None if snap.meta is None else dict(snap.meta))
 
 
-# the layer groups the reference stacks along a leading (L, …) axis
-_LAYER_GROUPS = ("attn", "mlp", "moe", "ssm", "enc_attn", "enc_mlp",
-                 "cross")
-
-
 def _unstack(group: dict, dev) -> list:
     """A stacked {name: (L, …)} group as L per-layer dicts."""
     n = len(next(iter(group.values())))
     return [{k: torch.tensor(np.asarray(v)[i], device=dev)
              for k, v in group.items()} for i in range(n)]
-
-
-def _stack(layers: list) -> dict:
-    return {k: np.stack([lp[k].detach().cpu().numpy() for lp in layers])
-            for k in layers[0]}
 
 
 def params_from_numpy(cfg, params, *, device=None) -> dict:
@@ -264,35 +261,77 @@ def params_from_numpy(cfg, params, *, device=None) -> dict:
     tensor.  ``cfg`` is the model's config: the embedding must have its
     padded vocabulary and width."""
     from repro_torch.models.transformer import vocab_padded
-    dev = resolve_device(device)
     want = (vocab_padded(cfg), cfg.d_model)
     if tuple(np.shape(params["embed"])) != want:
         raise ValueError(f"the embedding is {tuple(np.shape(params['embed']))}"
                          f", {cfg.name} has {want}")
-    out = {}
-    for k, v in params.items():
-        if k in _LAYER_GROUPS:
-            out[k] = _unstack(v, dev)
-        elif k == "periods":
-            out[k] = [{"block": _unstack(slot["block"], dev),
-                       "mlp": _unstack(slot["mlp"], dev)} for slot in v]
-        else:
-            out[k] = torch.tensor(np.asarray(v), device=dev)
-    return out
+    return _unstack_params(params, resolve_device(device))
+
+
+def _unstack_params(params, dev) -> dict:
+    return map_layer_groups(
+        params, functools.partial(_unstack, dev=dev),
+        lambda v: torch.tensor(np.asarray(v), device=dev))
+
+
+def _host(t) -> np.ndarray:
+    """A tensor on the host as numpy; bf16, which numpy lacks, widened
+    to float32 (exact)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _stack(layers: list) -> dict:
+    return {k: np.stack([_host(lp[k]) for lp in layers]) for k in layers[0]}
 
 
 def params_to_numpy(params) -> dict:
-    """The port's parameters as the reference's stacked numpy pytree."""
-    out = {}
-    for k, v in params.items():
-        if k in _LAYER_GROUPS:
-            out[k] = _stack(v)
-        elif k == "periods":
-            out[k] = [{"block": _stack(slot["block"]),
-                       "mlp": _stack(slot["mlp"])} for slot in v]
-        else:
-            out[k] = v.detach().cpu().numpy()
-    return out
+    """The port's parameters as the reference's stacked numpy pytree (a
+    bf16 leaf widened to float32)."""
+    return map_layer_groups(params, _stack, _host)
+
+
+def map_train_state(state, tree, scalar):
+    """A port ``TrainState`` with ``state``'s fields (either package's
+    ``TrainState``, or ``train_state_to_numpy``'s): each params-shaped
+    tree (parameters, both moments, the master copy, the compression
+    residual) through ``tree``, ``count`` and ``step`` through
+    ``scalar``; a ``None`` field stays ``None``."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.grad_compress import CompressState
+    from repro_torch.train.step import TrainState
+
+    opt = state.opt
+    return TrainState(
+        params=tree(state.params),
+        opt=AdamWState(tree(opt.m), tree(opt.v),
+                       None if opt.master is None else tree(opt.master),
+                       scalar(opt.count)),
+        step=scalar(state.step),
+        compress=(None if state.compress is None
+                  else CompressState(tree(state.compress.residual))))
+
+
+def train_state_to_numpy(state):
+    """The port's LM ``TrainState`` in the reference's layout, as numpy:
+    each params-shaped tree stacked as ``params_to_numpy`` stacks it,
+    ``count`` and ``step`` 0-d int32.  A bf16 leaf is widened to
+    float32."""
+    return map_train_state(state, params_to_numpy, _host)
+
+
+def train_state_from_numpy(cfg, state, *, device=None):
+    """The port's ``TrainState`` from the reference's (its ``TrainState``
+    or ``train_state_to_numpy``'s, numpy or jax arrays) on ``device`` (the
+    card unless the caller asks for the CPU): every params-shaped tree
+    through ``params_from_numpy``, ``count`` and ``step`` 0-d int32
+    tensors; the arrays keep their dtypes."""
+    dev = resolve_device(device)
+    return map_train_state(
+        state, lambda t: params_from_numpy(cfg, t, device=dev),
+        lambda a: torch.tensor(np.asarray(a, np.int32), device=dev))
 
 
 def cache_from_numpy(cache, *, device=None):

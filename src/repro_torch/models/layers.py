@@ -17,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 ACC = torch.float32
 
@@ -37,6 +38,16 @@ def dense(x, w):
 def swiglu(x, w_gate, w_up, w_down):
     h = F.silu(dense(x, w_gate)) * dense(x, w_up)
     return dense(h, w_down)
+
+
+def remat_call(fn, *args, remat: bool = True):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``jax.checkpoint``'s counterpart) when ``remat`` and gradients are
+    on."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------- RoPE ----

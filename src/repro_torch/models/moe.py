@@ -13,6 +13,11 @@ The router's top-k takes equal probabilities in index order, as
 rows and gathers them back, one group at a time, the aux loss the mean
 of the groups'; ``dispatch="einsum"`` is the GShard one-hot products
 over all groups at once, the aux loss taken over all of them.
+``remat_groups`` recomputes each scatter group, or the einsum's one
+call, in the backward pass, as the reference's ``jax.checkpoint`` does.
+The scatter's write into a fresh (E, C + 1, D) buffer differentiates
+under autograd; on the card its backward accumulates with atomics, so
+gradients there agree closely from run to run but not to the bit.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ACC, dense
+from repro_torch.models.layers import ACC, dense, remat_call
 
 
 def auto_group_size(d_ff: int, T: int, requested: int = 2048) -> int:
@@ -129,7 +134,8 @@ def _groups_einsum(xg, router_w, w_gate, w_up, w_down, top_k, C, E):
 
 def moe_mlp(x, router_w, w_gate, w_up, w_down, *, top_k: int,
             capacity_factor: float = 1.25, group_size: int = 2048,
-            no_drop: bool = False, dispatch: str = "scatter"):
+            no_drop: bool = False, dispatch: str = "scatter",
+            remat_groups: bool = True):
     """x: (T, D) tokens.  router_w: (D, E).  w_gate, w_up: (E, D, F);
     w_down: (E, F, D).  Returns (out (T, D), the aux loss)."""
     T, D = x.shape
@@ -147,9 +153,10 @@ def moe_mlp(x, router_w, w_gate, w_up, w_down, *, top_k: int,
                               g)
     xg = x.reshape(G, g, D)
     if dispatch == "einsum":
-        out, aux = _groups_einsum(xg, router_w, w_gate, w_up, w_down, top_k,
-                                  C, E)
+        out, aux = remat_call(_groups_einsum, xg, router_w, w_gate, w_up,
+                              w_down, top_k, C, E, remat=remat_groups)
         return out.reshape(T, D), aux
-    outs, auxs = zip(*(_group_scatter(xg[i], router_w, w_gate, w_up, w_down,
-                                      top_k, C, E) for i in range(G)))
+    outs, auxs = zip(*(remat_call(_group_scatter, xg[i], router_w, w_gate,
+                                  w_up, w_down, top_k, C, E,
+                                  remat=remat_groups) for i in range(G)))
     return torch.cat(outs).reshape(T, D), torch.stack(auxs).mean()

@@ -24,10 +24,14 @@ Every forward comes in three lowerings: ``forward_train`` (teacher
 forcing), ``prefill`` (the same, filling the decode cache) and
 ``decode_step`` (one token against the cache); ``lm_features`` pools the
 final-norm hidden states of the decoder-only families.  The port runs on
-one card: no sharding rules (``rules``), and no rematerialisation, which
-comes with training.  ``prefill`` and ``decode_step`` write the cache's
-tensors in place — no copy of the max-length caches a step — and return
-the cache with its new length.
+one card: no sharding rules (``rules``).  ``forward_train(remat=True)``
+recomputes the reference's work units in the backward pass — each layer,
+each SSM layer, each hybrid period, each encoder and encdec decoder
+layer — through ``torch.utils.checkpoint``, and the MoE MLP its groups
+under ``cfg.moe_remat_groups``; remat changes no number, and without
+gradients it is a plain call.  ``prefill`` and ``decode_step`` write the
+cache's tensors in place — no copy of the max-length caches a step — and
+return the cache with its new length.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from repro_torch.models.layers import (
     dense,
     embed_init,
     he_init,
+    remat_call,
     rms_norm,
     swiglu,
 )
@@ -255,7 +260,8 @@ def _moe_block(p, x, cfg, no_drop: bool = False):
         dispatch = "scatter"
     out, aux = moe_mlp(h, p["router"], p["wg"], p["wu"], p["wd"],
                        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                       group_size=group, no_drop=no_drop, dispatch=dispatch)
+                       group_size=group, no_drop=no_drop, dispatch=dispatch,
+                       remat_groups=cfg.moe_remat_groups)
     return x + out.reshape(B, S, D), aux
 
 
@@ -300,11 +306,13 @@ def _periods(params):
 # ====================================================== forward_train ====
 
 
-def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False):
+def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False,
+              remat: bool = False):
     """The decoder stack up to (not including) the final norm: (hidden
     (B, S, D), aux loss) — the trunk ``forward_train`` and
-    ``lm_features`` share.  Raises for encdec, whose decoder needs the
-    encoder's context."""
+    ``lm_features`` share.  ``remat`` recomputes each layer (a hybrid
+    model's each period) in the backward pass.  Raises for encdec, whose
+    decoder needs the encoder's context."""
     if cfg.family == "encdec":
         raise ValueError(
             "encdec has no decoder-only backbone; use forward_train")
@@ -314,43 +322,62 @@ def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False):
     aux = torch.zeros((), dtype=ACC, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):
         is_moe = cfg.family == "moe"
-        for lp_attn, lp_mlp in zip(params["attn"],
-                                   params["moe" if is_moe else "mlp"]):
+
+        def layer(x, lp_attn, lp_mlp):
             x, _ = _attn_block(lp_attn, x, positions, cfg)
             if is_moe:
-                x, a = _moe_block(lp_mlp, x, cfg, no_drop=moe_no_drop)
+                return _moe_block(lp_mlp, x, cfg, no_drop=moe_no_drop)
+            return _mlp_block(lp_mlp, x, cfg), None
+
+        for lp_attn, lp_mlp in zip(params["attn"],
+                                   params["moe" if is_moe else "mlp"]):
+            x, a = remat_call(layer, x, lp_attn, lp_mlp, remat=remat)
+            if is_moe:
                 aux = aux + a
-            else:
-                x = _mlp_block(lp_mlp, x, cfg)
     elif cfg.family == "ssm":
+
+        def layer(x, lp):
+            return _ssm_block(lp, x, cfg, mode="train")[0]
+
         for lp in params["ssm"]:
-            x, _ = _ssm_block(lp, x, cfg, mode="train")
+            x = remat_call(layer, x, lp, remat=remat)
     elif cfg.family == "hybrid":
         kinds = hybrid_slot_kinds(cfg)
-        for pi in range(_periods(params)):
-            for slot, (block, mlp) in zip(params["periods"], kinds):
-                bp, mp = slot["block"][pi], slot["mlp"][pi]
+
+        def period(x, slots):
+            a_sum = torch.zeros((), dtype=ACC, device=x.device)
+            for (bp, mp), (block, mlp) in zip(slots, kinds):
                 if block == "attn":
                     x, _ = _attn_block(bp, x, positions, cfg)
                 else:
                     x, _ = _ssm_block(bp, x, cfg, mode="train")
                 if mlp == "moe":
                     x, a = _moe_block(mp, x, cfg, no_drop=moe_no_drop)
-                    aux = aux + a
+                    a_sum = a_sum + a
                 else:
                     x = _mlp_block(mp, x, cfg)
+            return x, a_sum
+
+        for pi in range(_periods(params)):
+            slots = [(slot["block"][pi], slot["mlp"][pi])
+                     for slot in params["periods"]]
+            x, a = remat_call(period, x, slots, remat=remat)
+            aux = aux + a
     else:
         raise ValueError(cfg.family)
     return x, aux
 
 
-def forward_train(cfg: ModelConfig, params, batch,
+def forward_train(cfg: ModelConfig, params, batch, remat: bool = True,
                   moe_no_drop: bool = False):
     """Teacher-forced logits: (logits (B, S, Vp) float32, aux loss).
-    ``moe_no_drop`` disables MoE token dropping (parity checks)."""
+    ``remat`` recomputes each work unit's activations in the backward
+    pass (the reference's default, on); ``moe_no_drop`` disables MoE
+    token dropping (parity checks)."""
     if cfg.family == "encdec":
-        return _encdec_forward(cfg, params, batch)
-    x, aux = _backbone(cfg, params, batch, moe_no_drop=moe_no_drop)
+        return _encdec_forward(cfg, params, batch, remat)
+    x, aux = _backbone(cfg, params, batch, moe_no_drop=moe_no_drop,
+                       remat=remat)
     return _logits_out(cfg, params, x), aux
 
 
@@ -363,31 +390,39 @@ def lm_features(cfg: ModelConfig, params, tokens):
     return torch.mean(x, dim=1)
 
 
-def _encoder(cfg, params, enc_embeds):
+def _encoder(cfg, params, enc_embeds, remat: bool = False):
     x = torch.as_tensor(enc_embeds, device=params["enc_pos"].device)
     x = x + params["enc_pos"][None, :x.shape[1]]
     B, S = x.shape[:2]
     hd, Hq = cfg.head_dim, cfg.n_heads
-    for lp_attn, lp_mlp in zip(params["enc_attn"], params["enc_mlp"]):
+
+    def layer(x, lp_attn, lp_mlp):
         h = rms_norm(x, lp_attn["ln"], cfg.norm_eps)
         q, k, v = _qkv(lp_attn, h, cfg, S)
         out = chunked_attention(q, k, v, causal=False,
                                 kv_chunk=min(KV_CHUNK, S))
         x = x + dense(out.reshape(B, S, Hq * hd), lp_attn["wo"])
-        x = _mlp_block(lp_mlp, x, cfg)
+        return _mlp_block(lp_mlp, x, cfg)
+
+    for lp_attn, lp_mlp in zip(params["enc_attn"], params["enc_mlp"]):
+        x = remat_call(layer, x, lp_attn, lp_mlp, remat=remat)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _encdec_forward(cfg, params, batch):
-    enc_out = _encoder(cfg, params, batch["enc_embeds"])
+def _encdec_forward(cfg, params, batch, remat: bool = False):
+    enc_out = _encoder(cfg, params, batch["enc_embeds"], remat)
     x = _embed_in(cfg, params, batch)
     B, S = x.shape[:2]
     positions = _positions(batch, B, S, x.device)
-    for lp_attn, lp_cross, lp_mlp in zip(params["attn"], params["cross"],
-                                         params["mlp"]):
+
+    def layer(x, lp_attn, lp_cross, lp_mlp):
         x, _ = _attn_block(lp_attn, x, positions, cfg)
         x, _ = _cross_attn_block(lp_cross, x, cfg, enc_out=enc_out)
-        x = _mlp_block(lp_mlp, x, cfg)
+        return _mlp_block(lp_mlp, x, cfg)
+
+    for lp_attn, lp_cross, lp_mlp in zip(params["attn"], params["cross"],
+                                         params["mlp"]):
+        x = remat_call(layer, x, lp_attn, lp_cross, lp_mlp, remat=remat)
     return (_logits_out(cfg, params, x),
             torch.zeros((), dtype=ACC, device=x.device))
 

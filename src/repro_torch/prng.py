@@ -27,7 +27,18 @@ single-key draw would.  The algorithm:
   does and keeps 23 bits of each as the mantissa of a float in [1, 2):
   ((bits >> 9) | 0x3F800000) read as float32, minus 1.  Element i of a
   draw depends on counter i alone, so ``uniform_at`` draws the elements
-  at given counters without the rest.
+  at given counters without the rest;
+* ``fold_in(key, data)`` hashes the one counter (0, data): key ``data``
+  of ``split(key, data + 1)``;
+* ``randint(key, shape, lo, hi)`` (int32) takes ``k1, k2 = split(key)``
+  and 32 random bits of each, a and b, and with span = hi − lo and
+  m = (2¹⁶ mod span)² mod span returns lo + ((a mod span)·m + b mod
+  span) mod span, every step in wrapping uint32 arithmetic;
+* ``gumbel(key, shape)`` (float32, mode "low") is −log(−log(u)) of
+  ``uniform(key, shape, tiny, 1)``, tiny the smallest normal float32,
+  each log XLA's CPU log (``xla_log``), not ``torch.log``;
+* ``categorical(key, logits)`` is the argmax over the last axis of
+  ``gumbel(key, logits.shape) + logits``, the first index on a tie.
 """
 
 from __future__ import annotations
@@ -146,3 +157,101 @@ def uniform_at(key: torch.Tensor, counters: torch.Tensor,
     hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     scaled = (f.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
+
+
+_TINY = 1.1754943508222875e-38  # float32's smallest normal
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a uint32 ``data``: the hash
+    of the counter (0, data), a (..., 2) key for each key (..., 2)."""
+    data = int(data) & _M32
+    c = torch.full(key.shape[:-1], data, dtype=torch.int64,
+                   device=key.device)
+    b1, b2 = _hash(key, c)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` in int32 (jax's
+    default without x64) for each key (..., 2): (..., *shape) int64
+    values in [minval, maxval)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = math.prod(shape)
+    lo, hi = int(minval), int(maxval)
+    keys = split(key)
+    higher = random_bits(keys[..., 0, :], n)
+    lower = random_bits(keys[..., 1, :], n)
+    span = 1 if hi <= lo else (hi - lo) & _M32
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = ((higher % span) * mult) & _M32
+    off = ((off + lower % span) & _M32) % span
+    return (lo + off).reshape(tuple(key.shape[:-1]) + shape)
+
+
+# the Cephes polynomial of log(1 + x) on [√½ − 1, √2 − 1] that XLA's CPU
+# backend evaluates for a float32 log, and the two parts of ln 2
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def _fma(a, b, c):
+    """a·b + c rounded once to float32: the float32 product is exact in
+    float64, and the float64 sum is rounded to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """The natural log of positive, finite, normal float32 values, bit
+    for bit as XLA's CPU backend computes it (``jnp.log``): Cephes'
+    range reduction to m ∈ [√½, √2) with m = 1 + x, its degree-8
+    polynomial by fused multiply-adds, then x − x²/2 + x³·p(x) and the
+    exponent's e·ln 2 in two parts.  ``torch.log`` is rounded
+    correctly and parts from it by an ulp in about one value in twelve,
+    which the Gumbel draw's log of a log magnifies."""
+    f32 = torch.float32
+    x = torch.clamp(x.to(f32), min=_TINY)
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).to(f32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(f32)
+    small = m < 0.707106781186547524
+    e = e - small.to(f32)
+    x = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = x * x
+    x3 = x2 * x
+
+    def c(v):
+        return torch.full_like(x, v)
+
+    y = _fma(x, c(_LOG_P[0]), c(_LOG_P[1]))
+    y1 = _fma(x, c(_LOG_P[3]), c(_LOG_P[4]))
+    y2 = _fma(x, c(_LOG_P[6]), c(_LOG_P[7]))
+    y = _fma(y, x, c(_LOG_P[2]))
+    y1 = _fma(y1, x, c(_LOG_P[5]))
+    y2 = _fma(y2, x, c(_LOG_P[8]))
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, e * _LOG_Q1)
+    x = x - x2 * 0.5
+    x = x + y
+    return x + e * _LOG_Q2
+
+
+def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default "low"
+    mode for each key (..., 2): (..., *shape) float32, −log(−log(u)) with
+    XLA's log (``xla_log``)."""
+    u = uniform(key, shape, minval=_TINY, maxval=1.0)
+    return -xla_log(-xla_log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, for
+    one key (2,) and float32 logits (..., n): the argmax of
+    ``gumbel(key, logits.shape) + logits``, int64 of shape (...,)."""
+    g = gumbel(key, tuple(logits.shape))
+    return torch.argmax(g + logits.to(torch.float32), dim=-1)

@@ -1,9 +1,9 @@
-"""The online scoring engine for the linear models (the counterpart of
-``repro.serve``'s SVM side): a bounded request queue with backpressure
-and deadline shedding, versioned zero-drop snapshot hot-swap, the
-occupancy degrade ladder, and drift-triggered warm-start incremental
-training.  The language model's prefill and decode steps are not part
-of it yet."""
+"""Serving (the counterpart of ``repro.serve``): the online scoring
+engine for the linear models — a bounded request queue with
+backpressure and deadline shedding, versioned zero-drop snapshot
+hot-swap, the occupancy degrade ladder, and drift-triggered warm-start
+incremental training — and the language model's prefill and decode
+steps (``make_prefill_step``, ``make_decode_step``)."""
 
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.metrics import ServeMetrics
@@ -21,6 +21,7 @@ from repro_torch.serve.snapshot import (
     make_snapshot,
     snapshot_from_result,
 )
+from repro_torch.serve.step import make_decode_step, make_prefill_step
 from repro_torch.serve.trainer import IncrementalTrainer
 
 __all__ = [
@@ -35,6 +36,8 @@ __all__ = [
     "SnapshotStore",
     "Ticket",
     "load_snapshot",
+    "make_decode_step",
+    "make_prefill_step",
     "make_snapshot",
     "snapshot_from_result",
 ]

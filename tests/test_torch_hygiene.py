@@ -35,7 +35,17 @@ from repro_torch.data.labels import ovr_labels
 from repro_torch.data.sparse import dense_to_ell
 from repro_torch.data.synthetic import make_dataset, make_paper_split
 from repro_torch.dist.mesh import SolverMesh, solver_mesh_2d
+from repro_torch.data.lm_data import MarkovCorpus
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.train import main as train_main
+from repro_torch.optim import make_schedule
 from repro_torch.resilience import solve_segmented
+from repro_torch.train import (
+    LoopConfig,
+    init_train_state,
+    make_train_step,
+    run_training,
+)
 from repro_torch.serve import (
     IncrementalTrainer,
     ScoreOutcome,
@@ -114,6 +124,21 @@ ENTRY_POINTS = {
         get_smoke_config("mamba2-780m"),
         init_params(get_smoke_config("mamba2-780m"), 0),
         torch.zeros((1, 4), dtype=torch.int64)),
+    "init_train_state": lambda: init_train_state(
+        get_smoke_config("minicpm-2b"), 0),
+    "MarkovCorpus": lambda: MarkovCorpus(97),
+    # the loop through a step of the default path's state
+    "run_training": lambda: run_training(
+        init_train_state(get_smoke_config("minicpm-2b"), 0),
+        make_train_step(get_smoke_config("minicpm-2b"),
+                        schedule=make_schedule("cosine", peak_lr=1e-3,
+                                               total_steps=2)),
+        lambda t: None, LoopConfig(total_steps=1,
+                                   ckpt_dir="no_such_checkpoint_dir")),
+    "launch_train_main": lambda: train_main(["--arch", "minicpm-2b",
+                                             "--steps", "1"]),
+    "launch_serve_main": lambda: serve_main(["--arch", "minicpm-2b",
+                                             "--gen", "2"]),
 }
 
 
@@ -201,3 +226,36 @@ def test_probe_twin_runs_on_cpu_without_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     top1 = [float(a) for a in re.findall(r"top1=(\S+)", out.stdout)]
     assert len(top1) == 2 and all(0.0 <= a <= 1.0 for a in top1), out.stdout
+
+
+@pytest.mark.parametrize("twin,args", [
+    ("train_lm_torch", ["--small", "--steps", "40", "--batch", "4",
+                        "--seq", "64"]),
+    ("serve_lm_torch", ["--requests", "2", "--gen", "6"]),
+])
+def test_lm_example_twin_runs_on_cpu_without_jax(twin, args, tmp_path):
+    """Each LM example twin runs end to end with ``--device cpu`` (the
+    train twin's loss falls over 40 steps of the small model, its
+    assertion) and imports neither jax nor ``repro``.  Two threads: the
+    test workers share the machine's cores."""
+    path = ROOT / "examples" / f"{twin}.py"
+    if twin == "train_lm_torch":
+        args = args + ["--ckpt-dir", str(tmp_path)]
+    argv = [str(path), "--device", "cpu", *args]
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = {argv!r}\n"
+        f"runpy.run_path({str(path)!r}, run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print('imported:', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "imported: []" in out.stdout
+    if twin == "train_lm_torch":
+        assert re.search(r"done: loss \S+ → \S+ \(40 steps", out.stdout)
+    else:
+        assert len(re.findall(r"req\d: \[", out.stdout)) == 2
