@@ -227,7 +227,20 @@ result line):
    cross-entropy of an inference forward (1e-5 relative), every loss and
    grad norm finite, one step with remat off from the same parameters
    (loss and grad norm within 1e-4), ms a step (CUDA events), AdamW's
-   time alone and its share, peak memory; (b) ``examples/
+   time alone and its share, peak memory; then each arch's counted
+   bound (``train_bound``): the port's dry-run cell
+   (``repro_torch.launch.dryrun.run_cell``) on a 1 × 1 mesh at the same
+   shape and float32 state, run on meta tensors under the per-device
+   counter in this child (no byte allocated, its seconds printed) — one
+   line beside the measured step with the FLOPs and HBM bytes a step,
+   t_compute at 67 TFLOP/s, t_memory at 3.35 TB/s and the dominant
+   term, the roofline share (bound over the mean of steps 1–3), the
+   model FLOPs (6·N·tokens) and their share of the step at 67 TFLOP/s,
+   the counted ``peak_bytes_est`` (and argument + temp) against
+   ``torch.cuda.max_memory_allocated()``, and the card's name and power
+   limit; the phase fails if the cell's ``argument_bytes`` are not the
+   card's state and batch to the byte, if a measured step beats the
+   bound, or if a figure is not finite and nonzero; (b) ``examples/
    train_lm_torch.py``'s LM_100M through the fault-tolerant loop, 60
    steps at B = 8, S = 256, a checkpoint every 20 steps and one fault
    injected at step 30 — one failure and one restart, the loss falling,
@@ -1482,6 +1495,10 @@ def lm_train_phase(torch, dev):
     def rel(a, b):
         return abs(a - b) / max(abs(b), 1e-30)
 
+    def live_bytes(tree):
+        return sum(t.numel() * t.element_size() for t in leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
     # ---- (a) full-width train steps
     for arch in TRAIN_ARCHS:
         cfg = get_config(arch)
@@ -1497,11 +1514,13 @@ def lm_train_phase(torch, dev):
         state = fresh()
         params = state.params
         n_par = sum(t.numel() for t in leaves(params))
+        state_bytes = live_bytes(state)
         sched = make_schedule(get_schedule(arch), peak_lr=1e-4,
                               total_steps=100, warmup_steps=2)
         corpus = MarkovCorpus(cfg.vocab_size, seed=SEED, device=dev)
         batches = [make_lm_batch(corpus, t, TRAIN_B, TRAIN_S)
                    for t in range(TRAIN_STEPS)]
+        batch_bytes = live_bytes(batches[0])
         with torch.inference_mode():
             logits, _ = forward_train(cfg, params, batches[0])
             ce_ref = float(cross_entropy(logits, batches[0]["labels"],
@@ -1561,7 +1580,10 @@ def lm_train_phase(torch, dev):
                  "with it")
         out["archs"][arch] = {"params": n_par, "step_ms": step_ms,
                               "opt_ms": opt_ms, "peak_gib": peak,
-                              "losses": losses, "grad_norms": gnorms}
+                              "losses": losses, "grad_norms": gnorms,
+                              "dryrun": train_bound(
+                                  arch, cfg, step_ms, peak,
+                                  state_bytes + batch_bytes, card)}
         del state, m, m_off, metrics, batches
         torch.cuda.empty_cache()
         if torch.cuda.memory_allocated() > 2**30:
@@ -1662,6 +1684,83 @@ def lm_train_phase(torch, dev):
                  f"of {r['cache_length']}")
         out["launch"][arch] = toks.tolist()
     print(json.dumps({"lm_train": out}))
+
+
+def train_bound(arch, cfg, step_ms, peak_gib, card_bytes, card):
+    """Phase 8's counted bound on one arch's train step: the port's
+    dry-run cell on a 1 × 1 mesh (``repro_torch.launch.dryrun.run_cell``:
+    the step run on meta tensors under the per-device counter, no byte
+    allocated) at phase 8's shape and float32 state, beside the measured
+    steps.  Fails the phase when the cell's arguments are not, to the
+    byte, the state and batch the card holds, when a measured step beats
+    the counted bound, or when a figure is not finite and nonzero."""
+    import torch
+
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.dist.mesh import SolverMesh
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.roofline import peak_flops_for
+
+    t0 = time.perf_counter()
+    # one device: the cell runs the plain path on meta tensors, no
+    # process group or DTensor needed
+    mesh = SolverMesh(("data", "model"), (1, 1))
+    dtypes = dict(dtype=torch.float32, m_dtype=torch.float32,
+                  v_dtype=torch.float32, master=False)  # phase 8's state
+    cell = run_cell(arch, "phase8_train", cfg=cfg, mesh=mesh,
+                    shape=InputShape("phase8_train", TRAIN_S, TRAIN_B,
+                                     "train"),
+                    microbatches=1, dtypes=dtypes)
+    dry_s = time.perf_counter() - t0
+    rf, mem = cell["roofline"], cell["memory"]
+    peak = peak_flops_for(torch.float32)  # TF32 is off in this phase
+    bound = max(rf["t_compute_s"], rf["t_memory_s"], rf["t_collective_s"])
+    ms = sum(step_ms[1:]) / (len(step_ms) - 1)
+    fastest = min(step_ms[1:])
+    mf_share = rf["model_flops_total"] / (ms / 1e3 * peak)
+    share = bound / (ms / 1e3)
+    live_gib = (mem["argument_bytes"] + mem["temp_bytes"]) / 2**30
+    print(f"  {arch}: counted (dry-run cell, 1 × 1 mesh, meta, "
+          f"{dry_s:.1f} s): {rf['flops_per_device']:.4e} FLOP and "
+          f"{rf['bytes_per_device']:.4e} B of HBM a step; t_compute "
+          f"{rf['t_compute_s'] * 1e3:.1f} ms at {peak / 1e12:.0f} TFLOP/s, "
+          f"t_memory {rf['t_memory_s'] * 1e3:.1f} ms at 3.35 TB/s, "
+          f"dominant {rf['dominant']}; bound {bound * 1e3:.1f} ms against "
+          f"{ms:.1f} ms measured (fastest {fastest:.1f}): roofline share "
+          f"{share:.3f}; model FLOPs {rf['model_flops_total']:.4e} = "
+          f"{mf_share:.3f} of the measured step at {peak / 1e12:.0f} "
+          f"TFLOP/s; peak_bytes_est {mem['peak_bytes_est'] / 2**30:.2f} "
+          f"GiB (argument + temp {live_gib:.2f} GiB) against "
+          f"max_memory_allocated "
+          f"{peak_gib:.2f} GiB; argument_bytes {mem['argument_bytes']} = "
+          f"the state and batch on the card {card_bytes}: "
+          f"{'equal' if mem['argument_bytes'] == card_bytes else 'DIFFER'};"
+          f" {card}")
+    figures = [rf["flops_per_device"], rf["bytes_per_device"],
+               rf["t_compute_s"], rf["t_memory_s"], bound,
+               rf["model_flops_total"], mem["peak_bytes_est"],
+               mem["temp_bytes"], mf_share, share]
+    if not all(math.isfinite(v) and v > 0 for v in figures):
+        fail(f"{arch}: a dry-run figure is not finite and nonzero: "
+             f"{figures}")
+    if mem["argument_bytes"] != card_bytes:
+        fail(f"{arch}: the dry-run's argument_bytes "
+             f"{mem['argument_bytes']} are not the {card_bytes} bytes of "
+             "the state and batch on the card")
+    if fastest / 1e3 < bound:
+        fail(f"{arch}: a measured step ({fastest:.1f} ms) beats its "
+             f"counted bound ({bound * 1e3:.1f} ms): the count is wrong")
+    return {"flops": rf["flops_per_device"], "bytes": rf["bytes_per_device"],
+            "t_compute_ms": rf["t_compute_s"] * 1e3,
+            "t_memory_ms": rf["t_memory_s"] * 1e3,
+            "dominant": rf["dominant"], "bound_ms": bound * 1e3,
+            "measured_ms": ms, "roofline_share": share,
+            "model_flops": rf["model_flops_total"],
+            "model_flops_share": mf_share,
+            "peak_bytes_est": mem["peak_bytes_est"],
+            "argument_bytes": mem["argument_bytes"],
+            "temp_bytes": mem["temp_bytes"], "card_bytes": card_bytes,
+            "max_memory_allocated_gib": peak_gib, "dry_s": dry_s}
 
 
 def lm_train_main():

@@ -24,7 +24,10 @@ adaptive delay, ``watchdog_trip`` and ``degrade_ladder`` the segmented
 solve's recovery, and ``serve_admission_policy``, ``serve_rung``,
 ``serve_degrade_ladder`` and ``drift_trip`` the serving engine's
 admission, overload ladder and re-solve trigger.  ``lane_pad`` and
-``cta_threads`` size a kernel's thread block.
+``cta_threads`` size a kernel's thread block.  ``make_production_mesh``
+and ``make_fake_mesh`` build the LM dry-run's ``DeviceMesh`` over a
+``fake`` process group (no card, no communication), and ``mesh_axes``,
+``data_axes`` and ``dp_size`` read either kind of mesh.
 The reference's 128-lane padding of d and k is TPU tiling, not
 semantics: the CUDA kernels take any width, so the port pads nothing but
 the thread count, which rounds up to whole warps.
@@ -591,14 +594,73 @@ def pod_merge_policy(pod_delay_rounds: int, *, n_pods: int,
     return k
 
 
+def mesh_axes(mesh) -> dict:
+    """{axis name: size} of a ``SolverMesh`` or of a
+    ``torch.distributed.device_mesh.DeviceMesh`` (its
+    ``mesh_dim_names``), in the mesh's order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(zip(mesh.axis_names, (mesh.shape[a]
+                                      for a in mesh.axis_names)))
+
+
 def data_axes(mesh) -> tuple:
     """Axes that form the data-parallel dimension."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    axes = mesh_axes(mesh)
+    return tuple(a for a in ("pod", "data") if a in axes)
 
 
 def dp_size(mesh) -> int:
     """The data-parallel shard count: the product of ``data_axes``."""
-    return math.prod(mesh.shape[a] for a in data_axes(mesh))
+    axes = mesh_axes(mesh)
+    return math.prod(axes[a] for a in data_axes(mesh))
+
+
+# ------------------------------------------------ the production mesh ----
+
+
+def make_fake_mesh(shape, axis_names):
+    """A ``DeviceMesh`` of ``shape`` named ``axis_names`` over a ``fake``
+    process group of prod(shape) ranks, this process rank 0 — the
+    counterpart of the reference's placeholder CPU devices.  Its
+    collectives move nothing; a tensor on it is this rank's shard.
+
+    A ``fake`` default group of another world size is replaced (the
+    dry-run alternates 256 and 512 ranks); any other initialised group
+    of another size raises, and is never replaced."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_world_size() != n:
+            if dist.get_backend() != "fake":
+                raise RuntimeError(
+                    f"a {dist.get_backend()} process group of "
+                    f"{dist.get_world_size()} ranks is initialised; the "
+                    f"{tuple(shape)} mesh needs {n}")
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        # registers torch's "fake" backend (no communication: every
+        # rank's collectives are shape-only)
+        import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+        dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                                world_size=n)
+    return init_device_mesh("cpu", tuple(shape),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: (data=16, model=16) = 256 cards.  Multi-pod: (pod=2,
+    data=16, model=16) = 512; the ``pod`` axis composes with ``data`` for
+    the data-parallel gradient reduction.  A ``DeviceMesh`` over a
+    ``fake`` group (``make_fake_mesh``): the dry-run counts one card's
+    share of a cell on it without a card or a byte of device memory."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_fake_mesh((16, 16), ("data", "model"))
 
 
 def pipeline_overlap(overlap, *, two_d: bool, fused: bool,

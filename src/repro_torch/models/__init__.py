@@ -7,8 +7,9 @@ from repro_torch.models.transformer import (
     init_cache,
     init_params,
     lm_features,
+    param_specs,
     prefill,
 )
 
 __all__ = ["init_params", "forward_train", "init_cache", "prefill",
-           "decode_step", "lm_features"]
+           "decode_step", "lm_features", "param_specs"]

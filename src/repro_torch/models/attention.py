@@ -9,6 +9,13 @@ O(B·H·Sq·chunk).  ``q_offset`` is q[0]'s absolute position and
 ``kv_len`` the valid prefix of a padded cache (both ints or 0-d
 tensors).  Where the reference keeps the softmax probabilities in the
 operands' dtype for the PV product, so does the port.
+
+On DTensors (a mesh, the dry-run) the attention runs per device under
+``local_map`` on its own batch rows and heads — q's and the KV's heads
+split alike, which keeps each query head with its KV head — so DTensor
+plans no redistribution inside it.  A KV split along its sequence (the
+decode cache) takes DTensor's ops instead: each device scores its own
+cache rows.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.dist.sharding import is_dtensor, splittable
 
 ACC = torch.float32
 NEG_INF = -1e30
@@ -32,9 +41,46 @@ def _mask(Sq, keys, q_offset, kv_len, causal, device):
     return mask
 
 
+def _local_layout(q, k, v):
+    """The (batch, heads) split ``local_map`` runs attention under, or
+    None where the KV is split along its sequence."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if any(isinstance(p, Shard) and p.dim == 1
+           for t in (k, v) for p in t.placements):
+        return None
+    mesh, Hq, Hkv = q.device_mesh, q.shape[2], k.shape[2]
+    out = []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if isinstance(p, Shard) and (p.dim == 0 or (
+                p.dim == 2 and Hq % n == 0 and Hkv % n == 0)):
+            out.append(Shard(p.dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
 def chunked_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
                       kv_chunk: int = 1024):
     """q (B, Sq, Hq, hd), k and v (B, Sk, Hkv, hd) → (B, Sq, Hq, hd)."""
+    if is_dtensor(q) and is_dtensor(k) and is_dtensor(v):
+        layout = _local_layout(q, k, v)
+        if layout is not None:
+            from torch.distributed.tensor.experimental import local_map
+
+            def attend(q, k, v):
+                return (_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_len=kv_len, kv_chunk=kv_chunk),)
+
+            return local_map(attend, (layout,), in_placements=(layout,) * 3,
+                             device_mesh=q.device_mesh,
+                             redistribute_inputs=True)(q, k, v)[0]
+    return _attention(q, k, v, causal=causal, q_offset=q_offset,
+                      kv_len=kv_len, kv_chunk=kv_chunk)
+
+
+def _attention(q, k, v, *, causal, q_offset, kv_len, kv_chunk):
     B, Sq, Hq, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     n_rep = Hq // Hkv
@@ -49,7 +95,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         Sk = Sk + pad
     n_chunks = Sk // kv_chunk
-    qg = q.reshape(B, Sq, Hkv, n_rep, hd)
+    qg = splittable(q, 2, Hkv).reshape(B, Sq, Hkv, n_rep, hd)
 
     if Sq == 1 or n_chunks == 1:
         s = torch.einsum("bqgrd,bkgd->bgrqk", qg.to(ACC), k.to(ACC)) * scale

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.dist.sharding import fsdp_gathered
+
 ACC = torch.float32
 
 
@@ -31,8 +33,8 @@ def rms_norm(x, scale, eps: float = 1e-5):
 
 def dense(x, w):
     """x @ w over x's last dimension, accumulated in float32, in x's
-    dtype."""
-    return torch.matmul(x, w.to(x.dtype))
+    dtype (a DTensor weight FSDP-gathered first, ``fsdp_gathered``)."""
+    return torch.matmul(x, fsdp_gathered(w).to(x.dtype))
 
 
 def swiglu(x, w_gate, w_up, w_down):
@@ -77,7 +79,8 @@ def apply_rope(x, positions, theta: float, sections=None):
                              f"{tuple(positions.shape)} and {sections}")
         sec_id = torch.repeat_interleave(
             torch.arange(3, device=x.device),
-            torch.tensor(sections, device=x.device))  # (half,)
+            torch.tensor(sections, device=x.device),
+            output_size=half)  # (half,)
         pos = positions.to(ACC)[sec_id]  # (half, B, S)
         angles = torch.einsum("hbs,h->bsh", pos, freqs)  # (B, S, half)
     else:

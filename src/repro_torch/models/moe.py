@@ -18,6 +18,20 @@ call, in the backward pass, as the reference's ``jax.checkpoint`` does.
 The scatter's write into a fresh (E, C + 1, D) buffer differentiates
 under autograd; on the card its backward accumulates with atomics, so
 gradients there agree closely from run to run but not to the bit.
+
+On a mesh (``x`` a ``DTensor``, the dry-run) the index writes and the
+routing's sort have no DTensor rule, so the MLP takes its mesh form:
+the groups stay one (G, g, D) tensor split over the data axes
+(``act_moe_groups``), and the routing, the scatter and the gather run
+per device on its own groups under ``local_map``.  The scatter codec's
+experts run there too, per group, on the device's own experts (expert
+dim split over ``model``, ``act_moe_xe4``); the einsum codec's products
+stay DTensor einsums.  The mesh form computes the plain form's function
+— the same per-group ops in the same order, so on a 1 × 1 mesh the same
+bits for the scatter codec — but its remat recomputes the whole MLP,
+not each group.  The reference scans its scatter groups and anchors
+each group's (E, C, D) with ``act_moe_xe``; the stacked form anchors
+(G, E, C, D) with ``act_moe_xe4``.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import NO_RULES, is_dtensor, splittable
 from repro_torch.models.layers import ACC, dense, remat_call
 
 
@@ -94,8 +109,10 @@ def _aux(onehot, keep, probs, E: int, dims):
     return E * torch.sum(f_e * torch.mean(probs, dim=dims))
 
 
-def _group_scatter(xg_i, router_w, w_gate, w_up, w_down, top_k, C, E):
-    g, D = xg_i.shape
+def _scatter_in(xg_i, router_w, top_k, C, E):
+    """One group's routing and scatter: (xe (E, C + 1, D), the pairs'
+    experts and slots (g·k,), gate values (g, k), the group's aux)."""
+    D = xg_i.shape[1]
     gate_vals, expert_ids, pos, keep, probs, onehot = _route(
         xg_i, router_w, top_k, C, E)
     # the (token, choice) pairs flattened; dropped pairs park in slot C
@@ -103,16 +120,34 @@ def _group_scatter(xg_i, router_w, w_gate, w_up, w_down, top_k, C, E):
     flat_c = torch.where(keep, pos, C).reshape(-1)
     xe = torch.zeros((E, C + 1, D), dtype=xg_i.dtype, device=xg_i.device)
     xe[flat_e, flat_c] = xg_i.repeat_interleave(top_k, dim=0)
-    ye = _experts(xe[:, :C], w_gate, w_up, w_down, xg_i.dtype)  # float32
+    return xe, flat_e, flat_c, gate_vals, _aux(onehot, keep, probs, E, 0)
+
+
+def _scatter_out(ye, flat_e, flat_c, gate_vals, out_dtype):
+    """One group's gather of its pairs' expert rows, gate-weighted."""
+    g, top_k = gate_vals.shape
+    E, _, D = ye.shape
     ye = torch.cat([ye, torch.zeros((E, 1, D), dtype=ye.dtype,
                                     device=ye.device)], dim=1)
     back = ye[flat_e, flat_c].reshape(g, top_k, D)
     out = torch.sum(back.to(ACC) * gate_vals[..., None], dim=1)
-    return out.to(xg_i.dtype), _aux(onehot, keep, probs, E, 0)
+    return out.to(out_dtype)
 
 
-def _groups_einsum(xg, router_w, w_gate, w_up, w_down, top_k, C, E):
-    """Every group at once, (G, g, D), by one-hot products."""
+def _group_scatter(xg_i, router_w, w_gate, w_up, w_down, top_k, C, E,
+                   rules=NO_RULES):
+    xe, flat_e, flat_c, gate_vals, aux = _scatter_in(xg_i, router_w, top_k,
+                                                     C, E)
+    xe = rules.act(xe, "act_moe_xe")
+    ye = _experts(xe[:, :C], w_gate, w_up, w_down, xg_i.dtype)  # float32
+    ye = rules.act(ye, "act_moe_xe")
+    return _scatter_out(ye, flat_e, flat_c, gate_vals, xg_i.dtype), aux
+
+
+def _einsum_route(xg, router_w, top_k, C, E):
+    """Every group's routing at once, (G, g, D): the combine weights
+    (G, g, E, C), each token's kept experts (G, g, E) and its router
+    probabilities (G, g, E)."""
     logits = torch.einsum("Ggd,de->Gge", xg.to(ACC), router_w.to(ACC))
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = _top_k(probs, top_k)  # (G, g, k)
@@ -124,20 +159,113 @@ def _groups_einsum(xg, router_w, w_gate, w_up, w_down, top_k, C, E):
     slot_onehot = _one_hot(pos.to(torch.int64), C)  # (G, g, k, C)
     combine = torch.einsum("Ggke,Ggkc,Ggk->Ggec", onehot, slot_onehot,
                            gate_vals)  # (G, g, E, C)
+    return combine, torch.sum(onehot * keep[..., None], dim=-2), probs
+
+
+def _einsum_experts(xg, combine, w_gate, w_up, w_down, rules):
     dispatch_t = (combine > 0).to(xg.dtype)
     xe = torch.einsum("Ggec,Ggd->Gecd", dispatch_t.to(ACC),
                       xg.to(ACC)).to(xg.dtype)
+    xe = rules.act(xe, "act_moe_xe4")  # (G, E, C, D): G DP, E model
     ye = _experts(xe, w_gate, w_up, w_down, xg.dtype).to(xg.dtype)
-    out = torch.einsum("Ggec,Gecd->Ggd", combine, ye.to(ACC)).to(xg.dtype)
-    return out, _aux(onehot, keep, probs, E, (0, 1))
+    ye = rules.act(ye, "act_moe_xe4")
+    return torch.einsum("Ggec,Gecd->Ggd", combine, ye.to(ACC)).to(xg.dtype)
+
+
+def _groups_einsum(xg, router_w, w_gate, w_up, w_down, top_k, C, E,
+                   rules=NO_RULES):
+    """Every group at once, (G, g, D), by one-hot products."""
+    xg = rules.act(xg, "act_moe_groups")  # (G, g, D): G over DP
+    if is_dtensor(xg):
+        grp = _groups_layout(xg)
+        combine, kept, probs = _local(
+            lambda x, r: _einsum_route(x, r, top_k, C, E),
+            ((xg, grp), (router_w, _replicated(xg))), (grp,) * 3)
+    else:
+        combine, kept, probs = _einsum_route(xg, router_w, top_k, C, E)
+    out = _einsum_experts(xg, combine, w_gate, w_up, w_down, rules)
+    aux = E * torch.sum(torch.mean(kept, dim=(0, 1))
+                        * torch.mean(probs, dim=(0, 1)))
+    return out, aux
+
+
+def _replicated(t) -> tuple:
+    from torch.distributed.tensor import Replicate
+
+    return (Replicate(),) * t.device_mesh.ndim
+
+
+def _groups_layout(t) -> tuple:
+    """``t``'s split of its leading group dim G, every other mesh dim
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in t.placements)
+
+
+def _local(fn, args, out_placements):
+    """``fn`` on each device's own shards (``local_map``): ``args`` are
+    (DTensor, placements) pairs, redistributed to those placements;
+    ``out_placements`` one placements tuple an output of ``fn`` (which
+    returns a tuple)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = args[0][0].device_mesh
+    out = local_map(fn, tuple(out_placements),
+                    in_placements=tuple(p for _, p in args),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        *(a for a, _ in args))
+    return out[0] if len(out_placements) == 1 else out
+
+
+def _groups_scatter_mesh(xg, router_w, w_gate, w_up, w_down, top_k, C, E,
+                         rules):
+    """The scatter codec on a mesh: each device routes, scatters, runs
+    its experts on and gathers its own groups, group by group."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    xg = rules.act(xg, "act_moe_groups")  # (G, g, D): G over DP
+    dtype = xg.dtype
+    grp = _groups_layout(xg)
+
+    def scatter_in(xg_l, router_l):
+        parts = [_scatter_in(x, router_l, top_k, C, E) for x in xg_l]
+        return tuple(torch.stack(t) for t in zip(*parts))
+
+    xe, flat_e, flat_c, gate_vals, aux = _local(
+        scatter_in, ((xg, grp), (router_w, _replicated(xg))), (grp,) * 5)
+    xe = rules.act(xe, "act_moe_xe4")  # (G, E, C + 1, D): E over model
+    # each device's own experts: the groups as split, E as act split it
+    ep = tuple(p if isinstance(p, Shard) and p.dim == 1 else q
+               for p, q in zip(xe.placements, grp))
+    w_ep = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 1
+                 else Replicate() for p in ep)
+
+    def experts(xe_l, wg, wu, wd):
+        return (torch.stack([_experts(x[:, :C], wg, wu, wd, dtype)
+                             for x in xe_l]),)
+
+    ye = _local(experts, ((xe, ep), (w_gate, w_ep), (w_up, w_ep),
+                          (w_down, w_ep)), (ep,))
+    ye = rules.act(ye, "act_moe_xe4")
+
+    def scatter_out(ye_l, fe, fc, gv):
+        return (torch.stack([_scatter_out(*t, dtype)
+                             for t in zip(ye_l, fe, fc, gv)]),)
+
+    out = _local(scatter_out, ((ye, grp), (flat_e, grp), (flat_c, grp),
+                               (gate_vals, grp)), (grp,))
+    return out, aux.mean()
 
 
 def moe_mlp(x, router_w, w_gate, w_up, w_down, *, top_k: int,
             capacity_factor: float = 1.25, group_size: int = 2048,
             no_drop: bool = False, dispatch: str = "scatter",
-            remat_groups: bool = True):
+            remat_groups: bool = True, rules=NO_RULES):
     """x: (T, D) tokens.  router_w: (D, E).  w_gate, w_up: (E, D, F);
-    w_down: (E, F, D).  Returns (out (T, D), the aux loss)."""
+    w_down: (E, F, D).  Returns (out (T, D), the aux loss).  A DTensor
+    ``x`` takes the mesh form (the module's docstring)."""
     T, D = x.shape
     E = router_w.shape[1]
     Fd = w_gate.shape[-1]
@@ -151,12 +279,18 @@ def moe_mlp(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     G = T // g
     C = g if no_drop else min(int(max(1, (g * top_k / E) * capacity_factor)),
                               g)
-    xg = x.reshape(G, g, D)
+    xg = splittable(x, 0, G).reshape(G, g, D)
     if dispatch == "einsum":
         out, aux = remat_call(_groups_einsum, xg, router_w, w_gate, w_up,
-                              w_down, top_k, C, E, remat=remat_groups)
+                              w_down, top_k, C, E, rules,
+                              remat=remat_groups)
+        return out.reshape(T, D), aux
+    if is_dtensor(xg):
+        out, aux = remat_call(_groups_scatter_mesh, xg, router_w, w_gate,
+                              w_up, w_down, top_k, C, E, rules,
+                              remat=remat_groups)
         return out.reshape(T, D), aux
     outs, auxs = zip(*(remat_call(_group_scatter, xg[i], router_w, w_gate,
-                                  w_up, w_down, top_k, C, E,
+                                  w_up, w_down, top_k, C, E, rules,
                                   remat=remat_groups) for i in range(G)))
     return torch.cat(outs).reshape(T, D), torch.stack(auxs).mean()

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import NO_RULES, is_dtensor, splittable
 from repro_torch.models.layers import ACC, dense, he_init, rms_norm
 
 
@@ -53,6 +54,33 @@ def _conv_step(window, new, conv_w, conv_b):
 
 
 def ssd_scan(x, dt, a, Bm, Cm, chunk: int):
+    """``_ssd_scan``; on DTensors (a mesh, the dry-run) per device under
+    ``local_map``, on its own batch rows and heads (the state is
+    independent a head; B and C are shared by all of them)."""
+    if not is_dtensor(x):
+        return _ssd_scan(x, dt, a, Bm, Cm, chunk)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    lay = {"x": [], "dt": [], "a": [], "bc": [], "h": []}
+    for p in x.placements:
+        batch = isinstance(p, Shard) and p.dim == 0
+        heads = isinstance(p, Shard) and p.dim == 2
+        r = Replicate()
+        lay["x"].append(Shard(0) if batch else Shard(2) if heads else r)
+        lay["dt"].append(Shard(0) if batch else Shard(2) if heads else r)
+        lay["a"].append(Shard(0) if heads else r)
+        lay["bc"].append(Shard(0) if batch else r)
+        lay["h"].append(Shard(0) if batch else Shard(1) if heads else r)
+    lay = {k: tuple(v) for k, v in lay.items()}
+    return local_map(
+        lambda *t: _ssd_scan(*t, chunk), (lay["x"], lay["h"]),
+        in_placements=(lay["x"], lay["dt"], lay["a"], lay["bc"], lay["bc"]),
+        device_mesh=x.device_mesh, redistribute_inputs=True)(
+            x, dt, a, Bm, Cm)
+
+
+def _ssd_scan(x, dt, a, Bm, Cm, chunk: int):
     """Chunked SSD.  x: (B, S, H, P); dt: (B, S, H); a: (H,) (negative);
     Bm, Cm: (B, S, N).  Returns y (B, S, H, P) and the final state
     (B, H, P, N).  A ragged tail is padded with dt = 0 tokens: exp(0) = 1
@@ -95,11 +123,14 @@ def ssd_scan(x, dt, a, Bm, Cm, chunk: int):
     return y, h
 
 
-def _project(p, u):
+def _project(p, u, rules=NO_RULES):
     """u: (B, S, D) → z, the conv inputs x and (B, C), dt (before the
-    activation)."""
-    return (dense(u, p["in_z"]), dense(u, p["in_x"]), dense(u, p["in_bc"]),
-            dense(u, p["in_dt"]))
+    activation); z, x and dt split by SSD heads on a mesh."""
+    z = rules.act(dense(u, p["in_z"]), "act_ssm_inner")
+    x = rules.act(dense(u, p["in_x"]), "act_ssm_inner")
+    bc = dense(u, p["in_bc"])
+    dt = rules.act(dense(u, p["in_dt"]), "act_ssm_dt")
+    return z, x, bc, dt
 
 
 def _finish(p, y, x, z, cfg, shape):
@@ -112,31 +143,31 @@ def _finish(p, y, x, z, cfg, shape):
     return dense(y, p["out_proj"])
 
 
-def _ssd_inputs(p, u, cfg):
+def _ssd_inputs(p, u, cfg, rules=NO_RULES):
     B, S, _ = u.shape
     N, H, P = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, x_in, bc_in, dt = _project(p, u)
+    z, x_in, bc_in, dt = _project(p, u, rules)
     x = _causal_conv(x_in, p["conv_wx"], p["conv_bx"])
     bc = _causal_conv(bc_in, p["conv_wbc"], p["conv_bbc"])
     dt_act = F.softplus(dt.to(ACC) + p["dt_bias"].to(ACC))
     a = -torch.exp(p["A_log"].to(ACC))
-    xh = x.reshape(B, S, H, P).to(ACC)
+    xh = splittable(x, -1, H).reshape(B, S, H, P).to(ACC)
     return z, x_in, bc_in, xh, dt_act, a, bc[..., :N], bc[..., N:]
 
 
-def mamba2_forward(p, u, cfg):
+def mamba2_forward(p, u, cfg, rules=NO_RULES):
     """The full-sequence Mamba2 block.  u: (B, S, D) → (B, S, D)."""
     B, S, _ = u.shape
-    z, _, _, xh, dt_act, a, Bm, Cm = _ssd_inputs(p, u, cfg)
+    z, _, _, xh, dt_act, a, Bm, Cm = _ssd_inputs(p, u, cfg, rules)
     y, _ = ssd_scan(xh, dt_act, a, Bm, Cm, cfg.ssm_chunk)
     return _finish(p, y, xh, z, cfg, (B, S))
 
 
-def mamba2_prefill(p, u, cfg):
+def mamba2_prefill(p, u, cfg, rules=NO_RULES):
     """``mamba2_forward`` that also returns the layer's decode cache."""
     B, S, _ = u.shape
     k = cfg.conv_kernel
-    z, x_in, bc_in, xh, dt_act, a, Bm, Cm = _ssd_inputs(p, u, cfg)
+    z, x_in, bc_in, xh, dt_act, a, Bm, Cm = _ssd_inputs(p, u, cfg, rules)
     y, h_final = ssd_scan(xh, dt_act, a, Bm, Cm, cfg.ssm_chunk)
     out = _finish(p, y, xh, z, cfg, (B, S))
 
@@ -150,7 +181,7 @@ def mamba2_prefill(p, u, cfg):
                               conv_bc=tail(bc_in))
 
 
-def mamba2_decode(p, u, cache: SsmCacheSlice, cfg):
+def mamba2_decode(p, u, cache: SsmCacheSlice, cfg, rules=NO_RULES):
     """One token.  u: (B, 1, D) → (B, 1, D) and the new cache slice."""
     N, H, P = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     B = u.shape[0]
@@ -162,7 +193,7 @@ def mamba2_decode(p, u, cache: SsmCacheSlice, cfg):
     dt_act = F.softplus(dt.to(ACC) + p["dt_bias"].to(ACC))  # (B, H)
     a = -torch.exp(p["A_log"].to(ACC))
     dA = torch.exp(dt_act * a)
-    xh = x.reshape(B, H, P).to(ACC)
+    xh = splittable(x, -1, H).reshape(B, H, P).to(ACC)
     h = cache.h.to(ACC) * dA[:, :, None, None] + torch.einsum(
         "bh,bn,bhp->bhpn", dt_act, Bm.to(ACC), xh)
     y = torch.einsum("bn,bhpn->bhp", Cm.to(ACC), h)

@@ -23,8 +23,16 @@ reference's stacked pytree across.
 Every forward comes in three lowerings: ``forward_train`` (teacher
 forcing), ``prefill`` (the same, filling the decode cache) and
 ``decode_step`` (one token against the cache); ``lm_features`` pools the
-final-norm hidden states of the decoder-only families.  The port runs on
-one card: no sharding rules (``rules``).  ``forward_train(remat=True)``
+final-norm hidden states of the decoder-only families.  ``rules`` is a
+``repro_torch.dist.sharding.ShardingRules``: the models call
+``rules.act(x, name)`` at the reference's annotation points, which
+redistributes a ``DTensor`` activation on a mesh (the dry-run) and is
+the identity on one card's plain tensors (``NO_RULES``, the default).
+Given DTensor inputs, a decode step writes its one cache row through the
+reference's where-mask (the cache's S axis is split over ``model``),
+prefill writes each layer's whole padded rows, and the MoE MLP takes its
+mesh form (``moe.moe_mlp``); on plain tensors nothing changes, bit for
+bit.  ``forward_train(remat=True)``
 recomputes the reference's work units in the backward pass — each layer,
 each SSM layer, each hybrid period, each encoder and encdec decoder
 layer — through ``torch.utils.checkpoint``, and the MoE MLP its groups
@@ -42,6 +50,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.mesh import resolve_device
+from repro_torch.dist.sharding import NO_RULES, ShardingRules  # noqa: F401
+from repro_torch.dist.sharding import is_dtensor, fsdp_gathered, splittable
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.layers import (
     ACC,
@@ -130,10 +140,21 @@ def hybrid_slot_kinds(cfg: ModelConfig):
     return kinds
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws go to the meta device: shapes and
+    dtypes, no storage (``param_specs``)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def _generator(generator, device) -> torch.Generator:
     """A seed, or a generator on the device the parameters go to."""
     dev = resolve_device(device if device is not None
                          else getattr(generator, "device", None))
+    if dev.type == "meta":
+        return _MetaGenerator()
     if isinstance(generator, torch.Generator):
         if generator.device.type != dev.type:
             raise ValueError(f"the generator is on {generator.device}, the "
@@ -188,19 +209,41 @@ def init_params(cfg: ModelConfig, generator, dtype=torch.float32,
     return params
 
 
+def param_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The parameter tree as meta tensors — shapes and dtypes, no
+    allocation (the dry-run's stand-ins)."""
+    return init_params(cfg, 0, dtype, device="meta")
+
+
 # ====================================================== blocks ===========
 
 
 def _qkv(p, h, cfg, S):
     B = h.shape[0]
     hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    return (dense(h, p["wq"]).reshape(B, S, Hq, hd),
-            dense(h, p["wk"]).reshape(B, S, Hkv, hd),
-            dense(h, p["wv"]).reshape(B, S, Hkv, hd))
+    return (splittable(dense(h, p["wq"]), -1, Hq).reshape(B, S, Hq, hd),
+            splittable(dense(h, p["wk"]), -1, Hkv).reshape(B, S, Hkv, hd),
+            splittable(dense(h, p["wv"]), -1, Hkv).reshape(B, S, Hkv, hd))
 
 
-def _attn_block(p, x, positions, cfg, *, kv_chunk=KV_CHUNK, cache=None,
-                cache_len=None):
+def _write_rows(c, t, start: int):
+    """``c[:, start:start + S] = t`` in place, c (B, S_max, …).  A
+    DTensor cache (S split over ``model``) takes the reference's one-hot
+    where-mask, which stays shard-local: one token's row broadcast over
+    S_max."""
+    S = t.shape[1]
+    if not is_dtensor(c):
+        c[:, start:start + S] = t.to(c.dtype)
+        return
+    if S != 1:
+        raise ValueError(f"a mesh decode writes one cache row, not {S}")
+    pos = torch.arange(c.shape[1], device=c.device)
+    slot = (pos == start)[None, :, None, None]
+    c.copy_(torch.where(slot, t.to(c.dtype), c))
+
+
+def _attn_block(p, x, positions, cfg, rules=NO_RULES, *, kv_chunk=KV_CHUNK,
+                cache=None, cache_len=None):
     """Pre-norm attention with its residual.  ``cache``: one layer's
     (k, v), each (B, S_max, Hkv, hd), written in place at
     [cache_len, cache_len + S).  Returns (x, (k, v))."""
@@ -209,6 +252,11 @@ def _attn_block(p, x, positions, cfg, *, kv_chunk=KV_CHUNK, cache=None,
     q, k, v = _qkv(p, h, cfg, S)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    # decode's q/k/v stay heads-replicated so they compose with the
+    # S-split cache (split-KV)
+    sfx = "" if cache is None else "_dec"
+    q, k, v = (rules.act(q, "act_q" + sfx), rules.act(k, "act_kv" + sfx),
+               rules.act(v, "act_kv" + sfx))
     if cache is None:
         # up to 4k tokens in one pass; longer sequences chunked
         chunk = S if S <= 4096 else min(kv_chunk, S)
@@ -216,13 +264,18 @@ def _attn_block(p, x, positions, cfg, *, kv_chunk=KV_CHUNK, cache=None,
         new_cache = (k, v)
     else:
         ck, cv = cache
-        ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
-        cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
+        _write_rows(ck, k, cache_len)
+        _write_rows(cv, v, cache_len)
+        ck, cv = rules.act(ck, "cache"), rules.act(cv, "cache")
         out = chunked_attention(q, ck, cv, causal=False, q_offset=cache_len,
                                 kv_len=cache_len + S,
                                 kv_chunk=min(kv_chunk, ck.shape[1]))
         new_cache = (ck, cv)
-    out = dense(out.reshape(B, S, -1), p["wo"])
+    out = out.reshape(B, S, -1)
+    if cache is not None:
+        # keep wo's row split from reaching back into the S-split cache
+        out = rules.act(out, "act_attn_out_dec")
+    out = dense(out, p["wo"])
     return x + out, new_cache
 
 
@@ -232,10 +285,12 @@ def _cross_attn_block(p, x, cfg, *, enc_out=None, cross_cache=None):
     B, S, _ = x.shape
     hd, Hq, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = dense(h, p["wq"]).reshape(B, S, Hq, hd)
+    q = splittable(dense(h, p["wq"]), -1, Hq).reshape(B, S, Hq, hd)
     if cross_cache is None:
-        k = dense(enc_out, p["wk"]).reshape(B, -1, Hkv, hd)
-        v = dense(enc_out, p["wv"]).reshape(B, -1, Hkv, hd)
+        k = splittable(dense(enc_out, p["wk"]), -1, Hkv).reshape(
+            B, -1, Hkv, hd)
+        v = splittable(dense(enc_out, p["wv"]), -1, Hkv).reshape(
+            B, -1, Hkv, hd)
     else:
         k, v = cross_cache
     out = chunked_attention(q, k, v, causal=False,
@@ -244,12 +299,13 @@ def _cross_attn_block(p, x, cfg, *, enc_out=None, cross_cache=None):
     return x + out, (k, v)
 
 
-def _mlp_block(p, x, cfg):
+def _mlp_block(p, x, cfg, rules=NO_RULES):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = rules.act(h, "act_mlp_in")
     return x + swiglu(h, p["wg"], p["wu"], p["wd"])
 
 
-def _moe_block(p, x, cfg, no_drop: bool = False):
+def _moe_block(p, x, cfg, rules=NO_RULES, no_drop: bool = False):
     B, S, D = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps).reshape(B * S, D)
     group = min(2048, B * S)
@@ -261,36 +317,39 @@ def _moe_block(p, x, cfg, no_drop: bool = False):
     out, aux = moe_mlp(h, p["router"], p["wg"], p["wu"], p["wd"],
                        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                        group_size=group, no_drop=no_drop, dispatch=dispatch,
-                       remat_groups=cfg.moe_remat_groups)
+                       remat_groups=cfg.moe_remat_groups, rules=rules)
     return x + out.reshape(B, S, D), aux
 
 
-def _ssm_block(p, x, cfg, *, cache=None, mode="train"):
+def _ssm_block(p, x, cfg, rules=NO_RULES, *, cache=None, mode="train"):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     if mode == "train":
-        return x + mamba2_forward(p, h, cfg), None
+        return x + mamba2_forward(p, h, cfg, rules), None
     if mode == "prefill":
-        out, slice_ = mamba2_prefill(p, h, cfg)
+        out, slice_ = mamba2_prefill(p, h, cfg, rules)
         return x + out, slice_
-    out, slice_ = mamba2_decode(p, h, cache, cfg)
+    out, slice_ = mamba2_decode(p, h, cache, cfg, rules)
     return x + out, slice_
 
 
 # ====================================================== embeddings =======
 
 
-def _embed_in(cfg, params, batch):
+def _embed_in(cfg, params, batch, rules=NO_RULES):
     dev = params["embed"].device
     if cfg.embeds_in and "embeds" in batch:
-        return torch.as_tensor(batch["embeds"], device=dev)
-    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    return params["embed"][tokens]
+        x = torch.as_tensor(batch["embeds"], device=dev)
+    else:
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        x = params["embed"][tokens]
+    return rules.act(x, "act_resid")
 
 
-def _logits_out(cfg, params, x):
+def _logits_out(cfg, params, x, rules=NO_RULES):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x, head.t().to(x.dtype)).to(ACC)
+    logits = torch.matmul(x, fsdp_gathered(head).t().to(x.dtype)).to(ACC)
+    return rules.act(logits, "act_logits")
 
 
 def _positions(batch, B, S, device):
@@ -307,7 +366,7 @@ def _periods(params):
 
 
 def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False,
-              remat: bool = False):
+              remat: bool = False, rules=NO_RULES):
     """The decoder stack up to (not including) the final norm: (hidden
     (B, S, D), aux loss) — the trunk ``forward_train`` and
     ``lm_features`` share.  ``remat`` recomputes each layer (a hybrid
@@ -316,7 +375,7 @@ def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False,
     if cfg.family == "encdec":
         raise ValueError(
             "encdec has no decoder-only backbone; use forward_train")
-    x = _embed_in(cfg, params, batch)
+    x = _embed_in(cfg, params, batch, rules)
     B, S = x.shape[:2]
     positions = _positions(batch, B, S, x.device)
     aux = torch.zeros((), dtype=ACC, device=x.device)
@@ -324,10 +383,12 @@ def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False,
         is_moe = cfg.family == "moe"
 
         def layer(x, lp_attn, lp_mlp):
-            x, _ = _attn_block(lp_attn, x, positions, cfg)
+            x, _ = _attn_block(lp_attn, x, positions, cfg, rules)
             if is_moe:
-                return _moe_block(lp_mlp, x, cfg, no_drop=moe_no_drop)
-            return _mlp_block(lp_mlp, x, cfg), None
+                x, a = _moe_block(lp_mlp, x, cfg, rules, no_drop=moe_no_drop)
+            else:
+                x, a = _mlp_block(lp_mlp, x, cfg, rules), None
+            return rules.act(x, "act_resid"), a
 
         for lp_attn, lp_mlp in zip(params["attn"],
                                    params["moe" if is_moe else "mlp"]):
@@ -337,7 +398,8 @@ def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False,
     elif cfg.family == "ssm":
 
         def layer(x, lp):
-            return _ssm_block(lp, x, cfg, mode="train")[0]
+            x = _ssm_block(lp, x, cfg, rules, mode="train")[0]
+            return rules.act(x, "act_resid")
 
         for lp in params["ssm"]:
             x = remat_call(layer, x, lp, remat=remat)
@@ -348,14 +410,16 @@ def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False,
             a_sum = torch.zeros((), dtype=ACC, device=x.device)
             for (bp, mp), (block, mlp) in zip(slots, kinds):
                 if block == "attn":
-                    x, _ = _attn_block(bp, x, positions, cfg)
+                    x, _ = _attn_block(bp, x, positions, cfg, rules)
                 else:
-                    x, _ = _ssm_block(bp, x, cfg, mode="train")
+                    x, _ = _ssm_block(bp, x, cfg, rules, mode="train")
                 if mlp == "moe":
-                    x, a = _moe_block(mp, x, cfg, no_drop=moe_no_drop)
+                    x, a = _moe_block(mp, x, cfg, rules,
+                                      no_drop=moe_no_drop)
                     a_sum = a_sum + a
                 else:
-                    x = _mlp_block(mp, x, cfg)
+                    x = _mlp_block(mp, x, cfg, rules)
+                x = rules.act(x, "act_resid")
             return x, a_sum
 
         for pi in range(_periods(params)):
@@ -369,28 +433,29 @@ def _backbone(cfg: ModelConfig, params, batch, moe_no_drop: bool = False,
 
 
 def forward_train(cfg: ModelConfig, params, batch, remat: bool = True,
-                  moe_no_drop: bool = False):
+                  moe_no_drop: bool = False, rules=NO_RULES):
     """Teacher-forced logits: (logits (B, S, Vp) float32, aux loss).
     ``remat`` recomputes each work unit's activations in the backward
     pass (the reference's default, on); ``moe_no_drop`` disables MoE
-    token dropping (parity checks)."""
+    token dropping (parity checks); ``rules`` places the activations on
+    a mesh (the dry-run)."""
     if cfg.family == "encdec":
-        return _encdec_forward(cfg, params, batch, remat)
+        return _encdec_forward(cfg, params, batch, remat, rules)
     x, aux = _backbone(cfg, params, batch, moe_no_drop=moe_no_drop,
-                       remat=remat)
-    return _logits_out(cfg, params, x), aux
+                       remat=remat, rules=rules)
+    return _logits_out(cfg, params, x, rules), aux
 
 
-def lm_features(cfg: ModelConfig, params, tokens):
+def lm_features(cfg: ModelConfig, params, tokens, rules=NO_RULES):
     """Frozen-backbone sequence features: the final-norm hidden states
     mean-pooled over the sequence, (B, D) for (B, S) tokens — the map the
     linear probe trains PASSCoDe heads on.  Raises for encdec."""
-    x, _ = _backbone(cfg, params, {"tokens": tokens})
+    x, _ = _backbone(cfg, params, {"tokens": tokens}, rules=rules)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return torch.mean(x, dim=1)
 
 
-def _encoder(cfg, params, enc_embeds, remat: bool = False):
+def _encoder(cfg, params, enc_embeds, remat: bool = False, rules=NO_RULES):
     x = torch.as_tensor(enc_embeds, device=params["enc_pos"].device)
     x = x + params["enc_pos"][None, :x.shape[1]]
     B, S = x.shape[:2]
@@ -402,28 +467,30 @@ def _encoder(cfg, params, enc_embeds, remat: bool = False):
         out = chunked_attention(q, k, v, causal=False,
                                 kv_chunk=min(KV_CHUNK, S))
         x = x + dense(out.reshape(B, S, Hq * hd), lp_attn["wo"])
-        return _mlp_block(lp_mlp, x, cfg)
+        return _mlp_block(lp_mlp, x, cfg, rules)
 
     for lp_attn, lp_mlp in zip(params["enc_attn"], params["enc_mlp"]):
         x = remat_call(layer, x, lp_attn, lp_mlp, remat=remat)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _encdec_forward(cfg, params, batch, remat: bool = False):
-    enc_out = _encoder(cfg, params, batch["enc_embeds"], remat)
+def _encdec_forward(cfg, params, batch, remat: bool = False,
+                    rules=NO_RULES):
+    enc_out = _encoder(cfg, params, batch["enc_embeds"], remat, rules)
     x = _embed_in(cfg, params, batch)
     B, S = x.shape[:2]
     positions = _positions(batch, B, S, x.device)
 
     def layer(x, lp_attn, lp_cross, lp_mlp):
-        x, _ = _attn_block(lp_attn, x, positions, cfg)
+        x, _ = _attn_block(lp_attn, x, positions, cfg, rules)
         x, _ = _cross_attn_block(lp_cross, x, cfg, enc_out=enc_out)
-        return _mlp_block(lp_mlp, x, cfg)
+        x = _mlp_block(lp_mlp, x, cfg, rules)
+        return rules.act(x, "act_resid")
 
     for lp_attn, lp_cross, lp_mlp in zip(params["attn"], params["cross"],
                                          params["mlp"]):
         x = remat_call(layer, x, lp_attn, lp_cross, lp_mlp, remat=remat)
-    return (_logits_out(cfg, params, x),
+    return (_logits_out(cfg, params, x, rules),
             torch.zeros((), dtype=ACC, device=x.device))
 
 
@@ -485,16 +552,22 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 
 
 def _put_kv(cache, l, k, v):
-    """Layer l's prompt (k, v) into the cache, the rest of it zeroed."""
+    """Layer l's prompt (k, v) into the cache, the rest of it zeroed (on
+    a DTensor cache: the padded rows, the reference's ``pad_kv``, in one
+    copy)."""
     S = k.shape[1]
     for c, t in ((cache.attn_k, k), (cache.attn_v, v)):
+        if is_dtensor(c):
+            c[l].copy_(torch.nn.functional.pad(
+                t.to(c.dtype), (0, 0, 0, 0, 0, c.shape[2] - S)))
+            continue
         c[l, :, :S] = t.to(c.dtype)
         c[l, :, S:] = 0
 
 
 def _put_ssm(cache, l, sl):
     for c, t in zip(cache.ssm, sl):
-        c[l] = t.to(c.dtype)
+        c[l].copy_(t.to(c.dtype))
 
 
 def _ssm_slice(cache, l):
@@ -510,33 +583,35 @@ def _ssm_layer(cfg, slot: int, period: int) -> int:
 # ====================================================== prefill ==========
 
 
-def prefill(cfg: ModelConfig, params, batch, cache: Cache):
+def prefill(cfg: ModelConfig, params, batch, cache: Cache, rules=NO_RULES):
     """Run the whole prompt and fill the cache.  Returns (the last
     position's logits (B, 1, Vp), the cache)."""
-    x = _embed_in(cfg, params, batch)
+    x = _embed_in(cfg, params, batch, rules)
     B, S = x.shape[:2]
     positions = _positions(batch, B, S, x.device)
     if cfg.family in ("dense", "vlm", "moe", "encdec"):
         is_moe = cfg.family == "moe"
-        enc_out = (_encoder(cfg, params, batch["enc_embeds"])
+        enc_out = (_encoder(cfg, params, batch["enc_embeds"], rules=rules)
                    if cfg.is_encdec else None)
         mlps = params["moe" if is_moe else "mlp"]
         for l, (lp_attn, lp_mlp) in enumerate(zip(params["attn"], mlps)):
-            x, (k, v) = _attn_block(lp_attn, x, positions, cfg)
+            x, (k, v) = _attn_block(lp_attn, x, positions, cfg, rules)
             _put_kv(cache, l, k, v)
             if cfg.is_encdec:
                 x, (ck, cv) = _cross_attn_block(params["cross"][l], x, cfg,
                                                 enc_out=enc_out)
-                cache.cross_k[l] = ck.to(cache.cross_k.dtype)
-                cache.cross_v[l] = cv.to(cache.cross_v.dtype)
+                cache.cross_k[l].copy_(ck.to(cache.cross_k.dtype))
+                cache.cross_v[l].copy_(cv.to(cache.cross_v.dtype))
             if is_moe:
-                x, _ = _moe_block(lp_mlp, x, cfg, no_drop=True)
+                x, _ = _moe_block(lp_mlp, x, cfg, rules, no_drop=True)
             else:
-                x = _mlp_block(lp_mlp, x, cfg)
+                x = _mlp_block(lp_mlp, x, cfg, rules)
+            x = rules.act(x, "act_resid")
     elif cfg.family == "ssm":
         for l, lp in enumerate(params["ssm"]):
-            x, sl = _ssm_block(lp, x, cfg, mode="prefill")
+            x, sl = _ssm_block(lp, x, cfg, rules, mode="prefill")
             _put_ssm(cache, l, sl)
+            x = rules.act(x, "act_resid")
     elif cfg.family == "hybrid":
         kinds = hybrid_slot_kinds(cfg)
         for pi in range(_periods(params)):
@@ -544,29 +619,31 @@ def prefill(cfg: ModelConfig, params, batch, cache: Cache):
                                                          kinds)):
                 bp, mp = slot["block"][pi], slot["mlp"][pi]
                 if block == "attn":
-                    x, (k, v) = _attn_block(bp, x, positions, cfg)
+                    x, (k, v) = _attn_block(bp, x, positions, cfg, rules)
                     _put_kv(cache, pi, k, v)
                 else:
-                    x, sl = _ssm_block(bp, x, cfg, mode="prefill")
+                    x, sl = _ssm_block(bp, x, cfg, rules, mode="prefill")
                     _put_ssm(cache, _ssm_layer(cfg, i, pi), sl)
                 if mlp == "moe":
-                    x, _ = _moe_block(mp, x, cfg, no_drop=True)
+                    x, _ = _moe_block(mp, x, cfg, rules, no_drop=True)
                 else:
-                    x = _mlp_block(mp, x, cfg)
+                    x = _mlp_block(mp, x, cfg, rules)
+                x = rules.act(x, "act_resid")
     else:
         raise ValueError(cfg.family)
-    logits = _logits_out(cfg, params, x[:, -1:, :])
+    logits = _logits_out(cfg, params, x[:, -1:, :], rules)
     return logits, cache._replace(length=S)
 
 
 # ====================================================== decode ===========
 
 
-def decode_step(cfg: ModelConfig, params, batch, cache: Cache):
+def decode_step(cfg: ModelConfig, params, batch, cache: Cache,
+                rules=NO_RULES):
     """One new token.  batch: {"tokens": (B, 1)} or {"embeds": (B, 1, D)};
     positions default to the cache's length.  Returns (logits (B, 1, Vp),
     the cache)."""
-    x = _embed_in(cfg, params, batch)
+    x = _embed_in(cfg, params, batch, rules)
     B = x.shape[0]
     L = int(cache.length)
     positions = batch.get("positions")
@@ -577,7 +654,7 @@ def decode_step(cfg: ModelConfig, params, batch, cache: Cache):
         is_moe = cfg.family == "moe"
         mlps = params["moe" if is_moe else "mlp"]
         for l, (lp_attn, lp_mlp) in enumerate(zip(params["attn"], mlps)):
-            x, _ = _attn_block(lp_attn, x, positions, cfg,
+            x, _ = _attn_block(lp_attn, x, positions, cfg, rules,
                                cache=(cache.attn_k[l], cache.attn_v[l]),
                                cache_len=L)
             if cfg.is_encdec:
@@ -585,12 +662,12 @@ def decode_step(cfg: ModelConfig, params, batch, cache: Cache):
                     params["cross"][l], x, cfg,
                     cross_cache=(cache.cross_k[l], cache.cross_v[l]))
             if is_moe:
-                x, _ = _moe_block(lp_mlp, x, cfg, no_drop=True)
+                x, _ = _moe_block(lp_mlp, x, cfg, rules, no_drop=True)
             else:
-                x = _mlp_block(lp_mlp, x, cfg)
+                x = _mlp_block(lp_mlp, x, cfg, rules)
     elif cfg.family == "ssm":
         for l, lp in enumerate(params["ssm"]):
-            x, sl = _ssm_block(lp, x, cfg, cache=_ssm_slice(cache, l),
+            x, sl = _ssm_block(lp, x, cfg, rules, cache=_ssm_slice(cache, l),
                                mode="decode")
             _put_ssm(cache, l, sl)
     elif cfg.family == "hybrid":
@@ -601,19 +678,20 @@ def decode_step(cfg: ModelConfig, params, batch, cache: Cache):
                 bp, mp = slot["block"][pi], slot["mlp"][pi]
                 if block == "attn":
                     x, _ = _attn_block(
-                        bp, x, positions, cfg,
+                        bp, x, positions, cfg, rules,
                         cache=(cache.attn_k[pi], cache.attn_v[pi]),
                         cache_len=L)
                 else:
                     row = _ssm_layer(cfg, i, pi)
-                    x, sl = _ssm_block(bp, x, cfg,
+                    x, sl = _ssm_block(bp, x, cfg, rules,
                                        cache=_ssm_slice(cache, row),
                                        mode="decode")
                     _put_ssm(cache, row, sl)
                 if mlp == "moe":
-                    x, _ = _moe_block(mp, x, cfg, no_drop=True)
+                    x, _ = _moe_block(mp, x, cfg, rules, no_drop=True)
                 else:
-                    x = _mlp_block(mp, x, cfg)
+                    x = _mlp_block(mp, x, cfg, rules)
     else:
         raise ValueError(cfg.family)
-    return _logits_out(cfg, params, x), cache._replace(length=L + 1)
+    return (_logits_out(cfg, params, x, rules),
+            cache._replace(length=L + 1))

@@ -16,9 +16,11 @@ from repro_torch.train.step import (
     init_train_state,
     make_train_step,
     train_state_for,
+    train_state_specs,
 )
 
 __all__ = ["available_steps", "gc_checkpoints", "latest_step",
            "restore_checkpoint", "save_checkpoint", "LoopConfig",
            "LoopReport", "run_training", "TrainState", "cross_entropy",
-           "init_train_state", "make_train_step", "train_state_for"]
+           "init_train_state", "make_train_step", "train_state_for",
+           "train_state_specs"]

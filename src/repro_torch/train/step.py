@@ -17,6 +17,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import NO_RULES, is_dtensor
 from repro_torch.models.transformer import forward_train, init_params
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.grad_compress import (
@@ -47,6 +48,16 @@ def init_train_state(cfg: ModelConfig, generator, *, dtype=F32,
                            master=master, compress=compress)
 
 
+def train_state_specs(cfg: ModelConfig, *, dtype=torch.bfloat16,
+                      m_dtype=F32, v_dtype=F32, master: bool = False,
+                      compress: bool = False) -> TrainState:
+    """The ``TrainState`` as meta tensors — shapes and dtypes, no
+    allocation (the dry-run's stand-ins)."""
+    return init_train_state(cfg, 0, dtype=dtype, m_dtype=m_dtype,
+                            v_dtype=v_dtype, master=master,
+                            compress=compress, device="meta")
+
+
 def train_state_for(params, *, m_dtype=F32, v_dtype=F32,
                     master: bool = False,
                     compress: bool = False) -> TrainState:
@@ -63,6 +74,9 @@ def cross_entropy(logits, labels, vocab_size: int):
     """Mean next-token cross-entropy: logits (B, S, Vp) predict labels
     (B, S) one position on (t + 1 from t).  A target outside
     [0, vocab_size) — a padded vocabulary column — is masked out."""
+    if is_dtensor(logits) and any(getattr(p, "dim", None) == 2
+                                   for p in logits.placements):
+        return _cross_entropy_split(logits, labels, vocab_size)
     logits = logits[:, :-1].to(F32)
     targets = labels[:, 1:].to(torch.int64)
     lse = torch.logsumexp(logits, dim=-1)
@@ -75,9 +89,36 @@ def cross_entropy(logits, labels, vocab_size: int):
     return torch.sum(losses) / torch.clamp(torch.sum(mask), min=1)
 
 
+def _cross_entropy_split(logits, labels, vocab_size: int):
+    """``cross_entropy`` of DTensor logits whose vocabulary is split over
+    ``model``, computed where it lies: the target picked by the
+    reference's one-hot product against each device's own vocabulary
+    ids; the log-sum-exp by partial maxima and sums; the shift by a
+    target of -1 (masked) after the last position, so the logits are not
+    sliced (DTensor gathers a sliced split tensor's vocabulary)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    logits = logits.to(F32)
+    Vp = logits.shape[-1]
+    targets = torch.cat([labels[:, 1:].to(torch.int64), torch.full_like(
+        labels[:, :1], -1, dtype=torch.int64)], dim=1)
+    vocab = [Shard(0) if isinstance(p, Shard) and p.dim == 2
+             else Replicate() for p in logits.placements]
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = (m + torch.log(torch.sum(torch.exp(logits - m), dim=-1,
+                                   keepdim=True)))[..., 0]
+    ids = distribute_tensor(torch.arange(Vp, device=logits.device),
+                            logits.device_mesh, vocab)
+    picked = torch.sum(logits * (targets[..., None] == ids).to(F32), dim=-1)
+    mask = ((targets >= 0) & (targets < vocab_size)).to(F32)
+    losses = (lse - picked) * mask
+    return torch.sum(losses) / torch.clamp(torch.sum(mask), min=1)
+
+
 def _split_batch(batch, microbatches: int):
     """The batch as ``microbatches`` consecutive slices of its rows:
-    dim 0, but dim 1 of (3, B, S) M-RoPE positions."""
+    dim 0, but dim 1 of (3, B, S) M-RoPE positions.  A DTensor's slices
+    (gathered to be cut) go back to its layout, rows split as before."""
     out = [dict() for _ in range(microbatches)]
     for k, v in batch.items():
         v = torch.as_tensor(v)
@@ -87,15 +128,20 @@ def _split_batch(batch, microbatches: int):
                 p.shape != parts[0].shape for p in parts):
             raise ValueError(f"{k}: {tuple(v.shape)} does not split into "
                              f"{microbatches} microbatches")
+        if is_dtensor(v):
+            parts = [p.redistribute(v.device_mesh, v.placements)
+                     for p in parts]
         for mb, part in zip(out, parts):
             mb[k] = part
     return out
 
 
-def make_train_step(cfg: ModelConfig, *, schedule, microbatches: int = 1,
-                    remat: bool = True, aux_weight: float = 0.01,
+def make_train_step(cfg: ModelConfig, *, schedule, rules=NO_RULES,
+                    microbatches: int = 1, remat: bool = True,
+                    aux_weight: float = 0.01,
                     compress_codec: str | None = None,
-                    weight_decay: float = 0.1, grad_clip: float = 1.0):
+                    weight_decay: float = 0.1, grad_clip: float = 1.0,
+                    acc_shardings=None):
     """Build ``step(state, batch) -> (state, metrics)``.
 
     The loss is ``cross_entropy + aux_weight · aux`` (the MoE balance
@@ -105,16 +151,20 @@ def make_train_step(cfg: ModelConfig, *, schedule, microbatches: int = 1,
     (``forward_train``); ``compress_codec`` ("topk" or "int8") applies
     error-feedback compression before AdamW.  ``metrics`` holds 0-d
     tensors on the parameters' device: ``loss`` (the cross-entropy),
-    ``aux``, ``lr`` and ``grad_norm``.  The reference's ``rules`` and
-    ``acc_shardings`` place activations and the accumulator on a device
-    mesh; on one card there is nothing to place, so they are not taken.
-    The state passed in is consumed (its tensors are updated in place).
+    ``aux``, ``lr`` and ``grad_norm``.  ``rules`` places the
+    activations on a mesh and ``acc_shardings`` (a tree of
+    ``dist.sharding.NamedSharding`` like the parameters', the ZeRO-1
+    moments' in the dry-run) the float32 microbatch accumulator, when
+    the state holds DTensors; on one card's plain tensors they change
+    nothing.  The state passed in is consumed (its tensors are updated
+    in place).
     """
 
     def grads_of(params, mb):
         aliases = tree_map(lambda p: p.detach().requires_grad_(), params)
         flat = leaves(aliases)
-        logits, aux = forward_train(cfg, aliases, mb, remat=remat)
+        logits, aux = forward_train(cfg, aliases, mb, remat=remat,
+                                    rules=rules)
         ce = cross_entropy(logits, mb["labels"], cfg.vocab_size)
         grads = torch.autograd.grad(ce + aux_weight * aux, flat,
                                     allow_unused=True,
@@ -125,8 +175,12 @@ def make_train_step(cfg: ModelConfig, *, schedule, microbatches: int = 1,
         if microbatches == 1:
             grads, ce, aux = grads_of(state.params, batch)
         else:
-            grads = [torch.zeros(p.shape, dtype=F32, device=p.device)
+            grads = [torch.zeros_like(p, dtype=F32)
                      for p in leaves(state.params)]
+            if acc_shardings is not None:
+                grads = [g.redistribute(g.device_mesh, sh.placements())
+                         if hasattr(g, "device_mesh") else g
+                         for g, sh in zip(grads, leaves(acc_shardings))]
             ce = aux = None
             for mb in _split_batch(batch, microbatches):
                 g, c, a = grads_of(state.params, mb)

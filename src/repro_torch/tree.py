@@ -109,6 +109,30 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_names(fn: Callable, tree, *rest, prefix: str = ""):
+    """``tree_map`` whose ``fn`` also takes each leaf's name (the
+    "/"-joined path ``leaves_with_names`` gives it) first:
+    ``fn(name, leaf, *rest_leaves)``."""
+    if tree is None:
+        return None
+    if not _is_node(tree):
+        return fn(prefix, tree, *rest)
+
+    def sub(name, child, others):
+        return tree_map_with_names(fn, child, *others, prefix=(
+            f"{prefix}/{name}" if prefix else name))
+
+    if isinstance(tree, dict):
+        return {k: sub(str(k), tree[k], [r[k] for r in rest])
+                for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(sub(f, getattr(tree, f),
+                                [getattr(r, f) for r in rest])
+                            for f in tree._fields))
+    return type(tree)(sub(str(i), v, [r[i] for r in rest])
+                      for i, v in enumerate(tree))
+
+
 def unflatten_like(template, flat: list):
     """A tree of ``template``'s structure holding ``flat``'s leaves, in
     the order ``leaves(template)`` gives them."""
