@@ -12,7 +12,8 @@ result line):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. the build of every kernel source, with nvcc's ``-Xptxas -v``
    register and spill report; then phases 7 and 8 (below), first in
-   time so that their children have the card's memory to themselves;
+   time so that their children have the card's memory to themselves,
+   then the data, then phase 9 (below);
 3. each kernel against its plain version at the shapes the main path
    gives it: B1 (ELL) on the rcv1-shape shard (its staged variant) and
    on webspam's rows (its wide variant), and B2 (dense indexed) on the
@@ -250,7 +251,38 @@ result line):
    the hybrid, smoke configs — tokens in the vocabulary, the cache S +
    the decode steps long.  No kernel of B1–B5 runs here; the child's
    nonzero exit fails the script;
-9. one JSON line of per-kernel numbers (with each kernel's variant, and
+9. the solver across processes (``DistRun``, children of this script
+   started after the data is drawn, which leaves them the card's memory
+   but about 10 GB, and run while this process replays phase 3's
+   whole-round plain versions on the host: two ``--dist-rank`` children
+   in a ``gloo`` group, both on ``cuda:0``, then one ``--dist-one``
+   child), at the full Table-3 widths, each rank
+   placing only its part: rcv1 at p = 8 over the ``data`` axis (4
+   shards a rank, B1 staged), 2 epochs, and again with shrinking and
+   repacking below 0.8 over 3; webspam on the 2-D mesh, data = 1, m = 4
+   over the ``model`` axis (2 feature shards a rank, B4 + B5, its ELL
+   split from the host a row chunk at a time), 1 epoch; rcv1 pods
+   (2, 4) over the ``pod`` axis (a pod a rank), ``pod_delay_rounds`` 1,
+   2 epochs; rcv1 p = 8 segmented, checkpointed by rank 0 each epoch
+   and resumed from epoch 1 by the one-process child.  Every child
+   draws its data on the card and moves it to the host before it
+   solves, so a peak is the solver's own.  Every run is held bit for
+   bit (α, ŵ and every gap record) to the same solve in one process at
+   the same mesh and seed, each rank's launches to the rounds it ran,
+   each rank's peak memory to at most 0.6 of the one process's, and at
+   rcv1 p = 8 each rank's placed X to half of the one process's; each
+   prints s/epoch against the one process, the collective layer's ms a
+   round, calls and bytes, and each rank's peak memory, beside the
+   card's name and power limit.  Last, in the one-process child, a
+   one-rank ``nccl`` group (NCCL refuses two ranks on one device): a
+   solve on it would be the one-process path (one rank spreads
+   nothing, and no collective runs), so it checks the transport alone —
+   the layer's all_gather of a round's (1, 8, d + 1) Δw, the int64 SUM
+   of the gap's d + 1 fixed-point words and of the active count, and
+   the MAX of a scalar, each through NCCL at rcv1's shapes, back
+   unchanged, with its ms (``--dist-phase`` runs the build and this
+   phase alone);
+10. one JSON line of per-kernel numbers (with each kernel's variant, and
    B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
    ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
@@ -1817,6 +1849,11 @@ def lm_main():
     return 0
 
 
+def _ws_mb(ws):
+    """B4's workspace in MB: its four buffers of 4-byte words."""
+    return sum(t.numel() for t in (ws.lc, ws.v, ws.roff, ws.part)) * 4 / 1e6
+
+
 def run_lm_phase():
     """Phase 7 in a child process; returns the probe's kernel launches.
     A nonzero exit fails the script."""
@@ -1831,6 +1868,421 @@ def run_lm_phase():
     if out.returncode != 0 or not lines:
         fail(f"the LM phase exited {out.returncode}")
     return json.loads(lines[-1])["lm_probe_launches"]
+
+
+# --------------------------------------- 9. the solver across processes
+#
+# Two ranks of a gloo group share cuda:0, each holding its part of the
+# solve and launching its own B1, B4 and B5 grids.  Every run is held bit
+# for bit (α, ŵ and every gap record) to the same solve in one process at
+# the same mesh and seed.  A one-rank nccl group checks the collectives'
+# transport through NCCL at the solve's shapes (a solve at one rank is
+# the one-process path: no collective runs).
+
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"
+DIST_WORLD = 2
+DIST_B = 64
+# name → (dataset, mesh kind and sizes, the ranks over the mesh, epochs,
+# solver keywords); every run at the paper's full Table-3 widths
+DIST_CASES = {
+    "rcv1 p = 8": ("rcv1", ("data", 8), {"data": 2}, 2, {}),
+    "rcv1 p = 8 shrink + repack": (
+        "rcv1", ("data", 8), {"data": 2}, 3,
+        dict(shrink_every=1, repack="auto", repack_threshold=0.8)),
+    "webspam 2-D m = 4": ("webspam", ("2d", 1, SHARDS), {"model": 2}, 1,
+                          {}),
+    "rcv1 pods (2, 4)": ("rcv1", ("pod", 2, 4), {"pod": 2}, 2,
+                         dict(pod_delay_rounds=1)),
+}
+DIST_SEG = ("rcv1 p = 8 segmented", "rcv1", ("data", 8), {"data": 2}, 2)
+DIST_FIELDS = ("alpha", "w_hat", "gaps", "eps")
+# the case whose placed X is measured, and the most of the one process's
+# peak a rank may take
+DIST_PLACED = "rcv1 p = 8"
+DIST_PEAK_SHARE = 0.6
+
+
+def _dist_mesh(kind, ranks=None):
+    from repro_torch.dist.mesh import (
+        SolverMesh,
+        solver_mesh_2d,
+        with_ranks,
+    )
+
+    if kind[0] == "data":
+        mesh = SolverMesh(("data",), (kind[1],))
+    elif kind[0] == "pod":
+        mesh = SolverMesh(("pod", "data"), kind[1:])
+    else:
+        mesh = solver_mesh_2d(data=kind[1], model=kind[2])
+    return mesh if ranks is None else with_ranks(mesh, ranks)
+
+
+def _dist_data(torch, dev, name):
+    """A Table-3 training split drawn on the card from the smoke test's
+    seed (rcv1 0, webspam 2) and moved to the host, where a solve across
+    ranks copies only its rank's part to the card (and a one-process
+    solve all of it)."""
+    from repro_torch.data.sparse import EllMatrix
+    from repro_torch.data.synthetic import make_paper_split
+
+    X, _ = make_paper_split(name, seed={"rcv1": 0, "webspam": 2}[name],
+                            device=dev)
+    X = EllMatrix(X.indices.cpu(), X.values.cpu(), X.n_features)
+    torch.cuda.empty_cache()
+    return X
+
+
+def _dist_placed(torch, X, kind, ranks, kw):
+    """The bytes of X that a solve on this mesh places on the card."""
+    from repro_torch.core import Hinge
+    from repro_torch.core.sharded import solver_mouth
+
+    setup = solver_mouth(X, Hinge(), mesh=_dist_mesh(kind, ranks),
+                         block_size=DIST_B, seed=SEED, **kw)
+    nbytes = sum(t.numel() * t.element_size() for t in setup.X)
+    del setup
+    torch.cuda.empty_cache()
+    return nbytes
+
+
+def _dist_save(tag, res):
+    import numpy as np
+
+    np.savez(DIST_DIR / f"{tag}.npz",
+             **{k: np.asarray(getattr(res, k).cpu()) for k in DIST_FIELDS})
+
+
+def _dist_solve(torch, tag, X, kind, ranks, epochs, kw, segmented=None):
+    """One solve, its result saved under ``tag``; returns its line of
+    numbers (s/epoch, the collective layer's ms a round, the peak memory,
+    the kernels' launches)."""
+    from repro_torch.core import Hinge, sharded_passcode_solve
+    from repro_torch.dist import collectives as tc
+    from repro_torch.kernels.dcd_ell import dcd_ell_shards
+    from repro_torch.kernels.dcd_feature import (
+        dcd_feature_gram,
+        dcd_feature_update,
+    )
+    from repro_torch.resilience import solve_segmented
+
+    mesh = _dist_mesh(kind, ranks)
+    for f in (dcd_ell_shards, dcd_feature_gram, dcd_feature_update):
+        f.launches = f.pod_launches = 0
+    tc.reset_stats(timed=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if segmented is None:
+        res = sharded_passcode_solve(X, Hinge(), mesh=mesh, epochs=epochs,
+                                     block_size=DIST_B, seed=SEED, **kw)
+    else:
+        res = solve_segmented(X, Hinge(), mesh=mesh, epochs=epochs,
+                              block_size=DIST_B, seed=SEED,
+                              checkpoint_every=1, **segmented, **kw).result
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rounds = sum(sharded_passcode_solve.epoch_rounds)
+    _dist_save(tag, res)
+    return {"s_epoch": secs / epochs, "rounds": rounds,
+            "coll_ms_round": 1e3 * tc.STATS["seconds"] / max(rounds, 1),
+            "coll_calls": tc.STATS["calls"], "coll_bytes": tc.STATS["bytes"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {"dcd_ell_shards": dcd_ell_shards.launches,
+                         "dcd_feature_gram": dcd_feature_gram.launches,
+                         "dcd_feature_update": dcd_feature_update.launches},
+            "epoch_rounds": list(sharded_passcode_solve.epoch_rounds)}
+
+
+def dist_rank_main(rank, store):
+    """A rank of the two-rank gloo group on cuda:0: every case of
+    ``DIST_CASES`` and the segmented save, its numbers as the last line."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=DIST_WORLD)
+    print(f"rank {rank}: backend {dist.get_backend()}, world "
+          f"{dist.get_world_size()}, {torch.cuda.get_device_name(dev)}")
+    data, out = {}, {}
+    for name, (ds, kind, ranks, epochs, kw) in DIST_CASES.items():
+        if ds not in data:
+            data[ds] = _dist_data(torch, dev, ds)
+        out[name] = _dist_solve(torch, f"{name}.r{rank}", data[ds], kind,
+                                ranks, epochs, kw)
+        if name == DIST_PLACED:
+            out[name]["x_bytes"] = _dist_placed(torch, data[ds], kind,
+                                                ranks, kw)
+        if ds == "webspam":
+            del data[ds]
+            torch.cuda.empty_cache()
+        dist.barrier()
+    name, ds, kind, ranks, epochs = DIST_SEG
+    out[name] = _dist_solve(torch, f"{name}.r{rank}", data[ds], kind, ranks,
+                            epochs, {},
+                            segmented=dict(ckpt_dir=str(DIST_DIR / "ckpt")))
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def dist_one_main(store):
+    """The one-process solves of every case, the segmented solve resumed
+    from the two ranks' checkpoint of epoch 1, and the transport through
+    a one-rank nccl group; their numbers as the last line."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dist import collectives as tc
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    data, out = {}, {}
+    for name, (ds, kind, _, epochs, kw) in DIST_CASES.items():
+        if ds not in data:
+            data[ds] = _dist_data(torch, dev, ds)
+        out[name] = _dist_solve(torch, f"{name}.one", data[ds], kind, None,
+                                epochs, kw)
+        if name == DIST_PLACED:
+            out[name]["x_bytes"] = _dist_placed(torch, data[ds], kind, None,
+                                                kw)
+        if ds == "webspam":
+            del data[ds]
+            torch.cuda.empty_cache()
+    name, ds, kind, _, epochs = DIST_SEG
+    out[name] = _dist_solve(torch, f"{name}.one", data[ds], kind, None,
+                            epochs, {})
+    # the two ranks' checkpoint of epoch 1, resumed here alone
+    shutil.rmtree(DIST_DIR / "ckpt" / f"ckpt_{epochs}")
+    out[f"{name} resumed"] = _dist_solve(
+        torch, f"{name}.resumed", data[ds], kind, None, epochs, {},
+        segmented=dict(ckpt_dir=str(DIST_DIR / "ckpt"), resume=True))
+    # NCCL's transport: a one-rank group, its DeviceMesh on the card.  A
+    # solve on it would spread nothing (no collective runs), so each of
+    # the layer's operations goes through the group at rcv1 p = 8's shapes
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=dev)
+    group = _dist_mesh(("data", 8), {"data": 1}).device_mesh.get_group(
+        "data")
+    d1 = data["rcv1"].n_features + 1
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ops = {
+        "all_gather (1, 8, d + 1) f32 Δw": (
+            torch.randn((1, 8, d1), generator=gen, device=dev), None),
+        "SUM (d + 1) int64 words": (
+            torch.randint(-2**62, 2**62, (d1,), generator=gen, device=dev),
+            dist.ReduceOp.SUM),
+        "SUM (1,) int64 count": (
+            torch.tensor([677_399], device=dev), dist.ReduceOp.SUM),
+        "MAX () f32": (torch.rand((), generator=gen, device=dev),
+                       dist.ReduceOp.MAX)}
+    checks = {}
+    for label, (t, op) in ops.items():
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if op is None:
+                got = torch.cat(tc._all_gather(t, group))
+            else:
+                got = t.clone()
+                dist.all_reduce(got, op=op, group=group)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        checks[label] = {"ok": bool(torch.equal(got.reshape(t.shape), t)),
+                         "ms": 1e3 * min(times)}
+    out["nccl transport"] = {"backend": dist.get_backend(group),
+                             "checks": checks}
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+class DistRun:
+    """Phase 9's children, run beside the parent's host work: the two
+    gloo ranks together, then, once both have exited, the one-process
+    and nccl child.  ``poll`` starts the second stage when the first is
+    done; ``finish`` waits for both, prints their lines and holds every
+    run to its one-process solve.  A child's nonzero exit fails the
+    phase; ``kill`` stops whatever still runs."""
+
+    def __init__(self, card):
+        import shutil
+
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+        DIST_DIR.mkdir(parents=True)
+        self.card, self.t0 = card, time.perf_counter()
+        self.procs = [self._start(f"rank{r}", ["--dist-rank", str(r),
+                                               str(DIST_DIR / "store")])
+                      for r in range(DIST_WORLD)]
+        self.ranks = self.one = self.t_ranks = None
+
+    def _start(self, tag, args):
+        out = open(DIST_DIR / f"{tag}.out", "w")
+        err = open(DIST_DIR / f"{tag}.err", "w")
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 *args], stdout=out, stderr=err, text=True)
+        return args, proc, out, err, time.perf_counter()
+
+    def _collect(self, timeout):
+        """Wait for the running stage; each child's numbers (its last
+        line), its other lines printed."""
+        res = []
+        for args, proc, out, err, t0 in self.procs:
+            try:
+                proc.wait(timeout=max(timeout - (time.perf_counter() - t0),
+                                      1))
+            except subprocess.TimeoutExpired:
+                self.kill()
+                fail(f"phase 9: the child {' '.join(args)} ran past "
+                     f"{timeout} s")
+            out.close()
+            err.close()
+            lines = Path(out.name).read_text().splitlines()
+            for line in lines[:-1] + Path(err.name).read_text(
+                    ).splitlines()[-40:]:
+                print(f"    [{' '.join(args)}] {line}")
+            if proc.returncode != 0 or not lines:
+                self.kill()
+                fail(f"phase 9: the child {' '.join(args)} exited "
+                     f"{proc.returncode}")
+            res.append(json.loads(lines[-1]))
+        return res
+
+    def poll(self):
+        if self.ranks is None and all(p.poll() is not None
+                                      for _, p, *_ in self.procs):
+            self._next_stage()
+
+    def _next_stage(self):
+        self.ranks = self._collect(600)
+        self.t_ranks = time.perf_counter() - self.t0
+        self.procs = [self._start("one", ["--dist-one",
+                                          str(DIST_DIR / "nccl")])]
+
+    def kill(self):
+        for _, proc, *_ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def finish(self):
+        import numpy as np
+
+        if self.ranks is None:
+            self._next_stage()
+        (one,) = self._collect(600)
+        ranks, card = self.ranks, self.card
+
+        def load(tag):
+            return dict(np.load(DIST_DIR / f"{tag}.npz"))
+
+        def same(a, b):
+            return all(np.array_equal(a[k], b[k]) for k in DIST_FIELDS)
+
+        names = list(DIST_CASES) + [DIST_SEG[0]]
+        place = [rk[DIST_PLACED]["x_bytes"] for rk in ranks]
+        whole = one[DIST_PLACED]["x_bytes"]
+        print(f"  {DIST_PLACED}: placed X "
+              f"{', '.join(f'{b / 2**30:.4f}' for b in place)} GiB a rank, "
+              f"one process {whole / 2**30:.4f} GiB; {card}")
+        if any(2 * b != whole for b in place):
+            fail(f"phase 9: a rank placed {place} bytes of X, not half of "
+                 f"the one process's {whole}")
+        for name in names:
+            want = load(f"{name}.one")
+            got = [load(f"{name}.r{r}") for r in range(DIST_WORLD)]
+            ok = all(same(g, want) for g in got)
+            print(f"  {name}: 2 gloo ranks vs one process: "
+                  f"{'bit-equal' if ok else 'DIFFER'} on α, ŵ and the "
+                  f"{len(want['gaps'])} gap records (gaps "
+                  f"{[float(g) for g in want['gaps']]})")
+            if not ok:
+                diff = {k: float(np.abs(got[0][k] - want[k]).max())
+                        for k in DIST_FIELDS}
+                fail(f"phase 9: {name} at 2 ranks is not the one-process "
+                     f"solve: max abs diff {diff}")
+            base = one[name]
+            for r, rk in enumerate(ranks):
+                line = rk[name]
+                print(f"    rank {r}: {line['s_epoch']:.3f} s/epoch (one "
+                      f"process {base['s_epoch']:.3f}), collective layer "
+                      f"{line['coll_ms_round']:.4f} ms a round over "
+                      f"{line['rounds']} rounds ({line['coll_calls']} calls, "
+                      f"{line['coll_bytes'] / 1e6:.1f} MB sent), peak "
+                      f"{line['peak_gib']:.3f} GiB (one process "
+                      f"{base['peak_gib']:.3f}), launches {line['launches']}; "
+                      f"{card}")
+                if line["peak_gib"] > DIST_PEAK_SHARE * base["peak_gib"]:
+                    fail(f"phase 9: {name} rank {r} peaked at "
+                         f"{line['peak_gib']:.3f} GiB, more than "
+                         f"{DIST_PEAK_SHARE} of the one process's "
+                         f"{base['peak_gib']:.3f}")
+                if line["epoch_rounds"] != base["epoch_rounds"]:
+                    fail(f"phase 9: {name} rank {r} ran rounds "
+                         f"{line['epoch_rounds']}, one process "
+                         f"{base['epoch_rounds']}")
+                kern = ("dcd_feature_gram", "dcd_feature_update") if (
+                    "2-D" in name) else ("dcd_ell_shards",)
+                for k, n in line["launches"].items():
+                    want_n = line["rounds"] if k in kern else 0
+                    if n != want_n or n != base["launches"][k]:
+                        fail(f"phase 9: {name} rank {r} launched {k} {n} "
+                             f"times, expected {want_n} (one process "
+                             f"{base['launches'][k]})")
+        seg = DIST_SEG[0]
+        resumed = load(f"{seg}.resumed")
+        ok = same(resumed, load(f"{seg}.one"))
+        print(f"  {seg}: saved by 2 gloo ranks after epoch 1, resumed in one "
+              f"process: {'bit-equal' if ok else 'DIFFER'} to the whole "
+              f"one-process solve on α, ŵ and the gap records")
+        if not ok:
+            fail(f"phase 9: {seg} resumed at one rank is not the whole solve")
+        tr = one["nccl transport"]
+        for label, c in tr["checks"].items():
+            print(f"  one-rank {tr['backend']} group, transport only (a "
+                  f"solve at one rank is the one-process path): {label}: "
+                  f"{'unchanged' if c['ok'] else 'WRONG'}, {c['ms']:.4f} "
+                  f"ms; {card}")
+        if tr["backend"] != "nccl" or not all(
+                c["ok"] for c in tr["checks"].values()):
+            fail("phase 9: the one-rank nccl transport check failed")
+        print(f"  phase 9: {time.perf_counter() - self.t0:.1f} s (the two "
+              f"ranks {self.t_ranks:.1f} s)")
+
+
+def dist_phase_main():
+    """Phase 9 alone (``--dist-phase``): the card, the build, then the
+    children."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    card = card_line()
+    print(card)
+    t0 = time.perf_counter()
+    build.build()
+    print(f"build: {time.perf_counter() - t0:.1f}s")
+    print("phase 9: the solver across processes (child processes)")
+    DistRun(card).finish()
+    return 0
 
 
 def main():
@@ -1982,6 +2434,91 @@ def main():
         return torch.randperm(n, generator=gen, device=dev)[
             : rounds * B].int().reshape(rounds, B)
 
+    # ------------------- 9. across processes, beside phase 3's host work
+    # Phase 3 holds each whole-round launch (B3's covtype epoch, B1's and
+    # B2's whole-epoch orders, CoCoA's and the pod oracle's rounds) to its
+    # plain version replayed on CPU copies of the inputs, about 150 s of
+    # host time: the inputs are made now, and the replays run while phase
+    # 9's children hold the card (this process keeps about 10 GB there).
+    hinge, hinge_c = duals.Hinge(1.0), duals.Hinge(0.0625)
+    gen_w = torch.Generator(device=dev)
+    gen_w.manual_seed(8)
+    perm_r = torch.randperm(n_r, generator=gen_w, device=dev).int()
+    perm_c = torch.randperm(n_c, generator=gen_w, device=dev).int()
+    from repro_torch.core.cocoa import _pod_rows
+    from repro_torch.core.sharded import _device_block_perm_v
+
+    K_CO, P_P = THREADS, 2  # CoCoA's partitions; the oracle's pods
+    n_k = n_c // K_CO
+    key_co, kpart = prng.split(prng.PRNGKey(SEED, device=dev))
+    part = prng.permutation(kpart, n_c)[: n_k * K_CO]
+    X_co = X_cov[part].contiguous()
+    q_co = (X_co * X_co).sum(1)
+    ids_co = prng.permutation(prng.split(prng.split(key_co)[1], K_CO),
+                              n_k).to(torch.int32).contiguous()
+    del part
+
+    n_o = min(PASSCODE_ROWS, n_r)
+    n_pod_o = -(-n_o // P_P)
+    nb_o = _n_blocks(n_pod_o, B)
+    rows_o, q_o = _pod_rows(EllMatrix(X_rcv1.indices[:n_o],
+                                      X_rcv1.values[:n_o], d_r), n_pod_o, P_P)
+    sub_o = prng.split(prng.PRNGKey(SEED, device=dev))[1]
+    ids_o = torch.stack([
+        _device_block_perm_v(sub_o, k_, P_P, n_pod_o,
+                             min(max(n_o - k_ * n_pod_o, 1), n_pod_o), nb_o,
+                             B).reshape(-1)
+        for k_ in range(P_P)]).to(torch.int32).contiguous()
+
+    def co_round(shards, rows, q, n_loc):
+        def run(a, w, i, L):
+            a, dw = shards(*rows, a, w, q, loss=L, idx=i, n_loc=n_loc)
+            return a, w + dw.sum(0)
+        return run
+
+    def zeros_co():
+        return (torch.zeros(n_k * K_CO, device=dev),
+                torch.zeros(d_c, device=dev))
+
+    def zeros_o():
+        return (torch.zeros(P_P * n_pod_o, device=dev),
+                torch.zeros(d_r + 1, device=dev))
+
+    X_cov_h, q_c_h = X_cov.cpu(), q_c.cpu()  # the host replays' rows
+    cols_r_h, vals_r_h, q_r_h = (X_rcv1.indices.cpu(), X_rcv1.values.cpu(),
+                                 q_r.cpu())
+    replays = [
+        ("b3", lambda a, w: dcd_tile_epoch_plain(X_cov_h, a, w, q_c_h,
+                                                 loss=hinge_c),
+         (torch.zeros(n_c), torch.zeros(d_c))),
+        ("b1e", lambda a, w, i, L: dcd_ell_epoch_plain(
+            cols_r_h, vals_r_h, a, w, q_r_h, loss=L, idx=i),
+         (torch.zeros(n_r), torch.zeros(d_r + 1), perm_r, hinge)),
+        ("b2e", lambda a, w, i, L: dcd_indexed_epoch_plain(
+            X_cov_h, a, w, q_c_h, loss=L, idx=i),
+         (torch.zeros(n_c), torch.zeros(d_c), perm_c, hinge_c)),
+        ("dcd_indexed_cocoa", co_round(dcd_indexed_shards_plain,
+                                       [X_co.cpu()], q_co.cpu(), n_k),
+         (*zeros_co(), ids_co, hinge_c)),
+        ("dcd_ell_cocoa_pods", co_round(dcd_ell_shards_plain,
+                                        [r.cpu() for r in rows_o],
+                                        q_o.cpu(), n_pod_o),
+         (*zeros_o(), ids_o, hinge))]
+    print("phase 9: the solver across processes (child processes, beside "
+          "phase 3's host replays)")
+    dist_run = DistRun(card)
+    try:
+        replayed = {}
+        for key, plain, args in replays:
+            replayed[key] = replay_on_host(plain, *args)
+            print(f"  host replay {key}: {replayed[key][1]:.1f} s")
+            dist_run.poll()
+        dist_run.finish()
+    except BaseException:
+        dist_run.kill()
+        raise
+    del replays, X_cov_h, q_c_h, cols_r_h, vals_r_h, q_r_h
+
     # ------------------------------------------------- 3. kernels vs plain
     results = {}
 
@@ -2113,13 +2650,9 @@ def main():
     # losses, from an aligned and from an unaligned offset (a view whose
     # base and q are not 16-byte aligned: the stages are copied in 4-byte
     # units).
-    hinge_c = duals.Hinge(0.0625)
     print(f"  B3 at the covtype shape: {dcd_tile_plan(n_c, d_c)}")
     a0_c, w0_c = torch.zeros(n_c, device=dev), torch.zeros(d_c, device=dev)
-    X_cov_h, q_c_h = X_cov.cpu(), q_c.cpu()  # the host replays' rows
-    p3, host_b3 = replay_on_host(
-        lambda a, w: dcd_tile_epoch_plain(X_cov_h, a, w, q_c_h,
-                                          loss=hinge_c), a0_c, w0_c)
+    p3, host_b3 = replayed["b3"]
     moved_b3 = int((p3[0] != 0).sum())  # rows whose update scattered
     n_p3 = min(PLAIN_IDS, n_c)  # the epoch's first rows, timed on the card
     plain_b3 = wall_ms(lambda: dcd_tile_epoch_plain(
@@ -2171,7 +2704,6 @@ def main():
             updates=4 * B))
 
     # times per launch at the main path's shapes (hinge, B = 64 ids)
-    hinge = duals.Hinge(1.0)
     a_r, w_r = zeros_r()
     t_ids = blocks(n_r, 64)
     it = iter(range(10**9))
@@ -2272,14 +2804,12 @@ def main():
     # first PLAIN_IDS ids, one update at a time, about 0.15 ms an update
     # there); the other two losses over the order's first PREFIX ids
     # (still the wide plan)
-    perm_r = torch.randperm(n_r, generator=gen, device=dev).int()
-    perm_c = torch.randperm(n_c, generator=gen, device=dev).int()
     print(f"  B1 over a whole rcv1 epoch: {dcd_ell_plan(n_r, k_r)}; B2 over "
           f"a whole covtype epoch: {dcd_dense_plan(n_c, d_c)}")
 
-    def whole_epoch(label, kernel, plain, host, state0, order, loss):
+    def whole_epoch(label, kernel, plain, replay, state0, order, loss):
         ka = kernel(*state0(), order, loss)
-        p, host_s = replay_on_host(host, *state0(), order, loss)
+        p, host_s = replay
         e = max_err(ka, p)
         pl_ms = wall_ms(lambda: plain(*state0(), order[:PLAIN_IDS], loss), 1,
                         torch)
@@ -2299,29 +2829,18 @@ def main():
         return dcd_ell_epoch_plain(X_rcv1.indices, X_rcv1.values, a, w, q_r,
                                    loss=L, idx=i)
 
-    cols_r_h, vals_r_h, q_r_h = (X_rcv1.indices.cpu(), X_rcv1.values.cpu(),
-                                 q_r.cpu())
-
-    def b1_host(a, w, i, L):
-        return dcd_ell_epoch_plain(cols_r_h, vals_r_h, a, w, q_r_h, loss=L,
-                                   idx=i)
-
     def b2(a, w, i, L):
         return dcd_indexed_epoch(X_cov, a, w, q_c, loss=L, idx=i)
 
     def b2_plain(a, w, i, L):
         return dcd_indexed_epoch_plain(X_cov, a, w, q_c, loss=L, idx=i)
 
-    def b2_host(a, w, i, L):
-        return dcd_indexed_epoch_plain(X_cov_h, a, w, q_c_h, loss=L, idx=i)
-
     err_b1e, plain_b1e, host_b1e = whole_epoch(
         "B1 dcd_ell wide, a whole rcv1 epoch's order (hinge)", b1, b1_plain,
-        b1_host, zeros_r, perm_r, hinge)
+        replayed["b1e"], zeros_r, perm_r, hinge)
     err_b2e, plain_b2e, host_b2e = whole_epoch(
         "B2 dcd_indexed wide, a whole covtype epoch's order (hinge)", b2,
-        b2_plain, b2_host, zeros_c, perm_c, hinge_c)
-    del cols_r_h, vals_r_h, q_r_h, X_cov_h, q_c_h
+        b2_plain, replayed["b2e"], zeros_c, perm_c, hinge_c)
     err_b1e = max(err_b1e, compare(
         f"B1 dcd_ell wide, an epoch's order (first {PREFIX} ids)", b1,
         b1_plain, zeros_r, perm_r[None, :PREFIX], losses[1:]))
@@ -2378,7 +2897,7 @@ def main():
     q_w = fse.row_sq_norms()
     ws = feat.gram_workspace(SHARDS, B, k_loc, d1_w, dev)
     print(f"  B4 at the webspam split: {gram_plan(SHARDS, B, k_loc, d1_w)}; "
-          f"workspace {sum(t.numel() for t in ws) * 4 / 1e6:.2f} MB")
+          f"workspace {_ws_mb(ws):.2f} MB")
     print(f"  B5 at the webspam split: "
           f"{feature_update_plan(SHARDS, B, k_loc, d1_w)}")
     ids_w = blocks(n_w, 4)
@@ -2697,7 +3216,7 @@ def main():
     ws2 = feat.gram_workspace(SHARDS, B, k_loc, d1_w, dev, P_D)
     print(f"  B4 at the webspam split, data = {P_D}: "
           f"{gram_plan(SHARDS, B, k_loc, d1_w, P_D)}; workspace "
-          f"{sum(t.numel() for t in ws2) * 4 / 1e6:.2f} MB")
+          f"{_ws_mb(ws2):.2f} MB")
     err_g4 = err_g5 = 0.0
     for lname, rounds in [("hinge", 3), ("squared_hinge", 1),
                           ("logistic", 1)]:
@@ -2907,7 +3426,7 @@ def main():
     wsK = feat.gram_workspace(SHARDS, B, k_loc, d1_w, dev, 1, K_W)
     print(f"  B4 at the webspam split, K = {K_W}: "
           f"{gram_plan(SHARDS, B, k_loc, d1_w, 1, K_W)}; workspace "
-          f"{sum(t.numel() for t in wsK) * 4 / 1e6:.2f} MB")
+          f"{_ws_mb(wsK):.2f} MB")
     ids_t4 = t_ids_w[:, None]  # (rounds, 1, B): one block for every task
 
     def t45(a, w, i, plain=False):
@@ -3061,7 +3580,7 @@ def main():
         return err
 
     pods = {}  # name → (ms, plain ms, bytes, ops, what, err, library ms)
-    P_P, P_PD = 2, 4  # the 1-D pod paths' pods and data shards a pod
+    P_PD = 4  # the 1-D pod paths' data shards a pod (of P_P pods)
     S_P = P_P * P_PD
     n_loc_rp, segs_rp, ids_rp = pod_ids(n_r, P_P, P_PD, 16)
     np_rp = S_P * n_loc_rp
@@ -3262,45 +3781,6 @@ def main():
     # card over each CTA's first PLAIN_IDS / CTAs ids) and with the other
     # two losses over each CTA's first PREFIX ids; its second launch to the
     # same bits, and timed
-    from repro_torch.core.cocoa import _pod_rows
-    from repro_torch.core.sharded import _device_block_perm_v
-
-    K_CO = THREADS
-    n_k = n_c // K_CO
-    key_co, kpart = prng.split(prng.PRNGKey(SEED, device=dev))
-    part = prng.permutation(kpart, n_c)[: n_k * K_CO]
-    X_co = X_cov[part].contiguous()
-    q_co = (X_co * X_co).sum(1)
-    ids_co = prng.permutation(prng.split(prng.split(key_co)[1], K_CO),
-                              n_k).to(torch.int32).contiguous()
-    del part
-
-    n_o = min(PASSCODE_ROWS, n_r)
-    n_pod_o = -(-n_o // P_P)
-    nb_o = _n_blocks(n_pod_o, B)
-    rows_o, q_o = _pod_rows(EllMatrix(X_rcv1.indices[:n_o],
-                                      X_rcv1.values[:n_o], d_r), n_pod_o, P_P)
-    sub_o = prng.split(prng.PRNGKey(SEED, device=dev))[1]
-    ids_o = torch.stack([
-        _device_block_perm_v(sub_o, k_, P_P, n_pod_o,
-                             min(max(n_o - k_ * n_pod_o, 1), n_pod_o), nb_o,
-                             B).reshape(-1)
-        for k_ in range(P_P)]).to(torch.int32).contiguous()
-
-    def co_round(shards, rows, q, n_loc):
-        def run(a, w, i, L):
-            a, dw = shards(*rows, a, w, q, loss=L, idx=i, n_loc=n_loc)
-            return a, w + dw.sum(0)
-        return run
-
-    def zeros_co():
-        return (torch.zeros(n_k * K_CO, device=dev),
-                torch.zeros(d_c, device=dev))
-
-    def zeros_o():
-        return (torch.zeros(P_P * n_pod_o, device=dev),
-                torch.zeros(d_r + 1, device=dev))
-
     wide_rounds = {}
     for name, shards, plain, rows, q, n_loc, ids, state0, loss, what in [
             ("dcd_indexed_cocoa", dcd_indexed_shards,
@@ -3314,9 +3794,7 @@ def main():
         kern, pl = co_round(shards, rows, q, n_loc), co_round(plain, rows, q,
                                                               n_loc)
         label = f"{name} (wide, {what})"
-        p, host_s = replay_on_host(
-            co_round(plain, [r.cpu() for r in rows], q.cpu(), n_loc),
-            *state0(), ids, loss)
+        p, host_s = replayed[name]
         e = max_err(kern(*state0(), ids, loss), p)
         head = ids[:, :PLAIN_IDS // ids.shape[0]].contiguous()
         pl_ms = wall_ms(lambda: pl(*state0(), head, loss), 1, torch)
@@ -3575,7 +4053,7 @@ def main():
     # The solver's gap takes w(α) through index_add_ (atomics in no fixed
     # order), so it is evaluated twice on the same α to show its own
     # spread from run to run.
-    from repro_torch.core.sharded import _make_gap_1d
+    from repro_torch.core.sharded import _gap_closure
 
     def p1_bits(label, X, loss, kernel, rows, q, n, d, w_len):
         nb = _n_blocks(n, B)
@@ -3594,7 +4072,7 @@ def main():
         torch.cuda.synchronize()
         same = torch.equal(r.alpha, a) and torch.equal(r.w_hat, w[:d])
         ell = len(rows) == 2
-        gap = _make_gap_1d(loss, rows if ell else rows[0], ell, w_len)
+        gap = _gap_closure(loss, rows if ell else rows[0], ell=ell)
         g1, g2 = (float(gap(a, w)[0]) for _ in range(2))
         print(f"  p = 1 {label}: one epoch ({nb} rounds) through the shard "
               f"grid in {t1 - t0:.3f} s and through the single-block "
@@ -4160,7 +4638,7 @@ def main():
     def ell_gap(loss, X, alpha, w_hat, y=None):
         rows = (X.indices, X.values)
         w_view = torch.cat([w_hat, w_hat.new_zeros(1)])
-        return float(_make_gap_1d(loss, rows, True, X.n_features + 1)(
+        return float(_gap_closure(loss, rows, ell=True)(
             alpha, w_view, y)[0])
 
     for data, X, loss, mesh in [("rcv1", X_rcv1, hinge1, mesh_r),
@@ -4688,7 +5166,7 @@ def main():
     results["dcd_indexed_epoch"]["launches"] += lm_launches[
         "dcd_indexed_epoch"]
 
-    # ---------------------------------------------------------- 9. result
+    # --------------------------------------------------------- 10. result
     idle = [name for name, row in results.items() if row["launches"] < 1]
     if idle:
         fail(f"kernels no main path launched: {idle}")
@@ -4704,4 +5182,9 @@ def main():
 if __name__ == "__main__":
     sys.exit(lm_main() if sys.argv[1:] == ["--lm-phase"]
              else lm_train_main() if sys.argv[1:] == ["--lm-train-phase"]
+             else dist_rank_main(int(sys.argv[2]), sys.argv[3])
+             if sys.argv[1:2] == ["--dist-rank"]
+             else dist_one_main(sys.argv[2])
+             if sys.argv[1:2] == ["--dist-one"]
+             else dist_phase_main() if sys.argv[1:] == ["--dist-phase"]
              else main())

@@ -15,12 +15,23 @@ the card.  On the 1-D mesh the device alone picks the block engine (B2
 on the card, its plain version on the CPU), so the reference's two
 sharded lines, plain and fused, are one line here, and ``--use-kernel``
 is taken for the reference's command line and changes nothing.
+
+Under ``torchrun --nproc-per-node=W`` the sharded solve runs over a mesh
+of the whole world (``solver_mesh()``, one data shard a rank, as the
+reference's solve takes every device): a ``nccl`` group where each rank
+has a card of its own, ``gloo`` otherwise (``--device cpu``, or W ranks
+sharing fewer cards).  Every rank runs every line; rank 0 prints.
+
+    torchrun --nproc-per-node=2 examples/train_svm_passcode_torch.py \\
+        --device cpu --epochs 2
 """
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import (
     Hinge,
@@ -31,12 +42,31 @@ from repro_torch.core import (
     sharded_passcode_solve,
 )
 from repro_torch.data.synthetic import DATASET_RECIPES, make_dataset
+from repro_torch.dist.mesh import solver_mesh
 from repro_torch.kernels import ops
 
 
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _join_world(dev):
+    """Under torchrun (``WORLD_SIZE`` > 1) join the process group —
+    ``nccl`` where every rank on this host has a card of its own, else
+    ``gloo`` — and return (this rank's device, whether it prints)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return dev, True
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    if dev.type == "cuda" and torch.cuda.device_count() >= per_host:
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return dev, dist.get_rank() == 0
 
 
 def main(argv=None):
@@ -51,16 +81,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     use_kernel = {"on": True, "auto": "auto"}[args.use_kernel]
-    dev = torch.device(args.device)
+    dev, lead = _join_world(torch.device(args.device))
+    say = print if lead else (lambda *a, **k: None)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
 
     ds = make_dataset(args.dataset, device=dev)
     X, Xt = ds.dense_train(), ds.dense_test()
     loss = Hinge(C=ds.recipe.C)
-    print(f"device: {name}")
-    print(f"dataset={args.dataset} n={X.shape[0]} d={X.shape[1]} "
-          f"C={ds.recipe.C}")
+    say(f"device: {name}")
+    say(f"dataset={args.dataset} n={X.shape[0]} d={X.shape[1]} "
+        f"C={ds.recipe.C}")
 
     ep = args.epochs
     for label, fn in [
@@ -75,8 +106,8 @@ def main(argv=None):
             X, loss, n_threads=8, memory_model="wild", epochs=ep,
             device=dev)),
         ("sharded (1-D)", lambda: sharded_passcode_solve(
-            X, loss, epochs=ep, block_size=16, use_kernel=use_kernel,
-            device=dev)),
+            X, loss, mesh=solver_mesh(), epochs=ep, block_size=16,
+            use_kernel=use_kernel, device=dev)),
     ]:
         _sync(dev)
         t0 = time.time()
@@ -84,8 +115,8 @@ def main(argv=None):
         _sync(dev)
         w = getattr(r, "w_hat", getattr(r, "w", None))
         acc = float(predict_accuracy(w, Xt))
-        print(f"{label:22s} gap={float(r.gaps[-1]):9.4f} "
-              f"test_acc={acc:.3f}  ({time.time() - t0:.1f}s)")
+        say(f"{label:22s} gap={float(r.gaps[-1]):9.4f} "
+            f"test_acc={acc:.3f}  ({time.time() - t0:.1f}s)")
 
     # the in-order epoch: B3 on the card, its plain version on the CPU
     n, d = X.shape
@@ -97,10 +128,12 @@ def main(argv=None):
     for _ in range(ep):
         alpha, w = ops.dcd_epoch(X, alpha, w, q, c=ds.recipe.C)
     _sync(dev)
-    print(f"{'in-order dcd_epoch':22s} "
-          f"gap={float(duality_gap(alpha, X, loss)):9.4f} "
-          f"test_acc={float(predict_accuracy(w, Xt)):.3f}  "
-          f"({time.time() - t0:.1f}s)")
+    say(f"{'in-order dcd_epoch':22s} "
+        f"gap={float(duality_gap(alpha, X, loss)):9.4f} "
+        f"test_acc={float(predict_accuracy(w, Xt)):.3f}  "
+        f"({time.time() - t0:.1f}s)")
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -143,6 +143,31 @@ gap on the device and flushes the delayed Δw at the end.
 block of B = n rows an epoch on a (data = 1, model = m) mesh, whose
 n × n Gram takes B4 and B5 past 1,024 ids (their device-memory layout,
 ``gram_plan``/``feature_update_plan``).
+
+**Across processes** (a mesh spread over the ranks of a process group,
+``repro_torch.dist.mesh.with_ranks``; the reference's mesh over real
+devices).  The mesh's sizes stay the global (P, p, m); each axis's
+shards split contiguously over its ranks.  X stays where the caller
+has it, and a rank copies only its part to the device
+(``prepare_solver``): the rows, labels and α of its data shards, and on
+the 2-D mesh its feature shards' slices of X and w.  It draws
+its own shards' blocks from the one key chain, and launches its kernels
+over its own shards (B4 and B5 laid out for the mesh's m).  Every psum
+site gathers the partials into the one-process layout and reduces it
+with the same torch op (``repro_torch.dist.collectives``): the rounds'
+Δw over ``data`` (``_shard_sum``), B4's partials, the base correction
+and the unfused dot over ``model`` (``_ModelPsum``), the pods' Δw_pod
+over ``pod``; the records' per-row terms and the m slices of w(α) the
+same way, an ELL or 2-D w(α) itself as exact int64 SUMs on the card,
+the fixed-point scale from the global bound (one gap closure,
+``_gap_closure``, whose collectives are the identity on one process);
+the active count and the census as int64 SUMs, the repacked round count
+as a MAX.  So a W-rank solve is the one-process solve's α and ŵ bit for
+bit at the same mesh and seed, and on the card its ELL and 2-D records
+too (a dense w(α) adds float partials in rank order); every rank
+returns the whole result
+(``_finalize`` gathers).  With no process group, or a one-rank mesh, no
+line of this runs.
 """
 
 from __future__ import annotations
@@ -160,8 +185,10 @@ from repro_torch.data.sparse import (
     active_row_remap,
     dense_to_ell,
     ell_column_split,
+    ell_split_width,
     flat_shard_ids,
 )
+from repro_torch.dist.collectives import gather_axis, max_all, sum_int
 from repro_torch.dist.mesh import (
     SelfTuning,
     SolverMesh,
@@ -169,6 +196,7 @@ from repro_torch.dist.mesh import (
     dp_size,
     pipeline_overlap,
     pod_merge_policy,
+    rank_layout,
     resolve_device,
     resolve_self_tuning,
     solver_mesh_2d,
@@ -224,11 +252,21 @@ def _fused_2d(use_kernel, device: torch.device) -> bool:
                                   and device.type == "cuda")
 
 
-def _shard_sum(dw, pods: int = 1):
+def _shard_sum(dw, pods: int = 1, lay=None):
     """The psum over ``data``: each task's p shards' Δw (K, p, *w)
     summed in shard order, (K, *w); with ``pods`` P > 1 the P·p shards
     are P pods' and each pod's p shards sum apart, (K, P, *w) — the
-    reference's pod-local round psum."""
+    reference's pod-local round psum.  Across ranks (``lay``, a
+    ``RankLayout``) ``dw`` holds this rank's shards, (K, P_loc·p_loc,
+    *w): each of its pods' shards are gathered over ``data`` into the
+    pod's p, then summed as on one process; the result keeps the pod
+    dimension (K, P_loc, *w) whenever P > 1."""
+    if lay is not None:
+        P, K, rest = pods // lay.count("pod"), dw.shape[0], dw.shape[2:]
+        dw = gather_axis(dw.reshape(K, P, -1, *rest), lay, "data", 2)
+        if pods > 1:
+            return _shard_sum(dw.reshape(K * P, -1, *rest)).view(K, P, *rest)
+        return _shard_sum(dw.reshape(K, -1, *rest))
     if pods > 1:
         K, rest = dw.shape[0], dw.shape[2:]
         return _shard_sum(dw.reshape(K * pods, -1, *rest)).view(K, pods,
@@ -269,8 +307,43 @@ def _block_update_1d(loss, ell: bool, n_loc: int = 0, Y=None):
     return block_update
 
 
+class _ModelPsum:
+    """The psum over ``model`` of a rank's feature shards, by the design
+    rule of ``repro_torch.dist.collectives``: ``psum(t, dim)`` gathers a
+    partial already reduced (the shards on ``dim``) into the one-process
+    layout of the m shards, for the caller's own sum; ``psum.dots(prod)``
+    is the shards' Σ_k of a (…, m_loc, k) product, gathered to (…, m).
+    On the card each shard's run is summed where it sits in the
+    one-process (…, m, k) product — the rank's runs placed in zeros —
+    because torch's reduction over k reads a run from its alignment."""
+
+    def __init__(self, lay, m: int):
+        self.lay, self.m = lay, m
+        self.m0, self.m_loc = lay.span("model", m)
+
+    def __call__(self, t, dim):
+        return gather_axis(t, self.lay, "model", dim)
+
+    def dots(self, prod):
+        if prod.is_cuda:
+            full = prod.new_zeros((*prod.shape[:-2], self.m, prod.shape[-1]))
+            full[..., self.m0:self.m0 + self.m_loc, :] = prod
+            part = torch.sum(full, dim=-1)[..., self.m0:self.m0 + self.m_loc]
+        else:
+            part = torch.sum(prod, dim=-1)
+        return self(part, part.dim() - 1)
+
+
+def _model_gather(lay, m: int):
+    """The psum over ``model`` (``_ModelPsum``) of a rank holding some
+    of the ``m`` feature shards, or None where every one is here."""
+    if lay is None or lay.count("model") == 1:
+        return None
+    return _ModelPsum(lay, m)
+
+
 def _local_block_update_feature(cols, vals, sq_norms, alpha, w, idx_block,
-                                loss, act=None, y=None):
+                                loss, act=None, y=None, gather=None):
     """The unfused 2-D engine (the reference's
     ``_local_block_update_feature``) for one data shard of one task: B
     sequential updates of the row ids ``idx_block``, each summing the m
@@ -279,14 +352,17 @@ def _local_block_update_feature(cols, vals, sq_norms, alpha, w, idx_block,
     ``sq_norms`` are the full row norms, so δ is one value for all
     shards; ``act`` (0/1) freezes shrunk rows; ``y`` folds the task's
     labels on read.  Returns (updated α, Δw over the (m, d_loc + 1)
-    slices)."""
+    slices).  ``gather`` (``_model_gather``) takes this rank's shards'
+    partial dots to all m before their sum, every update."""
     alpha, w_cur = alpha.clone(), w.clone()
     d1 = w.shape[1]
     w_flat = w_cur.view(-1)
     for i in idx_block.tolist():
         ids = flat_shard_ids(cols[i], d1)  # (m, k)
         v = vals[i]
-        wx = torch.sum(torch.sum(w_flat[ids] * v, dim=1))
+        prod = w_flat[ids] * v
+        wx = torch.sum(torch.sum(prod, dim=1) if gather is None
+                       else gather.dots(prod))
         if y is not None:
             wx = y[i] * wx
         delta = loss.delta(alpha[i], wx, sq_norms[i])
@@ -298,14 +374,18 @@ def _local_block_update_feature(cols, vals, sq_norms, alpha, w, idx_block,
     return alpha, w_cur - w
 
 
-def _block_update_2d(loss, fused: bool, workspace, n_loc: int = 0, Y=None):
+def _block_update_2d(loss, fused: bool, workspace, n_loc: int = 0, Y=None,
+                     gather=None):
     """The 2-D block engine over K tasks of p data shards (eager
     composition; the overlapped round drives the split phases directly):
     α (K, n_pad), w_eff (K, m, d_loc + 1) or (K, p, m, d_loc + 1), ids
     (p, B) or (K, p, B); a w_eff (K, P, m, d_loc + 1) for 1 < P < p is
     a view a pod.  Returns (updated α, the pairs' Δw (K, p, m,
     d_loc + 1)).  The unfused engine runs the tasks, then the shards, in
-    order."""
+    order.  Where m is this rank's feature shards, ``gather``
+    (``_model_gather``) takes the partials to all m before each psum
+    over ``model``, and the workspace's ``m_all`` lays out B4 and B5 for
+    the mesh's m."""
 
     def block_update(cols, vals, sq_norms, alpha, w_eff, idx_block,
                      act=None):
@@ -314,7 +394,7 @@ def _block_update_2d(loss, fused: bool, workspace, n_loc: int = 0, Y=None):
                                             w_eff, idx_block, loss=loss,
                                             active=act, y=Y,
                                             workspace=workspace,
-                                            n_loc=n_loc)
+                                            n_loc=n_loc, gather=gather)
         alphas, dws = [], []
         for k in range(alpha.shape[0]):
             a_k, dw_k = alpha[k], []
@@ -325,7 +405,7 @@ def _block_update_2d(loss, fused: bool, workspace, n_loc: int = 0, Y=None):
                 a_k, dw = _local_block_update_feature(
                     cols, vals, sq_norms, a_k, w_s,
                     ids[s].long() + s * n_loc, loss, _task_rows(act, k),
-                    _task_rows(Y, k))
+                    _task_rows(Y, k), gather)
                 dw_k.append(dw)
             alphas.append(a_k)
             dws.append(torch.stack(dw_k))
@@ -407,7 +487,7 @@ def _masked_block_perms(key, p: int, n_loc: int, n_rows: int,
 
 
 def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
-                 delay_rounds: int, pods: int = 1):
+                 delay_rounds: int, pods: int = 1, lay=None):
     """The round structure: per round the block engine runs against the
     (possibly stale) effective w, and its Δw — each task's summed over
     the ``data`` shards — is applied now (atomic) or one round late
@@ -415,11 +495,12 @@ def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
     ``block_update(alpha, w_eff, idx_block)`` closes over the shards;
     α, w and Δw carry the leading task dimension K, and with ``pods``
     P > 1 a pod dimension after it (w and Δw (K, P, *w): each pod's
-    rounds read and update its own w, the psum pod-local)."""
+    rounds read and update its own w, the psum pod-local).  Across ranks
+    (``lay``) the shards are this rank's and ``_shard_sum`` gathers."""
     for idx_block in blocks_loc:
         w_eff = w_loc + dw_prev if delay_rounds > 0 else w_loc
         alpha_loc, dw_loc = block_update(alpha_loc, w_eff, idx_block)
-        dw_all = _shard_sum(dw_loc, pods)
+        dw_all = _shard_sum(dw_loc, pods, lay)
         if delay_rounds > 0:
             w_loc, dw_prev = w_loc + dw_prev, dw_all
         else:
@@ -428,7 +509,8 @@ def _scan_rounds(block_update, alpha_loc, w_loc, dw_prev, blocks_loc,
 
 
 def _scan_rounds_dyn(block_update, alpha, w, dw_prev, dw_own, blocks, act,
-                     n_run: int, delay_flag, runs=None, n_all: int = 0):
+                     n_run: int, delay_flag, runs=None, n_all: int = 0,
+                     lay=None):
     """The self-tuning round scan (the reference's ``_scan_rounds_dyn``):
     ``_scan_rounds`` with (a) the active mask ``act`` gating every δ,
     (b) only the first ``n_run`` rounds run (the repacked block count,
@@ -456,7 +538,7 @@ def _scan_rounds_dyn(block_update, alpha, w, dw_prev, dw_own, blocks, act,
                                                 _per_shard(dw_prev))
         state = (alpha, w, dw_prev, dw_own)
         alpha, dw_loc = block_update(alpha, w_eff, idx_block, act)
-        dw_all = _shard_sum(dw_loc)
+        dw_all = _shard_sum(dw_loc, 1, lay)
         if fixed and on:
             w, dw_prev, dw_own = w + dw_prev, dw_all, dw_loc
         elif fixed:  # never delayed: nothing is in flight
@@ -474,20 +556,23 @@ def _scan_rounds_dyn(block_update, alpha, w, dw_prev, dw_own, blocks, act,
     return alpha, w, dw_prev, dw_own
 
 
-def _overlap_round_fns(cols, vals, sq_norms, loss, n_loc: int = 0, Y=None):
+def _overlap_round_fns(cols, vals, sq_norms, loss, n_loc: int = 0, Y=None,
+                       gather=None):
     """The three split phases of the fused 2-D block round, bound to the
     resident slices (``repro_torch.kernels.ops`` entry points), over K
     tasks of the (p, B) shard-local ids.  B4 (``gram_fn``) fills the
     workspace it is given with the block's buckets, which B5
-    (``update_fn``) of the same block reads."""
+    (``update_fn``) of the same block reads.  ``gather``: as for
+    ``_block_update_2d``."""
 
     def gram_fn(w_ref, idx, workspace):
         return dcd_feature_gram(cols, vals, w_ref, idx, workspace=workspace,
-                                n_loc=n_loc, tasks=True)
+                                n_loc=n_loc, tasks=True, gather=gather)
 
     def corr_fn(dvec, idx):
         return dcd_feature_base_correction(cols, vals, dvec, idx,
-                                           n_loc=n_loc, tasks=True)
+                                           n_loc=n_loc, tasks=True,
+                                           gather=gather)
 
     def update_fn(alpha, w_ref, idx, base, gram, workspace, act=None):
         return dcd_feature_update(cols, vals, sq_norms, alpha, w_ref, idx,
@@ -498,7 +583,8 @@ def _overlap_round_fns(cols, vals, sq_norms, loss, n_loc: int = 0, Y=None):
 
 
 def _scan_rounds_overlap(gram_fn, corr_fn, update_fn, alpha, w, dw_prev,
-                         blocks, inflight, next0, workspaces, act=None):
+                         blocks, inflight, next0, workspaces, act=None,
+                         lay=None):
     """``_scan_rounds`` for the fused 2-D engine with the round
     double-buffered: entering round t the carry holds block t's summed
     (base⁰_t, gram_t), one per data shard, whose base was taken against
@@ -524,7 +610,8 @@ def _scan_rounds_overlap(gram_fn, corr_fn, update_fn, alpha, w, dw_prev,
         base = base0 + corr_fn(dw_prev, idx)
         alpha, w_upd = update_fn(alpha, w_next, idx, base, gram, ws, *extra)
         w, dw_prev, inflight = (w_next,
-                                _shard_sum(w_upd - _per_shard(w_next)),
+                                _shard_sum(w_upd - _per_shard(w_next), 1,
+                                           lay),
                                 inflight_next)
     return alpha, w, dw_prev, inflight
 
@@ -548,6 +635,15 @@ def _round_major(blocks_idx, p: int, device):
     return b.view(p, -1, b.shape[1]).transpose(0, 1).contiguous()
 
 
+def _own_blocks(blocks, lay):
+    """A round-major (n_blocks, p, B) schedule's columns of this rank's
+    ``data`` shards (all of them on one process)."""
+    if lay is None:
+        return blocks
+    d0, dn = lay.span("data", blocks.shape[1])
+    return blocks[:, d0:d0 + dn]
+
+
 def make_sharded_epoch(mesh, loss, *, delay_rounds: int = 0,
                        use_kernel="auto", interpret=None, ell: bool = False,
                        device=None):
@@ -561,23 +657,25 @@ def make_sharded_epoch(mesh, loss, *, delay_rounds: int = 0,
     (p·n_blocks, B) shard-local ids, ``carry_dw`` the Δw in flight
     (``delay_rounds``).  The engine follows the tensors' device (the
     kernels for CUDA tensors); ``device`` is where the epoch may run,
-    the card unless the caller asks for the CPU."""
+    the card unless the caller asks for the CPU.  On a mesh spread over
+    ranks X and α are this rank's shards', ``blocks_idx`` stays every
+    shard's schedule (each rank runs its own shards' ids) and the psum
+    gathers (``_shard_sum``)."""
     _check_interpret(interpret)
     dev = resolve_device(device)
     _check_use_kernel(use_kernel, dev)
     if tuple(mesh.axis_names) != ("data",):
         raise ValueError(f"make_sharded_epoch needs a ('data',) mesh, got "
                          f"{tuple(mesh.axis_names)}")
-    p, delay = dp_size(mesh), int(delay_rounds)
+    p, delay, lay = dp_size(mesh), int(delay_rounds), rank_layout(mesh)
 
     def epoch(X, sq_norms, alpha, w, blocks_idx, carry_dw):
-        n_loc = alpha.shape[-1] // p
+        blocks = _own_blocks(_round_major(blocks_idx, p, alpha.device), lay)
+        n_loc = alpha.shape[-1] // blocks.shape[1]
         engine = functools.partial(_block_update_1d(loss, ell, n_loc), X,
                                    sq_norms)
         a, w_new, dw = _scan_rounds(engine, alpha[None], w[None],
-                                    carry_dw[None],
-                                    _round_major(blocks_idx, p, alpha.device),
-                                    delay)
+                                    carry_dw[None], blocks, delay, lay=lay)
         return a[0], w_new[0], dw[0]
 
     return epoch
@@ -597,7 +695,9 @@ def make_sharded_epoch_2d(mesh, loss, *, delay_rounds: int = 0,
     against the entering w each dispatch, and the last round's peek
     wraps to that same first block (the pipelined solve instead carries
     the aggregate across epochs).  B4's workspaces are allocated at the
-    first call and kept while the shapes stay."""
+    first call and kept while the shapes stay.  On a mesh spread over
+    ranks the operands are this rank's shards', as for
+    ``make_sharded_epoch``, and the psums over ``model`` gather too."""
     _check_interpret(interpret)
     dev = resolve_device(device)
     _check_use_kernel(use_kernel, dev)
@@ -608,31 +708,34 @@ def make_sharded_epoch_2d(mesh, loss, *, delay_rounds: int = 0,
     delay = int(delay_rounds)
     overlap = pipeline_overlap(overlap, two_d=True, fused=fused,
                                delay_rounds=delay)
-    p = dp_size(mesh)
+    p, m, lay = dp_size(mesh), mesh.shape["model"], rank_layout(mesh)
+    gather = _model_gather(lay, m)
     kept = {}
 
     def epoch(X, sq_norms, alpha, w, blocks_idx, carry_dw):
         cols, vals = X
-        n_loc = alpha.shape[-1] // p
-        blocks = _round_major(blocks_idx, p, alpha.device)
+        blocks = _own_blocks(_round_major(blocks_idx, p, alpha.device), lay)
+        p_loc = blocks.shape[1]
+        n_loc = alpha.shape[-1] // p_loc
         shape = (tuple(cols.shape), blocks.shape[-1], w.shape[-1])
         if fused and kept.get("shape") != shape:
             kept.update(shape=shape, ws=_gram_workspaces(
-                cols, blocks.shape[-1], w.shape[-1], p, 1, overlap))
+                cols, blocks.shape[-1], w.shape[-1], p_loc, 1, overlap, m))
         ws = kept["ws"] if fused else (None, None)
         a, w_new, dw = alpha[None], w[None], carry_dw[None]
         if overlap:
             gram_fn, corr_fn, update_fn = _overlap_round_fns(
-                cols, vals, sq_norms, loss, n_loc)
+                cols, vals, sq_norms, loss, n_loc, gather=gather)
             inflight = (*gram_fn(w_new, blocks[0], ws[0]), ws[0])
             a, w_new, dw, _ = _scan_rounds_overlap(
                 gram_fn, corr_fn, update_fn, a, w_new, dw, blocks, inflight,
-                blocks[0], ws)
+                blocks[0], ws, lay=lay)
         else:
             engine = functools.partial(
-                _block_update_2d(loss, fused, ws[0], n_loc), cols, vals,
-                sq_norms)
-            a, w_new, dw = _scan_rounds(engine, a, w_new, dw, blocks, delay)
+                _block_update_2d(loss, fused, ws[0], n_loc, gather=gather),
+                cols, vals, sq_norms)
+            a, w_new, dw = _scan_rounds(engine, a, w_new, dw, blocks, delay,
+                                        lay=lay)
         return a[0], w_new[0], dw[0]
 
     return epoch
@@ -712,149 +815,160 @@ def _from_fixed(acc, scale, bound):
     return torch.where(torch.isfinite(bound), out, float("nan"))
 
 
-def _make_gap_1d(loss, X_loc, ell: bool, d_run: int, segments=None):
-    """The duality gap and the backward-error metric over the rows of
-    ``X_loc`` (the real rows: where the padding is the layout's tail the
-    caller hands the first n rows and α[:n]; a pod layout's real rows
-    are the runs ``segments``, (start, _, count) each, of the padded
-    ``X_loc``, and α the runs concatenated): gap(α) = ‖w(α)‖² + Σ_i
-    [ℓ(w(α)ᵀx_i) + ℓ*(−α_i)] and ‖w(α) − ŵ‖ against the maintained
-    primal view ``w_view`` (ε = w̄ − ŵ of ``core/backward_error.py``).
-    ``y`` folds one task's labels on read: w(α) = Σ α_i·y_i·x_i and the
-    margin y_i·w(α)ᵀx_i, while ℓ*(−α) reads α.  Returns device scalars:
-    no host sync.  On the card the ELL w(α) is summed in fixed point
+def _cat_rows(parts, like):
+    """The parts concatenated on their first dimension (the one part
+    itself; an empty tensor like ``like`` for none)."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat(parts) if parts else like[:0]
+
+
+def _row_dots(cols, vals, w_view, rows: int, psum=None):
+    """wᵀx_i of every row of the feature shards, each the sum of the
+    shards' partial dots, in row chunks of ``rows`` rows (no (n, m,
+    k_loc) temporary at webspam's size).  Where ``cols``/``vals``/
+    ``w_view`` hold a rank's feature shards, ``psum``
+    (``_ModelPsum.dots``) gathers the m partial dots before their sum."""
+    d1, flat = w_view.shape[1], w_view.reshape(-1)
+    return torch.cat([
+        torch.sum(torch.sum(prod, dim=2) if psum is None else psum.dots(prod),
+                  dim=1)
+        for prod in (flat[flat_shard_ids(c, d1)] * v
+                     for c, v in zip(cols.split(rows), vals.split(rows)))])
+
+
+def _gap_closure(loss, X, *, ell: bool, two_d: bool = False, runs=None,
+                 lay=None, spread=None, chunk_elems: int = 1 << 26):
+    """The duality gap and the backward-error metric: gap(α) = ‖w(α)‖²
+    + Σ_i [ℓ(w(α)ᵀx_i) + ℓ*(−α_i)] over the real rows, and ‖w(α) − ŵ‖
+    against the maintained primal view ``w_view`` (ε = w̄ − ŵ of
+    ``core/backward_error.py``).  ``X`` is an ELL (cols, vals) pair of
+    (rows, k) (``ell``), a dense (rows, d) matrix, or with ``two_d`` the (cols,
+    vals) of (rows, m, k_loc) feature slices; its real rows are the runs
+    ``runs`` ((start, _, count) each; all of them for None).
+    ``gap(α, w_view, y)`` takes α (and ``y``, one task's labels folded
+    on read: w(α) = Σ α_i·y_i·x_i, the margin y_i·w(α)ᵀx_i, ℓ*(−α) of
+    α) over X's rows and returns device scalars, no host sync.  The 2-D
+    w(α) stays one slice per shard, each row's dot and ‖w(α)‖² are sums
+    of the shards' partials (the reference's psums over ``model``), in
+    row chunks of about ``chunk_elems`` entries, scattering only real
+    entries.  On the card an ELL w(α) is summed in fixed point
     (``_scatter_fixed``), so a record is the same bits run to run; on
-    the CPU the float scatter is already in a fixed order."""
-    rows = X_loc[0] if ell else X_loc
-    runs = segments or ((0, 0, rows.shape[0]),)
-    lens = [c for _, _, c in runs]
+    the CPU the float scatter is already in a fixed order.
+
+    Across ranks (``lay``) X holds this rank's rows and feature shards,
+    and each psum gathers into the one-process layout and reduces as
+    there (every collective is the identity on one process): the real
+    rows' terms are taken by ``spread`` to the whole solve's real rows
+    in the user's order and summed there; ‖w(α)‖² and ε over the m
+    gathered slices; each row's dot over the m gathered partial dots
+    (``_ModelPsum``).  An ELL w(α) on the card is summed at the scale of
+    the whole solve's bound (Σ|α_i| over all real rows times the MAX of
+    the ranks' largest |value|), the ranks' int64 words added exactly,
+    so the records are the one-process solve's bits; a dense w(α), and
+    any w(α) on the CPU, adds the ranks' float partials in rank order:
+    within float rounding of the one-process records, not their bits."""
+    ell = ell or two_d
+    rows_all = X[0] if ell else X
+    runs = ((0, 0, rows_all.shape[0]),) if runs is None else runs
+    spread = spread or (lambda t: t)
+    dp = ("pod", "data")
+
+    def cut(t):
+        return _cat_rows([t[a:a + c] for a, _, c in runs], t)
+
     if ell:
-        parts = [(X_loc[0][a:a + c], X_loc[1][a:a + c]) for a, _, c in runs]
-        vmax = (torch.stack([_abs_max(v) for _, v in parts]).amax()
-                if rows.is_cuda and X_loc[1].numel() else None)
-
-        def rmv(a):
-            if vmax is not None:
-                bound = a.abs().sum() * vmax
-                scale = _fixed_point_scale(bound)
-                acc = torch.zeros((d_run,), dtype=torch.int64,
-                                  device=a.device)
-                for (cols_loc, vals_loc), ap in zip(parts, a.split(lens)):
-                    _scatter_fixed(acc, cols_loc.reshape(-1).long(),
-                                   (ap[:, None] * vals_loc).reshape(-1),
-                                   scale)
-                return _from_fixed(acc, scale, bound)
-            wa = torch.zeros((d_run,), dtype=torch.float32,
-                             device=a.device)
-            for (cols_loc, vals_loc), ap in zip(parts, a.split(lens)):
-                wa.index_add_(0, cols_loc.reshape(-1).long(),
-                              (ap[:, None] * vals_loc).reshape(-1))
-            return wa
-
-        def mv(wa):
-            z = [torch.sum(wa[c.long()] * v, dim=1) for c, v in parts]
-            return z[0] if len(z) == 1 else torch.cat(z)
+        cols, vals = X
+        parts = [(cols[a:a + c], vals[a:a + c]) for a, _, c in runs]
     else:
-        parts = [X_loc[a:a + c] for a, _, c in runs]
+        parts = [X[a:a + c] for a, _, c in runs]
+    fixed = ell and vals.is_cuda and vals.numel() > 0
+    if fixed:
+        vmax = max_all(torch.stack([_abs_max(v) for _, v in parts]
+                                   or [vals.new_zeros(())]).amax(), lay)
+    psum, rows = None, 0
+    if two_d:
+        m_all = cols.shape[1] * (lay.count("model") if lay else 1)
+        psum = _model_gather(lay, m_all)
+        rows = max(1, chunk_elems // (m_all * cols.shape[2]))
 
-        def rmv(a):
-            wa = None
-            for X_p, ap in zip(parts, a.split(lens)):
-                wa = X_p.T @ ap if wa is None else wa + X_p.T @ ap
-            return wa
+    def entries(ay, d1):
+        """w(α)'s (ids, terms) part by part: the 2-D slices' real
+        entries a row chunk at a time, or the ELL rows'."""
+        for (cp, vp), ap in zip(parts, (ay[a:a + c] for a, _, c in runs)):
+            if not two_d:
+                yield cp.reshape(-1).long(), (ap[:, None] * vp).reshape(-1)
+                continue
+            for c, v, a in zip(cp.split(rows), vp.split(rows),
+                               ap.split(rows)):
+                real = c < d1 - 1  # padding lanes would add 0 at dummies
+                yield flat_shard_ids(c, d1)[real], (a[:, None, None]
+                                                    * v)[real]
 
-        def mv(wa):
+    def rmv(ay, w_view):
+        if not ell:
+            wa = torch.zeros_like(w_view) if not parts else None
+            for X_p, (a, _, c) in zip(parts, runs):
+                t = X_p.T @ ay[a:a + c]
+                wa = t if wa is None else wa + t
+            return _gather_shard_sum(wa, lay)
+        acc = torch.zeros((w_view.numel(),),
+                          dtype=torch.int64 if fixed else torch.float32,
+                          device=ay.device)
+        if fixed:
+            bound = spread(cut(ay)).abs().sum() * vmax
+            scale = _fixed_point_scale(bound)
+        for ids, terms in entries(ay, w_view.shape[-1]):
+            if fixed:
+                _scatter_fixed(acc, ids, terms, scale)
+            else:
+                acc.index_add_(0, ids, terms)
+        if fixed:
+            return _from_fixed(sum_int(acc, lay, dp), scale, bound)
+        return _gather_shard_sum(acc, lay)
+
+    def mv(wa):
+        if two_d:
+            z = [_row_dots(cp, vp, wa, rows, psum) for cp, vp in parts]
+        elif ell:
+            z = [torch.sum(wa[c.long()] * v, dim=1) for c, v in parts]
+        else:
             z = [X_p @ wa for X_p in parts]
-            return z[0] if len(z) == 1 else torch.cat(z)
+        return _cat_rows(z, wa.reshape(-1))
 
-    def gap(alpha_loc, w_view, y=None):
-        wa = rmv(alpha_loc if y is None else alpha_loc * y)
+    def gap(alpha, w_view, y=None):
+        ay = alpha if y is None else alpha * y
+        wa = rmv(ay, w_view).view(w_view.shape)
         z = mv(wa)
         if y is not None:
-            z = y * z
-        s = torch.sum(loss.primal_loss(z) + loss.conj(alpha_loc))
+            z = cut(y) * z
+        s = torch.sum(spread(loss.primal_loss(z) + loss.conj(cut(alpha))))
+        if two_d:
+            e = gather_axis(wa - w_view, lay, "model", 0)
+            wa = gather_axis(wa, lay, "model", 0)
+            return (torch.sum(torch.sum(wa * wa, dim=1)) + s,
+                    torch.sqrt(torch.sum(torch.sum(e * e, dim=1))))
         e = wa - w_view  # the dummy slot is 0 in both
         return torch.dot(wa, wa) + s, torch.sqrt(torch.dot(e, e))
 
     return gap
 
 
-def _row_dots_2d(cols, vals, w_view, rows: int):
-    """wᵀx_i of every row of the feature shards, each the sum of the
-    shards' partial dots, in row chunks of ``rows`` rows (no (n, m,
-    k_loc) temporary at webspam's size)."""
-    d1 = w_view.shape[1]
-    flat = w_view.reshape(-1)
-    return torch.cat([
-        torch.sum(torch.sum(flat[flat_shard_ids(c, d1)] * v, dim=2), dim=1)
-        for c, v in zip(cols.split(rows), vals.split(rows))])
+def _gather_shard_sum(t, lay):
+    """The ranks' float partials of one sum over ``data`` and ``pod``,
+    added in rank order (the same order on every rank); ``t`` itself on
+    one process."""
+    if lay is None:
+        return t
+    for axis in ("data", "pod"):
+        t = gather_axis(t[None], lay, axis, 0).sum(0)
+    return t
 
 
-def _chunk_rows(cols, chunk_elems: int) -> int:
-    n, m, k = cols.shape
-    return max(1, chunk_elems // (m * k))
-
-
-def _make_gap_2d(loss, cols, vals, chunk_elems: int = 1 << 26,
-                 segments=None):
-    """``_make_gap_1d`` for the feature shards: w(α) stays one slice per
-    shard, each row's dot and ‖w(α)‖² are sums of the shards' partials
-    (the reference's psums over ``model``).  Works in row chunks of about
-    ``chunk_elems`` entries, so no (n, m, k_loc) temporary is formed,
-    and scatters only real entries (padding lanes would all add 0 into
-    the m dummy slots).  ``y`` folds one task's labels on read.
-    ``segments`` are a pod layout's runs of real rows, as for
-    ``_make_gap_1d``; on the card w(α) is summed in fixed point, as
-    there."""
-    m = cols.shape[1]
-    rows = _chunk_rows(cols, chunk_elems)
-    runs = segments or ((0, 0, cols.shape[0]),)
-    parts = [(cols[a:a + c], vals[a:a + c]) for a, _, c in runs]
-    fixed = vals.is_cuda and vals.numel() > 0
-    vmax = _abs_max(vals) if fixed else None
-
-    def gap(alpha, w_view, y=None):
-        d1 = w_view.shape[1]
-        ay = alpha if y is None else alpha * y
-        if fixed:
-            bound = ay.abs().sum() * vmax
-            scale = _fixed_point_scale(bound)
-            wa = torch.zeros((m * d1,), dtype=torch.int64,
-                             device=alpha.device)
-        else:
-            wa = torch.zeros((m * d1,), dtype=torch.float32,
-                             device=alpha.device)
-        for (cp, vp), ap in zip(parts, ay.split([c for _, _, c in runs])):
-            for c, v, a in zip(cp.split(rows), vp.split(rows),
-                               ap.split(rows)):
-                real = c < d1 - 1
-                if fixed:
-                    _scatter_fixed(wa, flat_shard_ids(c, d1)[real],
-                                   (a[:, None, None] * v)[real], scale)
-                else:
-                    wa.index_add_(0, flat_shard_ids(c, d1)[real],
-                                  (a[:, None, None] * v)[real])
-        if fixed:
-            wa = _from_fixed(wa, scale, bound)
-        wa = wa.view(m, d1)
-        z = [_row_dots_2d(cp, vp, wa, rows) for cp, vp in parts]
-        z = z[0] if len(z) == 1 else torch.cat(z)
-        if y is not None:
-            z = y * z
-        s = torch.sum(loss.primal_loss(z) + loss.conj(alpha))
-        e = wa - w_view  # the dummy slots are 0 in both
-        return (torch.sum(torch.sum(wa * wa, dim=1)) + s,
-                torch.sqrt(torch.sum(torch.sum(e * e, dim=1))))
-
-    return gap
-
-
-def _task_gaps(gap, alpha, w_view, Y, segs):
-    """Each task's (gap, ‖w(α) − ŵ‖) over the real rows (the layout's
-    runs ``segs``), task by task with its labels folded on read: two
-    (K,) device tensors."""
-    out = [gap(_real_rows(alpha[k], segs), w_view[k],
-               None if Y is None else _real_rows(Y[k], segs))
+def _task_gaps(gap, alpha, w_view, Y):
+    """Each task's (gap, ‖w(α) − ŵ‖), task by task with its labels
+    folded on read: two (K,) device tensors."""
+    out = [gap(alpha[k], w_view[k], None if Y is None else Y[k])
            for k in range(alpha.shape[0])]
     return (torch.stack([o[0] for o in out]),
             torch.stack([o[1] for o in out]))
@@ -868,15 +982,18 @@ def _make_shrink(setup, X=None, chunk_elems: int = 1 << 26):
     labels — through ``active_mask_from_w``, ANDed with row validity so
     padding rows never count as active.  Returns a (K, n_pad) bool
     mask, a row a task, and the (n_pad,) validity.  ``X`` is the dataset
-    the segment runs on (``setup.X`` by default)."""
+    the segment runs on (``setup.X`` by default).  Across ranks the rows
+    are this rank's, each 2-D dot the sum of the m gathered partial
+    dots."""
     X = setup.X if X is None else X
-    valid = torch.arange(setup.n_pad, device=setup.device) < setup.n
+    valid = _local_valid(setup)
     if setup.two_d:
         cols, vals = X
-        rows = _chunk_rows(cols, chunk_elems)
+        psum = _model_gather(setup.lay, setup.m)
+        rows = max(1, chunk_elems // (setup.m * cols.shape[2]))
 
         def mv(wv):
-            return _row_dots_2d(cols, vals, wv, rows)
+            return _row_dots(cols, vals, wv, rows, psum)
     elif setup.ell:
         cols, vals = X
 
@@ -938,10 +1055,41 @@ class SolverSetup(NamedTuple):
     pods: int = 1  # P: p is P pods of p / P data shards
     pod_delay_rounds: int = 0
     segs: tuple = ()  # the real rows' runs (start, user row, count)
+    # across ranks (``repro_torch.dist.mesh.rank_layout``): the layout,
+    # the global ids of the data shards held here and their real rows'
+    # runs in this rank's layout, and the feature shards held here
+    # (p, m, n_pad and segs stay the whole mesh's; X, sq_norms, Y and
+    # w_shape are this rank's)
+    lay: object = None
+    local: tuple = ()
+    segs_loc: tuple = ()
+    m_here: int = 0
 
     @property
     def n_pad(self) -> int:
         return self.p * self.n_loc
+
+    @property
+    def p_loc(self) -> int:
+        """The data shards held here (all p on one process)."""
+        return len(self.local) if self.local else self.p
+
+    @property
+    def n_pad_loc(self) -> int:
+        return self.p_loc * self.n_loc
+
+    @property
+    def pods_loc(self) -> int:
+        return self.pods // (self.lay.count("pod") if self.lay else 1)
+
+    @property
+    def m_loc(self) -> int:
+        return self.m_here or self.m
+
+    @property
+    def m0(self) -> int:
+        """The first feature shard held here."""
+        return self.lay.span("model", self.m)[0] if self.lay else 0
 
     @property
     def K(self) -> int:
@@ -958,7 +1106,8 @@ def _resolve_mesh(mesh, mesh_axes) -> SolverMesh:
         mesh = SolverMesh(axes, (1,) * len(axes))
     names = tuple(mesh.axis_names)
     if "model" in names and "data" not in names:
-        mesh = solver_mesh_2d(data=1, model=mesh.shape["model"])
+        mesh = solver_mesh_2d(data=1, model=mesh.shape["model"])._replace(
+            device_mesh=getattr(mesh, "device_mesh", None))
     return mesh
 
 
@@ -1005,27 +1154,154 @@ def _place_rows(t, n_pad: int, segs, fill):
     return out
 
 
+def _local_shards(lay, p: int, pods: int) -> tuple:
+    """The global ids of a rank's data shards, in its layout's order:
+    its pods' (``pod`` span) shards of its ``data`` span each, shard
+    k·p_pod + my of pod k."""
+    p_pod = p // pods
+    k0, kn = lay.span("pod", pods)
+    d0, dn = lay.span("data", p_pod)
+    return tuple(k * p_pod + my for k in range(k0, k0 + kn)
+                 for my in range(d0, d0 + dn))
+
+
+def _local_runs(segs, local, n_loc: int) -> tuple:
+    """The runs (start, user row, count) of the real rows in a rank's
+    layout: its j-th shard s holds the global slots [s·n_loc,
+    (s+1)·n_loc) of the layout whose real rows are ``segs``, at
+    [j·n_loc, (j+1)·n_loc).  Adjacent runs merge."""
+    runs = []
+    for j, s in enumerate(local):
+        g0, g1 = s * n_loc, (s + 1) * n_loc
+        for start, src, c in segs:
+            a, b = max(start, g0), min(start + c, g1)
+            if a >= b:
+                continue
+            run = (j * n_loc + a - g0, src + a - start, b - a)
+            if runs and (runs[-1][0] + runs[-1][2], runs[-1][1]
+                         + runs[-1][2]) == run[:2]:
+                runs[-1] = (*runs[-1][:2], runs[-1][2] + run[2])
+            else:
+                runs.append(run)
+    return tuple(runs)
+
+
+def _place_local(t, rows: int, runs, fill, device, dtype=None):
+    """A rank's ``rows`` slots, a new tensor on ``device``: its real rows
+    the runs ``runs`` (``_local_runs``) of ``t``'s rows, copied from
+    wherever ``t`` lies, every other slot ``fill`` — only this rank's
+    rows reach ``device``, and nothing keeps ``t`` alive."""
+    out = torch.full((rows, *t.shape[1:]), fill, dtype=dtype or t.dtype,
+                     device=device)
+    for start, src, c in runs:
+        out[start:start + c].copy_(t[src:src + c])
+    return out
+
+
+def _split_local(mat: EllMatrix, m: int, span: tuple, runs, rows: int,
+                 dev, chunk_elems: int = 1 << 26):
+    """A rank's feature shards ``span`` (first, count) of its rows (the
+    runs ``runs`` of its ``rows`` slots) on ``dev``, split from ``mat``
+    (on the host or the card) a row chunk at a time on ``dev`` — never
+    the whole split, nor the whole of ``mat`` on ``dev``: the (rows,
+    m_loc, k_loc) slices at the whole split's k_loc (the widest chunk's
+    ``ell_split_width``) and every row's ‖x_i‖² over all m shards,
+    summed over the same chunks of the whole split as
+    ``FeatureShardedEll.row_sq_norms`` sums them, so the bits are the
+    one-process layout's.  Returns ((cols, vals), sq_norms, d_loc)."""
+    j0, mj = span
+    d, n = mat.n_features, mat.n_rows
+    step = max(1, chunk_elems // mat.indices.shape[1])
+
+    def chunk(r0, r1):
+        return EllMatrix(mat.indices[r0:r1].to(dev),
+                         mat.values[r0:r1].to(dev), d)
+
+    k_loc = max(ell_split_width(chunk(r0, r0 + step), m,
+                                chunk_elems=chunk_elems)
+                for r0 in range(0, n, step))
+    d_loc = -(-d // m)
+    cols = torch.full((rows, mj, k_loc), d_loc, dtype=torch.int32,
+                      device=dev)
+    vals = torch.zeros((rows, mj, k_loc), dtype=torch.float32, device=dev)
+    sq = torch.ones((rows,), dtype=torch.float32, device=dev)
+    step = max(1, chunk_elems // (m * k_loc))  # row_sq_norms' row chunks
+    for r0 in range(0, n, step):
+        r1 = min(r0 + step, n)
+        hits = [run for run in runs if run[1] < r1 and run[1] + run[2] > r0]
+        if not hits:
+            continue
+        ch = ell_column_split(chunk(r0, r1), m, k_loc,
+                              chunk_elems=chunk_elems)
+        q = torch.sum(ch.values * ch.values, dim=(1, 2))
+        for start, src, c in hits:
+            lo, hi = max(src, r0), min(src + c, r1)
+            dst = slice(start + lo - src, start + hi - src)
+            cols[dst] = ch.indices[lo - r0:hi - r0, j0:j0 + mj]
+            vals[dst] = ch.values[lo - r0:hi - r0, j0:j0 + mj]
+            sq[dst] = q[lo - r0:hi - r0]
+    return (cols, vals), sq, d_loc
+
+
+def _gather_shards(setup: SolverSetup, t, dim: int):
+    """A tensor whose dimension ``dim`` holds this rank's data shards
+    (P_loc·p_loc of them, its pods' in order) gathered over ``data`` and
+    ``pod`` into all P·p in the one-process order; the identity on one
+    process."""
+    if setup.lay is None:
+        return t
+    v = t.unflatten(dim, (setup.pods_loc, -1))
+    v = gather_axis(v, setup.lay, "data", dim + 1)
+    return gather_axis(v, setup.lay, "pod", dim).flatten(dim, dim + 1)
+
+
+def _gather_rows(setup: SolverSetup, t):
+    """A per-row (…, n_pad_loc) tensor of this rank's shards gathered
+    over ``data`` and ``pod`` into the whole layout's (…, n_pad); the
+    identity on one process."""
+    if setup.lay is None:
+        return t
+    v = t.unflatten(-1, (-1, setup.n_loc))
+    return _gather_shards(setup, v, v.dim() - 2).flatten(-2)
+
+
+def _local_valid(setup: SolverSetup):
+    """Which of this rank's slots hold a row index below n, (n_pad_loc,)
+    bool — the validity the shrink mask and the active count AND in."""
+    if setup.lay is None:
+        return torch.arange(setup.n_pad, device=setup.device) < setup.n
+    return torch.cat([
+        torch.arange(s * setup.n_loc, (s + 1) * setup.n_loc,
+                     device=setup.device) for s in setup.local]) < setup.n
+
+
 def _real_rows(t, segs):
     """The real rows of a padded (…, n_pad) tensor in the user's order:
-    its last dimension's runs ``segs`` (a view where there is one run)."""
+    its last dimension's runs ``segs`` (a view where there is one run;
+    ``t`` itself for None)."""
+    if segs is None:
+        return t
     if len(segs) == 1:
         start, _, c = segs[0]
         return t[..., start:start + c]
     return torch.cat([t[..., a:a + c] for a, _, c in segs], dim=-1)
 
 
-def _place_labels(y, *, n: int, n_pad: int, device, segs):
+def _place_labels(y, *, n: int, n_pad: int, device, segs, place=None):
     """The (K, n) ±1 label matrix placed into the solve's row layout, the
     padding rows +1 (inert: their rows are zero and outside every sum;
     the fold only has to stay finite).  Returns (K, the (K, n_pad)
-    float32 labels on ``device``)."""
+    float32 labels on ``device``); ``place(t, fill)`` places the rows
+    instead where the layout is a rank's."""
     Y = (y.to(device, torch.float32) if torch.is_tensor(y)
          else torch.tensor(np.asarray(y, np.float32), device=device))
     if Y.dim() != 2 or Y.shape[1] != n:
         raise ValueError(f"label matrix has shape {tuple(Y.shape)} for "
                          f"{n} rows")
     K = int(Y.shape[0])
-    return K, _place_rows(Y.T, n_pad, segs, 1.0).T.contiguous()
+    rows = (_place_rows(Y.T, n_pad, segs, 1.0) if place is None
+            else place(Y.T, 1.0))
+    return K, rows.T.contiguous()
 
 
 def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
@@ -1051,7 +1327,12 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
     ``_pod_segments``; ``overlap="auto"`` resolves off);
     ``pipeline=False`` keeps the reference's own ``ValueError``s (a
     multi-task ``y``, a pod axis, shrinking or the adaptive delay), and
-    the self-tuning knobs are validated by ``resolve_self_tuning``."""
+    the self-tuning knobs are validated by ``resolve_self_tuning``.
+
+    On a mesh spread over ranks (``rank_layout``) only this rank's part
+    is placed: the rows (labels, norms) of its data shards and, on the
+    2-D mesh, its feature shards of them, split a row chunk at a time
+    (``_split_local``), never the whole split."""
     mesh = _resolve_mesh(mesh, mesh_axes)
     pod_on = "pod" in mesh.axis_names
     if pod_on:
@@ -1091,8 +1372,13 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
     tuning = resolve_self_tuning(shrink_every, repack, adaptive,
                                  overlap_knob=overlap, overlap_on=overlap_on,
                                  pipeline=pipeline, record=record)
+    lay = rank_layout(mesh)
     if two_d:
-        ell_m = X_host.to(dev) if ell else dense_to_ell(X_host, device=dev)
+        # across ranks a dense X converts on the host and stays there
+        ell_m = (X_host if ell else dense_to_ell(
+            X_host, device=dev if lay is None else "cpu"))
+        if lay is None:
+            ell_m = ell_m.to(dev)
         n = ell_m.n_rows
     else:
         n = X_host.n_rows if ell else len(X_host)
@@ -1103,32 +1389,70 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
     n_loc = -(-max(-(-n // pods), 1) // (p // pods))
     segs = _pod_segments(n, pods, p // pods, n_loc)
     n_pad = p * n_loc
+    if lay is None:
+        def place(t, fill):
+            return _place_rows(t, n_pad, segs, fill)
+        ranks = {}
+    else:
+        local = _local_shards(lay, p, pods)
+        runs = _local_runs(segs, local, n_loc)
+
+        def place(t, fill, dtype=None):
+            return _place_local(t, len(local) * n_loc, runs, fill, dev,
+                                dtype)
+
+        def row_norms(v):
+            """‖x_i‖² of the placed rows, the padding slots 1."""
+            q = torch.sum(v * v, dim=tuple(range(1, v.dim())))
+            return _place_local(q, q.shape[0], [(a, a, c)
+                                                for a, _, c in runs], 1.0,
+                                dev)
+        ranks = dict(lay=lay, local=local, segs_loc=runs)
     if two_d:
         d = ell_m.n_features
         m = mesh.shape["model"]
-        fse = ell_column_split(
-            EllMatrix(ell_m.indices.to(torch.int32),
-                      ell_m.values.to(torch.float32), d), m)
-        del ell_m
-        X = (_place_rows(fse.indices, n_pad, segs, fse.d_loc),
-             _place_rows(fse.values, n_pad, segs, 0.0))
-        sq_norms = _place_rows(fse.row_sq_norms(), n_pad, segs, 1.0)
-        w_shape, extra = (m, fse.d_loc + 1), dict(m=m, d_loc=fse.d_loc)
+        if lay is None:
+            fse = ell_column_split(
+                EllMatrix(ell_m.indices.to(torch.int32),
+                          ell_m.values.to(torch.float32), d), m)
+            del ell_m
+            X = (place(fse.indices, fse.d_loc), place(fse.values, 0.0))
+            sq_norms = place(fse.row_sq_norms(), 1.0)
+            d_loc = fse.d_loc
+        else:
+            span = lay.span("model", m)
+            X, sq_norms, d_loc = _split_local(
+                EllMatrix(ell_m.indices.to(torch.int32),
+                          ell_m.values.to(torch.float32), d), m, span, runs,
+                len(local) * n_loc, dev)
+            del ell_m
+            ranks["m_here"] = span[1]
+        w_shape = (ranks.get("m_here", m), d_loc + 1)
+        extra = dict(m=m, d_loc=d_loc)
+    elif ell and lay is not None:
+        d = X_host.n_features
+        X = (place(X_host.indices, d, torch.int32),
+             place(X_host.values, 0.0, torch.float32))
+        sq_norms = row_norms(X[1])
+        w_shape, extra = (d + 1,), {}
     elif ell:
         d = X_host.n_features
         cols = X_host.indices.to(dev, torch.int32).contiguous()
         vals = X_host.values.to(dev, torch.float32).contiguous()
-        sq_norms = _place_rows(torch.sum(vals * vals, dim=1), n_pad, segs,
-                               1.0)
-        X = (_place_rows(cols, n_pad, segs, d),
-             _place_rows(vals, n_pad, segs, 0.0))
+        sq_norms = place(torch.sum(vals * vals, dim=1), 1.0)
+        X = (place(cols, d), place(vals, 0.0))
         w_shape, extra = (d + 1,), {}
+    elif lay is not None:
+        X = place(torch.as_tensor(X_host), 0.0, torch.float32)
+        d = X.shape[1]
+        sq_norms = row_norms(X)
+        w_shape, extra = (d,), {}
     else:
         X = torch.as_tensor(X_host, dtype=torch.float32,
                             device=dev).contiguous()
         d = X.shape[1]
-        sq_norms = _place_rows(torch.sum(X * X, dim=1), n_pad, segs, 1.0)
-        X = _place_rows(X, n_pad, segs, 0.0)
+        sq_norms = place(torch.sum(X * X, dim=1), 1.0)
+        X = place(X, 0.0)
         w_shape, extra = (d,), {}
     if ell or two_d:
         cols = X[0]
@@ -1136,8 +1460,9 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
         if not (0 <= int(cols.min()) and int(cols.max()) <= lim):
             raise ValueError(f"ELL column ids must lie in [0, {lim}]")
     if y is not None:
-        extra["n_tasks"], extra["Y"] = _place_labels(y, n=n, n_pad=n_pad,
-                                                     device=dev, segs=segs)
+        extra["n_tasks"], extra["Y"] = _place_labels(
+            y, n=n, n_pad=n_pad, device=dev, segs=segs,
+            place=None if lay is None else place)
     return SolverSetup(
         loss=loss, n=n, d=d, n_loc=n_loc,
         n_blocks=_n_blocks(n_loc, block_size),
@@ -1148,7 +1473,8 @@ def prepare_solver(X_host, loss, *, mesh=None, mesh_axes: tuple = ("data",),
         tuning=tuning, shrink_tol=float(shrink_tol),
         repack_threshold=float(repack_threshold),
         adaptive_ratio=float(adaptive_ratio), pod_on=pod_on, pods=pods,
-        pod_delay_rounds=int(pod_delay_rounds), segs=segs, **extra)
+        pod_delay_rounds=int(pod_delay_rounds), segs=segs, **extra,
+        **ranks)
 
 
 def _init_alpha_w(setup: SolverSetup, alpha0=None, w0=None):
@@ -1159,13 +1485,15 @@ def _init_alpha_w(setup: SolverSetup, alpha0=None, w0=None):
     coordinates keep their values, new ones start at 0.  On a pod mesh
     α0 lands in each pod's rows, whatever pod count it was carried
     from; on a 2-D mesh each task's w0 is re-blocked onto the shards'
-    slices."""
+    slices.  Across ranks α holds this rank's rows and w its feature
+    shards' slices."""
     dev, K = setup.device, setup.K
-    alpha = torch.zeros((K, setup.n_pad), dtype=torch.float32, device=dev)
+    alpha = torch.zeros((K, setup.n_pad_loc), dtype=torch.float32,
+                        device=dev)
     if alpha0 is not None:
         a0 = torch.as_tensor(alpha0, dtype=torch.float32,
                              device=dev).reshape(K, -1)[:, :setup.n]
-        for start, src, c in setup.segs:
+        for start, src, c in (setup.segs_loc if setup.lay else setup.segs):
             c = min(c, max(a0.shape[1] - src, 0))
             alpha[:, start:start + c] = a0[:, src:src + c]
     w = torch.zeros((K, *setup.w_shape), dtype=torch.float32, device=dev)
@@ -1176,7 +1504,8 @@ def _init_alpha_w(setup: SolverSetup, alpha0=None, w0=None):
             flat = torch.zeros((K, setup.m * setup.d_loc),
                                dtype=torch.float32, device=dev)
             flat[:, :v0.shape[1]] = v0
-            w[:, :, :setup.d_loc] = flat.view(K, setup.m, setup.d_loc)
+            w[:, :, :setup.d_loc] = flat.view(K, setup.m, setup.d_loc)[
+                :, setup.m0:setup.m0 + setup.m_loc]
         else:
             w[:, :v0.shape[1]] = v0
     return alpha, w
@@ -1187,9 +1516,13 @@ def _finalize(setup: SolverSetup, alpha, w, gaps, epochs, eps=None,
     """Back to user coordinates: drop the padding rows (a pod layout's
     real rows are its runs ``segs``) and the dummy slot, on a 2-D mesh
     stitch ŵ out of the shards' slices, task by task; a binary solve
-    drops the task dimension."""
+    drops the task dimension.  Across ranks α is gathered over ``data``
+    and ``pod`` and the slices over ``model`` first, so every rank
+    returns the whole result (the records are every rank's already)."""
     K = setup.K
+    alpha = _gather_rows(setup, alpha)
     if setup.two_d:
+        w = gather_axis(w, setup.lay, "model", 1)
         w = w[:, :, :setup.d_loc].reshape(K, -1)
     out = (_real_rows(alpha, setup.segs), w[:, :setup.d], gaps, eps, active,
            delay)
@@ -1314,11 +1647,17 @@ def _block_draw(setup: SolverSetup, blocks, total: int):
     (K, n_pad) and repack flags ``rp`` (K,) the draw is the masked one
     (``_device_block_perm_masked``), each task's own: (n_blocks, K, p,
     B).  On a pod mesh shard s is the fleet index k·p_pod + my of P·p_pod
-    split keys, with its pod's own valid count (``_shard_valid``)."""
+    split keys, with its pod's own valid count (``_shard_valid``).
+    Across ranks each rank draws its own shards' blocks from the same
+    key chain (the p of the ids' shape is then this rank's); nothing is
+    communicated."""
     p, n_loc, nb, B = (setup.p, setup.n_loc, setup.n_blocks,
                        setup.block_size)
+    shards = list(setup.local or range(p))  # a rank draws its own shards'
     if blocks is not None:
         blocks = _as_blocks(blocks, setup, total)
+        if setup.local:
+            blocks = blocks[:, shards]
         return lambda e, sub, act=None, rp=None: (
             blocks[min(e, total - 1)].transpose(0, 1).contiguous())
     valid = _shard_valid(setup)
@@ -1326,27 +1665,28 @@ def _block_draw(setup: SolverSetup, blocks, total: int):
     def draw(e, sub, act=None, rp=None):
         if act is None:
             per = [_device_block_perm_v(sub, my, p, n_loc, valid[my], nb, B)
-                   for my in range(p)]
+                   for my in shards]
             return torch.stack(per, dim=1)  # (n_blocks, p, B)
-        acts = act.reshape(act.shape[0], p, n_loc)
+        acts = act.reshape(act.shape[0], len(shards), n_loc)
         per = [_device_block_perm_masked(sub, my, p, n_loc, nb, B,
-                                         acts[:, my], rp)
-               for my in range(p)]  # each (K, n_blocks, B)
+                                         acts[:, j], rp)
+               for j, my in enumerate(shards)]  # each (K, n_blocks, B)
         return torch.stack(per, dim=2).transpose(0, 1).contiguous()
 
     return draw
 
 
 def _gram_workspaces(cols, block_size: int, d1: int, p: int, K: int,
-                     overlap: bool):
+                     overlap: bool, m_all: int = 0):
     """B4's workspaces on the card for blocks of ``block_size`` ids over
     the (n, m, k) slices ``cols``: one for the eager round, two that
     alternate for the overlapped one (B4 of block t + 1 runs before B5
-    of block t, which reads block t's buckets); None on the CPU."""
+    of block t, which reads block t's buckets); None on the CPU.
+    ``m_all``: the mesh's feature shards where ``cols`` holds a rank's."""
     if not cols.is_cuda:
         return (None, None)
     return tuple(gram_workspace(cols.shape[1], block_size, cols.shape[2],
-                                d1, cols.device, p, K)
+                                d1, cols.device, p, K, m_all)
                  for _ in range(2 if overlap else 1))
 
 
@@ -1356,7 +1696,7 @@ def _workspaces(setup: SolverSetup):
     if not setup.fused:
         return (None, None)
     return _gram_workspaces(setup.X[0], setup.block_size, setup.w_shape[1],
-                            setup.p, setup.K, setup.overlap)
+                            setup.p_loc, setup.K, setup.overlap, setup.m)
 
 
 def pipeline_state_keys(*, dyn: bool, shrink_on: bool, adaptive: bool,
@@ -1445,11 +1785,10 @@ def init_pipeline_state(setup: SolverSetup, *, total_epochs: int,
     for k in ("gaps", "epsb", "actb", "delayb"):
         st[k] = torch.zeros((K, n_gaps), dtype=f32, device=dev)
     if kn.dyn:
-        st["dwo"] = torch.zeros((K, setup.p, *setup.w_shape), dtype=f32,
-                                device=dev)
+        st["dwo"] = torch.zeros((K, setup.p_loc, *setup.w_shape),
+                                dtype=f32, device=dev)
     if tn.shrink_every > 0:
-        valid = torch.arange(setup.n_pad, device=dev) < setup.n
-        st["act"] = valid.expand(K, -1).clone()
+        st["act"] = _local_valid(setup).expand(K, -1).clone()
         st["frac"] = torch.ones((K,), dtype=f32, device=dev)
         st["nrun"] = torch.full((K,), setup.n_blocks, dtype=i32, device=dev)
         st["rp"] = torch.zeros((K,), dtype=torch.bool, device=dev)
@@ -1466,6 +1805,66 @@ def init_pipeline_state(setup: SolverSetup, *, total_epochs: int,
         st["gph"] = torch.full((K,), float("inf"), device=dev)
         st["eph"] = torch.full((K,), float("inf"), device=dev)
     return st
+
+
+_ROW_KEYS = ("alpha", "act")  # (K, n_pad): a row each
+_PRIMAL_KEYS = ("w", "dw", "dwo", "pbuf")  # (…, *w): on 2-D, m slices
+
+
+def state_to_global(setup: SolverSetup, state: dict) -> dict:
+    """A rank's ``SolverState`` gathered into the one-process layout of
+    the whole mesh (every rank takes part and gets it): α and the
+    shrink mask over ``data``/``pod``, a shard's own Δw (``dwo``) too,
+    and on the 2-D mesh every primal leaf's slices over ``model``.  The
+    other leaves are every rank's already.  The state itself on one
+    process."""
+    if setup.lay is None:
+        return state
+    out = dict(state)
+    for k, v in state.items():
+        if k in _ROW_KEYS:
+            out[k] = _gather_rows(setup, v)
+            continue
+        if k == "dwo":
+            v = _gather_shards(setup, v, 1)
+        if k in _PRIMAL_KEYS and setup.two_d:
+            v = gather_axis(v, setup.lay, "model", v.dim() - 2)
+        out[k] = v
+    return out
+
+
+def state_to_local(setup: SolverSetup, state: dict) -> dict:
+    """The inverse of ``state_to_global``: this rank's part of a
+    one-process ``SolverState`` (α's and the mask's rows of its shards,
+    ``dwo``'s shards, its feature shards' slices)."""
+    if setup.lay is None:
+        return state
+    dev, n_loc = setup.device, setup.n_loc
+    rows = torch.cat([torch.arange(s * n_loc, (s + 1) * n_loc)
+                      for s in setup.local]).to(dev)
+    out = dict(state)
+    for k, v in state.items():
+        if k in _ROW_KEYS:
+            out[k] = v[..., rows].contiguous()
+            continue
+        if k == "dwo":
+            v = v[:, list(setup.local)]
+        if k in _PRIMAL_KEYS and setup.two_d:
+            v = v.narrow(v.dim() - 2, setup.m0, setup.m_loc)
+        out[k] = v.contiguous()
+    return out
+
+
+def global_setup(setup: SolverSetup) -> SolverSetup:
+    """The setup's description of the whole mesh on one process (its
+    sizes and layout, no rank part; the placed tensors are still this
+    rank's): what the checkpoint's conversions read."""
+    if setup.lay is None:
+        return setup
+    w_shape = ((setup.m, setup.w_shape[1]) if setup.two_d
+               else setup.w_shape)
+    return setup._replace(lay=None, local=(), segs_loc=(), m_here=0,
+                          w_shape=w_shape)
 
 
 def device_put_state(setup: SolverSetup, state: dict) -> dict:
@@ -1535,12 +1934,35 @@ def _merge_fault(fault, e: int):
     return hit
 
 
-def _bad_count(alpha, w_view):
+def _bad_count(alpha, w_view, lay=None):
     """The watchdog's census: each task's count of non-finite entries
-    of α and of the primal view, (K,)."""
+    of α and of the primal view, (K,).  Across ranks it is the int64
+    SUM of every rank's count (a replicated ŵ counted on each), so the
+    watchdog trips on every rank at once."""
     K = alpha.shape[0]
-    return ((~torch.isfinite(alpha)).sum(1)
-            + (~torch.isfinite(w_view)).reshape(K, -1).sum(1))
+    return sum_int((~torch.isfinite(alpha)).sum(1)
+                   + (~torch.isfinite(w_view)).reshape(K, -1).sum(1), lay)
+
+
+def _make_gap(setup: SolverSetup, X):
+    """The record's gap closure (``_gap_closure``) over the dataset
+    ``X`` in the setup's layout: ``gap(α, ŵ, y)`` over this rank's
+    padded rows, summed over the real rows of the whole solve."""
+    lay = setup.lay
+    runs = setup.segs_loc if lay is not None else setup.segs
+    spread = None
+    if lay is not None:
+        def spread(t):
+            """A rank's real-row terms to the whole solve's real rows,
+            in the user's order."""
+            full = t.new_zeros((setup.n_pad_loc,))
+            j = 0
+            for a, _, c in runs:
+                full[a:a + c] = t[j:j + c]
+                j += c
+            return _real_rows(_gather_rows(setup, full), setup.segs)
+    return _gap_closure(setup.loss, X, ell=setup.ell, two_d=setup.two_d,
+                        runs=runs, lay=lay, spread=spread)
 
 
 def _engines(setup: SolverSetup, X, workspaces, overlap: bool):
@@ -1551,21 +1973,20 @@ def _engines(setup: SolverSetup, X, workspaces, overlap: bool):
     overlap_fns = None
     if setup.two_d:
         cols, vals = X
+        gather = _model_gather(setup.lay, setup.m)
         engine = functools.partial(
             _block_update_2d(setup.loss, setup.fused, workspaces[0],
-                             setup.n_loc, setup.Y), cols, vals,
-            setup.sq_norms)
+                             setup.n_loc, setup.Y, gather),
+            cols, vals, setup.sq_norms)
         if overlap:
             overlap_fns = _overlap_round_fns(cols, vals, setup.sq_norms,
                                              setup.loss, setup.n_loc,
-                                             setup.Y)
-        gap = _make_gap_2d(setup.loss, cols, vals, segments=setup.segs)
+                                             setup.Y, gather)
     else:
         engine = functools.partial(
             _block_update_1d(setup.loss, setup.ell, setup.n_loc, setup.Y),
             X, setup.sq_norms)
-        gap = _make_gap_1d(setup.loss, X, setup.ell, setup.w_shape[0],
-                           segments=setup.segs)
+    gap = _make_gap(setup, X)
     shrink = _make_shrink(setup, X) if setup.tuning.shrink_every else None
     return engine, overlap_fns, gap, shrink
 
@@ -1645,6 +2066,7 @@ def _epoch_scan(setup: SolverSetup, state: dict, *, e0: int, epochs: int,
     in is not modified."""
     c = dict(state)
     tn, K = setup.tuning, setup.K
+    lay, dp = setup.lay, ("pod", "data")
     solve = sharded_passcode_solve
     shrink_on, adaptive = tn.shrink_every > 0, tn.adaptive
     alpha, w, dw = c["alpha"], c["w"], c["dw"]
@@ -1677,12 +2099,15 @@ def _epoch_scan(setup: SolverSetup, state: dict, *, e0: int, epochs: int,
         if shrink_on:
             if e % tn.shrink_every == 0:
                 act = mask_fn(alpha, w + dw)
-                cnt = act.view(K, setup.p, setup.n_loc).sum(2)
-                frac = cnt.sum(1).float() / setup.n
+                cnt = act.view(K, setup.p_loc, setup.n_loc).sum(2)
+                # across ranks: the active count's int64 SUM and the
+                # largest shard's count's MAX, the same on every rank
+                frac = sum_int(cnt.sum(1), lay, dp).float() / setup.n
                 if tn.repack:
                     rp = frac < setup.repack_threshold
                     nrun = torch.clamp(
-                        -(-cnt.max(1).values // setup.block_size), 1,
+                        -(-max_all(cnt.max(1).values, lay, dp)
+                          // setup.block_size), 1,
                         setup.n_blocks).to(torch.int32)
             act_run = (valid if final else act).float()
             use_rp = rp & (not final)
@@ -1717,19 +2142,19 @@ def _epoch_scan(setup: SolverSetup, state: dict, *, e0: int, epochs: int,
                    if shrink_on else draw(e + 1, sub_next))[0]
             alpha, w, dw, inflight = _scan_rounds_overlap(
                 *overlap_fns, alpha, w, dw, blocks, inflight, nxt,
-                workspaces, act_run)
+                workspaces, act_run, lay)
         elif kn.dyn:
             alpha, w, dw, dwo = _scan_rounds_dyn(
                 engine, alpha, w, dw, dwo, blocks, act_run, n_run,
-                delay_flag, runs if n_all < n_run else None, n_all)
+                delay_flag, runs if n_all < n_run else None, n_all, lay)
         else:
             alpha, w, dw = _scan_rounds(engine, alpha, w, dw, blocks,
-                                        kn.delay_rounds)
+                                        kn.delay_rounds, lay=lay)
         if fault is not None and not setup.pod_on and e == fault[0]:
             w = w + float("nan")  # a poisoned psum reaching w
         if setup.record and ((e + 1) % setup.gap_every == 0 or final):
             w_view = w + dw
-            g, eps = _task_gaps(gap, alpha, w_view, setup.Y, setup.segs)
+            g, eps = _task_gaps(gap, alpha, w_view, setup.Y)
             recs["gaps"][:, slot], recs["epsb"][:, slot] = g, eps
             recs["actb"][:, slot] = frac if shrink_on else 1.0
             recs["delayb"][:, slot] = delay_flag
@@ -1744,7 +2169,7 @@ def _epoch_scan(setup: SolverSetup, state: dict, *, e0: int, epochs: int,
                 gapprev = g
             if watchdog is not None:
                 code = watchdog_trip(gph, g, eph, eps,
-                                     _bad_count(alpha, w_view),
+                                     _bad_count(alpha, w_view, lay),
                                      blowup=watchdog[0], floor=watchdog[1])
                 ok = code == 0
                 health = torch.maximum(health, code)
@@ -1783,21 +2208,24 @@ def _pod_epoch(setup: SolverSetup, engine, alpha, w, blocks, fifo,
     ``hit`` (the fault harness) rewrites g before the FIFO.  At P = 1 the
     merge's scale is 1 and the pod's own α₁ stands (and, at delay 0 and
     with no fault, w₁): the identity without the round trip's rounding.
+    Across ranks a rank runs its own pods (views (K, P_loc, *w)).
     Returns (α, w, FIFO)."""
     P, K = setup.pods, alpha.shape[0]
     a0, w0 = alpha, w
-    wv = w0 if P == 1 else w0[:, None].expand(K, P, *w0.shape[1:])
+    wv = (w0 if P == 1
+          else w0[:, None].expand(K, setup.pods_loc, *w0.shape[1:]))
     a1, w1, dwi = _scan_rounds(engine, a0, wv.contiguous(),
                                torch.zeros_like(wv), blocks, delay_rounds,
-                               P)
+                               P, setup.lay)
     if delay_rounds > 0:
         w1 = w1 + dwi  # the pod's inner rounds end synchronous
     if P == 1:
         alpha, g = a1, w1 - w0
     else:
         scale = 1.0 / P
-        alpha = a0 + scale * (a1 - a0)
-        g = scale * (w1 - w0[:, None]).sum(1)
+        alpha = a0 + scale * (a1 - a0)  # a pod's rows are its own
+        # across ranks the pods' Δw_pod are gathered over ``pod`` first
+        g = scale * gather_axis(w1 - w0[:, None], setup.lay, "pod", 1).sum(1)
     if hit is not None:
         g = hit(g)
     if not pod_delay_rounds:
@@ -1822,8 +2250,17 @@ def solver_mouth(X_host, loss, *, y=None, device=None,
     dev = resolve_device(device)
     # a (K, n) label matrix is the multi-task solve: not folded into X
     multitask = y is not None and len(getattr(y, "shape", ())) == 2
-    X_host = X_host.to(dev) if isinstance(X_host, EllMatrix) else \
-        torch.as_tensor(X_host, dtype=torch.float32, device=dev)
+    mesh = _resolve_mesh(knobs.get("mesh"), knobs.get("mesh_axes",
+                                                      ("data",)))
+    # across ranks X stays where it lies: ``prepare_solver`` copies only
+    # this rank's rows (on the 2-D mesh its feature shards of them) to
+    # the card
+    stay = rank_layout(mesh) is not None
+    if isinstance(X_host, EllMatrix):
+        X_host = X_host if stay else X_host.to(dev)
+    else:
+        X_host = torch.as_tensor(X_host, dtype=torch.float32,
+                                 device=None if stay else dev)
     if multitask:
         y = _validate_multitask_labels(X_host, y)
         X_host = _validate_solver_inputs(X_host, None, loss)
@@ -1934,20 +2371,22 @@ def _driver_solve(setup: SolverSetup, *, epochs: int, alpha0, w0, blocks,
     ``_drive_epochs``, from the key ``PRNGKey(seed)``."""
     mesh = (solver_mesh_2d(data=setup.p, model=setup.m) if setup.two_d
             else SolverMesh(("data",), (setup.p,)))
+    if setup.lay is not None:
+        mesh = mesh._replace(device_mesh=setup.lay.device_mesh)
     if setup.two_d:
         epoch_fn = make_sharded_epoch_2d(
             mesh, setup.loss, delay_rounds=setup.delay_rounds,
             use_kernel=use_kernel, overlap=setup.overlap,
             device=setup.device)
-        gap = _make_gap_2d(setup.loss, *setup.X, segments=setup.segs)
     else:
         epoch_fn = make_sharded_epoch(
             mesh, setup.loss, delay_rounds=setup.delay_rounds,
             use_kernel=use_kernel, ell=setup.ell, device=setup.device)
-        gap = _make_gap_1d(setup.loss, setup.X, setup.ell,
-                           setup.w_shape[0], segments=setup.segs)
+    gap = _make_gap(setup, setup.X)
     alpha, w = _init_alpha_w(setup, alpha0, w0)
-    draw = None if blocks is None else _block_draw(setup, blocks, epochs)
+    # the epoch functions take every shard's schedule
+    draw = (None if blocks is None
+            else _block_draw(setup._replace(local=()), blocks, epochs))
     alpha, w, gaps = _drive_epochs(
         epoch_fn, setup.X, setup.sq_norms, alpha[0], w[0],
         torch.zeros_like(w[0]), p=setup.p, n_loc=setup.n_loc, n=setup.n,
@@ -1955,7 +2394,7 @@ def _driver_solve(setup: SolverSetup, *, epochs: int, alpha0, w0, blocks,
         key=prng.PRNGKey(setup.seed, device=setup.device),
         record=setup.record, gap_every=setup.gap_every,
         delay_rounds=setup.delay_rounds,
-        gap_fn=lambda a, w_view: gap(_real_rows(a, setup.segs), w_view)[0],
+        gap_fn=lambda a, w_view: gap(a, w_view)[0],
         draw=draw)
     return _finalize(setup, alpha[None], w[None], gaps[None], epochs)
 

@@ -405,6 +405,25 @@ def _shard_counts(idx, d: int, m: int, d_loc: int):
     return shard, cnt
 
 
+def ell_split_width(mat: EllMatrix, n_shards: int, *,
+                    chunk_elems: int = 1 << 26) -> int:
+    """The k_loc ``ell_column_split`` takes by default: the max
+    per-(row, shard) nonzero count over every row (≥ 1), in row chunks
+    of about ``chunk_elems`` entries."""
+    idx_all = mat.indices
+    n, k = idx_all.shape
+    d, m = mat.n_features, int(n_shards)
+    if m < 1:
+        raise ValueError(f"n_shards must be ≥ 1, got {n_shards}")
+    d_loc = -(-d // m)  # ceil; shard j owns [j*d_loc, (j+1)*d_loc)
+    rows = _chunk_rows(k, chunk_elems)
+    need = 1
+    for r0 in range(0, n, rows):
+        _, cnt = _shard_counts(idx_all[r0:r0 + rows], d, m, d_loc)
+        need = max(need, int(cnt[:, :m].max()))
+    return need
+
+
 def ell_column_split(mat: EllMatrix, n_shards: int,
                      k_loc: int | None = None, *,
                      chunk_elems: int = 1 << 26) -> FeatureShardedEll:
@@ -421,14 +440,9 @@ def ell_column_split(mat: EllMatrix, n_shards: int,
     idx_all, val_all = mat.indices, mat.values
     n, k = idx_all.shape
     d, m = mat.n_features, int(n_shards)
-    if m < 1:
-        raise ValueError(f"n_shards must be ≥ 1, got {n_shards}")
+    need = ell_split_width(mat, m, chunk_elems=chunk_elems)
     d_loc = -(-d // m)  # ceil; shard j owns [j*d_loc, (j+1)*d_loc)
     rows = _chunk_rows(k, chunk_elems)
-    need = 1
-    for r0 in range(0, n, rows):
-        _, cnt = _shard_counts(idx_all[r0:r0 + rows], d, m, d_loc)
-        need = max(need, int(cnt[:, :m].max()))
     if k_loc is None:
         k_loc = need
     elif k_loc < need:

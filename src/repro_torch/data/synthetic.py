@@ -184,8 +184,12 @@ def _stream_cols(g, n: int, d: int, k: int, dev, chunk_elems: int):
     """k distinct zipf columns per row as the first k distinct values of
     an i.i.d. zipf stream: k inverse-CDF draws, then every slot that
     repeats an earlier slot of its row draws again, until none does.  In
-    row chunks of about ``chunk_elems`` slots."""
-    cdf = torch.cumsum(torch.from_numpy(_zipf_probs(d)).to(dev), 0)
+    row chunks of about ``chunk_elems`` slots.  The CDF is summed on the
+    host (numpy's sequential float64 sum, the bits torch's CPU cumsum
+    gives): a CUDA cumsum of d float64 words may round differently from
+    one process to the next, a draw near a bin's edge would then pick
+    another column, and two processes would not hold the same data."""
+    cdf = torch.from_numpy(np.cumsum(_zipf_probs(d))).to(dev)
 
     def draw(shape):
         u = torch.rand(shape, dtype=torch.float64, generator=g, device=dev)

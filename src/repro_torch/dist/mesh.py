@@ -4,8 +4,13 @@ the part of ``repro/dist/mesh.py`` the ported slices use.
 ``resolve_device`` is where every entry point decides where it runs:
 on the card unless the caller asks for the CPU, and never quietly on the
 CPU when the card is missing.  ``SolverMesh`` names the solver's axes
-and their sizes, without devices: on one card the reference's ``model``
-axis becomes m virtual feature shards, a leading tensor dimension.
+and their sizes: on one process the reference's ``model`` axis becomes
+m virtual feature shards, a leading tensor dimension.  A mesh may also
+be spread over the ranks of a process group (``with_ranks``; a
+``DeviceMesh`` whose dimensions are the ``pod``, ``data`` and ``model``
+axes, each splitting its shards contiguously over its ranks), the
+reference's ``Mesh`` over devices; ``rank_layout`` is a rank's place on
+it, and ``repro_torch.dist.collectives`` its psums.
 The reference's ``data`` axis becomes p virtual row shards
 the same way: each kernel runs a grid of p CTAs (or CTA groups), one a
 shard, and the psum over ``data`` becomes a sum of the p shards' Δw in
@@ -339,7 +344,7 @@ def _check_gram_fits(m: int, b: int, pairs: int) -> None:
 
 @functools.lru_cache(maxsize=64)
 def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
-              tasks: int = 1, pods: int = 1) -> GramPlan:
+              tasks: int = 1, pods: int = 1, m_all: int = 0) -> GramPlan:
     """Lay out B4 for a block of ``b`` ids over ``m`` shards of ``d1``
     words and rows of ``k`` slots, for each of ``data`` data shards of
     each of ``tasks`` tasks (the classes depend on m alone, so a (task,
@@ -348,8 +353,13 @@ def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
     ``GRAM_SHARED_MAX_IDS`` ids the layout is "rows" (one class, tiles of
     ``GRAM_ROWS_TILE`` columns, ``gram_rows_bytes``).  Raises if a row is
     too long for the bucket pass to stage in shared memory, or where the
-    block's Gram matrices cannot be allocated (``_check_gram_fits``)."""
+    block's Gram matrices cannot be allocated (``_check_gram_fits``).
+    ``m_all`` is the whole mesh's feature shard count where these m are
+    one rank's: the classes (and so each partial's summation order)
+    follow the mesh's m, so a rank's launch is the one-process launch's,
+    shard for shard; 0 means m."""
     m, b, k, d1, data = int(m), int(b), int(k), int(d1), max(int(data), 1)
+    m_cls = max(int(m_all), m)
     tasks, pods = max(int(tasks), 1), max(int(pods), 1)
     rows = b > GRAM_SHARED_MAX_IDS
     if rows:
@@ -357,7 +367,7 @@ def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
         classes, tile = 1, GRAM_ROWS_TILE
         gram = gram_rows_bytes(tile)
     else:
-        classes = max(1, min(GRAM_PARTIAL_WORDS // (m * b * b),
+        classes = max(1, min(GRAM_PARTIAL_WORDS // (m_cls * b * b),
                              -(-d1 // GRAM_CLASS_COLS), GRAM_MAX_CLASSES))
         tile = max(1, min(b, 64, GRAM_TILE_WORDS // b))
         gram = (12 * GRAM_TABLE_SLOTS + 24 * GRAM_CHUNK + 4 * (2 * b + 1)
@@ -413,8 +423,8 @@ def feature_update_bytes(b: int, stage_gram: bool,
 
 @functools.lru_cache(maxsize=64)
 def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
-                        tasks: int = 1,
-                        pods: int = 1) -> FeatureUpdatePlan:
+                        tasks: int = 1, pods: int = 1,
+                        m_all: int = 0) -> FeatureUpdatePlan:
     """Lay out B5 for a block of ``b`` ids over ``m`` shards of ``d1``
     words and rows of ``k`` slots, for each of ``data`` data shards of
     each of ``tasks`` tasks: B4's classes, and G staged when the whole
@@ -424,8 +434,9 @@ def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
     ``FEATURE_UPDATE_ROWS_THREADS`` a pair runs the recursion, its b
     accumulators in shared memory (``smem_bytes``) where they fit and in
     device memory (``smem_bytes`` 0) past that, no lane registers
-    (``per_lane`` 0), G read from device memory; then the scatter."""
-    classes = gram_plan(m, b, k, d1, data, tasks, pods).classes
+    (``per_lane`` 0), G read from device memory; then the scatter.
+    ``m_all``: as for ``gram_plan``."""
+    classes = gram_plan(m, b, k, d1, data, tasks, pods, m_all).classes
     if int(b) > GRAM_SHARED_MAX_IDS:
         acc = 4 * int(b)
         return FeatureUpdatePlan(
@@ -443,28 +454,131 @@ def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
 
 class SolverMesh(NamedTuple):
     """A solver mesh as named axes and their sizes — the shape of the
-    reference's ``jax.sharding.Mesh``, with no devices behind it."""
+    reference's ``jax.sharding.Mesh``.  The sizes are the global shard
+    counts (P pods, p data shards, m feature shards).  ``device_mesh``,
+    when set, is a ``torch.distributed.device_mesh.DeviceMesh`` over the
+    process group's ranks whose dimension names are solver axes: each
+    axis's shards are split contiguously over its ranks
+    (``rank_layout``).  Without one every shard is virtual, on this
+    process."""
 
     axis_names: tuple
     axis_sizes: tuple
+    device_mesh: object = None
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.axis_sizes))
 
 
+def _live_world() -> int:
+    """The world size of an initialised process group that communicates
+    (0 without one; the dry-run's ``fake`` group does not count)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    if dist.get_backend() == "fake":
+        return 0
+    return dist.get_world_size()
+
+
+def _check_rank_counts(shape: dict, ranks: dict) -> None:
+    """Each axis's rank count divides its shard count."""
+    for a, r in ranks.items():
+        if a not in ("pod", "data", "model"):
+            raise ValueError(f"the solver spreads 'pod', 'data' and "
+                             f"'model' over ranks, not {a!r}")
+        if r < 1 or shape[a] % r:
+            raise ValueError(f"the {a!r} axis of {shape[a]} shards does "
+                             f"not divide over {r} ranks")
+
+
+def with_ranks(mesh: SolverMesh, ranks: dict) -> SolverMesh:
+    """``mesh`` spread over the initialised process group: ``ranks``
+    maps solver axes to their rank counts, whose product is the world
+    size, laid out row-major in the mesh's axis order (a
+    ``DeviceMesh`` from ``init_device_mesh``: ``cuda`` under ``nccl``,
+    ``cpu`` under ``gloo``, which the layer feeds either tensor).  Each
+    count must divide its axis."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    unknown = [a for a in ranks if a not in mesh.axis_names]
+    if unknown:
+        raise ValueError(f"ranks on {unknown}, which the mesh "
+                         f"{tuple(mesh.axis_names)} does not have")
+    names = tuple(a for a in mesh.axis_names if a in ranks)
+    sizes = tuple(int(ranks[a]) for a in names)
+    _check_rank_counts(mesh.shape, dict(zip(names, sizes)))
+    world = _live_world()
+    if math.prod(sizes) != world:
+        raise ValueError(f"ranks {dict(zip(names, sizes))} make "
+                         f"{math.prod(sizes)} processes; the process "
+                         f"group has {world}")
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return mesh._replace(device_mesh=init_device_mesh(
+        kind, sizes, mesh_dim_names=names))
+
+
+class RankLayout(NamedTuple):
+    """This process's place on a solver mesh spread over ranks: the
+    ``DeviceMesh``, the rank count of each axis it spreads (``ranks``;
+    an axis not named is virtual, all its shards here) and this rank's
+    coordinate on it (``coord``).  An axis of S shards over R ranks
+    gives coordinate r the shards [r·S/R, (r+1)·S/R)."""
+
+    device_mesh: object
+    ranks: dict
+    coord: dict
+
+    def count(self, axis: str) -> int:
+        return self.ranks.get(axis, 1)
+
+    def span(self, axis: str, size: int) -> tuple:
+        """(first, count) of this rank's shards of an axis of ``size``."""
+        n = size // self.count(axis)
+        return self.coord.get(axis, 0) * n, n
+
+
+def rank_layout(mesh) -> RankLayout | None:
+    """The rank layout of a ``SolverMesh``, or None where every shard
+    is on this process (no ``DeviceMesh``, or one of a single rank: the
+    one-process path).  Raises a ``ValueError`` naming both sizes where
+    a ``DeviceMesh`` dimension does not divide its axis."""
+    dm = getattr(mesh, "device_mesh", None)
+    if dm is None:
+        return None
+    ranks = mesh_axes(dm)
+    for a in ranks:
+        if a not in mesh.axis_names:
+            raise ValueError(f"the DeviceMesh's {a!r} dimension is not an "
+                             f"axis of the solver mesh "
+                             f"{tuple(mesh.axis_names)}")
+    _check_rank_counts(mesh.shape, ranks)
+    if math.prod(ranks.values()) == 1:
+        return None
+    return RankLayout(dm, {a: r for a, r in ranks.items() if r > 1},
+                      {a: dm.get_local_rank(a) for a, r in ranks.items()
+                       if r > 1})
+
+
 def solver_mesh(axis: str = "data", n_devices: int | None = None
                 ) -> SolverMesh:
-    """The 1-D solver mesh: ``n_devices`` virtual shards along ``axis``
-    (the reference's every local device; on one card the shards are
-    virtual, so the count defaults to 1, what the reference runs on one
-    chip).  ``axis="data"`` shards the rows (p data shards, one CTA
-    each), ``axis="model"`` the features (the legacy mesh, run as
-    (data = 1, model = n))."""
-    n = 1 if n_devices is None else int(n_devices)
+    """The 1-D solver mesh: ``n_devices`` shards along ``axis`` (the
+    reference's every local device).  On one process the shards are
+    virtual and the count defaults to 1, what the reference runs on one
+    chip; under an initialised process group of W > 1 ranks it defaults
+    to W, one shard a rank, the mesh spread over the world
+    (``with_ranks`` spreads any mesh).  ``axis="data"`` shards the rows
+    (p data shards, one CTA each), ``axis="model"`` the features (the
+    legacy mesh, run as (data = 1, model = n))."""
+    world = _live_world() if n_devices is None else 0
+    n = max(world, 1) if n_devices is None else int(n_devices)
     if n < 1:
         raise ValueError(f"n_devices must be ≥ 1, got {n_devices}")
-    return SolverMesh((axis,), (n,))
+    mesh = SolverMesh((axis,), (n,))
+    return with_ranks(mesh, {axis: world}) if world > 1 else mesh
 
 
 def solver_mesh_2d(data: int = 1, model: int = 1) -> SolverMesh:

@@ -85,22 +85,28 @@ class GramWorkspace(NamedTuple):
     class (local column ``lc`` and value ``v``, (m, b, k)), each row's
     class offsets ((m, b, R + 1)), and the per-class partial Grams
     ((m, R, b, b); empty when there is one class) — with p data shards
-    of K tasks, K·p·m in place of m."""
+    of K tasks, K·p·m in place of m.  ``m_all`` is the mesh's feature
+    shard count where these m are one rank's (0: m): the launches that
+    use the workspace lay out their column classes for it
+    (``gram_plan``)."""
 
     lc: torch.Tensor
     v: torch.Tensor
     roff: torch.Tensor
     part: torch.Tensor
+    m_all: int = 0
 
 
 def gram_workspace(m: int, b: int, k: int, d1: int, device,
-                   data: int = 1, tasks: int = 1) -> GramWorkspace:
+                   data: int = 1, tasks: int = 1,
+                   m_all: int = 0) -> GramWorkspace:
     """Allocate B4's workspace for blocks of ``b`` ids (uninitialised:
     every launch writes what it reads), one for each of ``data`` data
     shards of each of ``tasks`` tasks: the leading dimension indexes the
     (task, data, model) triples, task t's data shard s's model shard j
-    at (t·data + s)·m + j."""
-    plan = gram_plan(m, b, k, d1, data, tasks)
+    at (t·data + s)·m + j.  ``m_all``: the mesh's feature shards where
+    these m are one rank's (``gram_plan``)."""
+    plan = gram_plan(m, b, k, d1, data, tasks, m_all=m_all)
     parts = plan.classes if plan.classes > 1 else 0
     pm = plan.tasks * plan.data * m
     return GramWorkspace(
@@ -108,7 +114,8 @@ def gram_workspace(m: int, b: int, k: int, d1: int, device,
         torch.empty((pm, b, k), dtype=torch.float32, device=device),
         torch.empty((pm, b, plan.classes + 1), dtype=torch.int32,
                     device=device),
-        torch.empty((pm, parts, b, b), dtype=torch.float32, device=device))
+        torch.empty((pm, parts, b, b), dtype=torch.float32, device=device),
+        int(m_all))
 
 
 def _check_block(cols, vals, w, idx, tasks=False):
@@ -221,7 +228,9 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0,
     K > 1) returns (K, p, m, B) and (K, p, m, B, B).  A w of P views
     for 1 < P < p, (P, m, d1) or (K, P, m, d1), makes the p data shards
     P pods' (module docstring), also counted in
-    ``dcd_feature_gram.pod_launches``."""
+    ``dcd_feature_gram.pod_launches``.  Where cols, vals and w hold one
+    rank's m of the mesh's feature shards, the workspace's ``m_all``
+    keeps the whole mesh's column classes (``gram_plan``)."""
     if w.device.type != "cuda":
         return dcd_feature_gram_plain(cols, vals, w, idx, n_loc, tasks)
     _check_block(cols, vals, w, idx, tasks)
@@ -230,7 +239,8 @@ def dcd_feature_gram(cols, vals, w, idx, *, workspace=None, n_loc: int = 0,
      n_pods) = _grid(idx.contiguous(), w, tasks)
     n, m, k = cols.shape
     d1, b = w.shape[-1], idx.shape[-1]
-    plan = gram_plan(m, b, k, d1, p // n_pods, K, n_pods)
+    m_all = workspace.m_all if workspace is not None else 0
+    plan = gram_plan(m, b, k, d1, p // n_pods, K, n_pods, m_all)
     if workspace is None:
         workspace = gram_workspace(m, b, k, d1, w.device, p, K)
     parts = plan.classes if plan.classes > 1 else 0
@@ -344,7 +354,8 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     d1)).  A w of P views for 1 < P < p, (P, m, d1) or (K, P, m, d1),
     makes the p data shards P pods', each data shard's replica filled
     from its pod's view; counted also in
-    ``dcd_feature_update.pod_launches``."""
+    ``dcd_feature_update.pod_launches``.  The workspace's ``m_all``:
+    as for ``dcd_feature_gram``."""
     if w.device.type != "cuda":
         return dcd_feature_update_plain(cols, vals, alpha, sq_norms, w, idx,
                                         base, gram, loss=loss,
@@ -361,8 +372,9 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
         raise ValueError(f"y must be ({K}, {n}), active ({n},) or "
                          f"({K}, {n})")
     lead = (K,) if tasks else ()
-    plan = feature_update_plan(m, b, k, d1, p // n_pods, K, n_pods)
-    gplan = gram_plan(m, b, k, d1, p // n_pods, K, n_pods)
+    m_all = workspace.m_all if workspace is not None else 0
+    plan = feature_update_plan(m, b, k, d1, p // n_pods, K, n_pods, m_all)
+    gplan = gram_plan(m, b, k, d1, p // n_pods, K, n_pods, m_all)
     bucket = workspace is None
     if bucket:
         workspace = gram_workspace(m, b, k, d1, w.device, p, K)

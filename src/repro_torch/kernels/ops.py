@@ -136,10 +136,16 @@ def dcd_ell_block_update(cols, vals, sq_norms, alpha, w_pad, idx, *, loss,
 # (K, p, m, d_loc + 1), idx (p, B) or (K, p, B), and a leading K on every
 # result.  A w of P views for 1 < P < p, (P, m, d_loc + 1) or
 # (K, P, m, d_loc + 1), makes the p data shards P pods', a view a pod.
+# Where the m feature shards are spread over ranks, cols/vals/w hold this
+# rank's: ``gather`` (the solver's psum over ``model``) takes each
+# partial to all m shards before the sum — ``gather(t, dim)`` for a
+# partial already reduced, ``gather.dots(prod)`` for the shards' Σ_k of
+# a (…, m, k) product — and B4's workspace records the mesh's m, so B4
+# and B5 lay out their launches as the one-process launch does.
 
 
 def dcd_feature_gram(cols, vals, w_ref, idx, *, workspace=None,
-                     n_loc: int = 0, tasks: bool = False):
+                     n_loc: int = 0, tasks: bool = False, gather=None):
     """Phase 1: the block's (base, Gram) — B4's per-shard partials summed
     over the shard dimension, the reference's psum over ``model``.
     ``base`` is w_refᵀx_t against whatever reference primal the caller
@@ -150,11 +156,13 @@ def dcd_feature_gram(cols, vals, w_ref, idx, *, workspace=None,
     base_p, gram_p = feat.dcd_feature_gram(cols, vals, w_ref, idx,
                                            workspace=workspace, n_loc=n_loc,
                                            tasks=tasks)
+    if gather is not None:
+        base_p, gram_p = gather(base_p, -2), gather(gram_p, -3)
     return base_p.sum(-2), gram_p.sum(-3)
 
 
 def dcd_feature_base_correction(cols, vals, dvec, idx, n_loc: int = 0,
-                                tasks: bool = False):
+                                tasks: bool = False, gather=None):
     """Correct a stale base by the aggregate it was computed without:
     Δbase_t = Δwᵀx_t for the block's rows, each shard's partial summed
     over shards.  ``dvec`` is the (m, d_loc + 1) missing aggregate; a
@@ -165,14 +173,15 @@ def dcd_feature_base_correction(cols, vals, dvec, idx, n_loc: int = 0,
         return torch.stack([
             dcd_feature_base_correction(cols, vals, dvec[t],
                                         idx[t] if idx.dim() == 3 else idx,
-                                        n_loc)
+                                        n_loc, gather=gather)
             for t in range(dvec.shape[0])])
     rows = idx.long()
     if idx.dim() == 2:
         rows = rows + n_loc * torch.arange(idx.shape[0],
                                            device=idx.device)[:, None]
     ids = flat_shard_ids(cols[rows], dvec.shape[-1])  # (..., B, m, k)
-    part = torch.sum(dvec.reshape(-1)[ids] * vals[rows], dim=-1)
+    prod = dvec.reshape(-1)[ids] * vals[rows]
+    part = torch.sum(prod, dim=-1) if gather is None else gather.dots(prod)
     return part.sum(-1)
 
 
@@ -191,7 +200,7 @@ def dcd_feature_update(cols, vals, sq_norms, alpha, w, idx, base, gram, *,
 
 def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
                              active=None, y=None, workspace=None,
-                             n_loc: int = 0):
+                             n_loc: int = 0, gather=None):
     """One indexed block of B sequential updates on the feature
     shards — the fused counterpart of the solver's unfused engine, the
     eager composition of the phases above.  Returns (updated α, Δw =
@@ -200,7 +209,7 @@ def dcd_feature_block_update(cols, vals, sq_norms, alpha, w, idx, *, loss,
     With a view a pod each data shard's Δw is against its pod's view."""
     tasks = alpha.dim() == 2
     base, gram = dcd_feature_gram(cols, vals, w, idx, workspace=workspace,
-                                  n_loc=n_loc, tasks=tasks)
+                                  n_loc=n_loc, tasks=tasks, gather=gather)
     a_new, w_new = dcd_feature_update(cols, vals, sq_norms, alpha, w, idx,
                                       base, gram, loss=loss, active=active,
                                       y=y, workspace=workspace, n_loc=n_loc)

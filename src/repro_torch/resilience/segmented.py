@@ -25,6 +25,16 @@ re-places its leaves as they are (a bit resume); one whose pod or shard
 count changed warm-starts from the canonical (α, w) in the checkpoint,
 re-blocked onto the new layout, and carries the layout-free leaves (the
 key chain, the records, the latches) over.
+
+On a mesh spread over ranks (``repro_torch.dist.mesh.rank_layout``) the
+checkpoint is still the whole solve's, in the reference's format: every
+rank gathers the state into the one-process layout
+(``state_to_global``), rank 0 alone writes it, between two barriers; on
+restore every rank reads it and keeps its own part
+(``state_to_local``).  The layout on disk does not depend on the world
+size, so a save at W ranks resumes bit for bit at any other.  The
+watchdog's census is global (``_bad_count``), so a trip is every
+rank's, at the same rung.
 """
 
 from __future__ import annotations
@@ -37,16 +47,21 @@ import numpy as np
 import torch
 
 from repro_torch.convert import solver_state_from_numpy, solver_state_to_numpy
+import torch.distributed as dist
+
 from repro_torch.core.sharded import (
     ShardedResult,
     SolverSetup,
     _segment_knobs,
     build_pipeline,
     finalize_state,
+    global_setup,
     init_pipeline_state,
     pipeline_state_keys,
     sharded_passcode_solve,
     solver_mouth,
+    state_to_global,
+    state_to_local,
 )
 from repro_torch.dist.mesh import degrade_ladder
 from repro_torch.resilience.faults import FaultPlan, corrupt_payload
@@ -141,7 +156,8 @@ def _restore(setup: SolverSetup, ckpt_dir: str, step: int, total: int, *,
     if (meta_ok and set(state_raw) == expected
             and state_raw["alpha"].shape == lead + (setup.n_pad,)
             and _primal_fits(setup, state_raw["w"].shape, lead)):
-        return solver_state_from_numpy(state_raw, setup), step, rung
+        st = solver_state_from_numpy(state_raw, global_setup(setup))
+        return state_to_local(setup, st), step, rung
     # elastic: the mesh (or the schedule) changed; a fresh Δw and FIFO,
     # as any in-flight aggregate is already flushed into w_canon
     st = init_pipeline_state(
@@ -165,17 +181,25 @@ def _save_boundary(setup: SolverSetup, st: dict, e: int, *, total: int,
     """Checkpoint the state at boundary epoch ``e``: its leaves in the
     reference's layout (``solver_state_to_numpy``), the canonical
     (α, w) in user coordinates and the ``meta_*`` scalars; then GC down
-    to ``keep``."""
+    to ``keep``.  Across ranks every rank gathers, rank 0 writes, and
+    the barriers keep every rank's reads off a half-written step."""
     canon = finalize_state(setup, st, epochs=e)
-    flat = solver_state_to_numpy(st, setup)
-    flat["alpha_canon"] = canon.alpha.cpu().numpy()
-    flat["w_canon"] = canon.w_hat.cpu().numpy()
-    for name, val in _meta(setup, total).items():
-        flat[f"meta_{name}"] = np.int64(val)
-    flat["meta_epoch"] = np.int64(e)
-    flat["meta_rung"] = np.int64(rung)
-    save_checkpoint(ckpt_dir, e, flat)
-    gc_checkpoints(ckpt_dir, keep=keep)
+    st = state_to_global(setup, st)
+    spread = setup.lay is not None
+    if spread:
+        dist.barrier()
+    if not spread or dist.get_rank() == 0:
+        flat = solver_state_to_numpy(st, global_setup(setup))
+        flat["alpha_canon"] = canon.alpha.cpu().numpy()
+        flat["w_canon"] = canon.w_hat.cpu().numpy()
+        for name, val in _meta(setup, total).items():
+            flat[f"meta_{name}"] = np.int64(val)
+        flat["meta_epoch"] = np.int64(e)
+        flat["meta_rung"] = np.int64(rung)
+        save_checkpoint(ckpt_dir, e, flat)
+        gc_checkpoints(ckpt_dir, keep=keep)
+    if spread:
+        dist.barrier()
 
 
 def _health(st: dict) -> int:
@@ -313,7 +337,7 @@ def solve_segmented(
                     overlap_on=knobs["overlap"])
                 pipes[cache_key] = fn
             st_in = (drain_state(st, _target_keys(setup, knobs, watchdog),
-                                 p=setup.p)
+                                 p=setup.p_loc)
                      if eff_rung > 0 else st)
             st_out = fn(X_use, st_in)
             # multi-task: any tripped task trips the segment

@@ -55,6 +55,8 @@ from repro_torch.serve import (
     make_snapshot,
 )
 
+from _dist_cases import run_world
+
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
@@ -259,3 +261,29 @@ def test_lm_example_twin_runs_on_cpu_without_jax(twin, args, tmp_path):
         assert re.search(r"done: loss \S+ → \S+ \(40 steps", out.stdout)
     else:
         assert len(re.findall(r"req\d: \[", out.stdout)) == 2
+
+
+def test_collectives_import_no_jax():
+    """The collective layer of the solver across processes imports
+    neither jax nor ``repro``."""
+    code = (
+        "import sys\n"
+        "import repro_torch.dist.collectives\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_fake_mesh_leaves_a_live_gloo_group(tmp_path):
+    """``make_fake_mesh`` under a live two-rank ``gloo`` group of another
+    size raises and does not replace it: the group still has its two
+    ranks and its backend, and still gathers."""
+    out = run_world(2, {"fake": {"kind": "fake_mesh"}}, tmp_path)["fake"]
+    assert "gloo process group of 2 ranks" in str(out["raised"])
+    assert int(out["world"]) == 2 and str(out["backend"]) == "gloo"
+    np.testing.assert_array_equal(out["gather"], [0.0, 1.0])

@@ -442,3 +442,40 @@ def test_rows_layout_raises_only_where_the_grams_cannot_be_allocated():
         gram_plan(4, 70_000, 10, 101)  # 98 GB
     with pytest.raises(ValueError, match="80 GB"):
         feature_update_plan(1, 4096, 10, 101, 64, 16)  # 1,024 pairs
+
+
+# --- a rank's launch on a mesh spread over ranks: the one-process layout
+
+@pytest.mark.parametrize("m_loc", [1, 2])
+def test_rank_b4_b5_plans_keep_the_mesh_classes(m_loc):
+    """A rank holding m_loc of the webspam split's m = 4 feature shards
+    lays out B4 and B5 for the mesh's m (``m_all``): the column classes,
+    and so each partial's summation order, are the one-process launch's;
+    without ``m_all`` its own m_loc would give it other classes (more of
+    them, since the partial Grams' budget is per shard)."""
+    s = WEBSPAM_SPLIT
+    whole = gram_plan(s["m"], s["b"], s["k"], s["d1"])
+    rank = gram_plan(m_loc, s["b"], s["k"], s["d1"], m_all=s["m"])
+    assert rank == whole
+    assert gram_plan(m_loc, s["b"], s["k"], s["d1"]).classes > whole.classes
+    assert (feature_update_plan(m_loc, s["b"], s["k"], s["d1"],
+                                m_all=s["m"])
+            == feature_update_plan(s["m"], s["b"], s["k"], s["d1"]))
+    ws = gram_workspace(m_loc, s["b"], s["k"], 65, "cpu", 1, 1, m_all=4)
+    full = gram_workspace(4, s["b"], s["k"], 65, "cpu")
+    assert ws.roff.shape[-1] == full.roff.shape[-1]
+    assert ws.lc.shape[0] == m_loc and ws.part.shape[1:] == full.part.shape[1:]
+
+
+@pytest.mark.parametrize("p,p_loc", [(8, 4), (4, 2), (2, 1)])
+def test_rank_b1_b2_plans_keep_each_ctas_layout(p, p_loc):
+    """A rank running p_loc of p data shards launches B1 and B2 with the
+    one-process layout a CTA (variant, threads, table, shared memory):
+    the plans depend on the block and the row width alone."""
+    for b, k in [(64, 73), (64, 3728)]:
+        a, r = dcd_ell_plan(b, k, shards=p), dcd_ell_plan(b, k, shards=p_loc)
+        assert a[:4] == r[:4]
+    for b, d in [(64, 54), (64, 300)]:
+        a = dcd_dense_plan(b, d, shards=p)
+        r = dcd_dense_plan(b, d, shards=p_loc)
+        assert a[:4] == r[:4]

@@ -233,9 +233,10 @@ def test_2d_gap_in_row_chunks_matches_one_pass(tiny):
     w = torch.from_numpy((rng.standard_normal(setup.w_shape) * 0.1).astype(
         np.float32))
     w[:, -1] = 0.0
-    whole = ts._make_gap_2d(td.Logistic(), *setup.X)(alpha, w)
-    chunked = ts._make_gap_2d(td.Logistic(), *setup.X, chunk_elems=200)(
+    whole = ts._gap_closure(td.Logistic(), setup.X, ell=True, two_d=True)(
         alpha, w)
+    chunked = ts._gap_closure(td.Logistic(), setup.X, ell=True, two_d=True,
+                              chunk_elems=200)(alpha, w)
     for a, b in zip(whole, chunked):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-5)
 
