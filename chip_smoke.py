@@ -281,8 +281,42 @@ result line):
    of the gap's d + 1 fixed-point words and of the active count, and
    the MAX of a scalar, each through NCCL at rcv1's shapes, back
    unchanged, with its ms (``--dist-phase`` runs the build and this
-   phase alone);
-10. one JSON line of per-kernel numbers (with each kernel's variant, and
+   phase alone).  Phase 9 also runs the ``IncrementalTrainer`` over
+   rcv1 at p = 8 with its solves spread over the two ranks' ``data``
+   axis (ROADMAP A.13c), driven as phase 6 drives it (fit 2 epochs,
+   ``SERVE_ROWS`` rows ingested with flipped labels, the drift check,
+   the warm re-solve over 2 epochs), held bit for bit to the
+   one-process trainer on α, ŵ and every gap record of both solves and
+   on the published snapshot, each rank's B1 launches printed;
+10. the LM stack across two ranks (``LmDistRun``, two ``--lm-dist-rank``
+   children in a ``gloo`` group on ``cuda:0``, started with phase 9's
+   children beside phase 3's host replays: (b) on the mesh runs beside
+   phase 9, about 7 GiB a rank; (b)'s one-process side, (a) and (c)
+   wait until phase 9's children have left the card), in float32 with
+   TF32 off and remat on: (a) minicpm-2b at full published width
+   and depth over (data 1, model 2), phase 8's seed, Markov batches and
+   schedule, ``TRAIN_STEPS`` steps — each step's loss and grad norm
+   within 1e-4 of phase 8's one process (phase 8 writes them to
+   ``chiprun_out/phase8_steps.json`` under a key of the port's sources,
+   this script and the arch, and phase 10 reads them only under the
+   same key), ms a step, each rank's peak and
+   placed parameter and moment bytes, every tensor-parallel leaf exactly
+   half a rank; (c) prefill of (a)'s first batch and ``LMD_GEN`` greedy
+   tokens from (a)'s final parameters on the mesh, against the same
+   decode in one process from those parameters gathered (tokens equal,
+   the last logits within 2e-3); (b) minicpm-2b at full width cut to
+   ``LMD_CUT`` layers over (data 2, model 1) with FSDP and ZeRO-1, B =
+   ``LMD_B`` in ``LMD_MB`` microbatches with ZeRO-1's
+   ``acc_shardings``, ``LMD_B_STEPS`` steps through ``run_training``
+   (its checkpoints: step 0 and the last step, each gathered to rank 0,
+   which writes it), each step's loss and grad norm within 1e-4 of one
+   process's, the last step's checkpoint restored onto the mesh with
+   ``shardings=`` and at one process without, both bit-equal to the
+   saved arrays; DTensor's collectives that ran through gloo's plain
+   all-reduce (``collectives.STAGED``) counted (``--lm-dist-phase`` runs
+   this phase alone, after phase 8's child when its numbers are not
+   there under this tree's key);
+11. one JSON line of per-kernel numbers (with each kernel's variant, and
    B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
    ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
@@ -1610,6 +1644,13 @@ def lm_train_phase(torch, dev):
         if e_loss > TRAIN_NOREMAT_RTOL or e_gn > TRAIN_NOREMAT_RTOL:
             fail(f"{arch}: the step without remat parts from the step "
                  "with it")
+        steps_file = LMD_STEPS_FILE
+        steps_file.parent.mkdir(exist_ok=True)
+        known = (json.loads(steps_file.read_text())
+                 if steps_file.exists() else {})
+        known[arch] = {"losses": losses, "grad_norms": gnorms,
+                       "card": card, "key": phase8_key(arch)}
+        steps_file.write_text(json.dumps(known))
         out["archs"][arch] = {"params": n_par, "step_ms": step_ms,
                               "opt_ms": opt_ms, "peak_gib": peak,
                               "losses": losses, "grad_norms": gnorms,
@@ -1902,6 +1943,63 @@ DIST_PLACED = "rcv1 p = 8"
 DIST_PEAK_SHARE = 0.6
 
 
+# A.13c: the incremental trainer over rcv1 at p = 8, its fit and drift
+# re-solve spread over the two ranks' ``data`` axis (phase 6's drive)
+DIST_TRAINER = "rcv1 trainer p = 8 (fit + drift re-solve)"
+
+
+def _dist_trainer(torch, dev, tag, X, ranks):
+    """The ``IncrementalTrainer`` over rcv1 at p = 8 with its solves on
+    the mesh spread over ``ranks`` (or in one process): fit 2 epochs,
+    ``SERVE_ROWS`` rows picked by phase 6's seed ingested with flipped
+    labels, ``drifted()``, then the warm re-solve over 2 epochs, as
+    ``serve_phase`` drives it.  The fit's and re-solve's α, ŵ and gap
+    records and the snapshot published from the re-solve are saved
+    under ``tag``; returns its line of numbers (the re-solve's B1
+    launches, the seconds, the ledger)."""
+    import numpy as np
+
+    from repro_torch.core import Hinge
+    from repro_torch.data.sparse import EllMatrix
+    from repro_torch.kernels.dcd_ell import dcd_ell_shards
+    from repro_torch.serve import IncrementalTrainer, snapshot_from_result
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    pick = torch.randperm(X.n_rows, generator=gen,
+                          device=dev)[:SERVE_ROWS].cpu()
+    picked = EllMatrix(X.indices[pick], X.values[pick], X.n_features)
+    tr = IncrementalTrainer(X, Hinge(1.0), epochs=2, device=dev,
+                            solver_kwargs=dict(mesh=_dist_mesh(("data", 8),
+                                                               ranks),
+                                               block_size=DIST_B,
+                                               seed=SEED))
+    t0 = time.perf_counter()
+    dcd_ell_shards.launches = 0
+    fit = tr.fit()
+    torch.cuda.synchronize()
+    launches = [dcd_ell_shards.launches]
+    _dist_save(f"{tag}.fit", fit.result)
+    tr.add_labeled(picked, -torch.ones(SERVE_ROWS))
+    if not tr.drifted():
+        fail(f"{tag}: the flipped rows did not trip the drift")
+    dcd_ell_shards.launches = 0
+    res = tr.resolve()
+    torch.cuda.synchronize()
+    if res is None:
+        fail(f"{tag}: the drift re-solve gave up")
+    launches.append(dcd_ell_shards.launches)
+    _dist_save(f"{tag}.res", res.result)
+    secs = time.perf_counter() - t0
+    np.save(DIST_DIR / f"{tag}.w_pad.npy",
+            snapshot_from_result(res, 2).w_pad.cpu().numpy())
+    out = {"launches": launches, "seconds": secs, "rows": tr.X.n_rows,
+           "ledger": tr.ledger, "err_base": tr.err_base}
+    del tr, fit, res
+    torch.cuda.empty_cache()
+    return out
+
+
 def _dist_mesh(kind, ranks=None):
     from repro_torch.dist.mesh import (
         SolverMesh,
@@ -2028,6 +2126,9 @@ def dist_rank_main(rank, store):
                             epochs, {},
                             segmented=dict(ckpt_dir=str(DIST_DIR / "ckpt")))
     dist.barrier()
+    out[DIST_TRAINER] = _dist_trainer(torch, dev, f"trainer.r{rank}",
+                                      data["rcv1"], {"data": DIST_WORLD})
+    dist.barrier()
     dist.destroy_process_group()
     print(json.dumps(out))
     return 0
@@ -2070,6 +2171,8 @@ def dist_one_main(store):
     out[f"{name} resumed"] = _dist_solve(
         torch, f"{name}.resumed", data[ds], kind, None, epochs, {},
         segmented=dict(ckpt_dir=str(DIST_DIR / "ckpt"), resume=True))
+    out[DIST_TRAINER] = _dist_trainer(torch, dev, "trainer.one",
+                                      data["rcv1"], None)
     # NCCL's transport: a one-rank group, its DeviceMesh on the card.  A
     # solve on it would spread nothing (no collective runs), so each of
     # the layer's operations goes through the group at rcv1 p = 8's shapes
@@ -2167,6 +2270,11 @@ class DistRun:
                                       for _, p, *_ in self.procs):
             self._next_stage()
 
+    def done(self):
+        """Both stages have exited (``finish`` then waits for nothing)."""
+        return self.ranks is not None and all(
+            p.poll() is not None for _, p, *_ in self.procs)
+
     def _next_stage(self):
         self.ranks = self._collect(600)
         self.t_ranks = time.perf_counter() - self.t0
@@ -2251,6 +2359,33 @@ class DistRun:
               f"one-process solve on α, ŵ and the gap records")
         if not ok:
             fail(f"phase 9: {seg} resumed at one rank is not the whole solve")
+        tw = one[DIST_TRAINER]
+        for solve in ("fit", "res"):
+            want = load(f"trainer.one.{solve}")
+            got = [load(f"trainer.r{r}.{solve}") for r in range(DIST_WORLD)]
+            if not all(same(g, want) for g in got):
+                fail(f"phase 9: the trainer's {solve} at 2 ranks is not the "
+                     f"one-process trainer's")
+        pads = [np.load(DIST_DIR / f"trainer.{t}.w_pad.npy")
+                for t in ["one"] + [f"r{r}" for r in range(DIST_WORLD)]]
+        if not all(np.array_equal(p, pads[0]) for p in pads[1:]):
+            fail("phase 9: the snapshot published at 2 ranks differs")
+        print(f"  {DIST_TRAINER}: 2 gloo ranks vs one process: bit-equal on "
+              f"α, ŵ and the gap records of the fit and of the warm "
+              f"re-solve over {tw['rows']} rows, and on the published "
+              f"snapshot's w_pad; ledger {tw['ledger']}; one process "
+              f"{tw['seconds']:.1f} s, B1 launches {tw['launches']}; {card}")
+        for r, rk in enumerate(ranks):
+            t = rk[DIST_TRAINER]
+            print(f"    rank {r}: {t['seconds']:.1f} s, B1 launches (fit, "
+                  f"re-solve) {t['launches']}, ledger {t['ledger']}")
+            if t["ledger"] != tw["ledger"] or t["rows"] != tw["rows"] or (
+                    t["err_base"] != tw["err_base"]):
+                fail(f"phase 9: the trainer's ledger, rows or error "
+                     f"baseline at rank {r} differ from one process's")
+            if t["launches"] != tw["launches"] or min(t["launches"]) < 1:
+                fail(f"phase 9: the trainer's B1 launches at rank {r} "
+                     f"{t['launches']}, one process {tw['launches']}")
         tr = one["nccl transport"]
         for label, c in tr["checks"].items():
             print(f"  one-rank {tr['backend']} group, transport only (a "
@@ -2282,6 +2417,554 @@ def dist_phase_main():
     print(f"build: {time.perf_counter() - t0:.1f}s")
     print("phase 9: the solver across processes (child processes)")
     DistRun(card).finish()
+    return 0
+
+
+# ------------------------------------------ 10. the LM stack across ranks
+
+LMD_DIR = ROOT / "build" / "chip_smoke_lm_dist"
+LMD_WORLD = 2
+LMD_ARCH = "minicpm-2b"
+LMD_STEPS_FILE = ROOT / "chiprun_out" / "phase8_steps.json"
+LMD_CUT = 4  # (b)'s layers of LMD_ARCH, at full width
+LMD_B, LMD_MB, LMD_B_STEPS = 4, 2, 2  # (b)'s batch, microbatches, steps
+LMD_GEN = 8  # (c)'s greedy decode steps
+LMD_DEC_TOL = LM_RTOL  # phase 7's prefill → decode bound
+
+
+def phase8_key(arch):
+    """What phase 8's per-step numbers of ``arch`` come from: a hash of
+    the port's sources, this script (the seed, batches and schedule) and
+    the arch's name.  Phase 10 (a) holds its steps only to numbers
+    stored under the key of the tree it runs."""
+    import hashlib
+
+    h = hashlib.sha256(arch.encode())
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*")):
+        if path.is_file() and path.suffix in (".py", ".cu", ".cuh", ".h"):
+            h.update(str(path.relative_to(ROOT)).encode())
+            h.update(path.read_bytes())
+    h.update(Path(__file__).read_bytes())
+    return h.hexdigest()
+
+
+def phase8_steps(arch):
+    """Phase 8's per-step losses and grad norms of ``arch`` from
+    ``LMD_STEPS_FILE``, or None where the file holds none under this
+    tree's key."""
+    if not LMD_STEPS_FILE.exists():
+        return None
+    known = json.loads(LMD_STEPS_FILE.read_text()).get(arch)
+    return known if known and known.get("key") == phase8_key(arch) else None
+
+
+def _lmd_placed(torch, tree, shardings, mesh):
+    """(bytes this rank holds of ``tree``, whether every leaf split over
+    ``model`` holds exactly 1/size of its elements here, the count of
+    such leaves)."""
+    from repro_torch.tree import leaves
+
+    size = mesh.size(list(mesh.mesh_dim_names).index("model"))
+    held = split = 0
+    ok = True
+    for t, sh in zip(leaves(tree), leaves(shardings)):
+        local = t.to_local()
+        held += local.numel() * local.element_size()
+        if any("model" in ((e,) if isinstance(e, str) else (e or ()))
+               for e in sh.spec):
+            split += 1
+            ok = ok and local.numel() * size == t.numel()
+    return held, ok, split
+
+
+def _lmd_steps(torch, step, state, batches):
+    """``state`` through ``step`` on each batch: (state, losses,
+    grad_norms, ms a step by the host clock around a synchronised
+    step)."""
+    from repro_torch.dist.sharding import gather_full
+
+    losses, gnorms, ms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(gather_full(m["loss"])))
+        gnorms.append(float(gather_full(m["grad_norm"])))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, gnorms, ms
+
+
+def _lmd_rel(a, b):
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def _lmd_tensor_parallel(torch, dev, rank, card):
+    """(a) minicpm-2b at its full published width and depth over (data 1,
+    model 2), phase 8's seed, batches and schedule, ``TRAIN_STEPS``
+    steps; then (c) its serving from the final parameters.  Returns the
+    lines' numbers."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import get_schedule
+    from repro_torch.data.lm_data import MarkovCorpus, make_lm_batch
+    from repro_torch.dist import collectives as tc
+    from repro_torch.dist.mesh import make_rank_mesh
+    from repro_torch.dist.sharding import (
+        ShardingRules,
+        batch_sharding,
+        cache_shardings,
+        gather_full,
+        host_full,
+        place,
+    )
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.optim import make_schedule
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    from repro_torch.train import (
+        init_train_state,
+        make_train_step,
+        train_state_shardings,
+        train_state_specs,
+    )
+    from repro_torch.tree import leaves, unflatten_like
+
+    cfg = get_config(LMD_ARCH)
+    mesh = make_rank_mesh((1, LMD_WORLD), ("data", "model"), device=dev)
+    rules = ShardingRules(mesh)
+    sh = train_state_shardings(cfg, mesh, train_state_specs(
+        cfg, dtype=torch.float32))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev, shardings=sh.params, opt_shardings=sh.opt.m)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    p_bytes, p_half, p_split = _lmd_placed(torch, state.params, sh.params,
+                                           mesh)
+    m_bytes, m_half, m_split = _lmd_placed(
+        torch, (state.opt.m, state.opt.v), (sh.opt.m, sh.opt.v), mesh)
+    corpus = MarkovCorpus(cfg.vocab_size, seed=SEED, device=dev)
+    plain = [make_lm_batch(corpus, t, TRAIN_B, TRAIN_S)
+             for t in range(TRAIN_STEPS)]
+    batches = [place(b, {k: batch_sharding(mesh, v.shape[0], v.dim())
+                         for k, v in b.items()}) for b in plain]
+    sched = make_schedule(get_schedule(LMD_ARCH), peak_lr=1e-4,
+                          total_steps=100, warmup_steps=2)
+    step = make_train_step(cfg, schedule=sched, remat=True, rules=rules)
+    tc.reset_stats()
+    state, losses, gnorms, ms = _lmd_steps(torch, step, state, batches)
+    staged = dict(tc.STAGED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ref = phase8_steps(LMD_ARCH)
+    if ref is None:
+        fail(f"(a) rank {rank}: no phase 8 steps of {LMD_ARCH} under this "
+             f"tree's key in {LMD_STEPS_FILE}")
+    e_loss = _lmd_rel(losses, ref["losses"])
+    e_gn = _lmd_rel(gnorms, ref["grad_norms"])
+    a = {"layers": cfg.n_layers, "init_s": init_s, "ms": ms,
+         "losses": losses, "grad_norms": gnorms, "e_loss": e_loss,
+         "e_gn": e_gn, "peak_gib": peak, "param_bytes": p_bytes,
+         "moment_bytes": m_bytes, "split_leaves": [p_split, m_split],
+         "halves": bool(p_half and m_half), "staged": staged}
+    print(f"(a) rank {rank}: {LMD_ARCH} {cfg.n_layers} of {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, over (data 1, model "
+          f"{LMD_WORLD}): placed in {init_s:.1f} s, parameters "
+          f"{p_bytes / 2**30:.3f} GiB and moments {m_bytes / 2**30:.3f} "
+          f"GiB on this rank ({p_split} + {m_split} leaves split over "
+          f"model, each exactly 1/{LMD_WORLD} here: {a['halves']}); ms a "
+          f"step {[round(v, 1) for v in ms]} (host clock, synchronised); "
+          f"losses {[round(v, 4) for v in losses]}, grad_norm "
+          f"{[round(v, 4) for v in gnorms]}; against phase 8's one "
+          f"process: loss {e_loss:.2e}, grad_norm {e_gn:.2e} (≤ "
+          f"{TRAIN_NOREMAT_RTOL}); peak {peak:.2f} GiB; staged through the "
+          f"host {staged['calls']} calls, {staged['bytes'] / 1e6:.1f} MB; "
+          f"{card}")
+    if not a["halves"] or not p_split:
+        fail(f"(a) rank {rank}: a tensor-parallel leaf does not hold "
+             f"exactly half its elements here")
+    if e_loss > TRAIN_NOREMAT_RTOL or e_gn > TRAIN_NOREMAT_RTOL:
+        fail(f"(a) rank {rank}: the steps part from phase 8's: loss "
+             f"{losses} vs {ref['losses']}, grad_norm {gnorms} vs "
+             f"{ref['grad_norms']}")
+
+    # ---- (c) serving from (a)'s final parameters
+    params = state.params
+    del state, step
+    torch.cuda.empty_cache()
+    tokens = plain[0]["tokens"]
+    B, S = tokens.shape
+
+    def put(t):
+        return place(t, batch_sharding(mesh, B, t.dim()))
+
+    def serve(p, rules, put_tok, cache):
+        prefill = make_prefill_step(cfg, rules)
+        decode = make_decode_step(cfg, rules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, {"tokens": put_tok(tokens)}, cache)
+        tok = torch.argmax(gather_full(logits)[:, -1, :cfg.vocab_size],
+                           -1).to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = [tok]
+        for _ in range(LMD_GEN):
+            tok, last, cache = decode(p, {"tokens": put_tok(tok[:, None])},
+                                      cache)
+            tok = gather_full(tok)
+            toks.append(tok)
+        last = gather_full(last)[:, -1]
+        torch.cuda.synchronize()
+        return (torch.stack(toks, 1), last, (t1 - t0) * 1e3,
+                (time.perf_counter() - t1) * 1e3 / LMD_GEN)
+
+    cache = init_cache(cfg, B, S + LMD_GEN, torch.float32, device=dev)
+    cache = place(cache, cache_shardings(cfg, mesh, cache, B))
+    toks, last, pre_ms, dec_ms = serve(params, rules, put, cache)
+    del cache
+    # one process from the same parameters, gathered to rank 0's host (a
+    # collective every rank enters), which serves alone
+    full = [host_full(p, 0) for p in leaves(params)]
+    whole = (unflatten_like(params, [t.to(dev) for t in full])
+             if rank == 0 else None)
+    del full, params
+    torch.cuda.empty_cache()
+    c = {"prefill_ms": pre_ms, "decode_ms": dec_ms,
+         "tokens": toks.tolist()}
+    if rank == 0:
+        from repro_torch.dist.sharding import NO_RULES
+
+        cache = init_cache(cfg, B, S + LMD_GEN, torch.float32, device=dev)
+        toks1, last1, pre1, dec1 = serve(whole, NO_RULES, lambda t: t,
+                                         cache)
+        del whole, cache
+        same = bool(torch.equal(toks, toks1))
+        err = float((last - last1).abs().max())
+        close = bool(torch.allclose(last, last1, rtol=LMD_DEC_TOL,
+                                    atol=LMD_DEC_TOL))
+        c.update(one_prefill_ms=pre1, one_decode_ms=dec1, same=same,
+                 err=err)
+        print(f"(c) prefill of (a)'s batch (B = {B}, S = {S}) then "
+              f"{LMD_GEN} greedy tokens over (data 1, model {LMD_WORLD}) "
+              f"from (a)'s final parameters: prefill {pre_ms:.1f} ms, "
+              f"{dec_ms:.1f} ms a token (host clock); one process from the "
+              f"gathered parameters: {pre1:.1f} ms, {dec1:.1f} ms a token; "
+              f"tokens {'equal' if same else 'DIFFER'} {toks.tolist()}; "
+              f"last logits max |Δ| {err:.2e} (rtol/atol {LMD_DEC_TOL}); "
+              f"{card}")
+        if not same or not close:
+            fail(f"(c): the decode on the mesh parts from one process's: "
+                 f"tokens {toks.tolist()} vs {toks1.tolist()}, |Δ| {err}")
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return a, c
+
+
+def _lmd_saved(path):
+    """A checkpoint's arrays by leaf name (the reference's stacked
+    layout)."""
+    import numpy as np
+
+    manifest = json.loads((path / "manifest.json").read_text())
+    with np.load(path / "arrays.npz") as data:
+        return {meta["name"]: data[key]
+                for key, meta in manifest["leaves"].items()}
+
+
+def _lmd_matches(torch, state, saved):
+    """Whether every leaf of a port ``TrainState`` holds the saved
+    arrays' bits: a DTensor's local shard against its part of the saved
+    array (no gather), a plain tensor against the whole of it."""
+    from repro_torch.dist.sharding import is_dtensor, local_part
+    from repro_torch.tree import LAYER_GROUPS, leaves_with_names
+
+    for name, t in leaves_with_names(state):
+        parts = name.split("/")
+        want = None
+        for j in range(len(parts) - 1):  # a layer's leaf: its (L, …) row
+            if parts[j] in LAYER_GROUPS and parts[j + 1].isdigit():
+                want = saved["/".join(parts[:j + 1] + parts[j + 2:])][
+                    int(parts[j + 1])]
+        want = torch.from_numpy(saved[name] if want is None else want)
+        if is_dtensor(t):
+            want = local_part(want, t.device_mesh, t.placements)
+            t = t.to_local()
+        if t.dtype != want.dtype or not torch.equal(t.cpu(), want):
+            return False
+    return True
+
+
+def _lmd_data_axis(torch, dev, rank, card):
+    """(b) minicpm-2b at full width cut to ``LMD_CUT`` layers over (data
+    2, model 1), FSDP and ZeRO-1, B = ``LMD_B`` in ``LMD_MB``
+    microbatches with ZeRO-1's ``acc_shardings``: ``LMD_B_STEPS`` steps
+    through ``run_training`` on the two ranks (checkpoints at step 0 and
+    at the last step only), each step's loss and grad norm against the
+    same steps in one process; the last step's checkpoint restored onto
+    the mesh with ``shardings=`` and at one process without.  Returns
+    the lines' numbers."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import get_schedule
+    from repro_torch.data.lm_data import MarkovCorpus, make_lm_batch
+    from repro_torch.dist import collectives as tc
+    from repro_torch.dist.mesh import make_rank_mesh
+    from repro_torch.dist.sharding import ShardingRules, batch_sharding, place
+    from repro_torch.optim import make_schedule
+    from repro_torch.train import (
+        LoopConfig,
+        init_train_state,
+        make_train_step,
+        restore_checkpoint,
+        run_training,
+        train_state_shardings,
+        train_state_specs,
+    )
+    from repro_torch.tree import leaves
+
+    full = get_config(LMD_ARCH)
+    cfg = dataclasses.replace(full, n_layers=LMD_CUT)
+    mesh = make_rank_mesh((LMD_WORLD, 1), ("data", "model"), device=dev)
+    sh = train_state_shardings(cfg, mesh, train_state_specs(
+        cfg, dtype=torch.float32))
+
+    def fresh(shardings=None):
+        return init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+            shardings=None if shardings is None else shardings.params,
+            opt_shardings=None if shardings is None else shardings.opt.m)
+
+    corpus = MarkovCorpus(cfg.vocab_size, seed=SEED, device=dev)
+    plain = [make_lm_batch(corpus, t, LMD_B, TRAIN_S)
+             for t in range(LMD_B_STEPS)]
+    batches = [place(b, {k: batch_sharding(mesh, v.shape[0], v.dim())
+                         for k, v in b.items()}) for b in plain]
+    sched = make_schedule(get_schedule(LMD_ARCH), peak_lr=1e-4,
+                          total_steps=100, warmup_steps=2)
+    kw = dict(schedule=sched, remat=True, microbatches=LMD_MB)
+    step = make_train_step(cfg, rules=ShardingRules(mesh),
+                           acc_shardings=sh.opt.m, **kw)
+    rec = {"losses": [], "grad_norms": [], "ms": []}
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        rec["losses"].append(float(m["loss"]))  # replicated: any rank
+        rec["grad_norms"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        return state, m
+
+    ckpt = LMD_DIR / "ckpt"
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    tc.reset_stats()
+    t0 = time.perf_counter()
+    state, rep = run_training(
+        fresh(sh), timed, lambda t: batches[t],
+        LoopConfig(total_steps=LMD_B_STEPS, ckpt_dir=str(ckpt),
+                   ckpt_every=LMD_B_STEPS + 1, log_every=100),
+        shardings=sh, log=lambda *_: None)
+    loop_s = time.perf_counter() - t0
+    staged = dict(tc.STAGED)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    at = LMD_B_STEPS  # the loop's final save
+    saved = _lmd_saved(ckpt / f"ckpt_{at}")
+    t0 = time.perf_counter()
+    onto, s_onto = restore_checkpoint(str(ckpt), at, state, sh)
+    onto_s = time.perf_counter() - t0
+    held = _lmd_matches(torch, onto, saved) and s_onto == at and all(
+        tuple(t.placements) == s.placements()
+        for t, s in zip(leaves(onto), leaves(sh)))
+    onto_ok = not int(tc.mesh_max(torch.tensor([int(not held)]), mesh)[0])
+    del onto, state
+    torch.cuda.empty_cache()
+    b = {"layers": [LMD_CUT, full.n_layers], "loop_s": loop_s,
+         "steps": rep.final_step, "peak_gib": peak, "staged": staged,
+         "onto_s": onto_s, "onto_ok": onto_ok, **rec,
+         "ckpt_bytes": os.path.getsize(ckpt / f"ckpt_{at}" / "arrays.npz")}
+    def alone():
+        """(b)'s one-process side, once phase 9 has left the card."""
+        # one process, on the ranks side by side: the same cut config's
+        # steps on rank 0, the checkpoint restored without shardings on
+        # rank 1
+        alone_held = True
+        if rank == 0:
+            one, l1, g1, ms1 = _lmd_steps(
+                torch, make_train_step(cfg, **kw), fresh(), plain)
+            del one
+        else:
+            t0 = time.perf_counter()
+            back, s_back = restore_checkpoint(str(ckpt), at, fresh())
+            b["alone_s"] = time.perf_counter() - t0
+            alone_held = _lmd_matches(torch, back, saved) and s_back == at
+            del back
+            print(f"(b) rank {rank}: the checkpoint of step {at} restored "
+                  f"at one process without shardings in "
+                  f"{b['alone_s']:.1f} s: "
+                  f"{'bit-equal' if alone_held else 'DIFFERENT'} to the "
+                  f"saved arrays; {card}")
+        torch.cuda.empty_cache()
+        alone_ok = not int(tc.mesh_max(torch.tensor([int(not alone_held)]),
+                                       mesh)[0])
+        b["alone_ok"] = alone_ok
+        if not alone_ok:
+            fail("(b): the checkpoint restored at one process is not the "
+                 "saved arrays")
+        if rank == 0:
+            b.update(one_losses=l1, one_grad_norms=g1, one_ms=ms1,
+                     e_loss=_lmd_rel(rec["losses"], l1),
+                     e_gn=_lmd_rel(rec["grad_norms"], g1))
+            print(f"(b) {LMD_ARCH} cut to {LMD_CUT} of {full.n_layers} "
+                  f"layers (full width) over (data {LMD_WORLD}, model 1), "
+                  f"FSDP and ZeRO-1, B = {LMD_B} in {LMD_MB} microbatches "
+                  f"with ZeRO-1's acc_shardings, through run_training: ms a "
+                  f"step "
+                  f"{[round(v, 1) for v in rec['ms']]} (one process "
+                  f"{[round(v, 1) for v in ms1]}); losses "
+                  f"{[round(v, 4) for v in rec['losses']]}, grad_norm "
+                  f"{[round(v, 4) for v in rec['grad_norms']]}; against one "
+                  f"process: loss {b['e_loss']:.2e}, grad_norm "
+                  f"{b['e_gn']:.2e} (≤ {TRAIN_NOREMAT_RTOL}); the loop "
+                  f"{loop_s:.1f} s with a "
+                  f"checkpoint at steps 0 and {at} (gathered to rank 0's "
+                  f"host, which writes it; "
+                  f"{b['ckpt_bytes'] / 1e9:.3f} GB); peak {peak:.2f} GiB on "
+                  f"rank 0; DTensor's collectives staged {staged['calls']} "
+                  f"calls, {staged['bytes'] / 1e6:.1f} MB; {card}")
+            print(f"(b) the checkpoint of step {at} restored onto the mesh "
+                  f"with shardings= in {onto_s:.1f} s: every rank's shards "
+                  f"{'bit-equal' if onto_ok else 'DIFFERENT'} to the saved "
+                  f"arrays (at one process: rank 1's line); {card}")
+            if max(b["e_loss"], b["e_gn"]) > TRAIN_NOREMAT_RTOL:
+                fail(f"(b): the data-axis steps part from one process's: "
+                     f"{rec['losses']} vs {l1}, {rec['grad_norms']} vs {g1}")
+            if not onto_ok or rep.final_step != LMD_B_STEPS:
+                fail("(b): the checkpoint restored onto the mesh is not the "
+                     "saved arrays")
+        dist.barrier()
+        torch.cuda.empty_cache()
+        return b
+
+    return b, alone
+
+
+def lm_dist_rank_main(rank, store):
+    """A rank of phase 10's two-rank gloo group on cuda:0: (b) on the mesh
+    (about 7 GiB a rank, beside phase 9's children), then, once the
+    parent has written ``LMD_DIR/go``, (b)'s one-process side, (a) and
+    (c); its numbers as the last line."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=LMD_WORLD)
+    card = card_line()
+    b, alone = _lmd_data_axis(torch, dev, rank, card)
+    # (b)'s one-process side and (a) need more of the card: they wait for
+    # phase 9's children to have left it (the parent's go file)
+    while not (LMD_DIR / "go").exists():
+        time.sleep(0.5)
+    dist.barrier()
+    b = alone()
+    a, c = _lmd_tensor_parallel(torch, dev, rank, card)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"a": a, "b": b, "c": c}))
+    return 0
+
+
+class LmDistRun:
+    """Phase 10's two ``--lm-dist-rank`` children (a gloo group on
+    cuda:0 with a ``file://`` store), started beside phase 9's: they run
+    (b) at once, and (a) and (c) after ``go``; ``finish`` waits for
+    both, prints their lines and fails the script on a nonzero exit."""
+
+    def __init__(self):
+        import shutil
+
+        shutil.rmtree(LMD_DIR, ignore_errors=True)
+        LMD_DIR.mkdir(parents=True)
+        if phase8_steps(LMD_ARCH) is None:
+            fail(f"phase 10: phase 8's steps of {LMD_ARCH} under this "
+                 f"tree's key are not in {LMD_STEPS_FILE}")
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for r in range(LMD_WORLD):
+            out = open(LMD_DIR / f"rank{r}.out", "w")
+            err = open(LMD_DIR / f"rank{r}.err", "w")
+            self.procs.append((r, subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--lm-dist-rank", str(r), str(LMD_DIR / "store")],
+                stdout=out, stderr=err, text=True), out, err))
+
+    def go(self):
+        """Let the ranks on to (a) and (c): the card is theirs."""
+        (LMD_DIR / "go").touch()
+
+    def kill(self):
+        for _, proc, *_ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def finish(self, timeout=900):
+        res = []
+        for r, proc, out, err in self.procs:
+            try:
+                proc.wait(timeout=max(
+                    timeout - (time.perf_counter() - self.t0), 1))
+            except subprocess.TimeoutExpired:
+                self.kill()
+                fail(f"phase 10: rank {r} ran past {timeout} s")
+            out.close()
+            err.close()
+            lines = Path(out.name).read_text().splitlines()
+            for line in lines[:-1] + Path(err.name).read_text(
+                    ).splitlines()[-40:]:
+                print(f"    [rank {r}] {line}")
+            if proc.returncode != 0 or not lines:
+                self.kill()
+                fail(f"phase 10: rank {r} exited {proc.returncode}")
+            res.append(json.loads(lines[-1]))
+        print(f"  phase 10: {time.perf_counter() - self.t0:.1f} s")
+        return res
+
+
+def lm_dist_phase_main():
+    """Phase 10 alone (``--lm-dist-phase``): the card, phase 8's child
+    when its per-step numbers are not there under this tree's key, then
+    the two ranks."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line())
+    if phase8_steps(LMD_ARCH) is None:
+        print("phase 8: LM training and serving (a child process)")
+        run_lm_train_phase()
+    print("phase 10: the LM stack across two ranks (child processes)")
+    run = LmDistRun()
+    run.go()
+    run.finish()
     return 0
 
 
@@ -2504,18 +3187,32 @@ def main():
                                         [r.cpu() for r in rows_o],
                                         q_o.cpu(), n_pod_o),
          (*zeros_o(), ids_o, hinge))]
-    print("phase 9: the solver across processes (child processes, beside "
-          "phase 3's host replays)")
+    print("phases 9 and 10: the solver and the LM stack across processes "
+          "(child processes, beside phase 3's host replays; phase 10's (a) "
+          "and (c) once phase 9's children have left the card)")
     dist_run = DistRun(card)
+    lm_run = None
     try:
+        lm_run = LmDistRun()
+        released = False
         replayed = {}
         for key, plain, args in replays:
             replayed[key] = replay_on_host(plain, *args)
             print(f"  host replay {key}: {replayed[key][1]:.1f} s")
             dist_run.poll()
-        dist_run.finish()
+            if not released and dist_run.done():
+                dist_run.finish()
+                lm_run.go()
+                released = True
+        if not released:
+            dist_run.finish()
+            lm_run.go()
+        print("phase 10: the LM stack across two ranks")
+        lm_run.finish()
     except BaseException:
         dist_run.kill()
+        if lm_run is not None:
+            lm_run.kill()
         raise
     del replays, X_cov_h, q_c_h, cols_r_h, vals_r_h, q_r_h
 
@@ -5166,7 +5863,7 @@ def main():
     results["dcd_indexed_epoch"]["launches"] += lm_launches[
         "dcd_indexed_epoch"]
 
-    # --------------------------------------------------------- 10. result
+    # --------------------------------------------------------- 11. result
     idle = [name for name, row in results.items() if row["launches"] < 1]
     if idle:
         fail(f"kernels no main path launched: {idle}")
@@ -5187,4 +5884,7 @@ if __name__ == "__main__":
              else dist_one_main(sys.argv[2])
              if sys.argv[1:2] == ["--dist-one"]
              else dist_phase_main() if sys.argv[1:] == ["--dist-phase"]
+             else lm_dist_rank_main(int(sys.argv[2]), sys.argv[3])
+             if sys.argv[1:2] == ["--lm-dist-rank"]
+             else lm_dist_phase_main() if sys.argv[1:] == ["--lm-dist-phase"]
              else main())

@@ -30,8 +30,6 @@ checkpoints are written in.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -42,7 +40,8 @@ from repro_torch.data.sparse import (
     PodShardedEll,
 )
 from repro_torch.dist.mesh import resolve_device
-from repro_torch.tree import map_layer_groups
+from repro_torch.dist.sharding import host_full, place
+from repro_torch.tree import map_layer_groups, tree_map
 
 
 def ell_from_numpy(indices, values, d: int, *, device=None) -> EllMatrix:
@@ -246,88 +245,121 @@ def snapshot_from_numpy(snap, *, device=None):
                          None if snap.meta is None else dict(snap.meta))
 
 
-def _unstack(group: dict, dev) -> list:
-    """A stacked {name: (L, …)} group as L per-layer dicts."""
-    n = len(next(iter(group.values())))
-    return [{k: torch.tensor(np.asarray(v)[i], device=dev)
-             for k, v in group.items()} for i in range(n)]
+def _layer_views(group: dict) -> list:
+    """A stacked {name: (L, …)} group as L per-layer dicts of numpy
+    views (each stacked leaf read to the host once)."""
+    arrays = {k: np.asarray(v) for k, v in group.items()}
+    n = len(next(iter(arrays.values())))
+    return [{k: a[i] for k, a in arrays.items()} for i in range(n)]
 
 
-def params_from_numpy(cfg, params, *, device=None) -> dict:
+def params_from_numpy(cfg, params, *, device=None, shardings=None) -> dict:
     """The reference's LM parameter pytree (numpy or jax arrays) in the
     port's layout (``repro_torch.models.transformer``): each stacked
     layer group a list of per-layer dicts, a hybrid model's ``periods``
     a list of slots {"block": [...], "mlp": [...]}, every other leaf a
     tensor.  ``cfg`` is the model's config: the embedding must have its
-    padded vocabulary and width."""
+    padded vocabulary and width.  With ``shardings`` (a tree of
+    ``NamedSharding`` in the port's layout, ``param_shardings``') each
+    leaf is placed on their live mesh as it is converted
+    (``dist.sharding.place``): no device holds a full copy of the tree."""
     from repro_torch.models.transformer import vocab_padded
     want = (vocab_padded(cfg), cfg.d_model)
     if tuple(np.shape(params["embed"])) != want:
         raise ValueError(f"the embedding is {tuple(np.shape(params['embed']))}"
                          f", {cfg.name} has {want}")
-    return _unstack_params(params, resolve_device(device))
+    return _unstack_params(params, None if shardings is not None
+                           else resolve_device(device), shardings)
 
 
-def _unstack_params(params, dev) -> dict:
-    return map_layer_groups(
-        params, functools.partial(_unstack, dev=dev),
-        lambda v: torch.tensor(np.asarray(v), device=dev))
+def _unstack_params(params, dev, shardings=None) -> dict:
+    layout = map_layer_groups(params, _layer_views, np.asarray)
+    if shardings is None:
+        return tree_map(lambda a: torch.tensor(a, device=dev), layout)
+    return tree_map(lambda a, sh: place(torch.tensor(a), sh), layout,
+                    shardings)
 
 
-def _host(t) -> np.ndarray:
+def _host(t, dst=None) -> np.ndarray:
     """A tensor on the host as numpy; bf16, which numpy lacks, widened
-    to float32 (exact)."""
-    t = t.detach()
+    to float32 (exact).  A DTensor is gathered whole on the host (a
+    collective every rank of its mesh enters, ``host_full``; with
+    ``dst``, on rank ``dst`` alone, the others getting an empty
+    array)."""
+    t = host_full(t, dst)
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.cpu().numpy()
+    return t.numpy()
 
 
-def _stack(layers: list) -> dict:
-    return {k: np.stack([_host(lp[k]) for lp in layers]) for k in layers[0]}
-
-
-def params_to_numpy(params) -> dict:
+def params_to_numpy(params, *, dst=None) -> dict:
     """The port's parameters as the reference's stacked numpy pytree (a
-    bf16 leaf widened to float32)."""
-    return map_layer_groups(params, _stack, _host)
+    bf16 leaf widened to float32).  On a live mesh every rank enters
+    each leaf's gather; ``dst`` keeps the arrays on that rank alone."""
+    def host(t):
+        return _host(t, dst)
+
+    def stack(layers):
+        return {k: np.stack([host(lp[k]) for lp in layers])
+                for k in layers[0]}
+
+    return map_layer_groups(params, stack, host)
 
 
-def map_train_state(state, tree, scalar):
+def map_train_state(state, tree, scalar, shardings=None):
     """A port ``TrainState`` with ``state``'s fields (either package's
     ``TrainState``, or ``train_state_to_numpy``'s): each params-shaped
     tree (parameters, both moments, the master copy, the compression
     residual) through ``tree``, ``count`` and ``step`` through
-    ``scalar``; a ``None`` field stays ``None``."""
+    ``scalar``; a ``None`` field stays ``None``.  With ``shardings`` (a
+    ``TrainState`` of ``NamedSharding``, ``train.train_state_shardings``)
+    each call also takes the field's shardings."""
     from repro_torch.optim.adamw import AdamWState
     from repro_torch.optim.grad_compress import CompressState
     from repro_torch.train.step import TrainState
 
+    def t(x, field):
+        return tree(x) if shardings is None else tree(x, field(shardings))
+
+    def c(x, field):
+        return scalar(x) if shardings is None else scalar(x, field(shardings))
+
     opt = state.opt
     return TrainState(
-        params=tree(state.params),
-        opt=AdamWState(tree(opt.m), tree(opt.v),
-                       None if opt.master is None else tree(opt.master),
-                       scalar(opt.count)),
-        step=scalar(state.step),
+        params=t(state.params, lambda s: s.params),
+        opt=AdamWState(t(opt.m, lambda s: s.opt.m),
+                       t(opt.v, lambda s: s.opt.v),
+                       None if opt.master is None else t(
+                           opt.master, lambda s: s.opt.master),
+                       c(opt.count, lambda s: s.opt.count)),
+        step=c(state.step, lambda s: s.step),
         compress=(None if state.compress is None
-                  else CompressState(tree(state.compress.residual))))
+                  else CompressState(t(state.compress.residual,
+                                       lambda s: s.compress.residual))))
 
 
-def train_state_to_numpy(state):
+def train_state_to_numpy(state, *, dst=None):
     """The port's LM ``TrainState`` in the reference's layout, as numpy:
     each params-shaped tree stacked as ``params_to_numpy`` stacks it,
     ``count`` and ``step`` 0-d int32.  A bf16 leaf is widened to
-    float32."""
-    return map_train_state(state, params_to_numpy, _host)
+    float32.  ``dst`` as in ``params_to_numpy``."""
+    return map_train_state(state, lambda t: params_to_numpy(t, dst=dst),
+                           lambda t: _host(t, dst))
 
 
-def train_state_from_numpy(cfg, state, *, device=None):
+def train_state_from_numpy(cfg, state, *, device=None, shardings=None):
     """The port's ``TrainState`` from the reference's (its ``TrainState``
     or ``train_state_to_numpy``'s, numpy or jax arrays) on ``device`` (the
     card unless the caller asks for the CPU): every params-shaped tree
     through ``params_from_numpy``, ``count`` and ``step`` 0-d int32
-    tensors; the arrays keep their dtypes."""
+    tensors; the arrays keep their dtypes.  With ``shardings`` (a
+    ``TrainState`` of ``NamedSharding``, ``train.train_state_shardings``)
+    every leaf is placed on their live mesh as it is converted."""
+    if shardings is not None:
+        return map_train_state(
+            state, lambda t, sh: params_from_numpy(cfg, t, shardings=sh),
+            lambda a, sh: place(torch.tensor(np.asarray(a, np.int32)), sh),
+            shardings)
     dev = resolve_device(device)
     return map_train_state(
         state, lambda t: params_from_numpy(cfg, t, device=dev),

@@ -31,8 +31,10 @@ solve's recovery, and ``serve_admission_policy``, ``serve_rung``,
 admission, overload ladder and re-solve trigger.  ``lane_pad`` and
 ``cta_threads`` size a kernel's thread block.  ``make_production_mesh``
 and ``make_fake_mesh`` build the LM dry-run's ``DeviceMesh`` over a
-``fake`` process group (no card, no communication), and ``mesh_axes``,
-``data_axes`` and ``dp_size`` read either kind of mesh.
+``fake`` process group (no card, no communication); ``make_rank_mesh``
+builds the LM stack's live one over an initialised gloo or nccl group,
+one rank a mesh point; ``mesh_axes``, ``data_axes`` and ``dp_size`` read
+every kind of mesh.
 The reference's 128-lane padding of d and k is TPU tiling, not
 semantics: the CUDA kernels take any width, so the port pads nothing but
 the thread count, which rounds up to whole warps.
@@ -763,6 +765,30 @@ def make_fake_mesh(shape, axis_names):
         dist.init_process_group("fake", store=dist.HashStore(), rank=0,
                                 world_size=n)
     return init_device_mesh("cpu", tuple(shape),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def make_rank_mesh(shape, axis_names, *, device=None):
+    """A ``DeviceMesh`` of ``shape`` named ``axis_names`` over the
+    initialised default process group, one rank a mesh point (row-major
+    in the group's ranks) — the live counterpart of ``make_fake_mesh``,
+    on which DTensors hold real values and collectives move them.  Its
+    device type is ``device``'s (the card unless the caller asks for
+    the CPU); gloo feeds either.  Raises where no group is initialised,
+    where the group is the dry-run's ``fake`` one, or where its world
+    size is not prod(shape)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape)
+    world = _live_world()
+    if world == 0:
+        raise RuntimeError(f"the {tuple(shape)} mesh needs an initialised "
+                           f"process group of {n} ranks; there is none")
+    if world != n:
+        raise ValueError(f"the {tuple(shape)} mesh needs {n} ranks; the "
+                         f"{dist.get_backend()} process group has {world}")
+    return init_device_mesh(resolve_device(device).type, tuple(shape),
                             mesh_dim_names=tuple(axis_names))
 
 

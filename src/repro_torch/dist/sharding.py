@@ -30,6 +30,16 @@ Logical activation names (``ShardingRules.act(x, name)``):
   act_ssm_inner    (B, S, d_inner)  SSD head-parallel inner width
   act_ssm_dt       (B, S, H)        per-head dt
 
+On a live mesh (``dist.mesh.make_rank_mesh``) the same placements hold
+real values: ``place`` puts a tree's tensors on it leaf by leaf, each
+rank keeping its own shard of the full leaf it drew or loaded (no
+collective), ``zeros_placed`` and ``replicate_like`` build the optimizer's
+leaves beside DTensor parameters, ``owned_local`` is the part of a leaf a
+rank counts once in a reduction over the whole mesh, ``gather_full`` (to
+the mesh's device) and ``host_full`` (to the host, the checkpoints'
+reads) are the inverse of ``place``, and ``on_mesh`` is the context the
+LM steps run in there.
+
 The port's parameter trees keep each layer group as a Python list of
 per-layer dicts where the reference stacks a group's leaves along a
 leading (L, …) axis.  Two rules read that axis, and the port resolves
@@ -51,7 +61,7 @@ import dataclasses
 from typing import Any, Mapping, Optional
 
 from repro_torch.dist.mesh import data_axes, mesh_axes
-from repro_torch.tree import tree_map_with_names
+from repro_torch.tree import tree_map, tree_map_with_names
 
 # sentinels resolved per-mesh at application time
 BATCH = "__batch__"  # the data-parallel axis product (pod, data)
@@ -263,6 +273,46 @@ def fsdp_gathered(w):
         w.device_mesh, pl)
 
 
+def local_grad_placements(in_placements) -> tuple:
+    """The gradient placements of ``local_map``'s inputs given their
+    ``in_placements``: an input replicated over a mesh dimension that
+    another input splits is used by each device on its own part of the
+    work only (B and C over an SSD head split, a router over a group
+    split), so its local gradient is that part's and the gradients are
+    a pending sum (``Partial``) there; every other placement is its
+    own gradient's.  Without this DTensor would take each device's
+    partial gradient for the whole one."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    split = [any(isinstance(pl[i], Shard) for pl in in_placements)
+             for i in range(len(in_placements[0]))]
+    return tuple(tuple(Partial() if isinstance(p, Replicate) and split[i]
+                       else p for i, p in enumerate(pl))
+                 for pl in in_placements)
+
+
+def pad_dim(x, dim: int, before: int, after: int):
+    """``x`` zero-padded along ``dim`` by ``before`` and ``after``
+    entries (``F.pad``).  A DTensor pads each device's own part under
+    ``local_map`` (the dimension gathered first where it is split), so
+    no torch's DTensor rule for ``constant_pad_nd`` is needed — some
+    plan an impossible redistribution for it."""
+    import torch.nn.functional as F
+
+    dim %= x.dim()
+    pad = [0, 0] * (x.dim() - 1 - dim) + [before, after]
+    if not is_dtensor(x):
+        return F.pad(x, pad)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+               for p in x.placements)
+    return local_map(lambda t: (F.pad(t, pad),), (pl,), in_placements=(pl,),
+                     device_mesh=mesh, redistribute_inputs=True)(x)[0]
+
+
 def splittable(x, dim: int, parts: int):
     """``x`` ready to have dimension ``dim`` split into (``parts``, …) by
     a reshape: a DTensor whose ``dim`` is split over a mesh dimension
@@ -283,6 +333,186 @@ def splittable(x, dim: int, parts: int):
 
 
 NO_RULES = ShardingRules(mesh=None)
+
+
+def on_mesh(rules):
+    """The context the LM steps run under when ``rules`` has a mesh:
+    DTensor's ``implicit_replication``, so a plain tensor the model code
+    makes (positions, RoPE frequencies, masks, a vocabulary's ids) takes
+    part in DTensor ops as the replicated value it is on every rank, and
+    ``dist.collectives.host_staged`` (two gloo ranks on one card).
+    Without a mesh, no context."""
+    import contextlib
+
+    if rules is None or rules.mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist.collectives import host_staged
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(implicit_replication())
+    stack.enter_context(host_staged(rules.mesh))
+    return stack
+
+
+# ===================================================== real tensors ======
+
+
+def local_part(full, mesh, placements):
+    """This rank's part of ``full`` under ``placements`` (a view): each
+    mesh dimension that splits a tensor dimension takes this rank's
+    chunk of it, in mesh order — DTensor's layout of a shard."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            full = torch.chunk(full, mesh.size(i), dim=p.dim)[coord[i]]
+    return full
+
+
+def _first_replica(t) -> bool:
+    """Whether this rank is the first of every mesh dimension the
+    DTensor ``t`` is not split over: of the ranks holding the same
+    part, the one that counts it."""
+    from torch.distributed.tensor import Shard
+
+    return not any(c and not isinstance(p, Shard) for c, p in zip(
+        t.device_mesh.get_coordinate(), t.placements))
+
+
+def place(tree, shardings):
+    """``tree``'s tensors placed on a live mesh: each leaf a DTensor
+    under its ``NamedSharding`` in ``shardings`` (a tree of the same
+    structure), built from this rank's shard alone.  Every rank holds
+    the full leaf (drawn or loaded from the same seed or file) and keeps
+    its own part of it, copied to the mesh's device into storage of its
+    own: no collective runs, and a leaf the caller drops leaves only its
+    shard behind.  A leaf whose sharding is ``None``, and any non-tensor
+    leaf, passes through.  The counterpart of the reference's
+    ``jax.device_put(array, sharding)``.  A meta leaf (the dry-run's
+    specs, on any mesh, the fake one too) gives a meta shard: nothing is
+    allocated."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    def one(t, sh):
+        if sh is None or not isinstance(t, torch.Tensor):
+            return t
+        mesh, pl = sh.mesh, sh.placements()
+        shard = sh.shard_shape(tuple(t.shape))  # raises on an uneven split
+        if t.is_meta:
+            local = torch.empty(shard, dtype=t.dtype, device="meta")
+        else:
+            local = local_part(t.detach(), mesh, pl).to(
+                mesh.device_type, copy=True,
+                memory_format=torch.contiguous_format)
+        return DTensor.from_local(
+            local, mesh, pl, run_check=False, shape=t.shape,
+            stride=torch.empty(t.shape, device="meta").stride())
+
+    return tree_map(one, tree, shardings)
+
+
+def zeros_placed(like, dtype, sh=None):
+    """Zeros of ``like``'s global shape in ``dtype``: where ``like`` is a
+    DTensor, a DTensor of this rank's shard alone, under ``sh`` (a
+    ``NamedSharding``, ZeRO-1's moment placement) or else ``like``'s own
+    placements; otherwise a plain tensor on ``like``'s device."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if not is_dtensor(like):
+        return torch.zeros(like.shape, dtype=dtype, device=like.device)
+    mesh = like.device_mesh
+    if sh is None:
+        local = torch.zeros(like.to_local().shape, dtype=dtype,
+                            device=like.to_local().device)
+        pl = like.placements
+    else:
+        local = torch.zeros(sh.shard_shape(tuple(like.shape)), dtype=dtype,
+                            device=like.to_local().device)
+        pl = sh.placements()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def replicate_like(t, like):
+    """``t`` (a small plain tensor, the same on every rank) beside
+    ``like``: replicated on ``like``'s mesh where ``like`` is a DTensor,
+    on ``like``'s device otherwise."""
+    if not is_dtensor(like):
+        return t.to(like.device)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(t.to(like.to_local().device), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+
+
+def owned_local(t):
+    """The part of ``t`` this rank counts once in a reduction over the
+    whole mesh: a DTensor's local shard where this rank is the first
+    of every mesh dimension ``t`` is not split over (a replica counted
+    once), an empty tensor on the others; a plain tensor itself."""
+    if not is_dtensor(t):
+        return t
+    local = t.to_local()
+    return local if _first_replica(t) else local.new_empty((0,))
+
+
+def replicated_value(t):
+    """A DTensor with a pending sum or a split reduced to the full value
+    on every rank (a replicated DTensor, whose ``float()`` and ``item()``
+    read the whole value on any rank); anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    want = [Replicate()] * t.device_mesh.ndim
+    return t if list(t.placements) == want else t.redistribute(
+        t.device_mesh, want)
+
+
+def host_full(t, dst=None):
+    """``t``'s full value as a host tensor.  Each rank of a DTensor's
+    mesh puts its shard into its slot of a zero buffer of the full shape
+    (a replica by its first holder only), and an integer SUM over the
+    mesh's ranks gives the whole value, bit for bit
+    (``collectives.slot_sum``, a collective every rank enters, on
+    ``collectives.crossing_device``): the device holds no more than the
+    shard under gloo.  With ``dst`` (a global rank) only ``dst`` gets
+    the value and every other rank an empty tensor: a checkpoint's
+    leaves, which rank 0 alone writes."""
+    if not is_dtensor(t):
+        return t.detach().cpu()
+    from repro_torch.dist import collectives
+
+    mesh, pl = t.device_mesh, t.placements
+    if any(p.is_partial() for p in pl):
+        raise ValueError("host_full takes split or replicated DTensors, "
+                         f"not a pending sum ({pl})")
+    first = _first_replica(t)
+    full = collectives.slot_sum(
+        t.to_local().detach(), t.shape,
+        lambda buf: local_part(buf, mesh, pl) if first else None,
+        collectives.mesh_group(mesh), dst=dst,
+        device=collectives.crossing_device(mesh))
+    return full.cpu()
+
+
+def gather_full(t):
+    """A DTensor as the full plain tensor on its mesh's device (an
+    all-gather every rank of the mesh must enter); anything else as it
+    is."""
+    if not is_dtensor(t):
+        return t
+    from repro_torch.dist.collectives import host_staged
+
+    with host_staged(t.device_mesh):
+        return t.full_tensor()
 
 
 # ===================================================== params ============

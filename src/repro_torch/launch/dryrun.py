@@ -53,9 +53,8 @@ from repro_torch.dist.mesh import make_production_mesh, mesh_axes
 from repro_torch.dist.sharding import (
     ShardingRules,
     cache_shardings,
-    opt_shardings,
     param_shardings,
-    replicated,
+    place,
 )
 from repro_torch.launch.roofline import (
     OpCounter,
@@ -70,8 +69,12 @@ from repro_torch.launch.specs import (
 from repro_torch.models.transformer import cache_max_len, param_specs
 from repro_torch.optim.schedules import make_schedule
 from repro_torch.serve.step import make_decode_step, make_prefill_step
-from repro_torch.train.step import make_train_step, train_state_specs
-from repro_torch.tree import leaves, tree_map
+from repro_torch.train.step import (
+    make_train_step,
+    train_state_shardings,
+    train_state_specs,
+)
+from repro_torch.tree import leaves
 
 
 def microbatches_for(cfg, shape) -> int:
@@ -128,26 +131,15 @@ def _local_bytes(tree) -> int:
 
 def distribute(specs, shardings):
     """``specs`` (meta tensors) as meta DTensors: each leaf this rank's
-    shard under its ``NamedSharding``, nothing allocated.  Non-tensor
-    leaves (a cache's ``length``) pass through.  On a mesh of one device
-    the shard is the tensor: ``specs`` come back as they are, and the
-    cell runs the plain path one card runs."""
-    from torch.distributed.tensor import DTensor
-
-    mesh = next(sh.mesh for sh in leaves(shardings))
+    shard under its ``NamedSharding`` (``dist.sharding.place`` of meta
+    leaves), nothing allocated.  Non-tensor leaves (a cache's
+    ``length``) pass through.  On a mesh of one device the shard is the
+    tensor: ``specs`` come back as they are, and the cell runs the plain
+    path one card runs."""
+    mesh = next(sh.mesh for sh in leaves(shardings) if sh is not None)
     if math.prod(mesh_axes(mesh).values()) == 1:
         return specs
-
-    def one(t, sh):
-        if not isinstance(t, torch.Tensor):
-            return t
-        local = torch.empty(sh.shard_shape(tuple(t.shape)), dtype=t.dtype,
-                            device="meta")
-        return DTensor.from_local(local, sh.mesh, sh.placements(),
-                                  run_check=False, shape=t.shape,
-                                  stride=t.stride())
-
-    return tree_map(one, specs, shardings)
+    return place(specs, shardings)
 
 
 class Lowering(NamedTuple):
@@ -168,20 +160,14 @@ def build_train_lowering(cfg, shape, mesh, *, microbatches=None,
                              warmup_steps=100)
     dts = dtypes or state_dtypes_for(cfg)
     specs = train_state_specs(cfg, **dts)
-    p_sh = param_shardings(cfg, mesh, specs.params, fsdp=fsdp)
-    o_sh = (opt_shardings(p_sh, mesh, specs.params, zero1_axis="data")
-            if zero1 else p_sh)
+    specs = specs._replace(opt=specs.opt._replace(master=None),
+                           compress=None)
+    sh = train_state_shardings(cfg, mesh, specs, fsdp=fsdp, zero1=zero1)
     step = make_train_step(cfg, schedule=schedule, rules=rules,
                            microbatches=mb, remat=True,
-                           acc_shardings=(o_sh if (zero1 and mb > 1)
+                           acc_shardings=(sh.opt.m if (zero1 and mb > 1)
                                           else None))
-    rep = replicated(mesh)
-    state = specs._replace(
-        params=distribute(specs.params, p_sh),
-        opt=specs.opt._replace(
-            m=distribute(specs.opt.m, o_sh), v=distribute(specs.opt.v, o_sh),
-            master=None, count=distribute(specs.opt.count, rep)),
-        step=distribute(specs.step, rep), compress=None)
+    state = distribute(specs, sh)
     batch = distribute(batch_specs(cfg, shape),
                        batch_shardings_for(cfg, shape, mesh))
     return Lowering(step, (state, batch), state, dts["dtype"])

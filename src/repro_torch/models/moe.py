@@ -39,7 +39,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import NO_RULES, is_dtensor, splittable
+from repro_torch.dist.sharding import (
+    NO_RULES,
+    is_dtensor,
+    local_grad_placements,
+    splittable,
+)
 from repro_torch.models.layers import ACC, dense, remat_call
 
 
@@ -208,12 +213,14 @@ def _local(fn, args, out_placements):
     """``fn`` on each device's own shards (``local_map``): ``args`` are
     (DTensor, placements) pairs, redistributed to those placements;
     ``out_placements`` one placements tuple an output of ``fn`` (which
-    returns a tuple)."""
+    returns a tuple).  A replicated input's gradient is the sum of the
+    devices' own parts (``local_grad_placements``)."""
     from torch.distributed.tensor.experimental import local_map
 
     mesh = args[0][0].device_mesh
-    out = local_map(fn, tuple(out_placements),
-                    in_placements=tuple(p for _, p in args),
+    ins = tuple(p for _, p in args)
+    out = local_map(fn, tuple(out_placements), in_placements=ins,
+                    in_grad_placements=local_grad_placements(ins),
                     device_mesh=mesh, redistribute_inputs=True)(
         *(a for a, _ in args))
     return out[0] if len(out_placements) == 1 else out

@@ -21,7 +21,13 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import NO_RULES, is_dtensor, splittable
+from repro_torch.dist.sharding import (
+    NO_RULES,
+    is_dtensor,
+    local_grad_placements,
+    pad_dim,
+    splittable,
+)
 from repro_torch.models.layers import ACC, dense, he_init, rms_norm
 
 
@@ -38,7 +44,7 @@ def _causal_conv(seq, conv_w, conv_b):
     """Depthwise causal conv1d.  seq: (B, S, C); conv_w: (k, C)."""
     k = conv_w.shape[0]
     B, S, C = seq.shape
-    xp = F.pad(seq, (0, 0, k - 1, 0))
+    xp = pad_dim(seq, 1, k - 1, 0)
     out = torch.zeros((B, S, C), dtype=ACC, device=seq.device)
     for t in range(k):
         out = out + xp[:, t:t + S].to(ACC) * conv_w[t].to(ACC)
@@ -56,7 +62,8 @@ def _conv_step(window, new, conv_w, conv_b):
 def ssd_scan(x, dt, a, Bm, Cm, chunk: int):
     """``_ssd_scan``; on DTensors (a mesh, the dry-run) per device under
     ``local_map``, on its own batch rows and heads (the state is
-    independent a head; B and C are shared by all of them)."""
+    independent a head; B and C are shared by all of them, so their
+    gradients are a sum over the head split: ``local_grad_placements``)."""
     if not is_dtensor(x):
         return _ssd_scan(x, dt, a, Bm, Cm, chunk)
     from torch.distributed.tensor import Replicate, Shard
@@ -73,9 +80,10 @@ def ssd_scan(x, dt, a, Bm, Cm, chunk: int):
         lay["bc"].append(Shard(0) if batch else r)
         lay["h"].append(Shard(0) if batch else Shard(1) if heads else r)
     lay = {k: tuple(v) for k, v in lay.items()}
+    ins = (lay["x"], lay["dt"], lay["a"], lay["bc"], lay["bc"])
     return local_map(
         lambda *t: _ssd_scan(*t, chunk), (lay["x"], lay["h"]),
-        in_placements=(lay["x"], lay["dt"], lay["a"], lay["bc"], lay["bc"]),
+        in_placements=ins, in_grad_placements=local_grad_placements(ins),
         device_mesh=x.device_mesh, redistribute_inputs=True)(
             x, dt, a, Bm, Cm)
 
@@ -174,7 +182,7 @@ def mamba2_prefill(p, u, cfg, rules=NO_RULES):
     def tail(seq):  # the trailing pre-activation window, left-padded
         need = k - 1
         if seq.shape[1] < need:
-            seq = F.pad(seq, (0, 0, need - seq.shape[1], 0))
+            seq = pad_dim(seq, 1, need - seq.shape[1], 0)
         return seq[:, seq.shape[1] - need:, :]
 
     return out, SsmCacheSlice(h=h_final, conv_x=tail(x_in),

@@ -51,7 +51,13 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.mesh import resolve_device
 from repro_torch.dist.sharding import NO_RULES, ShardingRules  # noqa: F401
-from repro_torch.dist.sharding import is_dtensor, fsdp_gathered, splittable
+from repro_torch.dist.sharding import (
+    fsdp_gathered,
+    is_dtensor,
+    pad_dim,
+    place,
+    splittable,
+)
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.layers import (
     ACC,
@@ -125,10 +131,6 @@ def _init_ssm_layer(gen, cfg, dtype):
     return p
 
 
-def _layers(init_fn, gen, n, cfg, dtype):
-    return [init_fn(gen, cfg, dtype) for _ in range(n)]
-
-
 def hybrid_slot_kinds(cfg: ModelConfig):
     """[(block_kind, mlp_kind)] for the ``attn_period`` sublayer slots."""
     kinds = []
@@ -164,46 +166,63 @@ def _generator(generator, device) -> torch.Generator:
 
 
 def init_params(cfg: ModelConfig, generator, dtype=torch.float32,
-                device=None) -> Dict[str, Any]:
+                device=None, shardings=None) -> Dict[str, Any]:
     """Random parameters for ``cfg`` from ``generator`` (a
     ``torch.Generator``, whose device they go to, or an int seed) on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU).  With
+    ``shardings`` (``dist.sharding.param_shardings``' tree) each rank
+    places every leaf on the live mesh as soon as it is drawn
+    (``dist.sharding.place``): the draws are one device's, so the values
+    are the one-process parameters', and a rank's peak is its shards and
+    one layer's full leaves."""
     gen = _generator(generator, device)
     Vp, D = vocab_padded(cfg), cfg.d_model
+
+    def put(tree, *path):
+        if shardings is None:
+            return tree
+        sh = shardings
+        for k in path:
+            sh = sh[k]
+        return place(tree, sh)
+
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, (Vp, D), dtype),
-        "final_norm": _ones(cfg, dtype, gen),
+        "embed": put(embed_init(gen, (Vp, D), dtype), "embed"),
+        "final_norm": put(_ones(cfg, dtype, gen), "final_norm"),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(gen, (Vp, D), dtype)
+        params["lm_head"] = put(embed_init(gen, (Vp, D), dtype), "lm_head")
     L = cfg.n_layers
+
+    def layers(init_fn, n, *path):
+        return [put(init_fn(gen, cfg, dtype), *path, i) for i in range(n)]
+
     if cfg.family in ("dense", "vlm"):
-        params["attn"] = _layers(_init_attn, gen, L, cfg, dtype)
-        params["mlp"] = _layers(_init_mlp, gen, L, cfg, dtype)
+        params["attn"] = layers(_init_attn, L, "attn")
+        params["mlp"] = layers(_init_mlp, L, "mlp")
     elif cfg.family == "moe":
-        params["attn"] = _layers(_init_attn, gen, L, cfg, dtype)
-        params["moe"] = _layers(_init_moe, gen, L, cfg, dtype)
+        params["attn"] = layers(_init_attn, L, "attn")
+        params["moe"] = layers(_init_moe, L, "moe")
     elif cfg.family == "ssm":
-        params["ssm"] = _layers(_init_ssm_layer, gen, L, cfg, dtype)
+        params["ssm"] = layers(_init_ssm_layer, L, "ssm")
     elif cfg.family == "hybrid":
         n_periods = L // cfg.attn_period
         params["periods"] = [
-            {"block": _layers(_init_attn if block == "attn"
-                              else _init_ssm_layer, gen, n_periods, cfg,
-                              dtype),
-             "mlp": _layers(_init_moe if mlp == "moe" else _init_mlp, gen,
-                            n_periods, cfg, dtype)}
-            for block, mlp in hybrid_slot_kinds(cfg)]
+            {"block": layers(_init_attn if block == "attn"
+                             else _init_ssm_layer, n_periods, "periods", j,
+                             "block"),
+             "mlp": layers(_init_moe if mlp == "moe" else _init_mlp,
+                           n_periods, "periods", j, "mlp")}
+            for j, (block, mlp) in enumerate(hybrid_slot_kinds(cfg))]
     elif cfg.family == "encdec":
-        params["enc_attn"] = _layers(_init_attn, gen, cfg.n_enc_layers, cfg,
-                                     dtype)
-        params["enc_mlp"] = _layers(_init_mlp, gen, cfg.n_enc_layers, cfg,
-                                    dtype)
-        params["enc_norm"] = _ones(cfg, dtype, gen)
-        params["enc_pos"] = embed_init(gen, (cfg.enc_len, D), dtype)
-        params["attn"] = _layers(_init_attn, gen, L, cfg, dtype)
-        params["cross"] = _layers(_init_attn, gen, L, cfg, dtype)
-        params["mlp"] = _layers(_init_mlp, gen, L, cfg, dtype)
+        params["enc_attn"] = layers(_init_attn, cfg.n_enc_layers, "enc_attn")
+        params["enc_mlp"] = layers(_init_mlp, cfg.n_enc_layers, "enc_mlp")
+        params["enc_norm"] = put(_ones(cfg, dtype, gen), "enc_norm")
+        params["enc_pos"] = put(embed_init(gen, (cfg.enc_len, D), dtype),
+                                "enc_pos")
+        params["attn"] = layers(_init_attn, L, "attn")
+        params["cross"] = layers(_init_attn, L, "cross")
+        params["mlp"] = layers(_init_mlp, L, "mlp")
     else:
         raise ValueError(cfg.family)
     return params
@@ -341,8 +360,47 @@ def _embed_in(cfg, params, batch, rules=NO_RULES):
         x = torch.as_tensor(batch["embeds"], device=dev)
     else:
         tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-        x = params["embed"][tokens]
+        embed = params["embed"]
+        x = (_embed_split(embed, tokens) if is_dtensor(embed)
+             else embed[tokens])
     return rules.act(x, "act_resid")
+
+
+def _embed_split(embed, tokens):
+    """The embedding lookup on a mesh, where the table lies: each device
+    reads the rows of its own vocabulary range (and its own columns of
+    an FSDP split) for every id, the ids replicated (B·S ints), under
+    ``local_map``; a row outside the range reads zeros, so the output is
+    a pending sum over the vocabulary split and a column split over the
+    FSDP one.  No device gathers the table, and each device's gradient
+    is its own rows' (an indexed read's backward on a split id tensor
+    has no DTensor rule on some torch versions, ROADMAP C.21)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = embed.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    ids = (tokens.redistribute(mesh, rep) if is_dtensor(tokens)
+           else tokens)
+    V = embed.shape[0]
+    vocab = [i for i, p in enumerate(embed.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    out = tuple(Partial() if isinstance(p, Shard) and p.dim == 0 else
+                Shard(ids.dim()) if isinstance(p, Shard) else Replicate()
+                for p in embed.placements)
+
+    def lookup(table, ids):
+        lo = 0
+        rows = V
+        for i in vocab:  # this device's range of the vocabulary splits
+            rows //= mesh.size(i)
+            lo += mesh.get_local_rank(i) * rows
+        mine = (ids >= lo) & (ids < lo + rows)
+        got = table[torch.where(mine, ids - lo, 0)]
+        return (torch.where(mine[..., None], got, torch.zeros_like(got)),)
+
+    return local_map(lookup, (out,), in_placements=(embed.placements, rep),
+                     device_mesh=mesh)(embed, ids)[0]
 
 
 def _logits_out(cfg, params, x, rules=NO_RULES):
@@ -558,8 +616,7 @@ def _put_kv(cache, l, k, v):
     S = k.shape[1]
     for c, t in ((cache.attn_k, k), (cache.attn_v, v)):
         if is_dtensor(c):
-            c[l].copy_(torch.nn.functional.pad(
-                t.to(c.dtype), (0, 0, 0, 0, 0, c.shape[2] - S)))
+            c[l].copy_(pad_dim(t.to(c.dtype), 1, 0, c.shape[2] - S))
             continue
         c[l, :, :S] = t.to(c.dtype)
         c[l, :, S:] = 0

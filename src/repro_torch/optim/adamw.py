@@ -11,6 +11,12 @@ The update walks the tree leaf by leaf under ``torch.no_grad()`` and
 writes each parameter, moment and master leaf in place: a temporary is
 one leaf's size, never the model's, which is what lets the full-width
 granite-moe-3b-a800m train on one card with both moments in float32.
+
+On a live mesh every leaf is a DTensor: the gradients come with their
+parameters' placements (the train step reduces them so), the moments
+keep ZeRO-1's, and each in-place write lands in this rank's shard of
+its own leaf (DTensor moves the update between the two placements);
+``_global_norm`` reduces once over the mesh.
 """
 
 from __future__ import annotations
@@ -19,6 +25,12 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist.sharding import (
+    is_dtensor,
+    owned_local,
+    replicate_like,
+    zeros_placed,
+)
 from repro_torch.tree import leaves, tree_map
 
 F32 = torch.float32
@@ -32,29 +44,50 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params, *, m_dtype=F32, v_dtype=F32,
-               master: bool = False) -> AdamWState:
-    """Zero moments beside ``params``, on their devices."""
+               master: bool = False, shardings=None) -> AdamWState:
+    """Zero moments beside ``params``, on their devices.  Where the
+    parameters are DTensors on a live mesh, every leaf of the state is
+    one too, built from this rank's shard alone: the moments and the
+    master copy under ``shardings`` (a tree of ``NamedSharding`` like
+    the parameters', ZeRO-1's ``dist.sharding.opt_shardings``) or else
+    each parameter's placements, ``count`` replicated."""
     first = leaves(params)[0]
+    sh = shardings if shardings is not None else tree_map(
+        lambda _: None, params)
 
     def zeros(dt):
-        return tree_map(lambda p: torch.zeros(p.shape, dtype=dt,
-                                              device=p.device), params)
+        return tree_map(lambda p, s: zeros_placed(p, dt, s), params, sh)
 
-    mst = tree_map(lambda p: p.detach().to(F32, copy=True), params) \
-        if master else None
-    return AdamWState(zeros(m_dtype), zeros(v_dtype), mst,
-                      torch.zeros((), dtype=torch.int32,
-                                  device=first.device))
+    def master_of(p, s):
+        p = p.detach().to(F32, copy=True)
+        return p if s is None else p.redistribute(p.device_mesh,
+                                                  s.placements())
+
+    mst = tree_map(master_of, params, sh) if master else None
+    return AdamWState(zeros(m_dtype), zeros(v_dtype), mst, replicate_like(
+        torch.zeros((), dtype=torch.int32), first))
 
 
 @torch.no_grad()
 def _global_norm(grads) -> torch.Tensor:
     """‖g‖ over every leaf, in float32: a 0-d tensor on the leaves'
-    device."""
-    gsq = None
+    device.  On a live mesh (DTensor leaves, none a pending sum) each
+    rank sums the squares of the entries it holds (a replica counted
+    once), and one reduction over the mesh gives the sum: a replicated
+    scalar, the same value on every rank."""
+    gsq = mesh = None
     for g in leaves(grads):
+        if is_dtensor(g):
+            mesh = g.device_mesh
+            g = owned_local(g)
         s = torch.sum(torch.square(g.to(F32)))
         gsq = s if gsq is None else gsq + s
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        gsq = DTensor.from_local(gsq, mesh, [Partial()] * mesh.ndim,
+                                 run_check=False).redistribute(
+            mesh, [Replicate()] * mesh.ndim)
     return torch.sqrt(gsq)
 
 

@@ -7,18 +7,21 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import NO_RULES, is_dtensor
+from repro_torch.dist.sharding import NO_RULES, is_dtensor, on_mesh
 from repro_torch.models.transformer import decode_step, prefill
 
 
 def make_prefill_step(cfg: ModelConfig, rules=NO_RULES):
     """``step(params, batch, cache) -> (logits, cache)``: the whole
     prompt, filling the cache; ``rules`` places the activations on a
-    mesh (the dry-run)."""
+    mesh (the dry-run's fake one, or a live one whose parameters and
+    cache are DTensors placed by ``dist.sharding.place`` under
+    ``param_shardings`` and ``cache_shardings``)."""
 
     @torch.no_grad()
     def step(params, batch, cache):
-        return prefill(cfg, params, batch, cache, rules)
+        with on_mesh(rules):
+            return prefill(cfg, params, batch, cache, rules)
 
     return step
 
@@ -31,6 +34,10 @@ def make_decode_step(cfg: ModelConfig, rules=NO_RULES):
 
     @torch.no_grad()
     def step(params, batch, cache):
+        with on_mesh(rules):
+            return _decode(params, batch, cache)
+
+    def _decode(params, batch, cache):
         logits, cache = decode_step(cfg, params, batch, cache, rules)
         last = logits[:, -1, :]
         if is_dtensor(last):

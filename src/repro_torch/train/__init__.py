@@ -16,6 +16,7 @@ from repro_torch.train.step import (
     init_train_state,
     make_train_step,
     train_state_for,
+    train_state_shardings,
     train_state_specs,
 )
 
@@ -23,4 +24,4 @@ __all__ = ["available_steps", "gc_checkpoints", "latest_step",
            "restore_checkpoint", "save_checkpoint", "LoopConfig",
            "LoopReport", "run_training", "TrainState", "cross_entropy",
            "init_train_state", "make_train_step", "train_state_for",
-           "train_state_specs"]
+           "train_state_shardings", "train_state_specs"]

@@ -38,7 +38,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_names, tree_map, unflatten_like
+from repro_torch.dist.sharding import host_full, is_dtensor, place
+from repro_torch.tree import (
+    leaves,
+    leaves_with_names,
+    tree_map,
+    unflatten_like,
+)
 
 _TMP_PREFIX = ".tmp_ckpt_"
 
@@ -65,21 +71,37 @@ def _sweep_stale_tmp(ckpt_dir: str) -> None:
                           ignore_errors=True)
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _to_numpy(leaf, dst=None) -> np.ndarray:
     if torch.is_tensor(leaf):
+        leaf = host_full(leaf, dst)
         if leaf.dtype == torch.bfloat16:
             leaf = leaf.float()
-        return leaf.detach().cpu().numpy()
+        return leaf.numpy()
     return np.asarray(leaf)
 
 
-def _reference_layout(state):
+def _prefix(arr) -> bytes:
+    """The first 4,096 bytes of ``arr.tobytes()`` (C order), without
+    copying the rest of the array."""
+    return np.ascontiguousarray(arr).reshape(-1).view(np.uint8)[
+        :4096].tobytes()
+
+
+def _spread(state) -> bool:
+    """Whether ``state`` lies on a live mesh of more than one rank (a
+    DTensor leaf): its save is then a collective."""
+    return any(is_dtensor(t) and t.device_mesh.size() > 1
+               for t in leaves(state))
+
+
+def _reference_layout(state, dst=None):
     """The tree a checkpoint holds for ``state``: an LM ``TrainState`` in
-    the reference's stacked layout, anything else as it is."""
+    the reference's stacked layout (gathered to rank ``dst`` alone where
+    given), anything else as it is."""
     from repro_torch.train.step import TrainState
     if isinstance(state, TrainState):
         from repro_torch.convert import train_state_to_numpy
-        return train_state_to_numpy(state)
+        return train_state_to_numpy(state, dst=dst)
     return state
 
 
@@ -88,23 +110,43 @@ def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
     (tensors on any device, numpy arrays or scalars) — as
     ``<ckpt_dir>/ckpt_<step>``, atomically, replacing a checkpoint of
     the same step.  Each leaf is fetched to the host once.  Returns the
-    checkpoint's path."""
+    checkpoint's path.
+
+    A state on a live mesh (DTensor leaves) is saved by every rank of
+    it: each leaf is gathered whole to rank 0 (a collective every rank
+    enters; the others build no copy of it), rank 0 alone writes the
+    files one process writes, and the ranks meet at a barrier after the
+    write, so a checkpoint is there for every rank once the call
+    returns."""
+    final = os.path.join(ckpt_dir, f"ckpt_{step}")
+    dst = 0 if _spread(state) else None
+    named = [(n, _to_numpy(leaf, dst)) for n, leaf in
+             leaves_with_names(_reference_layout(state, dst))]
+    if dst is None:
+        return _write(ckpt_dir, step, named, final)
+    import torch.distributed as dist
+
+    if dist.get_rank() == dst:
+        _write(ckpt_dir, step, named, final)
+    dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, named: list, final: str) -> str:
+    """Write the (name, array) pairs as ``final``, atomically."""
     os.makedirs(ckpt_dir, exist_ok=True)
     _sweep_stale_tmp(ckpt_dir)
     arrays = {}
     manifest = {"step": int(step), "leaves": {}}
     hasher = hashlib.sha256()
-    named = leaves_with_names(_reference_layout(state))
-    for i, (name, leaf) in enumerate(named):
-        arr = _to_numpy(leaf)
+    for i, (name, arr) in enumerate(named):
         key = f"leaf_{i}"
         arrays[key] = arr
         manifest["leaves"][key] = {
             "name": name, "shape": list(arr.shape),
             "dtype": str(arr.dtype)}
-        hasher.update(arr.tobytes()[:4096])  # a prefix hash: cheap integrity
+        hasher.update(_prefix(arr))  # a prefix hash: cheap integrity
     manifest["content_hash"] = hasher.hexdigest()
-    final = os.path.join(ckpt_dir, f"ckpt_{step}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=_TMP_PREFIX)
     try:
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
@@ -120,7 +162,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
 
 
 def _meta(t):
-    return t.to("meta")
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
 
 def _meta_stack(layers: list) -> dict:
@@ -128,27 +170,33 @@ def _meta_stack(layers: list) -> dict:
             for k in layers[0]}
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, state_template, *,
-                       validate: bool = True):
-    """Load ``ckpt_<step>`` (written by either package) into a new LM
-    ``TrainState`` of the template's structure, dtypes and device.
-    Returns (state, step).  Leaves are matched by the reference's names
-    and checked against the template's shapes in its stacked layout.
-    ``validate`` checks the content hash first.  The reference's
-    ``shardings`` place leaves on a new device mesh; the port runs on one
-    card and takes none.  The solver's flat dicts are read by
-    ``repro_torch.resilience.load_solver_state``."""
+def restore_checkpoint(ckpt_dir: str, step: int, state_template,
+                       shardings=None, *, validate: bool = True):
+    """Load ``ckpt_<step>`` (written by either package, at any world
+    size) into a new LM ``TrainState`` of the template's structure and
+    dtypes.  Returns (state, step).  Leaves are matched by the
+    reference's names and checked against the template's shapes in its
+    stacked layout.  ``validate`` checks the content hash first.
+
+    Without ``shardings`` every leaf is a plain tensor on the template's
+    device.  With ``shardings`` (a ``TrainState`` of ``NamedSharding``,
+    ``train.train_state_shardings``: the elastic path, any mesh) each
+    rank reads the arrays and places every leaf under its sharding on
+    their live mesh (``dist.sharding.place``), as the reference's
+    ``jax.device_put(array, sharding)`` does.  The solver's flat dicts
+    are read by ``repro_torch.resilience.load_solver_state``."""
     from repro_torch.convert import _unstack_params, map_train_state
     from repro_torch.tree import map_layer_groups
 
     path = os.path.join(ckpt_dir, f"ckpt_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    data = np.load(os.path.join(path, "arrays.npz"))
+    with np.load(os.path.join(path, "arrays.npz")) as npz:
+        data = {key: npz[key] for key in manifest["leaves"]}  # read once
     if validate:
         hasher = hashlib.sha256()
         for i in range(len(manifest["leaves"])):
-            hasher.update(data[f"leaf_{i}"].tobytes()[:4096])
+            hasher.update(_prefix(data[f"leaf_{i}"]))
         if hasher.hexdigest() != manifest["content_hash"]:
             raise ValueError(f"checkpoint {path} failed integrity check")
     by_name = {meta["name"]: key for key, meta in manifest["leaves"].items()}
@@ -166,10 +214,16 @@ def restore_checkpoint(ckpt_dir: str, step: int, state_template, *,
             raise ValueError(f"shape mismatch for {name}: ckpt {arr.shape} "
                              f"vs template {tuple(tmpl.shape)}")
         loaded.append(arr)
-    dev = state_template.step.device
-    state = map_train_state(unflatten_like(layout, loaded),
-                            lambda p: _unstack_params(p, dev),
-                            lambda a: torch.tensor(a, device=dev))
+    if shardings is None:
+        dev = state_template.step.device
+        state = map_train_state(unflatten_like(layout, loaded),
+                                lambda p: _unstack_params(p, dev),
+                                lambda a: torch.tensor(a, device=dev))
+    else:
+        state = map_train_state(
+            unflatten_like(layout, loaded),
+            lambda p, sh: _unstack_params(p, None, sh),
+            lambda a, sh: place(torch.tensor(a), sh), shardings)
     return (tree_map(lambda t, like: t.to(like.dtype), state, state_template),
             manifest["step"])
 

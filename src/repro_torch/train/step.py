@@ -17,7 +17,16 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import NO_RULES, is_dtensor
+from repro_torch.dist.sharding import (
+    NO_RULES,
+    is_dtensor,
+    on_mesh,
+    opt_shardings,
+    param_shardings,
+    replicated,
+    replicated_value,
+    zeros_placed,
+)
 from repro_torch.models.transformer import forward_train, init_params
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.grad_compress import (
@@ -39,13 +48,21 @@ class TrainState(NamedTuple):
 
 def init_train_state(cfg: ModelConfig, generator, *, dtype=F32,
                      m_dtype=F32, v_dtype=F32, master: bool = False,
-                     compress: bool = False, device=None) -> TrainState:
+                     compress: bool = False, device=None, shardings=None,
+                     opt_shardings=None) -> TrainState:
     """Random parameters from ``generator`` (a ``torch.Generator`` or an
     int seed; ``models.init_params``) and a fresh optimizer on
-    ``device`` (the card unless the caller asks for the CPU)."""
-    params = init_params(cfg, generator, dtype, device=device)
+    ``device`` (the card unless the caller asks for the CPU).  With
+    ``shardings`` (``dist.sharding.param_shardings``) the state is built
+    placed on their live mesh, each parameter as it is drawn and the
+    optimizer's leaves under ``opt_shardings`` (ZeRO-1's; by default
+    the parameters'): the one-process state's values, no rank holding
+    more than its shards and one layer's full leaves."""
+    params = init_params(cfg, generator, dtype, device=device,
+                         shardings=shardings)
     return train_state_for(params, m_dtype=m_dtype, v_dtype=v_dtype,
-                           master=master, compress=compress)
+                           master=master, compress=compress,
+                           opt_shardings=opt_shardings)
 
 
 def train_state_specs(cfg: ModelConfig, *, dtype=torch.bfloat16,
@@ -59,15 +76,36 @@ def train_state_specs(cfg: ModelConfig, *, dtype=torch.bfloat16,
 
 
 def train_state_for(params, *, m_dtype=F32, v_dtype=F32,
-                    master: bool = False,
-                    compress: bool = False) -> TrainState:
-    """Step 0's ``TrainState`` around given parameters."""
+                    master: bool = False, compress: bool = False,
+                    opt_shardings=None) -> TrainState:
+    """Step 0's ``TrainState`` around given parameters; DTensor
+    parameters give a state of DTensors (``optim.adamw_init``), the
+    moments, master copy and residual under ``opt_shardings`` where
+    given."""
     opt = adamw_init(params, m_dtype=m_dtype, v_dtype=v_dtype,
-                     master=master)
+                     master=master, shardings=opt_shardings)
     return TrainState(params=params, opt=opt,
-                      step=torch.zeros((), dtype=torch.int32,
-                                       device=opt.count.device),
-                      compress=compress_init(params) if compress else None)
+                      step=torch.zeros_like(opt.count),
+                      compress=(compress_init(params, opt_shardings)
+                                if compress else None))
+
+
+def train_state_shardings(cfg: ModelConfig, mesh, state, *,
+                          fsdp: bool = True, zero1: bool = True):
+    """A ``TrainState`` of ``NamedSharding`` for ``state`` (a state, its
+    meta stand-ins or a template) on ``mesh``: the parameters by
+    ``param_shardings``, the moments, master copy and compression
+    residual by ZeRO-1's ``opt_shardings`` (the parameters' with
+    ``zero1=False``), ``count`` and ``step`` replicated — the tree
+    ``restore_checkpoint``, ``run_training`` and
+    ``convert.train_state_from_numpy`` take as ``shardings``."""
+    p_sh = param_shardings(cfg, mesh, state.params, fsdp=fsdp)
+    o_sh = opt_shardings(p_sh, mesh, state.params) if zero1 else p_sh
+    rep = replicated(mesh)
+    return TrainState(
+        p_sh, AdamWState(o_sh, o_sh,
+                         None if state.opt.master is None else o_sh, rep),
+        rep, None if state.compress is None else CompressState(o_sh))
 
 
 def cross_entropy(logits, labels, vocab_size: int):
@@ -136,6 +174,30 @@ def _split_batch(batch, microbatches: int):
     return out
 
 
+def loss_and_grads(cfg: ModelConfig, params, batch, *, rules=NO_RULES,
+                   remat: bool = True, aux_weight: float = 0.01):
+    """The train step's gradients of ``cross_entropy + aux_weight ·
+    aux`` with respect to ``params`` (a list in ``leaves`` order), from
+    ``torch.autograd.grad`` on detached aliases, and the loss's two
+    terms (detached).  On a mesh each gradient comes out with its
+    parameter's placements: a pending sum over the data or model split
+    is reduced, scattered where the parameter is split — the gradient
+    reduction of data and tensor parallelism."""
+    with on_mesh(rules):
+        aliases = tree_map(lambda p: p.detach().requires_grad_(), params)
+        flat = leaves(aliases)
+        logits, aux = forward_train(cfg, aliases, batch, remat=remat,
+                                    rules=rules)
+        ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+        grads = torch.autograd.grad(ce + aux_weight * aux, flat,
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if is_dtensor(g) and g.placements != p.placements else g
+                 for g, p in zip(grads, flat)]
+    return grads, ce.detach(), aux.detach()
+
+
 def make_train_step(cfg: ModelConfig, *, schedule, rules=NO_RULES,
                     microbatches: int = 1, remat: bool = True,
                     aux_weight: float = 0.01,
@@ -161,26 +223,21 @@ def make_train_step(cfg: ModelConfig, *, schedule, rules=NO_RULES,
     """
 
     def grads_of(params, mb):
-        aliases = tree_map(lambda p: p.detach().requires_grad_(), params)
-        flat = leaves(aliases)
-        logits, aux = forward_train(cfg, aliases, mb, remat=remat,
-                                    rules=rules)
-        ce = cross_entropy(logits, mb["labels"], cfg.vocab_size)
-        grads = torch.autograd.grad(ce + aux_weight * aux, flat,
-                                    allow_unused=True,
-                                    materialize_grads=True)
-        return list(grads), ce.detach(), aux.detach()
+        return loss_and_grads(cfg, params, mb, rules=rules, remat=remat,
+                              aux_weight=aux_weight)
 
     def step(state: TrainState, batch):
+        with on_mesh(rules):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch):
         if microbatches == 1:
             grads, ce, aux = grads_of(state.params, batch)
         else:
-            grads = [torch.zeros_like(p, dtype=F32)
-                     for p in leaves(state.params)]
-            if acc_shardings is not None:
-                grads = [g.redistribute(g.device_mesh, sh.placements())
-                         if hasattr(g, "device_mesh") else g
-                         for g, sh in zip(grads, leaves(acc_shardings))]
+            acc_sh = (leaves(acc_shardings) if acc_shardings is not None
+                      else [None] * len(leaves(state.params)))
+            grads = [zeros_placed(p, F32, sh)
+                     for p, sh in zip(leaves(state.params), acc_sh)]
             ce = aux = None
             for mb in _split_batch(batch, microbatches):
                 g, c, a = grads_of(state.params, mb)
@@ -201,6 +258,9 @@ def make_train_step(cfg: ModelConfig, *, schedule, rules=NO_RULES,
             grads, compress = compressed_grads(grads, compress,
                                                codec=compress_codec)
 
+        # the metrics replicated on a mesh: a rank's float() of a pending
+        # sum would read its own part
+        ce, aux = replicated_value(ce), replicated_value(aux)
         lr = schedule(state.step)
         params, opt, gnorm = adamw_update(
             state.params, grads, state.opt, lr=lr,
