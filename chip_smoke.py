@@ -5,6 +5,8 @@ drive the main path at the paper's Table-3 sizes and check what comes
 out.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-phase   # the card, the build, the
+                                           # data and phase 3 alone
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
@@ -16,7 +18,8 @@ result line):
    then the data, then phase 9 (below);
 3. each kernel against its plain version at the shapes the main path
    gives it: B1 (ELL) on the rcv1-shape shard (its staged variant) and
-   on webspam's rows (its wide variant), and B2 (dense indexed) on the
+   on webspam's rows (its stream variant, w in device memory, and its
+   wide one as ``ms_before``), and B2 (dense indexed) on the
    covtype-shape shard (its staged variant, and its wide one as
    ``ms_before``), a few rounds of B = 64 ids each, through the
    shard-grid wrappers over a grid of one shard, as the p = 1 solver
@@ -37,7 +40,8 @@ result line):
    replaced); B5 is timed alone (its own bucket pass) and on logistic;
    B1 and B4 are timed once more without the spin
    (host-gated).  The shard grid: B1 (staged at rcv1's rows, p = 8;
-   wide at webspam's rows, p = 2), B2 (staged at covtype's rows, p = 8)
+   stream at webspam's rows, p = 2, the wide kernel its ``ms_before``),
+   B2 (staged at covtype's rows, p = 8)
    and B4 + B5 (webspam split, data = 2, m = 4), each launch a grid of
    p data shards laid out as the solver lays them out (the tail padded),
    held to its plain version over a few rounds from α = 0 (each shard's
@@ -55,7 +59,8 @@ result line):
    shards, pod k's reading pod k's own w, held to its plain version over
    2 rounds from α = 0 with hinge and one round with squared hinge and
    logistic, its second launch to the same bits, and timed.  The
-   baselines' wide launches at their full shapes: B2 over the first
+   baselines' stream launches at their full shapes (each with the wide
+   kernel held and timed as its ``ms_before``): B2 over the first
    outer round of ``cocoa_solve`` on covtype (8 CTAs of 72,626 ids, the
    partitions' whole local epochs) and B1 over the first epoch of
    ``cocoa_pod_solve`` on rcv1's first ``PASSCODE_ROWS`` rows (2 CTAs of
@@ -77,11 +82,17 @@ result line):
    adaptive delay, 2-D data = 2, m = 2 overlapped, each task's records
    equal); one p = 1 epoch of the rcv1, covtype and
    webspam-rows solves against the single-block round the solver ran
-   before the shard grid, α and ŵ bit for bit; B1's and B2's wide variants over
-   a whole epoch's order, the launch ``dcd_solve`` and PASSCoDe-Lock
-   make (all n ids, timed; held to the plain version over the whole
-   order with hinge, and over its first ``PREFIX`` ids with the other
-   two losses; each launched twice to the same bits);
+   before the shard grid, α and ŵ bit for bit; B1's and B2's stream
+   variants over a whole epoch's order, the launch ``dcd_solve`` and
+   PASSCoDe-Lock make (all n ids, timed, the wide kernel too as its
+   ``ms_before``; held to the plain version over the whole order with
+   hinge, and over its first ``PREFIX`` ids with the other two losses;
+   each launched twice to the same bits); each stream variant on a block
+   whose ids recur at every distance 1 … S·T + 1 of its ring's
+   lookahead, with mask and labels (B1's with a row that repeats a
+   column), held to the plain version and launched twice; B2's wide
+   variant at the LM probe's rows (192 × 5,120, the row
+   ``dcd_indexed_epoch_wide``);
    B4 and B5 past 1,024 ids, in their rows layout, on one block of all
    ``SHIM_ROWS`` rows of rcv1's first rows split into m = 4 feature
    shards (held to their plain versions, B5 with each loss; each
@@ -95,7 +106,7 @@ result line):
    on covtype, and the 2-D solve on webspam (n = 280,000,
    d = 16,609,143, 3,728 nnz per row, hinge C = 1, B = 64, m = 4
    feature shards, 2 epochs), and webspam's rows on the 1-D mesh (2
-   epochs, B1's wide variant); the same solves over p > 1 data shards
+   epochs, B1's stream variant); the same solves over p > 1 data shards
    (rcv1 and covtype at p = 8, webspam on the 2-D mesh at data = 2 and
    on the 1-D mesh at p = 2) and with the self-tuning (rcv1 at p = 8
    with shrinking and repacking, and again with the adaptive delay from
@@ -126,20 +137,21 @@ result line):
    ``PASSCODE_ROWS`` rows (2 epochs at delays 0 and 1, 3 at delay 2,
    atol 1e-5) and its error at full size printed; the paper's §5 comparison on covtype,
    PASSCoDe at p = 8, ``cocoa_solve`` (8 partitions, 3 rounds of one
-   local epoch, one wide B2 launch of 8 CTAs a round) and
+   local epoch, one stream B2 launch of 8 CTAs a round) and
    ``asyscd_solve`` (8 threads, one epoch: on all rows, or the first
    ``PASSCODE_ROWS`` if its first 200 rounds put a full epoch past 60 s),
    their gaps and seconds per epoch, and all three (and the pod oracle)
    on the card against their CPU paths on ``tiny``;
    serial DCD (``dcd_solve``) and
    PASSCoDe-Lock (``passcode_solve``, 8 threads) on rcv1 and covtype, 3
-   epochs each, one wide B1 (B2) launch per epoch, Lock's first epoch
+   epochs each, one stream B1 (B2) launch per epoch, Lock's first epoch
    held to ``dcd_epoch`` over the same seeded order; PASSCoDe-Atomic and
    -Wild (8 threads, conflict rate 0.5, no delay) one epoch each on
-   rcv1's first ``PASSCODE_ROWS`` rows with the backward-error report,
+   rcv1's first ``ATOMIC_ROWS`` rows with the backward-error report,
    each held to its CPU path on the same rows, and 20 Atomic rounds of
    the full rcv1 under ``torch.profiler``; all three memory models on the
-   card against their CPU path on ``tiny``; and both example twins
+   card against their CPU path on ``tiny`` (``PARITY_EPOCHS`` epochs);
+   and both example twins
    (``examples/quickstart_torch.py``, ``train_svm_passcode_torch.py``)
    as subprocesses on the card; the per-epoch host driver
    (``pipeline=False``, 2 epochs) against the pipelined solve at the
@@ -218,7 +230,7 @@ result line):
    probe (``examples/linear_probe_lm_torch.py``) on the full-width
    mistral-nemo-12b's features (256 × 5120; B2's task grid and its wide
    epoch launch counted, added to the ``dcd_indexed_tasks`` and
-   ``dcd_indexed_epoch`` rows) and on its smoke config, each above the
+   ``dcd_indexed_epoch_wide`` rows) and on its smoke config, each above the
    majority share; the child's nonzero exit fails the script;
 8. LM training and serving (``lm_train_phase``, in a second child
    process: ``chip_smoke.py --lm-train-phase``), in float32: (a) four
@@ -317,14 +329,19 @@ result line):
    this phase alone, after phase 8's child when its numbers are not
    there under this tree's key);
 11. one JSON line of per-kernel numbers (with each kernel's variant, and
-   B1's, B2's and B3's ``ms_before``; the shard-grid kernels' rows are
-   ``dcd_ell_shards``, ``dcd_ell_shards_wide``, ``dcd_indexed_shards``,
+   the wide kernel's time from the same run as ``ms_before`` of every
+   staged and stream row of B1 and B2 and of B3's stream row; the
+   single-block rows ``dcd_ell``, ``dcd_ell_stream``, ``dcd_indexed``,
+   ``dcd_tile``, the whole-epoch rows ``dcd_ell_epoch`` and
+   ``dcd_indexed_epoch`` (stream) and ``dcd_indexed_epoch_wide`` (the
+   probe's rows); the shard-grid kernels' rows are
+   ``dcd_ell_shards``, ``dcd_ell_shards_stream``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
    grids' ``dcd_ell_tasks``, ``dcd_indexed_tasks``,
    ``dcd_feature_gram_tasks`` and ``dcd_feature_update_tasks``, the pod
    grids' ``dcd_ell_pods``, ``dcd_indexed_pods``,
    ``dcd_feature_gram_pods`` and ``dcd_feature_update_pods``, the
-   baselines' wide launches ``dcd_indexed_cocoa`` and
+   baselines' stream launches ``dcd_indexed_cocoa`` and
    ``dcd_ell_cocoa_pods``, the rows layout's ``dcd_feature_gram_rows`` and
    ``dcd_feature_update_rows``; every row launched on a main path), then
    the result line
@@ -334,6 +351,7 @@ It needs one CUDA card and exits non-zero without one.  Data comes from
 a fixed seed on the card; nothing is read from disk or the network.
 """
 
+import concurrent.futures
 import functools
 import json
 import math
@@ -354,10 +372,19 @@ EPOCHS_2D = 2
 SHARDS = 4  # webspam's feature shards (the reference's model axis)
 DEVICE = "cuda"
 SPIN_CYCLES = 40_000_000  # about 20 ms at the H100's 1,980 MHz
-PREFIX = 4096  # ids of an epoch's order for the other losses' check
+# ids of an epoch's order (of each CTA's ids in a baseline's round) for the
+# other losses' check: past the staged kernels' 1,024, so that the stream
+# kernels run (their plain versions take about 2 ms an update on the card
+# with the logistic loss's Newton steps)
+PREFIX = 1152
 ADAPTIVE_RATIO = 0.3  # the full-size adaptive path's gap-trend ratio
 THREADS = 8  # PASSCoDe's simulated threads (the examples' Atomic/Wild(8))
-PASSCODE_ROWS = 100_000  # rcv1 rows of the Atomic and Wild epochs
+PASSCODE_ROWS = 100_000  # rcv1 rows of the pod oracle's and AsySCD's cuts
+# rcv1 rows of the Atomic and Wild epochs, and the epochs of the tiny
+# card-vs-CPU parity of the three memory models: host-bound paths, cut to
+# keep the script within its time limit on a slow host
+ATOMIC_ROWS = 25_000
+PARITY_EPOCHS = 2
 TWIN_EPOCHS = 3
 SEED = 0  # the solves' seed; the multi-task classes draw V from SEED + 1
 # the multi-task paths' class counts: LIBSVM's rcv1.multiclass has 53
@@ -370,8 +397,9 @@ SHIM_ROWS = 4096  # the shim's rcv1 rows: one block, a 64 MB Gram
 # each update's few torch ops cost about 0.04–0.07 ms there against
 # 0.11–0.15 ms of launches on the card, where the whole rounds took
 # 280–380 s of the run); the plain version on the card is timed over the
-# round's first PLAIN_IDS updates (each CTA's first PLAIN_IDS / CTAs)
-PLAIN_IDS = 32_768
+# round's first PLAIN_IDS updates (each CTA's first PLAIN_IDS / CTAs),
+# about 0.15–0.2 ms an update there
+PLAIN_IDS = 8192
 
 
 def fail(msg):
@@ -494,6 +522,20 @@ def bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def epoch_counter(kernel, variant):
+    """``run_path``'s counter of a single-block wrapper's launches of
+    ``variant`` (``kernel`` is B1's "dcd_ell" or B2's "dcd_indexed")."""
+    return kernel + {"staged": "_epoch_staged", "stream": "_epoch",
+                     "wide": "_epoch_wide"}[variant]
+
+
+def shards_counter(kernel, variant):
+    """``run_path``'s counter of a shard-grid wrapper's launches of
+    ``variant``."""
+    return kernel + {"staged": "_shards", "stream": "_shards_stream",
+                     "wide": "_shards_wide"}[variant]
 
 
 # a child of the resilience phase's kill check: rcv1 drawn as the parent
@@ -843,10 +885,14 @@ def resilience_phase(torch, dev, run_path, X_rcv1, X_cov, X_web, Y_cov,
             fail(f"resilience: the killed child exited {k.returncode} "
                  f"leaving {have}: {k.stderr[-2000:]}")
         # each resume from what the killed child left (a resume saves the
-        # boundaries it runs)
+        # boundaries it runs), the two at once
         shutil.copytree(d, d + "_elastic")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            runs = {mode: pool.submit(child, mode, d if mode == "resume"
+                                      else d + "_elastic")
+                    for mode in ("resume", "elastic")}
         for mode in ("resume", "elastic"):
-            c = child(mode, d if mode == "resume" else d + "_elastic")
+            c = runs[mode].result()
             if c.returncode != 0:
                 fail(f"resilience: the {mode} child failed: "
                      f"{c.stderr[-2000:]}")
@@ -1926,9 +1972,9 @@ DIST_B = 64
 # name → (dataset, mesh kind and sizes, the ranks over the mesh, epochs,
 # solver keywords); every run at the paper's full Table-3 widths
 DIST_CASES = {
-    "rcv1 p = 8": ("rcv1", ("data", 8), {"data": 2}, 2, {}),
+    "rcv1 p = 8": ("rcv1", ("data", 8), {"data": 2}, 1, {}),
     "rcv1 p = 8 shrink + repack": (
-        "rcv1", ("data", 8), {"data": 2}, 3,
+        "rcv1", ("data", 8), {"data": 2}, 2,
         dict(shrink_every=1, repack="auto", repack_threshold=0.8)),
     "webspam 2-D m = 4": ("webspam", ("2d", 1, SHARDS), {"model": 2}, 1,
                           {}),
@@ -2428,7 +2474,7 @@ LMD_ARCH = "minicpm-2b"
 LMD_STEPS_FILE = ROOT / "chiprun_out" / "phase8_steps.json"
 LMD_CUT = 4  # (b)'s layers of LMD_ARCH, at full width
 LMD_B, LMD_MB, LMD_B_STEPS = 4, 2, 2  # (b)'s batch, microbatches, steps
-LMD_GEN = 8  # (c)'s greedy decode steps
+LMD_GEN = 4  # (c)'s greedy decode steps
 LMD_DEC_TOL = LM_RTOL  # phase 7's prefill → decode bound
 
 
@@ -2968,7 +3014,42 @@ def lm_dist_phase_main():
     return 0
 
 
-def main():
+def run_phases_9_10(card, replays, replayed):
+    """Phases 9 and 10 in their child processes, while this process
+    replays phase 3's whole-round plain versions on the host (``replays``
+    of (key, plain, args), their outputs and seconds into ``replayed``);
+    phase 10's (a) and (c) start once phase 9's children have left the
+    card."""
+    dist_run = DistRun(card)
+    lm_run = None
+    try:
+        lm_run = LmDistRun()
+        released = False
+        for key, plain, args in replays:
+            replayed[key] = replay_on_host(plain, *args)
+            print(f"  host replay {key}: {replayed[key][1]:.1f} s")
+            dist_run.poll()
+            if not released and dist_run.done():
+                dist_run.finish()
+                lm_run.go()
+                released = True
+        if not released:
+            dist_run.finish()
+            lm_run.go()
+        print("phase 10: the LM stack across two ranks")
+        lm_run.finish()
+    except BaseException:
+        dist_run.kill()
+        if lm_run is not None:
+            lm_run.kill()
+        raise
+
+
+def main(kernel_only=False):
+    """The whole script; with ``kernel_only`` (``--kernel-phase``) the
+    card, the build, the data and phase 3 alone (its whole-round plain
+    versions replayed on the host in turn), ending with the kernels' JSON
+    line, their launch counts 0: no main path runs."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3033,6 +3114,7 @@ def main():
         dcd_ell_epoch_plain,
         dcd_ell_shards,
         dcd_ell_shards_plain,
+        row_repeats,
     )
 
     dev = torch.device(DEVICE)
@@ -3059,10 +3141,11 @@ def main():
     # first in time: the child has the card's memory to itself (the data
     # phases below keep about 40 GB resident, and the full-depth
     # mistral-nemo-12b needs 49 GB)
-    print("phase 7: the LM stack (a child process)")
-    lm_launches = run_lm_phase()
-    print("phase 8: LM training and serving (a child process)")
-    run_lm_train_phase()
+    if not kernel_only:
+        print("phase 7: the LM stack (a child process)")
+        lm_launches = run_lm_phase()
+        print("phase 8: LM training and serving (a child process)")
+        run_lm_train_phase()
 
     # ------------------------------------------------------------ data
     t0 = time.perf_counter()
@@ -3110,6 +3193,16 @@ def main():
     print(f"data: classes drawn in {time.perf_counter() - t0:.1f}s")
     q_r = X_rcv1.row_sq_norms()
     q_c = (X_cov * X_cov).sum(1)
+    # B1 stream's repeated-column flags, one a row, computed once a matrix
+    # (by its first stream launch; here, on the host's clock)
+    for name, X in [("rcv1", X_rcv1), ("webspam", X_web)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flags = row_repeats(X.indices, X.n_features)
+        torch.cuda.synchronize()
+        print(f"data: {name} repeated-column flags in "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms, once a matrix "
+              f"({int(flags.sum())} of {flags.numel()} rows)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
 
@@ -3187,37 +3280,24 @@ def main():
                                         [r.cpu() for r in rows_o],
                                         q_o.cpu(), n_pod_o),
          (*zeros_o(), ids_o, hinge))]
-    print("phases 9 and 10: the solver and the LM stack across processes "
-          "(child processes, beside phase 3's host replays; phase 10's (a) "
-          "and (c) once phase 9's children have left the card)")
-    dist_run = DistRun(card)
-    lm_run = None
-    try:
-        lm_run = LmDistRun()
-        released = False
-        replayed = {}
+    replayed = {}
+    if kernel_only:
         for key, plain, args in replays:
             replayed[key] = replay_on_host(plain, *args)
             print(f"  host replay {key}: {replayed[key][1]:.1f} s")
-            dist_run.poll()
-            if not released and dist_run.done():
-                dist_run.finish()
-                lm_run.go()
-                released = True
-        if not released:
-            dist_run.finish()
-            lm_run.go()
-        print("phase 10: the LM stack across two ranks")
-        lm_run.finish()
-    except BaseException:
-        dist_run.kill()
-        if lm_run is not None:
-            lm_run.kill()
-        raise
+    else:
+        print("phases 9 and 10: the solver and the LM stack across "
+              "processes (child processes, beside phase 3's host replays; "
+              "phase 10's (a) and (c) once phase 9's children have left "
+              "the card)")
+        run_phases_9_10(card, replays, replayed)
     del replays, X_cov_h, q_c_h, cols_r_h, vals_r_h, q_r_h
 
     # ------------------------------------------------- 3. kernels vs plain
     results = {}
+
+    def mark(label):
+        print(f"  [{label}: done at {time.perf_counter() - t_start:.0f} s]")
 
     def compare(name, kernel, plain, state0, rounds, losses, updates=None):
         """Run the same rounds (carrying α and w) through the kernel and
@@ -3275,7 +3355,7 @@ def main():
         lambda a, w, i, L: r1(a, w, i, L, active=act_r, y=y_r),
         lambda a, w, i, L: r1_plain(a, w, i, L, active=act_r, y=y_r),
         zeros_r, ids_r[:2], ["hinge"]))
-    print(f"  B1 at the rcv1 shape: {dcd_ell_plan(B, k_r)}")
+    print(f"  B1 at the rcv1 shape: {dcd_ell_plan(B, k_r, d_r)}")
     # the wide variant at the same shape, as the staged one's "before"
     err_b1_before = compare(
         "B1 dcd_ell_shards p = 1 wide at the rcv1 shape",
@@ -3286,24 +3366,37 @@ def main():
               lambda: r1(a_r0, w_r0, ids_r[0], duals.Hinge(1.0),
                          active=act_r, y=y_r), torch)
 
-    # B1's wide variant on webspam's rows (k = 3,728: a block too large
-    # to stage), the 1-D webspam path's shape
+    # B1's stream variant on webspam's rows (k = 3,728: a block too large
+    # to stage; w, 66 MB, in device memory), the 1-D webspam path's shape,
+    # and its wide variant (the design it replaced) on the same rounds
     n_w1, k_w1, d_w1 = X_web.n_rows, X_web.k_max, X_web.n_features
     q_w1 = X_web.row_sq_norms()
     ids_w1 = blocks(n_w1, 2)
-    print(f"  B1 at webspam's rows: {dcd_ell_plan(B, k_w1)}")
+    print(f"  B1 at webspam's rows: {dcd_ell_plan(B, k_w1, d_w1)}")
 
     def zeros_w1():
         return (torch.zeros(n_w1, device=dev),
                 torch.zeros(d_w1 + 1, device=dev))
 
+    act_w1 = (torch.rand(n_w1, generator=gen, device=dev) > 0.2).float()
+    y_w1 = torch.where(torch.rand(n_w1, generator=gen, device=dev) > 0.5,
+                       1.0, -1.0)
     r1w = one_shard(dcd_ell_shards, X_web.indices, X_web.values, q_w1)
     r1w_plain = one_shard(dcd_ell_shards_plain, X_web.indices, X_web.values,
                           q_w1)
-    err_b1w = compare("B1 dcd_ell_shards p = 1 wide", r1w, r1w_plain,
-                      zeros_w1, ids_w1, losses)
+    err_b1w = compare("B1 dcd_ell_shards p = 1 stream (webspam rows)", r1w,
+                      r1w_plain, zeros_w1, ids_w1, losses)
+    err_b1w = max(err_b1w, compare(
+        "B1 dcd_ell_shards p = 1 stream (webspam rows, mask, labels)",
+        lambda a, w, i, L: r1w(a, w, i, L, active=act_w1, y=y_w1),
+        lambda a, w, i, L: r1w_plain(a, w, i, L, active=act_w1, y=y_w1),
+        zeros_w1, ids_w1[:1], ["hinge"]))
+    err_b1w_before = compare(
+        "B1 dcd_ell_shards p = 1 wide (webspam rows)",
+        lambda a, w, i, L: r1w(a, w, i, L, wide=True), r1w_plain, zeros_w1,
+        ids_w1, ["hinge"])
     a_w1, w_w1 = zeros_w1()
-    same_bits("B1 dcd_ell_shards p = 1 wide (webspam rows, hinge)",
+    same_bits("B1 dcd_ell_shards p = 1 stream (webspam rows, hinge)",
               lambda: r1w(a_w1, w_w1, ids_w1[0], duals.Hinge(1.0)), torch)
 
     ids_c = blocks(n_c, 4)
@@ -3419,9 +3512,14 @@ def main():
         X_rcv1.indices, X_rcv1.values, a_r, w_r, q_r, loss=hinge,
         idx=t_ids[:1], n_loc=0), 2, torch)
     w_ids = blocks(n_w1, 16)
-    ms_b1w = cuda_ms(lambda: dcd_ell_shards(
-        X_web.indices, X_web.values, a_w1, w_w1, q_w1, loss=hinge,
-        idx=w_ids[next(it) % 16][None], n_loc=0), 20, torch)
+
+    def b1w_p1(wide=False):
+        return dcd_ell_shards(X_web.indices, X_web.values, a_w1, w_w1, q_w1,
+                              loss=hinge, idx=w_ids[next(it) % 16][None],
+                              n_loc=0, wide=wide)
+
+    ms_b1w = cuda_ms(b1w_p1, 20, torch)
+    ms_b1w_before = cuda_ms(lambda: b1w_p1(True), 20, torch)
     plain_b1w = wall_ms(lambda: dcd_ell_shards_plain(
         X_web.indices, X_web.values, a_w1, w_w1, q_w1, loss=hinge,
         idx=w_ids[:1], n_loc=0), 2, torch)
@@ -3456,8 +3554,8 @@ def main():
          f"rcv1 shape, {B} ids", err_b1,
          "src/repro_torch/kernels/csrc/dcd_ell.cu",
          "src/repro/kernels/dcd_ell.py:51"),
-        ("dcd_ell_wide", "wide", ms_b1w, plain_b1w, by_b1w, 4 * B * k_w1,
-         f"webspam rows, {B} ids", err_b1w,
+        ("dcd_ell_stream", "stream", ms_b1w, plain_b1w, by_b1w,
+         4 * B * k_w1, f"webspam rows, {B} ids", err_b1w,
          "src/repro_torch/kernels/csrc/dcd_ell.cu",
          "src/repro/kernels/dcd_ell.py:51"),
         ("dcd_indexed", "staged", ms_b2, plain_b2, by_b2, 4 * B * d_c,
@@ -3478,6 +3576,7 @@ def main():
               f"launch, plain {pl_ms:.2f} ms, bound {b_ms:.6f} ms "
               f"({b_by}), no library call computes it")
     results["dcd_ell"]["ms_before"] = ms_b1_before
+    results["dcd_ell_stream"]["ms_before"] = ms_b1w_before
     results["dcd_indexed"]["ms_before"] = ms_b2_before
     results["dcd_tile"].update(ms_before=ms_b3_before,
                                ms_logistic=ms_b3_logistic, plain_ids=n_p3,
@@ -3485,6 +3584,8 @@ def main():
     for name, what, ms, e in [
             ("dcd_ell", f"its staged variant (the wide kernel at the rcv1 "
              f"shape, {B} ids", ms_b1_before, err_b1_before),
+            ("dcd_ell_stream", f"its stream variant (the wide kernel at "
+             f"webspam's rows, {B} ids", ms_b1w_before, err_b1w_before),
             ("dcd_indexed", f"its staged variant (the wide kernel at the "
              f"covtype shape, {B} ids", ms_b2_before, err_b2_before),
             ("dcd_tile", "its stream variant (the wide kernel, one covtype "
@@ -3492,7 +3593,8 @@ def main():
         print(f"  {name} before {what}; max abs err {e:.3g}): {ms:.4f} ms "
               "per launch")
 
-    # B1's and B2's wide variants over a whole epoch's order: serial DCD
+    mark("B1-B3 at the main path's shapes")
+    # B1's and B2's stream variants over a whole epoch's order: serial DCD
     # and PASSCoDe-Lock hand the kernel all n ids of the epoch at once,
     # past the staged plans' 1,024.  Each is held to its plain version
     # over the whole order with the main path's loss (hinge; C = 0.0625
@@ -3500,84 +3602,197 @@ def main():
     # copies of the same inputs (and timed on the card over the order's
     # first PLAIN_IDS ids, one update at a time, about 0.15 ms an update
     # there); the other two losses over the order's first PREFIX ids
-    # (still the wide plan)
-    print(f"  B1 over a whole rcv1 epoch: {dcd_ell_plan(n_r, k_r)}; B2 over "
-          f"a whole covtype epoch: {dcd_dense_plan(n_c, d_c)}")
+    # (still the stream plan); the wide variant (the design the stream
+    # one replaced) held to the same replay and timed on the same order
+    # as its "before"
+    print(f"  B1 over a whole rcv1 epoch: {dcd_ell_plan(n_r, k_r, d_r)}; "
+          f"B2 over a whole covtype epoch: {dcd_dense_plan(n_c, d_c)}")
 
     def whole_epoch(label, kernel, plain, replay, state0, order, loss):
-        ka = kernel(*state0(), order, loss)
         p, host_s = replay
-        e = max_err(ka, p)
+        e = max_err(kernel(*state0(), order, loss), p)
+        e_w = max_err(kernel(*state0(), order, loss, wide=True), p)
         pl_ms = wall_ms(lambda: plain(*state0(), order[:PLAIN_IDS], loss), 1,
                         torch)
-        print(f"  {label}: max abs err {e:.3g} over {order.numel()} updates "
-              f"(tolerance {ATOL}); plain version on the host {host_s:.1f} "
-              f"s, on the card {pl_ms:.1f} ms over the first "
-              f"{min(PLAIN_IDS, order.numel())} ids")
-        if not e <= ATOL:
+        print(f"  {label}: max abs err {e:.3g} (the wide variant {e_w:.3g}) "
+              f"over {order.numel()} updates (tolerance {ATOL}); plain "
+              f"version on the host {host_s:.1f} s, on the card {pl_ms:.1f} "
+              f"ms over the first {min(PLAIN_IDS, order.numel())} ids")
+        if not (e <= ATOL and e_w <= ATOL):
             fail(f"{label} disagrees with its plain version")
         return e, pl_ms, host_s * 1e3
 
-    def b1(a, w, i, L):
+    def b1(a, w, i, L, wide=False):
         return dcd_ell_epoch(X_rcv1.indices, X_rcv1.values, a, w, q_r,
-                             loss=L, idx=i)
+                             loss=L, idx=i, wide=wide)
 
     def b1_plain(a, w, i, L):
         return dcd_ell_epoch_plain(X_rcv1.indices, X_rcv1.values, a, w, q_r,
                                    loss=L, idx=i)
 
-    def b2(a, w, i, L):
-        return dcd_indexed_epoch(X_cov, a, w, q_c, loss=L, idx=i)
+    def b2(a, w, i, L, wide=False):
+        return dcd_indexed_epoch(X_cov, a, w, q_c, loss=L, idx=i, wide=wide)
 
     def b2_plain(a, w, i, L):
         return dcd_indexed_epoch_plain(X_cov, a, w, q_c, loss=L, idx=i)
 
     err_b1e, plain_b1e, host_b1e = whole_epoch(
-        "B1 dcd_ell wide, a whole rcv1 epoch's order (hinge)", b1, b1_plain,
-        replayed["b1e"], zeros_r, perm_r, hinge)
+        "B1 dcd_ell stream, a whole rcv1 epoch's order (hinge)", b1,
+        b1_plain, replayed["b1e"], zeros_r, perm_r, hinge)
     err_b2e, plain_b2e, host_b2e = whole_epoch(
-        "B2 dcd_indexed wide, a whole covtype epoch's order (hinge)", b2,
+        "B2 dcd_indexed stream, a whole covtype epoch's order (hinge)", b2,
         b2_plain, replayed["b2e"], zeros_c, perm_c, hinge_c)
     err_b1e = max(err_b1e, compare(
-        f"B1 dcd_ell wide, an epoch's order (first {PREFIX} ids)", b1,
+        f"B1 dcd_ell stream, an epoch's order (first {PREFIX} ids)", b1,
         b1_plain, zeros_r, perm_r[None, :PREFIX], losses[1:]))
     err_b2e = max(err_b2e, compare(
-        f"B2 dcd_indexed wide, an epoch's order (first {PREFIX} ids)", b2,
+        f"B2 dcd_indexed stream, an epoch's order (first {PREFIX} ids)", b2,
         b2_plain, zeros_c, perm_c[None, :PREFIX], losses[1:]))
-    same_bits("B1 dcd_ell wide (a whole rcv1 epoch, hinge)",
+    same_bits("B1 dcd_ell stream (a whole rcv1 epoch, hinge)",
               lambda: b1(a_r, w_r, perm_r, hinge), torch)
-    same_bits("B2 dcd_indexed wide (a whole covtype epoch, hinge)",
+    same_bits("B2 dcd_indexed stream (a whole covtype epoch, hinge)",
               lambda: b2(a_c, w_c, perm_c, hinge_c), torch)
+
+    # the ring's hazards, on blocks past 1,024 ids (the stream plans): an
+    # id recurring at every distance 1 … S·T + 1 of the ring's lookahead,
+    # with mask and labels, and (B1) a row that repeats a column, on
+    # copies of the first rows; each held to the plain version replayed
+    # on the host, and launched twice to the same bits
+    def recurring(n, most):
+        size = max(PREFIX, (most + 1) * (most + 4) // 2 + 8)
+        ids = torch.randint(0, n, (size,), generator=gen, device=dev)
+        ids[1] = 5  # B1: the row that repeats a column
+        pos = 3
+        for dist in range(1, most + 2):
+            ids[pos + dist] = ids[pos]
+            pos += dist + 1
+        return ids.int()
+
+    n_h = 20_000
+    cols_h = X_rcv1.indices[:n_h].clone()
+    cols_h[5, 1] = cols_h[5, 0]  # row 5 repeats a column
+    plan_h = dcd_ell_plan(PREFIX, k_r, d_r)
+    ids_h = recurring(n_h, plan_h.tile_rows * plan_h.stages)
+    plan_hc = dcd_dense_plan(PREFIX, d_c)
+    ids_hc = recurring(n_h, plan_hc.tile_rows * plan_hc.stages)
+    for label, kern, plain, args in [
+            (f"B1 dcd_ell stream, {ids_h.numel()} ids recurring at distances "
+             f"1 to "
+             f"{plan_h.tile_rows * plan_h.stages + 1}, a row repeating a "
+             "column (rcv1 rows)",
+             lambda *a, **k: dcd_ell_epoch(cols_h, X_rcv1.values[:n_h], *a,
+                                           **k),
+             lambda *a, **k: dcd_ell_epoch_plain(
+                 cols_h.cpu(), X_rcv1.values[:n_h].cpu(), *a, **k),
+             (torch.zeros(n_h, device=dev), torch.zeros(d_r + 1, device=dev),
+              q_r[:n_h], ids_h, act_r[:n_h], y_r[:n_h])),
+            (f"B2 dcd_indexed stream, {ids_hc.numel()} ids recurring at "
+             f"distances 1 to {plan_hc.tile_rows * plan_hc.stages + 1} "
+             "(covtype rows)",
+             lambda *a, **k: dcd_indexed_epoch(X_cov[:n_h], *a, **k),
+             lambda *a, **k: dcd_indexed_epoch_plain(X_cov[:n_h].cpu(), *a,
+                                                     **k),
+             (torch.zeros(n_h, device=dev), torch.zeros(d_c, device=dev),
+              q_c[:n_h], ids_hc, act_c[:n_h], y_c[:n_h]))]:
+        a0_h, w0_h, q_h, i_h, act_h, y_h = args
+
+        def kern_h(kern=kern, a0_h=a0_h, w0_h=w0_h, q_h=q_h, i_h=i_h,
+                   act_h=act_h, y_h=y_h):
+            return kern(a0_h, w0_h, q_h, loss=hinge, idx=i_h, active=act_h,
+                        y=y_h)
+
+        host_h = [t.cpu() for t in args]
+        p_h = plain(*host_h[:3], loss=hinge, idx=host_h[3],
+                    active=host_h[4], y=host_h[5])
+        e = max_err(kern_h(), p_h)
+        print(f"  {label}: max abs err {e:.3g} (tolerance {ATOL})")
+        if not e <= ATOL:
+            fail(f"{label} disagrees with its plain version")
+        err_b1e, err_b2e = ((max(err_b1e, e), err_b2e) if "B1" in label
+                            else (err_b1e, max(err_b2e, e)))
+        same_bits(label, kern_h, torch)
+    del cols_h
     ms_b1e = cuda_ms(lambda: b1(a_r, w_r, perm_r, hinge), 2, torch)
     ms_b2e = cuda_ms(lambda: b2(a_c, w_c, perm_c, hinge_c), 2, torch)
+    ms_b1e_before = cuda_ms(lambda: b1(a_r, w_r, perm_r, hinge, True), 1,
+                            torch)
+    ms_b2e_before = cuda_ms(lambda: b2(a_c, w_c, perm_c, hinge_c, True), 1,
+                            torch)
     # bytes: α and w in and out, each id's row, q and id once; operations:
     # a multiply-add per row entry for the dot and one for the axpy
     by_b1e = 4 * (2 * n_r + 2 * (d_r + 1)) + n_r * (k_r * 8 + 2 * 4)
     by_b2e = 4 * (2 * n_c + 2 * d_c) + n_c * (d_c * 4 + 2 * 4)
-    for name, route_ms, pl_ms, host_ms, by, ops_n, n_ids, err, src, rep in [
-        ("dcd_ell_epoch", ms_b1e, plain_b1e, host_b1e, by_b1e,
-         4 * n_r * k_r, n_r, err_b1e,
+    for name, route_ms, before, pl_ms, host_ms, by, ops_n, n_ids, err, src, \
+            rep in [
+        ("dcd_ell_epoch", ms_b1e, ms_b1e_before, plain_b1e, host_b1e,
+         by_b1e, 4 * n_r * k_r, n_r, err_b1e,
          "src/repro_torch/kernels/csrc/dcd_ell.cu",
          "src/repro/kernels/dcd_ell.py:51"),
-        ("dcd_indexed_epoch", ms_b2e, plain_b2e, host_b2e, by_b2e,
-         4 * n_c * d_c, n_c, err_b2e,
+        ("dcd_indexed_epoch", ms_b2e, ms_b2e_before, plain_b2e, host_b2e,
+         by_b2e, 4 * n_c * d_c, n_c, err_b2e,
          "src/repro_torch/kernels/csrc/dcd_block.cu",
          "src/repro/kernels/dcd_block.py:100"),
     ]:
         b_ms, b_by = bound(by, ops_n)
         results[name] = dict(name=name, route="cuda", source=src,
-                             replaces=rep, variant="wide", launches=0,
+                             replaces=rep, variant="stream", launches=0,
                              max_abs_err=err, ms=route_ms, plain_ms=pl_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             ids=n_ids, plain_ids=min(PLAIN_IDS, n_ids),
+                             ms_before=before, ids=n_ids,
+                             plain_ids=min(PLAIN_IDS, n_ids),
                              plain_host_ms=host_ms)
-        print(f"  {name} (wide, {n_ids} ids, a whole epoch): {route_ms:.4f} "
-              f"ms per launch ({route_ms / n_ids * 1e6:.1f} ns per update), "
-              f"plain {pl_ms:.1f} ms over the first {min(PLAIN_IDS, n_ids)} "
-              f"ids ({pl_ms / min(PLAIN_IDS, n_ids) * 1e6:.1f} ns per "
-              f"update), bound {b_ms:.6f} ms ({b_by}), no library call "
-              "computes it")
+        print(f"  {name} (stream, {n_ids} ids, a whole epoch): "
+              f"{route_ms:.4f} ms per launch ({route_ms / n_ids * 1e6:.1f} "
+              f"ns per update; the wide kernel before it {before:.4f} ms, "
+              f"{before / n_ids * 1e6:.1f} ns), plain {pl_ms:.1f} ms over the "
+              f"first {min(PLAIN_IDS, n_ids)} ids "
+              f"({pl_ms / min(PLAIN_IDS, n_ids) * 1e6:.1f} ns per update), "
+              f"bound {b_ms:.6f} ms ({b_by}), no library call computes it")
 
+    # B2's wide variant where the main path still takes it: rows wider than
+    # the stream kernel's 256 floats, the LM probe's serial solves (its
+    # 192 training rows of PROBE_ARCH's hidden width), on random rows at
+    # that shape; held to its plain version, launched twice to the same
+    # bits, and timed
+    from repro_torch.configs import get_config
+    d_pb, n_pb = get_config(PROBE_ARCH).d_model, 192
+    X_pb = torch.randn((n_pb, d_pb), generator=gen, device=dev) / d_pb**0.5
+    q_pb = (X_pb * X_pb).sum(1)
+    ids_pb = torch.randperm(n_pb, generator=gen, device=dev).int()
+    print(f"  B2 at the probe's rows ({n_pb} × {d_pb}): "
+          f"{dcd_dense_plan(n_pb, d_pb)}")
+
+    def b2pb(a, w, i, L):
+        return dcd_indexed_epoch(X_pb, a, w, q_pb, loss=L, idx=i)
+
+    def b2pb_plain(a, w, i, L):
+        return dcd_indexed_epoch_plain(X_pb, a, w, q_pb, loss=L, idx=i)
+
+    def zeros_pb():
+        return torch.zeros(n_pb, device=dev), torch.zeros(d_pb, device=dev)
+
+    err_pb = compare("B2 dcd_indexed wide (the probe's rows)", b2pb,
+                     b2pb_plain, zeros_pb, ids_pb[None], losses)
+    a_pb, w_pb = zeros_pb()
+    same_bits("B2 dcd_indexed wide (the probe's rows, hinge)",
+              lambda: b2pb(a_pb, w_pb, ids_pb, hinge), torch)
+    ms_pb = cuda_ms(lambda: b2pb(a_pb, w_pb, ids_pb, hinge), 5, torch)
+    plain_pb = wall_ms(lambda: b2pb_plain(a_pb, w_pb, ids_pb, hinge), 1,
+                       torch)
+    b_ms, b_by = bound(4 * (2 * n_pb + 2 * d_pb) + n_pb * (d_pb * 4 + 8),
+                       4 * n_pb * d_pb)
+    results["dcd_indexed_epoch_wide"] = dict(
+        name="dcd_indexed_epoch_wide", route="cuda",
+        source="src/repro_torch/kernels/csrc/dcd_block.cu",
+        replaces="src/repro/kernels/dcd_block.py:100", variant="wide",
+        launches=0, max_abs_err=err_pb, ms=ms_pb, plain_ms=plain_pb,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, ids=n_pb)
+    print(f"  dcd_indexed_epoch_wide (wide, {n_pb} ids of {d_pb} floats): "
+          f"{ms_pb:.4f} ms per launch, plain {plain_pb:.1f} ms, bound "
+          f"{b_ms:.6f} ms ({b_by}), no library call computes it")
+    del X_pb
+
+    mark("the whole-epoch launches")
     # B4 and B5 at the webspam shape: the (n, 4, k_loc) split the 2-D
     # solve makes of it, a few rounds of B = 64 ids per loss, (α, w)
     # carried through each chain; the kernel chain and the plain chain
@@ -3746,6 +3961,7 @@ def main():
                else f"torch.sparse.mm {lib_ms:.4f} ms")
         print(f"  {name} ({per}): {route_ms:.4f} ms per launch, plain "
               f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+    mark("B4 and B5")
     # ------------------------------- the shard grid: p data shards a launch
     # B1, B2, B4 and B5 over p data shards (a CTA, or a group of CTAs, a
     # shard) at the p > 1 main paths' shapes, the rows laid out as the
@@ -3818,7 +4034,7 @@ def main():
                 torch.zeros(d_r + 1, device=dev))
 
     print(f"  B1 shard grid at rcv1, p = {P_R}: "
-          f"{dcd_ell_plan(B, k_r, False, P_R)}")
+          f"{dcd_ell_plan(B, k_r, d_r, False, P_R)}")
     err_g1 = compare_grid(f"B1 dcd_ell_shards staged (rcv1, p = {P_R})", g1,
                           g1_plain, zeros_r8, ids_r8, grid_losses)
     a_g, w_g = zeros_r8()
@@ -3835,38 +4051,47 @@ def main():
         "src/repro_torch/kernels/csrc/dcd_ell.cu",
         "src/repro/kernels/dcd_ell.py:51", "staged")
 
-    # B1 wide at webspam's rows, p = 2 (n = 280,000: no padding)
+    # B1 stream at webspam's rows, p = 2 (n = 280,000: no padding)
     P_W1 = 2
     n_loc_w1, ids_w1g = shard_ids(n_w1, P_W1, 8)
 
-    def g1w(a, w, i, L):
+    def g1w(a, w, i, L, wide=False):
         return dcd_ell_shards(X_web.indices, X_web.values, a, w, q_w1,
-                              loss=L, idx=i, n_loc=n_loc_w1)
+                              loss=L, idx=i, n_loc=n_loc_w1, wide=wide)
 
     def g1w_plain(a, w, i, L):
         return dcd_ell_shards_plain(X_web.indices, X_web.values, a, w, q_w1,
                                     loss=L, idx=i, n_loc=n_loc_w1)
 
     print(f"  B1 shard grid at webspam's rows, p = {P_W1}: "
-          f"{dcd_ell_plan(B, k_w1, False, P_W1)}")
-    err_g1w = compare_grid(f"B1 dcd_ell_shards wide (webspam rows, p = "
+          f"{dcd_ell_plan(B, k_w1, d_w1, False, P_W1)}")
+    err_g1w = compare_grid(f"B1 dcd_ell_shards stream (webspam rows, p = "
                            f"{P_W1})", g1w, g1w_plain, zeros_w1, ids_w1g,
                            [("hinge", 2), ("squared_hinge", 1),
                             ("logistic", 1)])
+    err_g1w_before = compare_grid(
+        f"B1 dcd_ell_shards wide (webspam rows, p = {P_W1})",
+        lambda a, w, i, L: g1w(a, w, i, L, wide=True), g1w_plain, zeros_w1,
+        ids_w1g, [("hinge", 1)])
     a_g, w_g = zeros_w1()
-    same_bits(f"B1 dcd_ell_shards wide (webspam rows, p = {P_W1}, hinge)",
+    same_bits(f"B1 dcd_ell_shards stream (webspam rows, p = {P_W1}, hinge)",
               lambda: g1w(a_g, w_g, ids_w1g[0], hinge), torch)
     ms_g1w = cuda_ms(lambda: g1w(a_g, w_g, ids_w1g[next(it) % 8], hinge),
                      20, torch)
+    ms_g1w_before = cuda_ms(lambda: g1w(a_g, w_g, ids_w1g[next(it) % 8],
+                                        hinge, True), 20, torch)
+    print(f"  dcd_ell_shards_stream before its stream variant (the wide "
+          f"kernel, webspam rows, p = {P_W1}; max abs err "
+          f"{err_g1w_before:.3g}): {ms_g1w_before:.4f} ms per launch")
     plain_g1w = wall_ms(lambda: g1w_plain(a_g, w_g, ids_w1g[0], hinge), 1,
                         torch)
-    grid["dcd_ell_shards_wide"] = (
+    grid["dcd_ell_shards_stream"] = (
         ms_g1w, plain_g1w,
         4 * (2 * n_w1 + (1 + P_W1) * (d_w1 + 1))
         + P_W1 * B * (k_w1 * 8 + 8),
         4 * P_W1 * B * k_w1, f"webspam rows, p = {P_W1}, {B} ids a shard",
         err_g1w, None, "src/repro_torch/kernels/csrc/dcd_ell.cu",
-        "src/repro/kernels/dcd_ell.py:51", "wide")
+        "src/repro/kernels/dcd_ell.py:51", "stream")
 
     # B2 staged at covtype, p = 8: n_loc = 72,627, four padding rows
     P_C = 8
@@ -4002,6 +4227,7 @@ def main():
                else f"torch.sparse.mm {lib_ms:.4f} ms")
         print(f"  {name} ({per}): {route_ms:.4f} ms per launch, plain "
               f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+    results["dcd_ell_shards_stream"]["ms_before"] = ms_g1w_before
     print(f"  shard-grid launches per epoch: rcv1 p = {P_R} "
           f"{_n_blocks(n_loc_r8, B)}, covtype p = {P_C} "
           f"{_n_blocks(n_loc_c8, B)}, webspam data = {P_D} "
@@ -4009,6 +4235,7 @@ def main():
           f"{P_W1} {_n_blocks(n_loc_w1, B)}")
     del mats_d, a_g, w_g
 
+    mark("the shard grid")
     # ----------------------- the task grid: K tasks of p shards a launch
     # B1, B2, B4 and B5 over the multi-task paths' (task × shard) grids:
     # rcv1 K = 53 at p = 8 (B1 staged, 424 CTAs), covtype K = 7 at p = 8
@@ -4065,7 +4292,7 @@ def main():
                 torch.zeros((K_R, d_r + 1), device=dev))
 
     print(f"  B1 task grid at rcv1, K = {K_R}, p = {P_R}: "
-          f"{dcd_ell_plan(B, k_r, False, P_R, K_R)}")
+          f"{dcd_ell_plan(B, k_r, d_r, False, P_R, K_R)}")
     err_t1, plain_t1 = compare_tasks(
         f"B1 dcd_ell_shards staged (rcv1, K = {K_R}, p = {P_R})", t1,
         t1_plain, zeros_t1, ids_r8)
@@ -4223,6 +4450,7 @@ def main():
               f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
     del krep, prep, a_t, w_t, b_t, g_t
 
+    mark("the task grid")
     # ------------------------ the pod grid: P pods of p shards a launch
     # B1, B2, B4 and B5 over the pod solver's grid (Hybrid-DCA): P pods of
     # p data shards, pod k's shards reading pod k's own view of w (a
@@ -4298,7 +4526,7 @@ def main():
                 torch.zeros((P_P, d_r + 1), device=dev))
 
     print(f"  B1 pod grid at rcv1, P = {P_P}, p = {P_PD}: "
-          f"{dcd_ell_plan(B, k_r, False, P_PD, 1, P_P)}; real rows "
+          f"{dcd_ell_plan(B, k_r, d_r, False, P_PD, 1, P_P)}; real rows "
           f"{segs_rp}")
     err_p1 = compare_pods(f"B1 dcd_ell_shards staged (rcv1, P = {P_P}, "
                           f"p = {P_PD})", p1, p1_plain, zeros_rp, ids_rp,
@@ -4465,11 +4693,12 @@ def main():
           f"{_n_blocks(n_loc_wp, B)} (B4 and B5 each)")
     del wsP, mats_p, b_p, g_p, krep, prep
 
-    # ------------------------- the baselines' wide launches, at full shape
+    mark("the pod grid")
+    # ----------------------- the baselines' stream launches, at full shape
     # cocoa_solve's outer round on covtype (8 partitions: one launch of B2's
-    # wide variant over 8 CTAs, each a partition's whole local epoch of
+    # stream variant over 8 CTAs, each a partition's whole local epoch of
     # n // 8 ids against the shared w), and cocoa_pod_solve's epoch on
-    # rcv1's first PASSCODE_ROWS rows (P = 2: one launch of B1's wide
+    # rcv1's first PASSCODE_ROWS rows (P = 2: one launch of B1's stream
     # variant over 2 CTAs, each a pod's drawn block sequence).  Each is the
     # first round of its solve, laid out and drawn as the solve does it
     # (the reference's key chain), held to its plain version on the same
@@ -4477,8 +4706,9 @@ def main():
     # plain version replayed on CPU copies of the inputs, and timed on the
     # card over each CTA's first PLAIN_IDS / CTAs ids) and with the other
     # two losses over each CTA's first PREFIX ids; its second launch to the
-    # same bits, and timed
-    wide_rounds = {}
+    # same bits, and timed, with the wide variant (the design the stream
+    # one replaced) held to the same replay and timed as its "before"
+    baseline_rounds = {}
     for name, shards, plain, rows, q, n_loc, ids, state0, loss, what in [
             ("dcd_indexed_cocoa", dcd_indexed_shards,
              dcd_indexed_shards_plain, (X_co,), q_co, n_k, ids_co, zeros_co,
@@ -4490,24 +4720,28 @@ def main():
              f"of {ids_o.shape[1]} ids")]:
         kern, pl = co_round(shards, rows, q, n_loc), co_round(plain, rows, q,
                                                               n_loc)
-        label = f"{name} (wide, {what})"
+        wide = co_round(functools.partial(shards, wide=True), rows, q, n_loc)
+        label = f"{name} (stream, {what})"
         p, host_s = replayed[name]
         e = max_err(kern(*state0(), ids, loss), p)
+        e_w = max_err(wide(*state0(), ids, loss), p)
         head = ids[:, :PLAIN_IDS // ids.shape[0]].contiguous()
         pl_ms = wall_ms(lambda: pl(*state0(), head, loss), 1, torch)
-        print(f"  {label} hinge: max abs err {e:.3g} over the whole round, "
-              f"{ids.numel()} updates (α and w; tolerance {ATOL}); plain "
-              f"version on the host {host_s:.1f} s, on the card "
-              f"{pl_ms:.1f} ms over each CTA's first {head.shape[1]} ids")
-        if not e <= ATOL:
+        print(f"  {label} hinge: max abs err {e:.3g} (the wide variant "
+              f"{e_w:.3g}) over the whole round, {ids.numel()} updates (α "
+              f"and w; tolerance {ATOL}); plain version on the host "
+              f"{host_s:.1f} s, on the card {pl_ms:.1f} ms over each CTA's "
+              f"first {head.shape[1]} ids")
+        if not (e <= ATOL and e_w <= ATOL):
             fail(f"{label} disagrees with its plain version")
         e = max(e, compare(f"{label}, each CTA's first {PREFIX} ids", kern,
                            pl, state0, ids[None, :, :PREFIX], losses[1:]))
         a0, w0 = state0()
         same_bits(f"{label} hinge", lambda: kern(a0, w0, ids, loss), torch)
         ms = cuda_ms(lambda: kern(a0, w0, ids, loss), 2, torch)
-        wide_rounds[name] = (ms, pl_ms, e, ids.numel(), head.numel(),
-                             host_s * 1e3)
+        ms_w = cuda_ms(lambda: wide(a0, w0, ids, loss), 1, torch)
+        baseline_rounds[name] = (ms, pl_ms, e, ids.numel(), head.numel(),
+                             host_s * 1e3, ms_w)
     # bytes: α and w in and out a CTA, each id's row, q and id once;
     # operations: a multiply-add per row entry for the dot and the axpy
     for name, by, ops_n, src, rep in [
@@ -4521,19 +4755,21 @@ def main():
              + ids_o.numel() * (k_r * 8 + 8), 4 * ids_o.numel() * k_r,
              "src/repro_torch/kernels/csrc/dcd_ell.cu",
              "src/repro/kernels/dcd_ell.py:51")]:
-        ms, pl_ms, err, n_ids, n_plain, host_ms = wide_rounds[name]
+        ms, pl_ms, err, n_ids, n_plain, host_ms, ms_w = baseline_rounds[name]
         b_ms, b_by = bound(by, ops_n)
         results[name] = dict(name=name, route="cuda", source=src,
-                             replaces=rep, variant="wide", launches=0,
+                             replaces=rep, variant="stream", launches=0,
                              max_abs_err=err, ms=ms, plain_ms=pl_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             ids=n_ids, plain_ids=n_plain,
+                             ms_before=ms_w, ids=n_ids, plain_ids=n_plain,
                              plain_host_ms=host_ms)
-        print(f"  {name} (wide, {n_ids} ids a launch): {ms:.4f} ms per "
-              f"launch, plain {pl_ms:.1f} ms over {n_plain} ids, bound "
-              f"{b_ms:.6f} ms ({b_by}), no library call computes it")
+        print(f"  {name} (stream, {n_ids} ids a launch): {ms:.4f} ms per "
+              f"launch (the wide kernel before it {ms_w:.4f} ms), plain "
+              f"{pl_ms:.1f} ms over {n_plain} ids, bound {b_ms:.6f} ms "
+              f"({b_by}), no library call computes it")
     del X_co, q_co, ids_co, rows_o, q_o, ids_o
 
+    mark("the baselines' rounds")
     # where a round's time goes: 20 rounds of the solver's fused 2-D
     # engine on webspam (B4, the sum over shards, B5, the Δw round trip)
     # and of its 1-D engine on rcv1 and covtype (B1/B2 and the wrapper's
@@ -4746,12 +4982,13 @@ def main():
     # w + that shard's Δw) against the same explicit schedule run through
     # the single-block wrapper that round called before (B1/B2 updating a
     # copy of w, then w + (w_new − w)), α and ŵ equal bit for bit, at
-    # rcv1 (B1 staged), covtype (B2 staged) and webspam's rows (B1 wide).
+    # rcv1 (B1 staged), covtype (B2 staged) and webspam's rows (B1 stream).
     # The solver's gap takes w(α) through index_add_ (atomics in no fixed
     # order), so it is evaluated twice on the same α to show its own
     # spread from run to run.
     from repro_torch.core.sharded import _gap_closure
 
+    mark("the profiles and the small card-vs-CPU paths")
     def p1_bits(label, X, loss, kernel, rows, q, n, d, w_len):
         nb = _n_blocks(n, B)
         order = torch.randperm(n, generator=gen, device=dev)
@@ -4784,9 +5021,10 @@ def main():
             (X_rcv1.indices, X_rcv1.values), q_r, n_r, d_r, d_r + 1)
     p1_bits("covtype (B2 staged)", X_cov, hinge_c, dcd_indexed_epoch,
             (X_cov,), q_c, n_c, d_c, d_c)
-    p1_bits("webspam rows (B1 wide)", X_web, hinge, dcd_ell_epoch,
+    p1_bits("webspam rows (B1 stream)", X_web, hinge, dcd_ell_epoch,
             (X_web.indices, X_web.values), q_w1, n_w1, d_w1, d_w1 + 1)
 
+    mark("the p = 1 bits")
     # ---- B4 and B5 past 1,024 ids, their rows layout: the shim's one
     # block of all SHIM_ROWS rows of rcv1's first rows, split into m =
     # SHARDS feature shards; B5 of each loss fed the plain version's
@@ -4900,22 +5138,30 @@ def main():
     print(f"  B4/B5 past 1,024 ids: {time.perf_counter() - t0:.1f} s")
 
     print(f"  [kernel phase done at {time.perf_counter() - t_start:.0f} s]")
+    if kernel_only:
+        print(json.dumps({"kernels": list(results.values())}))
+        return 0
 
     # ----------------------------------------------------- 4. main paths
-    # each kernel's launch count; B1's, B2's and B3's two variants count
+    # each kernel's launch count; B1's, B2's and B3's variants count
     # apart, and B1's and B2's shard-grid wrappers (the solver's round, at
     # p = 1 a grid of one CTA, whose launches add to the p = 1 rows
-    # "dcd_ell", "dcd_ell_wide" and "dcd_indexed") apart from the
-    # single-block ones (serial DCD and Lock launch their wide variant
+    # "dcd_ell", "dcd_ell_stream" and "dcd_indexed") apart from the
+    # single-block ones (serial DCD and Lock launch their stream variant
     # over a whole epoch, the rows "dcd_ell_epoch" and
-    # "dcd_indexed_epoch")
+    # "dcd_indexed_epoch"; the wide variant is left to B2's rows wider
+    # than 256 floats, the LM probe's, row "dcd_indexed_epoch_wide")
     counters = {"dcd_ell_epoch_staged": (dcd_ell_epoch, "staged"),
-                "dcd_ell_epoch": (dcd_ell_epoch, "wide"),
+                "dcd_ell_epoch": (dcd_ell_epoch, "stream"),
+                "dcd_ell_epoch_wide": (dcd_ell_epoch, "wide"),
                 "dcd_ell_shards": (dcd_ell_shards, "staged"),
+                "dcd_ell_shards_stream": (dcd_ell_shards, "stream"),
                 "dcd_ell_shards_wide": (dcd_ell_shards, "wide"),
                 "dcd_indexed_epoch_staged": (dcd_indexed_epoch, "staged"),
-                "dcd_indexed_epoch": (dcd_indexed_epoch, "wide"),
+                "dcd_indexed_epoch": (dcd_indexed_epoch, "stream"),
+                "dcd_indexed_epoch_wide": (dcd_indexed_epoch, "wide"),
                 "dcd_indexed_shards": (dcd_indexed_shards, "staged"),
+                "dcd_indexed_shards_stream": (dcd_indexed_shards, "stream"),
                 "dcd_indexed_shards_wide": (dcd_indexed_shards, "wide"),
                 "dcd_tile": (dcd_tile_epoch, "stream"),
                 "dcd_tile_wide": (dcd_tile_epoch, "wide"),
@@ -5075,10 +5321,10 @@ def main():
                            X_web.n_rows, EPOCHS_2D, accuracy=False,
                            mesh=solver_mesh_2d(model=SHARDS)))
     nb_w1 = EPOCHS_2D * _n_blocks(n_w1, B)
-    run_path("webspam 1-D", {"dcd_ell_shards_wide": nb_w1},
-             lambda: solve("webspam (1-D, ELL, B1 wide)", X_web, hinge1,
+    run_path("webspam 1-D", {"dcd_ell_shards_stream": nb_w1},
+             lambda: solve("webspam (1-D, ELL, B1 stream)", X_web, hinge1,
                            n_w1, EPOCHS_2D, accuracy=False),
-             {"dcd_ell_shards_wide": "dcd_ell_wide"})
+             {"dcd_ell_shards_stream": "dcd_ell_stream"})
 
     # p > 1 data shards: the reference's data axis as a grid of CTAs (B1
     # and B2 a CTA a shard; B4 and B5 a group a data shard), at full
@@ -5107,10 +5353,10 @@ def main():
                            "B5 over the data grid)", X_web, hinge1, n_w,
                            EPOCHS_2D, accuracy=False, mesh=mesh_w), rows_d)
     run_path(f"webspam 1-D p = {P_W1}",
-             {"dcd_ell_shards_wide": EPOCHS_2D * _n_blocks(n_loc_w1, B)},
-             lambda: solve(f"webspam (1-D, ELL, p = {P_W1}, B1 wide shard "
-                           "grid)", X_web, hinge1, n_w1, EPOCHS_2D, accuracy=False,
-                           mesh=solver_mesh(n_devices=P_W1)))
+             {"dcd_ell_shards_stream": EPOCHS_2D * _n_blocks(n_loc_w1, B)},
+             lambda: solve(f"webspam (1-D, ELL, p = {P_W1}, B1 stream shard "
+                           "grid)", X_web, hinge1, n_w1, EPOCHS_2D,
+                           accuracy=False, mesh=solver_mesh(n_devices=P_W1)))
     # A′.12: the per-epoch host driver (pipeline=False) against the
     # pipelined solve at the same seed, 2 epochs each: rcv1 at p = P_R (B1's
     # shard grid) at delays 0 and 1; webspam on the 2-D mesh, m = SHARDS,
@@ -5538,7 +5784,7 @@ def main():
               "dcd_feature_update": "dcd_feature_update_pods"})
 
     # the pod solve at (pod = 2, data = 1) held to the port's serial
-    # oracle cocoa_pod_solve (the P local epochs one wide B1 launch an
+    # oracle cocoa_pod_solve (the P local epochs one stream B1 launch an
     # epoch, the row "dcd_ell_cocoa_pods" on rcv1's first PASSCODE_ROWS
     # rows) on those rows at atol 1e-5, 2 epochs at delays 0 and 1 (and 3
     # epochs at delay 2, where both gaps rise); and the same at full
@@ -5572,20 +5818,20 @@ def main():
 
     # a view of w a pod over one data shard a pod: the pod solve's staged
     # B1 grid counts no pod launch; each solve's epochs: its rounds, and
-    # one wide launch of the oracle
+    # one stream launch of the oracle
     ep_o = 2 + 2 + EPOCHS
     run_path(f"rcv1 pod solve vs cocoa_pod_solve ({n_o} rows)",
-             {"dcd_ell_shards": ep_o * nb_o, "dcd_ell_shards_wide": ep_o},
+             {"dcd_ell_shards": ep_o * nb_o, "dcd_ell_shards_stream": ep_o},
              lambda: against_oracle(f"rcv1's first {n_o} rows", X_o, True,
                                     (0, 1, 2)),
              {"dcd_ell_shards": None,
-              "dcd_ell_shards_wide": "dcd_ell_cocoa_pods"})
+              "dcd_ell_shards_stream": "dcd_ell_cocoa_pods"})
     nb_of = _n_blocks(-(-n_r // P_P), B)
     run_path("rcv1 pod solve vs cocoa_pod_solve (full size)",
-             {"dcd_ell_shards": 4 * nb_of, "dcd_ell_shards_wide": 4},
+             {"dcd_ell_shards": 4 * nb_of, "dcd_ell_shards_stream": 4},
              lambda: against_oracle("rcv1 at full size", X_rcv1, False,
                                     (0, 1)),
-             {"dcd_ell_shards": None, "dcd_ell_shards_wide": None})
+             {"dcd_ell_shards": None, "dcd_ell_shards_stream": None})
     del X_o
 
     # the paper's §5 comparison on covtype (dense, the one Table-3 set the
@@ -5601,13 +5847,13 @@ def main():
              {"dcd_indexed_shards": EPOCHS * nb_c8},
              lambda: solve(f"covtype PASSCoDe (p = {P_C})", X_cov, hinge_c,
                            n_c, EPOCHS, mesh=mesh_c))
-    run_path("covtype §5 CoCoA", {"dcd_indexed_shards_wide": EPOCHS},
+    run_path("covtype §5 CoCoA", {"dcd_indexed_shards_stream": EPOCHS},
              lambda: timed(f"covtype CoCoA ({THREADS} partitions, one local "
                            "epoch a round)", lambda: cocoa_solve(
                                X_cov, hinge_c, n_partitions=THREADS,
                                outer_rounds=EPOCHS, seed=SEED, device=dev),
                            n_c, EPOCHS, gap0_c),
-             {"dcd_indexed_shards_wide": "dcd_indexed_cocoa"})
+             {"dcd_indexed_shards_stream": "dcd_indexed_cocoa"})
     # AsySCD's epoch: n / 8 rounds, each a matrix-vector product over the
     # whole X; its first 200 rounds timed set the epoch's size (the full
     # rows, or the first PASSCODE_ROWS if a full epoch would pass 60 s)
@@ -5662,17 +5908,16 @@ def main():
     n_s, d_s = small.X_train.n_rows, small.recipe.d
     n_pod_s = -(-n_s // 3)
     co = dcd_dense_plan(n_s // 8, d_s).variant  # CoCoA's local epoch
-    po = dcd_ell_plan(_n_blocks(n_pod_s, 16) * 16,
-                      small.X_train.k_max).variant  # the pod oracle's
+    po = dcd_ell_plan(_n_blocks(n_pod_s, 16) * 16, small.X_train.k_max,
+                      d_s).variant  # the pod oracle's
     want_s = {"dcd_indexed_shards": 3 * _n_blocks(-(-n_s // 8), 16)}
-    want_s["dcd_indexed_shards" + ("_wide" if co == "wide" else "")] = (
-        want_s.get("dcd_indexed_shards" + ("_wide" if co == "wide" else ""),
-                   0) + 3)
-    want_s["dcd_ell_shards" + ("_wide" if po == "wide" else "")] = 3
+    want_s[shards_counter("dcd_indexed", co)] = want_s.get(
+        shards_counter("dcd_indexed", co), 0) + 3
+    want_s[shards_counter("dcd_ell", po)] = 3
     run_path("§5 baselines, card vs CPU on tiny", want_s, baselines_parity,
              count=False)
 
-    # serial DCD and PASSCoDe-Lock: one launch of B1's (B2's) wide
+    # serial DCD and PASSCoDe-Lock: one launch of B1's (B2's) stream
     # variant per epoch over the epoch's whole order
 
     shapes = [("rcv1", X_rcv1, duals.Hinge(1.0), n_r, "dcd_ell",
@@ -5714,10 +5959,11 @@ def main():
             fail(f"{shape}: Lock's epoch differs from serial DCD over its "
                  "order")
 
-    # PASSCoDe-Atomic and -Wild on rcv1's first PASSCODE_ROWS rows: torch
+    # PASSCoDe-Atomic and -Wild on rcv1's first ATOMIC_ROWS rows: torch
     # ops, no kernel of the port.  A full Wild epoch (84,674 rounds) took
     # 44–62 s, past the 60 s this smoke test gives one epoch, so both run
-    # on the same cut, which keeps their ε comparable.  Wild's nominal
+    # on the same cut, which keeps their ε comparable, and their CPU
+    # replays below stay short on a slow host.  Wild's nominal
     # gap is w̄'s (eq. 6), and w̄ runs ahead of the ŵ its updates read:
     # on rcv1's zipf-hot columns most of a conflicted feature's 8
     # increments are lost, so its gap after one epoch may lie above the
@@ -5726,7 +5972,7 @@ def main():
     # Wild is held to its primal at ŵ, the vector it predicts with
     # (Cor. 1), below P(0) = the gap at α = 0.  Each epoch's α and ŵ are
     # also held to the port's CPU path on the same rows and seed
-    n_p = min(PASSCODE_ROWS, n_r)
+    n_p = min(ATOMIC_ROWS, n_r)
     X_p = EllMatrix(X_rcv1.indices[:n_p], X_rcv1.values[:n_p], d_r)
     X_p_cpu = EllMatrix(X_p.indices.cpu(), X_p.values.cpu(), d_r)
     gap0_p = float(duality_gap(torch.zeros(n_p, device=dev), X_p, hinge))
@@ -5797,16 +6043,17 @@ def main():
             for mm in ("lock", "atomic", "wild"):
                 kw = dict(n_threads=THREADS, memory_model=mm, delay=2)
                 if mm != "wild":
-                    on_card = passcode_solve(Xs.to(dev), hinge, epochs=3,
-                                             seed=1, device=dev, **kw)
-                    on_cpu = passcode_solve(Xs, hinge, epochs=3, seed=1,
-                                            device="cpu", **kw)
+                    on_card = passcode_solve(Xs.to(dev), hinge,
+                                             epochs=PARITY_EPOCHS, seed=1,
+                                             device=dev, **kw)
+                    on_cpu = passcode_solve(Xs, hinge, epochs=PARITY_EPOCHS,
+                                            seed=1, device="cpu", **kw)
                     pairs = [(on_card.alpha, on_cpu.alpha),
                              (on_card.w_hat, on_cpu.w_hat)]
                 else:
                     a, w = torch.zeros(n), torch.zeros(d)
                     key, pairs = prng.PRNGKey(1), []
-                    for _ in range(3):
+                    for _ in range(PARITY_EPOCHS):
                         key, sub = prng.split(key)
                         card = passcode_epoch(
                             Xs.to(dev), sq.to(dev), a.to(dev), w.to(dev),
@@ -5815,38 +6062,49 @@ def main():
                                               device="cpu", **kw)
                         pairs += [(card[0], a), (card[1], w)]
                 e = max(float((x.cpu() - y).abs().max()) for x, y in pairs)
-                print(f"  PASSCoDe-{mm} {label} (delay 2, 3 epochs) card path "
-                      f"vs CPU path: max abs err {e:.3g} (tolerance {ATOL})")
+                print(f"  PASSCoDe-{mm} {label} (delay 2, {PARITY_EPOCHS} "
+                      f"epochs) card path vs CPU path: max abs err {e:.3g} "
+                      f"(tolerance {ATOL})")
                 if not e <= ATOL:
                     fail(f"PASSCoDe-{mm} {label}: the card path disagrees "
                          "with its CPU path")
 
     lock_ids = small.X_train.n_rows // THREADS * THREADS
     want_tiny = {
-        ("dcd_ell_epoch_staged" if dcd_ell_plan(
-            lock_ids, small.X_train.k_max).variant == "staged"
-         else "dcd_ell_epoch"): 3,
-        ("dcd_indexed_epoch_staged" if dcd_dense_plan(
-            lock_ids, small.recipe.d).variant == "staged"
-         else "dcd_indexed_epoch"): 3}
+        epoch_counter("dcd_ell", dcd_ell_plan(
+            lock_ids, small.X_train.k_max,
+            small.recipe.d).variant): PARITY_EPOCHS,
+        epoch_counter("dcd_indexed", dcd_dense_plan(
+            lock_ids, small.recipe.d).variant): PARITY_EPOCHS}
     run_path("PASSCoDe tiny, card vs CPU", want_tiny, passcode_parity,
              count=False)
 
     # the example twins as subprocesses on the card
     def twins():
+        # both at once, each its own process on the card
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        for twin in ("quickstart_torch", "train_svm_passcode_torch"):
-            out = subprocess.run(
-                [sys.executable, str(ROOT / "examples" / f"{twin}.py"),
-                 "--device", "cuda", "--epochs", str(TWIN_EPOCHS)],
-                env=env, capture_output=True, text=True, timeout=600)
-            for line in (out.stdout + out.stderr).splitlines():
+        procs = {twin: subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"{twin}.py"),
+             "--device", "cuda", "--epochs", str(TWIN_EPOCHS)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for twin in ("quickstart_torch",
+                                    "train_svm_passcode_torch")}
+        try:
+            outs = {twin: p.communicate(timeout=600)
+                    for twin, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for twin, (stdout, stderr) in outs.items():
+            for line in (stdout + stderr).splitlines():
                 print(f"    {twin}: {line}")
-            gaps = [float(g) for g in re.findall(r"gap=\s*(\S+)",
-                                                 out.stdout)]
-            if out.returncode != 0 or len(gaps) < 3 or not all(
+            gaps = [float(g) for g in re.findall(r"gap=\s*(\S+)", stdout)]
+            rc = procs[twin].returncode
+            if rc != 0 or len(gaps) < 3 or not all(
                     math.isfinite(g) for g in gaps):
-                fail(f"{twin} exited {out.returncode} with gaps {gaps}")
+                fail(f"{twin} exited {rc} with gaps {gaps}")
 
     run_path("example twins", {}, twins)
 
@@ -5857,10 +6115,11 @@ def main():
     # ------------------------------------------------------------ 6. serve
     serve_phase(torch, dev, run_path, X_rcv1, X_web, classes["rcv1"][0])
 
-    # the LM phase's probe: B2's task grid and its wide epoch launches
+    # the LM phase's probe: B2's task grid and its wide epoch launches (rows
+    # of the LM's hidden width, past the stream kernel's 256 floats)
     results["dcd_indexed_tasks"]["launches"] += lm_launches[
         "dcd_indexed_tasks"]
-    results["dcd_indexed_epoch"]["launches"] += lm_launches[
+    results["dcd_indexed_epoch_wide"]["launches"] += lm_launches[
         "dcd_indexed_epoch"]
 
     # --------------------------------------------------------- 11. result
@@ -5887,4 +6146,5 @@ if __name__ == "__main__":
              else lm_dist_rank_main(int(sys.argv[2]), sys.argv[3])
              if sys.argv[1:2] == ["--lm-dist-rank"]
              else lm_dist_phase_main() if sys.argv[1:] == ["--lm-dist-phase"]
+             else main(kernel_only=True) if sys.argv[1:] == ["--kernel-phase"]
              else main())

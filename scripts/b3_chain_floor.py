@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The floor of one B3 update's dependent chain on the card, from the
-latencies of the instructions on it, measured one warp alone.
+"""The floor of one update's dependent chain on the card, for B3's and
+B2's stream kernels and for B1's stream kernel at rcv1's and webspam's
+rows, from the latencies of the instructions on it, measured alone.
 
     python3 scripts/b3_chain_floor.py
 
@@ -9,8 +10,10 @@ lane, ``csrc/dcd_block.cu``: ``stream_update``) is one dependent chain:
 the dot (a multiply and an add), a 5-step xor-shuffle butterfly (a
 shuffle and an add a step), δ (``csrc/dcd_delta.cuh``: ``dcd_delta``, as
 compiled, IEEE division included) and the axpy (a multiply and an add).
-A probe kernel, built here with the port's nvcc flags, times each piece
-as a chain of ``ITERS`` dependent copies in one warp with ``clock64``:
+B2's stream kernel (the same consumer, fed by id) adds the label: y·dot
+before δ and δ·y after it.  A probe kernel, built here with the port's
+nvcc flags, times each piece as a chain of ``ITERS`` dependent copies in
+one warp with ``clock64``:
 
   fadd      v = v + c
   fmul      v = v * c
@@ -20,12 +23,33 @@ as a chain of ``ITERS`` dependent copies in one warp with ``clock64``:
                                           anew each step, as a row's q
                                           is; the loss a compile-time
                                           constant, as in the kernel)
+  smem_rt   a lane stores v to shared memory, __syncwarp, v = another
+            lane's word + c (a scatter, the update's barrier, the next
+            gather of the same word, the scatter's add)
 
-The floor is fmul + fadd + 5·shfl_fadd + delta_hinge + fmul + fadd
-cycles.  The SM clock is read from the probe's cycles over its CUDA-event
-time.  Prints the card's name and power limit, each latency,
-the floor in cycles and ns, and a JSON object of them.  Needs one CUDA
-card and nvcc.
+and, in a second probe of eight warps (the stream kernel's consumers at
+webspam's 3,728-slot rows, ``csrc/dcd_ell.cu``), from thread 0:
+
+  bar       v = v + c, then a named barrier of the 256 threads
+  cross     lane 0 of each warp stores its sum, a named barrier, every
+            thread sums the eight in order (the warps' dot)
+  hbm       one thread's dependent loads (ld.global.cg) over a random
+            cycle through 256 MB (a gather of w that misses L2, as
+            webspam's 66 MB w does)
+
+The floors: B3's, fmul + fadd + 5·shfl_fadd + delta_hinge + fmul + fadd
+cycles; B2 stream's, B3's + 2·fmul; B1 stream's at rcv1's rows (w in
+shared memory, ≤ 3 entries a lane), smem_rt + fmul + 3·fadd + 5·shfl_fadd
++ fmul + delta_hinge + 2·fmul (the scatter's add and store, the
+warp's barrier and the next gather are smem_rt; the tags' round trip runs
+beside the butterfly); at webspam's rows (w in device memory, 15 entries
+a thread), hbm + fmul + 15·fadd + 5·shfl_fadd + cross + fmul +
+delta_hinge + 2·fmul + fmul + fadd + bar (the gather, the dot, the
+warps' sum, δ, the scatter and the barrier before the next gather; the
+stores' acknowledgements are not counted).  The SM clock is read from
+the first probe's cycles over its CUDA-event time.  Prints the card's name
+and power limit, each latency, the floors in cycles and ns, and a JSON
+object of them.  Needs one CUDA card and nvcc.
 """
 
 import ctypes
@@ -36,6 +60,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 ITERS = 1 << 16
+HBM_ITERS = 1 << 12
+HBM_WORDS = 1 << 26  # 256 MB of int32: past the 50 MB L2
 
 PROBE = r"""
 #include "dcd_delta.cuh"
@@ -72,7 +98,49 @@ extern "C" __global__ void chain_probe(int iters, const float* in,
   // its reciprocal cannot leave the loop)
   PROBE_CHAIN(3, v = dcd_delta(hinge, a, v, q + c * (float)(i & 7)))
   PROBE_CHAIN(4, v = dcd_delta(logistic, a, v, q + c * (float)(i & 7)))
+  __shared__ float sm[32];
+  PROBE_CHAIN(5, sm[lane] = v; __syncwarp(); v = sm[(lane + 1) & 31] + c)
   out[lane] = sink;
+}
+
+// eight warps, thread 0's cycles: cycles[k] for piece k of the long rows'
+// chain; chase is a random cycle of int32 offsets through 256 MB
+extern "C" __global__ void chain_probe_wide(int iters, int hbm_iters,
+                                            const int* chase, float* out,
+                                            long long* cycles, float c) {
+  __shared__ float red[8];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float v = 1.0f;
+  long long t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    v = v + c;
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  }
+  if (tid == 0) cycles[0] = clock64() - t;
+  t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    if (lane == 0) red[warp] = v;
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float s = 0.0f;
+    for (int j = 0; j < 8; ++j) s += red[j];
+    v = s;
+  }
+  if (tid == 0) cycles[1] = clock64() - t;
+  if (tid == 0) {
+    int j = 0;
+    t = clock64();
+    for (int i = 0; i < hbm_iters; ++i) j = __ldcg(chase + j);
+    cycles[2] = clock64() - t;
+    v += (float)j;
+  }
+  out[tid] = v;
+}
+
+extern "C" int chain_probe_wide_launch(int iters, int hbm_iters,
+                                       const int* chase, float* out,
+                                       long long* cycles, float c) {
+  chain_probe_wide<<<1, 256>>>(iters, hbm_iters, chase, out, cycles, c);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int chain_probe_launch(int iters, const float* in, float* out,
@@ -115,6 +183,8 @@ def main():
     so.chain_probe_launch.argtypes = [I, P, P, P, ctypes.POINTER(DcdLoss),
                                       ctypes.POINTER(DcdLoss)]
     so.chain_probe_launch.restype = I
+    so.chain_probe_wide_launch.argtypes = [I, I, P, P, P, ctypes.c_float]
+    so.chain_probe_wide_launch.restype = I
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -122,10 +192,11 @@ def main():
     inp[0], inp[1], inp[2] = 0.0, 0.03, 0.5  # c, α, q (covtype-like)
     inp = inp.to(dev)
     out = torch.zeros(32, device=dev)
-    cyc = torch.zeros(5, dtype=torch.int64, device=dev)
+    cyc = torch.zeros(6, dtype=torch.int64, device=dev)
     hinge = DcdLoss(*kernel_params(duals.Hinge(0.0625)))
     logistic = DcdLoss(*kernel_params(duals.Logistic(0.0625)))
-    names = ["fadd", "fmul", "shfl_fadd", "delta_hinge", "delta_logistic"]
+    names = ["fadd", "fmul", "shfl_fadd", "delta_hinge", "delta_logistic",
+             "smem_rt"]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for _ in range(2):  # the second run is kept (the first warms up)
@@ -139,17 +210,47 @@ def main():
         torch.cuda.synchronize()
     lat = {k: v / ITERS for k, v in zip(names, cyc.tolist())}
     mhz = sum(cyc.tolist()) / (start.elapsed_time(end) * 1e3)
-    floor = (2 * lat["fmul"] + 2 * lat["fadd"] + 5 * lat["shfl_fadd"]
-             + lat["delta_hinge"])
+    # the long rows' probe: a random cycle through HBM_WORDS offsets
+    perm = torch.randperm(HBM_WORDS, generator=gen).to(dev)
+    chase = torch.empty(HBM_WORDS, dtype=torch.int32, device=dev)
+    chase[perm] = torch.roll(perm, -1).int()
+    del perm
+    out = torch.zeros(256, device=dev)
+    cw = torch.zeros(3, dtype=torch.int64, device=dev)
+    for _ in range(2):
+        build.check(so.chain_probe_wide_launch(
+            ITERS, HBM_ITERS, chase.data_ptr(), out.data_ptr(),
+            cw.data_ptr(), 0.0), "chain_probe_wide")
+        torch.cuda.synchronize()
+    wide = cw.tolist()
+    lat.update(bar=wide[0] / ITERS - lat["fadd"], cross=wide[1] / ITERS,
+               hbm=wide[2] / HBM_ITERS)
+    L = lat
+    floors = {
+        "b3": 2 * L["fmul"] + 2 * L["fadd"] + 5 * L["shfl_fadd"]
+        + L["delta_hinge"]}
+    floors["b2_stream"] = floors["b3"] + 2 * L["fmul"]
+    floors["b1_stream_rcv1"] = (L["smem_rt"] + L["fmul"] + 3 * L["fadd"]
+                                + 5 * L["shfl_fadd"] + L["fmul"]
+                                + L["delta_hinge"] + 2 * L["fmul"])
+    floors["b1_stream_webspam"] = (
+        L["hbm"] + L["fmul"] + 15 * L["fadd"] + 5 * L["shfl_fadd"]
+        + L["cross"] + L["fmul"] + L["delta_hinge"] + 3 * L["fmul"]
+        + L["fadd"] + L["bar"])
     for k, v in lat.items():
         print(f"  {k}: {v:.2f} cycles")
     print(f"  SM clock over the probe: {mhz:.0f} MHz")
-    print(f"  floor of one hinge update: fmul + fadd + 5 shfl_fadd + "
-          f"delta_hinge + fmul + fadd = {floor:.2f} cycles, "
-          f"{floor / mhz * 1e3:.2f} ns")
+    print(f"  floor of one hinge update (B3): fmul + fadd + 5 shfl_fadd + "
+          f"delta_hinge + fmul + fadd = {floors['b3']:.2f} cycles, "
+          f"{floors['b3'] / mhz * 1e3:.2f} ns")
+    for k in ("b2_stream", "b1_stream_rcv1", "b1_stream_webspam"):
+        print(f"  floor of one hinge update ({k}): {floors[k]:.2f} cycles, "
+              f"{floors[k] / mhz * 1e3:.2f} ns")
     print(json.dumps({"card": card, "cycles": lat, "sm_mhz": mhz,
-                      "floor_cycles": floor,
-                      "floor_ns": floor / mhz * 1e3}))
+                      "floor_cycles": floors["b3"],
+                      "floor_ns": floors["b3"] / mhz * 1e3,
+                      "floors_ns": {k: v / mhz * 1e3
+                                    for k, v in floors.items()}}))
     return 0
 
 

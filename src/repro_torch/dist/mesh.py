@@ -42,9 +42,11 @@ the thread count, which rounds up to whole warps.
 The reference admits a shape to a kernel by its VMEM footprint
 (``*_kernel_fits``); the port's counterparts size the kernels' shared
 memory against the 227 KB one CTA can use on Hopper: ``dcd_ell_plan``
-picks B1's variant (the block staged in shared memory, or the wide
-kernel that reads its rows from device memory), ``dcd_dense_plan``
-picks B2's (the block's dense rows staged, or the wide kernel),
+picks B1's variant (the block staged in shared memory; the rows streamed
+by id through a ring of stages, w in shared or device memory; or the
+wide kernel that reads rows and w from device memory), ``dcd_dense_plan``
+picks B2's (the block's dense rows staged, streamed by id, or the wide
+kernel),
 ``dcd_tile_plan`` B3's (the rows streamed through a ring of stages, or
 the wide kernel),
 ``gram_plan`` lays out B4's column classes, CTAs and workspace, and
@@ -103,14 +105,36 @@ ELL_ENTRIES_PER_LANE = 4  # row entries per lane of the update warp
 ELL_STAGED_MAX_SLOTS = WARP * ELL_ENTRIES_PER_LANE
 
 
+# B1 stream: a producer warp gathers the rows by id into a ring of stages
+# in shared memory.  Rows of at most ELL_STAGED_MAX_SLOTS slots take one
+# consumer warp and ELL_STREAM_ROWS rows a stage; longer rows take up to
+# ELL_STREAM_MAX_WARPS consumer warps, each thread gathering at most
+# ELL_STREAM_LANE entries of a row at once, and one row a stage.  w goes
+# in shared memory where it fits beside the ring (ELL_STREAM_SHARED_RINGS,
+# (rows, stages) in order of preference), else it stays in device memory
+# (ELL_STREAM_DEVICE_RINGS).  Every ring's stages·rows is a power of two
+# and its stages at most RING_MAX_STAGES (the kernel's register history).
+ELL_STREAM_ROWS = 32
+ELL_STREAM_LANE = 16
+ELL_STREAM_MAX_WARPS = 16
+ELL_STREAM_SHARED_RINGS = {True: ((ELL_STREAM_ROWS, 2), (16, 2), (8, 2)),
+                           False: ((1, 4), (1, 2))}
+ELL_STREAM_DEVICE_RINGS = {True: ((ELL_STREAM_ROWS, 4), (ELL_STREAM_ROWS, 2)),
+                           False: ((1, 4), (1, 2))}
+RING_MAX_STAGES = 4
+
+
 class EllPlan(NamedTuple):
     """B1's launch for a block of ``b`` ids over rows of ``k`` slots:
     ``variant`` "staged" (the block's rows, a column table of
-    ``table_slots`` entries and the ids' α, q, y, act in shared memory)
-    or "wide" (rows and w in device memory, one update at a time across
-    ``threads``).  ``smem_bytes`` is the staged kernel's dynamic shared
-    memory (0 for wide), per CTA; the grid holds ``tasks`` × ``pods`` ×
-    ``shards`` CTAs, one a (task, pod, data shard) triple."""
+    ``table_slots`` entries and the ids' α, q, y, act in shared memory),
+    "stream" (the rows gathered by id through a ring of ``stages`` stages
+    of ``tile_rows`` rows by a producer warp for ``warps`` consumer warps,
+    w in shared memory when ``w_shared``) or "wide" (rows and w in device
+    memory, one update at a time across ``threads``).  ``smem_bytes`` is
+    the kernel's dynamic shared memory (0 for wide), per CTA; the grid
+    holds ``tasks`` × ``pods`` × ``shards`` CTAs, one a (task, pod, data
+    shard) triple."""
 
     variant: str
     threads: int
@@ -119,6 +143,10 @@ class EllPlan(NamedTuple):
     shards: int = 1
     tasks: int = 1
     pods: int = 1
+    tile_rows: int = 0
+    stages: int = 0
+    warps: int = 0
+    w_shared: bool = False
 
 
 def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
@@ -129,30 +157,79 @@ def dcd_ell_staged_bytes(b: int, k: int, table_slots: int) -> int:
     return 8 * table_slots + 8 * b * k + 32 * b
 
 
+def dcd_ell_stream_bytes(k: int, d: int, tile_rows: int, stages: int,
+                         warps: int, w_shared: bool) -> int:
+    """Shared memory of B1's stream kernel: two mbarriers a stage,
+    ``stages`` stages of ``tile_rows`` rows (each row's columns and
+    values in windows of ``row_slot(k)`` words, then its id, previous
+    occurrence, repeated-column flag, the two windows' offsets in one
+    word, α, q, y and act; a stage padded to 16 bytes), the running α of
+    stages·tile_rows positions, a partial dot a consumer warp, and w
+    (d + 1 floats) when ``w_shared``."""
+    T, S = int(tile_rows), int(stages)
+    stage = -(-(2 * T * row_slot(k) + 8 * T) // 4) * 4
+    return (16 * S + 4 * S * stage + 4 * S * T + 4 * warps
+            + (4 * (d + 1) if w_shared else 0))
+
+
+def row_slot(n: int) -> int:
+    """Words of a stream kernel's slot for a row of ``n`` words: the
+    16-byte-aligned window around a row anywhere in device memory."""
+    return (int(n) + 6) // 4 * 4
+
+
+def ell_stream_warps(k: int) -> int:
+    """B1 stream's consumer warps for rows of ``k`` slots: one up to
+    ``ELL_STAGED_MAX_SLOTS``, else enough for at most ``ELL_STREAM_LANE``
+    entries a thread, at most ``ELL_STREAM_MAX_WARPS`` (longer rows do
+    not take the stream kernel)."""
+    if k <= ELL_STAGED_MAX_SLOTS:
+        return 1
+    return min(ELL_STREAM_MAX_WARPS, -(-k // (WARP * ELL_STREAM_LANE)))
+
+
 @functools.lru_cache(maxsize=64)
-def dcd_ell_plan(b: int, k: int, wide: bool = False,
-                 shards: int = 1, tasks: int = 1, pods: int = 1) -> EllPlan:
+def dcd_ell_plan(b: int, k: int, d: int, wide: bool = False,
+                 shards: int = 1, tasks: int = 1,
+                 pods: int = 1) -> EllPlan:
     """Pick B1's variant for a block of ``b`` ids over rows of ``k``
-    slots, by shape.  The column table has a power-of-two size of at
-    least 1.5 slots per entry (a load ≤ 2/3 under linear probing: every
-    real entry may be a distinct column).  The block takes the staged
-    kernel when it holds at most ``ELL_STAGED_MAX_IDS`` ids, its rows at
-    most ``ELL_STAGED_MAX_SLOTS`` slots (the update warp keeps a row in
-    registers) and it fits the 227 KB of shared memory one CTA can use;
-    else, or when ``wide`` asks for it, the wide kernel.  ``shards``
-    data shards of each of ``tasks`` tasks run ``b`` ids each, a CTA a
-    (task, shard) pair, and ``pods`` pods of ``shards`` data shards each
-    multiply the grid again: one CTA holds one task's block, so its
-    layout (and its shared memory) is the binary plan's whatever the
-    three counts."""
-    b, k, shards = max(int(b), 1), max(int(k), 1), max(int(shards), 1)
-    tasks, pods = max(int(tasks), 1), max(int(pods), 1)
-    slots = max(WARP, _pow2_at_least(-(-3 * b * k // 2)))
-    need = dcd_ell_staged_bytes(b, k, slots)
-    if (not wide and b <= ELL_STAGED_MAX_IDS and k <= ELL_STAGED_MAX_SLOTS
-            and need <= SMEM_PER_CTA - STATIC_SMEM):
-        return EllPlan("staged", ELL_STAGED_THREADS, slots, need, shards,
-                       tasks, pods)
+    slots against a w of ``d`` + 1 words, by shape.  The block takes the
+    staged kernel when it holds at most ``ELL_STAGED_MAX_IDS`` ids, its
+    rows at most ``ELL_STAGED_MAX_SLOTS`` slots (the update warp keeps a
+    row in registers) and it fits the 227 KB of shared memory one CTA
+    can use; the staged column table has a power-of-two size of at least
+    1.5 slots per entry (a load ≤ 2/3 under linear probing: every real
+    entry may be a distinct column).  Any other block takes the stream
+    kernel (``ell_stream_warps`` consumer warps; w in shared memory when
+    it fits beside the ring, else in device memory), or,
+    where a row is longer than ``ELL_STREAM_MAX_WARPS`` warps gather at
+    once or not even the smallest ring fits, or ``wide`` asks for it,
+    the wide kernel.  ``shards`` data shards of each of ``tasks`` tasks
+    run ``b`` ids each, a CTA a (task, shard) pair, and ``pods`` pods of
+    ``shards`` data shards each multiply the grid again: one CTA holds
+    one task's block, so its layout (and its shared memory) is the
+    binary plan's whatever the three counts."""
+    b, k, d = max(int(b), 1), max(int(k), 1), max(int(d), 0)
+    shards, tasks, pods = (max(int(shards), 1), max(int(tasks), 1),
+                           max(int(pods), 1))
+    if not wide:
+        slots = max(WARP, _pow2_at_least(-(-3 * b * k // 2)))
+        need = dcd_ell_staged_bytes(b, k, slots)
+        if (b <= ELL_STAGED_MAX_IDS and k <= ELL_STAGED_MAX_SLOTS
+                and need <= SMEM_PER_CTA - STATIC_SMEM):
+            return EllPlan("staged", ELL_STAGED_THREADS, slots, need,
+                           shards, tasks, pods)
+        warps, narrow = ell_stream_warps(k), k <= ELL_STAGED_MAX_SLOTS
+        if narrow or k <= warps * WARP * ELL_STREAM_LANE:
+            for shared in (True, False):
+                rings = (ELL_STREAM_SHARED_RINGS if shared
+                         else ELL_STREAM_DEVICE_RINGS)[narrow]
+                for T, S in rings:
+                    need = dcd_ell_stream_bytes(k, d, T, S, warps, shared)
+                    if need <= SMEM_PER_CTA - STATIC_SMEM:
+                        return EllPlan("stream", WARP * (warps + 1), 0,
+                                       need, shards, tasks, pods, T, S,
+                                       warps, shared)
     return EllPlan("wide", cta_threads(k), 0, 0, shards, tasks, pods)
 
 
@@ -165,15 +242,23 @@ DENSE_ENTRIES_PER_LANE = 8
 DENSE_STAGED_MAX_D = WARP * DENSE_ENTRIES_PER_LANE
 
 
+# B2 stream: B3's ring fed by an id list, ring of DENSE_STREAM_STAGES
+# stages of DENSE_STREAM_ROWS rows (a producer lane a row's id)
+DENSE_STREAM_ROWS = 32
+DENSE_STREAM_STAGES = 4
+
+
 class DensePlan(NamedTuple):
     """B2's launch for a block of ``b`` ids over dense rows of ``d``
     floats: ``variant`` "staged" (the block's rows and the ids' α, q, y,
     act in shared memory, w in the registers of one warp, ``per_lane``
-    words a lane) or "wide" (rows and w in device memory, one update at
-    a time across ``threads``).  ``smem_bytes`` is the staged kernel's
-    dynamic shared memory (0 for wide), per CTA; the grid holds
-    ``tasks`` × ``pods`` × ``shards`` CTAs, one a (task, pod, data
-    shard) triple."""
+    words a lane), "stream" (the rows gathered by id through a ring of
+    ``stages`` stages of ``tile_rows`` rows by a producer warp, w in the
+    registers of one consumer warp, ``per_lane`` words a lane) or "wide"
+    (rows and w in device memory, one update at a time across
+    ``threads``).  ``smem_bytes`` is the kernel's dynamic shared memory
+    (0 for wide), per CTA; the grid holds ``tasks`` × ``pods`` ×
+    ``shards`` CTAs, one a (task, pod, data shard) triple."""
 
     variant: str
     threads: int
@@ -182,6 +267,8 @@ class DensePlan(NamedTuple):
     shards: int = 1
     tasks: int = 1
     pods: int = 1
+    tile_rows: int = 0
+    stages: int = 0
 
 
 def dcd_dense_staged_bytes(b: int, d: int) -> int:
@@ -189,6 +276,17 @@ def dcd_dense_staged_bytes(b: int, d: int) -> int:
     floats and eight b-word id arrays (id, α, q, y, act, running α,
     previous occurrence, last occurrence)."""
     return 4 * b * d + 32 * b
+
+
+def dcd_dense_stream_bytes(tile_rows: int, stages: int, d: int) -> int:
+    """Shared memory of B2's stream kernel: two mbarriers a stage,
+    ``stages`` stages of ``tile_rows`` rows (the rows in windows of
+    ``row_slot(d)`` words, then their id, previous occurrence, offset into
+    the window, α, q, y and act; a stage padded to 16 bytes), and the
+    running α of stages·tile_rows positions."""
+    T, S = int(tile_rows), int(stages)
+    stage = -(-(T * row_slot(d) + 7 * T) // 4) * 4
+    return 16 * S + 4 * S * stage + 4 * S * T
 
 
 @functools.lru_cache(maxsize=64)
@@ -199,20 +297,26 @@ def dcd_dense_plan(b: int, d: int, wide: bool = False,
     floats, by shape.  The block takes the staged kernel when it holds
     at most ``DENSE_STAGED_MAX_IDS`` ids, d is at most
     ``DENSE_STAGED_MAX_D`` (one warp keeps w in registers) and the rows
-    fit the shared memory one CTA can use; else, or when ``wide`` asks
-    for it, the wide kernel.  ``per_lane`` is the power of two of w's
-    words a lane holds (at least ⌈d / 32⌉).  ``shards`` data shards of
-    each of ``tasks`` tasks run ``b`` ids each, a CTA a (task, shard)
-    pair (of ``pods`` pods: a (task, pod, shard) triple), each CTA laid
-    out as the binary plan's."""
+    fit the shared memory one CTA can use; any other block of rows of at
+    most ``DENSE_STAGED_MAX_D`` floats the stream kernel; wider rows, or
+    ``wide`` asking for it, the wide kernel.  ``per_lane`` is the power
+    of two of w's words a lane holds (at least ⌈d / 32⌉).  ``shards``
+    data shards of each of ``tasks`` tasks run ``b`` ids each, a CTA a
+    (task, shard) pair (of ``pods`` pods: a (task, pod, shard) triple),
+    each CTA laid out as the binary plan's."""
     b, d, shards = max(int(b), 1), max(int(d), 1), max(int(shards), 1)
     tasks, pods = max(int(tasks), 1), max(int(pods), 1)
-    need = dcd_dense_staged_bytes(b, d)
-    if (not wide and b <= DENSE_STAGED_MAX_IDS and d <= DENSE_STAGED_MAX_D
-            and need <= SMEM_PER_CTA - STATIC_SMEM):
-        return DensePlan("staged", DENSE_STAGED_THREADS,
-                         _pow2_at_least(-(-d // WARP)), need, shards, tasks,
-                         pods)
+    if not wide and d <= DENSE_STAGED_MAX_D:
+        per_lane = _pow2_at_least(-(-d // WARP))
+        need = dcd_dense_staged_bytes(b, d)
+        if (b <= DENSE_STAGED_MAX_IDS
+                and need <= SMEM_PER_CTA - STATIC_SMEM):
+            return DensePlan("staged", DENSE_STAGED_THREADS, per_lane, need,
+                             shards, tasks, pods)
+        T, S = DENSE_STREAM_ROWS, DENSE_STREAM_STAGES
+        return DensePlan("stream", 2 * WARP, per_lane,
+                         dcd_dense_stream_bytes(T, S, d), shards, tasks,
+                         pods, T, S)
     return DensePlan("wide", cta_threads(d), 0, 0, shards, tasks, pods)
 
 

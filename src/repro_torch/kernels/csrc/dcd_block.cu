@@ -9,8 +9,8 @@
 // in-order epoch over rows 0..n-1, no mask, no labels: for t = 0..n-1,
 // wx = w·x_t, δ = loss.delta(α_t, wx, q_t), α_t += δ, w += δ·x_t.
 //
-// Each has two variants, chosen by shape (repro_torch/dist/mesh.py:
-// dcd_dense_plan for B2, dcd_tile_plan for B3).
+// B2 has three variants, B3 two, chosen by shape (repro_torch/dist/
+// mesh.py: dcd_dense_plan for B2, dcd_tile_plan for B3).
 //
 // dcd_dense_staged_kernel, B2 for a block whose rows fit in shared memory
 // (the main path: 64 ids of covtype's 54 floats, 13.8 KB).  What bounds B2
@@ -68,9 +68,23 @@
 // for hinge; 20 Newton steps with two logf each for the logistic loss)
 // and the axpy.
 //
+// dcd_dense_stream_kernel, B2 for every other block of rows of at most
+// 256 floats (a whole covtype epoch's order, CoCoA's rounds): B3's stream
+// kernel fed by an id list.  The producer gathers the rows by id, lane r
+// row r of a stage as one bulk copy of the 16-byte-aligned window around
+// it (row_window: a covtype row is 216 bytes, 8-byte aligned; cp.async
+// copies by the lanes hold too few rows in flight), with each id's α, q,
+// y and act (cp.async), completing on the stage's "full" mbarrier; the
+// consumer is B3's (stream_update: w in registers, the butterfly, δ in
+// every lane), with the label folded in and the mask applied.  α is the
+// hazard, as in B1's stream kernel (dcd_ell.cu): a stage's α is copied
+// once the stage S before it is released, so the producer records each
+// row's latest earlier position among the last S·T, and the consumer
+// reads that position's running α instead.  Each update stores α_i.
+//
 // dcd_dense_kernel, the wide variant of both (rows of more than 256
-// floats; for B2 also blocks too large to stage): ONE CTA loops over the
-// whole sequence.  Thread j owns w entries j, j + blockDim.x, … for the
+// floats; launched for narrower rows only when asked for): ONE CTA loops
+// over the whole sequence.  Thread j owns w entries j, j + blockDim.x, … for the
 // whole launch: it gathers its slice of the dot from them and applies the
 // axpy to them, so the axpy needs no atomics and each thread reads back
 // only its own writes.  The dot reduces with warp shuffles and shared
@@ -90,7 +104,8 @@
 // shard's rows [s·n_loc, (s+1)·n_loc) (row s·n_loc + id).  The staged
 // kernel reads w + s·w_stride (w_stride 0: one w for every shard) into its
 // warp's registers and writes its d-word Δw slice dw[s] = w_new − w; the
-// wide kernel updates its own replica w + s·d in place (the wrapper fills
+// wide and stream kernels update their own replica w + s·d in place (the
+// wrapper fills
 // the replicas and takes Δw = replica − w).  No CTA reads what another
 // writes, so the result does not depend on which CTAs run together.  B3,
 // and B2 for the serial solvers, are one CTA with n_loc = 0 that updates w
@@ -102,17 +117,17 @@
 // (idx_ts 0: every task draws the same blocks), its α and y at
 // + k·row_ts, its act at + k·act_ts (0: one mask for every task), its
 // view of w at w + k·w_ts + s·w_stride (staged; it writes the Δw slice
-// dw[k·p + s]) or its replica w + (k·p + s)·d (wide).  No CTA's arithmetic
-// changes with the task dimension: K = 1 gives the bits of the task-free
-// grid.
+// dw[k·p + s]) or its replica w + (k·p + s)·d (wide, stream).  No CTA's
+// arithmetic changes with the task dimension: K = 1 gives the bits of the
+// task-free grid.
 //
 // B2's pods.  The pod solver's P pods of p data shards are the grid's x
 // dimension, P·p CTAs (CTA s: data shard s mod p of pod s / p), pod k's
 // shards reading pod k's own w: the staged kernel reads its view at
 // w + k·w_ts + (s / pod_shards)·w_stride, pod_shards = p (1: a w a
 // shard); the wrapper sums each pod's p slices in shard order.  The wide
-// kernel's replicas are a pair's own already.  P = 1 gives the bits of
-// the pod-free grid.
+// and stream kernels' replicas are a pair's own already.  P = 1 gives the
+// bits of the pod-free grid.
 
 #include "dcd_delta.cuh"
 #include "dcd_stage.cuh"
@@ -276,82 +291,19 @@ __global__ void dcd_dense_staged_kernel(const int* __restrict__ idx, int m,
     if (last[t]) alpha[ids[t]] = arun[t];
 }
 
-// mbarriers and 1-D bulk copies (sm_90), for B3's ring of stages
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
-          "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar,
-                                                      unsigned bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n"
-      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// an arrival on bar once every cp.async this thread issued has landed
-__device__ __forceinline__ void mbar_arrive_cp_async(unsigned long long* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// dst, src 16-byte aligned, bytes a multiple of 16
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return ((unsigned long long)p & 15ull) == 0;
-}
-
-// One update of B3's stream kernel, in every lane of the consumer warp:
-// the dot of the lane's W entries of x_t with its words of w (a tree), the
-// butterfly over the warp, δ, α_t stored by lane 0, and the axpy into w's
-// registers.
-template <int W>
-__device__ __forceinline__ void stream_update(const DcdLoss& L, int lane,
-                                              float* at, float a, float qt,
-                                              const float (&x)[W],
-                                              float (&wr)[W]) {
+// One update of a stream kernel, in every lane of the consumer warp: the
+// dot of the lane's W entries of x_t with its words of w (a tree), the
+// butterfly over the warp, δ, α stored by lane 0 at `at`, and the axpy
+// into w's registers; returns the new α.  FED (B2's id-fed kernel) folds
+// the label y_t into wx and the scale and zeroes δ where act_t = 0; B3's
+// in-order epoch has neither.
+template <int W, bool FED = false>
+__device__ __forceinline__ float stream_update(const DcdLoss& L, int lane,
+                                               float* at, float a, float qt,
+                                               const float (&x)[W],
+                                               float (&wr)[W],
+                                               float yt = 1.0f,
+                                               float actt = 1.0f) {
   float p[W];
 #pragma unroll
   for (int u = 0; u < W; ++u) p[u] = wr[u] * x[u];
@@ -363,12 +315,15 @@ __device__ __forceinline__ void stream_update(const DcdLoss& L, int lane,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     part += __shfl_xor_sync(0xffffffffu, part, o);
-  const float dl = dcd_delta(L, a, part, qt);
+  float dl = dcd_delta(L, a, FED ? yt * part : part, qt);
+  if (FED && !(actt > 0.0f)) dl = 0.0f;
   if (lane == 0) *at = a + dl;
-  if (dl != 0.0f) {
+  const float sc = FED ? dl * yt : dl;
+  if (sc != 0.0f) {
 #pragma unroll
-    for (int u = 0; u < W; ++u) wr[u] = wr[u] + dl * x[u];
+    for (int u = 0; u < W; ++u) wr[u] = wr[u] + sc * x[u];
   }
+  return a + dl;
 }
 
 // Shared memory: S "full" and S "empty" mbarriers, then S stages of
@@ -468,6 +423,189 @@ __global__ void dcd_tile_stream_kernel(int n, const float* __restrict__ X,
         qt = q_n;
       }
       stream_update<W>(Lk, lane, at++, a, qt, x, wr);
+      mbar_arrive(empty + s);  // the producer may refill the stage
+      if (++s == S) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      const int j = lane + 32 * u;
+      if (j < d) w[j] = wr[u];
+    }
+  }
+}
+
+// words of one stage of B2's id-fed stream kernel, T rows of d floats:
+// the rows' windows (row_slot(d) words each), then their id, prev, offset
+// into the window, α, q, y and act (T each), padded to 16 bytes
+__host__ __device__ inline long long dense_stream_stage_words(int T, int d) {
+  return ((long long)T * row_slot(d) + 7LL * T + 3) / 4 * 4;
+}
+
+// B2's id-fed stream kernel: B3's ring and consumer, the rows gathered
+// by id.  Shared memory: S "full" and S "empty" mbarriers, S stages, the
+// running α of the last S·T positions.  64 threads: warp 0 consumes,
+// warp 1 produces.  X holds n_x rows; S·T is a power of two and S at
+// most RING_MAX_STAGES.
+template <int K, int W>
+__global__ void dcd_dense_stream_kernel(
+    const int* __restrict__ idx, int m, long long n_loc,
+    const float* __restrict__ X, long long n_x, int d, float* alpha,
+    const float* __restrict__ q, const float* __restrict__ act,
+    const float* __restrict__ y, float* w, DcdLoss L, long long idx_ts,
+    long long row_ts, long long act_ts, int T, int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* empty = full + S;
+  float* ring = reinterpret_cast<float*>(empty + S);
+  const long long sw = dense_stream_stage_words(T, d);
+  float* arun = ring + S * sw;  // α after position t, at t & stm
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int dw = row_slot(d);
+  // data shard blockIdx.x of task blockIdx.y: its ids, its rows, its α, y
+  // and act, its replica of w
+  const long long task = blockIdx.y;
+  const long long row0 = (long long)blockIdx.x * n_loc;
+  idx += task * idx_ts + (long long)blockIdx.x * m;
+  alpha += task * row_ts;
+  if (y) y += task * row_ts;
+  if (act) act += task * act_ts;
+  w += (task * gridDim.x + blockIdx.x) * (long long)d;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      // the producer's lanes, twice each: once with their row's window
+      // (its bytes), once their cp.async copies land
+      mbar_init(full + s, 64);
+      mbar_init(empty + s, 32);  // the consumer's lanes
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int n_st = (m + T - 1) / T, stm = S * T - 1;
+  const long long rd = (long long)T * dw;
+
+  if (warp == 1) {
+    // producer: stage kk into slot kk mod S once the consumer has released
+    // the stage S before it: the ids (loaded a stage ahead), each row's
+    // previous occurrence in the lookahead (ring_prev), lane r's row as
+    // one bulk copy of its 16-byte-aligned window (row_window; covtype's
+    // 216-byte rows are only 8-byte aligned), and cp.async copies of the
+    // rows' α, q, y and act
+    const float* x_end = X + n_x * d;
+    int id_n = lane < T && lane < m ? (int)(row0 + idx[lane]) : 0;
+    int hist[RING_MAX_STAGES - 1] = {0, 0, 0};
+    for (int kk = 0, s = 0, ph = 0; kk < n_st; ++kk) {
+      mbar_wait(empty + s, ph ^ 1);
+      const int t0 = kk * T, rows = min(T, m - t0);
+      float* xs = ring + s * sw;
+      int* sid = reinterpret_cast<int*>(xs + rd);
+      int* sprev = sid + T;
+      int* soff = sprev + T;
+      float* sa = reinterpret_cast<float*>(soff + T);
+      float* sq = sa + T;
+      float* sy = sq + T;
+      float* sact = sy + T;
+      const int id = id_n;
+      if (kk + 1 < n_st) {
+        const int tn = t0 + T + lane;
+        id_n = lane < T && tn < m ? (int)(row0 + idx[tn]) : 0;
+      }
+      const int prev = ring_prev(id, hist, lane, rows, kk, T, S);
+      if (lane < rows) {
+        sid[lane] = id;
+        sprev[lane] = prev;
+        cp_async4(sa + lane, alpha + id);
+        cp_async4(sq + lane, q + id);
+        if (y)
+          cp_async4(sy + lane, y + id);
+        else
+          sy[lane] = 1.0f;
+        if (act)
+          cp_async4(sact + lane, act + id);
+        else
+          sact[lane] = 1.0f;
+        const float* src = X + (long long)id * d;
+        soff[lane] = row_off(src);  // stored before the lane arrives
+        row_window(xs + (long long)lane * dw, src, d, X, x_end, full + s);
+      } else {
+        mbar_arrive(full + s);
+      }
+      mbar_arrive_cp_async(full + s);
+#pragma unroll
+      for (int b = RING_MAX_STAGES - 2; b > 0; --b) hist[b] = hist[b - 1];
+      hist[0] = id;
+      if (++s == S) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    cp_async_wait_all();  // no copy of this thread outlives it
+  } else {
+    // consumer: w in registers; the next row's words and scalars load a
+    // step ahead, with its current α_i: the staged one, or the running
+    // one of its last occurrence in the lookahead (the update just taken:
+    // a register)
+    const DcdLoss Lk{K, L.C, L.inv_two_c, L.eps_c, L.newton_steps};
+    float wr[W], x[W], xn[W];
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      const int j = lane + 32 * u;
+      wr[u] = j < d ? w[j] : 0.0f;
+      xn[u] = 0.0f;
+    }
+    float a_last = 0.0f;
+    for (int kk = 0, s = 0, ph = 0; kk < n_st; ++kk) {
+      mbar_wait(full + s, ph);
+      const float* xs = ring + s * sw;
+      const int* sid = reinterpret_cast<const int*>(xs + rd);
+      const int* sprev = sid + T;
+      const int* soff = sprev + T;
+      const float* sa = reinterpret_cast<const float*>(soff + T);
+      const float* sq = sa + T;
+      const float* sy = sq + T;
+      const float* sact = sy + T;
+      const int t0 = kk * T, rows = min(T, m - t0);
+      const float* xr = xs + soff[0] + lane;  // this lane's words of row 0
+#pragma unroll
+      for (int u = 0; u < W; ++u) x[u] = lane + 32 * u < d ? xr[32 * u] : 0.0f;
+      int i_c = sid[0], pt_n = sprev[0];
+      float q_c = sq[0], y_c = sy[0], act_c = sact[0];
+      float a_c = pt_n < 0 ? sa[0]
+                           : (pt_n == t0 - 1 ? a_last : arun[pt_n & stm]);
+      // unrolled by two, so that the copies of the next row's words and
+      // scalars become register renames, as in B3's consumer
+#pragma unroll 2
+      for (int r = 0; r < rows; ++r) {
+        const int t = t0 + r;
+        int i_n = 0;
+        float q_n = 1.0f, y_n = 1.0f, act_n = 1.0f, a_pre = 0.0f;
+        pt_n = -1;
+        if (r + 1 < rows) {
+          xr = xs + (long long)(r + 1) * dw + soff[r + 1] + lane;
+#pragma unroll
+          for (int u = 0; u < W; ++u)
+            xn[u] = lane + 32 * u < d ? xr[32 * u] : 0.0f;
+          i_n = sid[r + 1];
+          pt_n = sprev[r + 1];
+          q_n = sq[r + 1];
+          y_n = sy[r + 1];
+          act_n = sact[r + 1];
+          a_pre = pt_n >= 0 && pt_n != t ? arun[pt_n & stm] : sa[r + 1];
+        }
+        a_last = stream_update<W, true>(Lk, lane, alpha + i_c, a_c, q_c, x,
+                                        wr, y_c, act_c);
+        if (lane == 0) arun[t & stm] = a_last;
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < W; ++u) x[u] = xn[u];
+        i_c = i_n;
+        q_c = q_n;
+        y_c = y_n;
+        act_c = act_n;
+        a_c = pt_n == t ? a_last : a_pre;
+      }
       mbar_arrive(empty + s);  // the producer may refill the stage
       if (++s == S) {
         s = 0;
@@ -638,6 +776,91 @@ extern "C" int dcd_block_tile_stream_launch(int n, const float* X, int d,
       return tile_stream_per_lane<DCD_LOGISTIC>(n, X, d, alpha, q, w, L,
                                                 per_lane, tile_rows, stages,
                                                 smem_bytes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int K, int W>
+static int dense_stream_launch(const int* idx, int m, int shards,
+                               long long n_loc, const float* X,
+                               long long n_x, int d,
+                               float* alpha, const float* q, const float* act,
+                               const float* y, float* w, const DcdLoss& L,
+                               int T, int S, int smem_bytes, int tasks,
+                               long long idx_ts, long long row_ts,
+                               long long act_ts, cudaStream_t st) {
+  static int smem_set = 0;  // the limit raised so far (this process)
+  if (smem_bytes > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcd_dense_stream_kernel<K, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem_bytes;
+  }
+  dcd_dense_stream_kernel<K, W><<<dim3(shards, tasks), 64, smem_bytes, st>>>(
+      idx, m, n_loc, X, n_x, d, alpha, q, act, y, w, L, idx_ts, row_ts,
+      act_ts, T, S);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+static int dense_stream_per_lane(const int* idx, int m, int shards,
+                                 long long n_loc, const float* X,
+                                 long long n_x, int d,
+                                 float* alpha, const float* q,
+                                 const float* act, const float* y, float* w,
+                                 const DcdLoss& L, int per_lane, int T,
+                                 int S, int smem_bytes, int tasks,
+                                 long long idx_ts, long long row_ts,
+                                 long long act_ts, cudaStream_t st) {
+#define B2_STREAM(W)                                                       \
+  return dense_stream_launch<K, W>(idx, m, shards, n_loc, X, n_x, d, alpha, \
+                                   q, act, y, w, L, T, S, smem_bytes, tasks, \
+                                   idx_ts, row_ts, act_ts, st)
+  switch (per_lane) {
+    case 1: B2_STREAM(1);
+    case 2: B2_STREAM(2);
+    case 4: B2_STREAM(4);
+    case 8: B2_STREAM(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef B2_STREAM
+}
+
+extern "C" int dcd_block_stream_launch(
+    const int* idx, int m, int shards, long long n_loc, const float* X,
+    long long n_x, int d, float* alpha, const float* q, const float* act,
+    const float* y, float* w, int kind, float C, float inv_two_c, float eps_c,
+    int newton_steps, int per_lane, int tile_rows, int stages,
+    int smem_bytes, int tasks, long long idx_ts, long long row_ts,
+    long long act_ts, void* stream) {
+  // the bytes the kernel carves (repro_torch/dist/mesh.py:
+  // dcd_dense_stream_bytes): two mbarriers a stage, the stages (each row
+  // in a 16-byte-aligned window), and the running α of S·T positions
+  const long long S = stages, T = tile_rows;
+  const long long need = 16 * S +
+                         4 * S * dense_stream_stage_words(tile_rows, d) +
+                         4 * S * T;
+  if (m < 1 || d < 1 || d > 32 * per_lane || T < 1 || T > 32 || S < 2 ||
+      S > RING_MAX_STAGES || ((S * T) & (S * T - 1)) != 0 ||
+      smem_bytes < need || shards < 1 || shards > 65535 || tasks < 1 ||
+      tasks > 65535)
+    return (int)cudaErrorInvalidValue;
+  const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (kind) {  // the loss is a template: no dispatch on the chain
+    case DCD_HINGE:
+      return dense_stream_per_lane<DCD_HINGE>(
+          idx, m, shards, n_loc, X, n_x, d, alpha, q, act, y, w, L, per_lane,
+          tile_rows, stages, smem_bytes, tasks, idx_ts, row_ts, act_ts, st);
+    case DCD_SQUARED_HINGE:
+      return dense_stream_per_lane<DCD_SQUARED_HINGE>(
+          idx, m, shards, n_loc, X, n_x, d, alpha, q, act, y, w, L, per_lane,
+          tile_rows, stages, smem_bytes, tasks, idx_ts, row_ts, act_ts, st);
+    case DCD_LOGISTIC:
+      return dense_stream_per_lane<DCD_LOGISTIC>(
+          idx, m, shards, n_loc, X, n_x, d, alpha, q, act, y, w, L, per_lane,
+          tile_rows, stages, smem_bytes, tasks, idx_ts, row_ts, act_ts, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

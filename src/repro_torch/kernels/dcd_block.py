@@ -9,10 +9,13 @@
 * B3, ``dcd_tile_epoch``, replaces ``_dcd_tile_kernel``: one in-order
   epoch over rows 0..n-1, no mask and no labels.
 
-Each has two variants, picked by shape.  B2 (``repro_torch.dist.mesh.
+B2 has three variants, picked by shape (``repro_torch.dist.mesh.
 dcd_dense_plan``): "staged", the block's rows in shared memory and w in
-the registers of one warp (covtype's 64 ids of 54 floats), and "wide",
-rows and w in device memory (wider rows, or blocks too large to stage).
+the registers of one warp (covtype's 64 ids of 54 floats); "stream", B3's
+ring fed by the id list, rows of at most 256 floats gathered by id while
+one warp holds w in registers (a whole covtype epoch's order, CoCoA's
+rounds); and "wide", rows and w in device memory (wider rows, or asked
+for with ``wide=True``).
 B3 (``dcd_tile_plan``): "stream", the rows streamed in order through a
 ring of stages in shared memory by a producer warp while a consumer warp
 holds w in registers (rows of at most 256 floats, such as covtype's),
@@ -90,8 +93,8 @@ def _indexed_launch(plan, idx, m, n_loc, X, alpha, w, sq_norms, active, y,
     each, the staged kernel's view of w a row of ``w`` (at ``w_stride``)
     for every ``pod_shards`` consecutive shards.  The staged
     kernel writes the (task, shard) pairs' Δw slices into ``dw`` (or,
-    with one pair and no ``dw``, updates ``w`` in place); the wide
-    kernel updates ``w`` in place, a replica a pair.  ``strides`` are
+    with one pair and no ``dw``, updates ``w`` in place); the stream and
+    wide kernels update ``w`` in place, a replica a pair.  ``strides`` are
     the task strides of the ids, of α and y, of act and of w (words)."""
     idx_ts, row_ts, act_ts, w_ts = strides
     args = [build.ptr(idx), m, plan.pods * plan.shards, n_loc, build.ptr(X),
@@ -105,6 +108,14 @@ def _indexed_launch(plan, idx, m, n_loc, X, alpha, w, sq_norms, active, y,
         args += [w_stride, build.ptr(dw), *kernel_params(loss),
                  plan.per_lane, plan.threads, plan.smem_bytes, plan.tasks,
                  idx_ts, row_ts, act_ts, w_ts, pod_shards]
+    elif plan.variant == "stream":
+        fn = "dcd_block_stream_launch"
+        args.insert(5, X.shape[0])  # the rows the windows stay within
+        types.insert(5, L)
+        types += [I, F, F, F, I, I, I, I, I, I, L, L, L, P]
+        args += [*kernel_params(loss), plan.per_lane, plan.tile_rows,
+                 plan.stages, plan.smem_bytes, plan.tasks, idx_ts, row_ts,
+                 act_ts]
     else:
         fn = "dcd_block_indexed_launch"
         types += [I, F, F, F, I, I, I, L, L, L, P]
@@ -123,9 +134,9 @@ def dcd_indexed_epoch(X, alpha, w, sq_norms, *, loss, idx, active=None,
     ``dcd_indexed_epoch.launches``, and in
     ``dcd_indexed_epoch.variant_launches`` under its variant); CPU
     tensors run the plain version.  ``wide=True`` launches the wide
-    variant whatever the shape, to hold the two against each other.  The
-    ids must lie in [0, n); as for B1, the callers check them where they
-    come from outside."""
+    variant whatever the shape, to hold the variants against each other.
+    The ids must lie in [0, n); as for B1, the callers check them where
+    they come from outside."""
     if alpha.device.type != "cuda":
         return dcd_indexed_epoch_plain(X, alpha, w, sq_norms, loss=loss,
                                        idx=idx, active=active, y=y)
@@ -177,7 +188,8 @@ def dcd_indexed_shards(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     one kernel of K × p CTAs (counted in ``dcd_indexed_shards.launches``,
     under its variant, and in ``dcd_indexed_shards.task_launches`` when
     K > 1): the staged kernel writes each pair's d-word Δw slice, the
-    wide one updates a replica of w a pair (Δw = replica − w_eff).  CPU
+    stream and wide ones update a replica of w a pair (Δw = replica −
+    w_eff).  CPU
     tensors run ``dcd_indexed_shards_plain``.  A ``w_eff`` of P views for
     P·p shards, (P, d) or (K, P, d), is the pod solver's grid, as
     ``dcd_ell.dcd_ell_shards`` takes it: Δw a shard (P·p, d); its
@@ -275,9 +287,11 @@ def tile_launch(plan, X, alpha, w, sq_norms, loss):
 
 
 dcd_indexed_epoch.launches = 0
-dcd_indexed_epoch.variant_launches = {"staged": 0, "wide": 0}
+dcd_indexed_epoch.variant_launches = {"staged": 0, "stream": 0,
+                                      "wide": 0}
 dcd_indexed_shards.launches = 0
-dcd_indexed_shards.variant_launches = {"staged": 0, "wide": 0}
+dcd_indexed_shards.variant_launches = {"staged": 0, "stream": 0,
+                                       "wide": 0}
 dcd_indexed_shards.task_launches = 0
 dcd_indexed_shards.pod_launches = 0
 dcd_tile_epoch.launches = 0

@@ -13,11 +13,15 @@ each id i of ``idx``, in order: wx = y_i·Σ w[cols_i]·vals_i,
 δ = loss.delta(α_i, wx, q_i) (0 where ``active`` is 0), α_i += δ,
 w[cols_i] += δ·y_i·vals_i.  ``dcd_ell_epoch`` launches a kernel for
 CUDA tensors and runs ``dcd_ell_epoch_plain`` for CPU tensors; it never
-falls back from one to the other.  The kernel has two variants, picked
-by shape (``repro_torch.dist.mesh.dcd_ell_plan``): "staged", the block's
-rows and columns of w in shared memory (a block of 64 rcv1 rows), and
-"wide", rows and w in device memory (rows too long to stage, such as
-webspam's).  No lane padding: k and d are taken as they are.
+falls back from one to the other.  The kernel has three variants,
+picked by shape (``repro_torch.dist.mesh.dcd_ell_plan``): "staged", the
+block's rows and columns of w in shared memory (a block of 64 rcv1
+rows); "stream", the rows gathered by id through a ring of stages in
+shared memory, w in shared memory where it fits (a whole rcv1 epoch's
+order) or in device memory (webspam's rows); and "wide", rows and w in
+device memory, one update at a time across the CTA (asked for with
+``wide=True``, or rows too long for the stream kernel's ring).  No lane
+padding: k and d are taken as they are.
 
 ``dcd_ell_shards`` runs the sharded solver's round: p data shards, each
 its own block of ids against w, as one launch of p CTAs, returning each
@@ -31,6 +35,8 @@ pod s / p, pod k's shards reading pod k's own w (``pod_grid``).
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -83,6 +89,37 @@ def _check_grid(cols, vals, alpha, w, sq_norms, idx, active, y):
         "idx": (idx, None)}, int32=("cols", "idx"))
 
 
+ROW_REPEATS_ENTRIES = 1 << 24  # row entries row_repeats sorts at once
+_ROW_REPEATS = {}  # id(cols) -> (weak reference, version, d, flags)
+
+
+def row_repeats(cols, d):
+    """The stream kernel's repeated-column flags: an int32 a row of
+    ``cols``, 1 where the row holds a column of [0, d) twice.  Torch ops
+    on cols' device: the rows sorted, ROW_REPEATS_ENTRIES entries at a
+    time (padding and columns outside [0, d) made distinct first).  A
+    row's flag depends on that row alone, so the flags are computed once
+    a matrix: kept while ``cols`` lives and is not written in place, and
+    read by the kernel at each id's row."""
+    key = id(cols)
+    hit = _ROW_REPEATS.get(key)
+    if (hit is not None and hit[0]() is cols and hit[1] == cols._version
+            and hit[2] == d):
+        return hit[3]
+    n, k = cols.shape
+    out = torch.empty(n, dtype=torch.int32, device=cols.device)
+    apart = -1 - torch.arange(k, dtype=cols.dtype, device=cols.device)
+    step = max(1, ROW_REPEATS_ENTRIES // k)
+    for i in range(0, n, step):
+        c = cols[i:i + step]
+        c = torch.where((c >= 0) & (c < d), c, apart)
+        c = torch.sort(c, dim=1).values
+        out[i:i + step] = (c[:, 1:] == c[:, :-1]).any(1)
+    ref = weakref.ref(cols, lambda _: _ROW_REPEATS.pop(key, None))
+    _ROW_REPEATS[key] = (ref, cols._version, d, out)
+    return out
+
+
 def _launch(plan, idx, m, n_loc, cols, vals, alpha, w, sq_norms, active, y,
             loss, w_stride=0, dw=None, strides=(0, 0, 0, 0), pod_shards=1):
     """Launch B1's kernel for ``plan`` on operands already checked:
@@ -90,9 +127,10 @@ def _launch(plan, idx, m, n_loc, cols, vals, alpha, w, sq_norms, active, y,
     each, the staged kernel's view of w a row of ``w`` (at ``w_stride``)
     for every ``pod_shards`` consecutive shards.  The staged
     kernel writes the (task, shard) pairs' Δw slices into ``dw`` (or,
-    with one pair and no ``dw``, updates ``w`` in place); the wide kernel
-    updates ``w`` in place, a replica a pair.  ``strides`` are the task
-    strides of the ids, of α and y, of act and of w (words)."""
+    with one pair and no ``dw``, updates ``w`` in place); the stream and
+    wide kernels update ``w`` in place, a replica a pair.  ``strides``
+    are the task strides of the ids, of α and y, of act and of w
+    (words)."""
     k = cols.shape[1]
     d = (w.shape[-1] if dw is None else dw.shape[-1]) - 1
     idx_ts, row_ts, act_ts, w_ts = strides
@@ -107,6 +145,17 @@ def _launch(plan, idx, m, n_loc, cols, vals, alpha, w, sq_norms, active, y,
         args += [w_stride, build.ptr(dw), *kernel_params(loss),
                  plan.table_slots, plan.threads, plan.smem_bytes,
                  plan.tasks, idx_ts, row_ts, act_ts, w_ts, pod_shards]
+    elif plan.variant == "stream":
+        fn = "dcd_ell_stream_launch"
+        flags = row_repeats(cols, d)
+        args.insert(6, cols.shape[0])  # the rows the windows stay within
+        types.insert(6, L)
+        args.insert(1, build.ptr(flags))
+        types.insert(1, P)
+        types += [I, F, F, F, I, I, I, I, I, I, I, L, L, L]
+        args += [*kernel_params(loss), plan.warps, plan.tile_rows,
+                 plan.stages, int(plan.w_shared), plan.smem_bytes,
+                 plan.tasks, idx_ts, row_ts, act_ts]
     else:
         fn = "dcd_ell_launch"
         types += [I, F, F, F, I, I, I, L, L, L]
@@ -129,7 +178,7 @@ def dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms, *, loss, idx,
     them where they come from outside (``ops.dcd_epoch``, the solvers'
     ``blocks=``/``perms=``).  Column ids outside [0, d) are skipped.
     ``wide=True`` launches the wide variant whatever the shape, to hold
-    the two variants against each other on one block."""
+    the variants against each other on one block."""
     if alpha.device.type != "cuda":
         return dcd_ell_epoch_plain(cols, vals, alpha, w_pad, sq_norms,
                                    loss=loss, idx=idx, active=active, y=y)
@@ -138,7 +187,7 @@ def dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms, *, loss, idx,
     m = idx.shape[0]
     if m == 0:
         return a_out, w_out
-    plan = dcd_ell_plan(m, cols.shape[1], wide)
+    plan = dcd_ell_plan(m, cols.shape[1], w_pad.shape[0] - 1, wide)
     _launch(plan, idx, m, 0, cols, vals, a_out, w_out, sq_norms, active, y,
             loss)
     dcd_ell_epoch.launches += 1
@@ -147,7 +196,7 @@ def dcd_ell_epoch(cols, vals, alpha, w_pad, sq_norms, *, loss, idx,
 
 
 dcd_ell_epoch.launches = 0
-dcd_ell_epoch.variant_launches = {"staged": 0, "wide": 0}
+dcd_ell_epoch.variant_launches = {"staged": 0, "stream": 0, "wide": 0}
 
 
 def dcd_ell_shards_plain(cols, vals, alpha, w_eff, sq_norms, *, loss, idx,
@@ -266,8 +315,9 @@ def dcd_ell_shards(cols, vals, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     K × p CTAs (counted in ``dcd_ell_shards.launches``, under its
     variant, and in ``dcd_ell_shards.task_launches`` when K > 1); CPU
     tensors run ``dcd_ell_shards_plain``.  The staged kernel writes each
-    pair's Δw slice into zeros; the wide kernel updates a replica of w a
-    pair, which the wrapper fills, and Δw is replica − w_eff.
+    pair's Δw slice into zeros; the stream and wide kernels update a
+    replica of w a pair, which the wrapper fills, and Δw is replica −
+    w_eff.
     ``wide=True`` launches the wide variant whatever the shape.
     A ``w_eff`` of P views for P·p shards, (P, d+1) or (K, P, d+1), is
     the pod solver's grid (``pod_grid``): shard s the data shard s mod p
@@ -292,7 +342,7 @@ def dcd_ell_shards(cols, vals, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     if m == 0:
         return a_out, torch.zeros((*lead, S, d1), dtype=torch.float32,
                                   device=alpha.device)
-    plan = dcd_ell_plan(m, cols.shape[1], wide, p, K, n_pods)
+    plan = dcd_ell_plan(m, cols.shape[1], d1 - 1, wide, p, K, n_pods)
     w_ts = W[0].numel()
     if plan.variant == "staged":
         dw = torch.zeros((*lead, S, d1), dtype=torch.float32,
@@ -315,6 +365,7 @@ def dcd_ell_shards(cols, vals, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
 
 
 dcd_ell_shards.launches = 0
-dcd_ell_shards.variant_launches = {"staged": 0, "wide": 0}
+dcd_ell_shards.variant_launches = {"staged": 0, "stream": 0,
+                                   "wide": 0}
 dcd_ell_shards.task_launches = 0
 dcd_ell_shards.pod_launches = 0

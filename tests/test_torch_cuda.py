@@ -100,11 +100,11 @@ def _ell_case(dev, n, d, k, b, seed=5, repeat_col=True, unit_rows=False):
 # are scaled to unit width: rows wider than a warp; rows of 128 slots,
 # the most the staged kernel's update warp holds; rows wider than 1,024
 # slots (scaled, so that their wx and q stay on the narrow rows' scale);
-# and a block too large to stage
+# and a block too large to stage (both now the stream variant's)
 ELL_CASES = {"staged": ((200, 300, 37, 198), "staged", False),
              "staged_128_slot_rows": ((200, 3000, 128, 64), "staged", False),
-             "wide_1100_slot_rows": ((40, 5000, 1100, 4), "wide", True),
-             "wide": ((200, 3000, 400, 64), "wide", False)}
+             "wide_1100_slot_rows": ((40, 5000, 1100, 4), "stream", True),
+             "wide": ((200, 3000, 400, 64), "stream", False)}
 
 
 @pytest.mark.cuda
@@ -117,7 +117,7 @@ def test_b1_kernel_matches_plain(loss, case, masked):
     cols, vals, alpha, w, active, y, idx = _ell_case(dev, *shape,
                                                      unit_rows=unit_rows)
     d = shape[1]
-    assert dcd_ell_plan(idx.shape[0], cols.shape[1]).variant == variant
+    assert dcd_ell_plan(idx.shape[0], cols.shape[1], d).variant == variant
     kw = dict(loss=td.make_loss(loss, 0.8), idx=idx)
     if masked:
         kw.update(active=active, y=y)
@@ -161,9 +161,153 @@ def test_b1_variants_agree(case):
     sa, sw = dcd_ell_epoch(cols, vals, alpha, w, q, **kw)
     wa, ww = dcd_ell_epoch(cols, vals, alpha, w, q, wide=True, **kw)
     assert dcd_ell_epoch.variant_launches == {
-        "staged": n0["staged"] + 1, "wide": n0["wide"] + 1}
+        "staged": n0["staged"] + 1, "stream": n0["stream"],
+        "wide": n0["wide"] + 1}
     _close(sa, wa)
     _close(sw, ww)
+
+
+# B1's stream variant: (n, d, k, b) and whether w goes in shared memory:
+# rows of at most 128 slots (one consumer warp) and longer ones (several),
+# w beside the ring or in device memory
+ELL_STREAM_CASES = {"narrow_w_shared": ((3000, 3000, 37, 2500), True),
+                    "narrow_w_device": ((3000, 60_000, 73, 9000), False),
+                    "long_rows_w_shared": ((300, 3000, 400, 300), True),
+                    "long_rows_w_device": ((200, 300_000, 1100, 200),
+                                           False)}
+
+
+def _stream_ids(n, b, most, seed=7):
+    """``b`` ids drawn from [0, n) with row 5 (the row that repeats a
+    column) second, and an id recurring at each distance 1, 2, …,
+    ``most`` + 1 (the ring's lookahead and one past it), the pairs laid
+    end to end from position 3."""
+    idx = np.random.default_rng(seed).integers(0, n, b).astype(np.int32)
+    idx[1] = 5
+    pos = 3
+    for dist in range(1, most + 2):
+        if pos + dist >= b:
+            break
+        idx[pos + dist] = idx[pos]
+        pos += dist + 1
+    return idx
+
+
+def _stream_case(dev, case, repeat_col=True):
+    (n, d, k, b), shared = ELL_STREAM_CASES[case]
+    cols, vals, alpha, w, active, y, _ = _ell_case(
+        dev, n, d, k, 4, repeat_col=repeat_col, unit_rows=k > 128)
+    plan = dcd_ell_plan(b, k, d)
+    assert (plan.variant, plan.w_shared) == ("stream", shared)
+    idx = torch.from_numpy(_stream_ids(n, b, plan.tile_rows * plan.stages))
+    return cols, vals, alpha, w, active, y, idx.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("case", sorted(ELL_STREAM_CASES))
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b1_stream_matches_plain(loss, case, masked):
+    """The stream variant on a block with ids recurring at every distance
+    of the ring's lookahead and a row that repeats a column, against the
+    plain version (on host copies) and against the wide variant."""
+    dev = _cuda()
+    cols, vals, alpha, w, active, y, idx = _stream_case(dev, case)
+    d = w.shape[0] - 1
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=idx)
+    if masked:
+        kw.update(active=active, y=y)
+    q = (vals * vals).sum(1)
+    n0 = dict(dcd_ell_epoch.variant_launches)
+    ka, kwv = dcd_ell_epoch(cols, vals, alpha, w, q, **kw)
+    wa, ww = dcd_ell_epoch(cols, vals, alpha, w, q, wide=True, **kw)
+    assert dcd_ell_epoch.variant_launches == {
+        "staged": n0["staged"], "stream": n0["stream"] + 1,
+        "wide": n0["wide"] + 1}
+    host = {key: v.cpu() if torch.is_tensor(v) else v
+            for key, v in kw.items()}
+    pa, pw = dcd_ell_epoch_plain(cols.cpu(), vals.cpu(), alpha.cpu(),
+                                 w.cpu(), q.cpu(), **host)
+    _close(ka, pa)
+    _close(kwv, pw)
+    _close(ka, wa)
+    _close(kwv, ww)
+    assert float(kwv[d]) == 0.0  # the dummy slot stays exactly 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ELL_STREAM_CASES))
+def test_b1_stream_is_deterministic(case):
+    """A row that repeats a column scatters in slot order from one
+    thread: a second launch gives the same bits."""
+    dev = _cuda()
+    cols, vals, alpha, w, active, y, idx = _stream_case(dev, case)
+    q = (vals * vals).sum(1)
+    kw = dict(loss=td.Hinge(0.8), idx=idx, active=active, y=y)
+    first = dcd_ell_epoch(cols, vals, alpha, w, q, **kw)
+    second = dcd_ell_epoch(cols, vals, alpha, w, q, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# the stream variants' grids: (K tasks, P pods, p shards a pod, n_loc, b
+# ids a block, past the staged kernels' 1,024)
+STREAM_GRIDS = {"shards": (1, 1, 3, 400, 1100),
+                "tasks": (3, 1, 2, 400, 1100),
+                "pods": (1, 2, 2, 400, 1100)}
+
+
+def _grid_operands(rng, grid, width, n, dev):
+    """α, the views of w (one for every shard, or one a pod), act and y
+    of a stream grid, in the binary layout when K = 1."""
+    K, P = STREAM_GRIDS[grid][:2]
+    alpha, _, act, y = _task_operands(rng, K, n, (1,), dev, True)
+    w = _pod_views(rng, K, P, width, dev)
+    w = w if P > 1 else w[:, 0]
+    if K == 1:
+        alpha, w, y = alpha[0], w[0], y[0]
+    return alpha, w, act, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_place", ["shared", "device"])
+@pytest.mark.parametrize("grid", sorted(STREAM_GRIDS))
+def test_b1_stream_grids_match_plain(grid, w_place):
+    """B1's stream variant over the shard, task and pod grids, each
+    (task, shard) pair updating its own replica of w (in shared or in
+    device memory), against its plain version and the wide variant; a
+    second launch gives the same bits."""
+    from repro_torch.kernels.dcd_ell import (
+        dcd_ell_shards,
+        dcd_ell_shards_plain,
+    )
+    dev = _cuda()
+    K, P, p, n_loc, b = STREAM_GRIDS[grid]
+    S, d = P * p, 3000 if w_place == "shared" else 60_000
+    cols, vals, *_ = _ell_case(dev, n_loc * S, d, 37, 4)
+    rng = np.random.default_rng(41)
+    alpha, w, act, y = _grid_operands(rng, grid, d + 1, n_loc * S, dev)
+    w[..., -1] = 0.0
+    ids = _task_ids(rng, K, n_loc, S, b, dev, True)
+    q = (vals * vals).sum(1)
+    plan = dcd_ell_plan(b, 37, d, False, p, K, P)
+    assert plan == dcd_ell_plan(b, 37, d)._replace(shards=p, tasks=K,
+                                                   pods=P)
+    assert (plan.variant, plan.w_shared) == ("stream", w_place == "shared")
+    kw = dict(loss=td.Hinge(0.8), idx=ids, n_loc=n_loc, active=act, y=y)
+    n0 = dcd_ell_shards.variant_launches["stream"]
+    ka, kdw = dcd_ell_shards(cols, vals, alpha, w, q, **kw)
+    assert dcd_ell_shards.variant_launches["stream"] == n0 + 1
+    pa, pdw = dcd_ell_shards_plain(cols, vals, alpha, w, q, **kw)
+    _close(ka, pa)
+    _close(kdw, pdw)
+    assert float(kdw[..., -1].abs().max()) == 0.0
+    wa, wdw = dcd_ell_shards(cols, vals, alpha, w, q, wide=True, **kw)
+    _close(ka, wa)
+    _close(kdw, wdw)
+    again = dcd_ell_shards(cols, vals, alpha, w, q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
 
 
 @pytest.mark.cuda
@@ -306,6 +450,146 @@ def test_b3_kernel_is_deterministic(d, rows, wide):
     first = dcd_tile_epoch(X, alpha, w, q, **kw)
     second = dcd_tile_epoch(X, alpha, w, q, **kw)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# B2's stream variant: d of the rows (a stage copied in 16-, 8- or 4-byte
+# units: 64, covtype's 54, 7; and the widest, 256)
+B2_STREAM_DS = [7, 54, 64, DENSE_STAGED_MAX_D]
+
+
+def _dense_stream_case(dev, d, n=3000, b=9000):
+    """``_dense_case``'s rows and state, and ``b`` ids past the staged
+    kernel's 1,024 with an id recurring at every distance of the ring's
+    lookahead."""
+    X, alpha, w, active, y, _ = _dense_case(dev, n, d)
+    plan = dcd_dense_plan(b, d)
+    assert plan.variant == "stream"
+    idx = _stream_ids(n, b, plan.tile_rows * plan.stages)
+    return X, alpha, w, active, y, torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("d", B2_STREAM_DS)
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b2_stream_matches_plain(loss, d, masked):
+    """B2's stream variant against the plain version (on host copies)
+    and against the wide variant."""
+    dev = _cuda()
+    X, alpha, w, active, y, idx = _dense_stream_case(dev, d)
+    q = (X * X).sum(1)
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=idx)
+    if masked:
+        kw.update(active=active, y=y)
+    n0 = dict(dcd_indexed_epoch.variant_launches)
+    ka, kw_ = dcd_indexed_epoch(X, alpha, w, q, **kw)
+    wa, ww = dcd_indexed_epoch(X, alpha, w, q, wide=True, **kw)
+    assert dcd_indexed_epoch.variant_launches == {
+        "staged": n0["staged"], "stream": n0["stream"] + 1,
+        "wide": n0["wide"] + 1}
+    host = {key: v.cpu() if torch.is_tensor(v) else v
+            for key, v in kw.items()}
+    pa, pw = dcd_indexed_epoch_plain(X.cpu(), alpha.cpu(), w.cpu(),
+                                     q.cpu(), **host)
+    _close(ka, pa)
+    _close(kw_, pw)
+    _close(ka, wa)
+    _close(kw_, ww)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", B2_STREAM_DS)
+def test_b2_stream_is_deterministic(d):
+    """A second launch on the same inputs gives the same bits."""
+    dev = _cuda()
+    X, alpha, w, active, y, idx = _dense_stream_case(dev, d)
+    q = (X * X).sum(1)
+    kw = dict(loss=td.Hinge(0.8), idx=idx, active=active, y=y)
+    first = dcd_indexed_epoch(X, alpha, w, q, **kw)
+    second = dcd_indexed_epoch(X, alpha, w, q, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _offset(t):
+    """A copy of ``t`` one word into a larger allocation: its data 4
+    bytes past a 16-byte boundary, so that row 0's 16-byte-aligned window
+    starts before the array."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["b1", "b2"])
+def test_stream_takes_rows_at_any_offset(kernel):
+    """The stream kernels on rows in arrays that start 4 bytes past a
+    16-byte boundary (views into a larger allocation), row 0 among the
+    ids: its aligned window would start before the array, so it is copied
+    word by word.  Against the plain version on host copies."""
+    dev = _cuda()
+    if kernel == "b1":
+        cols, vals, alpha, w, active, y, idx = _stream_case(
+            dev, "narrow_w_shared")
+        X = (_offset(cols), _offset(vals))
+        run, plain, counts = dcd_ell_epoch, dcd_ell_epoch_plain, \
+            dcd_ell_epoch.variant_launches
+    else:
+        X, alpha, w, active, y, idx = _dense_stream_case(dev, 54)
+        X = (_offset(X),)
+        run, plain, counts = dcd_indexed_epoch, dcd_indexed_epoch_plain, \
+            dcd_indexed_epoch.variant_launches
+    idx[0] = 0
+    q = (X[-1] * X[-1]).sum(1)
+    kw = dict(loss=td.Hinge(0.8), idx=idx, active=active, y=y)
+    n0 = counts["stream"]
+    ka, kw_ = run(*X, alpha, w, q, **kw)
+    assert counts["stream"] == n0 + 1
+    host = {key: v.cpu() if torch.is_tensor(v) else v
+            for key, v in kw.items()}
+    pa, pw = plain(*(x.cpu() for x in X), alpha.cpu(), w.cpu(), q.cpu(),
+                   **host)
+    _close(ka, pa)
+    _close(kw_, pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", sorted(STREAM_GRIDS))
+def test_b2_stream_grids_match_plain(grid):
+    """B2's stream variant over the shard, task and pod grids, a replica
+    of w a (task, shard) pair, against its plain version and the wide
+    variant; a second launch gives the same bits."""
+    from repro_torch.kernels.dcd_block import (
+        dcd_indexed_shards,
+        dcd_indexed_shards_plain,
+    )
+    dev = _cuda()
+    K, P, p, n_loc, b = STREAM_GRIDS[grid]
+    S, d = P * p, 54
+    rng = np.random.default_rng(42)
+    X = torch.from_numpy((rng.standard_normal((n_loc * S, d)) * 0.3 /
+                          np.sqrt(d)).astype(np.float32)).to(dev)
+    alpha, w, act, y = _grid_operands(rng, grid, d, n_loc * S, dev)
+    ids = _task_ids(rng, K, n_loc, S, b, dev, True)
+    q = (X * X).sum(1)
+    plan = dcd_dense_plan(b, d, False, p, K, P)
+    assert plan == dcd_dense_plan(b, d)._replace(shards=p, tasks=K, pods=P)
+    assert plan.variant == "stream"
+    kw = dict(loss=td.Hinge(0.8), idx=ids, n_loc=n_loc, active=act, y=y)
+    n0 = dcd_indexed_shards.variant_launches["stream"]
+    ka, kdw = dcd_indexed_shards(X, alpha, w, q, **kw)
+    assert dcd_indexed_shards.variant_launches["stream"] == n0 + 1
+    pa, pdw = dcd_indexed_shards_plain(X, alpha, w, q, **kw)
+    _close(ka, pa)
+    _close(kdw, pdw)
+    wa, wdw = dcd_indexed_shards(X, alpha, w, q, wide=True, **kw)
+    _close(ka, wa)
+    _close(kdw, wdw)
+    again = dcd_indexed_shards(X, alpha, w, q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
 
 
 @pytest.mark.cuda
@@ -723,8 +1007,8 @@ def test_b1_shard_grid_matches_plain(loss, grid, wide, per_shard_w):
     kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
               active=active, y=y)
     variant = "wide" if wide else "staged"
-    assert dcd_ell_plan(b, 37, wide, p) == dcd_ell_plan(b, 37, wide)._replace(
-        shards=p)
+    assert dcd_ell_plan(b, 37, 300, wide, p) == dcd_ell_plan(
+        b, 37, 300, wide)._replace(shards=p)
     n0 = dcd_ell_shards.variant_launches[variant]
     ka, kdw = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)
     assert dcd_ell_shards.variant_launches[variant] == n0 + 1
@@ -900,8 +1184,8 @@ def test_b1_task_grid_matches_plain(loss, grid, wide, shared):
     kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
               active=act, y=y)
     variant = "wide" if wide else "staged"
-    assert dcd_ell_plan(b, 37, wide, p, K) == dcd_ell_plan(
-        b, 37, wide)._replace(shards=p, tasks=K)
+    assert dcd_ell_plan(b, 37, 300, wide, p, K) == dcd_ell_plan(
+        b, 37, 300, wide)._replace(shards=p, tasks=K)
     n0 = (dcd_ell_shards.variant_launches[variant],
           dcd_ell_shards.task_launches)
     ka, kdw = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)
@@ -1152,8 +1436,8 @@ def test_b1_pod_grid_matches_plain(loss, grid, wide, tasks):
     kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
               active=act, y=y)
     variant = "wide" if wide else "staged"
-    assert dcd_ell_plan(b, 37, wide, p, tasks, P) == dcd_ell_plan(
-        b, 37, wide)._replace(shards=p, tasks=tasks, pods=P)
+    assert dcd_ell_plan(b, 37, 300, wide, p, tasks, P) == dcd_ell_plan(
+        b, 37, 300, wide)._replace(shards=p, tasks=tasks, pods=P)
     n0 = (dcd_ell_shards.variant_launches[variant],
           dcd_ell_shards.pod_launches)
     ka, kdw = dcd_ell_shards(cols, vals, alpha, w, q, wide=wide, **kw)

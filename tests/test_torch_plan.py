@@ -18,8 +18,10 @@ from repro_torch.dist.mesh import (
     FEATURE_UPDATE_CHUNK,
     dcd_dense_plan,
     dcd_dense_staged_bytes,
+    dcd_dense_stream_bytes,
     dcd_ell_plan,
     dcd_ell_staged_bytes,
+    dcd_ell_stream_bytes,
     dcd_tile_plan,
     dcd_tile_stream_bytes,
     feature_update_bytes,
@@ -31,28 +33,35 @@ from repro_torch.kernels.dcd_feature import gram_workspace
 WEBSPAM_SPLIT = dict(m=4, b=64, k=3136, d1=4_152_287)  # d = 16,609,143
 LIMIT = SMEM_PER_CTA - STATIC_SMEM
 
-# (b ids, k slots) -> variant
+RCV1_D, WEBSPAM_D = 47_236, 16_609_143
+
+# (b ids, k slots) -> variant against rcv1's w (every block the staged
+# kernel does not take is the stream kernel's)
 ELL_SHAPES = {
     "rcv1": ((64, 73), "staged"),
     "rows_128_slots": ((64, 128), "staged"),
-    "webspam_rows": ((64, 3728), "wide"),
-    "rows_1100_wide": ((4, 1100), "wide"),
+    "webspam_rows": ((64, 3728), "stream"),
+    "rows_1100_wide": ((4, 1100), "stream"),
     "one_id": ((1, 1), "staged"),
-    "too_many_ids": ((mesh.ELL_STAGED_MAX_IDS + 1, 1), "wide"),
-    "rows_too_long_for_registers": ((1, 4 * 32 + 1), "wide"),
+    "too_many_ids": ((mesh.ELL_STAGED_MAX_IDS + 1, 1), "stream"),
+    "rows_too_long_for_registers": ((1, 4 * 32 + 1), "stream"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(ELL_SHAPES))
 def test_b1_variant_by_shape(name):
     (b, k), variant = ELL_SHAPES[name]
-    plan = dcd_ell_plan(b, k)
+    plan = dcd_ell_plan(b, k, RCV1_D)
     assert plan.variant == variant
-    if variant == "wide":
-        assert plan.smem_bytes == 0 and plan.threads == mesh.cta_threads(k)
+    if variant == "stream":
+        assert plan.threads == 32 * (plan.warps + 1)
+        assert plan.smem_bytes == dcd_ell_stream_bytes(
+            k, RCV1_D, plan.tile_rows, plan.stages, plan.warps,
+            plan.w_shared) <= LIMIT
     else:
         assert plan.threads == mesh.ELL_STAGED_THREADS
-    wide = dcd_ell_plan(b, k, wide=True)  # asked for: wide at any shape
+    # asked for: wide at any shape
+    wide = dcd_ell_plan(b, k, RCV1_D, wide=True)
     assert wide == mesh.EllPlan("wide", mesh.cta_threads(k), 0, 0)
 
 
@@ -63,7 +72,7 @@ def test_b1_staged_fits_one_cta(b, k):
     2/3 full with every entry a distinct column, and gives each lane of
     its update warp at most four entries of a row; a block that would
     not fit takes the wide kernel."""
-    plan = dcd_ell_plan(b, k)
+    plan = dcd_ell_plan(b, k, RCV1_D)
     table = max(32, 1 << int(np.ceil(np.log2(np.ceil(1.5 * b * k)))))
     need = 4 * table * 2 + 4 * b * k * 2 + 4 * b * 8  # the arrays' bytes
     if plan.variant == "staged":
@@ -73,6 +82,157 @@ def test_b1_staged_fits_one_cta(b, k):
         assert k <= 4 * 32 and 32 <= plan.threads <= 1024
     else:
         assert need > LIMIT or b > mesh.ELL_STAGED_MAX_IDS or k > 4 * 32
+
+
+
+# (b ids, k slots, d) -> (w in shared memory, rows a stage, stages,
+# consumer warps): a whole rcv1 epoch's order, its w beside two stages of
+# 32 rows; the same rows against a w too large for shared memory; a block
+# past 1,024 ids at the largest w that fits beside 32 rows, and one word
+# more (16 rows a stage); webspam's
+# 3,728-slot rows (w 66 MB), eight warps of 15 entries a thread, a row a
+# stage; long rows against a small w
+B1_STREAM_SHAPES = {
+    "rcv1_epoch": ((677_399, 73, RCV1_D), (True, 32, 2, 1)),
+    "rcv1_rows_d60000": ((677_399, 73, 60_000), (False, 32, 4, 1)),
+    "rcv1_rows_d47542": ((2000, 73, 47_542), (True, 32, 2, 1)),
+    "rcv1_rows_d47543": ((2000, 73, 47_543), (True, 16, 2, 1)),
+    "webspam_rows": ((64, 3728, WEBSPAM_D), (False, 1, 4, 8)),
+    "long_rows_small_w": ((64, 400, 3000), (True, 1, 4, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(B1_STREAM_SHAPES))
+def test_b1_stream_by_shape(name):
+    """Where the stream kernel puts w (beside the ring when d + 1 floats
+    fit there, else device memory), its ring and its consumer warps; the
+    whole layout within one CTA's shared memory, the ring's stages · rows
+    a power of two of at most RING_MAX_STAGES stages."""
+    (b, k, d), (shared, T, S, warps) = B1_STREAM_SHAPES[name]
+    plan = dcd_ell_plan(b, k, d)
+    assert plan.variant == "stream"
+    assert (plan.w_shared, plan.tile_rows, plan.stages, plan.warps) == (
+        shared, T, S, warps)
+    assert plan.threads == 32 * (warps + 1) and plan.table_slots == 0
+    assert (S * T) & (S * T - 1) == 0 and S <= mesh.RING_MAX_STAGES
+    assert plan.smem_bytes == dcd_ell_stream_bytes(k, d, T, S, warps,
+                                                   shared) <= LIMIT
+    assert k <= 128 or warps * 32 * mesh.ELL_STREAM_LANE >= k
+    if shared:  # w and the ring fit; one more word would not at this ring
+        assert dcd_ell_stream_bytes(k, d + (LIMIT - plan.smem_bytes) // 4
+                                    + 1, T, S, warps, True) > LIMIT
+    else:  # no ring fits beside w
+        assert all(dcd_ell_stream_bytes(k, d, T_, S_, warps, True) > LIMIT
+                   for T_, S_ in mesh.ELL_STREAM_SHARED_RINGS[k <= 128])
+
+
+def _repeat_rows(n=60, k=9, d=40):
+    """cols (n, k) with two padding slots a row, two columns outside
+    [0, d), and rows 11, 29 and 30 repeating a column; and the flags
+    counted one entry at a time."""
+    rng = np.random.default_rng(3)
+    cols = np.stack([rng.choice(d, k, replace=False) for _ in range(n)])
+    cols[:, -2:] = d  # two padding slots a row
+    cols[7, 6] = -3  # a column outside [0, d)
+    cols[8, 5] = d + 4
+    cols[11, 3] = cols[11, 0]  # rows that repeat a column
+    cols[29, 6] = cols[29, 2]
+    cols[30, 1] = cols[30, 4]
+    want = np.zeros(n, np.int32)
+    for i in range(n):
+        real = set()
+        for c in cols[i]:
+            if 0 <= c < d:
+                want[i] |= c in real
+                real.add(c)
+    assert want[[11, 29, 30]].all() and want.sum() == 3
+    return cols.astype(np.int32), want
+
+
+@pytest.mark.parametrize("grid", ["block", "shards", "tasks"])
+def test_b1_stream_row_repeat_flags(grid):
+    """The stream kernel's repeated-column flags (``row_repeats``), one a
+    row: 1 exactly where the row holds a column of [0, d) twice; padding
+    (col == d) and columns outside [0, d) never count.  The kernel reads
+    them at each id's row (shard s's ids offset by s·n_loc) in every
+    grid."""
+    from repro_torch.kernels.dcd_ell import row_repeats
+
+    n, d = 60, 40
+    cols, want = _repeat_rows(n, d=d)
+    rng = np.random.default_rng(4)
+    shape = {"block": (17,), "shards": (3, 6), "tasks": (2, 3, 6)}[grid]
+    n_loc = 0 if grid == "block" else 20
+    idx = rng.integers(0, n if grid == "block" else n_loc, shape)
+    idx.reshape(-1)[:4] = [11, 7, 8, 10]  # shard 0's rows, in any grid
+    got = row_repeats(torch.from_numpy(cols), d)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows = idx + (n_loc * np.arange(shape[-2])[:, None] if n_loc else 0)
+    np.testing.assert_array_equal(got.numpy()[rows], want[rows])
+
+
+def test_b1_stream_row_repeat_flags_once_a_matrix(monkeypatch):
+    """The flags are computed once a matrix: a second call on the same
+    cols returns the same tensor, in chunks of ROW_REPEATS_ENTRIES
+    entries the same flags; a write to cols in place, another d or
+    another matrix computes them anew."""
+    from repro_torch.kernels import dcd_ell
+
+    n, d = 60, 40
+    cols_np, want = _repeat_rows(n, d=d)
+    cols = torch.from_numpy(cols_np)
+    monkeypatch.setattr(dcd_ell, "ROW_REPEATS_ENTRIES", 5 * 9)  # 12 chunks
+    first = dcd_ell.row_repeats(cols, d)
+    np.testing.assert_array_equal(first.numpy(), want)
+    assert dcd_ell.row_repeats(cols, d) is first
+    other = dcd_ell.row_repeats(cols, d + 100)  # padding slots now count
+    assert other is not first and bool(other.all())
+    cols[12, 1] = cols[12, 0]  # in place: row 12 now repeats a column
+    again = dcd_ell.row_repeats(cols, d)
+    assert again is not first and int(again[12]) == 1
+    assert int(again.sum()) == 4
+    copy = cols.clone()
+    assert dcd_ell.row_repeats(copy, d) is not again
+    key = id(copy)
+    del copy
+    assert key not in dcd_ell._ROW_REPEATS  # dropped with its matrix
+
+
+def test_b1_stream_rows_too_long_take_the_wide_kernel():
+    """A row is one gather of at most ELL_STREAM_LANE entries a thread of
+    at most ELL_STREAM_MAX_WARPS consumer warps: longer rows take the wide
+    kernel."""
+    most = mesh.ELL_STREAM_MAX_WARPS * 32 * mesh.ELL_STREAM_LANE
+    plan = dcd_ell_plan(64, most, WEBSPAM_D)
+    assert plan.variant == "stream" and plan.warps == 16
+    assert plan.smem_bytes <= LIMIT
+    assert dcd_ell_plan(64, most + 1, WEBSPAM_D).variant == "wide"
+    assert dcd_ell_plan(64, 6000, WEBSPAM_D).warps == 12
+
+
+@pytest.mark.parametrize("w_shared", [True, False])
+def test_b1_stream_bytes_count_the_arrays(w_shared):
+    """The bytes are the arrays the kernel carves: two mbarriers a stage,
+    each stage's column and value windows (row_slot(k) words a row: the
+    16-byte-aligned window around a row at any 4-byte offset) and its
+    rows' id, previous occurrence, repeated-column flag, window offsets,
+    α, q, y and act (padded to 16 bytes), the running α of S·T
+    positions, a partial dot a consumer warp, and w when it is
+    staged."""
+    k, d, T, S, warps = 73, RCV1_D, 32, 2, 3
+    slot = mesh.row_slot(k)
+    assert slot % 4 == 0 and 4 * slot >= -(-(12 + 4 * k) // 16) * 16
+    arrays = [np.empty(2 * S, np.uint64)]
+    stage = [np.empty((T, slot), np.int32), np.empty((T, slot), np.float32)]
+    stage += [np.empty(T, np.int32)] * 4 + [np.empty(T, np.float32)] * 4
+    words = sum(a.size for a in stage)
+    arrays += [np.empty((S, -(-words // 4) * 4), np.float32),
+               np.empty(S * T, np.float32), np.empty(warps, np.float32)]
+    if w_shared:
+        arrays.append(np.empty(d + 1, np.float32))
+    assert dcd_ell_stream_bytes(k, d, T, S, warps, w_shared) == sum(
+        a.nbytes for a in arrays)
 
 
 def test_b1_staged_bytes_count_the_arrays():
@@ -182,14 +342,18 @@ def test_gram_workspace_follows_the_plan():
     assert tuple(one.part.shape) == (2, 0, 1024, 1024)  # G written directly
 
 
-# (b ids, d floats) -> variant, w's words a lane of the staged kernel
+# (b ids, d floats) -> variant, w's words a lane of the staged or stream
+# kernel (a block past the staged kernel's limits with d ≤ 256 is the
+# stream kernel's)
 DENSE_SHAPES = {
     "covtype": ((64, 54), "staged", 2),
     "one_float_rows": ((64, 1), "staged", 1),
     "largest_staged_d": ((64, mesh.DENSE_STAGED_MAX_D), "staged", 8),
     "one_past_the_largest_d": ((64, mesh.DENSE_STAGED_MAX_D + 1), "wide", 0),
-    "block_too_large_for_smem": ((1024, 200), "wide", 0),
-    "too_many_ids": ((mesh.DENSE_STAGED_MAX_IDS + 1, 1), "wide", 0),
+    "block_too_large_for_smem": ((1024, 200), "stream", 8),
+    "too_many_ids": ((mesh.DENSE_STAGED_MAX_IDS + 1, 1), "stream", 1),
+    "covtype_epoch": ((581_012, 54), "stream", 2),
+    "probe_width": ((256, 5120), "wide", 0),
 }
 
 
@@ -201,10 +365,17 @@ def test_b2_variant_by_shape(name):
     if variant == "staged":
         assert plan.threads == mesh.DENSE_STAGED_THREADS
         assert plan.smem_bytes == dcd_dense_staged_bytes(b, d) <= LIMIT
+    if variant == "stream":
+        assert plan.threads == 64
+        assert (plan.tile_rows, plan.stages) == (mesh.DENSE_STREAM_ROWS,
+                                                 mesh.DENSE_STREAM_STAGES)
+        assert plan.smem_bytes == dcd_dense_stream_bytes(
+            plan.tile_rows, plan.stages, d) <= LIMIT
+    if variant == "wide":
+        assert plan.smem_bytes == 0 and plan.threads == mesh.cta_threads(d)
+    else:
         assert 32 * plan.per_lane >= d
         assert plan.per_lane == 1 or d > 16 * plan.per_lane
-    else:
-        assert plan.smem_bytes == 0 and plan.threads == mesh.cta_threads(d)
     wide = dcd_dense_plan(b, d, wide=True)  # asked for: wide at any shape
     assert wide == mesh.DensePlan("wide", mesh.cta_threads(d), 0, 0)
 
@@ -217,6 +388,24 @@ def test_b2_staged_bytes_count_the_arrays():
     arrays = [np.empty((b, d), np.float32)] + [np.empty(b, np.int32)] * 8
     assert dcd_dense_staged_bytes(b, d) == sum(a.nbytes for a in arrays)
     assert np.empty((1024, 200), np.float32).nbytes > LIMIT
+
+
+def test_b2_stream_bytes_count_the_ring():
+    """The bytes are what the stream kernel carves: two mbarriers a
+    stage, each stage's row windows (row_slot(d) words a row) and their
+    id, previous occurrence, window offset, α, q, y and act (padded to 16
+    bytes), and the running α of S·T positions; the widest rows' ring
+    fits one CTA."""
+    T, S, d = 32, 4, 54
+    stage = [np.empty((T, mesh.row_slot(d)), np.float32)]
+    stage += [np.empty(T, np.int32)] * 3
+    stage += [np.empty(T, np.float32)] * 4
+    words = sum(a.size for a in stage)
+    arrays = [np.empty(2 * S, np.uint64),
+              np.empty((S, -(-words // 4) * 4), np.float32),
+              np.empty(S * T, np.float32)]
+    assert dcd_dense_stream_bytes(T, S, d) == sum(a.nbytes for a in arrays)
+    assert dcd_dense_stream_bytes(T, S, mesh.DENSE_STAGED_MAX_D) <= LIMIT
 
 
 @pytest.mark.parametrize("b", [1, 64, 200, 256, 1024])
@@ -321,8 +510,8 @@ def test_shard_grid_plans_keep_each_ctas_layout(shards):
     CTA's layout: every plan at p shards is the p = 1 plan with its
     shard count, and the workspace holds p·m (data, model) pairs."""
     for b, k in [(64, 73), (64, 3728)]:
-        plan = dcd_ell_plan(b, k, False, shards)
-        assert plan == dcd_ell_plan(b, k)._replace(shards=shards)
+        plan = dcd_ell_plan(b, k, RCV1_D, False, shards)
+        assert plan == dcd_ell_plan(b, k, RCV1_D)._replace(shards=shards)
     for b, d in [(64, 54), (64, 300)]:
         plan = dcd_dense_plan(b, d, False, shards)
         assert plan == dcd_dense_plan(b, d)._replace(shards=shards)
@@ -345,9 +534,9 @@ def test_task_grid_plans_keep_each_ctas_layout(tasks, shards):
     threads and variant are the binary plan's, at the main paths'
     shapes (rcv1 K = 53, covtype K = 7, webspam split K = 4)."""
     for wide in (False, True):
-        got = dcd_ell_plan(64, 73, wide, shards, tasks)
-        assert got == dcd_ell_plan(64, 73, wide)._replace(shards=shards,
-                                                          tasks=tasks)
+        got = dcd_ell_plan(64, 73, RCV1_D, wide, shards, tasks)
+        assert got == dcd_ell_plan(64, 73, RCV1_D, wide)._replace(
+            shards=shards, tasks=tasks)
         assert got.smem_bytes <= LIMIT
         got = dcd_dense_plan(64, 54, wide, shards, tasks)
         assert got == dcd_dense_plan(64, 54, wide)._replace(shards=shards,
@@ -467,13 +656,37 @@ def test_rank_b4_b5_plans_keep_the_mesh_classes(m_loc):
     assert ws.lc.shape[0] == m_loc and ws.part.shape[1:] == full.part.shape[1:]
 
 
+@pytest.mark.parametrize("grid", ["shards", "tasks", "pods", "ranks"])
+def test_stream_grid_plans_keep_each_ctas_layout(grid):
+    """The stream variants over the shard, task and pod grids, and a rank's
+    part of the shard grid, lay out each CTA as the binary one-shard plan
+    (its ring, w's place, warps and shared memory): the counts multiply
+    the grid only.  rcv1's whole-epoch block, webspam's rows, CoCoA's and
+    the pod oracle's per-CTA blocks."""
+    counts = {"shards": (8, 1, 1), "tasks": (8, 53, 1), "pods": (4, 1, 2),
+              "ranks": (4, 1, 1)}[grid]
+    for b, k, d in [(677_399, 73, RCV1_D), (64, 3728, WEBSPAM_D),
+                    (50_048, 73, RCV1_D)]:
+        one = dcd_ell_plan(b, k, d)
+        got = dcd_ell_plan(b, k, d, False, *counts)
+        assert one.variant == "stream"
+        assert got == one._replace(shards=counts[0], tasks=counts[1],
+                                   pods=counts[2])
+    for b, d in [(581_012, 54), (72_626, 54), (2000, 256)]:
+        one = dcd_dense_plan(b, d)
+        assert one.variant == "stream"
+        assert dcd_dense_plan(b, d, False, *counts) == one._replace(
+            shards=counts[0], tasks=counts[1], pods=counts[2])
+
+
 @pytest.mark.parametrize("p,p_loc", [(8, 4), (4, 2), (2, 1)])
 def test_rank_b1_b2_plans_keep_each_ctas_layout(p, p_loc):
     """A rank running p_loc of p data shards launches B1 and B2 with the
     one-process layout a CTA (variant, threads, table, shared memory):
     the plans depend on the block and the row width alone."""
     for b, k in [(64, 73), (64, 3728)]:
-        a, r = dcd_ell_plan(b, k, shards=p), dcd_ell_plan(b, k, shards=p_loc)
+        a = dcd_ell_plan(b, k, RCV1_D, shards=p)
+        r = dcd_ell_plan(b, k, RCV1_D, shards=p_loc)
         assert a[:4] == r[:4]
     for b, d in [(64, 54), (64, 300)]:
         a = dcd_dense_plan(b, d, shards=p)

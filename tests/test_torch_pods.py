@@ -638,8 +638,8 @@ def test_feature_block_check_reads_the_views_from_w(tasks, views, ok):
 def test_pod_plans_keep_each_ctas_layout():
     """P pods multiply the grid and B4's workspace and change no CTA's
     layout: every plan at P pods is the P = 1 plan with its count."""
-    assert tm.dcd_ell_plan(64, 73, False, 4, 1, 2) == tm.dcd_ell_plan(
-        64, 73)._replace(shards=4, pods=2)
+    assert tm.dcd_ell_plan(64, 73, 47_236, False, 4, 1, 2) == (
+        tm.dcd_ell_plan(64, 73, 47_236)._replace(shards=4, pods=2))
     assert tm.dcd_dense_plan(64, 54, False, 4, 7, 2) == tm.dcd_dense_plan(
         64, 54)._replace(shards=4, tasks=7, pods=2)
     g = tm.gram_plan(4, 64, 40, 1000, 1, 1, 2)
