@@ -90,14 +90,22 @@ result line):
    each launched twice to the same bits); each stream variant on a block
    whose ids recur at every distance 1 … S·T + 1 of its ring's
    lookahead, with mask and labels (B1's with a row that repeats a
-   column), held to the plain version and launched twice; B2's wide
-   variant at the LM probe's rows (192 × 5,120, the row
-   ``dcd_indexed_epoch_wide``);
+   column), held to the plain version and launched twice; B2's and B3's
+   split variant (rows past 256 floats) at d = 257, 1,000, 5,120 and
+   8,192 (``SPLIT_WIDTHS``), ids recurring at every distance of its ring's
+   lookahead, with mask and labels, B2 also over a shard grid (p = 2), a
+   task grid (K = 4) and pods (2, 2), B3 as an in-order epoch from an
+   unaligned view, each held to its plain version on CPU copies, launched
+   twice to the same bits and timed beside the wide kernel; then B2's
+   split variant at the LM probe's rows (192 × 5,120, the row
+   ``dcd_indexed_epoch_split``, the wide kernel its ``ms_before``);
    B4 and B5 past 1,024 ids, in their rows layout, on one block of all
    ``SHIM_ROWS`` rows of rcv1's first rows split into m = 4 feature
    shards (held to their plain versions, B5 with each loss; each
    launched twice to the same bits; the rows ``dcd_feature_gram_rows``
-   and ``dcd_feature_update_rows``);
+   and ``dcd_feature_update_rows``), and B5 on a block of its first
+   2,048 ids, each B5 launch's recursion and scatter timed apart by the
+   profiler;
 4. the main paths, each with every launch count set to 0 just before
    it and read just after: ``sharded_passcode_solve`` on rcv1
    (n = 677,399, d = 47,236, 73 nnz per row, hinge C = 1, B = 64,
@@ -228,10 +236,11 @@ result line):
    for the decoder-only families; init seconds, forward, prefill and
    decode ms (CUDA events) and peak memory an arch; then the linear
    probe (``examples/linear_probe_lm_torch.py``) on the full-width
-   mistral-nemo-12b's features (256 × 5120; B2's task grid and its wide
+   mistral-nemo-12b's features (256 × 5120; B2's task grid and its split
    epoch launch counted, added to the ``dcd_indexed_tasks`` and
-   ``dcd_indexed_epoch_wide`` rows) and on its smoke config, each above the
-   majority share; the child's nonzero exit fails the script;
+   ``dcd_indexed_epoch_split`` rows, a wide launch failing the phase) and
+   on its smoke config, each above the majority share; the child's
+   nonzero exit fails the script;
 8. LM training and serving (``lm_train_phase``, in a second child
    process: ``chip_smoke.py --lm-train-phase``), in float32: (a) four
    train steps with remat on of minicpm-2b (WSD), mamba2-780m and
@@ -333,8 +342,9 @@ result line):
    staged and stream row of B1 and B2 and of B3's stream row; the
    single-block rows ``dcd_ell``, ``dcd_ell_stream``, ``dcd_indexed``,
    ``dcd_tile``, the whole-epoch rows ``dcd_ell_epoch`` and
-   ``dcd_indexed_epoch`` (stream) and ``dcd_indexed_epoch_wide`` (the
-   probe's rows); the shard-grid kernels' rows are
+   ``dcd_indexed_epoch`` (stream) and ``dcd_indexed_epoch_split`` (the
+   probe's rows; B3's split epochs under its ``widths``); the shard-grid
+   kernels' rows are
    ``dcd_ell_shards``, ``dcd_ell_shards_stream``, ``dcd_indexed_shards``,
    ``dcd_feature_gram_data`` and ``dcd_feature_update_data``, the task
    grids' ``dcd_ell_tasks``, ``dcd_indexed_tasks``,
@@ -400,6 +410,9 @@ SHIM_ROWS = 4096  # the shim's rcv1 rows: one block, a 64 MB Gram
 # round's first PLAIN_IDS updates (each CTA's first PLAIN_IDS / CTAs),
 # about 0.15–0.2 ms an update there
 PLAIN_IDS = 8192
+# the split variant's row widths in phase 3 (past 256 floats: not a
+# multiple of 4 or 32, the probe's 5,120, the widest it takes)
+SPLIT_WIDTHS = (257, 1000, 5120, 8192)
 
 
 def fail(msg):
@@ -1546,13 +1559,18 @@ def lm_phase(torch, dev):
                     > r["majority"]):
                 fail("the full-width probe does not beat the majority")
             launches = {"dcd_indexed_tasks": sh.task_launches,
-                        "dcd_indexed_shards_wide":
-                            sh.variant_launches["wide"],
-                        "dcd_indexed_epoch": ep.variant_launches["wide"]}
+                        "dcd_indexed_shards_split":
+                            sh.variant_launches["split"],
+                        "dcd_indexed_epoch": ep.variant_launches["split"],
+                        "dcd_indexed_wide": sh.variant_launches["wide"]
+                        + ep.variant_launches["wide"]}
             print(f"  probe launches: {launches}")
             if not (launches["dcd_indexed_tasks"] and
                     launches["dcd_indexed_epoch"]):
                 fail("the probe's solves launched no B2 kernel")
+            if launches["dcd_indexed_wide"]:
+                fail("the probe's solves launched B2's wide kernel, not "
+                     "its split variant")
         del params, cache, logits, ref
         torch.cuda.empty_cache()
     smoke = get_smoke_config(PROBE_ARCH)
@@ -3749,21 +3767,140 @@ def main(kernel_only=False):
               f"({pl_ms / min(PLAIN_IDS, n_ids) * 1e6:.1f} ns per update), "
               f"bound {b_ms:.6f} ms ({b_by}), no library call computes it")
 
-    # B2's wide variant where the main path still takes it: rows wider than
-    # the stream kernel's 256 floats, the LM probe's serial solves (its
-    # 192 training rows of PROBE_ARCH's hidden width), on random rows at
-    # that shape; held to its plain version, launched twice to the same
-    # bits, and timed
+    # B2's and B3's split variant, every row of more than 256 floats (the
+    # LM probe's serial solves at PROBE_ARCH's hidden width are its main
+    # path): held to the plain version (on CPU copies) at d = 257, 1,000,
+    # 5,120 and DENSE_SPLIT_MAX_D, ids recurring at every distance of its
+    # ring's lookahead, with a mask and labels; over a shard grid (p = 2),
+    # a task grid (K = 4) and pods (2, 2); B3's in-order epoch over the
+    # same rows, from an unaligned view; each launched twice to the same
+    # bits and timed beside the wide kernel (its "before")
+    t0 = time.perf_counter()
+    err_sp, err_sp3, sp_rows = 0.0, 0.0, []
+    for d_s in SPLIT_WIDTHS:
+        n_s = 600
+        X_s = (torch.randn((n_s, d_s), generator=gen, device=dev)
+               * (0.2 / (d_s / 54) ** 0.5))
+        q_s = (X_s * X_s).sum(1)
+        plan_s = dcd_dense_plan(PREFIX, d_s)
+        if plan_s.variant != "split":
+            fail(f"rows of {d_s} floats take {plan_s.variant}, not split")
+        ids_s = recurring(n_s, plan_s.tile_rows * plan_s.stages)
+        b_s = ids_s.numel()
+        a0_s = torch.rand(n_s, generator=gen, device=dev) * 0.45 + 0.05
+        w0_s = torch.randn(d_s, generator=gen, device=dev) * 0.1
+        act_s = (torch.rand(n_s, generator=gen, device=dev) > 0.25).float()
+        y_s = torch.where(torch.rand(n_s, generator=gen, device=dev) > 0.5,
+                          1.0, -1.0)
+        host_s = [t.cpu() for t in (X_s, a0_s, w0_s, q_s, ids_s, act_s,
+                                    y_s)]
+        for lname in losses:
+            loss = duals.make_loss(lname, 0.8)
+            k_out = dcd_indexed_epoch(X_s, a0_s, w0_s, q_s, loss=loss,
+                                      idx=ids_s, active=act_s, y=y_s)
+            p_out = dcd_indexed_epoch_plain(
+                *host_s[:4], loss=loss, idx=host_s[4], active=host_s[5],
+                y=host_s[6])
+            e = max_err(k_out, p_out)
+            print(f"  B2 split, {b_s} ids of {d_s} floats {lname}: max abs "
+                  f"err {e:.3g} (tolerance {ATOL})")
+            if not e <= ATOL:
+                fail(f"B2 split at d = {d_s} disagrees with its plain "
+                     f"version ({lname})")
+            err_sp = max(err_sp, e)
+        same_bits(f"B2 dcd_indexed_epoch split (d = {d_s}, hinge)",
+                  lambda: dcd_indexed_epoch(X_s, a0_s, w0_s, q_s,
+                                            loss=hinge, idx=ids_s,
+                                            active=act_s, y=y_s), torch)
+        # B3: an in-order epoch over rows 1 … 773 (an unaligned view)
+        X3, a3, q3 = X_s[1:774], a0_s[1:774], q_s[1:774]
+        if dcd_tile_plan(X3.shape[0], d_s).variant != "split":
+            fail(f"B3 at d = {d_s} does not take the split variant")
+        for lname in losses:
+            loss = duals.make_loss(lname, 0.8)
+            e = max_err(dcd_tile_epoch(X3, a3, w0_s, q3, loss=loss),
+                        dcd_tile_epoch_plain(X3.cpu(), a3.cpu(), w0_s.cpu(),
+                                             q3.cpu(), loss=loss))
+            print(f"  B3 split, an epoch of {X3.shape[0]} rows of {d_s} "
+                  f"floats {lname}: max abs err {e:.3g}")
+            if not e <= ATOL:
+                fail(f"B3 split at d = {d_s} disagrees with its plain "
+                     f"version ({lname})")
+            err_sp3 = max(err_sp3, e)
+        same_bits(f"B3 dcd_tile_epoch split (d = {d_s})",
+                  lambda: dcd_tile_epoch(X3, a3, w0_s, q3, loss=hinge),
+                  torch)
+        # the grids: (K tasks, P pods, p shards a pod) over 150 rows a shard
+        for label, K, P, p_s in (("shards", 1, 1, 2), ("tasks", 4, 1, 1),
+                                 ("pods", 1, 2, 2)):
+            S_s, n_loc = P * p_s, 150
+            g_ids = torch.randint(0, n_loc, (K, S_s, 300), generator=gen,
+                                  device=dev).int()
+            a_g = torch.rand((K, n_s), generator=gen, device=dev) * 0.45
+            y_g = torch.where(torch.rand((K, n_s), generator=gen,
+                                         device=dev) > 0.5, 1.0, -1.0)
+            w_g = torch.randn((K, P, d_s), generator=gen, device=dev) * 0.1
+            w_g = w_g if P > 1 else w_g[:, 0]
+            if K == 1:
+                g_ids, a_g, y_g, w_g = g_ids[0], a_g[0], y_g[0], w_g[0]
+            kw = dict(loss=hinge, idx=g_ids, n_loc=n_loc, active=act_s,
+                      y=y_g)
+            if dcd_dense_plan(300, d_s, False, p_s, K, P).variant != "split":
+                fail(f"B2's {label} grid at d = {d_s} is not split")
+            e = max_err(dcd_indexed_shards(X_s, a_g, w_g, q_s, **kw),
+                        dcd_indexed_shards_plain(X_s, a_g, w_g, q_s, **kw))
+            print(f"  B2 split {label} grid (K = {K}, P = {P}, p = {p_s}), "
+                  f"d = {d_s}: max abs err {e:.3g}")
+            if not e <= ATOL:
+                fail(f"B2 split {label} grid at d = {d_s} disagrees with "
+                     f"its plain version")
+            err_sp = max(err_sp, e)
+            same_bits(f"B2 dcd_indexed_shards split {label} (d = {d_s})",
+                      lambda: dcd_indexed_shards(X_s, a_g, w_g, q_s, **kw),
+                      torch)
+        # times: the B2 block and B3 over 4,000 in-order rows, split and wide
+        X3t = (torch.randn((4000, d_s), generator=gen, device=dev)
+               / d_s ** 0.5)
+        q3t, a3t = (X3t * X3t).sum(1), torch.zeros(4000, device=dev)
+        w3t = torch.zeros(d_s, device=dev)
+        ms_s = cuda_ms(lambda: dcd_indexed_epoch(
+            X_s, a0_s, w0_s, q_s, loss=hinge, idx=ids_s, active=act_s,
+            y=y_s), 3, torch)
+        ms_w = cuda_ms(lambda: dcd_indexed_epoch(
+            X_s, a0_s, w0_s, q_s, loss=hinge, idx=ids_s, active=act_s,
+            y=y_s, wide=True), 1, torch)
+        ms_3 = cuda_ms(lambda: dcd_tile_epoch(X3t, a3t, w3t, q3t,
+                                              loss=hinge), 2, torch)
+        ms_3w = cuda_ms(lambda: dcd_tile_epoch(X3t, a3t, w3t, q3t,
+                                               loss=hinge, wide=True), 1,
+                        torch)
+        sp_rows.append(dict(d=d_s, ids=b_s, ms=ms_s, ms_before=ms_w,
+                            b3_rows=4000, b3_ms=ms_3, b3_ms_before=ms_3w))
+        print(f"  split at d = {d_s} ({plan_s.warps} warps, "
+              f"{plan_s.per_lane} words a lane, {plan_s.tile_rows} × "
+              f"{plan_s.stages} rows in flight): B2 {b_s} ids "
+              f"{ms_s:.4f} ms ({ms_s / b_s * 1e6:.1f} ns an update; wide "
+              f"{ms_w:.4f} ms), B3 4,000 rows {ms_3:.4f} ms "
+              f"({ms_3 / 4000 * 1e6:.1f} ns; wide {ms_3w:.4f} ms)")
+        del X_s, X3t
+    print(f"  split checks: {time.perf_counter() - t0:.1f} s")
+
+    # B2's split variant at the LM probe's rows, where the main path takes
+    # it (the probe's 192 training rows of PROBE_ARCH's hidden width), on
+    # random rows at that shape; held to its plain version, launched twice
+    # to the same bits, and timed beside the wide kernel (its "before")
     from repro_torch.configs import get_config
     d_pb, n_pb = get_config(PROBE_ARCH).d_model, 192
     X_pb = torch.randn((n_pb, d_pb), generator=gen, device=dev) / d_pb**0.5
     q_pb = (X_pb * X_pb).sum(1)
     ids_pb = torch.randperm(n_pb, generator=gen, device=dev).int()
-    print(f"  B2 at the probe's rows ({n_pb} × {d_pb}): "
-          f"{dcd_dense_plan(n_pb, d_pb)}")
+    plan_pb = dcd_dense_plan(n_pb, d_pb)
+    print(f"  B2 at the probe's rows ({n_pb} × {d_pb}): {plan_pb}")
+    if plan_pb.variant != "split":
+        fail("the probe's rows do not take B2's split variant")
 
-    def b2pb(a, w, i, L):
-        return dcd_indexed_epoch(X_pb, a, w, q_pb, loss=L, idx=i)
+    def b2pb(a, w, i, L, wide=False):
+        return dcd_indexed_epoch(X_pb, a, w, q_pb, loss=L, idx=i, wide=wide)
 
     def b2pb_plain(a, w, i, L):
         return dcd_indexed_epoch_plain(X_pb, a, w, q_pb, loss=L, idx=i)
@@ -3771,25 +3908,35 @@ def main(kernel_only=False):
     def zeros_pb():
         return torch.zeros(n_pb, device=dev), torch.zeros(d_pb, device=dev)
 
-    err_pb = compare("B2 dcd_indexed wide (the probe's rows)", b2pb,
+    err_pb = compare("B2 dcd_indexed split (the probe's rows)", b2pb,
                      b2pb_plain, zeros_pb, ids_pb[None], losses)
+    err_pb_before = compare(
+        "B2 dcd_indexed wide (the probe's rows)",
+        lambda a, w, i, L: b2pb(a, w, i, L, True), b2pb_plain, zeros_pb,
+        ids_pb[None], ["hinge"])
     a_pb, w_pb = zeros_pb()
-    same_bits("B2 dcd_indexed wide (the probe's rows, hinge)",
+    same_bits("B2 dcd_indexed split (the probe's rows, hinge)",
               lambda: b2pb(a_pb, w_pb, ids_pb, hinge), torch)
     ms_pb = cuda_ms(lambda: b2pb(a_pb, w_pb, ids_pb, hinge), 5, torch)
+    ms_pb_before = cuda_ms(lambda: b2pb(a_pb, w_pb, ids_pb, hinge, True), 5,
+                           torch)
     plain_pb = wall_ms(lambda: b2pb_plain(a_pb, w_pb, ids_pb, hinge), 1,
                        torch)
     b_ms, b_by = bound(4 * (2 * n_pb + 2 * d_pb) + n_pb * (d_pb * 4 + 8),
                        4 * n_pb * d_pb)
-    results["dcd_indexed_epoch_wide"] = dict(
-        name="dcd_indexed_epoch_wide", route="cuda",
+    results["dcd_indexed_epoch_split"] = dict(
+        name="dcd_indexed_epoch_split", route="cuda",
         source="src/repro_torch/kernels/csrc/dcd_block.cu",
-        replaces="src/repro/kernels/dcd_block.py:100", variant="wide",
-        launches=0, max_abs_err=err_pb, ms=ms_pb, plain_ms=plain_pb,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, ids=n_pb)
-    print(f"  dcd_indexed_epoch_wide (wide, {n_pb} ids of {d_pb} floats): "
-          f"{ms_pb:.4f} ms per launch, plain {plain_pb:.1f} ms, bound "
-          f"{b_ms:.6f} ms ({b_by}), no library call computes it")
+        replaces="src/repro/kernels/dcd_block.py:100", variant="split",
+        launches=0, max_abs_err=max(err_pb, err_sp, err_sp3), ms=ms_pb,
+        plain_ms=plain_pb, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ms_before=ms_pb_before, max_abs_err_before=err_pb_before, ids=n_pb,
+        widths=sp_rows, b3_replaces="src/repro/kernels/dcd_block.py:70")
+    print(f"  dcd_indexed_epoch_split (split, {n_pb} ids of {d_pb} floats): "
+          f"{ms_pb:.4f} ms per launch ({ms_pb / n_pb * 1e6:.1f} ns an "
+          f"update; the wide kernel before it {ms_pb_before:.4f} ms), plain "
+          f"{plain_pb:.1f} ms, bound {b_ms:.6f} ms ({b_by}), no library "
+          f"call computes it")
     del X_pb
 
     mark("the whole-epoch launches")
@@ -5080,9 +5227,70 @@ def main(kernel_only=False):
                   loss=hinge, workspace=ws_s), torch)
     ms_b4r = cuda_ms(lambda: feat.dcd_feature_gram(
         cols_s, vals_s, w_s, ids_s, workspace=ws_s), 5, torch)
-    ms_b5r = cuda_ms(lambda: feat.dcd_feature_update(
-        cols_s, vals_s, a_s0, q_s, w_s, ids_s, base_s, gram_s, loss=hinge,
-        workspace=ws_s), 5, torch)
+
+    def b5r_split(ids, base, gram, ws):
+        """B5's rows-layout launch on a block: its device ms a launch, and
+        the recursion's and the scatter's from the profiler."""
+        def run():
+            return feat.dcd_feature_update(cols_s, vals_s, a_s0, q_s, w_s,
+                                           ids, base, gram, loss=hinge,
+                                           workspace=ws)
+        ms = cuda_ms(run, 5, torch)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        parts = {"recursion": 0.0, "scatter": 0.0}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0))
+            if t > 0:
+                print(f"    {t / 3 / 1e3:.4f} ms a launch  {ev.key[:60]}")
+            for key, name in (("recursion", "recursion_panel"),
+                              ("scatter", "scatter_rows")):
+                if name in ev.key:
+                    parts[key] += t / 3 / 1e3
+        return ms, parts
+
+    ms_b5r, parts_s = b5r_split(ids_s, base_s, gram_s, ws_s)
+    # a block of 2,048 ids: the same rows, half the block
+    B2k = 2048
+    ids_2k = ids_s[:B2k].contiguous()
+    ws_2k = feat.gram_workspace(SHARDS, B2k, k_s, d1_s, dev)
+    pb_2k, pg_2k = feat.dcd_feature_gram_plain(cols_s, vals_s, w_s, ids_2k)
+    base_2k, gram_2k = pb_2k.sum(0), pg_2k.sum(0)
+    feat.dcd_feature_gram(cols_s, vals_s, w_s, ids_2k, workspace=ws_2k)
+    for lname in ("hinge", "logistic"):
+        loss = duals.make_loss(lname, 1.0)
+        a0 = torch.full((Bs,), 0.25 if lname == "logistic" else 0.0,
+                        device=dev)
+        e5 = max_err(
+            feat.dcd_feature_update(cols_s, vals_s, a0, q_s, w_s, ids_2k,
+                                    base_2k, gram_2k, loss=loss,
+                                    workspace=ws_2k),
+            feat.dcd_feature_update_plain(cols_s, vals_s, a0, q_s, w_s,
+                                          ids_2k, base_2k, gram_2k,
+                                          loss=loss))
+        print(f"  B5 rows layout, {B2k} ids {lname}: max abs err {e5:.3g} "
+              f"(tolerance {ATOL})")
+        if not e5 <= ATOL:
+            fail(f"B5's rows layout at {B2k} ids disagrees with its plain "
+                 f"version ({lname})")
+        err_b5r = max(err_b5r, e5)
+    same_bits(f"B5 dcd_feature_update rows layout ({B2k} ids, hinge)",
+              lambda: feat.dcd_feature_update(
+                  cols_s, vals_s, a_s0, q_s, w_s, ids_2k, base_2k, gram_2k,
+                  loss=hinge, workspace=ws_2k), torch)
+    ms_b5r_2k, parts_2k = b5r_split(ids_2k, base_2k, gram_2k, ws_2k)
+    for n_ids, ms, parts in ((Bs, ms_b5r, parts_s),
+                             (B2k, ms_b5r_2k, parts_2k)):
+        print(f"  B5 rows layout, {n_ids} ids: {ms:.4f} ms a launch; the "
+              f"profiler's recursion {parts['recursion']:.4f} ms "
+              f"({parts['recursion'] / n_ids * 1e6:.1f} ns a step), "
+              f"scatter {parts['scatter']:.4f} ms")
+    del pb_2k, pg_2k, gram_2k, ws_2k
     plain_b4r = wall_ms(lambda: feat.dcd_feature_gram_plain(
         cols_s, vals_s, w_s, ids_s), 1, torch)
     plain_b5r = wall_ms(lambda: feat.dcd_feature_update_plain(
@@ -5134,6 +5342,11 @@ def main(kernel_only=False):
         print(f"  {name} (rcv1's first {Bs} rows, m = {SHARDS}, one block "
               f"of {Bs} ids): {route_ms:.4f} ms per launch, plain "
               f"{pl_ms:.2f} ms, bound {b_ms:.6f} ms ({b_by}), {lib}")
+    results["dcd_feature_update_rows"].update(
+        recursion_ms=parts_s["recursion"], scatter_ms=parts_s["scatter"],
+        ids=Bs, ms_2048=ms_b5r_2k,
+        recursion_ms_2048=parts_2k["recursion"],
+        scatter_ms_2048=parts_2k["scatter"])
     del kb_s, kg_s, pb_s, pg_s, mats_s
     print(f"  B4/B5 past 1,024 ids: {time.perf_counter() - t0:.1f} s")
 
@@ -5149,8 +5362,9 @@ def main(kernel_only=False):
     # "dcd_ell", "dcd_ell_stream" and "dcd_indexed") apart from the
     # single-block ones (serial DCD and Lock launch their stream variant
     # over a whole epoch, the rows "dcd_ell_epoch" and
-    # "dcd_indexed_epoch"; the wide variant is left to B2's rows wider
-    # than 256 floats, the LM probe's, row "dcd_indexed_epoch_wide")
+    # "dcd_indexed_epoch"; rows wider than 256 floats take the split
+    # variant, the LM probe's, row "dcd_indexed_epoch_split"; the wide
+    # kernels only rows past the split variant's widths)
     counters = {"dcd_ell_epoch_staged": (dcd_ell_epoch, "staged"),
                 "dcd_ell_epoch": (dcd_ell_epoch, "stream"),
                 "dcd_ell_epoch_wide": (dcd_ell_epoch, "wide"),
@@ -5159,11 +5373,14 @@ def main(kernel_only=False):
                 "dcd_ell_shards_wide": (dcd_ell_shards, "wide"),
                 "dcd_indexed_epoch_staged": (dcd_indexed_epoch, "staged"),
                 "dcd_indexed_epoch": (dcd_indexed_epoch, "stream"),
+                "dcd_indexed_epoch_split": (dcd_indexed_epoch, "split"),
                 "dcd_indexed_epoch_wide": (dcd_indexed_epoch, "wide"),
                 "dcd_indexed_shards": (dcd_indexed_shards, "staged"),
                 "dcd_indexed_shards_stream": (dcd_indexed_shards, "stream"),
+                "dcd_indexed_shards_split": (dcd_indexed_shards, "split"),
                 "dcd_indexed_shards_wide": (dcd_indexed_shards, "wide"),
                 "dcd_tile": (dcd_tile_epoch, "stream"),
+                "dcd_tile_split": (dcd_tile_epoch, "split"),
                 "dcd_tile_wide": (dcd_tile_epoch, "wide"),
                 "dcd_feature_gram": (feat.dcd_feature_gram, None),
                 "dcd_feature_update": (feat.dcd_feature_update, None),
@@ -6115,11 +6332,11 @@ def main(kernel_only=False):
     # ------------------------------------------------------------ 6. serve
     serve_phase(torch, dev, run_path, X_rcv1, X_web, classes["rcv1"][0])
 
-    # the LM phase's probe: B2's task grid and its wide epoch launches (rows
-    # of the LM's hidden width, past the stream kernel's 256 floats)
+    # the LM phase's probe: B2's task grid and its split epoch launches
+    # (rows of the LM's hidden width, past the stream kernel's 256 floats)
     results["dcd_indexed_tasks"]["launches"] += lm_launches[
         "dcd_indexed_tasks"]
-    results["dcd_indexed_epoch_wide"]["launches"] += lm_launches[
+    results["dcd_indexed_epoch_split"]["launches"] += lm_launches[
         "dcd_indexed_epoch"]
 
     # --------------------------------------------------------- 11. result

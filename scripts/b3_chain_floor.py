@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The floor of one update's dependent chain on the card, for B3's and
-B2's stream kernels and for B1's stream kernel at rcv1's and webspam's
-rows, from the latencies of the instructions on it, measured alone.
+B2's stream kernels, for B1's stream kernel at rcv1's and webspam's rows,
+for B2's and B3's split kernel at the LM probe's 5,120 floats and for a
+step of B5's rows-layout recursion, from the latencies of the
+instructions on it, measured alone.
 
     python3 scripts/b3_chain_floor.py
 
@@ -46,7 +48,13 @@ beside the butterfly); at webspam's rows (w in device memory, 15 entries
 a thread), hbm + fmul + 15·fadd + 5·shfl_fadd + cross + fmul +
 delta_hinge + 2·fmul + fmul + fadd + bar (the gather, the dot, the
 warps' sum, δ, the scatter and the barrier before the next gather; the
-stores' acknowledgements are not counted).  The SM clock is read from
+stores' acknowledgements are not counted).  A third probe of
+``SPLIT_WARPS`` warps times the split kernel's exchange, ``xchg_split``
+(a store to a slot of 16 partials, a named barrier of the warps, four
+float4 loads and a 15-add tree; the loop's multiply subtracted): the
+split floor at 5,120 floats is fmul + 4·fadd + 5·shfl_fadd + xchg_split
++ fmul + delta_hinge + 3·fmul + fadd, a B5 rows step 2·fadd + 2·fmul +
+delta_hinge + shfl_fadd + fmul.  The SM clock is read from
 the first probe's cycles over its CUDA-event time.  Prints the card's name
 and power limit, each latency, the floors in cycles and ns, and a JSON
 object of them.  Needs one CUDA card and nvcc.
@@ -62,6 +70,7 @@ ROOT = Path(__file__).resolve().parents[1]
 ITERS = 1 << 16
 HBM_ITERS = 1 << 12
 HBM_WORDS = 1 << 26  # 256 MB of int32: past the 50 MB L2
+SPLIT_WARPS = 10  # the split kernel's consumer warps at 5,120 floats
 
 PROBE = r"""
 #include "dcd_delta.cuh"
@@ -136,6 +145,57 @@ extern "C" __global__ void chain_probe_wide(int iters, int hbm_iters,
   out[tid] = v;
 }
 
+// the sum of p[O .. O + N) as the split kernel sums its partials
+template <int N, int O = 0>
+struct TreeSum {
+  static __device__ __forceinline__ float of(const float* p) {
+    return TreeSum<N / 2, O>::of(p) + TreeSum<N / 2, O + N / 2>::of(p);
+  }
+};
+template <int O>
+struct TreeSum<1, O> {
+  static __device__ __forceinline__ float of(const float* p) { return p[O]; }
+};
+
+// the split kernel's exchange (csrc/dcd_block.cu: dcd_dense_split_kernel)
+// over `warps` consumer warps, thread 0's cycles: lane 0 of each warp
+// stores its partial to the update's slot of 16, a named barrier of the
+// warps, every lane reads the slot as four float4 and sums it in a fixed
+// tree (the warps' dot)
+extern "C" __global__ void chain_probe_split(int iters, float* out,
+                                             long long* cycles, float c) {
+  __shared__ __align__(16) float part[2][16];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  if (tid < 32) part[tid >> 4][tid & 15] = 0.0f;
+  __syncthreads();
+  float v = c;
+  long long t = clock64();
+  for (int i = 0; i < iters; ++i) {
+    float* slot = part[i & 1];
+    if (lane == 0) slot[warp] = v;
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
+    float p[16];
+#pragma unroll
+    for (int k = 0; k < 16; k += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(slot + k);
+      p[k] = f.x;
+      p[k + 1] = f.y;
+      p[k + 2] = f.z;
+      p[k + 3] = f.w;
+    }
+    v = TreeSum<16>::of(p) * 1e-3f;
+  }
+  if (tid == 0) cycles[0] = clock64() - t;
+  out[tid] = v;
+}
+
+extern "C" int chain_probe_split_launch(int iters, int warps, float* out,
+                                        long long* cycles, float c) {
+  chain_probe_split<<<1, 32 * warps>>>(iters, out, cycles, c);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int chain_probe_wide_launch(int iters, int hbm_iters,
                                        const int* chase, float* out,
                                        long long* cycles, float c) {
@@ -185,6 +245,8 @@ def main():
     so.chain_probe_launch.restype = I
     so.chain_probe_wide_launch.argtypes = [I, I, P, P, P, ctypes.c_float]
     so.chain_probe_wide_launch.restype = I
+    so.chain_probe_split_launch.argtypes = [I, I, P, P, ctypes.c_float]
+    so.chain_probe_split_launch.restype = I
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -225,6 +287,15 @@ def main():
     wide = cw.tolist()
     lat.update(bar=wide[0] / ITERS - lat["fadd"], cross=wide[1] / ITERS,
                hbm=wide[2] / HBM_ITERS)
+    # the split kernel's exchange at the probe's 10 consumer warps
+    cs = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = torch.zeros(32 * SPLIT_WARPS, device=dev)
+    for _ in range(2):
+        build.check(so.chain_probe_split_launch(
+            ITERS, SPLIT_WARPS, out.data_ptr(), cs.data_ptr(), 0.5),
+            "chain_probe_split")
+        torch.cuda.synchronize()
+    lat["xchg_split"] = cs.item() / ITERS - lat["fmul"]
     L = lat
     floors = {
         "b3": 2 * L["fmul"] + 2 * L["fadd"] + 5 * L["shfl_fadd"]
@@ -237,13 +308,26 @@ def main():
         L["hbm"] + L["fmul"] + 15 * L["fadd"] + 5 * L["shfl_fadd"]
         + L["cross"] + L["fmul"] + L["delta_hinge"] + 3 * L["fmul"]
         + L["fadd"] + L["bar"])
+    # B2's and B3's split kernel at the probe's 5,120 floats (16 words a
+    # lane over 10 warps): the products and a 4-level tree, the butterfly,
+    # the exchange, y·dot, δ, δ·y and the axpy
+    floors["split_5120"] = (
+        L["fmul"] + 4 * L["fadd"] + 5 * L["shfl_fadd"] + L["xchg_split"]
+        + L["fmul"] + L["delta_hinge"] + L["fmul"] + L["fmul"] + L["fadd"])
+    # B5's rows-layout serial step (csrc/dcd_feature.cu:
+    # dcd_feature_recursion_panel_kernel): base + acc, y·(…), δ, δ·y, the
+    # shuffle of δ̃ to every lane, δ̃·G and the add into acc
+    floors["b5_rows_step"] = (
+        2 * L["fadd"] + 2 * L["fmul"] + L["delta_hinge"]
+        + L["shfl_fadd"] + L["fmul"])
     for k, v in lat.items():
         print(f"  {k}: {v:.2f} cycles")
     print(f"  SM clock over the probe: {mhz:.0f} MHz")
     print(f"  floor of one hinge update (B3): fmul + fadd + 5 shfl_fadd + "
           f"delta_hinge + fmul + fadd = {floors['b3']:.2f} cycles, "
           f"{floors['b3'] / mhz * 1e3:.2f} ns")
-    for k in ("b2_stream", "b1_stream_rcv1", "b1_stream_webspam"):
+    for k in ("b2_stream", "b1_stream_rcv1", "b1_stream_webspam",
+              "split_5120", "b5_rows_step"):
         print(f"  floor of one hinge update ({k}): {floors[k]:.2f} cycles, "
               f"{floors[k] / mhz * 1e3:.2f} ns")
     print(json.dumps({"card": card, "cycles": lat, "sm_mhz": mhz,

@@ -247,6 +247,17 @@ DENSE_STAGED_MAX_D = WARP * DENSE_ENTRIES_PER_LANE
 DENSE_STREAM_ROWS = 32
 DENSE_STREAM_STAGES = 4
 
+# B2 and B3 split: rows of DENSE_STAGED_MAX_D < d ≤ DENSE_SPLIT_MAX_D
+# floats, w split over at most DENSE_SPLIT_MAX_WARPS consumer warps,
+# DENSE_SPLIT_LANE[0] words a lane up to DENSE_SPLIT_MAX_WARPS warps of
+# them, else DENSE_SPLIT_LANE[1]; B2 stream's producer gathers the rows
+# into a ring of DENSE_STREAM_STAGES stages of as many rows
+# (DENSE_SPLIT_ROWS, in order of preference) as fit
+DENSE_SPLIT_MAX_WARPS = 16
+DENSE_SPLIT_LANE = (8, 16)
+DENSE_SPLIT_MAX_D = WARP * DENSE_SPLIT_LANE[-1] * DENSE_SPLIT_MAX_WARPS
+DENSE_SPLIT_ROWS = (8, 4, 2, 1)
+
 
 class DensePlan(NamedTuple):
     """B2's launch for a block of ``b`` ids over dense rows of ``d``
@@ -254,11 +265,13 @@ class DensePlan(NamedTuple):
     act in shared memory, w in the registers of one warp, ``per_lane``
     words a lane), "stream" (the rows gathered by id through a ring of
     ``stages`` stages of ``tile_rows`` rows by a producer warp, w in the
-    registers of one consumer warp, ``per_lane`` words a lane) or "wide"
-    (rows and w in device memory, one update at a time across
-    ``threads``).  ``smem_bytes`` is the kernel's dynamic shared memory
-    (0 for wide), per CTA; the grid holds ``tasks`` × ``pods`` ×
-    ``shards`` CTAs, one a (task, pod, data shard) triple."""
+    registers of one consumer warp, ``per_lane`` words a lane), "split"
+    (the stream kernel's ring, w split over the registers of ``warps``
+    consumer warps, ``per_lane`` words a lane) or "wide" (rows and w in
+    device memory, one update at a time across ``threads``).
+    ``smem_bytes`` is the kernel's dynamic shared memory (0 for wide),
+    per CTA; the grid holds ``tasks`` × ``pods`` × ``shards`` CTAs, one a
+    (task, pod, data shard) triple."""
 
     variant: str
     threads: int
@@ -269,6 +282,7 @@ class DensePlan(NamedTuple):
     pods: int = 1
     tile_rows: int = 0
     stages: int = 0
+    warps: int = 0
 
 
 def dcd_dense_staged_bytes(b: int, d: int) -> int:
@@ -289,6 +303,38 @@ def dcd_dense_stream_bytes(tile_rows: int, stages: int, d: int) -> int:
     return 16 * S + 4 * S * stage + 4 * S * T
 
 
+def dcd_dense_split_bytes(tile_rows: int, stages: int, d: int,
+                          warps: int) -> int:
+    """Shared memory of B2's and B3's split kernel: B2 stream's mbarriers
+    and stages, each of the ``warps`` consumer warps' running α of
+    stages·tile_rows positions (padded to 16 bytes), and two slots of
+    ``DENSE_SPLIT_MAX_WARPS`` partial dots."""
+    T, S = int(tile_rows), int(stages)
+    stage = -(-(T * row_slot(d) + 7 * T) // 4) * 4
+    return (16 * S + 4 * S * stage + 4 * (-(-warps * S * T // 4) * 4)
+            + 8 * DENSE_SPLIT_MAX_WARPS)
+
+
+def dcd_split_layout(d: int) -> tuple:
+    """The split kernel's layout for rows of ``d`` floats
+    (``DENSE_STAGED_MAX_D`` < d ≤ ``DENSE_SPLIT_MAX_D``): (per_lane,
+    warps, tile_rows, stages, smem_bytes) — the fewest words a lane of
+    ``DENSE_SPLIT_LANE`` that at most ``DENSE_SPLIT_MAX_WARPS`` warps
+    cover d with, and the most rows a stage of ``DENSE_SPLIT_ROWS`` whose
+    ring of ``DENSE_STREAM_STAGES`` stages fits the shared memory one CTA
+    can use."""
+    d, S = int(d), DENSE_STREAM_STAGES
+    per_lane = next(W for W in DENSE_SPLIT_LANE
+                    if d <= WARP * W * DENSE_SPLIT_MAX_WARPS)
+    warps = -(-d // (WARP * per_lane))
+    for T in DENSE_SPLIT_ROWS:
+        need = dcd_dense_split_bytes(T, S, d, warps)
+        if need <= SMEM_PER_CTA - STATIC_SMEM:
+            return per_lane, warps, T, S, need
+    raise ValueError(f"rows of {d} floats: no ring of the split kernel "
+                     "fits one CTA's shared memory")
+
+
 @functools.lru_cache(maxsize=64)
 def dcd_dense_plan(b: int, d: int, wide: bool = False,
                    shards: int = 1, tasks: int = 1,
@@ -298,9 +344,11 @@ def dcd_dense_plan(b: int, d: int, wide: bool = False,
     at most ``DENSE_STAGED_MAX_IDS`` ids, d is at most
     ``DENSE_STAGED_MAX_D`` (one warp keeps w in registers) and the rows
     fit the shared memory one CTA can use; any other block of rows of at
-    most ``DENSE_STAGED_MAX_D`` floats the stream kernel; wider rows, or
-    ``wide`` asking for it, the wide kernel.  ``per_lane`` is the power
-    of two of w's words a lane holds (at least ⌈d / 32⌉).  ``shards``
+    most ``DENSE_STAGED_MAX_D`` floats the stream kernel; rows of at most
+    ``DENSE_SPLIT_MAX_D`` floats the split kernel (``dcd_split_layout``);
+    wider rows, or ``wide`` asking for it, the wide kernel.  For staged
+    and stream, ``per_lane`` is the power of two of w's words a lane
+    holds (at least ⌈d / 32⌉).  ``shards``
     data shards of each of ``tasks`` tasks run ``b`` ids each, a CTA a
     (task, shard) pair (of ``pods`` pods: a (task, pod, shard) triple),
     each CTA laid out as the binary plan's."""
@@ -317,6 +365,10 @@ def dcd_dense_plan(b: int, d: int, wide: bool = False,
         return DensePlan("stream", 2 * WARP, per_lane,
                          dcd_dense_stream_bytes(T, S, d), shards, tasks,
                          pods, T, S)
+    if not wide and d <= DENSE_SPLIT_MAX_D:
+        per_lane, warps, T, S, need = dcd_split_layout(d)
+        return DensePlan("split", WARP * (warps + 1), per_lane, need,
+                         shards, tasks, pods, T, S, warps)
     return DensePlan("wide", cta_threads(d), 0, 0, shards, tasks, pods)
 
 
@@ -334,9 +386,11 @@ class TilePlan(NamedTuple):
     """B3's launch for an in-order epoch over n rows of ``d`` floats:
     ``variant`` "stream" (rows streamed through a ring of ``stages``
     stages of ``tile_rows`` rows in shared memory, w in the registers of
-    one warp, ``per_lane`` words a lane) or "wide" (rows and w in device
-    memory, one update at a time across ``threads``).  ``smem_bytes`` is
-    the stream kernel's dynamic shared memory (0 for wide)."""
+    one warp, ``per_lane`` words a lane), "split" (B2's split kernel over
+    rows 0..n-1: w over the registers of ``warps`` consumer warps) or
+    "wide" (rows and w in device memory, one update at a time across
+    ``threads``).  ``smem_bytes`` is the kernel's dynamic shared memory
+    (0 for wide)."""
 
     variant: str
     threads: int
@@ -344,6 +398,7 @@ class TilePlan(NamedTuple):
     tile_rows: int
     stages: int
     smem_bytes: int
+    warps: int = 0
 
 
 def dcd_tile_stream_bytes(tile_rows: int, stages: int, d: int) -> int:
@@ -357,15 +412,21 @@ def dcd_tile_stream_bytes(tile_rows: int, stages: int, d: int) -> int:
 def dcd_tile_plan(n: int, d: int, wide: bool = False) -> TilePlan:
     """Pick B3's variant for an in-order epoch over ``n`` rows of ``d``
     floats, by shape.  Rows of at most ``DENSE_STAGED_MAX_D`` floats (one
-    warp keeps w in registers) take the stream kernel, else, or when
-    ``wide`` asks for it, the wide kernel.  A stage holds
+    warp keeps w in registers) take the stream kernel, rows of at most
+    ``DENSE_SPLIT_MAX_D`` the split kernel (``dcd_split_layout``), wider
+    ones, or all when ``wide`` asks for it, the wide kernel.  A stream
+    stage holds
     ``TILE_STREAM_ROWS`` rows, or fewer where n is smaller or the ring of
     ``TILE_STREAM_STAGES`` stages would not fit the shared memory one CTA
     can use (the largest multiple of 4 that fits); ``per_lane`` is the
     power of two of w's words a lane holds (at least ⌈d / 32⌉)."""
     n, d = max(int(n), 1), max(int(d), 1)
-    if wide or d > DENSE_STAGED_MAX_D:
+    if wide or d > DENSE_SPLIT_MAX_D:
         return TilePlan("wide", cta_threads(d), 0, 0, 0, 0)
+    if d > DENSE_STAGED_MAX_D:
+        per_lane, warps, T, S, need = dcd_split_layout(d)
+        return TilePlan("split", WARP * (warps + 1), per_lane, T, S, need,
+                        warps)
     stages = TILE_STREAM_STAGES
     fit = (((SMEM_PER_CTA - STATIC_SMEM) // stages - 16)
            // (4 * (d + 2))) // 4 * 4
@@ -394,9 +455,9 @@ GRAM_TILE_WORDS = 4096  # G accumulator words per walker (B × tile)
 # recursion in one warp's registers): B4 and B5 take their "rows" layout,
 # one column class, G written in tiles of GRAM_ROWS_TILE columns straight
 # to device memory by CTAs of GRAM_ROWS_THREADS rows (one a thread), and
-# B5's recursion on one CTA of FEATURE_UPDATE_ROWS_THREADS a (task, data
-# shard) pair, its accumulators in shared memory (device memory past
-# that) and δ̃ in device memory.  What bounds the block then is G itself:
+# B5's recursion in panels on a cluster of CTAs a (task, data shard) pair
+# (its accumulators in shared memory, device memory past that), δ̃ in
+# device memory.  What bounds the block then is G itself:
 # b² floats for every (task, data, model) triple and their sum.
 GRAM_SHARED_MAX_IDS = 1024
 GRAM_ROWS_TILE = 64
@@ -493,7 +554,26 @@ def gram_plan(m: int, b: int, k: int, d1: int, data: int = 1,
 # a chunk of FEATURE_UPDATE_CHUNK staged at a time
 FEATURE_UPDATE_THREADS = 128
 FEATURE_UPDATE_CHUNK = 2048
-FEATURE_UPDATE_ROWS_THREADS = 1024  # the rows layout's recursion CTA
+# The rows layout's recursion: panels of FEATURE_ROWS_PANEL steps on a
+# serial warp, FEATURE_ROWS_WORKERS worker warps for the trailing update
+# (FEATURE_ROWS_COLS columns of G a lane a tile), a producer warp
+# streaming G through a ring of FEATURE_ROWS_STAGES stages; the serial
+# warp's ring of FEATURE_ROWS_BLOCKS blocks (its panel's rows,
+# FEATURE_ROWS_LOOK columns), FEATURE_ROWS_SIGNALS panels of δ̃ in flight
+FEATURE_ROWS_PANEL = 32
+FEATURE_ROWS_WORKERS = 8
+# the CTA's warps: the serial warp 0 alone on its SM sub-partition (warp
+# w issues on sub-partition w mod 4, so warps 4 and 8 idle), the producer
+# warp 1, and the FEATURE_ROWS_WORKERS others
+FEATURE_ROWS_WARPS = 12
+# a (task, data shard) pair's recursion runs on a thread-block cluster of
+# FEATURE_ROWS_CLUSTER CTAs, each streaming its share of G's tiles
+FEATURE_ROWS_CLUSTER = 4
+FEATURE_ROWS_COLS = 2
+FEATURE_ROWS_STAGES = 2
+FEATURE_ROWS_BLOCKS = 3
+FEATURE_ROWS_LOOK = 64
+FEATURE_ROWS_SIGNALS = 8
 
 
 class FeatureUpdatePlan(NamedTuple):
@@ -505,7 +585,10 @@ class FeatureUpdatePlan(NamedTuple):
     t is read from device memory a step ahead), and the dynamic shared
     memory in bytes.  ``data`` data shards of each of ``tasks`` tasks
     multiply the grid to R × tasks × data × m CTAs, each laid out as the
-    binary plan's."""
+    binary plan's.  The rows layout's recursion (``feature_rows_bytes``)
+    runs panels of ``panel`` steps on a cluster of ``cluster`` CTAs a
+    pair, each with ``workers`` worker warps and a ring of ``stages``
+    stages of G, its accumulators in shared memory when ``acc_shared``."""
 
     classes: int
     threads: int
@@ -516,6 +599,11 @@ class FeatureUpdatePlan(NamedTuple):
     tasks: int = 1
     pods: int = 1
     layout: str = "shared"  # or "rows": past GRAM_SHARED_MAX_IDS ids
+    panel: int = 0
+    workers: int = 0
+    stages: int = 0
+    acc_shared: bool = False
+    cluster: int = 0
 
 
 def feature_update_bytes(b: int, stage_gram: bool,
@@ -527,6 +615,30 @@ def feature_update_bytes(b: int, stage_gram: bool,
     return (4 * b * b if stage_gram else 0) + 8 * chunk + 4 * (12 * b + 1)
 
 
+def feature_rows_bytes(b: int, stages: int, workers: int,
+                       acc_shared: bool,
+                       cluster: int = FEATURE_ROWS_CLUSTER) -> int:
+    """Shared memory of a CTA of B5's rows-layout recursion: the
+    mbarriers (full and empty a stage, one a serial block, three a δ̃
+    panel in flight), padded to 16 bytes; ``stages`` stages of
+    ``FEATURE_ROWS_PANEL`` rows of a tile of TC = 32·``workers``·
+    ``FEATURE_ROWS_COLS`` columns of G (windows of ``row_slot`` words,
+    then a window offset a row); the serial warp's
+    ``FEATURE_ROWS_BLOCKS`` blocks (its panel's rows,
+    ``FEATURE_ROWS_LOOK`` columns, the same way);
+    ``FEATURE_ROWS_SIGNALS`` panels of δ̃ and as many look-ahead columns;
+    and, when ``acc_shared``, the accumulators of the CTA's share of the
+    tiles (tile x is CTA x mod ``cluster``'s)."""
+    P, TC = FEATURE_ROWS_PANEL, WARP * workers * FEATURE_ROWS_COLS
+    bars = 8 * (2 * stages + FEATURE_ROWS_BLOCKS + 3 * FEATURE_ROWS_SIGNALS)
+    stage = P * row_slot(TC) + P
+    block = P * row_slot(FEATURE_ROWS_LOOK) + P
+    acc = -(-(-(-int(b) // TC)) // cluster) * TC
+    return (-(-bars // 16) * 16 + 4 * stages * stage
+            + 4 * FEATURE_ROWS_BLOCKS * block + 8 * FEATURE_ROWS_SIGNALS * P
+            + (4 * acc if acc_shared else 0))
+
+
 @functools.lru_cache(maxsize=64)
 def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
                         tasks: int = 1, pods: int = 1,
@@ -536,20 +648,25 @@ def feature_update_plan(m: int, b: int, k: int, d1: int, data: int = 1,
     each of ``tasks`` tasks: B4's classes, and G staged when the whole
     layout fits the shared memory one CTA can use (one CTA runs one
     task's recursion, so the layout does not depend on the counts).
-    Past ``GRAM_SHARED_MAX_IDS`` ids the layout is "rows": one CTA of
-    ``FEATURE_UPDATE_ROWS_THREADS`` a pair runs the recursion, its b
-    accumulators in shared memory (``smem_bytes``) where they fit and in
-    device memory (``smem_bytes`` 0) past that, no lane registers
-    (``per_lane`` 0), G read from device memory; then the scatter.
-    ``m_all``: as for ``gram_plan``."""
+    Past ``GRAM_SHARED_MAX_IDS`` ids the layout is "rows": a cluster of
+    ``FEATURE_ROWS_CLUSTER`` CTAs a pair runs the recursion in panels of
+    ``FEATURE_ROWS_PANEL`` steps (a serial warp in the first, and in
+    each a producer warp streaming its share of G and
+    ``FEATURE_ROWS_WORKERS`` worker warps, ``FEATURE_ROWS_WARPS`` warps in
+    all; no lane registers, ``per_lane`` 0), its accumulators in shared
+    memory where they fit beside the ring (``acc_shared``) and in device
+    memory past that; then the scatter.  ``m_all``: as for
+    ``gram_plan``."""
     classes = gram_plan(m, b, k, d1, data, tasks, pods, m_all).classes
     if int(b) > GRAM_SHARED_MAX_IDS:
-        acc = 4 * int(b)
+        S, NW = FEATURE_ROWS_STAGES, FEATURE_ROWS_WORKERS
+        acc_shared = (feature_rows_bytes(b, S, NW, True)
+                      <= SMEM_PER_CTA - STATIC_SMEM)
         return FeatureUpdatePlan(
-            classes, FEATURE_UPDATE_ROWS_THREADS, 0, False,
-            acc if acc <= SMEM_PER_CTA - STATIC_SMEM else 0,
-            max(int(data), 1), max(int(tasks), 1), max(int(pods), 1),
-            "rows")
+            classes, WARP * FEATURE_ROWS_WARPS, 0, False,
+            feature_rows_bytes(b, S, NW, acc_shared), max(int(data), 1),
+            max(int(tasks), 1), max(int(pods), 1), "rows",
+            FEATURE_ROWS_PANEL, NW, S, acc_shared, FEATURE_ROWS_CLUSTER)
     stage = feature_update_bytes(b, True) <= SMEM_PER_CTA - STATIC_SMEM
     return FeatureUpdatePlan(classes, FEATURE_UPDATE_THREADS,
                              _pow2_at_least(-(-int(b) // WARP)), stage,

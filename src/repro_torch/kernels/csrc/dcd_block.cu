@@ -9,7 +9,7 @@
 // in-order epoch over rows 0..n-1, no mask, no labels: for t = 0..n-1,
 // wx = w·x_t, δ = loss.delta(α_t, wx, q_t), α_t += δ, w += δ·x_t.
 //
-// B2 has three variants, B3 two, chosen by shape (repro_torch/dist/
+// B2 has four variants, B3 three, chosen by shape (repro_torch/dist/
 // mesh.py: dcd_dense_plan for B2, dcd_tile_plan for B3).
 //
 // dcd_dense_staged_kernel, B2 for a block whose rows fit in shared memory
@@ -82,7 +82,41 @@
 // row's latest earlier position among the last S·T, and the consumer
 // reads that position's running α instead.  Each update stores α_i.
 //
-// dcd_dense_kernel, the wide variant of both (rows of more than 256
+// dcd_dense_split_kernel, B2 and B3 for rows of 256 < d ≤ 8,192 floats
+// (the LM probe's 5,120-float features; repro_torch/dist/mesh.py:
+// DENSE_SPLIT_MAX_D), every path: B2's indexed launches and their shard,
+// task and pod grids, and B3's in-order epoch (no ids: row t is update
+// t).  One warp cannot hold such a w in registers, so w is split over C
+// consumer warps (C ≤ 16): lane l of warp c holds w[c·32W + 32u + l],
+// u < W (W = 8 up to 4,096 floats, else 16).  The producer is B2
+// stream's: a warp gathering each row by id as one bulk copy of its
+// 16-byte-aligned window into a ring of S stages of T rows (T·S rows in
+// flight, as many as fit: 8 at d = 5,120), with each id's α, q, y and
+// act, and ring_prev's previous occurrence of a repeated id (B3's ids
+// are distinct).  Each update, in every consumer warp:
+//   1. W multiply-adds of its slice of the staged row (a tree) and the
+//      xor butterfly: the warp's partial dot in every lane;
+//   2. lane 0 writes it to the update's slot of a double-buffered array
+//      of partials in shared memory (16 a slot, those past C kept 0);
+//   3. one named barrier of the C consumer warps (bar.sync 1, not
+//      __syncthreads: the producer never waits on it);
+//   4. every lane reads the slot (four float4 loads) and sums it in one
+//      fixed tree, so every warp holds the same bits of the dot;
+//   5. δ in every lane (the label folded in, the mask applied), and the
+//      axpy into the warp's registers.
+// The next row's words and scalars load a step ahead, as in the stream
+// kernels.  Every warp keeps its own copy of the running α of the last
+// S·T positions (it takes the same δ as every other warp), so no warp
+// reads what another writes between barriers; warp 0 stores α_i (the
+// only global access on the chain, a store).  Two slots of partials
+// suffice: a warp writes update t + 2's slot only after every warp has
+// passed update t + 1's barrier, i.e. has read update t's partials.  The
+// grids keep the stream kernels' layout: CTA (shard, task) updates its own
+// replica of w.  What bounds it: the chain of m updates, about 100
+// instructions a consumer warp an update, so one SM issuing C + 1 warps;
+// the bytes (a row an update, 20 KB at the probe's rows) stream beside it.
+//
+// dcd_dense_kernel, the wide variant of both (rows of more than 8,192
 // floats; launched for narrower rows only when asked for): ONE CTA loops
 // over the whole sequence.  Thread j owns w entries j, j + blockDim.x, … for the
 // whole launch: it gathers its slice of the dot from them and applies the
@@ -104,8 +138,8 @@
 // shard's rows [s·n_loc, (s+1)·n_loc) (row s·n_loc + id).  The staged
 // kernel reads w + s·w_stride (w_stride 0: one w for every shard) into its
 // warp's registers and writes its d-word Δw slice dw[s] = w_new − w; the
-// wide and stream kernels update their own replica w + s·d in place (the
-// wrapper fills
+// wide, stream and split kernels update their own replica w + s·d in
+// place (the wrapper fills
 // the replicas and takes Δw = replica − w).  No CTA reads what another
 // writes, so the result does not depend on which CTAs run together.  B3,
 // and B2 for the serial solvers, are one CTA with n_loc = 0 that updates w
@@ -117,9 +151,9 @@
 // (idx_ts 0: every task draws the same blocks), its α and y at
 // + k·row_ts, its act at + k·act_ts (0: one mask for every task), its
 // view of w at w + k·w_ts + s·w_stride (staged; it writes the Δw slice
-// dw[k·p + s]) or its replica w + (k·p + s)·d (wide, stream).  No CTA's
-// arithmetic changes with the task dimension: K = 1 gives the bits of the
-// task-free grid.
+// dw[k·p + s]) or its replica w + (k·p + s)·d (wide, stream, split).
+// No CTA's arithmetic changes with the task dimension: K = 1 gives the
+// bits of the task-free grid.
 //
 // B2's pods.  The pod solver's P pods of p data shards are the grid's x
 // dimension, P·p CTAs (CTA s: data shard s mod p of pod s / p), pod k's
@@ -444,6 +478,72 @@ __host__ __device__ inline long long dense_stream_stage_words(int T, int d) {
   return ((long long)T * row_slot(d) + 7LL * T + 3) / 4 * 4;
 }
 
+// The producer warp of B2's id-fed kernels (stream and split): stage kk
+// of T rows into slot kk mod S once the consumers have released the stage
+// S before it — the ids (loaded a stage ahead; idx null: row t is update
+// t, B3's in-order epoch, whose rows never repeat), each row's previous
+// occurrence in the lookahead (ring_prev), lane r's row as one bulk copy
+// of its 16-byte-aligned window (row_window; covtype's 216-byte rows are
+// only 8-byte aligned), and cp.async copies of the rows' α, q, y and act.
+__device__ __forceinline__ void dense_stream_produce(
+    const int* idx, int m, long long row0, const float* X, long long n_x,
+    int d, const float* alpha, const float* q, const float* act,
+    const float* y, float* ring, long long sw, unsigned long long* full,
+    unsigned long long* empty, int T, int S, int lane) {
+  const int dw = row_slot(d), n_st = (m + T - 1) / T;
+  const long long rd = (long long)T * dw;
+  const float* x_end = X + n_x * d;
+  auto row_id = [&](int t) { return idx ? (int)(row0 + idx[t]) : t; };
+  int id_n = lane < T && lane < m ? row_id(lane) : 0;
+  int hist[RING_MAX_STAGES - 1] = {0, 0, 0};
+  for (int kk = 0, s = 0, ph = 0; kk < n_st; ++kk) {
+    mbar_wait(empty + s, ph ^ 1);
+    const int t0 = kk * T, rows = min(T, m - t0);
+    float* xs = ring + s * sw;
+    int* sid = reinterpret_cast<int*>(xs + rd);
+    int* sprev = sid + T;
+    int* soff = sprev + T;
+    float* sa = reinterpret_cast<float*>(soff + T);
+    float* sq = sa + T;
+    float* sy = sq + T;
+    float* sact = sy + T;
+    const int id = id_n;
+    if (kk + 1 < n_st) {
+      const int tn = t0 + T + lane;
+      id_n = lane < T && tn < m ? row_id(tn) : 0;
+    }
+    const int prev = idx ? ring_prev(id, hist, lane, rows, kk, T, S) : -1;
+    if (lane < rows) {
+      sid[lane] = id;
+      sprev[lane] = prev;
+      cp_async4(sa + lane, alpha + id);
+      cp_async4(sq + lane, q + id);
+      if (y)
+        cp_async4(sy + lane, y + id);
+      else
+        sy[lane] = 1.0f;
+      if (act)
+        cp_async4(sact + lane, act + id);
+      else
+        sact[lane] = 1.0f;
+      const float* src = X + (long long)id * d;
+      soff[lane] = row_off(src);  // stored before the lane arrives
+      row_window(xs + (long long)lane * dw, src, d, X, x_end, full + s);
+    } else {
+      mbar_arrive(full + s);
+    }
+    mbar_arrive_cp_async(full + s);
+#pragma unroll
+    for (int b = RING_MAX_STAGES - 2; b > 0; --b) hist[b] = hist[b - 1];
+    hist[0] = id;
+    if (++s == S) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+  cp_async_wait_all();  // no copy of this thread outlives it
+}
+
 // B2's id-fed stream kernel: B3's ring and consumer, the rows gathered
 // by id.  Shared memory: S "full" and S "empty" mbarriers, S stages, the
 // running α of the last S·T positions.  64 threads: warp 0 consumes,
@@ -487,61 +587,8 @@ __global__ void dcd_dense_stream_kernel(
   const long long rd = (long long)T * dw;
 
   if (warp == 1) {
-    // producer: stage kk into slot kk mod S once the consumer has released
-    // the stage S before it: the ids (loaded a stage ahead), each row's
-    // previous occurrence in the lookahead (ring_prev), lane r's row as
-    // one bulk copy of its 16-byte-aligned window (row_window; covtype's
-    // 216-byte rows are only 8-byte aligned), and cp.async copies of the
-    // rows' α, q, y and act
-    const float* x_end = X + n_x * d;
-    int id_n = lane < T && lane < m ? (int)(row0 + idx[lane]) : 0;
-    int hist[RING_MAX_STAGES - 1] = {0, 0, 0};
-    for (int kk = 0, s = 0, ph = 0; kk < n_st; ++kk) {
-      mbar_wait(empty + s, ph ^ 1);
-      const int t0 = kk * T, rows = min(T, m - t0);
-      float* xs = ring + s * sw;
-      int* sid = reinterpret_cast<int*>(xs + rd);
-      int* sprev = sid + T;
-      int* soff = sprev + T;
-      float* sa = reinterpret_cast<float*>(soff + T);
-      float* sq = sa + T;
-      float* sy = sq + T;
-      float* sact = sy + T;
-      const int id = id_n;
-      if (kk + 1 < n_st) {
-        const int tn = t0 + T + lane;
-        id_n = lane < T && tn < m ? (int)(row0 + idx[tn]) : 0;
-      }
-      const int prev = ring_prev(id, hist, lane, rows, kk, T, S);
-      if (lane < rows) {
-        sid[lane] = id;
-        sprev[lane] = prev;
-        cp_async4(sa + lane, alpha + id);
-        cp_async4(sq + lane, q + id);
-        if (y)
-          cp_async4(sy + lane, y + id);
-        else
-          sy[lane] = 1.0f;
-        if (act)
-          cp_async4(sact + lane, act + id);
-        else
-          sact[lane] = 1.0f;
-        const float* src = X + (long long)id * d;
-        soff[lane] = row_off(src);  // stored before the lane arrives
-        row_window(xs + (long long)lane * dw, src, d, X, x_end, full + s);
-      } else {
-        mbar_arrive(full + s);
-      }
-      mbar_arrive_cp_async(full + s);
-#pragma unroll
-      for (int b = RING_MAX_STAGES - 2; b > 0; --b) hist[b] = hist[b - 1];
-      hist[0] = id;
-      if (++s == S) {
-        s = 0;
-        ph ^= 1;
-      }
-    }
-    cp_async_wait_all();  // no copy of this thread outlives it
+    dense_stream_produce(idx, m, row0, X, n_x, d, alpha, q, act, y, ring, sw,
+                         full, empty, T, S, lane);
   } else {
     // consumer: w in registers; the next row's words and scalars load a
     // step ahead, with its current α_i: the staged one, or the running
@@ -615,6 +662,192 @@ __global__ void dcd_dense_stream_kernel(
 #pragma unroll
     for (int u = 0; u < W; ++u) {
       const int j = lane + 32 * u;
+      if (j < d) w[j] = wr[u];
+    }
+  }
+}
+
+// The most consumer warps of the split kernel (w split over them).
+#define SPLIT_MAX_WARPS 16
+
+// The sum of p[O .. O + N) as a fixed tree of halves, straight-line code
+// on a register array (a loop over the levels can leave p in local
+// memory).
+template <int N, int O = 0>
+struct TreeSum {
+  static __device__ __forceinline__ float of(const float* p) {
+    return TreeSum<N / 2, O>::of(p) + TreeSum<N / 2, O + N / 2>::of(p);
+  }
+};
+template <int O>
+struct TreeSum<1, O> {
+  static __device__ __forceinline__ float of(const float* p) { return p[O]; }
+};
+
+// Shared memory of the split kernel: S "full" and S "empty" mbarriers,
+// S stages (B2 stream's: T rows in windows, then their id, previous
+// occurrence, window offset, α, q, y and act), each consumer warp's
+// running α of the last S·T positions (padded to 16 bytes), and two slots
+// of SPLIT_MAX_WARPS partial dots (those past C stay 0), read as float4.
+__host__ __device__ inline long long dense_split_bytes(int T, int S, int d,
+                                                       int C) {
+  return 16LL * S + 4LL * S * dense_stream_stage_words(T, d) +
+         4LL * ((C * S * T + 3) / 4 * 4) + 8LL * SPLIT_MAX_WARPS;
+}
+
+// B2's and B3's split kernel (the note at the top).  C consumer warps
+// (warps 0..C-1) and a producer (warp C); idx null is B3's in-order epoch
+// over rows 0..m-1 (one CTA, no labels, no mask).  X holds n_x rows; S·T
+// is a power of two, S at most RING_MAX_STAGES, T at most 32.
+template <int K, int W>
+__global__ void __launch_bounds__(32 * (SPLIT_MAX_WARPS + 1))
+    dcd_dense_split_kernel(const int* __restrict__ idx, int m,
+                           long long n_loc, const float* __restrict__ X,
+                           long long n_x, int d, float* alpha,
+                           const float* __restrict__ q,
+                           const float* __restrict__ act,
+                           const float* __restrict__ y, float* w, DcdLoss L,
+                           long long idx_ts, long long row_ts,
+                           long long act_ts, int T, int S, int C) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* empty = full + S;
+  float* ring = reinterpret_cast<float*>(empty + S);
+  const long long sw = dense_stream_stage_words(T, d);
+  const int stm = S * T - 1;
+  float* arun_all = ring + S * sw;  // warp c's at c·S·T + (t & stm)
+  // slot t & 1 of the partial dots, warp c's at (t & 1)·16 + c
+  float* part = arun_all + (C * (stm + 1) + 3) / 4 * 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int dw = row_slot(d);
+  // data shard blockIdx.x of task blockIdx.y: its ids, its rows, its α, y
+  // and act, its replica of w
+  const long long task = blockIdx.y;
+  const long long row0 = (long long)blockIdx.x * n_loc;
+  if (idx) idx += task * idx_ts + (long long)blockIdx.x * m;
+  alpha += task * row_ts;
+  if (y) y += task * row_ts;
+  if (act) act += task * act_ts;
+  w += (task * gridDim.x + blockIdx.x) * (long long)d;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      // the producer's lanes, twice each (a row's window, its cp.async)
+      mbar_init(full + s, 64);
+      mbar_init(empty + s, C);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < 2 * SPLIT_MAX_WARPS) part[threadIdx.x] = 0.0f;
+  __syncthreads();
+  const int n_st = (m + T - 1) / T;
+  const long long rd = (long long)T * dw;
+
+  if (warp == C) {
+    dense_stream_produce(idx, m, row0, X, n_x, d, alpha, q, act, y, ring, sw,
+                         full, empty, T, S, lane);
+  } else if (warp < C) {
+    // consumer warp c = warp: its slice of w in registers
+    const DcdLoss Lk{K, L.C, L.inv_two_c, L.eps_c, L.newton_steps};
+    const int j0 = warp * 32 * W + lane;  // this lane's words j0 + 32u
+    float* arun = arun_all + warp * (stm + 1);
+    float wr[W], x[W], xn[W];
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      const int j = j0 + 32 * u;
+      wr[u] = j < d ? w[j] : 0.0f;
+      xn[u] = 0.0f;
+    }
+    float a_last = 0.0f;
+    for (int kk = 0, s = 0, ph = 0; kk < n_st; ++kk) {
+      mbar_wait(full + s, ph);
+      const float* xs = ring + s * sw;
+      const int* sid = reinterpret_cast<const int*>(xs + rd);
+      const int* sprev = sid + T;
+      const int* soff = sprev + T;
+      const float* sa = reinterpret_cast<const float*>(soff + T);
+      const float* sq = sa + T;
+      const float* sy = sq + T;
+      const float* sact = sy + T;
+      const int t0 = kk * T, rows = min(T, m - t0);
+      const float* xr = xs + soff[0] + j0;
+#pragma unroll
+      for (int u = 0; u < W; ++u) x[u] = j0 + 32 * u < d ? xr[32 * u] : 0.0f;
+      int i_c = sid[0], pt_n = sprev[0];
+      float q_c = sq[0], y_c = sy[0], act_c = sact[0];
+      float a_c =
+          pt_n < 0 ? sa[0] : (pt_n == t0 - 1 ? a_last : arun[pt_n & stm]);
+      for (int r = 0; r < rows; ++r) {
+        const int t = t0 + r;
+        int i_n = 0;
+        float q_n = 1.0f, y_n = 1.0f, act_n = 1.0f, a_pre = 0.0f;
+        pt_n = -1;
+        if (r + 1 < rows) {
+          xr = xs + (long long)(r + 1) * dw + soff[r + 1] + j0;
+#pragma unroll
+          for (int u = 0; u < W; ++u)
+            xn[u] = j0 + 32 * u < d ? xr[32 * u] : 0.0f;
+          i_n = sid[r + 1];
+          pt_n = sprev[r + 1];
+          q_n = sq[r + 1];
+          y_n = sy[r + 1];
+          act_n = sact[r + 1];
+          a_pre = pt_n >= 0 && pt_n != t ? arun[pt_n & stm] : sa[r + 1];
+        }
+        // 1. the warp's partial dot: a tree over its words, the butterfly
+        float p[W];
+#pragma unroll
+        for (int u = 0; u < W; ++u) p[u] = wr[u] * x[u];
+        float pw = TreeSum<W>::of(p);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          pw += __shfl_xor_sync(0xffffffffu, pw, o);
+        // 2.–4. the C partials through shared memory, one named barrier,
+        // the same fixed tree in every warp
+        float* slot = part + (t & 1) * SPLIT_MAX_WARPS;
+        if (lane == 0) slot[warp] = pw;
+        asm volatile("bar.sync 1, %0;\n" ::"r"(32 * C) : "memory");
+        float v[SPLIT_MAX_WARPS];
+#pragma unroll
+        for (int c = 0; c < SPLIT_MAX_WARPS; c += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(slot + c);
+          v[c] = f.x;
+          v[c + 1] = f.y;
+          v[c + 2] = f.z;
+          v[c + 3] = f.w;
+        }
+        const float dot = TreeSum<SPLIT_MAX_WARPS>::of(v);
+        // 5. δ, α, the axpy
+        float dl = dcd_delta(Lk, a_c, y_c * dot, q_c);
+        if (!(act_c > 0.0f)) dl = 0.0f;
+        a_last = a_c + dl;
+        if (lane == 0) {
+          arun[t & stm] = a_last;
+          if (warp == 0) alpha[i_c] = a_last;
+        }
+        __syncwarp();
+        const float sc = dl * y_c;
+        if (sc != 0.0f) {
+#pragma unroll
+          for (int u = 0; u < W; ++u) wr[u] = wr[u] + sc * x[u];
+        }
+#pragma unroll
+        for (int u = 0; u < W; ++u) x[u] = xn[u];
+        i_c = i_n;
+        q_c = q_n;
+        y_c = y_n;
+        act_c = act_n;
+        a_c = pt_n == t ? a_last : a_pre;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);  // the producer may refill it
+      if (++s == S) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      const int j = j0 + 32 * u;
       if (j < d) w[j] = wr[u];
     }
   }
@@ -825,6 +1058,74 @@ static int dense_stream_per_lane(const int* idx, int m, int shards,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef B2_STREAM
+}
+
+template <int K, int W>
+static int dense_split_launch(const int* idx, int m, int shards,
+                              long long n_loc, const float* X, long long n_x,
+                              int d, float* alpha, const float* q,
+                              const float* act, const float* y, float* w,
+                              const DcdLoss& L, int warps, int T, int S,
+                              int smem_bytes, int tasks, long long idx_ts,
+                              long long row_ts, long long act_ts,
+                              cudaStream_t st) {
+  static int smem_set = 0;  // the limit raised so far (this process)
+  if (smem_bytes > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dcd_dense_split_kernel<K, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem_bytes;
+  }
+  dcd_dense_split_kernel<K, W>
+      <<<dim3(shards, tasks), 32 * (warps + 1), smem_bytes, st>>>(
+          idx, m, n_loc, X, n_x, d, alpha, q, act, y, w, L, idx_ts, row_ts,
+          act_ts, T, S, warps);
+  return (int)cudaGetLastError();
+}
+
+// B2 and B3 over rows of more than 256 floats.  idx null is B3's in-order
+// epoch over rows 0..m-1: one CTA, no labels, no mask.
+extern "C" int dcd_block_split_launch(
+    const int* idx, int m, int shards, long long n_loc, const float* X,
+    long long n_x, int d, float* alpha, const float* q, const float* act,
+    const float* y, float* w, int kind, float C, float inv_two_c, float eps_c,
+    int newton_steps, int per_lane, int warps, int tile_rows, int stages,
+    int smem_bytes, int tasks, long long idx_ts, long long row_ts,
+    long long act_ts, void* stream) {
+  // the bytes the kernel carves (repro_torch/dist/mesh.py:
+  // dcd_dense_split_bytes)
+  const long long S = stages, T = tile_rows;
+  if (m < 1 || d < 1 || warps < 1 || warps > SPLIT_MAX_WARPS ||
+      d > 32LL * per_lane * warps || T < 1 || T > 32 || S < 2 ||
+      S > RING_MAX_STAGES || ((S * T) & (S * T - 1)) != 0 ||
+      smem_bytes < dense_split_bytes(tile_rows, stages, d, warps) ||
+      shards < 1 || shards > 65535 || tasks < 1 || tasks > 65535 ||
+      (!idx && (shards > 1 || tasks > 1 || act || y)))
+    return (int)cudaErrorInvalidValue;
+  const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
+  cudaStream_t st = (cudaStream_t)stream;
+#define B2_SPLIT(K, W)                                                      \
+  return dense_split_launch<K, W>(idx, m, shards, n_loc, X, n_x, d, alpha,  \
+                                  q, act, y, w, L, warps, tile_rows, stages, \
+                                  smem_bytes, tasks, idx_ts, row_ts, act_ts, \
+                                  st)
+#define B2_SPLIT_LOSS(K)      \
+  switch (per_lane) {         \
+    case 8: B2_SPLIT(K, 8);   \
+    case 16: B2_SPLIT(K, 16); \
+    default: break;           \
+  }                           \
+  break
+  switch (kind) {  // the loss is a template: no dispatch on the chain
+    case DCD_HINGE: B2_SPLIT_LOSS(DCD_HINGE);
+    case DCD_SQUARED_HINGE: B2_SPLIT_LOSS(DCD_SQUARED_HINGE);
+    case DCD_LOGISTIC: B2_SPLIT_LOSS(DCD_LOGISTIC);
+    default: break;
+  }
+#undef B2_SPLIT_LOSS
+#undef B2_SPLIT
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dcd_block_stream_launch(

@@ -133,9 +133,11 @@
 // dist/mesh.py: GRAM_SHARED_MAX_IDS) take the "rows" layout: one column
 // class; B4's bucket pass as above (its rows stepping over a grid of at most
 // 65,535 in y), then dcd_feature_gram_rows_kernel, G in tiles of 64 columns
-// straight to device memory; B5 as dcd_feature_recursion_rows_kernel (one
-// CTA a pair, δ̃ to device memory) and dcd_feature_scatter_rows_kernel.
-// Below it every launch keeps the layout above and its bits.
+// straight to device memory; B5 as dcd_feature_recursion_panel_kernel (a
+// cluster of CTAs a pair, a blocked recursion in panels of 32 steps, δ̃
+// to device memory; the note before it) and
+// dcd_feature_scatter_rows_kernel.  Below it every launch keeps the layout
+// above and its bits.
 //
 // Both build with --fmad=false, as B1–B3, so δ̃·v and the adds round as
 // the plain version's do.
@@ -968,81 +970,471 @@ __global__ void dcd_feature_update_kernel(
   if (r == 0 && j == 0) b5_alpha_out(S, B, alpha_out);
 }
 
-// B5's rows layout (B > 1,024 ids), the recursion: one CTA a (task, data
-// shard) pair z runs the block's B steps, the shared layout's right-looking
-// recursion spread over the CTA instead of one warp's registers.  acc[u] =
-// Σ_{s<t} δ̃_s·G[s, u] lives in shared memory (acc_g null) or, past what
-// fits, in device memory; thread 0 takes each step's δ — its α read from
-// and written back to the output α, so a repeated id reads its running
-// value — and every thread then adds δ̃_t·G[t, u] to its columns u > t.
-// G's row t + 1 is prefetched into L2 a step ahead and thread 0 loads the
-// next step's scalars behind its write of α.  δ̃ goes to dtil_g for the
-// scatter.  What bounds it: the chain of B steps, two barriers each.
-__global__ void dcd_feature_recursion_rows_kernel(
-    const int* __restrict__ idx, int B, long long n_loc,
-    float* __restrict__ alpha_out, const float* __restrict__ q,
-    const float* __restrict__ act, const float* __restrict__ y,
-    const float* __restrict__ base, const float* __restrict__ gram,
-    float* __restrict__ acc_g, float* __restrict__ dtil_g, DcdLoss L,
-    int data, long long idx_ts, long long row_ts, long long act_ts) {
-  extern __shared__ __align__(16) float acc_s[];
-  __shared__ float s_dt;
-  const int z = blockIdx.x, sd = z % data;
+// B5's rows layout (B > 1,024 ids), the recursion: a blocked (panel)
+// recursion on a thread-block cluster of NC CTAs a (task, data shard)
+// pair z.  acc[u] = Σ_{s<u} δ̃_s·G[s, u] is what step u needs besides
+// base_u; the B steps are cut into panels of 32, panel k the steps t0 =
+// 32k … t0 + 31, and G's columns into tiles of TC = 32·NW·B5R_CPL, tile
+// x being rank x mod NC's (its accumulators in that CTA's shared memory).
+//   - Warp 0 of rank 0, the serial warp, lane l step t0 + l (alone on its
+//     SM sub-partition: warps 4, 8, … idle), holds its step's id, label,
+//     q, mask, base and α (gathered a panel ahead, ids two ahead), and
+//     acc of its column, and runs the panel's 32 steps with shuffles
+//     only: at step s every lane takes δ (lane s from its own scalars,
+//     the others of a benign point, so no lane's division takes its slow
+//     path), the step's δ̃ and new α go to every lane (two shuffles), and
+//     each lane adds δ̃_s·G[t0 + s, t0 + l] to its acc.  A repeated id
+//     takes the running α: within the panel from masks of
+//     __match_any_sync, for the next panel's α (loaded before this
+//     panel's stores) from a mask of the ids it shares with this one.
+//     The panel's block of G (its rows, the columns of this panel and the
+//     next) comes by bulk copies of each row's 16-byte window into a ring
+//     of three blocks, issued two panels ahead.  After the panel, warp 0
+//     stores δ̃ (to dtil_g for the scatter) and α (the last occurrence in
+//     the panel), writes the panel's δ̃ into every CTA's ring of panels
+//     through distributed shared memory and arrives on each CTA's
+//     "ready" mbarrier (once every CTA's workers have released the panel
+//     that held the slot before), then adds the panel's δ̃ to the next
+//     panel's acc (its block's second half), once that group's owner has
+//     sent its columns as of panel k − 1.
+//   - In every CTA, the NW workers (warps 2, 3, 5, 6, 7, 9, …) apply panel
+//     k's δ̃ to the CTA's columns of panel k + 2 onward, row by row
+//     (acc[u] += δ̃_s·G[t0 + s, u], s in order); worker w owns the
+//     32-column groups c ≡ w mod NW of the CTA's tiles, so a column is
+//     always added to by one warp, panel after panel, and each lane takes
+//     B5R_CPL columns of a tile.  The owner of group k + 2 sends its 32
+//     columns to rank 0 (distributed shared memory and a remote
+//     mbarrier) as soon as it is done: the look-ahead, one panel of slack
+//     for the round trip.
+//   - In every CTA, warp 1, the producer, streams the CTA's tiles of panel
+//     k's rows of G, columns 32(k + 2) onward, through a ring of S
+//     stages: a bulk copy of each row's 16-byte window (row_window), G
+//     being independent of δ.  One SM's copy engine takes a few tens of
+//     ns a request whatever its size, so the rows go in 2 KB copies
+//     (B5R_CPL columns a lane), and the cluster splits G's bytes over NC
+//     SMs (one SM's 132 KB ring streamed 30 GB/s).
+// So nothing on the serial chain reads device memory; its steps are δ,
+// two shuffles, a multiply-add and a few selects.  Every column gets its
+// adds in step order, ((0 + δ̃_0·G[0, u]) + δ̃_1·G[1, u]) + …, the order
+// of the one-step-at-a-time recursion, so the δ's keep its bits.  acc
+// lives in shared memory (acc_g null) or, past what fits, device memory.
+// What bounds it: the serial chain of B steps and the cluster's round
+// trips a panel, with the trailing update's B²/2 multiply-adds and G's
+// B²/2 words (32 MB at the shim's 4,096 ids) streaming beside it.
+#define B5R_PANEL 32
+#define B5R_LOOK 64     // the serial block's columns: this panel's and the next's
+#define B5R_BLOCKS 3    // the serial warp's ring of blocks
+#define B5R_SIGNALS 8   // δ̃ panels and look-ahead barriers in flight
+#define B5R_MAX_WARPS 12
+// The CTA's warps: the serial warp 0 alone on its SM sub-partition (warp
+// w issues on sub-partition w mod 4): warps 4, 8, … idle, warp 1 the
+// producer, the rest the workers.  b5r_workers(W) of W warps work.
+__host__ __device__ inline int b5r_workers(int warps) {
+  return warps - 2 - (warps - 1) / 4;
+}
+#define B5R_CPL 2       // a worker lane's columns a tile (2 KB row copies)
+
+// Words of one ring stage (32 rows of a tile of `tc` columns in windows,
+// then each row's window offset), and of one serial block.
+__host__ __device__ inline int b5r_stage_words(int tc) {
+  return B5R_PANEL * row_slot(tc) + B5R_PANEL;
+}
+__host__ __device__ inline int b5r_block_words() {
+  return B5R_PANEL * row_slot(B5R_LOOK) + B5R_PANEL;
+}
+
+// Floats of a CTA's accumulators: its share of the tiles of TC columns
+// (tile x is CTA x mod NC's).
+__host__ __device__ inline long long b5r_acc_words(int B, int TC, int NC) {
+  const long long tiles = (B + TC - 1) / TC;
+  return (tiles + NC - 1) / NC * TC;
+}
+
+// The rows recursion's shared memory, a CTA of the cluster: the mbarriers
+// (the ring's full and empty, the blocks' full, and a δ̃ panel's ready,
+// look-ahead and release in flight), the ring, the serial warp's blocks,
+// the δ̃ panels, the look-ahead columns, and its accumulators (when
+// shared).
+__host__ __device__ inline long long b5r_bytes(int B, int S, int NW, int NC,
+                                               bool acc_shared) {
+  const long long bars = 8LL * (2 * S + B5R_BLOCKS + 3 * B5R_SIGNALS);
+  const int TC = 32 * NW * B5R_CPL;
+  return (bars + 15) / 16 * 16 + 4LL * S * b5r_stage_words(TC) +
+         4LL * B5R_BLOCKS * b5r_block_words() +
+         8LL * B5R_SIGNALS * B5R_PANEL +
+         (acc_shared ? 4LL * b5r_acc_words(B, TC, NC) : 0);
+}
+
+// Thread-block clusters: this CTA's rank, a shared::cluster address of
+// `p` in CTA `rank`, a store and an mbarrier arrival there (release at
+// cluster scope), a wait on a local mbarrier that remote threads arrive
+// on (acquire at cluster scope), and the cluster's barrier.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_addr(const void* p,
+                                                 unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar,
+                                                  unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// Pair z's recursion on the NC CTAs of cluster z (rank 0 runs the serial
+// warp; every rank streams and applies its tiles of G: the note above).
+template <int K>
+__global__ void __launch_bounds__(32 * B5R_MAX_WARPS)
+    dcd_feature_recursion_panel_kernel(
+        const int* __restrict__ idx, int B, long long n_loc,
+        float* __restrict__ alpha_out, const float* __restrict__ q,
+        const float* __restrict__ act, const float* __restrict__ y,
+        const float* __restrict__ base, const float* __restrict__ gram,
+        float* __restrict__ acc_g, float* __restrict__ dtil_g, DcdLoss L,
+        int data, long long idx_ts, long long row_ts, long long act_ts,
+        int S, int NW, int NC) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* empty = full + S;
+  unsigned long long* bfull = empty + S;
+  unsigned long long* dready = bfull + B5R_BLOCKS;
+  unsigned long long* ready = dready + B5R_SIGNALS;   // rank 0's
+  unsigned long long* dempty = ready + B5R_SIGNALS;   // rank 0's
+  const long long bars = 8LL * (2 * S + B5R_BLOCKS + 3 * B5R_SIGNALS);
+  const int TC = 32 * NW * B5R_CPL, STW = b5r_stage_words(TC);
+  const int slot = row_slot(TC);
+  float* ring = reinterpret_cast<float*>(smem + (bars + 15) / 16 * 16);
+  float* blocks = ring + (long long)S * STW;
+  float* dring = blocks + B5R_BLOCKS * b5r_block_words();
+  float* look = dring + B5R_SIGNALS * B5R_PANEL;  // rank 0's
+  float* acc_s = look + B5R_SIGNALS * B5R_PANEL;
+  const unsigned rank = cluster_rank();
+  const int z = blockIdx.x / NC, sd = z % data;
   const long long task = z / data;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
   idx += task * idx_ts + (long long)sd * B;
   base += (long long)z * B;
   gram += (long long)z * B * B;
+  const float* g_end = gram + (long long)B * B;
   alpha_out += task * row_ts;
   if (y) y += task * row_ts;
   if (act) act += task * act_ts;
-  float* acc = acc_g ? acc_g + (long long)z * B : acc_s;
   float* dtil = dtil_g + (long long)z * B;
   const long long g0 = sd * n_loc;
-  for (int u = tid; u < B; u += nt) acc[u] = 0.0f;
-  long long i = 0;
-  float yi = 1.0f, qi = 1.0f, ai = 1.0f, bt = 0.0f, a = 0.0f;
+  const int nP = (B + B5R_PANEL - 1) / B5R_PANEL;
+  const int tiles = (B + TC - 1) / TC;
+  // column u of this CTA's tile x: acc_s[(x / NC)·TC + u − x·TC], or the
+  // pair's row of acc_g
+  auto acc_of = [&](int x, int u) -> float* {
+    return acc_g ? acc_g + (long long)z * B + u
+                 : acc_s + (x / NC) * TC + (u - x * TC);
+  };
+  for (int x = rank; x < tiles; x += NC)
+    for (int u = x * TC + tid; u < min((x + 1) * TC, B); u += nt)
+      *acc_of(x, u) = 0.0f;
   if (tid == 0) {
-    i = g0 + idx[0];
-    yi = y ? y[i] : 1.0f;
-    qi = q[i];
-    ai = act ? act[i] : 1.0f;
-    bt = base[0];
-    a = alpha_out[i];
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 64);        // the producer's lanes, twice each
+      mbar_init(empty + s, 32 * NW);  // every worker lane
+    }
+    for (int b = 0; b < B5R_BLOCKS; ++b) mbar_init(bfull + b, 64);
+    for (int b = 0; b < B5R_SIGNALS; ++b) {
+      mbar_init(dready + b, 32);       // the serial warp's lanes
+      mbar_init(ready + b, 32);        // the lanes of one worker warp
+      mbar_init(dempty + b, NC * NW);  // every rank's worker warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  for (int t = 0; t < B; ++t) {
-    const float* grow = gram + (long long)t * B;
-    if (t + 1 < B)
-      for (int u = 32 * tid; u < B; u += 32 * nt)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(grow + B + u));
-    if (tid == 0) {
-      float dl = dcd_delta(L, a, yi * (bt + acc[t]), qi);
-      if (!(ai > 0.0f)) dl = 0.0f;
-      alpha_out[i] = a + dl;
-      s_dt = dl * yi;
-      dtil[t] = dl * yi;
-      if (t + 1 < B) {  // the next step's scalars, behind the write of α
-        i = g0 + idx[t + 1];
-        yi = y ? y[i] : 1.0f;
-        qi = q[i];
-        ai = act ? act[i] : 1.0f;
-        bt = base[t + 1];
-        a = alpha_out[i];
+  cluster_sync();  // every CTA's barriers before any remote arrival
+  // the panels whose δ̃ the workers apply (to columns past the next panel)
+  auto worked = [&](int k) { return B5R_PANEL * (k + 2) < B; };
+  // this CTA's first tile of panel k's trailing columns
+  auto first_tile = [&](int k) {
+    const int x0 = (k + 2) / (NW * B5R_CPL);
+    return x0 + ((int)rank - x0 % NC + NC) % NC;
+  };
+
+  if (warp == 0 && rank == 0) {
+    // ---- the serial warp
+    const DcdLoss Lk{K, L.C, L.inv_two_c, L.eps_c, L.newton_steps};
+    const int BW = b5r_block_words(), bslot = row_slot(B5R_LOOK);
+    // panel k's block: its rows, columns [t0, t0 + 64) ∩ [0, B)
+    auto issue_block = [&](int k) {
+      const int t0 = B5R_PANEL * k, rows = min(B5R_PANEL, B - t0);
+      float* blk = blocks + (k % B5R_BLOCKS) * BW;
+      unsigned long long* bar = bfull + k % B5R_BLOCKS;
+      if (lane < rows) {
+        const float* src = gram + (long long)(t0 + lane) * B + t0;
+        reinterpret_cast<int*>(blk + B5R_PANEL * bslot)[lane] = row_off(src);
+        row_window(blk + lane * bslot, src, min(B5R_LOOK, B - t0), gram,
+                   g_end, bar);
+      } else {
+        mbar_arrive(bar);
+      }
+      mbar_arrive_cp_async(bar);
+    };
+    // the id of step 32k + lane (-1 past B), its shard's offset g0 added
+    // where the id is used (a warp that adds it at once waits for the load)
+    auto step_id = [&](int k) {
+      const int t = B5R_PANEL * k + lane;
+      return t < B ? idx[t] : -1;
+    };
+    issue_block(0);
+    if (nP > 1) issue_block(1);
+    // this panel's scalars (lane l: step t0 + l), and the next's
+    int i_c = step_id(0), i_n = nP > 1 ? step_id(1) : -1;
+    float y_c = 1.0f, q_c = 1.0f, act_c = 0.0f, b_c = 0.0f, a_c = 0.0f;
+    if (i_c >= 0) {
+      y_c = y ? y[g0 + i_c] : 1.0f;
+      q_c = q[g0 + i_c];
+      act_c = act ? act[g0 + i_c] : 1.0f;
+      b_c = base[lane];
+      a_c = alpha_out[g0 + i_c];
+    }
+    float acc_c = 0.0f;
+    for (int k = 0; k < nP; ++k) {
+      const int t0 = B5R_PANEL * k, rows = min(B5R_PANEL, B - t0);
+      if (k + 2 < nP) issue_block(k + 2);
+      // the next panel's scalars; its α as the last panel's stores left
+      // it, patched below with this panel's steps
+      float y_n = 1.0f, q_n = 1.0f, act_n = 0.0f, b_n = 0.0f, a_n = 0.0f;
+      if (i_n >= 0) {
+        y_n = y ? y[g0 + i_n] : 1.0f;
+        q_n = q[g0 + i_n];
+        act_n = act ? act[g0 + i_n] : 1.0f;
+        b_n = base[t0 + B5R_PANEL + lane];
+        a_n = alpha_out[g0 + i_n];
+      }
+      const int i_nn = k + 2 < nP ? step_id(k + 2) : -1;
+      const unsigned valid = rows == 32 ? 0xffffffffu : (1u << rows) - 1u;
+      const unsigned same = __match_any_sync(0xffffffffu, i_c) & valid;
+      const unsigned rep = same & ((1u << lane) - 1u);  // earlier steps
+      const bool last = !(same & ~(((1u << lane) << 1) - 1u));
+      unsigned nxt = 0;  // this panel's steps with the id of my next one
+      for (int s = 0; s < rows; ++s)
+        nxt |= (unsigned)(__shfl_sync(0xffffffffu, i_c, s) == i_n) << s;
+      if (i_n < 0) nxt = 0;
+      mbar_wait(bfull + k % B5R_BLOCKS, (k / B5R_BLOCKS) & 1);
+      const float* blk = blocks + (k % B5R_BLOCKS) * BW;
+      const int* boff = reinterpret_cast<const int*>(blk + B5R_PANEL * bslot);
+      // this lane's column of the panel's block, into registers before the
+      // steps: no load on the chain
+      float g[B5R_PANEL];
+#pragma unroll
+      for (int s = 0; s < B5R_PANEL; ++s)
+        g[s] = s < rows ? blk[s * bslot + boff[s] + lane] : 0.0f;
+      float own_dt = 0.0f, own_a = a_c, a_np = 0.0f;
+      bool patched = false;  // a_np, not the loaded a_n, is the next α
+#pragma unroll
+      for (int s = 0; s < B5R_PANEL; ++s) {
+        if (s < rows) {
+          // lane s's δ is the step's; the other lanes take δ of a benign
+          // point instead of their own partial sums, whose divisions would
+          // now and then take the slow path and hold up the warp
+          const bool mine = lane == s;
+          float dl = dcd_delta(Lk, mine ? a_c : 0.5f * Lk.C,
+                               mine ? y_c * (b_c + acc_c) : 0.0f,
+                               mine ? q_c : 1.0f);
+          if (!(act_c > 0.0f)) dl = 0.0f;
+          const float an = a_c + dl, dt = dl * y_c;
+          const float dt_s = __shfl_sync(0xffffffffu, dt, s);
+          const float as = __shfl_sync(0xffffffffu, an, s);
+          if (lane == s) {
+            own_dt = dt;
+            own_a = an;
+          }
+          acc_c = acc_c + dt_s * g[s];
+          if ((rep >> s) & 1u) a_c = as;
+          if ((nxt >> s) & 1u) {
+            a_np = as;
+            patched = true;
+          }
+        }
+      }
+      if (patched) a_n = a_np;
+      // the panel's δ̃ and α out; its δ̃ to every CTA's workers, once all
+      // of them have released the panel that held its slot before
+      const int ks = k % B5R_SIGNALS;
+      if (lane < rows) {
+        dtil[t0 + lane] = own_dt;
+        if (last) alpha_out[g0 + i_c] = own_a;
+      }
+      if (k >= B5R_SIGNALS && worked(k - B5R_SIGNALS))
+        mbar_wait_cluster(dempty + ks, ((k / B5R_SIGNALS) - 1) & 1);
+      float* dts = dring + ks * B5R_PANEL;
+      dts[lane] = own_dt;
+      if (worked(k))
+        for (int r = 0; r < NC; ++r) {
+          if (r > 0) st_cluster(cluster_addr(dts + lane, r), own_dt);
+          mbar_arrive_cluster(cluster_addr(dready + ks, r));
+        }
+      __syncwarp();  // the panel's stores before the next one's loads
+      // the look-ahead: the next panel's acc, the workers' adds through
+      // panel k − 1 (sent by the group's owner) then this panel's
+      if (k + 1 < nP) {
+        const int c1 = k + 1;
+        float an_acc = 0.0f;
+        if (c1 >= 2) {
+          const int cs = (c1 - 2) % B5R_SIGNALS;
+          mbar_wait_cluster(ready + cs, ((c1 - 2) / B5R_SIGNALS) & 1);
+          an_acc = look[cs * B5R_PANEL + lane];
+        }
+#pragma unroll 8
+        for (int s = 0; s < rows; ++s)
+          an_acc = an_acc + dts[s] * blk[s * bslot + boff[s] + 32 + lane];
+        acc_c = an_acc;
+      }
+      __syncwarp();
+      i_c = i_n;
+      y_c = y_n;
+      q_c = q_n;
+      act_c = act_n;
+      b_c = b_n;
+      a_c = a_n;
+      i_n = i_nn;
+    }
+  } else if (warp == 1) {
+    // ---- the producer: this CTA's tiles of panel k's rows, columns
+    // 32(k + 2) onward
+    for (int k = 0, s = 0, ph = 0; worked(k); ++k) {
+      const int c_lo = k + 2;
+      const int t0 = B5R_PANEL * k, rows = min(B5R_PANEL, B - t0);
+      for (int x = first_tile(k); x < tiles; x += NC) {
+        mbar_wait(empty + s, ph ^ 1);
+        const int cs = max(x * TC, B5R_PANEL * c_lo);
+        const int ce = min((x + 1) * TC, B);
+        float* st = ring + (long long)s * STW;
+        if (lane < rows) {
+          const float* src = gram + (long long)(t0 + lane) * B + cs;
+          reinterpret_cast<int*>(st + B5R_PANEL * slot)[lane] = row_off(src);
+          row_window(st + lane * slot, src, ce - cs, gram, g_end, full + s);
+        } else {
+          mbar_arrive(full + s);
+        }
+        mbar_arrive_cp_async(full + s);
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
       }
     }
-    __syncthreads();
-    const float dt = s_dt;
-    if (dt != 0.0f)
-      for (int u = t + 1 + tid; u < B; u += nt) acc[u] = acc[u] + dt * grow[u];
-    __syncthreads();
+    cp_async_wait_all();  // no copy of this thread outlives it
+  } else if (warp > 1 && warp % 4 != 0) {
+    // ---- worker wk: column groups c ≡ wk mod NW of this CTA's tiles,
+    // panel after panel
+    const int wk = warp - 2 - warp / 4;
+    for (int k = 0, s = 0, ph = 0; worked(k); ++k) {
+      const int c_lo = k + 2;
+      const int rows = min(B5R_PANEL, B - B5R_PANEL * k);
+      mbar_wait_cluster(dready + k % B5R_SIGNALS, (k / B5R_SIGNALS) & 1);
+      const float* dt = dring + (k % B5R_SIGNALS) * B5R_PANEL;
+      for (int x = first_tile(k); x < tiles; x += NC) {
+        mbar_wait(full + s, ph);
+        const int cs = max(x * TC, B5R_PANEL * c_lo);
+        const float* st = ring + (long long)s * STW;
+        const int* soff = reinterpret_cast<const int*>(st + B5R_PANEL * slot);
+        // each row's start in the stage and δ̃, once a tile
+        int ro[B5R_PANEL];
+        float dv[B5R_PANEL];
+#pragma unroll
+        for (int r = 0; r < B5R_PANEL; ++r) {
+          ro[r] = r * slot + soff[r];
+          dv[r] = r < rows ? dt[r] : 0.0f;
+        }
+        // the tile's groups x·NW·CPL + wk + j·NW, j < CPL: a group's
+        // owner is the same warp of the same CTA in every panel
+        bool signal = false;
+#pragma unroll
+        for (int j = 0; j < B5R_CPL; ++j) {
+          const int cg = (x * B5R_CPL + j) * NW + wk;
+          const int u = B5R_PANEL * cg + lane;
+          if (cg >= c_lo && u < B) {
+            // the panel's 32 words of this column into registers first,
+            // so the loads overlap; then the adds in row order
+            const float* gu = st + (u - cs);
+            float g[B5R_PANEL];
+#pragma unroll
+            for (int r = 0; r < B5R_PANEL; ++r)
+              g[r] = r < rows ? gu[ro[r]] : 0.0f;
+            float* au = acc_of(x, u);
+            float a = *au;
+#pragma unroll
+            for (int r = 0; r < B5R_PANEL; ++r)
+              if (r < rows) a = a + dv[r] * g[r];
+            *au = a;
+            if (cg == c_lo) {  // the serial warp's next look-ahead
+              st_cluster(cluster_addr(look + ((c_lo - 2) % B5R_SIGNALS) *
+                                                 B5R_PANEL + lane, 0), a);
+              signal = true;
+            }
+          }
+        }
+        if (__any_sync(0xffffffffu, signal))
+          mbar_arrive_cluster(
+              cluster_addr(ready + (c_lo - 2) % B5R_SIGNALS, 0));
+        mbar_arrive(empty + s);
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      __syncwarp();  // the warp's reads of the panel's δ̃ are done
+      if (lane == 0)
+        mbar_arrive_cluster(cluster_addr(dempty + k % B5R_SIGNALS, 0));
+    }
   }
+  cluster_sync();  // no CTA leaves while another may write to it
 }
 
 // B5's rows layout, the scatter: CTA (r, js), one warp, adds δ̃_t·v of its
 // class-r entries of each row t into its triple's replica of the slices,
 // rows in order (a __syncwarp after each row that adds, as the shared
-// layout's); the rows' δ̃ and bounds load 32 rows at a time.
+// layout's).  Rows go B5S_ROWS at a time: lane c loads row t0 + c's δ̃
+// and bounds (a group ahead), then every lane loads its entries of each
+// of the rows (the first 32·B5S_ENTRIES of a row: a zipf-heavy shard's
+// rows run to 60 and more) into registers before any add, so the group's
+// loads overlap instead of waiting a row at a time; a longer row's rest
+// loads as it is added.
+#define B5S_ROWS 16
+#define B5S_ENTRIES 2
 __global__ void dcd_feature_scatter_rows_kernel(
     int B, int m, int k, int R, const int* __restrict__ bk_lc,
     const float* __restrict__ bk_v, const int* __restrict__ roff,
@@ -1052,23 +1444,53 @@ __global__ void dcd_feature_scatter_rows_kernel(
   const long long row0 = (long long)js * B;
   const float* dtil = dtil_g + (long long)z * B;
   float* wj = w + (long long)js * d1;
-  for (int t0 = 0; t0 < B; t0 += 32) {
+  // lane c: row t0 + c's δ̃ and segment bounds, a group ahead
+  float s_n = 0.0f;
+  int a_n = 0, b_n = 0;
+  auto bounds = [&](int t0) {
     const int tl = t0 + lane;
-    float s_l = 0.0f;
-    int a_l = 0, b_l = 0;
-    if (tl < B) {
-      s_l = dtil[tl];
-      a_l = roff[(row0 + tl) * (R + 1) + r];
-      b_l = roff[(row0 + tl) * (R + 1) + r + 1];
+    s_n = 0.0f;
+    a_n = b_n = 0;
+    if (lane < B5S_ROWS && tl < B) {
+      s_n = dtil[tl];
+      a_n = roff[(row0 + tl) * (R + 1) + r];
+      b_n = roff[(row0 + tl) * (R + 1) + r + 1];
     }
-    const int nrow = min(32, B - t0);
-    for (int c = 0; c < nrow; ++c) {
+  };
+  bounds(0);
+  for (int t0 = 0; t0 < B; t0 += B5S_ROWS) {
+    const float s_l = s_n;
+    const int a_l = a_n, b_l = b_n;
+    const int nrow = min(B5S_ROWS, B - t0);
+    int lc[B5S_ROWS][B5S_ENTRIES];
+    float v[B5S_ROWS][B5S_ENTRIES];
+#pragma unroll
+    for (int c = 0; c < B5S_ROWS; ++c) {
       const float sc = __shfl_sync(0xffffffffu, s_l, c);
       const int a = __shfl_sync(0xffffffffu, a_l, c);
       const int b = __shfl_sync(0xffffffffu, b_l, c);
-      if (sc != 0.0f && a < b) {
+#pragma unroll
+      for (int j = 0; j < B5S_ENTRIES; ++j) {
+        const int e = a + lane + 32 * j;
+        const long long src = (row0 + t0 + c) * k + e;
+        const bool live = c < nrow && sc != 0.0f && e < b;
+        lc[c][j] = live ? bk_lc[src] : 0;
+        v[c][j] = live ? bk_v[src] : 0.0f;
+      }
+    }
+    bounds(t0 + B5S_ROWS);
+#pragma unroll
+    for (int c = 0; c < B5S_ROWS; ++c) {
+      const float sc = __shfl_sync(0xffffffffu, s_l, c);
+      const int a = __shfl_sync(0xffffffffu, a_l, c);
+      const int b = __shfl_sync(0xffffffffu, b_l, c);
+      if (c < nrow && sc != 0.0f && a < b) {
+#pragma unroll
+        for (int j = 0; j < B5S_ENTRIES; ++j)
+          if (a + lane + 32 * j < b)
+            atomicAdd(wj + (long long)lc[c][j] * R + r, sc * v[c][j]);
         const long long rt = (row0 + t0 + c) * k;
-        for (int e = a + lane; e < b; e += 32)
+        for (int e = a + 32 * B5S_ENTRIES + lane; e < b; e += 32)
           atomicAdd(wj + (long long)bk_lc[rt + e] * R + r, sc * bk_v[rt + e]);
         __syncwarp();
       }
@@ -1185,6 +1607,40 @@ static int update_launch(const int* idx, int B, int data, long long n_loc,
   return (int)cudaGetLastError();
 }
 
+// B5's rows-layout recursion, a cluster of NC CTAs a (task, data shard)
+// pair.
+template <int K>
+static cudaError_t panel_launch(const int* idx, int B, long long n_loc,
+                                float* alpha_out, const float* q,
+                                const float* act, const float* y,
+                                const float* base, const float* gram,
+                                float* acc_g, float* dtil_g, const DcdLoss& L,
+                                int data, long long idx_ts, long long row_ts,
+                                long long act_ts, int S, int NW, int NC,
+                                int tasks, int threads, int smem,
+                                cudaStream_t st) {
+  static int set = 0;
+  const cudaError_t err =
+      smem_limit(dcd_feature_recursion_panel_kernel<K>, smem, &set);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tasks * data * NC);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, dcd_feature_recursion_panel_kernel<K>, idx,
+                            B, n_loc, alpha_out, q, act, y, base, gram, acc_g,
+                            dtil_g, L, data, idx_ts, row_ts, act_ts, S, NW,
+                            NC);
+}
+
 // B5.  With `bucket`, B4's bucket pass (no base) first fills bk_lc, bk_v
 // and roff for this block.
 extern "C" int dcd_feature_update_launch(
@@ -1197,12 +1653,15 @@ extern "C" int dcd_feature_update_launch(
     int threads, int smem, int bucket, int bucket_threads, int bucket_smem,
     int* bk_lc, float* bk_v, int* roff, int tasks, long long idx_ts,
     long long row_ts, long long act_ts, int rows, float* acc_g,
-    float* dtil_g, void* stream) {
+    float* dtil_g, int stages, int cluster, void* stream) {
   // the bytes each kernel carves (repro_torch/dist/mesh.py:
-  // feature_update_bytes, gram_plan; in the rows layout the recursion's
-  // B accumulators unless they are in device memory)
+  // feature_update_bytes, gram_plan; in the rows layout
+  // feature_rows_bytes: its ring of `stages` stages for the workers of
+  // threads / 32 warps, and the B accumulators unless they are in device
+  // memory)
+  const int workers = b5r_workers(threads / 32);
   const long long need =
-      rows ? (acc_g ? 0 : 4LL * B)
+      rows ? b5r_bytes(B, stages, workers, cluster, !acc_g)
            : 4LL * (12LL * B + 1) + (stage_gram ? 4LL * B * B : 0) +
                  8LL * chunk;
   const long long bucket_need = 4LL * (bucket_threads / 32) * R + 8LL * k;
@@ -1210,7 +1669,10 @@ extern "C" int dcd_feature_update_launch(
                                  per_lane <= 32 &&
                                  (per_lane & (per_lane - 1)) == 0 &&
                                  32LL * per_lane >= B && chunk >= 1);
-  if (B < 1 || R < 1 || !lanes_ok || (rows && !dtil_g) ||
+  if (B < 1 || R < 1 || !lanes_ok ||
+      (rows && (!dtil_g || workers < 1 || threads > 32 * B5R_MAX_WARPS ||
+                cluster < 1 || cluster > 8 ||
+                stages < 2 || stages > B5R_SIGNALS - 2)) ||
       threads < (rows ? 32 : 64) || threads % 32 != 0 || threads > 1024 ||
       smem < need || data < 1 || tasks < 1 ||
       (long long)tasks * data * m > 65535 ||
@@ -1232,14 +1694,29 @@ extern "C" int dcd_feature_update_launch(
   }
   const DcdLoss L{kind, C, inv_two_c, eps_c, newton_steps};
   if (rows) {
-    static int rec_set = 0;
-    cudaError_t err =
-        smem_limit(dcd_feature_recursion_rows_kernel, smem, &rec_set);
-    if (err != cudaSuccess) return (int)err;
-    dcd_feature_recursion_rows_kernel<<<tasks * data, threads, smem, st>>>(
-        idx, B, n_loc, alpha_out, q, act, y, base, gram, acc_g, dtil_g, L,
-        data, idx_ts, row_ts, act_ts);
-    err = cudaGetLastError();
+    cudaError_t err;
+    switch (kind) {  // the loss is a template: no dispatch on the chain
+      case DCD_HINGE:
+        err = panel_launch<DCD_HINGE>(idx, B, n_loc, alpha_out, q, act, y,
+                                      base, gram, acc_g, dtil_g, L, data,
+                                      idx_ts, row_ts, act_ts, stages,
+                                      workers, cluster, tasks, threads, smem,
+                                      st);
+        break;
+      case DCD_SQUARED_HINGE:
+        err = panel_launch<DCD_SQUARED_HINGE>(
+            idx, B, n_loc, alpha_out, q, act, y, base, gram, acc_g, dtil_g,
+            L, data, idx_ts, row_ts, act_ts, stages, workers, cluster, tasks,
+            threads, smem, st);
+        break;
+      case DCD_LOGISTIC:
+        err = panel_launch<DCD_LOGISTIC>(
+            idx, B, n_loc, alpha_out, q, act, y, base, gram, acc_g, dtil_g,
+            L, data, idx_ts, row_ts, act_ts, stages, workers, cluster, tasks,
+            threads, smem, st);
+        break;
+      default: return (int)cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess) return (int)err;
     dcd_feature_scatter_rows_kernel<<<dim3(R, tasks * data * m), 32, 0, st>>>(
         B, m, k, R, bk_lc, bk_v, roff, dtil_g, w, d1);

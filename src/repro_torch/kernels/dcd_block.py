@@ -9,17 +9,21 @@
 * B3, ``dcd_tile_epoch``, replaces ``_dcd_tile_kernel``: one in-order
   epoch over rows 0..n-1, no mask and no labels.
 
-B2 has three variants, picked by shape (``repro_torch.dist.mesh.
+B2 has four variants, picked by shape (``repro_torch.dist.mesh.
 dcd_dense_plan``): "staged", the block's rows in shared memory and w in
 the registers of one warp (covtype's 64 ids of 54 floats); "stream", B3's
 ring fed by the id list, rows of at most 256 floats gathered by id while
 one warp holds w in registers (a whole covtype epoch's order, CoCoA's
-rounds); and "wide", rows and w in device memory (wider rows, or asked
-for with ``wide=True``).
+rounds); "split", the same ring for rows of 256 < d ≤ 8,192 floats, w
+split over the registers of up to 16 consumer warps that sum their
+partial dots through shared memory behind one named barrier an update
+(the LM probe's 5,120-float features); and "wide", rows and w in device
+memory (wider rows, or asked for with ``wide=True``).
 B3 (``dcd_tile_plan``): "stream", the rows streamed in order through a
 ring of stages in shared memory by a producer warp while a consumer warp
 holds w in registers (rows of at most 256 floats, such as covtype's),
-and "wide", B2's wide kernel over rows 0..n-1.
+"split", B2's split kernel over rows 0..n-1 (rows of at most 8,192
+floats), and "wide", B2's wide kernel over rows 0..n-1.
 
 ``dcd_indexed_shards`` runs B2 over the sharded solver's round: p data
 shards, each its own block of ids against w, as one launch of p CTAs,
@@ -39,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.duals import kernel_params
-from repro_torch.dist.mesh import dcd_dense_plan, dcd_tile_plan
+from repro_torch.dist.mesh import DensePlan, dcd_dense_plan, dcd_tile_plan
 from repro_torch.kernels import build
 from repro_torch.kernels.build import F, I, L, P
 from repro_torch.kernels.dcd_ell import (
@@ -93,9 +97,11 @@ def _indexed_launch(plan, idx, m, n_loc, X, alpha, w, sq_norms, active, y,
     each, the staged kernel's view of w a row of ``w`` (at ``w_stride``)
     for every ``pod_shards`` consecutive shards.  The staged
     kernel writes the (task, shard) pairs' Δw slices into ``dw`` (or,
-    with one pair and no ``dw``, updates ``w`` in place); the stream and
-    wide kernels update ``w`` in place, a replica a pair.  ``strides`` are
-    the task strides of the ids, of α and y, of act and of w (words)."""
+    with one pair and no ``dw``, updates ``w`` in place); the stream,
+    split and wide kernels update ``w`` in place, a replica a pair.
+    ``strides`` are the task strides of the ids, of α and y, of act and
+    of w (words).  A split plan with ``idx`` None is B3's in-order epoch
+    over the ``m`` rows of X."""
     idx_ts, row_ts, act_ts, w_ts = strides
     args = [build.ptr(idx), m, plan.pods * plan.shards, n_loc, build.ptr(X),
             X.shape[1],
@@ -108,13 +114,15 @@ def _indexed_launch(plan, idx, m, n_loc, X, alpha, w, sq_norms, active, y,
         args += [w_stride, build.ptr(dw), *kernel_params(loss),
                  plan.per_lane, plan.threads, plan.smem_bytes, plan.tasks,
                  idx_ts, row_ts, act_ts, w_ts, pod_shards]
-    elif plan.variant == "stream":
-        fn = "dcd_block_stream_launch"
+    elif plan.variant in ("stream", "split"):
+        fn = f"dcd_block_{plan.variant}_launch"
         args.insert(5, X.shape[0])  # the rows the windows stay within
         types.insert(5, L)
-        types += [I, F, F, F, I, I, I, I, I, I, L, L, L, P]
-        args += [*kernel_params(loss), plan.per_lane, plan.tile_rows,
-                 plan.stages, plan.smem_bytes, plan.tasks, idx_ts, row_ts,
+        layout = [plan.per_lane, *([plan.warps] if plan.variant == "split"
+                                   else []),
+                  plan.tile_rows, plan.stages, plan.smem_bytes]
+        types += [I, F, F, F, I, *[I] * len(layout), I, L, L, L, P]
+        args += [*kernel_params(loss), *layout, plan.tasks, idx_ts, row_ts,
                  act_ts]
     else:
         fn = "dcd_block_indexed_launch"
@@ -188,8 +196,8 @@ def dcd_indexed_shards(X, alpha, w_eff, sq_norms, *, loss, idx, n_loc,
     one kernel of K × p CTAs (counted in ``dcd_indexed_shards.launches``,
     under its variant, and in ``dcd_indexed_shards.task_launches`` when
     K > 1): the staged kernel writes each pair's d-word Δw slice, the
-    stream and wide ones update a replica of w a pair (Δw = replica −
-    w_eff).  CPU
+    stream, split and wide ones update a replica of w a pair (Δw =
+    replica − w_eff).  CPU
     tensors run ``dcd_indexed_shards_plain``.  A ``w_eff`` of P views for
     P·p shards, (P, d) or (K, P, d), is the pod solver's grid, as
     ``dcd_ell.dcd_ell_shards`` takes it: Δw a shard (P·p, d); its
@@ -268,6 +276,12 @@ def tile_launch(plan, X, alpha, w, sq_norms, loss):
     ``w`` in place; counts nothing.  ``dcd_tile_epoch`` calls it with the
     plan for the shape; a measurement may pass another layout."""
     n, d = X.shape
+    if plan.variant == "split":  # B2's split kernel with no ids
+        _indexed_launch(DensePlan("split", plan.threads, plan.per_lane,
+                                  plan.smem_bytes, tile_rows=plan.tile_rows,
+                                  stages=plan.stages, warps=plan.warps),
+                        None, n, 0, X, alpha, w, sq_norms, None, None, loss)
+        return
     args = [n, build.ptr(X), d, build.ptr(alpha), build.ptr(sq_norms),
             build.ptr(w), *kernel_params(loss)]
     types = [I, P, I, P, P, P, I, F, F, F, I]
@@ -288,11 +302,11 @@ def tile_launch(plan, X, alpha, w, sq_norms, loss):
 
 dcd_indexed_epoch.launches = 0
 dcd_indexed_epoch.variant_launches = {"staged": 0, "stream": 0,
-                                      "wide": 0}
+                                      "split": 0, "wide": 0}
 dcd_indexed_shards.launches = 0
 dcd_indexed_shards.variant_launches = {"staged": 0, "stream": 0,
-                                       "wide": 0}
+                                       "split": 0, "wide": 0}
 dcd_indexed_shards.task_launches = 0
 dcd_indexed_shards.pod_launches = 0
 dcd_tile_epoch.launches = 0
-dcd_tile_epoch.variant_launches = {"stream": 0, "wide": 0}
+dcd_tile_epoch.variant_launches = {"stream": 0, "split": 0, "wide": 0}

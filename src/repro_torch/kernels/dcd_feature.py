@@ -27,10 +27,13 @@ the shards:
 
 A block past ``GRAM_SHARED_MAX_IDS`` = 1,024 ids (the shim's one block of
 B = n rows) takes both kernels' "rows" layout (``gram_plan``): one column
-class, G written in row tiles to device memory, B5's recursion on one CTA
-a (task, data shard) pair with its accumulators in shared memory (device
-memory past what fits) and δ̃ in device memory, then the scatter.  Below
-it every launch keeps its layout and its bits.
+class, G written in row tiles to device memory, B5's recursion in panels
+of 32 steps on a thread-block cluster of CTAs a (task, data shard) pair
+— a serial warp running each panel with shuffles, each CTA's worker
+warps applying its δ̃ to the CTA's columns ahead while its producer warp
+streams them through a ring — its accumulators in shared memory (device
+memory past what fits) and δ̃ in device memory, then the scatter.  Below it every launch keeps its layout
+and its bits.
 
 Both take a grid of p data shards: a (p, B) ``idx`` of shard-local ids
 (shard s's rows are [s·n_loc, (s+1)·n_loc)), a shared (m, d1) w or one
@@ -406,11 +409,11 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
     dtil = (torch.empty((K * p, b), dtype=torch.float32, device=w.device)
             if rows else None)
     acc = (torch.empty((K * p, b), dtype=torch.float32, device=w.device)
-           if rows and plan.smem_bytes == 0 else None)
+           if rows and not plan.acc_shared else None)
     launch = build.entry("dcd_feature", "dcd_feature_update_launch",
                          [P, I, I, L, P, P, I, I, I, P, P, P, P, P, P, I, P,
                           P, I, F, F, F, I, I, I, I, I, I, I, I, I, I, P, P,
-                          P, I, L, L, L, I, P, P, P])
+                          P, I, L, L, L, I, P, P, I, I, P])
     with torch.cuda.device(w.device):
         err = launch(build.ptr(idx), b, p, n_loc, build.ptr(cols),
                      build.ptr(vals), m, k, d1 - 1, build.ptr(alpha),
@@ -423,7 +426,7 @@ def dcd_feature_update(cols, vals, alpha, sq_norms, w, idx, base, gram, *,
                      build.ptr(workspace.lc), build.ptr(workspace.v),
                      build.ptr(workspace.roff), K, idx_ts, n, act_ts,
                      int(rows), build.ptr(acc), build.ptr(dtil),
-                     build.stream())
+                     plan.stages, plan.cluster, build.stream())
     build.check(err, "dcd_feature_update_launch")
     dcd_feature_update.launches += 1
     dcd_feature_update.rows_launches += int(rows)

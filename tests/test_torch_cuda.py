@@ -30,6 +30,7 @@ from repro_torch.kernels.dcd_block import (
 )
 from repro_torch.data.sparse import ell_column_split
 from repro_torch.dist.mesh import (
+    DENSE_SPLIT_MAX_D,
     DENSE_STAGED_MAX_D,
     GRAM_CHUNK,
     TILE_STREAM_ROWS,
@@ -348,8 +349,17 @@ def _dense_case(dev, n, d, seed=9):
 
 
 # d of the rows: covtype's 54, the largest d the staged variant takes, one
-# past it (wide)
-DENSE_DS = [54, DENSE_STAGED_MAX_D, DENSE_STAGED_MAX_D + 1]
+# past it (split), the largest the split variant takes, one past it (wide)
+DENSE_DS = [54, DENSE_STAGED_MAX_D, DENSE_STAGED_MAX_D + 1,
+            DENSE_SPLIT_MAX_D, DENSE_SPLIT_MAX_D + 1]
+
+
+def _dense_variant(d, wide, small):
+    """The variant B2 (``small``: staged) or B3 (stream) takes for rows
+    of d floats."""
+    if wide or d > DENSE_SPLIT_MAX_D:
+        return "wide"
+    return "split" if d > DENSE_STAGED_MAX_D else small
 
 
 @pytest.mark.cuda
@@ -364,8 +374,7 @@ def test_b2_variants_match_plain(loss, d, wide):
     X, alpha, w, active, y, idx = _dense_case(dev, 300, d)
     assert idx.shape[0] == 64 and idx[-5] == idx[-4]  # a repeated id
     variant = dcd_dense_plan(64, d, wide).variant
-    assert variant == ("wide" if wide or d > DENSE_STAGED_MAX_D
-                       else "staged")
+    assert variant == _dense_variant(d, wide, "staged")
     q = (X * X).sum(1)
     kw = dict(loss=td.make_loss(loss, 0.8), idx=idx, active=active, y=y)
     n0 = (dcd_indexed_epoch.launches,
@@ -400,7 +409,7 @@ B3_ROWS = {"one": (1, 0), "tile_less_one": (TILE_STREAM_ROWS - 1, 0),
            "tile": (TILE_STREAM_ROWS, 0),
            "ragged": (3 * TILE_STREAM_ROWS + 5, 0),
            "ragged_unaligned": (3 * TILE_STREAM_ROWS + 5, 1)}
-B3_DS = [1, 54, DENSE_STAGED_MAX_D, DENSE_STAGED_MAX_D + 1]
+B3_DS = [1, 54, DENSE_STAGED_MAX_D, DENSE_STAGED_MAX_D + 1, 1000, 5120]
 
 
 def _tile_case(dev, d, rows, first, seed=11):
@@ -423,8 +432,7 @@ def test_b3_variants_match_plain(loss, d, rows, wide):
     dev = _cuda()
     X, alpha, w, q = _tile_case(dev, d, *B3_ROWS[rows])
     variant = dcd_tile_plan(X.shape[0], d, wide).variant
-    assert variant == ("wide" if wide or d > DENSE_STAGED_MAX_D
-                       else "stream")
+    assert variant == _dense_variant(d, wide, "stream")
     if rows == "ragged_unaligned":
         assert q.data_ptr() % 16 != 0
     lf = td.make_loss(loss, 0.8)
@@ -486,7 +494,7 @@ def test_b2_stream_matches_plain(loss, d, masked):
     wa, ww = dcd_indexed_epoch(X, alpha, w, q, wide=True, **kw)
     assert dcd_indexed_epoch.variant_launches == {
         "staged": n0["staged"], "stream": n0["stream"] + 1,
-        "wide": n0["wide"] + 1}
+        "split": n0["split"], "wide": n0["wide"] + 1}
     host = {key: v.cpu() if torch.is_tensor(v) else v
             for key, v in kw.items()}
     pa, pw = dcd_indexed_epoch_plain(X.cpu(), alpha.cpu(), w.cpu(),
@@ -511,6 +519,55 @@ def test_b2_stream_is_deterministic(d):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+# B2's split variant: d of the rows past 256 floats (a row's window copied
+# from any of its four word offsets: 257 and 1,000 are not multiples of 4
+# or 32), the probe's 5,120 and the widest, 8,192
+B2_SPLIT_DS = [257, 1000, 5120, DENSE_SPLIT_MAX_D]
+
+
+def _dense_split_case(dev, d, n=600, b=2000):
+    """``_dense_case``'s rows and state, and ``b`` ids with an id
+    recurring at every distance of the split ring's lookahead."""
+    X, alpha, w, active, y, _ = _dense_case(dev, n, d)
+    plan = dcd_dense_plan(b, d)
+    assert plan.variant == "split"
+    idx = _stream_ids(n, b, plan.tile_rows * plan.stages)
+    return X, alpha, w, active, y, torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("d", B2_SPLIT_DS)
+@pytest.mark.parametrize("loss", LOSSES)
+def test_b2_split_matches_plain(loss, d, masked):
+    """B2's split variant against the plain version (on host copies) and
+    against the wide variant, ids recurring at every distance of its
+    ring's lookahead; a second launch gives the same bits."""
+    dev = _cuda()
+    X, alpha, w, active, y, idx = _dense_split_case(dev, d)
+    q = (X * X).sum(1)
+    kw = dict(loss=td.make_loss(loss, 0.8), idx=idx)
+    if masked:
+        kw.update(active=active, y=y)
+    n0 = dict(dcd_indexed_epoch.variant_launches)
+    ka, kw_ = dcd_indexed_epoch(X, alpha, w, q, **kw)
+    wa, ww = dcd_indexed_epoch(X, alpha, w, q, wide=True, **kw)
+    assert dcd_indexed_epoch.variant_launches == {
+        "staged": n0["staged"], "stream": n0["stream"],
+        "split": n0["split"] + 1, "wide": n0["wide"] + 1}
+    host = {key: v.cpu() if torch.is_tensor(v) else v
+            for key, v in kw.items()}
+    pa, pw = dcd_indexed_epoch_plain(X.cpu(), alpha.cpu(), w.cpu(),
+                                     q.cpu(), **host)
+    _close(ka, pa)
+    _close(kw_, pw)
+    _close(ka, wa)
+    _close(kw_, ww)
+    again = dcd_indexed_epoch(X, alpha, w, q, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], ka) and torch.equal(again[1], kw_)
+
+
 def _offset(t):
     """A copy of ``t`` one word into a larger allocation: its data 4
     bytes past a 16-byte boundary, so that row 0's 16-byte-aligned window
@@ -523,7 +580,7 @@ def _offset(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["b1", "b2"])
+@pytest.mark.parametrize("kernel", ["b1", "b2", "b2_split"])
 def test_stream_takes_rows_at_any_offset(kernel):
     """The stream kernels on rows in arrays that start 4 bytes past a
     16-byte boundary (views into a larger allocation), row 0 among the
@@ -537,16 +594,19 @@ def test_stream_takes_rows_at_any_offset(kernel):
         run, plain, counts = dcd_ell_epoch, dcd_ell_epoch_plain, \
             dcd_ell_epoch.variant_launches
     else:
-        X, alpha, w, active, y, idx = _dense_stream_case(dev, 54)
+        X, alpha, w, active, y, idx = (_dense_stream_case(dev, 54)
+                                       if kernel == "b2" else
+                                       _dense_split_case(dev, 1000))
         X = (_offset(X),)
         run, plain, counts = dcd_indexed_epoch, dcd_indexed_epoch_plain, \
             dcd_indexed_epoch.variant_launches
+    variant = "split" if kernel == "b2_split" else "stream"
     idx[0] = 0
     q = (X[-1] * X[-1]).sum(1)
     kw = dict(loss=td.Hinge(0.8), idx=idx, active=active, y=y)
-    n0 = counts["stream"]
+    n0 = counts[variant]
     ka, kw_ = run(*X, alpha, w, q, **kw)
-    assert counts["stream"] == n0 + 1
+    assert counts[variant] == n0 + 1
     host = {key: v.cpu() if torch.is_tensor(v) else v
             for key, v in kw.items()}
     pa, pw = plain(*(x.cpu() for x in X), alpha.cpu(), w.cpu(), q.cpu(),
@@ -556,18 +616,21 @@ def test_stream_takes_rows_at_any_offset(kernel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [54, 1000], ids=["stream", "split"])
 @pytest.mark.parametrize("grid", sorted(STREAM_GRIDS))
-def test_b2_stream_grids_match_plain(grid):
-    """B2's stream variant over the shard, task and pod grids, a replica
-    of w a (task, shard) pair, against its plain version and the wide
-    variant; a second launch gives the same bits."""
+def test_b2_stream_grids_match_plain(grid, d):
+    """B2's stream variant (and the split variant, at rows of 1,000
+    floats) over the shard, task and pod grids, a replica of w a (task,
+    shard) pair, against its plain version and the wide variant; a second
+    launch gives the same bits."""
     from repro_torch.kernels.dcd_block import (
         dcd_indexed_shards,
         dcd_indexed_shards_plain,
     )
     dev = _cuda()
     K, P, p, n_loc, b = STREAM_GRIDS[grid]
-    S, d = P * p, 54
+    S = P * p
+    variant = "stream" if d == 54 else "split"
     rng = np.random.default_rng(42)
     X = torch.from_numpy((rng.standard_normal((n_loc * S, d)) * 0.3 /
                           np.sqrt(d)).astype(np.float32)).to(dev)
@@ -576,11 +639,11 @@ def test_b2_stream_grids_match_plain(grid):
     q = (X * X).sum(1)
     plan = dcd_dense_plan(b, d, False, p, K, P)
     assert plan == dcd_dense_plan(b, d)._replace(shards=p, tasks=K, pods=P)
-    assert plan.variant == "stream"
+    assert plan.variant == variant
     kw = dict(loss=td.Hinge(0.8), idx=ids, n_loc=n_loc, active=act, y=y)
-    n0 = dcd_indexed_shards.variant_launches["stream"]
+    n0 = dcd_indexed_shards.variant_launches[variant]
     ka, kdw = dcd_indexed_shards(X, alpha, w, q, **kw)
-    assert dcd_indexed_shards.variant_launches["stream"] == n0 + 1
+    assert dcd_indexed_shards.variant_launches[variant] == n0 + 1
     pa, pdw = dcd_indexed_shards_plain(X, alpha, w, q, **kw)
     _close(ka, pa)
     _close(kdw, pdw)
@@ -859,7 +922,8 @@ def test_b5_kernel_is_deterministic(case):
 # one data shard and two
 ROWS_CASES = {"b1025": (dict(n=1100, m=2, k=20, b=1025), 1),
               "b1500": (dict(n=1600, m=3, k=12, d_loc=300, b=1500), 1),
-              "b1100_data2": (dict(n=2400, m=2, k=16, b=1100), 2)}
+              "b1100_data2": (dict(n=2400, m=2, k=16, b=1100), 2),
+              "b4096": (dict(n=4200, m=4, k=12, d_loc=2000, b=4096), 1)}
 
 
 def _rows_inputs(dev, case, repeat_col=True):
@@ -870,6 +934,16 @@ def _rows_inputs(dev, case, repeat_col=True):
         rng = np.random.default_rng(3)
         idx = torch.from_numpy(rng.integers(0, n // p, (p, spec["b"]))
                                .astype(np.int32)).to(dev)
+    else:  # an id recurring at each distance 1 … 97, within a panel of
+        # B5's 32 steps, in the next panel and past it, from position 30
+        ids = idx.cpu().numpy()
+        pos = 30
+        for dist in range(1, 98):
+            if pos + dist >= ids.size:
+                break
+            ids[pos + dist] = ids[pos]
+            pos += dist + 1
+        idx = torch.from_numpy(ids).to(dev)
     assert gram_plan(m, spec["b"], k, w.shape[1], p).layout == "rows"
     rng = np.random.default_rng(8)
     alpha, _, active, y, _ = _state(rng, n, 1, dev)
@@ -916,7 +990,7 @@ def test_b4_b5_rows_layout_match_plain(loss, case):
 @pytest.mark.cuda
 def test_b5_rows_layout_accumulators_in_device_memory(monkeypatch):
     """B5's rows layout with its accumulators in device memory (the plan
-    past 57,856 ids, forced here at 1,025) gives the shared-memory
+    past 69,632 ids, forced here at 1,025) gives the shared-memory
     accumulators' bits."""
     dev = _cuda()
     cols, vals, w, idx, alpha, q, active, y, _ = _rows_inputs(
@@ -928,7 +1002,7 @@ def test_b5_rows_layout_accumulators_in_device_memory(monkeypatch):
                                       gram, **kw)
     plan = feat.feature_update_plan
     monkeypatch.setattr(feat, "feature_update_plan",
-                        lambda *a: plan(*a)._replace(smem_bytes=0))
+                        lambda *a: plan(*a)._replace(acc_shared=False))
     in_hbm = feat.dcd_feature_update(cols, vals, alpha, q, w, idx, base,
                                      gram, **kw)
     assert all(torch.equal(a, b) for a, b in zip(in_smem, in_hbm))
@@ -1045,8 +1119,10 @@ def test_b2_shard_grid_matches_plain(loss, grid, d, per_shard_w):
     q[-1] = 1.0
     kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
               active=active, y=y)
+    # rows of 300 floats (the case id'd "wide" since the wide kernel took
+    # them) now take the split variant; the wide kernel is held as well
     variant = dcd_dense_plan(b, d, False, p).variant
-    assert variant == ("staged" if d == 54 else "wide")
+    assert variant == ("staged" if d == 54 else "split")
     n0 = dcd_indexed_shards.variant_launches[variant]
     ka, kdw = dcd_indexed_shards(X, alpha, w, q, **kw)
     assert dcd_indexed_shards.variant_launches[variant] == n0 + 1
@@ -1056,6 +1132,10 @@ def test_b2_shard_grid_matches_plain(loss, grid, d, per_shard_w):
     again = dcd_indexed_shards(X, alpha, w, q, **kw)
     torch.cuda.synchronize()
     assert torch.equal(again[0], ka) and torch.equal(again[1], kdw)
+    if d != 54:
+        wa, wdw = dcd_indexed_shards(X, alpha, w, q, wide=True, **kw)
+        _close(wa, pa)
+        _close(wdw, pdw)
 
 
 @pytest.mark.cuda
@@ -1481,8 +1561,10 @@ def test_b2_pod_grid_matches_plain(loss, grid, d, tasks):
     q = (X * X).sum(1)
     kw = dict(loss=td.make_loss(loss, 0.8), idx=ids, n_loc=n_loc,
               active=act, y=y)
+    # rows of 300 floats (id'd "wide": the wide kernel took them) now take
+    # the split variant; the wide kernel is held as well
     assert dcd_dense_plan(b, d, False, p, tasks, P).variant == (
-        "staged" if d == 54 else "wide")
+        "staged" if d == 54 else "split")
     n0 = dcd_indexed_shards.pod_launches
     ka, kdw = dcd_indexed_shards(X, alpha, w, q, **kw)
     assert dcd_indexed_shards.pod_launches == n0 + (p > 1)
@@ -1490,6 +1572,10 @@ def test_b2_pod_grid_matches_plain(loss, grid, d, tasks):
     assert kdw.shape == (*alpha.shape[:-1], S, d)
     _close(ka, pa)
     _close(kdw, pdw)
+    if d != 54:
+        wa, wdw = dcd_indexed_shards(X, alpha, w, q, wide=True, **kw)
+        _close(wa, pa)
+        _close(wdw, pdw)
     own = w.repeat_interleave(p, dim=-2)
     oa, odw = dcd_indexed_shards(X, alpha, own, q, **kw)
     again = dcd_indexed_shards(X, alpha, w, q, **kw)

@@ -228,3 +228,76 @@ def test_2d_converters_carry_the_reference_layout(tiny):
     np.testing.assert_array_equal(w2d_to_numpy(w, d1_ref), flat.reshape(-1))
     with pytest.raises(ValueError):
         w2d_from_numpy(np.zeros(3 * fse.d_loc), 3, fse.d_loc, device="cpu")
+
+
+def _panel_recursion(base, gram, alpha, q, idx, loss, active, y, panel=32):
+    """A float32 emulation of B5's rows-layout recursion on the card
+    (``csrc/dcd_feature.cu``: ``dcd_feature_recursion_panel_kernel``),
+    panel by panel: within a panel, step s adds δ̃_s·G[t0 + s, ·] to the
+    panel's columns; after it, its δ̃ go to the next panel's columns, then
+    to every column past that (the workers' trailing update), row by row.
+    Each column gets its adds in step order.  Returns (α, δ̃ (B,))."""
+    b = idx.shape[0]
+    alpha, acc = alpha.clone(), torch.zeros(b)
+    dtil = torch.zeros(b)
+    for t0 in range(0, b, panel):
+        rows = min(panel, b - t0)
+        here = slice(t0, t0 + panel)
+        for s in range(rows):
+            t, i = t0 + s, int(idx[t0 + s])
+            wx = y[i] * (base[t] + acc[t])
+            d = loss.delta(alpha[i], wx, q[i])
+            d = torch.where(active[i] > 0.0, d, 0.0)
+            alpha[i] = alpha[i] + d
+            dtil[t] = d * y[i]
+            acc[here] = acc[here] + dtil[t] * gram[t, here]
+        for cols in (slice(t0 + panel, t0 + 2 * panel),
+                     slice(t0 + 2 * panel, b)):
+            for s in range(rows):
+                acc[cols] = acc[cols] + dtil[t0 + s] * gram[t0 + s, cols]
+    return alpha, dtil
+
+
+@pytest.mark.parametrize("b", [2048, 4096])
+@pytest.mark.parametrize("loss", ["hinge", "logistic"])
+def test_b5_panel_order_stays_within_tolerance(b, loss):
+    """B5's rows layout adds δ̃·G into each column panel by panel (32
+    steps a panel): its float32 emulation on seeded (base, G) with
+    repeated ids (within a panel, in the next and past it), a mask and
+    labels, held to the reference's B5 recursion (the Pallas kernel in
+    interpret mode) at 1e-5 on α and on δ̃ as the reference scatters it
+    (each row a column of its own, so w gathers the δ̃ of the row's
+    steps).  Rows of unit norm on average, as rcv1's, whose rows the
+    shim's block runs on."""
+    rng = np.random.default_rng(b)
+    n, r = b + 100, 48
+    rows = (rng.standard_normal((n, r)) / np.sqrt(r)).astype(np.float32)
+    idx = rng.integers(0, n, b).astype(np.int32)
+    pos = 30
+    for dist in range(1, 98):  # an id recurring at each distance 1 … 97
+        if pos + dist >= b:
+            break
+        idx[pos + dist] = idx[pos]
+        pos += dist + 1
+    xb = rows[idx]
+    w0 = (rng.standard_normal(r) * 0.5).astype(np.float32)
+    gram = (xb @ xb.T).astype(np.float32)
+    base = (xb @ w0).astype(np.float32)
+    q = (rows * rows).sum(1).astype(np.float32)
+    alpha = rng.uniform(0.05, 0.5, n).astype(np.float32)
+    active = (rng.random(n) > 0.2).astype(np.float32)
+    y = np.where(rng.random(n) > 0.5, 1.0, -1.0).astype(np.float32)
+    pa, dtil = _panel_recursion(_t(base), _t(gram), _t(alpha), _t(q),
+                                _t(idx), td.make_loss(loss, 0.8),
+                                _t(active), _t(y))
+    cols = np.arange(n, dtype=np.int32)[:, None]  # row i: column i
+    ra, rw = rfeat.dcd_feature_update_pallas_call(
+        jnp.asarray(cols), jnp.ones((n, 1), jnp.float32),
+        jnp.asarray(alpha), jnp.asarray(q), jnp.zeros(n + 1, jnp.float32),
+        jnp.asarray(idx), jnp.asarray(base), jnp.asarray(gram),
+        loss=rd.make_loss(loss, 0.8), interpret=True,
+        active=jnp.asarray(active), y=jnp.asarray(y))
+    _close(pa, ra)
+    by_row = torch.zeros(n).index_add_(0, _t(idx).long(), dtil)
+    _close(by_row, np.asarray(rw)[:n])
+    assert float(dtil.abs().max()) > 1e-3  # the steps move

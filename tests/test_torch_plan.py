@@ -17,6 +17,7 @@ from repro_torch.dist.mesh import (
     STATIC_SMEM,
     FEATURE_UPDATE_CHUNK,
     dcd_dense_plan,
+    dcd_dense_split_bytes,
     dcd_dense_staged_bytes,
     dcd_dense_stream_bytes,
     dcd_ell_plan,
@@ -342,18 +343,23 @@ def test_gram_workspace_follows_the_plan():
     assert tuple(one.part.shape) == (2, 0, 1024, 1024)  # G written directly
 
 
-# (b ids, d floats) -> variant, w's words a lane of the staged or stream
-# kernel (a block past the staged kernel's limits with d ≤ 256 is the
-# stream kernel's)
+# (b ids, d floats) -> variant, w's words a lane of the staged, stream or
+# split kernel (a block past the staged kernel's limits with d ≤ 256 is
+# the stream kernel's; wider rows up to 8,192 floats the split kernel's)
 DENSE_SHAPES = {
     "covtype": ((64, 54), "staged", 2),
     "one_float_rows": ((64, 1), "staged", 1),
     "largest_staged_d": ((64, mesh.DENSE_STAGED_MAX_D), "staged", 8),
-    "one_past_the_largest_d": ((64, mesh.DENSE_STAGED_MAX_D + 1), "wide", 0),
+    "one_past_the_largest_d": ((64, mesh.DENSE_STAGED_MAX_D + 1), "split",
+                               8),
     "block_too_large_for_smem": ((1024, 200), "stream", 8),
     "too_many_ids": ((mesh.DENSE_STAGED_MAX_IDS + 1, 1), "stream", 1),
     "covtype_epoch": ((581_012, 54), "stream", 2),
-    "probe_width": ((256, 5120), "wide", 0),
+    "probe_width": ((256, 5120), "split", 16),
+    "probe_block": ((192, 5120), "split", 16),
+    "largest_split_d": ((64, mesh.DENSE_SPLIT_MAX_D), "split", 16),
+    "one_past_the_largest_split_d": ((64, mesh.DENSE_SPLIT_MAX_D + 1),
+                                     "wide", 0),
 }
 
 
@@ -371,13 +377,75 @@ def test_b2_variant_by_shape(name):
                                                  mesh.DENSE_STREAM_STAGES)
         assert plan.smem_bytes == dcd_dense_stream_bytes(
             plan.tile_rows, plan.stages, d) <= LIMIT
-    if variant == "wide":
+    if variant == "split":
+        assert plan.threads == 32 * (plan.warps + 1) <= 1024
+        assert 32 * plan.per_lane * plan.warps >= d
+        assert 32 * plan.per_lane * (plan.warps - 1) < d
+        assert plan.smem_bytes == dcd_dense_split_bytes(
+            plan.tile_rows, plan.stages, d, plan.warps) <= LIMIT
+    elif variant == "wide":
         assert plan.smem_bytes == 0 and plan.threads == mesh.cta_threads(d)
     else:
         assert 32 * plan.per_lane >= d
         assert plan.per_lane == 1 or d > 16 * plan.per_lane
     wide = dcd_dense_plan(b, d, wide=True)  # asked for: wide at any shape
     assert wide == mesh.DensePlan("wide", mesh.cta_threads(d), 0, 0)
+
+
+# rows wider than 256 floats: the split kernel up to DENSE_SPLIT_MAX_D
+SPLIT_WIDTHS = [257, 1000, 4096, 4097, 5120, 7937, 8192]
+
+
+@pytest.mark.parametrize("d", SPLIT_WIDTHS + [8193, 16_384])
+@pytest.mark.parametrize("b", [1, 192, 581_012])
+def test_b2_b3_split_for_rows_past_256_floats(d, b):
+    """B2 (any block) and B3 (any in-order epoch) take the split kernel
+    for every 256 < d ≤ ``DENSE_SPLIT_MAX_D`` (at least 8,192 floats, the
+    widest LM feature in ``configs/``), the wide kernel past it or when
+    ``wide`` asks for it: 8 words a lane up to 4,096 floats, 16 past
+    that, over the fewest warps (at most 16) that cover d; the ring holds
+    as many rows a stage as fit, its stages·rows a power of two."""
+    assert mesh.DENSE_SPLIT_MAX_D >= 8192
+    b2, b3 = dcd_dense_plan(b, d), dcd_tile_plan(b, d)
+    if d > mesh.DENSE_SPLIT_MAX_D:
+        assert b2.variant == b3.variant == "wide"
+        return
+    assert b2.variant == b3.variant == "split"
+    assert b2.per_lane == (8 if d <= 4096 else 16)
+    assert b2.warps == -(-d // (32 * b2.per_lane)) <= 16
+    T, S = b2.tile_rows, b2.stages
+    assert S == mesh.DENSE_STREAM_STAGES and T in mesh.DENSE_SPLIT_ROWS
+    assert (S * T) & (S * T - 1) == 0
+    assert b2.smem_bytes <= LIMIT
+    if T < max(mesh.DENSE_SPLIT_ROWS):
+        assert dcd_dense_split_bytes(2 * T, S, d, b2.warps) > LIMIT
+    assert (b3.threads, b3.per_lane, b3.tile_rows, b3.stages,
+            b3.smem_bytes, b3.warps) == (b2.threads, b2.per_lane, T, S,
+                                         b2.smem_bytes, b2.warps)
+    assert dcd_dense_plan(b, d, wide=True).variant == "wide"
+    assert dcd_tile_plan(b, d, wide=True).variant == "wide"
+
+
+def test_b2_split_bytes_count_the_ring():
+    """The bytes are what the split kernel carves: B2 stream's ring (two
+    mbarriers a stage, each stage's row windows and their id, previous
+    occurrence, window offset, α, q, y and act, padded to 16 bytes), each
+    consumer warp's running α of S·T positions, and two slots of the
+    most warps' partial dots.  At the probe's 5,120 floats: 2 rows a
+    stage."""
+    d = 5120
+    plan = dcd_dense_plan(192, d)
+    T, S, C = plan.tile_rows, plan.stages, plan.warps
+    assert (T, S, C) == (2, 4, 10)
+    stage = [np.empty((T, mesh.row_slot(d)), np.float32)]
+    stage += [np.empty(T, np.int32)] * 3
+    stage += [np.empty(T, np.float32)] * 4
+    words = sum(a.size for a in stage)
+    arrays = [np.empty(2 * S, np.uint64),
+              np.empty((S, -(-words // 4) * 4), np.float32),
+              np.empty((C, S * T), np.float32),
+              np.empty((2, mesh.DENSE_SPLIT_MAX_WARPS), np.float32)]
+    assert plan.smem_bytes == sum(a.nbytes for a in arrays) <= LIMIT
 
 
 def test_b2_staged_bytes_count_the_arrays():
@@ -454,17 +522,24 @@ TILE_T = mesh.TILE_STREAM_ROWS
 
 @pytest.mark.parametrize("n", [1, TILE_T - 1, TILE_T, 3 * TILE_T + 5])
 @pytest.mark.parametrize("d", [1, 54, mesh.DENSE_STAGED_MAX_D,
-                               mesh.DENSE_STAGED_MAX_D + 1])
+                               mesh.DENSE_STAGED_MAX_D + 1,
+                               mesh.DENSE_SPLIT_MAX_D,
+                               mesh.DENSE_SPLIT_MAX_D + 1])
 def test_b3_variant_by_shape(d, n):
     """Rows of at most 256 floats stream through a ring of stages that
     fits one CTA, each stage a multiple of 4 rows and no more than n
     needs; each lane of the consumer warp holds a power of two of w's
-    words, at most 8.  Wider rows, or ``wide=True``, take the wide
-    kernel."""
+    words, at most 8.  Rows up to ``DENSE_SPLIT_MAX_D`` floats take B2's
+    split kernel (its layout for the width); wider rows, or
+    ``wide=True``, the wide kernel."""
     plan = dcd_tile_plan(n, d)
     wide = mesh.TilePlan("wide", mesh.cta_threads(d), 0, 0, 0, 0)
-    if d > mesh.DENSE_STAGED_MAX_D:
+    if d > mesh.DENSE_SPLIT_MAX_D:
         assert plan == wide
+    elif d > mesh.DENSE_STAGED_MAX_D:
+        per_lane, warps, T, S, need = mesh.dcd_split_layout(d)
+        assert plan == mesh.TilePlan("split", 32 * (warps + 1), per_lane, T,
+                                     S, need, warps)
     else:
         assert plan.variant == "stream"
         assert plan.threads == mesh.TILE_STREAM_THREADS == 64
@@ -610,17 +685,29 @@ def test_b4_rows_layout_past_1024_ids(b):
 
 
 @pytest.mark.parametrize("b,acc_in_smem", [(1025, True), (4096, True),
-                                           (57_856, True), (57_857, False),
-                                           (100_000, False)])
+                                           (57_857, True), (69_632, True),
+                                           (69_633, False), (100_000, False)])
 def test_b5_rows_layout_past_1024_ids(b, acc_in_smem):
-    """B5's rows layout: one recursion CTA a pair, no lane registers, its
-    b accumulators in shared memory while they fit one CTA's and in
-    device memory past that."""
+    """B5's rows layout: a cluster of four CTAs a pair (the first's
+    serial warp alone on its SM sub-partition; in each a producer warp
+    and eight worker warps), panels of 32 steps, no lane registers, each
+    CTA's share of the accumulators in shared memory while it fits beside
+    the ring and the serial blocks, and in device memory past that."""
     plan = feature_update_plan(1, b, 10, 101)
     assert plan.layout == "rows" and plan.classes == 1
-    assert plan.threads == mesh.FEATURE_UPDATE_ROWS_THREADS <= 1024
+    assert plan.panel == mesh.FEATURE_ROWS_PANEL == 32
+    assert plan.workers == mesh.FEATURE_ROWS_WORKERS
+    assert plan.stages == mesh.FEATURE_ROWS_STAGES
+    assert plan.cluster == mesh.FEATURE_ROWS_CLUSTER == 4
+    # the serial warp alone on sub-partition 0: warps 4 and 8 idle
+    warps = plan.threads // 32
+    assert warps == mesh.FEATURE_ROWS_WARPS == 12
+    assert [w for w in range(warps) if w > 1 and w % 4] == [
+        2, 3, 5, 6, 7, 9, 10, 11] and len(range(plan.workers)) == 8
     assert plan.per_lane == 0 and not plan.stage_gram
-    assert plan.smem_bytes == (4 * b if acc_in_smem else 0) <= LIMIT
+    assert plan.acc_shared == acc_in_smem
+    assert plan.smem_bytes == mesh.feature_rows_bytes(
+        b, plan.stages, plan.workers, acc_in_smem) <= LIMIT
 
 
 def test_rows_layout_raises_only_where_the_grams_cannot_be_allocated():
@@ -677,6 +764,64 @@ def test_stream_grid_plans_keep_each_ctas_layout(grid):
         assert one.variant == "stream"
         assert dcd_dense_plan(b, d, False, *counts) == one._replace(
             shards=counts[0], tasks=counts[1], pods=counts[2])
+
+
+@pytest.mark.parametrize("grid", ["shards", "tasks", "pods", "ranks"])
+@pytest.mark.parametrize("d", [257, 1000, 5120, mesh.DENSE_SPLIT_MAX_D])
+def test_split_grid_plans_keep_each_ctas_layout(grid, d):
+    """B2's split variant over the shard, task and pod grids, and a rank's
+    part of the shard grid, lays out each CTA as the one-shard plan (its
+    ring, warps, words a lane and shared memory): the counts multiply the
+    grid only, each CTA updating its own replica of w."""
+    counts = {"shards": (2, 1, 1), "tasks": (1, 4, 1), "pods": (2, 1, 2),
+              "ranks": (4, 1, 1)}[grid]
+    for b in (64, 192, 10_000):
+        one = dcd_dense_plan(b, d)
+        assert one.variant == "split"
+        assert dcd_dense_plan(b, d, False, *counts) == one._replace(
+            shards=counts[0], tasks=counts[1], pods=counts[2])
+
+
+@pytest.mark.parametrize("b", [1023, mesh.GRAM_SHARED_MAX_IDS,
+                               mesh.GRAM_SHARED_MAX_IDS + 1])
+def test_b5_layout_turns_rows_exactly_past_1024_ids(b):
+    """B5 keeps its shared layout up to ``GRAM_SHARED_MAX_IDS`` ids and
+    takes the panel recursion exactly past it, with B4's rows layout."""
+    u, g = feature_update_plan(4, b, 40, 1000), gram_plan(4, b, 40, 1000)
+    rows = b > mesh.GRAM_SHARED_MAX_IDS
+    assert u.layout == g.layout == ("rows" if rows else "shared")
+    assert (u.panel, u.workers, u.stages, u.cluster) == (
+        (32, mesh.FEATURE_ROWS_WORKERS, mesh.FEATURE_ROWS_STAGES,
+         mesh.FEATURE_ROWS_CLUSTER) if rows else (0, 0, 0, 0))
+
+
+@pytest.mark.parametrize("b", [1025, 4096, 5000])
+def test_b5_rows_bytes_count_the_arrays(b):
+    """The bytes are what a CTA of the panel recursion carves: its
+    mbarriers (full and empty a stage, one a serial block, three a δ̃
+    panel in flight) padded to 16 bytes, S stages of 32 rows of a tile of
+    TC = 32·NW·2 columns in row windows with a window offset a row, three
+    serial blocks of 32 rows of 64 columns the same way, eight panels of
+    δ̃ and eight look-ahead columns, and, when shared, the accumulators of
+    the CTA's share of the tiles (tile x is CTA x mod 4's)."""
+    S, NW, C = (mesh.FEATURE_ROWS_STAGES, mesh.FEATURE_ROWS_WORKERS,
+                mesh.FEATURE_ROWS_CLUSTER)
+    TC = 32 * NW * 2
+    bars = np.empty(2 * S + 3 + 3 * 8, np.uint64)
+    arrays = [np.empty(-(-bars.nbytes // 16) * 4, np.float32),
+              np.empty((S, 32, mesh.row_slot(TC)), np.float32),
+              np.empty((S, 32), np.int32),
+              np.empty((3, 32, mesh.row_slot(64)), np.float32),
+              np.empty((3, 32), np.int32), np.empty((2, 8, 32), np.float32)]
+    without = sum(a.nbytes for a in arrays)
+    tiles = -(-b // TC)
+    most = max(len(range(r, tiles, C)) for r in range(C))  # a CTA's tiles
+    acc = np.empty((most, TC), np.float32)
+    assert mesh.feature_rows_bytes(b, S, NW, False) == without
+    assert mesh.feature_rows_bytes(b, S, NW, True) == without + acc.nbytes
+    plan = feature_update_plan(4, b, 20, 13_000)
+    assert plan.acc_shared
+    assert plan.smem_bytes == without + acc.nbytes <= LIMIT
 
 
 @pytest.mark.parametrize("p,p_loc", [(8, 4), (4, 2), (2, 1)])
